@@ -1,0 +1,44 @@
+"""paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu.
+
+Same Fluid contract as the JAX package: `layers.*` build a Program, the
+Executor runs it, parameters live in a Scope under the same names.  Op
+lowerings are plain torch functions run eagerly; the attention kernels
+are CUDA C++ for Hopper (sm_90a) in csrc/.  This package imports neither
+jax nor paddle_tpu.
+
+The first slice serves transformer-base through decode.Generator:
+prefill and greedy steps, with the mha_block and flash_decode kernels.
+"""
+
+from .framework import (
+    Block,
+    CPUPlace,
+    CUDAPlace,
+    Executor,
+    Operator,
+    Parameter,
+    Place,
+    Program,
+    Scope,
+    Variable,
+    VarType,
+    convert_dtype,
+    default_main_program,
+    default_place,
+    default_startup_program,
+    global_scope,
+    program_guard,
+    scope_guard,
+    switch_main_program,
+    switch_startup_program,
+    unique_name,
+)
+from . import ops  # registers the op lowerings
+from . import flags
+from . import initializer
+from .layer_helper import LayerHelper, ParamAttr
+from . import layers
+from . import decode
+from . import convert
+
+__version__ = "0.1.0"

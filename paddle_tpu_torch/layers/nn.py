@@ -1,0 +1,207 @@
+"""Neural-network layer functions of the serving slice (counterparts of
+paddle_tpu/layers/nn.py:18-1178): each appends ops to the default main
+program and returns output Variables; nothing executes here.  Helper
+names, parameter names and attrs are the JAX package's, so both packages
+build the same Program."""
+
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+
+from ..layer_helper import LayerHelper, ParamAttr
+
+
+def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
+       act=None, name=None):
+    """Fully connected: mul + bias add + activation."""
+    helper = LayerHelper("fc", **locals())
+    dtype = helper.input_dtype()
+    inputs = helper.multiple_input()
+    if len(inputs) != 1:
+        raise NotImplementedError(
+            "fc over several inputs needs the `sum` op, which is not on the "
+            "serving slice (ROADMAP A)")
+    (x,) = inputs
+    in_features = int(np.prod(x.shape[num_flatten_dims:]))
+    w = helper.create_parameter(attr=param_attr, shape=[in_features, size],
+                                dtype=dtype, is_bias=False)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="mul",
+        inputs={"X": [x], "Y": [w]},
+        outputs={"Out": [pre_bias]},
+        attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1},
+    )
+    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
+    return helper.append_activation(pre_act)
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype="float32"):
+    """-> lookup_table op."""
+    helper = LayerHelper("embedding", **locals())
+    w = helper.create_parameter(attr=param_attr, shape=size, dtype=dtype,
+                                is_bias=False)
+    out = helper.create_variable_for_type_inference(dtype)
+    padding_idx = (
+        -1 if padding_idx is None
+        else padding_idx if padding_idx >= 0 else (size[0] + padding_idx)
+    )
+    helper.append_op(
+        type="lookup_table",
+        inputs={"W": [w], "Ids": [input]},
+        outputs={"Out": [out]},
+        attrs={
+            "is_sparse": is_sparse,
+            "is_distributed": is_distributed,
+            "padding_idx": padding_idx,
+            # decided from the DECLARED ids shape: [..., 1] strips the 1
+            "strip_trailing_one": (
+                input.shape is not None and len(input.shape) >= 1
+                and input.shape[-1] == 1
+            ),
+        },
+    )
+    return out
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, name=None):
+    helper = LayerHelper("layer_norm", **locals())
+    dtype = input.dtype
+    norm_size = int(np.prod(input.shape[begin_norm_axis:]))
+    inputs = {"X": [input]}
+    from ..initializer import ConstantInitializer
+
+    if scale:
+        s = helper.create_parameter(
+            attr=param_attr, shape=[norm_size], dtype=dtype,
+            default_initializer=ConstantInitializer(1.0))
+        inputs["Scale"] = [s]
+    if shift:
+        b = helper.create_parameter(attr=bias_attr, shape=[norm_size],
+                                    dtype=dtype, is_bias=True)
+        inputs["Bias"] = [b]
+    mean_out = helper.create_variable_for_type_inference(dtype,
+                                                         stop_gradient=True)
+    var_out = helper.create_variable_for_type_inference(dtype,
+                                                        stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="layer_norm",
+        inputs=inputs,
+        outputs={"Y": [out], "Mean": [mean_out], "Variance": [var_out]},
+        attrs={"epsilon": epsilon, "begin_norm_axis": begin_norm_axis},
+    )
+    return out
+
+
+def reshape(x, shape, name=None):
+    helper = LayerHelper("reshape", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="reshape", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"shape": [int(s) for s in shape]})
+    return out
+
+
+def gather(input, index):
+    helper = LayerHelper("gather")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="gather", inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def elementwise_add(x, y, axis=-1, name=None):
+    helper = LayerHelper("elementwise_add", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="elementwise_add", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, name=None):
+    helper = LayerHelper("scale", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="scale", inputs={"X": [x]}, outputs={"Out": [out]},
+        attrs={"scale": float(scale), "bias": float(bias),
+               "bias_after_scale": bias_after_scale},
+    )
+    return out
+
+
+def relu(x, name=None):
+    helper = LayerHelper("relu", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="relu", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def fused_attention(q, k, v, num_heads, causal=False, scale=0.0, bias=None,
+                    seq_len=None, name=None):
+    """Fused scaled-dot-product attention over [B, S, H*D] projections —
+    one `fused_attention` op; seq_len [B] is the key-padding length."""
+    helper = LayerHelper("fused_attention", name=name)
+    out = helper.create_variable_for_type_inference(q.dtype)
+    inputs = {"Q": [q], "K": [k], "V": [v]}
+    if bias is not None:
+        inputs["Bias"] = [bias]
+    if seq_len is not None:
+        inputs["SeqLen"] = [seq_len]
+    helper.append_op(type="fused_attention", inputs=inputs,
+                     outputs={"Out": [out]},
+                     attrs={"num_heads": num_heads, "causal": causal,
+                            "scale": scale})
+    return out
+
+
+def kv_cache_append(cache_k, cache_v, k, v, lengths, name=None):
+    """Decode-step cache write: k/v [B, T, ...] rows land in cache_k/cache_v
+    [B, max_len, ...] at per-row cursors `lengths` [B].  Returns the
+    updated (cache_k, cache_v); cursors stay caller-owned."""
+    helper = LayerHelper("kv_cache_append", name=name)
+    out_k = helper.create_variable_for_type_inference(cache_k.dtype)
+    out_v = helper.create_variable_for_type_inference(cache_v.dtype)
+    helper.append_op(
+        type="kv_cache_append",
+        inputs={"CacheK": [cache_k], "CacheV": [cache_v],
+                "K": [k], "V": [v], "Lengths": [lengths]},
+        outputs={"OutK": [out_k], "OutV": [out_v]},
+    )
+    return out_k, out_v
+
+
+def _suffixed_attr(attr, suffix):
+    """Clone a ParamAttr with a per-weight name suffix."""
+    attr = ParamAttr._to_attr(attr)
+    if attr is None or attr is False or attr.name is None:
+        return attr
+    new = copy.copy(attr)
+    new.name = f"{attr.name}_{suffix}"
+    return new
+
+
+def multi_head_attention(queries, keys=None, values=None, *, d_model,
+                         num_heads, causal=False, attn_bias=None,
+                         attn_seq_len=None, param_attr=None, name=None):
+    """q/k/v/out projections around the fused attention op; keys/values
+    default to queries (self-attention)."""
+    keys = queries if keys is None else keys
+    values = keys if values is None else values
+    q = fc(input=queries, size=d_model, num_flatten_dims=2,
+           param_attr=_suffixed_attr(param_attr, "q"), bias_attr=False,
+           name=f"{name}_q" if name else None)
+    k = fc(input=keys, size=d_model, num_flatten_dims=2,
+           param_attr=_suffixed_attr(param_attr, "k"), bias_attr=False,
+           name=f"{name}_k" if name else None)
+    v = fc(input=values, size=d_model, num_flatten_dims=2,
+           param_attr=_suffixed_attr(param_attr, "v"), bias_attr=False,
+           name=f"{name}_v" if name else None)
+    ctx = fused_attention(q, k, v, num_heads, causal=causal, bias=attn_bias,
+                          seq_len=attn_seq_len)
+    return fc(input=ctx, size=d_model, num_flatten_dims=2,
+              param_attr=_suffixed_attr(param_attr, "o"), bias_attr=False,
+              name=f"{name}_out" if name else None)

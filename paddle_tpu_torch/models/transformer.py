@@ -1,0 +1,292 @@
+"""Transformer (base/big) for WMT En-De: the decode programs.
+
+Counterpart of paddle_tpu/models/transformer.py, serving part: the
+configs, the encoder and the prefill/step programs of `build_decode`.
+Every parameter name is the JAX package's, so weights carried across with
+`convert.load_params` land where these programs read them.  The training
+graph (`build`), the Sq=k verify/chunk windows and MoE FFNs are later
+slices (ROADMAP.md A).
+"""
+
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+
+from .. import layers
+from .. import decode as decode_mod
+from ..framework import Program, program_guard, unique_name
+from ..initializer import NumpyArrayInitializer
+from ..layer_helper import ParamAttr
+
+
+class TransformerConfig:
+    def __init__(
+        self,
+        src_vocab_size=32000,
+        trg_vocab_size=32000,
+        max_length=256,
+        n_layer=6,
+        n_head=8,
+        d_model=512,
+        d_inner=2048,
+        dropout=0.1,
+        label_smooth_eps=0.1,
+        tie_embeddings=True,
+        moe_experts=0,
+    ):
+        self.src_vocab_size = src_vocab_size
+        self.trg_vocab_size = trg_vocab_size
+        self.max_length = max_length
+        self.n_layer = n_layer
+        self.n_head = n_head
+        self.d_model = d_model
+        self.d_inner = d_inner
+        self.dropout = dropout
+        self.label_smooth_eps = label_smooth_eps
+        self.tie_embeddings = tie_embeddings
+        self.moe_experts = moe_experts
+
+
+def base():
+    return TransformerConfig()
+
+
+def big():
+    return TransformerConfig(n_head=16, d_model=1024, d_inner=4096)
+
+
+def tiny(vocab=1000, max_length=32):
+    """Test config (head_dim 16: every attention gate sends it to the
+    composite)."""
+    return TransformerConfig(
+        src_vocab_size=vocab, trg_vocab_size=vocab, max_length=max_length,
+        n_layer=2, n_head=4, d_model=64, d_inner=128, dropout=0.0,
+    )
+
+
+def _position_encoding(seq_len, d_model):
+    pos = np.arange(seq_len)[:, None].astype("float64")
+    dim = np.arange(0, d_model, 2)[None, :].astype("float64")
+    angle = pos / np.power(10000.0, dim / d_model)
+    enc = np.zeros((seq_len, d_model), dtype="float32")
+    enc[:, 0::2] = np.sin(angle)
+    enc[:, 1::2] = np.cos(angle)
+    return enc
+
+
+def _pre_ln(x, name=None):
+    return layers.layer_norm(x, begin_norm_axis=2, name=name)
+
+
+def _ffn(x, cfg: TransformerConfig, name):
+    h = layers.fc(input=x, size=cfg.d_inner, num_flatten_dims=2, act="relu",
+                  name=f"{name}_fc1")
+    return layers.fc(input=h, size=cfg.d_model, num_flatten_dims=2,
+                     name=f"{name}_fc2")
+
+
+def encoder(src, cfg: TransformerConfig, src_lens=None):
+    """Pre-LN encoder stack; layer norms carry explicit names so the decode
+    programs share one scope with the training graph."""
+    x = src
+    for i in range(cfg.n_layer):
+        attn = layers.multi_head_attention(
+            _pre_ln(x, name=f"enc{i}_ln1"), d_model=cfg.d_model,
+            num_heads=cfg.n_head, causal=False, attn_seq_len=src_lens,
+            name=f"enc{i}_attn")
+        x = layers.elementwise_add(x=x, y=attn)
+        x = layers.elementwise_add(
+            x=x, y=_ffn(_pre_ln(x, name=f"enc{i}_ln2"), cfg, f"enc{i}_ffn"))
+    return _pre_ln(x, name="enc_ln")
+
+
+def _embed_rows(ids, vocab_size, cfg: TransformerConfig, param_name,
+                table_len, tag):
+    """Token embedding + sinusoid positions, with a decode-specific,
+    length-suffixed position-table name."""
+    emb = layers.embedding(input=ids, size=[vocab_size, cfg.d_model],
+                           param_attr=ParamAttr(name=param_name))
+    emb = layers.scale(emb, scale=cfg.d_model ** 0.5)
+    pos = layers.create_parameter(
+        shape=[table_len, cfg.d_model], dtype="float32",
+        name=f"{param_name}_pos_{tag}{table_len}",
+        default_initializer=NumpyArrayInitializer(
+            _position_encoding(table_len, cfg.d_model)))
+    pos.trainable = False
+    pos.stop_gradient = True
+    return layers.elementwise_add(x=emb, y=pos, axis=1), pos
+
+
+def _decoder_sublayers(x, i, cfg: TransformerConfig, self_attn_fn,
+                       cross_attn_fn):
+    """One decoder layer with the self/cross attention cores injected."""
+    h = _pre_ln(x, name=f"dec{i}_ln1")
+    q = layers.fc(input=h, size=cfg.d_model, num_flatten_dims=2,
+                  bias_attr=False, name=f"dec{i}_self_q")
+    attn = self_attn_fn(q, h)
+    attn = layers.fc(input=attn, size=cfg.d_model, num_flatten_dims=2,
+                     bias_attr=False, name=f"dec{i}_self_out")
+    x = layers.elementwise_add(x=x, y=attn)
+    h = _pre_ln(x, name=f"dec{i}_ln2")
+    q = layers.fc(input=h, size=cfg.d_model, num_flatten_dims=2,
+                  bias_attr=False, name=f"dec{i}_cross_q")
+    cross = cross_attn_fn(q)
+    cross = layers.fc(input=cross, size=cfg.d_model, num_flatten_dims=2,
+                      bias_attr=False, name=f"dec{i}_cross_out")
+    x = layers.elementwise_add(x=x, y=cross)
+    return layers.elementwise_add(
+        x=x, y=_ffn(_pre_ln(x, name=f"dec{i}_ln3"), cfg, f"dec{i}_ffn"))
+
+
+def _kv_fc(h, i, which, cfg: TransformerConfig):
+    return (
+        layers.fc(input=h, size=cfg.d_model, num_flatten_dims=2,
+                  bias_attr=False, name=f"dec{i}_{which}_k"),
+        layers.fc(input=h, size=cfg.d_model, num_flatten_dims=2,
+                  bias_attr=False, name=f"dec{i}_{which}_v"),
+    )
+
+
+def build_decode(cfg: TransformerConfig = None, src_len=None, prefix_len=1,
+                 max_len=None, verify_len=None, chunk_len=None):
+    """Prefill + per-step decode programs as a decode.GenerationSpec.
+
+    PREFILL (one causal pass over the [B, prefix_len] target prefix and the
+    [B, src_len] source): fetches next-token logits at each row's last real
+    prefix position plus, per decoder layer, the prefix's self-attention
+    k/v rows (seeding the KV cache) and the encoder-side cross k/v.
+
+    STEP (one new token): appends the token's k/v rows into the [B,
+    max_len, H*D] caches at each row's cursor (kv_cache_append), attends
+    single-query over the cache with seq_len = cursor + 1, and emits
+    next-token logits."""
+    if verify_len is not None or chunk_len is not None:
+        raise NotImplementedError(
+            "build_decode verify_len/chunk_len (speculative verify, chunked "
+            "prefill) land with the serving Scheduler slice (ROADMAP.md A)")
+    cfg = copy.copy(cfg or base())
+    if cfg.moe_experts:
+        raise NotImplementedError(
+            "MoE FFNs land with the moe op family (ROADMAP.md A)")
+    cfg.dropout = 0.0  # decode is inference
+    src_len = src_len or cfg.max_length
+    max_len = max_len or cfg.max_length
+    hd = cfg.d_model
+
+    src_emb_name = "src_word_emb"
+    trg_emb_name = src_emb_name if cfg.tie_embeddings else "trg_word_emb"
+
+    # ---- prefill ----------------------------------------------------
+    prefill = Program()
+    prefill_startup = Program()
+    states = []
+    with program_guard(prefill, prefill_startup), unique_name.guard():
+        src_ids = layers.data(name="src_ids", shape=[src_len], dtype="int64")
+        src_lens = layers.data(name="src_lens", shape=[], dtype="int64")
+        trg_ids = layers.data(name="trg_ids", shape=[prefix_len],
+                              dtype="int64")
+        prefix_lens = layers.data(name="prefix_lens", shape=[],
+                                  dtype="int64")
+        enc_in, _ = _embed_rows(src_ids, cfg.src_vocab_size, cfg,
+                                src_emb_name, src_len, "s")
+        enc_out = encoder(enc_in, cfg, src_lens=src_lens)
+        x, _ = _embed_rows(trg_ids, cfg.trg_vocab_size, cfg, trg_emb_name,
+                           prefix_len, "p")
+        for i in range(cfg.n_layer):
+            kn = vn = ek = ev = None
+
+            def self_attn(q, h, i=i):
+                nonlocal kn, vn
+                kn, vn = _kv_fc(h, i, "self", cfg)
+                # ragged prefixes ride the causal mask alone: a pad row's
+                # cache positions are overwritten by later appends before
+                # the seq_len mask ever exposes them
+                return layers.fused_attention(q, kn, vn, cfg.n_head,
+                                              causal=True)
+
+            def cross_attn(q, i=i):
+                nonlocal ek, ev
+                ek, ev = _kv_fc(enc_out, i, "cross", cfg)
+                return layers.fused_attention(q, ek, ev, cfg.n_head,
+                                              causal=False, seq_len=src_lens)
+
+            x = _decoder_sublayers(x, i, cfg, self_attn, cross_attn)
+            states += [
+                decode_mod.StateSpec(feed=f"cache_k_{i}", init_from=kn.name,
+                                     pad_to=max_len),
+                decode_mod.StateSpec(feed=f"cache_v_{i}", init_from=vn.name,
+                                     pad_to=max_len),
+                decode_mod.StateSpec(feed=f"enc_k_{i}", init_from=ek.name),
+                decode_mod.StateSpec(feed=f"enc_v_{i}", init_from=ev.name),
+            ]
+        x = _pre_ln(x, name="dec_ln")
+        last = layers.sequence_last_step(x, seq_len=prefix_lens)
+        prefill_logits = layers.fc(input=last, size=cfg.trg_vocab_size,
+                                   bias_attr=False, name="logits_proj")
+
+    # ---- step -------------------------------------------------------
+    step = Program()
+    step_startup = Program()
+    with program_guard(step, step_startup), unique_name.guard():
+        prev_ids = layers.data(name="prev_ids", shape=[1], dtype="int64")
+        gen_lengths = layers.data(name="gen_lengths", shape=[],
+                                  dtype="int64")
+        src_lens_s = layers.data(name="src_lens", shape=[], dtype="int64")
+        emb = layers.embedding(
+            input=prev_ids, size=[cfg.trg_vocab_size, cfg.d_model],
+            param_attr=ParamAttr(name=trg_emb_name),
+        )  # ids [B, 1] strip the trailing 1 -> [B, d]
+        emb = layers.reshape(layers.scale(emb, scale=cfg.d_model ** 0.5),
+                             shape=[-1, 1, cfg.d_model])
+        pos_tab = layers.create_parameter(
+            shape=[max_len, cfg.d_model], dtype="float32",
+            name=f"{trg_emb_name}_pos_m{max_len}",
+            default_initializer=NumpyArrayInitializer(
+                _position_encoding(max_len, cfg.d_model)))
+        pos_tab.trainable = False
+        pos_tab.stop_gradient = True
+        pos = layers.gather(pos_tab, gen_lengths)  # this token's position
+        x = layers.elementwise_add(
+            x=emb, y=layers.reshape(pos, shape=[-1, 1, cfg.d_model]))
+        new_lens = layers.increment(gen_lengths, value=1, in_place=False)
+        for i in range(cfg.n_layer):
+            st = states[4 * i:4 * i + 4]
+            cache_k = layers.data(name=f"cache_k_{i}", shape=[max_len, hd])
+            cache_v = layers.data(name=f"cache_v_{i}", shape=[max_len, hd])
+            enc_k = layers.data(name=f"enc_k_{i}", shape=[src_len, hd])
+            enc_v = layers.data(name=f"enc_v_{i}", shape=[src_len, hd])
+
+            def self_attn(q, h, i=i, ck=cache_k, cv=cache_v, st=st):
+                kn, vn = _kv_fc(h, i, "self", cfg)
+                ok, ov = layers.kv_cache_append(ck, cv, kn, vn, gen_lengths)
+                st[0].update = ok.name
+                st[1].update = ov.name
+                return layers.fused_attention(q, ok, ov, cfg.n_head,
+                                              causal=False, seq_len=new_lens)
+
+            def cross_attn(q, ek=enc_k, ev=enc_v):
+                return layers.fused_attention(q, ek, ev, cfg.n_head,
+                                              causal=False,
+                                              seq_len=src_lens_s)
+
+            x = _decoder_sublayers(x, i, cfg, self_attn, cross_attn)
+        x = _pre_ln(x, name="dec_ln")
+        logits = layers.fc(input=x, size=cfg.trg_vocab_size,
+                           num_flatten_dims=2, bias_attr=False,
+                           name="logits_proj")
+        step_logits = layers.reshape(logits, shape=[-1, cfg.trg_vocab_size])
+
+    return decode_mod.GenerationSpec(
+        prefill_program=prefill, prefill_startup=prefill_startup,
+        step_program=step, step_startup=step_startup,
+        prefill_feeds=["src_ids", "src_lens", "trg_ids", "prefix_lens"],
+        prefill_logits=prefill_logits.name,
+        step_feeds=["src_lens"],
+        step_logits=step_logits.name,
+        states=states,
+        lengths_name="gen_lengths",
+        init_lengths_from="prefix_lens",
+        max_len=max_len,
+    )

@@ -1,0 +1,157 @@
+"""Exact multi-head attention: the CUDA kernel (csrc/mha_block.cu), its
+wrapper and its plain PyTorch version.
+
+Port of paddle_tpu/ops/pallas/mha_block.py (`_mha_fwd_kernel`, entry
+`mha_attention`).  q [B, Sq, H*D], k/v [B, Sk, H*D] -> [B, Sq, H*D];
+optional key_len [B] masks keys at positions >= key_len[b]; causal uses
+the (Sk - Sq) diagonal offset.  Masked scores are the finite -1e30, so a
+row whose keys are all masked is the uniform mean of V.
+
+`mha_attention` runs the plain version for tensors on the CPU (and on the
+meta device, for shape inference) and launches the kernel for tensors on
+the card; anything else raises.  There is no fallback from the kernel to
+the plain version.  `launches` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ... import flags
+from . import _build
+
+_NEG_INF = -1e30
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128, 192, 256)
+
+launches = 0
+
+
+def _head_chunk(num_heads, sq, sk):
+    """Largest divisor hc of num_heads whose [hc, Sq, Sk] f32 score tile
+    fits attn_vmem_score_budget, or None.  This is the JAX kernel's TPU
+    VMEM budget; the CUDA kernel streams keys and needs no such tile, but
+    the gate keeps it so both packages send the same shapes to this tier."""
+    budget = flags.get("attn_vmem_score_budget")
+    if sq * sk * 4 > budget:
+        return None
+    for hc in range(num_heads, 0, -1):
+        if num_heads % hc == 0 and hc * sq * sk * 4 <= budget:
+            return hc
+    return None
+
+
+def supported(q, k, num_heads, causal=False):
+    """The JAX package's gate for this tier (mha_block.py:61), on
+    anything with .shape and .dtype."""
+    if len(q.shape) != 3 or len(k.shape) != 3:
+        return False
+    if q.dtype not in _DTYPES:
+        return False
+    hd = q.shape[-1]
+    d = hd // num_heads
+    if d * num_heads != hd or d % 64 != 0:
+        return False
+    sq, sk = q.shape[1], k.shape[1]
+    if sq % 8 != 0 or sk % 128 != 0:
+        return False
+    if causal and sq > sk:
+        return False
+    return _head_chunk(num_heads, sq, sk) is not None
+
+
+def _resolve_scale(hd, num_heads, scale):
+    return scale if scale else 1.0 / ((hd // num_heads) ** 0.5)
+
+
+def mha_reference(q, k, v, num_heads, causal=False, scale=0.0, key_len=None):
+    """The plain PyTorch version: a straightforward masked softmax
+    attention with the kernel's semantics."""
+    b, sq, hd = q.shape
+    sk = k.shape[1]
+    h = num_heads
+    d = hd // h
+    scale = _resolve_scale(hd, h, scale)
+    qh = (q * scale).reshape(b, sq, h, d).transpose(1, 2).float()
+    kh = k.reshape(b, sk, h, d).transpose(1, 2).float()
+    vh = v.reshape(b, sk, h, d).transpose(1, 2)
+    s = torch.matmul(qh, kh.transpose(-1, -2))             # [B, H, Sq, Sk]
+    cols = torch.arange(sk, device=q.device)
+    if causal:
+        rows = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        s = torch.where(cols[None, :] <= rows, s, _NEG_INF)
+    if key_len is not None:
+        kl = key_len.reshape(b).float().to(torch.int32)
+        s = torch.where(cols < kl[:, None, None, None], s, _NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.to(v.dtype).float(), vh.float())    # [B, H, Sq, D]
+    return o.to(q.dtype).transpose(1, 2).reshape(b, sq, hd)
+
+
+def _lib():
+    lib = _build.load("mha_block")
+    fn = lib.mha_block_fwd
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll,
+                       ctypes.c_float, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(q, k, v, num_heads, causal, scale, key_len):
+    global launches
+    if not (k.device == q.device and v.device == q.device):
+        raise ValueError("mha_block: q, k, v must be on one device")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"mha_block: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
+                         "the kernel takes float32 or bfloat16, all alike")
+    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
+        raise ValueError(f"mha_block: shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, sq, hd = q.shape
+    sk = k.shape[1]
+    if k.shape[0] != b or k.shape[2] != hd or hd % num_heads:
+        raise ValueError(f"mha_block: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} disagree for {num_heads} heads")
+    d = hd // num_heads
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"mha_block: head_dim {d} not in {_HEAD_DIMS}")
+    if sq < 1 or sk < 1 or (causal and sq > sk):
+        raise ValueError(f"mha_block: Sq={sq}, Sk={sk}, causal={causal}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("mha_block: the last dim of q, k, v must be "
+                         "contiguous")
+    kl = None
+    if key_len is not None:
+        if key_len.numel() != b:
+            raise ValueError(f"mha_block: key_len has {key_len.numel()} "
+                             f"entries for batch {b}")
+        kl = key_len.reshape(b).to(device=q.device,
+                                   dtype=torch.float32).contiguous()
+    out = torch.empty((b, sq, hd), dtype=q.dtype, device=q.device)
+    rc = _lib()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        kl.data_ptr() if kl is not None else None,
+        b, sq, sk, num_heads, d,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1),
+        float(_resolve_scale(hd, num_heads, scale)), int(bool(causal)),
+        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"mha_block kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return out
+
+
+def mha_attention(q, k, v, num_heads, causal=False, scale=0.0, key_len=None):
+    """q [B,Sq,H*D], k/v [B,Sk,H*D] -> [B,Sq,H*D]: the kernel for tensors on
+    the card, the plain version for tensors on the CPU or meta device."""
+    if q.device.type in ("cpu", "meta"):
+        return mha_reference(q, k, v, num_heads, causal, scale, key_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"mha_block: no kernel for device {q.device}")
+    return _launch(q, k, v, num_heads, causal, scale, key_len)

@@ -1,0 +1,233 @@
+"""The port's attention kernels' plain versions, reference and gate against
+the JAX package's.
+
+On the CPU the port's kernel wrappers run their plain PyTorch versions;
+the JAX side runs its Pallas kernels in interpret mode, as its own tests
+do.  Inputs are numpy arrays made from a seed; tolerance atol 1e-5 in
+float32 (two float32 softmax-attention implementations that sum in other
+orders).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu import flags as jflags
+from paddle_tpu.ops import attention_ops as jattn
+from paddle_tpu.ops.pallas import flash_attention as jfa
+from paddle_tpu.ops.pallas import mha_block as jmha
+from paddle_tpu_torch import flags as pflags
+from paddle_tpu_torch import testing
+from paddle_tpu_torch.ops import attention_ops as pattn
+from paddle_tpu_torch.ops.cuda import flash_decode as pfd
+from paddle_tpu_torch.ops.cuda import mha_block as pmha
+
+ATOL = 1e-5
+GATE_FLAGS = ("flash_attention", "attn_decode_min_keys",
+              "attn_vmem_score_budget", "attn_flash_min_scores")
+
+
+@pytest.fixture(autouse=True)
+def _fresh_port():
+    with testing.fresh_programs():
+        yield
+    for name in GATE_FLAGS:
+        jflags.reset(name)
+        pflags.reset(name)
+
+
+def _set_both(name, value):
+    jflags.set(name, value)
+    pflags.set(name, value)
+
+
+def _data(seed, b, sq, sk, hd):
+    rng = np.random.RandomState(seed)
+    return [rng.standard_normal((b, s, hd)).astype(np.float32)
+            for s in (sq, sk, sk)]
+
+
+def _t(a):
+    return torch.as_tensor(a)
+
+
+@pytest.mark.parametrize("sq,causal", [(1, False), (8, False), (8, True),
+                                       (128, False), (128, True)])
+@pytest.mark.parametrize("key_len", [None, [128, 37], [0, 90]],
+                         ids=["unmasked", "ragged", "all_masked_row"])
+def test_mha_attention_matches_pallas_interpret(sq, causal, key_len):
+    b, sk, h, d = 2, 128, 2, 64
+    q, k, v = _data(sq + 3 * causal, b, sq, sk, h * d)
+    kl = None if key_len is None else np.asarray(key_len, np.int64)
+    if sq == 1:
+        # the JAX package's mha_decode: q padded to its 8-sublane tile,
+        # causal dropped (attention_ops.py:363); the port takes Sq=1 as is
+        qp = np.pad(q, ((0, 0), (0, 7), (0, 0)))
+        ref = np.asarray(jmha.mha_attention(
+            jnp.asarray(qp), jnp.asarray(k), jnp.asarray(v), h, False, 0.0,
+            True, key_len=None if kl is None else jnp.asarray(kl)))[:, :1]
+    else:
+        ref = np.asarray(jmha.mha_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), h, causal, 0.0,
+            True, key_len=None if kl is None else jnp.asarray(kl)))
+    out = pmha.mha_attention(_t(q), _t(k), _t(v), h, causal, 0.0,
+                             key_len=None if kl is None else _t(kl))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=ATOL)
+    if key_len is not None and key_len[0] == 0 and not causal:
+        # finite -1e30 masking: the all-masked row is the mean of V
+        np.testing.assert_allclose(out.numpy()[0],
+                                   np.broadcast_to(v[0].mean(0), (sq, h * d)),
+                                   rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("sk", [200, 256, 300])
+@pytest.mark.parametrize("kv_len", [None, [200, 0, 17]],
+                         ids=["unmasked", "ragged_with_zero"])
+def test_flash_decode_matches_pallas_interpret(sk, kv_len):
+    b, h, d = 3, 2, 64
+    q, k, v = _data(sk, b, 1, sk, h * d)
+    kl = None if kv_len is None else np.asarray(kv_len, np.int64)
+    ref = np.asarray(jfa.flash_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), h, 0.0, True,
+        kv_len=None if kl is None else jnp.asarray(kl)))
+    out = pfd.flash_decode(_t(q), _t(k), _t(v), h, 0.0,
+                           kv_len=None if kl is None else _t(kl))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=ATOL)
+    if kv_len is not None:
+        assert not out.numpy()[1].any()   # kv_len 0 gives 0, not mean(V)
+
+
+def test_flash_decode_clamps_kv_len_to_the_cache():
+    """kv_len past Sk means every cached key is live, as in the composite.
+    (The JAX kernel differs here when Sk is not a multiple of its key
+    block: its zero padding keys count as live, ROADMAP.md C.)"""
+    b, h, d, sk = 2, 1, 64, 200
+    q, k, v = _data(22, b, 1, sk, h * d)
+    kl = np.asarray([250, 200], np.int64)
+    ref = np.asarray(jattn.attention_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jattn._seq_len_bias(jnp.asarray(kl), b, sk), num_heads=h,
+        causal=False, scale=0.0))
+    out = pfd.flash_decode(_t(q), _t(k), _t(v), h, kv_len=_t(kl))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=ATOL)
+
+
+def test_flash_decode_scale_and_head_dim_128():
+    b, h, d, sk = 2, 2, 128, 130
+    q, k, v = _data(21, b, 1, sk, h * d)
+    kl = np.asarray([130, 64], np.int64)
+    ref = np.asarray(jfa.flash_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), h, 0.3, True,
+        kv_len=jnp.asarray(kl)))
+    out = pfd.flash_decode(_t(q), _t(k), _t(v), h, 0.3, kv_len=_t(kl))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("causal,bias,scale", [
+    (False, False, 0.0), (True, False, 0.0), (True, True, 0.25),
+    (False, True, 0.0),
+])
+def test_attention_reference_matches(causal, bias, scale):
+    b, sq, sk, h, d = 2, 5, 9, 3, 8
+    q, k, v = _data(30, b, sq, sk, h * d)
+    bb = (np.random.RandomState(31).standard_normal((b, 1, sq, sk))
+          .astype(np.float32) if bias else None)
+    ref = np.asarray(jattn.attention_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        None if bb is None else jnp.asarray(bb), num_heads=h, causal=causal,
+        scale=scale))
+    out = pattn.attention_reference(
+        _t(q), _t(k), _t(v), None if bb is None else _t(bb), num_heads=h,
+        causal=causal, scale=scale)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=ATOL)
+
+
+def test_seq_len_bias_matches():
+    lens = np.asarray([3, 0, 7], np.int64)
+    ref = np.asarray(jattn._seq_len_bias(jnp.asarray(lens), 3, 7))
+    out = pattn._seq_len_bias(_t(lens), 3, 7)
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+# (q shape, k shape, heads, causal, bias, seq_len)
+_GATE_SHAPES = [
+    ((8, 256, 512), (8, 256, 512), 8, False, False, True),   # encoder
+    ((8, 1024, 512), (8, 1024, 512), 8, True, False, False),  # long prefix
+    ((8, 2048, 512), (8, 2048, 512), 8, True, False, False),  # tile too big
+    ((8, 8, 512), (8, 8, 512), 8, True, False, False),       # short prefix
+    ((8, 8, 512), (8, 256, 512), 8, False, False, True),     # cross
+    ((8, 1, 512), (8, 256, 512), 8, False, False, True),     # decode, short
+    ((8, 1, 512), (8, 2048, 512), 8, False, False, True),    # decode, long
+    ((8, 1, 512), (8, 200, 512), 8, False, False, True),     # unaligned
+    ((2, 1, 64), (2, 16, 64), 4, False, False, True),        # head_dim 16
+    ((2, 128, 128), (2, 128, 128), 2, False, True, False),   # additive bias
+    ((2, 128, 128), (2, 128, 128), 1, False, False, False),  # head_dim 128
+    ((2, 16, 128), (2, 8, 128), 2, True, False, False),      # Sq > Sk
+]
+
+
+@pytest.mark.parametrize("flag", ["auto", "interpret", "0", "flash",
+                                  "force"])
+@pytest.mark.parametrize("min_keys", [None, 200])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backend_choice_agrees(flag, min_keys, dtype):
+    """Same shapes, same flags -> the same tier name in both packages.
+    Off the accelerator ("auto" on the CPU) both say composite."""
+    if flag != "auto":
+        _set_both("flash_attention", flag)
+    if min_keys is not None:
+        _set_both("attn_decode_min_keys", min_keys)
+    for qs, ks, h, causal, bias, seq_len in _GATE_SHAPES:
+        jq = jax.ShapeDtypeStruct(qs, jnp.dtype(dtype))
+        jk = jax.ShapeDtypeStruct(ks, jnp.dtype(dtype))
+        tdt = getattr(torch, dtype)
+        pq = torch.empty(qs, dtype=tdt, device="meta")
+        pk = torch.empty(ks, dtype=tdt, device="meta")
+        j = jattn.backend_choice(jq, jk, h, causal, bias, seq_len)
+        p = pattn.backend_choice(pq, pk, h, causal, bias, seq_len)
+        assert p == j, (qs, ks, h, causal, bias, seq_len, flag, p, j)
+
+
+def test_gate_routes_card_tensors_to_the_kernels():
+    """A tensor on the card takes the kernel tiers under the default gate
+    (checked on meta tensors standing in for the device: the gate reads
+    shape, dtype and device type only)."""
+    class _Card:
+        def __init__(self, shape):
+            self.shape = shape
+            self.dtype = torch.float32
+            self.device = torch.device("cuda", 0)
+
+    choose = pattn._backend_choice
+    assert choose(_Card((8, 256, 512)), _Card((8, 256, 512)), 8, False,
+                  False, True) == ("mha_block", "cuda")
+    assert choose(_Card((8, 1, 512)), _Card((8, 256, 512)), 8, False,
+                  False, True) == ("mha_decode", "cuda")
+    assert choose(_Card((8, 1, 512)), _Card((8, 2048, 512)), 8, False,
+                  False, True) == ("flash_decode", "cuda")
+    assert choose(_Card((8, 8, 512)), _Card((8, 8, 512)), 8, True,
+                  False, False) == ("composite", None)
+
+
+def test_unported_tiers_raise():
+    pflags.set("flash_attention", "interpret")
+    q = torch.zeros((1, 8, 128))
+    with pytest.raises(NotImplementedError, match="kernel #3"):
+        pattn._apply_attention(q, q, q, None, num_heads=2, causal=True,
+                               scale=0.0)
+    with pytest.raises(NotImplementedError, match="seq_len_ramp"):
+        pattn._apply_attention(q, q, q, None, num_heads=2, causal=False,
+                               scale=0.0, seq_len=torch.ones(1),
+                               seq_len_ramp=True)
+
+
+def test_meta_tensors_never_reach_a_kernel_wrapper():
+    pflags.set("flash_attention", "interpret")
+    before = dict(pattn.TIER_CALLS)
+    q = torch.empty((8, 256, 512), device="meta")
+    out = pattn._apply_attention(q, q, q, None, num_heads=8, causal=False,
+                                 scale=0.0)
+    assert out.shape == (8, 256, 512) and out.device.type == "meta"
+    assert dict(pattn.TIER_CALLS) == before

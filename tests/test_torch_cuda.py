@@ -1,0 +1,153 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `cuda`: run with `python -m pytest tests/test_torch_cuda.py -m cuda`
+on a machine with an NVIDIA H100.  Whether a card is present is decided in
+the `card` fixture (never at import), so every xdist worker collects the
+same tests; without a card each test skips.
+
+Shapes are the serving slice's main path at transformer-base (d_model 512,
+8 heads of 64), batch 8, float32, plus the edge cases of each kernel's
+masking contract.  Tolerances: max abs error 1e-4 in float32 (the kernels
+sum in another order than cuBLAS) and 2e-2 in bfloat16 (the plain version
+rounds the normalised probabilities to bfloat16 before P V, the kernels
+keep them in float32).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.ops.cuda import flash_decode as fd
+from paddle_tpu_torch.ops.cuda import mha_block
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    # the plain versions' float32 matmuls must not round through TF32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    return torch.device("cuda", 0)
+
+
+def _qkv(seed, b, sq, sk, hd, device, dtype):
+    rng = np.random.RandomState(seed)
+    return [torch.as_tensor(rng.standard_normal((b, s, hd)).astype(np.float32),
+                            device=device).to(dtype)
+            for s in (sq, sk, sk)]
+
+
+def _lens(values, device):
+    return torch.as_tensor(np.asarray(values, np.int64), device=device)
+
+
+@pytest.mark.parametrize("case", [
+    # (b, sq, sk, heads, head_dim, causal, key_len)
+    (8, 256, 256, 8, 64, False, "ragged"),   # encoder self-attention
+    (8, 1024, 1024, 8, 64, True, None),      # decoder prefix, causal
+    (8, 8, 256, 8, 64, False, "ragged"),     # prefill cross-attention
+    (8, 1, 256, 8, 64, False, "ragged"),     # mha_decode, single query
+    (2, 72, 200, 4, 128, True, "ragged"),    # ragged edges, causal offset
+    (3, 16, 128, 2, 64, False, "with_zero"),  # an all-masked row
+    (2, 8, 64, 2, 256, True, "with_zero"),
+], ids=["enc256", "causal1024", "cross8x256", "decode1x256", "edges_d128",
+        "masked_row", "d256"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_mha_block_matches_plain(card, case, dtype):
+    b, sq, sk, h, d, causal, kl = case
+    q, k, v = _qkv(1, b, sq, sk, h * d, card, dtype)
+    key_len = None
+    if kl is not None:
+        rng = np.random.RandomState(2)
+        vals = rng.randint(max(1, sk // 2), sk + 1, size=b)
+        if kl == "with_zero":
+            vals[0] = 0
+        key_len = _lens(vals, card)
+    before = mha_block.launches
+    out = mha_block.mha_attention(q, k, v, h, causal, 0.0, key_len=key_len)
+    torch.cuda.synchronize()
+    assert mha_block.launches == before + 1
+    ref = mha_block.mha_reference(q, k, v, h, causal, 0.0, key_len=key_len)
+    assert out.shape == ref.shape and out.dtype == dtype
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+    if kl == "with_zero" and not causal:
+        # finite -1e30 masking: an all-masked row is the mean of V
+        mean_v = v[0].float().mean(dim=0)
+        assert torch.allclose(out[0].float(), mean_v.expand(sq, -1),
+                              atol=TOL[dtype])
+
+
+def test_mha_block_reads_strided_views(card):
+    """q/k/v read in place through their batch and row strides (the
+    column slices of a fused [B, S, 3*H*D] projection)."""
+    b, s, hd, h = 2, 128, 256, 4
+    rng = np.random.RandomState(3)
+    qkv = torch.as_tensor(rng.standard_normal((b, s, 3 * hd)),
+                          dtype=torch.float32, device=card)
+    q, k, v = qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:]
+    out = mha_block.mha_attention(q, k, v, h, True)
+    ref = mha_block.mha_reference(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), h, True)
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("case", [
+    # (b, sk, heads, head_dim, kv_len)
+    (8, 2048, 8, 64, "main"),       # the main path's long-cache step
+    (4, 200, 2, 64, "with_zero"),   # Sk not a multiple of 128; kv_len 0
+    (3, 1000, 4, 128, None),        # every key live
+    (2, 136, 1, 256, "with_zero"),
+    (2, 200, 2, 64, "past_the_cache"),  # kv_len > Sk: every key live
+], ids=["main2048", "ragged_zero", "unmasked_d128", "d256", "past_cache"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_decode_matches_plain(card, case, dtype):
+    b, sk, h, d, kl = case
+    q, k, v = _qkv(4, b, 1, sk, h * d, card, dtype)
+    kv_len = None
+    if kl == "main":
+        kv_len = _lens(np.linspace(512, 1056, b).astype(np.int64), card)
+    elif kl == "with_zero":
+        vals = np.random.RandomState(5).randint(1, sk + 1, size=b)
+        vals[0] = 0
+        kv_len = _lens(vals, card)
+    elif kl == "past_the_cache":
+        kv_len = _lens([sk + 50, sk], card)
+    before = fd.launches
+    out = fd.flash_decode(q, k, v, h, 0.0, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert fd.launches == before + 1
+    ref = fd.flash_decode_reference(q, k, v, h, 0.0, kv_len=kv_len)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+    if kl == "with_zero":
+        assert torch.count_nonzero(out[0]).item() == 0  # kv_len 0 -> O = 0
+
+
+def test_flash_decode_never_reads_dead_keys(card):
+    """Keys at or past kv_len are never read: NaNs planted there cannot
+    reach the output."""
+    b, sk, hd, h = 4, 512, 128, 2
+    q, k, v = _qkv(6, b, 1, sk, hd, card, torch.float32)
+    kv_len = _lens([1, 100, 300, 511], card)
+    for t in (k, v):
+        for row, n in enumerate((1, 100, 300, 511)):
+            t[row, n:] = float("nan")
+    out = fd.flash_decode(q, k, v, h, kv_len=kv_len)
+    assert torch.isfinite(out).all()
+
+
+def test_wrappers_raise_instead_of_falling_back(card):
+    q, k, v = _qkv(7, 2, 1, 128, 64, card, torch.float32)
+    with pytest.raises(ValueError):
+        mha_block.mha_attention(q, k, v, 4)      # head_dim 16
+    with pytest.raises(ValueError):
+        fd.flash_decode(q, k, v, 4)
+    with pytest.raises(ValueError):
+        fd.flash_decode(q.double(), k.double(), v.double(), 1)
