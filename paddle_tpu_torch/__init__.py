@@ -8,6 +8,9 @@ jax nor paddle_tpu.
 
 The first slice serves transformer-base through decode.Generator:
 prefill and greedy steps, with the mha_block and flash_decode kernels.
+The second trains it: `backward.append_backward`, `optimizer` (SGD, Adam
+with f32 master weights), `amp.cast_model_to_bf16`, and the mha_block
+backward kernel.
 """
 
 from .framework import (
@@ -40,5 +43,11 @@ from .layer_helper import LayerHelper, ParamAttr
 from . import layers
 from . import decode
 from . import convert
+from . import backward
+from . import clip
+from . import regularizer
+from . import optimizer
+from . import amp
+from .backward import append_backward
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

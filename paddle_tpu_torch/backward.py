@@ -1,0 +1,377 @@
+"""Desc-level autodiff: append gradient ops to the Program.
+
+Counterpart of paddle_tpu/backward.py, op desc for op desc:
+`append_backward` walks ops in reverse from the loss, asks each op's grad
+maker for grad op descs (registry.make_grad_ops — a custom maker or the
+default one), accumulates multi-consumer gradients by renaming + `sum` ops
+(`@RENAME@` contributions folded when the grad is first consumed), prunes
+no-grad branches, and stamps the op_role/op_role_var attrs that the
+optimizers and transpilers key off.
+
+The grad ops are ordinary IR ops; the Executor runs them eagerly like any
+other op, each through its hand-written or autograd-backed lowering.
+"""
+
+from __future__ import annotations
+
+import collections
+
+from .framework.framework import (
+    EMPTY_VAR_NAME,
+    OpRole,
+    Parameter,
+    Variable,
+    grad_var_name,
+)
+from .framework.core_types import is_float_dtype
+from .ops import registry
+
+
+def _collect_no_grad(block, extra=None):
+    no_grad = set(extra or [])
+    for name, var in block.vars.items():
+        if var.stop_gradient:
+            no_grad.add(name)
+    return no_grad
+
+
+def _wants_grad(block, name):
+    """A var can carry a gradient: exists, float dtype, not stop_gradient."""
+    try:
+        v = block._var_recursive(name)
+    except Exception:
+        return False
+    if getattr(v, "stop_gradient", False):
+        return False
+    return is_float_dtype(getattr(v, "dtype", None))
+
+
+def _find_op_path(block, target_names, source_names=None):
+    """Indices of ops that contribute to targets (reference _find_op_path_).
+    If source_names given, additionally restrict to ops reachable forward from
+    the sources."""
+    relevant = set(target_names)
+    path = []
+    for i in range(len(block.ops) - 1, -1, -1):
+        op = block.ops[i]
+        if set(op.output_arg_names) & relevant:
+            if registry.is_registered(op.type) and registry.get_op_info(op.type).no_grad:
+                # ops that must not be silently skipped (e.g. `while`):
+                # error out when the gradient path runs through a
+                # differentiable output (stop_gradient/int outputs — labels,
+                # masks — legitimately carry no grad)
+                err = registry.get_op_info(op.type).grad_error
+                if err and any(
+                    o in relevant and _wants_grad(block, o)
+                    for o in op.output_arg_names
+                ):
+                    raise RuntimeError(
+                        f"cannot differentiate op '{op.type}': {err}"
+                    )
+                continue
+            path.append(i)
+            relevant |= set(op.input_arg_names)
+    path.reverse()
+    if source_names:
+        reachable = set(source_names)
+        fwd_path = []
+        for i in path:
+            op = block.ops[i]
+            if set(op.input_arg_names) & reachable:
+                reachable |= set(op.output_arg_names)
+                fwd_path.append(i)
+        path = fwd_path
+    return path
+
+
+class _GradAccumulator:
+    """Multi-consumer gradient accumulation: first contribution writes
+    `x@GRAD`, later ones write renamed vars, and a `sum` op folds them when
+    the grad is first consumed (reference _addup_repetitive_outputs_)."""
+
+    def __init__(self, block):
+        self.block = block
+        self.contribs = collections.defaultdict(list)  # grad name -> contrib names
+
+    def contribution_name(self, gname):
+        n = len(self.contribs[gname])
+        name = gname if n == 0 else f"{gname}@RENAME@{n}"
+        self.contribs[gname].append(name)
+        return name
+
+    def finalize(self, gname, ops_out):
+        """Return the usable var name for gname (or None if no grad flowed),
+        emitting a sum op over renamed contributions if needed."""
+        names = self.contribs.get(gname)
+        if not names:
+            return None
+        if len(names) > 1:
+            ops_out.append(
+                {
+                    "type": "sum",
+                    "inputs": {"X": list(names)},
+                    "outputs": {"Out": [gname]},
+                    "attrs": {OpRole.ATTR_NAME: OpRole.Backward},
+                }
+            )
+            self.contribs[gname] = [gname]
+        return gname
+
+
+def _run_callbacks(callbacks, block, od):
+    if callbacks:
+        for cb in callbacks:
+            cb(block, {"op_desc": od})
+
+
+def _append_grad_ops(block, op_path, target_grad_map, no_grad_set, callbacks=None):
+    """Generate grad op descs for ops in op_path (reversed) and append them to
+    the block.  target_grad_map: fwd var name -> its incoming grad var name
+    (seeds).  Returns {fwd var name: grad var name} for every grad produced."""
+    acc = _GradAccumulator(block)
+    produced = {}  # fwd name -> grad name available
+    for fwd_name, gname in target_grad_map.items():
+        acc.contribs[grad_var_name(fwd_name)] = [gname]
+        produced[fwd_name] = gname
+
+    new_ops = []
+    for i in reversed(op_path):
+        op = block.ops[i]
+        grad_descs = registry.make_grad_ops(op, block, no_grad_set)
+        if not grad_descs:
+            continue
+        # stateful forwards (dropout-in-subblock etc.): the grad op replays
+        # the forward lowering, so it must reuse the FORWARD op's rng fold
+        # index or the replayed randomness diverges from the loss it grades
+        if registry.get_op_info(op.type).stateful:
+            for gd in grad_descs:
+                gd.setdefault("attrs", {})["__rng_idx"] = i
+        # finalize out-grads this op consumes
+        out_grad_names = {}
+        for out_name in op.output_arg_names:
+            g = acc.finalize(grad_var_name(out_name), new_ops)
+            if g is not None:
+                out_grad_names[grad_var_name(out_name)] = g
+        # write-back ops (a var that is both input and output, e.g. the
+        # while loop's carries): the forward name denotes TWO values — the
+        # op's grad consumes the post-op cotangent and must REPLACE it
+        # with the pre-op cotangent, not add a contribution to it (summing
+        # them double-counts, since upstream producers made the pre-op
+        # value only)
+        for n in set(op.output_arg_names) & set(op.input_arg_names):
+            g = grad_var_name(n)
+            if g in acc.contribs:
+                acc.contribs[g] = []
+        for gd in grad_descs:
+            # rewire inputs: grad-var inputs that were never produced -> EMPTY
+            live_inputs = {}
+            any_grad_in = False
+            for param, names in gd["inputs"].items():
+                fixed = []
+                for n in names:
+                    if n is None:
+                        fixed.append(EMPTY_VAR_NAME)
+                    elif n.endswith("@GRAD") or "@GRAD@" in n:
+                        got = out_grad_names.get(n)
+                        if got is None and n in acc.contribs and acc.contribs[n]:
+                            got = acc.finalize(n, new_ops)
+                        if got is None:
+                            fixed.append(EMPTY_VAR_NAME)
+                        else:
+                            fixed.append(got)
+                            any_grad_in = True
+                    else:
+                        fixed.append(n)
+                live_inputs[param] = fixed
+            if not any_grad_in:
+                continue  # nothing flows into this op's grad
+            # rewire outputs through the accumulator
+            real_outputs = {}
+            emitted_any = False
+            for param, names in gd["outputs"].items():
+                fixed = []
+                for n in names:
+                    if n is None or n == EMPTY_VAR_NAME:
+                        fixed.append(EMPTY_VAR_NAME)
+                        continue
+                    base = n
+                    fwd = base[: -len("@GRAD")] if base.endswith("@GRAD") else base
+                    if fwd in no_grad_set:
+                        fixed.append(EMPTY_VAR_NAME)
+                        continue
+                    cname = acc.contribution_name(base)
+                    produced[fwd] = base
+                    fixed.append(cname)
+                    emitted_any = True
+                real_outputs[param] = fixed
+            if not emitted_any:
+                continue
+            attrs = dict(gd.get("attrs", {}))
+            attrs[OpRole.ATTR_NAME] = OpRole.Backward
+            new_ops.append(
+                {
+                    "type": gd["type"],
+                    "inputs": live_inputs,
+                    "outputs": real_outputs,
+                    "attrs": attrs,
+                }
+            )
+
+    # materialise grad vars + ops in the block
+    for od in new_ops:
+        _create_grad_vars(block, od)
+        block.append_op(
+            type=od["type"],
+            inputs=od["inputs"],
+            outputs=od["outputs"],
+            attrs=od["attrs"],
+            infer_shape=False,
+        )
+        _run_callbacks(callbacks, block, od)
+    # resolve final grad names (flush pending multi-contrib sums)
+    tail_ops = []
+    final = {}
+    for fwd, gname in produced.items():
+        resolved = acc.finalize(gname, tail_ops)
+        if resolved:
+            final[fwd] = resolved
+    for od in tail_ops:
+        _create_grad_vars(block, od)
+        block.append_op(
+            type=od["type"],
+            inputs=od["inputs"],
+            outputs=od["outputs"],
+            attrs=od["attrs"],
+            infer_shape=False,
+        )
+        _run_callbacks(callbacks, block, od)
+    return final
+
+
+def _create_grad_vars(block, op_desc):
+    """Create grad VarDescs shaped like their forward vars (reference
+    _append_backward_vars_ backward.py:393)."""
+    for names in op_desc["outputs"].values():
+        for n in names:
+            if n == EMPTY_VAR_NAME or block.has_var(n):
+                continue
+            base = n.split("@GRAD")[0]
+            if block.has_var(base):
+                fwd = block.var(base)
+                block.create_var(
+                    name=n, shape=fwd.shape, dtype=fwd.dtype, stop_gradient=True
+                )
+            else:
+                block.create_var(name=n, stop_gradient=True)
+
+
+def append_backward(loss, parameter_list=None, no_grad_set=None, callbacks=None):
+    """Append backward ops for `loss`; returns [(param, grad_var), ...].
+
+    reference: python/paddle/fluid/backward.py:469.
+    """
+    assert isinstance(loss, Variable)
+    block = loss.block
+    program = block.program
+    no_grad = _collect_no_grad(block, no_grad_set)
+
+    # mark the loss op (reference stamps OpRole.Forward|Loss on it)
+    for op in reversed(block.ops):
+        if loss.name in op.output_arg_names:
+            op.attrs[OpRole.ATTR_NAME] = OpRole.Forward | OpRole.Loss
+            break
+
+    # seed: d loss / d loss = 1
+    loss_grad = grad_var_name(loss.name)
+    block.create_var(name=loss_grad, shape=loss.shape or (1,), dtype=loss.dtype,
+                     stop_gradient=True)
+    block.append_op(
+        type="fill_constant",
+        outputs={"Out": [loss_grad]},
+        attrs={
+            "shape": list(loss.shape or (1,)),
+            "dtype": loss.dtype,
+            "value": 1.0,
+            OpRole.ATTR_NAME: OpRole.Backward | OpRole.Loss,
+        },
+        infer_shape=False,
+    )
+
+    op_path = _find_op_path(block, {loss.name})
+    final = _append_grad_ops(
+        block, op_path, {loss.name: loss_grad}, no_grad, callbacks=callbacks
+    )
+
+    if parameter_list is not None:
+        params = [
+            block.program.global_block().var(p) if isinstance(p, str) else p
+            for p in parameter_list
+        ]
+    else:
+        params = block.program.global_block().all_parameters()
+
+    params_and_grads = []
+    for p in params:
+        if not getattr(p, "trainable", True):
+            continue
+        gname = final.get(p.name)
+        if gname is None or not block.has_var(gname):
+            continue
+        g = block.var(gname)
+        params_and_grads.append((p, g))
+        # op_role_var contract consumed by ParallelExecutor/transpiler
+        for op in reversed(block.ops):
+            if gname in op.output_arg_names:
+                rv = op.attrs.get(OpRole.VAR_ATTR_NAME, [])
+                op.attrs[OpRole.VAR_ATTR_NAME] = list(rv) + [p.name, gname]
+                break
+    return params_and_grads
+
+
+def calc_gradient(targets, inputs, target_gradients=None, no_grad_set=None):
+    """Gradients of `targets` w.r.t. `inputs` (reference backward.py:685)."""
+    targets = targets if isinstance(targets, (list, tuple)) else [targets]
+    inputs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+    if target_gradients is None:
+        target_gradients = [None] * len(targets)
+    if not isinstance(target_gradients, (list, tuple)):
+        target_gradients = [target_gradients]
+    block = targets[0].block
+    no_grad = _collect_no_grad(block, no_grad_set)
+    no_grad -= {v.name for v in inputs}
+
+    seed_map = {}
+    for t, tg in zip(targets, target_gradients):
+        gname = grad_var_name(t.name)
+        if tg is None:
+            block.create_var(name=gname, shape=t.shape, dtype=t.dtype,
+                             stop_gradient=True)
+            block.append_op(
+                type="fill_constant",
+                outputs={"Out": [gname]},
+                attrs={
+                    "shape": [s if s != -1 else 1 for s in (t.shape or (1,))],
+                    "dtype": t.dtype,
+                    "value": 1.0,
+                    OpRole.ATTR_NAME: OpRole.Backward,
+                },
+                infer_shape=False,
+            )
+            seed_map[t.name] = gname
+        else:
+            seed_map[t.name] = tg.name
+
+    op_path = _find_op_path(
+        block, {t.name for t in targets}, {v.name for v in inputs}
+    )
+    final = _append_grad_ops(block, op_path, seed_map, no_grad)
+
+    grads = []
+    for v in inputs:
+        gname = final.get(v.name)
+        grads.append(block.var(gname) if gname and block.has_var(gname) else None)
+    return grads
+
+
+def gradients(targets, inputs, target_gradients=None, no_grad_set=None):
+    return calc_gradient(targets, inputs, target_gradients, no_grad_set)

@@ -1,14 +1,19 @@
 """Carry weights into the port's scope.
 
 `load_params(scope, params, place, programs)` stages {name: ndarray} into
-`scope` as tensors on `place`.  Names and layouts are the JAX package's:
-`mul` weights are [in, out], embeddings [V, d].  Every name is checked
-against the persistable vars of `programs`:
+`scope` as tensors on `place`, in the dtype each program declares.  Names
+and layouts are the JAX package's: `mul` weights are [in, out],
+embeddings [V, d].  Every name is checked against the persistable vars of
+`programs` (decode programs, or a training program with its optimizer
+state: learning rate, moments, beta powers and f32 master weights):
 
   * a name no program declares, or a shape that disagrees, raises;
   * a trainable parameter of the programs missing from `params` raises.
     Non-trainable ones (the decode programs' sinusoid position tables)
     may be left out: decode.Generator fills them from the startups.
+
+bfloat16 values (numpy arrays of the `bfloat16` extension dtype, as a JAX
+scope holds them after `amp.cast_model_to_bf16`) are carried bit for bit.
 """
 
 from __future__ import annotations
@@ -49,5 +54,12 @@ def load_params(scope, params, place, programs):
             raise ValueError(f"load_params: {name} has shape "
                              f"{tuple(arr.shape)}, the program declares "
                              f"{tuple(var.shape)}")
-        scope.set_var(name, torch.tensor(arr, dtype=dtype_to_torch(var.dtype),
-                                         device=device))
+        scope.set_var(name, _to_tensor(arr).to(
+            device=device, dtype=dtype_to_torch(var.dtype)))
+
+
+def _to_tensor(arr):
+    if arr.dtype.name == "bfloat16":   # no numpy dtype torch knows
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.tensor(arr)

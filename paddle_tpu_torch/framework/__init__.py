@@ -9,12 +9,15 @@ from .core_types import (
 from .framework import (
     Block,
     EMPTY_VAR_NAME,
+    OpRole,
     Operator,
     Parameter,
     Program,
     Variable,
     default_main_program,
     default_startup_program,
+    grad_var_name,
+    op_role_guard,
     program_guard,
     switch_main_program,
     switch_startup_program,

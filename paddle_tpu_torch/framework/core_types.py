@@ -86,6 +86,13 @@ def dtype_to_torch(dtype) -> torch.dtype:
     return _TORCH_DTYPES[convert_dtype(dtype)]
 
 
+FLOAT_DTYPES = ("float16", "bfloat16", "float32", "float64")
+
+
+def is_float_dtype(dtype) -> bool:
+    return convert_dtype(dtype) in FLOAT_DTYPES
+
+
 class Place:
     """Names one `torch.device`."""
 

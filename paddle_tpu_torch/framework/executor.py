@@ -5,7 +5,18 @@ Counterpart of paddle_tpu/framework/executor.py's interpreter path
 through its registered lowering on the scope's tensors, eagerly.  There is
 no segment tracing and no torch.compile.  Feeds are staged with
 `torch.as_tensor(..., device=place)` in the declared dtype (int64 stays
-int64), fetches come back as numpy arrays unless `return_numpy=False`.
+int64), fetches come back as numpy arrays unless `return_numpy=False`
+(bfloat16 tensors as float32 arrays, value for value: numpy has no
+bfloat16).
+
+What a run writes back is the JAX executor's liveness rule for a traced
+block (`_build_plan`, :374): persistables and fetch targets go to the
+scope; every other op output lives in a per-run table only until its last
+reader has run, so a training step never holds all its activations and
+gradients at once.  Programs run under `torch.no_grad()`: tensors a
+startup creates are ordinary tensors that the grad lowerings may replay
+under autograd (tensors born under `torch.inference_mode()` could not be
+saved for backward).
 
 Stateful ops (uniform_random) draw from a `torch.Generator` on the place,
 seeded from Program.random_seed and the scope's run counter, so one
@@ -49,28 +60,53 @@ def _next_generator(program, scope, device):
     return gen
 
 
-def run_block(program, scope, device, rng=None, write=None):
-    """Run block 0's ops over `scope`.  `write(name, value)` stores each
-    output (default: scope.set_var)."""
+def _last_reads(ops):
+    """var name -> index of the last op that reads it."""
+    last = {}
+    for i, op in enumerate(ops):
+        for n in op.input_arg_names:
+            last[n] = i
+    return last
+
+
+def run_block(program, scope, device, rng=None, keep=(), write=None):
+    """Run block 0's ops over `scope`.  Outputs that are persistable or in
+    `keep` are stored with `write(name, value)` (default: scope.set_var);
+    other outputs live in a local table until their last reader has run."""
     from ..ops import registry
 
     write = write or scope.set_var
-    for op in program.global_block().ops:
-        info = registry.get_op_info(op.type)
-        inputs = {
-            param: [None if n == EMPTY_VAR_NAME else scope.find_var(n)
-                    for n in names]
-            for param, names in op.inputs.items()
-        }
+    block = program.global_block()
+    ops = block.ops
+    last = _last_reads(ops)
+    stored = set(keep) | {n for n, v in block.vars.items() if v.persistable}
+    local = {}
+
+    def read(n):
+        if n == EMPTY_VAR_NAME:
+            return None
+        return local[n] if n in local else scope.find_var(n)
+
+    for i, op in enumerate(ops):
+        info = registry.get_runtime_info(op.type)
+        inputs = {param: [read(n) for n in names]
+                  for param, names in op.inputs.items()}
         outs = registry.run_forward(info, inputs, op.attrs,
                                     rng=rng if info.stateful else None,
                                     out_names=op.outputs, device=device)
+        for n in op.input_arg_names:
+            if last.get(n) == i:
+                local.pop(n, None)
         for param, names in op.outputs.items():
             vals = outs.get(param, [])
-            for i, n in enumerate(names):
-                if n != EMPTY_VAR_NAME and i < len(vals) \
-                        and vals[i] is not None:
-                    write(n, vals[i])
+            for j, n in enumerate(names):
+                if n == EMPTY_VAR_NAME or j >= len(vals) or vals[j] is None:
+                    continue
+                if n in stored:
+                    local.pop(n, None)
+                    write(n, vals[j])
+                elif last.get(n, -1) > i:
+                    local[n] = vals[j]
 
 
 class Executor:
@@ -86,12 +122,15 @@ class Executor:
         for name, value in (feed or {}).items():
             scope.set_var(name, stage_feed(value, self.device, program, name))
         rng = _next_generator(program, scope, self.device)
-        with torch.inference_mode():
-            run_block(program, scope, self.device, rng)
+        fetch_names = [_as_fetch_name(f) for f in fetch_list or []]
+        with torch.no_grad():
+            run_block(program, scope, self.device, rng, keep=fetch_names)
         outs = []
-        for f in fetch_list or []:
-            v = scope.find_var(_as_fetch_name(f))
+        for name in fetch_names:
+            v = scope.find_var(name)
             if return_numpy and isinstance(v, torch.Tensor):
+                if v.dtype == torch.bfloat16:
+                    v = v.float()
                 v = v.cpu().numpy()
             outs.append(v)
         return outs
@@ -100,9 +139,9 @@ class Executor:
 def program_as_function(program, scope, fetch_names, place=None):
     """A callable that replays `program`'s ops: fn(feed) -> tuple of the
     fetched tensors, in `fetch_names` order.  `feed` maps names to host
-    arrays or tensors.  Feeds and every op output live in a child scope
+    arrays or tensors.  Feeds and the fetched outputs live in a child scope
     made per call, so the replay reads `scope`'s parameters and never
-    writes into it."""
+    writes into it; other outputs die after their last reader."""
     device = as_device(place)
     fetch_names = list(fetch_names)
 
@@ -110,7 +149,8 @@ def program_as_function(program, scope, fetch_names, place=None):
         local = Scope(parent=scope)
         for name, value in feed.items():
             local.set_local(name, stage_feed(value, device, program, name))
-        run_block(program, local, device, write=local.set_local)
+        run_block(program, local, device, keep=fetch_names,
+                  write=local.set_local)
         missing = [n for n in fetch_names if local.find_var(n) is None]
         if missing:
             raise RuntimeError(f"fetch targets {missing} have no value after "

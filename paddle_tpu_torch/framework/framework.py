@@ -1,8 +1,9 @@
 """Program/Block/Operator/Variable — the define-then-run IR.
 
 Counterpart of paddle_tpu/framework/framework.py, kept to what the serving
-slice needs: layer functions append Operators to a Program, the Executor
-runs them.  The IR is plain Python data and `Program.to_dict` gives the
+and training slices need: layer functions append Operators to a Program,
+`append_backward` appends grad ops, the optimizers append update ops, the
+Executor runs them.  The IR is plain Python data and `Program.to_dict` gives the
 same `paddle_tpu.program.v1` form as the JAX package, so a program built
 here can be compared op for op, attr for attr and var for var with the
 JAX package's build of the same model.
@@ -18,11 +19,47 @@ import numpy as np
 from . import unique_name
 from .core_types import VarType, convert_dtype
 
+GRAD_VAR_SUFFIX = "@GRAD"
 TEMP_VAR_NAME = "@TEMP@"
 EMPTY_VAR_NAME = "@EMPTY@"
-# the op_role attr every op carries; the serving slice builds forward ops
-# only (reference framework.py OpRole.Forward)
-OP_ROLE_ATTR, OP_ROLE_FORWARD = "op_role", 0
+
+
+def grad_var_name(name: str) -> str:
+    """reference: paddle/fluid/framework/operator.h GradVarName()"""
+    return name + GRAD_VAR_SUFFIX
+
+
+class OpRole:
+    """The op_role attr the backward, optimizer and transpiler passes key
+    off (framework.py:42 of the JAX package)."""
+
+    Forward = 0
+    Backward = 1
+    Optimize = 2
+    RPC = 3
+    Dist = 4
+    LRSched = 16
+    Loss = 256
+
+    ATTR_NAME = "op_role"
+    VAR_ATTR_NAME = "op_role_var"
+
+
+_OP_ROLE_STACK = [OpRole.Forward]
+
+
+def current_op_role():
+    return _OP_ROLE_STACK[-1]
+
+
+@contextlib.contextmanager
+def op_role_guard(role):
+    """Ops appended inside get attrs[op_role] = role."""
+    _OP_ROLE_STACK.append(role)
+    try:
+        yield
+    finally:
+        _OP_ROLE_STACK.pop()
 
 
 class Variable:
@@ -85,6 +122,10 @@ class Parameter(Variable):
         kwargs.setdefault("persistable", True)
         super().__init__(block, shape=shape, dtype=dtype, **kwargs)
         self.trainable = kwargs.get("trainable", True)
+        self.optimize_attr = kwargs.get("optimize_attr",
+                                        {"learning_rate": 1.0})
+        self.regularizer = kwargs.get("regularizer", None)
+        self.gradient_clip_attr = kwargs.get("gradient_clip_attr", None)
 
 
 class Operator:
@@ -96,11 +137,25 @@ class Operator:
         self.inputs = {}   # param name -> [var name]
         self.outputs = {}  # param name -> [var name]
         self.attrs = dict(attrs or {})
-        self.attrs.setdefault(OP_ROLE_ATTR, OP_ROLE_FORWARD)
+        self.attrs.setdefault(OpRole.ATTR_NAME, current_op_role())
         for param, vars_ in (inputs or {}).items():
             self.inputs[param] = _to_name_list(vars_)
         for param, vars_ in (outputs or {}).items():
             self.outputs[param] = _to_name_list(vars_)
+
+    def input(self, name):
+        return self.inputs.get(name, [])
+
+    def output(self, name):
+        return self.outputs.get(name, [])
+
+    @property
+    def input_arg_names(self):
+        return [n for ns in self.inputs.values() for n in ns]
+
+    @property
+    def output_arg_names(self):
+        return [n for ns in self.outputs.values() for n in ns]
 
     def to_dict(self):
         return {
@@ -201,6 +256,9 @@ class Block:
             return True
         except ValueError:
             return False
+
+    def all_parameters(self):
+        return [v for v in self.vars.values() if isinstance(v, Parameter)]
 
     def append_op(self, type, inputs=None, outputs=None, attrs=None,
                   infer_shape=True):

@@ -14,13 +14,17 @@ from .framework.framework import (
 
 
 class ParamAttr:
-    """A parameter's name, initializer and trainability (the training
-    fields of the JAX package's ParamAttr land with the training slice)."""
+    """A parameter's name, initializer, per-parameter learning-rate factor,
+    regularizer, trainability and gradient clip."""
 
-    def __init__(self, name=None, initializer=None, trainable=True):
+    def __init__(self, name=None, initializer=None, learning_rate=1.0,
+                 regularizer=None, trainable=True, gradient_clip=None):
         self.name = name
         self.initializer = initializer
+        self.learning_rate = learning_rate
+        self.regularizer = regularizer
         self.trainable = trainable
+        self.gradient_clip = gradient_clip
 
     @staticmethod
     def _to_attr(arg):
@@ -88,7 +92,10 @@ class LayerHelper:
                 attr.initializer = init_mod._global_weight_initializer()
         name = attr.name or unique_name.generate(f"{self.name}.w")
         param = self.block.create_parameter(
-            name=name, shape=shape, dtype=dtype, trainable=attr.trainable)
+            name=name, shape=shape, dtype=dtype, trainable=attr.trainable,
+            optimize_attr={"learning_rate": attr.learning_rate},
+            regularizer=attr.regularizer,
+            gradient_clip_attr=attr.gradient_clip)
         # mirror into the startup program with its init op
         sb = self.startup_program.global_block()
         if not sb.has_var(name):
@@ -107,6 +114,15 @@ class LayerHelper:
     def create_global_variable(self, persistable=False, **kwargs):
         return self.main_program.global_block().create_var(
             persistable=persistable, **kwargs)
+
+    def set_variable_initializer(self, var, initializer):
+        """Registers the var and its init op in the startup program."""
+        sb = self.startup_program.global_block()
+        if not sb.has_var(var.name):
+            sv = sb.create_var(name=var.name, shape=var.shape,
+                               dtype=var.dtype, persistable=True)
+            initializer(sv, sb)
+        return var
 
     def append_activation(self, input_var):
         act = self.kwargs.get("act")

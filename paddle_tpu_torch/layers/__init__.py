@@ -1,5 +1,5 @@
-"""Layer function namespace of the serving slice (counterpart of
-paddle_tpu/layers/): what transformer.build_decode calls."""
+"""Layer function namespace (counterpart of paddle_tpu/layers/): what
+transformer.build_decode and transformer.build call."""
 
 from . import control_flow, io, nn, sequence, tensor
 from .control_flow import increment
@@ -12,10 +12,12 @@ from .nn import (
     gather,
     kv_cache_append,
     layer_norm,
+    mean,
     multi_head_attention,
     relu,
     reshape,
     scale,
+    softmax_with_cross_entropy,
 )
 from .sequence import sequence_last_step, sequence_pool
-from .tensor import create_parameter
+from .tensor import create_global_var, create_parameter, sums

@@ -1,4 +1,4 @@
-"""Neural-network layer functions of the serving slice (counterparts of
+"""Neural-network layer functions of the ported slices (counterparts of
 paddle_tpu/layers/nn.py:18-1178): each appends ops to the default main
 program and returns output Variables; nothing executes here.  Helper
 names, parameter names and attrs are the JAX package's, so both packages
@@ -137,6 +137,37 @@ def relu(x, name=None):
     helper = LayerHelper("relu", name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op(type="relu", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, label_smooth_eps=0.0):
+    """label_smooth_eps > 0 (hard labels only) fuses uniform label
+    smoothing without building the smoothed [N, V] distribution."""
+    if soft_label and label_smooth_eps:
+        raise ValueError(
+            "label_smooth_eps requires hard labels (soft_label=False); "
+            "smooth soft labels yourself before the call")
+    helper = LayerHelper("softmax_with_cross_entropy", **locals())
+    softmax_out = helper.create_variable_for_type_inference(logits.dtype)
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    helper.append_op(
+        type="softmax_with_cross_entropy",
+        inputs={"Logits": [logits], "Label": [label]},
+        outputs={"Softmax": [softmax_out], "Loss": [loss]},
+        attrs={"soft_label": soft_label, "ignore_index": ignore_index,
+               "label_smooth_eps": label_smooth_eps},
+    )
+    if return_softmax:
+        return loss, softmax_out
+    return loss
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]})
     return out
 
 

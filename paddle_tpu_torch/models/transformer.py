@@ -1,11 +1,13 @@
-"""Transformer (base/big) for WMT En-De: the decode programs.
+"""Transformer (base/big) for WMT En-De: the training graph and the decode
+programs.
 
-Counterpart of paddle_tpu/models/transformer.py, serving part: the
-configs, the encoder and the prefill/step programs of `build_decode`.
-Every parameter name is the JAX package's, so weights carried across with
-`convert.load_params` land where these programs read them.  The training
-graph (`build`), the Sq=k verify/chunk windows and MoE FFNs are later
-slices (ROADMAP.md A).
+Counterpart of paddle_tpu/models/transformer.py: the configs, `build` (the
+training graph and its loss), `encoder`/`decoder`, `feed_shapes`,
+`synthetic_batch`, and the prefill/step programs of `build_decode`.  Every
+parameter name is the JAX package's, so weights carried across with
+`convert.load_params` land where these programs read them.  Dropout, the
+fused loss head (`fused_head`), MoE FFNs and the Sq=k verify/chunk windows
+are later slices (ROADMAP.md A).
 """
 
 from __future__ import annotations
@@ -76,6 +78,32 @@ def _position_encoding(seq_len, d_model):
     return enc
 
 
+def _check_trainable(cfg: TransformerConfig):
+    if cfg.dropout:
+        raise NotImplementedError(
+            f"dropout {cfg.dropout}: the dropout op is not ported yet "
+            "(ROADMAP.md A); build with TransformerConfig(dropout=0.0)")
+    if cfg.moe_experts:
+        raise NotImplementedError(
+            "MoE FFNs land with the moe op family (ROADMAP.md A)")
+
+
+def _embed(ids, vocab_size, cfg: TransformerConfig, param_name, seq_len):
+    """Token embedding scaled by sqrt(d_model) plus the sinusoid table of
+    the training graph (`<param_name>_pos_enc`)."""
+    emb = layers.embedding(input=ids, size=[vocab_size, cfg.d_model],
+                           param_attr=ParamAttr(name=param_name))
+    emb = layers.scale(emb, scale=cfg.d_model ** 0.5)
+    pos = layers.create_parameter(
+        shape=[seq_len, cfg.d_model], dtype="float32",
+        name=f"{param_name}_pos_enc",
+        default_initializer=NumpyArrayInitializer(
+            _position_encoding(seq_len, cfg.d_model)))
+    pos.trainable = False
+    pos.stop_gradient = True
+    return layers.elementwise_add(x=emb, y=pos, axis=1)
+
+
 def _pre_ln(x, name=None):
     return layers.layer_norm(x, begin_norm_axis=2, name=name)
 
@@ -87,9 +115,10 @@ def _ffn(x, cfg: TransformerConfig, name):
                      name=f"{name}_fc2")
 
 
-def encoder(src, cfg: TransformerConfig, src_lens=None):
+def encoder(src, cfg: TransformerConfig, checkpoints=None, src_lens=None):
     """Pre-LN encoder stack; layer norms carry explicit names so the decode
-    programs share one scope with the training graph."""
+    programs share one scope with the training graph.  `checkpoints`, when
+    given, collects the residual stream after every sub-block."""
     x = src
     for i in range(cfg.n_layer):
         attn = layers.multi_head_attention(
@@ -97,9 +126,119 @@ def encoder(src, cfg: TransformerConfig, src_lens=None):
             num_heads=cfg.n_head, causal=False, attn_seq_len=src_lens,
             name=f"enc{i}_attn")
         x = layers.elementwise_add(x=x, y=attn)
+        if checkpoints is not None:
+            checkpoints.append(x)
         x = layers.elementwise_add(
             x=x, y=_ffn(_pre_ln(x, name=f"enc{i}_ln2"), cfg, f"enc{i}_ffn"))
+        if checkpoints is not None:
+            checkpoints.append(x)
     return _pre_ln(x, name="enc_ln")
+
+
+def decoder(trg, enc_out, cfg: TransformerConfig, checkpoints=None,
+            src_lens=None):
+    """Pre-LN decoder stack: causal self-attention, cross-attention over
+    enc_out (keys past src_lens masked), FFN."""
+    x = trg
+    for i in range(cfg.n_layer):
+        self_attn = layers.multi_head_attention(
+            _pre_ln(x, name=f"dec{i}_ln1"), d_model=cfg.d_model,
+            num_heads=cfg.n_head, causal=True, name=f"dec{i}_self")
+        x = layers.elementwise_add(x=x, y=self_attn)
+        if checkpoints is not None:
+            checkpoints.append(x)
+        cross = layers.multi_head_attention(
+            _pre_ln(x, name=f"dec{i}_ln2"), keys=enc_out,
+            d_model=cfg.d_model, num_heads=cfg.n_head, causal=False,
+            attn_seq_len=src_lens, name=f"dec{i}_cross")
+        x = layers.elementwise_add(x=x, y=cross)
+        if checkpoints is not None:
+            checkpoints.append(x)
+        x = layers.elementwise_add(
+            x=x, y=_ffn(_pre_ln(x, name=f"dec{i}_ln3"), cfg, f"dec{i}_ffn"))
+        if checkpoints is not None:
+            checkpoints.append(x)
+    return _pre_ln(x, name="dec_ln")
+
+
+def build(cfg: TransformerConfig = None, seq_len=None, checkpoints=None,
+          fused_head=False, use_src_lens=False):
+    """Training graph: (src_ids, trg_ids, lbl_ids) -> mean token loss, with
+    label smoothing fused into softmax_with_cross_entropy.  Returns
+    (loss, logits).
+
+    use_src_lens: feed src_lens [B] (real source lengths); encoder
+    self-attention and decoder cross-attention mask keys past each row's
+    length through the kernels' key_len path.
+
+    `checkpoints` (optional list) is filled with the residual stream after
+    every sub-block plus the embedding and encoder/decoder outputs, the
+    remat boundaries a RecomputeOptimizer would use."""
+    cfg = cfg or base()
+    _check_trainable(cfg)
+    if fused_head:
+        raise NotImplementedError(
+            "fused_head (the chunked linear_softmax_ce loss head) is not "
+            "ported yet (ROADMAP.md A)")
+    seq_len = seq_len or cfg.max_length
+    src_ids = layers.data(name="src_ids", shape=[seq_len], dtype="int64")
+    trg_ids = layers.data(name="trg_ids", shape=[seq_len], dtype="int64")
+    lbl_ids = layers.data(name="lbl_ids", shape=[seq_len], dtype="int64")
+    src_lens = None
+    if use_src_lens:
+        src_lens = layers.data(name="src_lens", shape=[], dtype="int64")
+        src_lens.stop_gradient = True
+
+    src_emb_name = "src_word_emb"
+    trg_emb_name = src_emb_name if cfg.tie_embeddings else "trg_word_emb"
+
+    enc_in = _embed(src_ids, cfg.src_vocab_size, cfg, src_emb_name, seq_len)
+    if checkpoints is not None:
+        checkpoints.append(enc_in)
+    enc_out = encoder(enc_in, cfg, checkpoints, src_lens=src_lens)
+    if checkpoints is not None:
+        checkpoints.append(enc_out)
+    dec_in = _embed(trg_ids, cfg.trg_vocab_size, cfg, trg_emb_name, seq_len)
+    if checkpoints is not None:
+        checkpoints.append(dec_in)
+    dec_out = decoder(dec_in, enc_out, cfg, checkpoints, src_lens=src_lens)
+    if checkpoints is not None:
+        checkpoints.append(dec_out)
+
+    logits = layers.fc(input=dec_out, size=cfg.trg_vocab_size,
+                       num_flatten_dims=2, bias_attr=False,
+                       name="logits_proj")
+    logits2d = layers.reshape(logits, shape=[-1, cfg.trg_vocab_size])
+    labels = layers.reshape(lbl_ids, shape=[-1, 1])
+    loss_vec = layers.softmax_with_cross_entropy(
+        logits=logits2d, label=labels,
+        label_smooth_eps=cfg.label_smooth_eps or 0.0)
+    return layers.mean(loss_vec), logits
+
+
+def feed_shapes(batch_size, seq_len=256):
+    return {
+        "src_ids": ((batch_size, seq_len), "int64"),
+        "trg_ids": ((batch_size, seq_len), "int64"),
+        "lbl_ids": ((batch_size, seq_len), "int64"),
+    }
+
+
+def synthetic_batch(batch_size, cfg: TransformerConfig, seq_len=None,
+                    seed=0):
+    """Random token ids for the three feeds, from a numpy seed (the JAX
+    package's draw, so both packages get the same batch)."""
+    rng = np.random.RandomState(seed)
+    seq_len = seq_len or cfg.max_length
+    v = min(cfg.src_vocab_size, cfg.trg_vocab_size)
+    return {
+        "src_ids": rng.randint(0, v, size=(batch_size, seq_len)).astype(
+            "int64"),
+        "trg_ids": rng.randint(0, v, size=(batch_size, seq_len)).astype(
+            "int64"),
+        "lbl_ids": rng.randint(0, v, size=(batch_size, seq_len)).astype(
+            "int64"),
+    }
 
 
 def _embed_rows(ids, vocab_size, cfg: TransformerConfig, param_name,

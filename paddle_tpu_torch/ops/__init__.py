@@ -1,6 +1,6 @@
-"""Op library of the serving slice: importing this package registers the
-15 op lowerings that transformer.build_decode's programs run (prefill,
-step and startup)."""
+"""Op library: importing this package registers every op lowering of the
+ported slices (transformer.build_decode's programs, and transformer.build
+with its backward, optimizer and AMP ops)."""
 
 from . import registry
 from . import math_ops
@@ -11,3 +11,5 @@ from . import random_ops
 from . import sequence_ops
 from . import kv_cache
 from . import attention_ops
+from . import loss_ops
+from . import optimizer_ops

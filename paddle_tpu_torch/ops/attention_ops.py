@@ -12,11 +12,16 @@ tier names: "mha_block" | "flash" | "mha_decode" | "flash_decode" |
 "is this tensor on the card?"; flag "interpret" routes CPU tensors to the
 kernel wrappers too, which run their plain versions there.
 
-This slice ports two kernels, mha_block and flash_decode.  The streaming
-"flash" tier (kernel #3), the paged KV pool and the `seq_len_ramp`
-verify/chunk window raise NotImplementedError; the sequence-parallel ring
-has no branch, since the port has no device mesh yet.  All are later
-slices in ROADMAP.md.
+The gradient (`fused_attention_grad`, attention_ops.py:411-488) takes the
+same gate: the mha_block tiers call the backward kernel's entry
+(`mha_block_bwd`) directly, so no forward kernel runs again, and the
+composite takes autograd over `attention_reference`.
+
+Ported kernels: mha_block (forward and backward) and flash_decode.  The
+streaming "flash" tier (kernels #3-#5), the paged KV pool and the
+`seq_len_ramp` verify/chunk window raise NotImplementedError; the
+sequence-parallel ring has no branch, since the port has no device mesh
+yet.  All are later slices in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -26,9 +31,10 @@ import collections
 import torch
 
 from .. import flags
+from ..framework.framework import grad_var_name
 from .cuda import flash_decode as _fd
 from .cuda import mha_block as _mha
-from .registry import register_op
+from .registry import register_grad, register_grad_maker, register_op
 
 # calls routed to each tier (not counting shape inference on meta tensors)
 TIER_CALLS = collections.Counter()
@@ -162,15 +168,36 @@ def backend_choice(q, k, num_heads, causal=False, bias=False, seq_len=False):
                            seq_len is not None and seq_len is not False)[0]
 
 
-def _apply_attention(q, k, v, bias, *, num_heads, causal, scale,
-                     seq_len=None, seq_len_ramp=False):
-    """Gate-selected attention forward.  On meta tensors (shape inference)
-    it is always the composite, never a kernel wrapper."""
+def _refuse_ramp(seq_len_ramp):
     if seq_len_ramp:
         raise NotImplementedError(
             "fused_attention seq_len_ramp (the speculative-verify and "
             "chunked-prefill window) is not ported yet: it lands with the "
             "serving Scheduler slice (ROADMAP.md A)")
+
+
+def _flash_tier_missing(q, k):
+    return NotImplementedError(
+        f"attention shape q {tuple(q.shape)} k {tuple(k.shape)} selects "
+        "the streaming flash tier, whose kernel (flash_attention.py:"
+        "_fwd_kernel, kernel #3) and backward kernels (#4, #5) are not "
+        "ported yet (ROADMAP.md B); set flags 'flash_attention' to '0' for "
+        "the composite")
+
+
+def _composite(q, k, v, bias, *, num_heads, causal, scale, seq_len):
+    if seq_len is not None:
+        lb = _seq_len_bias(seq_len, q.shape[0], k.shape[1])
+        bias = lb if bias is None else bias + lb
+    return attention_reference(q, k, v, bias, num_heads=num_heads,
+                               causal=causal, scale=scale)
+
+
+def _apply_attention(q, k, v, bias, *, num_heads, causal, scale,
+                     seq_len=None, seq_len_ramp=False):
+    """Gate-selected attention forward.  On meta tensors (shape inference)
+    it is always the composite, never a kernel wrapper."""
+    _refuse_ramp(seq_len_ramp)
     name = "composite"
     if q.device.type != "meta":
         name, _ = _backend_choice(q, k, num_heads, causal, bias is not None,
@@ -188,16 +215,9 @@ def _apply_attention(q, k, v, bias, *, num_heads, causal, scale,
     if name == "flash_decode":
         return _fd.flash_decode(q, k, v, num_heads, scale, kv_len=seq_len)
     if name == "flash":
-        raise NotImplementedError(
-            f"attention shape q {tuple(q.shape)} k {tuple(k.shape)} selects "
-            "the streaming flash tier, whose kernel (flash_attention.py:"
-            "_fwd_kernel, kernel #3) is not ported yet (ROADMAP.md B); set "
-            "flags 'flash_attention' to '0' for the composite")
-    if seq_len is not None:
-        lb = _seq_len_bias(seq_len, q.shape[0], k.shape[1])
-        bias = lb if bias is None else bias + lb
-    return attention_reference(q, k, v, bias, num_heads=num_heads,
-                               causal=causal, scale=scale)
+        raise _flash_tier_missing(q, k)
+    return _composite(q, k, v, bias, num_heads=num_heads, causal=causal,
+                      scale=scale, seq_len=seq_len)
 
 
 @register_op("fused_attention")
@@ -216,3 +236,83 @@ def fused_attention(ctx):
         seq_len=ctx.input("SeqLen") if ctx.has_input("SeqLen") else None,
         seq_len_ramp=bool(ctx.attr("seq_len_ramp", False)),
     ))
+
+
+@register_grad_maker("fused_attention")
+def _fused_attention_grad_maker(op, block, no_grad_set):
+    """Lean grad decl: Q/K/V(/Bias/SeqLen) and dOut only.  Out is not an
+    input of the grad op, so nothing of the forward's internals has to
+    live until the backward."""
+    if op.input("BlockTable"):
+        raise NotImplementedError(
+            "fused_attention with BlockTable (paged decode) is "
+            "inference-only — serving's step programs never take grads")
+    out = op.output("Out")[0]
+    ins = {"Q": list(op.input("Q")), "K": list(op.input("K")),
+           "V": list(op.input("V")),
+           "Out@GRAD": [grad_var_name(out)]}
+    if op.input("Bias"):
+        ins["Bias"] = list(op.input("Bias"))
+    if op.input("SeqLen"):
+        ins["SeqLen"] = list(op.input("SeqLen"))
+    outs = {}
+    emitted = False
+    for p in ("Q", "K", "V", "Bias"):
+        names = op.input(p)
+        if not names:
+            continue
+        gs = [None if n in no_grad_set else grad_var_name(n) for n in names]
+        emitted = emitted or any(g is not None for g in gs)
+        outs[p + "@GRAD"] = gs
+    if not emitted:
+        return []
+    return [{"type": "fused_attention_grad", "inputs": ins,
+             "outputs": outs, "attrs": dict(op.attrs)}]
+
+
+@register_grad("fused_attention")
+def fused_attention_grad(ctx):
+    """dQ, dK, dV (and dBias) through the tier the forward took: the
+    mha_block tiers call the backward kernel's entry on q, k, v and dOut
+    (no forward kernel runs), the composite pulls dOut back through
+    `attention_reference` with autograd."""
+    q, k, v = ctx.input("Q"), ctx.input("K"), ctx.input("V")
+    bias = ctx.input("Bias") if ctx.has_input("Bias") else None
+    seq_len = ctx.input("SeqLen") if ctx.has_input("SeqLen") else None
+    dout = ctx.input("Out@GRAD").to(q.dtype)
+    num_heads = int(ctx.attr("num_heads"))
+    causal = bool(ctx.attr("causal", False))
+    scale = float(ctx.attr("scale", 0.0))
+    _refuse_ramp(bool(ctx.attr("seq_len_ramp", False)))
+    name, _ = _backend_choice(q, k, num_heads, causal, bias is not None,
+                              seq_len is not None)
+    if name in ("mha_block", "mha_decode"):
+        # causal is vacuous for the single query of mha_decode
+        dq, dk, dv = _mha.mha_block_bwd(
+            q, k, v, dout.contiguous(), num_heads,
+            causal and name == "mha_block", scale, key_len=seq_len)
+        ctx.set_output("Q@GRAD", dq)
+        ctx.set_output("K@GRAD", dk)
+        ctx.set_output("V@GRAD", dv)
+        return
+    if name == "flash":
+        raise _flash_tier_missing(q, k)
+    if name == "flash_decode":
+        raise NotImplementedError(
+            "the gradient of the flash_decode tier (single-query decode "
+            "over a long cache) is not ported: decode programs take no "
+            "grads (ROADMAP.md B)")
+    leaves = [x.detach().requires_grad_(True)
+              for x in ((q, k, v) if bias is None else (q, k, v, bias))]
+    with torch.enable_grad():
+        out = _composite(*leaves[:3], leaves[3] if bias is not None else None,
+                         num_heads=num_heads, causal=causal, scale=scale,
+                         seq_len=seq_len)
+        grads = torch.autograd.grad(out, leaves, dout, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves, grads)]
+    ctx.set_output("Q@GRAD", grads[0])
+    ctx.set_output("K@GRAD", grads[1])
+    ctx.set_output("V@GRAD", grads[2])
+    if bias is not None and ctx.num_outputs("Bias@GRAD"):
+        ctx.set_output("Bias@GRAD", grads[3])

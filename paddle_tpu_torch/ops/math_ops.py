@@ -1,7 +1,9 @@
-"""Dense math ops of the serving slice: elementwise_add, mul, scale.
+"""Dense math ops: elementwise_add, mul, scale, sum, mean.
 
 Counterparts of paddle_tpu/ops/math_ops.py (elementwise_add :44, mul :55,
-scale :86).  `mul` stays `torch.matmul`: the JAX package left it to XLA,
+scale :86, sum :98, mean :105).  Their gradients are the registry's
+generic ones: autograd over these lowerings reduces a broadcast Y back to
+its own shape, as `jax.vjp` does.  `mul` stays `torch.matmul`: the JAX package left it to XLA,
 outside any Pallas kernel.  A float32 matmul on the card runs in full
 float32 only while `torch.backends.cuda.matmul.allow_tf32` is False (the
 PyTorch default); the port relies on that and never turns it on.
@@ -9,6 +11,7 @@ PyTorch default); the port relies on that and never turns it on.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -65,3 +68,17 @@ def scale(ctx):
         ctx.set_output("Out", x * s + b)
     else:
         ctx.set_output("Out", (x + b) * s)
+
+
+@register_op("sum")
+def sum_op(ctx):
+    """Add N tensors (the backward pass folds multi-consumer grads with it)."""
+    xs = [x for x in ctx.inputs("X") if x is not None]
+    ctx.set_output("Out", functools.reduce(torch.add, xs))
+
+
+@register_op("mean")
+def mean(ctx):
+    """Scalar mean kept as shape [1], accumulated in float32."""
+    x = ctx.input("X")
+    ctx.set_output("Out", x.float().mean().reshape(1).to(x.dtype))

@@ -1,11 +1,11 @@
-"""Normalization ops of the serving slice: layer_norm
-(paddle_tpu/ops/nn_ops.py:361)."""
+"""Normalization ops: layer_norm and its recomputing grad
+(paddle_tpu/ops/nn_ops.py:361, :387)."""
 
 from __future__ import annotations
 
 import torch
 
-from .registry import register_op
+from .registry import register_op, register_remat_grad
 
 
 @register_op("layer_norm")
@@ -30,3 +30,8 @@ def layer_norm(ctx):
     ctx.set_output("Y", y)
     ctx.set_output("Mean", mean.reshape(lead).to(x.dtype))
     ctx.set_output("Variance", var.reshape(lead).to(x.dtype))
+
+
+# the grad replays the normalisation from X instead of keeping x_hat alive
+# from the forward to the backward
+register_remat_grad("layer_norm")

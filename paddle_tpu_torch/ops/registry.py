@@ -1,21 +1,34 @@
-"""Op registry: op_type -> {torch lowering, shape inference}.
+"""Op registry: op_type -> {torch lowering, shape inference, grad maker}.
 
 Counterpart of paddle_tpu/ops/registry.py.  A lowering is a plain
 function over torch.Tensors that runs eagerly on whatever device its
 inputs live on; there is no jit, no segments and no torch.compile.
 Build-time shape/dtype inference runs the lowering once on
 `torch.device("meta")` tensors, the role `jax.eval_shape` plays in the JAX
-package.  The serving slice is inference only: no grad makers.
+package.
+
+Gradients follow the JAX package's contract: `append_backward` asks each
+op's grad maker (a custom one, or `default_grad_maker`) for `<type>_grad`
+op descs, and the lowering of `<type>_grad` is either hand-written
+(`register_grad`) or synthesised by `make_generic_grad_forward`, which
+replays the forward lowering under autograd where the JAX package calls
+`jax.vjp`.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
 
-from ..framework.core_types import convert_dtype, dtype_to_torch
+from ..framework.core_types import (
+    convert_dtype,
+    dtype_to_torch,
+    is_float_dtype,
+)
+from ..framework.framework import grad_var_name
 
 # batch-dim sentinel: -1 dims are replaced by this prime for meta-tensor
 # inference, then mapped back.  Large and prime so accidental collisions
@@ -28,7 +41,13 @@ class OpInfo:
     type: str
     forward: Callable  # fn(ctx) -> None, writes ctx outputs
     infer_shape: Optional[Callable] = None  # fn(op, block) -> None
+    grad_maker: Optional[Callable] = None  # fn(op, block, no_grad_set)
+    backward: Optional[Callable] = None  # hand-written grad lowering fn(ctx)
     stateful: bool = False  # draws from ctx.rng()
+    no_grad: bool = False  # no gradient (optimizer updates, grad ops)
+    # raised when backward has to differentiate through a no_grad op
+    # (None: the op silently contributes nothing)
+    grad_error: Optional[str] = None
 
 
 OPS: dict[str, OpInfo] = {}
@@ -57,6 +76,9 @@ class OpContext:
         lst = self._inputs.get(name) or []
         return lst[idx] if idx < len(lst) else None
 
+    def inputs(self, name):
+        return self._inputs.get(name) or []
+
     def has_input(self, name):
         lst = self._inputs.get(name) or []
         return len(lst) > 0 and lst[0] is not None
@@ -70,6 +92,12 @@ class OpContext:
             lst.append(None)
         lst[idx] = value
 
+    def set_outputs(self, name, values):
+        self._outputs[name] = list(values)
+
+    def num_outputs(self, name):
+        return len(self._out_names.get(name, []))
+
     def rng(self) -> torch.Generator:
         if self._rng is None:
             raise RuntimeError(
@@ -78,14 +106,44 @@ class OpContext:
         return self._rng
 
 
-def register_op(op_type, *, stateful=False, infer_shape=None):
+def register_op(op_type, *, stateful=False, no_grad=False,
+                infer_shape=None):
     """Register the forward lowering for `op_type`."""
 
     def deco(fn):
         if op_type in OPS:
             raise ValueError(f"op {op_type} registered twice")
         OPS[op_type] = OpInfo(type=op_type, forward=fn, stateful=stateful,
-                              infer_shape=infer_shape)
+                              no_grad=no_grad, infer_shape=infer_shape)
+        return fn
+
+    return deco
+
+
+def register_grad(op_type):
+    """Register a hand-written lowering for `<op_type>_grad`."""
+
+    def deco(fn):
+        OPS[op_type].backward = fn
+        return fn
+
+    return deco
+
+
+def register_remat_grad(op_type):
+    """Give `op_type` the generic gradient.  The JAX package adds an
+    optimization barrier here so that XLA recomputes the op's internals in
+    the backward instead of keeping them alive; an eager replay always
+    recomputes, so the port needs no barrier."""
+    OPS[op_type].backward = make_generic_grad_forward(op_type)
+
+
+def register_grad_maker(op_type):
+    """Register a custom desc-level grad maker: it decides which vars the
+    grad op reads and writes."""
+
+    def deco(fn):
+        OPS[op_type].grad_maker = fn
         return fn
 
     return deco
@@ -103,8 +161,8 @@ def get_op_info(op_type) -> OpInfo:
     info = OPS.get(op_type)
     if info is None:
         raise NotImplementedError(
-            f"op {op_type!r} is not registered in paddle_tpu_torch (the "
-            "serving slice ports 15 op types; see ROADMAP.md A)")
+            f"op {op_type!r} is not registered in paddle_tpu_torch yet; the "
+            "op families still to port are listed in ROADMAP.md A")
     return info
 
 
@@ -168,3 +226,135 @@ def infer_shape(op, block):
                 for s in shaped[i].shape
             )
             v.dtype = convert_dtype(shaped[i].dtype)
+
+
+# ---------------------------------------------------------------------------
+# Gradients: the desc-level default maker and the autograd-backed lowering
+# ---------------------------------------------------------------------------
+
+GRAD_SUFFIX_PARAM = "@GRAD"
+
+
+def default_grad_maker(op, block, no_grad_set):
+    """One `<type>_grad` op whose inputs are the forward inputs, forward
+    outputs and output grads, and whose outputs are the input grads
+    (registry.py:297 of the JAX package)."""
+    info = get_op_info(op.type)
+    if info.no_grad:
+        return []
+    grad_inputs = {}
+    for param, names in op.inputs.items():
+        grad_inputs[param] = list(names)
+    for param, names in op.outputs.items():
+        grad_inputs[param] = list(names)
+        grad_inputs[param + GRAD_SUFFIX_PARAM] = [grad_var_name(n)
+                                                  for n in names]
+    grad_outputs = {}
+    for param, names in op.inputs.items():
+        grad_outputs[param + GRAD_SUFFIX_PARAM] = [
+            None if n in no_grad_set or not _differentiable(block, n)
+            else grad_var_name(n)
+            for n in names
+        ]
+    return [{"type": op.type + "_grad", "inputs": grad_inputs,
+             "outputs": grad_outputs, "attrs": dict(op.attrs)}]
+
+
+def _differentiable(block, name):
+    try:
+        v = block._var_recursive(name)
+    except ValueError:
+        return True
+    return is_float_dtype(v.dtype) if v.type == "lod_tensor" else False
+
+
+def make_generic_grad_forward(fwd_type):
+    """The lowering of `<fwd_type>_grad`: replay the forward lowering under
+    autograd and pull the cotangents back (the JAX package's `jax.vjp`).
+
+    The differentiable leaves (the forward inputs whose `P@GRAD` the grad
+    op writes) are detached and marked `requires_grad`; integer leaves
+    carry no grad.  Each cotangent is cast to its primal's dtype.  A
+    missing cotangent is zero: its output is left out of
+    `torch.autograd.grad`, which adds the same nothing without computing
+    it.  A leaf no output depends on gets zeros."""
+    fwd_info = get_op_info(fwd_type)
+
+    def grad_fn(ctx):
+        fwd_in, out_grads = {}, {}
+        for param, vals in ctx._inputs.items():
+            if param.endswith(GRAD_SUFFIX_PARAM):
+                out_grads[param[:-len(GRAD_SUFFIX_PARAM)]] = vals
+            else:
+                fwd_in[param] = vals
+        for p in out_grads:       # forward outputs are not replay inputs
+            fwd_in.pop(p, None)
+        diff_params = [p[:-len(GRAD_SUFFIX_PARAM)] for p in ctx._out_names
+                       if p.endswith(GRAD_SUFFIX_PARAM)]
+        leaves = {}
+        for p in diff_params:
+            if p not in fwd_in:
+                continue
+            leaves[p] = [
+                x.detach().requires_grad_(True)
+                if x is not None and x.is_floating_point() else x
+                for x in fwd_in[p]]
+        merged = dict(fwd_in)
+        merged.update(leaves)
+        with torch.enable_grad():
+            outs = run_forward(
+                fwd_info, merged, ctx.attrs,
+                rng=ctx._rng if fwd_info.stateful else None,
+                out_names={p: [f"__o{i}" for i in range(len(v))]
+                           for p, v in out_grads.items()},
+                device=ctx.device)
+            prims, cots = [], []
+            for p, gs in out_grads.items():
+                for i, prim in enumerate(outs.get(p, [])):
+                    g = gs[i] if i < len(gs) else None
+                    if prim is None or g is None or not prim.requires_grad:
+                        continue
+                    prims.append(prim)
+                    cots.append(g.to(prim.dtype))
+            flat = [x for p in leaves for x in leaves[p]
+                    if x is not None and x.requires_grad]
+            grads = (torch.autograd.grad(prims, flat, cots,
+                                         allow_unused=True)
+                     if prims and flat else [None] * len(flat))
+        by_leaf = {id(x): g for x, g in zip(flat, grads)}
+        for p, xs in leaves.items():
+            vals = []
+            for x in xs:
+                if x is None or not x.requires_grad:
+                    vals.append(None)
+                    continue
+                g = by_leaf[id(x)]
+                vals.append(torch.zeros_like(x) if g is None else g.detach())
+            ctx.set_outputs(p + GRAD_SUFFIX_PARAM, vals)
+
+    return grad_fn
+
+
+@functools.lru_cache(maxsize=None)
+def get_runtime_info(op_type) -> OpInfo:
+    """The runtime lowering of an op type; `<x>_grad` lowerings are
+    synthesised on demand from `<x>`'s hand-written grad or the generic
+    one."""
+    if op_type in OPS:
+        return OPS[op_type]
+    if op_type.endswith("_grad"):
+        fwd = OPS.get(op_type[:-len("_grad")])
+        if fwd is not None:
+            fn = fwd.backward or make_generic_grad_forward(fwd.type)
+            return OpInfo(type=op_type, forward=fn, no_grad=True,
+                          stateful=fwd.stateful)
+    return get_op_info(op_type)
+
+
+def make_grad_ops(op, block, no_grad_set):
+    """Entry used by append_backward: the custom maker if registered, else
+    the default one."""
+    info = get_op_info(op.type)
+    if info.grad_maker is not None:
+        return info.grad_maker(op, block, no_grad_set)
+    return default_grad_maker(op, block, no_grad_set)

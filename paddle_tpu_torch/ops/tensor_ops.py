@@ -1,9 +1,9 @@
-"""Tensor ops of the serving slice: fill_constant, assign_value, reshape,
-gather, lookup_table, increment.
+"""Tensor ops: fill_constant, assign_value, cast, reshape, gather,
+lookup_table (with its hand-written grad), increment.
 
 Counterparts of paddle_tpu/ops/tensor_ops.py (fill_constant :25,
-assign_value :65, reshape :83, gather :229, lookup_table :286,
-increment :395).  Integer feeds keep int64 here, where the JAX package
+assign_value :65, cast :78, reshape :83, gather :229, lookup_table :286,
+lookup_table_grad :311-342, increment :395).  Integer feeds keep int64 here, where the JAX package
 (x64 off) narrows them to int32: values agree, dtypes do not.
 """
 
@@ -13,7 +13,8 @@ import numpy as np
 import torch
 
 from ..framework.core_types import dtype_to_torch
-from .registry import register_op
+from ..framework.framework import grad_var_name
+from .registry import register_grad_maker, register_op
 
 
 @register_op("fill_constant")
@@ -32,6 +33,12 @@ def assign_value(ctx):
     out = torch.from_numpy(host).reshape(shape).to(dtype=dtype,
                                                    device=ctx.device)
     ctx.set_output("Out", out)
+
+
+@register_op("cast")
+def cast(ctx):
+    ctx.set_output("Out", ctx.input("X").to(dtype_to_torch(
+        ctx.attr("out_dtype"))))
 
 
 @register_op("reshape")
@@ -68,6 +75,37 @@ def lookup_table(ctx):
     else:
         lead = tuple(ids.shape)
     ctx.set_output("Out", out.reshape(lead + (w.shape[1],)))
+
+
+@register_grad_maker("lookup_table")
+def _lookup_table_grad_maker(op, block, no_grad_set):
+    """Only W gets a grad; Ids is integer."""
+    w = op.input("W")[0]
+    if w in no_grad_set:
+        return []
+    return [{
+        "type": "lookup_table_grad",
+        "inputs": {"W": [w], "Ids": list(op.input("Ids")),
+                   "Out@GRAD": [grad_var_name(op.output("Out")[0])]},
+        "outputs": {"W@GRAD": [grad_var_name(w)]},
+        "attrs": dict(op.attrs),
+    }]
+
+
+@register_op("lookup_table_grad", no_grad=True)
+def lookup_table_grad(ctx):
+    """Scatter-add of the output grad rows into a dense W@GRAD: repeated ids
+    add up, rows at padding_idx add nothing.  Sums in float32 whatever W's
+    dtype, then casts."""
+    w, ids, gout = ctx.input("W"), ctx.input("Ids"), ctx.input("Out@GRAD")
+    flat = ids.reshape(-1)
+    g = gout.reshape(-1, w.shape[1]).float()
+    padding_idx = ctx.attr("padding_idx", -1)
+    if padding_idx is not None and padding_idx != -1:
+        g = torch.where((flat == padding_idx)[:, None], torch.zeros_like(g), g)
+    gw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+    gw.index_add_(0, flat, g)
+    ctx.set_output("W@GRAD", gw.to(w.dtype))
 
 
 @register_op("increment")

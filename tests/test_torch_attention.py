@@ -231,3 +231,140 @@ def test_meta_tensors_never_reach_a_kernel_wrapper():
                                  scale=0.0)
     assert out.shape == (8, 256, 512) and out.device.type == "meta"
     assert dict(pattn.TIER_CALLS) == before
+
+
+# ------------------------------------------------------------- backward
+
+
+def _jax_vjp(q, k, v, g, h, causal, scale, kl, dtype):
+    jdt = jnp.dtype(dtype)
+
+    def f(q, k, v):
+        return jmha.mha_attention(
+            q, k, v, h, causal, scale, True,
+            key_len=None if kl is None else jnp.asarray(kl))
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(x, jdt) for x in (q, k, v)))
+    return [np.asarray(x.astype(jnp.float32))
+            for x in vjp(jnp.asarray(g, jdt))]
+
+
+@pytest.mark.parametrize("sq,sk,causal", [(128, 128, False), (128, 128, True),
+                                          (8, 256, False), (64, 128, True)],
+                         ids=["self", "causal", "cross", "causal_offset"])
+@pytest.mark.parametrize("key_len", [None, [128, 37], [0, 300]],
+                         ids=["unmasked", "ragged", "zero_and_past_sk"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_mha_block_bwd_matches_pallas_vjp(sq, sk, causal, key_len, d):
+    """Kernel #2's plain version against jax.vjp of the Pallas kernel in
+    interpret mode, float32, atol 1e-5.  A row with key_len 0 has P = 1/Sk
+    over every key and, as in the Pallas kernel, passes dS to all of them."""
+    b, h = 2, 2
+    q, k, v = _data(sq + d + 5 * causal, b, sq, sk, h * d)
+    g = np.random.RandomState(sk).standard_normal(q.shape).astype(np.float32)
+    kl = None if key_len is None else np.asarray(key_len, np.int64)
+    ref = _jax_vjp(q, k, v, g, h, causal, 0.0, kl, "float32")
+    out = pmha.mha_block_bwd(_t(q), _t(k), _t(v), _t(g), h, causal, 0.0,
+                             key_len=None if kl is None else _t(kl))
+    for name, r, o in zip(("dq", "dk", "dv"), ref, out):
+        assert o.shape == r.shape and o.dtype == torch.float32
+        np.testing.assert_allclose(o.numpy(), r, rtol=0, atol=ATOL,
+                                   err_msg=name)
+
+
+def test_mha_block_bwd_bf16_and_scale():
+    """bfloat16 inputs, an explicit scale: within 2e-2 of each output's
+    largest magnitude of the Pallas vjp (one bfloat16 step at that
+    magnitude is 2**-7 of it; the Pallas kernel rounds dS and P to
+    bfloat16 before its dots, the plain version keeps them in float32)."""
+    b, sq, sk, h, d = 2, 128, 128, 2, 64
+    q, k, v = _data(40, b, sq, sk, h * d)
+    g = np.random.RandomState(41).standard_normal(q.shape).astype(np.float32)
+    kl = np.asarray([128, 37], np.int64)
+    ref = _jax_vjp(q, k, v, g, h, True, 0.2, kl, "bfloat16")
+    out = pmha.mha_block_bwd(*(_t(x).to(torch.bfloat16) for x in (q, k, v, g)),
+                             h, True, 0.2, key_len=_t(kl))
+    for r, o in zip(ref, out):
+        assert o.dtype == torch.bfloat16
+        np.testing.assert_allclose(o.float().numpy(), r, rtol=0,
+                                   atol=2e-2 * np.abs(r).max())
+
+
+def test_mha_block_function_backward_is_the_bwd_entry():
+    """MHABlockFunction (forward kernel, backward kernel) against autograd
+    over the plain forward, on the CPU: the same gradients."""
+    b, sq, sk, h, d = 2, 64, 128, 2, 64
+    q, k, v = _data(50, b, sq, sk, h * d)
+    g = _t(np.random.RandomState(51).standard_normal((b, sq, h * d))
+           .astype(np.float32))
+    kl = _t(np.asarray([128, 70], np.int64))
+    got, want = [], []
+    for fn, into in ((pmha.mha_attention, got), (pmha.mha_reference, want)):
+        leaves = [_t(x).requires_grad_(True) for x in (q, k, v)]
+        out = fn(*leaves, h, True, 0.0, key_len=kl)
+        into.extend(torch.autograd.grad(out, leaves, g))
+    for a, r in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), r.numpy(), rtol=0, atol=ATOL)
+
+
+def _grad_op(reg, backend, inputs, attrs):
+    """fused_attention_grad through a package's registry."""
+    info = reg.get_runtime_info("fused_attention_grad")
+    out_names = {p + "@GRAD": [p.lower() + "@GRAD"]
+                 for p in ("Q", "K", "V", "Bias") if p in inputs}
+    if backend == "jax":
+        ins = {p: [jnp.asarray(a) for a in lst] for p, lst in inputs.items()}
+        outs = reg.run_forward(info, ins, dict(attrs), out_names=out_names)
+        return {p: np.asarray(v[0]) for p, v in outs.items()}
+    ins = {p: [_t(a) for a in lst] for p, lst in inputs.items()}
+    outs = reg.run_forward(info, ins, dict(attrs), out_names=out_names,
+                           device=torch.device("cpu"))
+    return {p: v[0].numpy() for p, v in outs.items()}
+
+
+@pytest.mark.parametrize("flag", ["0", "interpret"],
+                         ids=["composite", "mha_block"])
+@pytest.mark.parametrize("causal,seq_len,bias", [
+    (False, True, False), (True, False, False), (True, True, False),
+    (False, False, True),
+], ids=["seq_len", "causal", "causal_seq_len", "bias"])
+def test_fused_attention_grad_matches(flag, causal, seq_len, bias):
+    """The op-level grad lowering in both packages, same tier, atol 1e-5:
+    autograd over attention_reference against jax.vjp of the composite
+    ("0"), and the backward kernel's plain version against the Pallas
+    backward ("interpret"; a bias sends both to the composite)."""
+    _set_both("flash_attention", flag)
+    from paddle_tpu.ops import registry as jreg
+    from paddle_tpu_torch.ops import registry as preg
+
+    b, sq, sk, h, d = 2, 8, 128, 2, 64
+    q, k, v = _data(60, b, sq, sk, h * d)
+    rng = np.random.RandomState(61)
+    inputs = {"Q": [q], "K": [k], "V": [v],
+              "Out@GRAD": [rng.standard_normal(q.shape).astype(np.float32)]}
+    if seq_len:
+        inputs["SeqLen"] = [np.asarray([100, 3], np.int64)]
+    if bias:
+        inputs["Bias"] = [rng.standard_normal((b, 1, sq, sk))
+                          .astype(np.float32)]
+    attrs = {"num_heads": h, "causal": causal, "scale": 0.0}
+    j = _grad_op(jreg, "jax", inputs, attrs)
+    p = _grad_op(preg, "torch", inputs, attrs)
+    assert sorted(p) == sorted(j)
+    for name in j:
+        np.testing.assert_allclose(p[name], j[name], rtol=0, atol=ATOL,
+                                   err_msg=name)
+
+
+def test_grad_of_unported_tiers_raises():
+    from paddle_tpu_torch.ops import registry as preg
+
+    pflags.set("flash_attention", "interpret")
+    q = torch.zeros((1, 8, 128))   # Sk 8: the streaming flash tier
+    fn = preg.get_runtime_info("fused_attention_grad").forward
+    ctx = preg.OpContext("fused_attention_grad",
+                         {"Q": [q], "K": [q], "V": [q], "Out@GRAD": [q]},
+                         {"num_heads": 2, "causal": True, "scale": 0.0},
+                         out_names={"Q@GRAD": ["q"]})
+    with pytest.raises(NotImplementedError, match="kernel #3"):
+        fn(ctx)

@@ -5,12 +5,13 @@ on a machine with an NVIDIA H100.  Whether a card is present is decided in
 the `card` fixture (never at import), so every xdist worker collects the
 same tests; without a card each test skips.
 
-Shapes are the serving slice's main path at transformer-base (d_model 512,
-8 heads of 64), batch 8, float32, plus the edge cases of each kernel's
-masking contract.  Tolerances: max abs error 1e-4 in float32 (the kernels
-sum in another order than cuBLAS) and 2e-2 in bfloat16 (the plain version
-rounds the normalised probabilities to bfloat16 before P V, the kernels
-keep them in float32).
+Shapes are the serving and training slices' main paths at
+transformer-base (d_model 512, 8 heads of 64), plus the edge cases of each
+kernel's masking contract.  Tolerances: max abs error 1e-4 in float32 (the
+kernels sum in another order than cuBLAS) and 2e-2 in bfloat16 (the plain
+version rounds the normalised probabilities to bfloat16 before P V, the
+kernels keep them in float32); the backward's bfloat16 outputs are held to
+2e-2 of their largest magnitude.
 """
 
 import numpy as np
@@ -151,3 +152,82 @@ def test_wrappers_raise_instead_of_falling_back(card):
         fd.flash_decode(q, k, v, 4)
     with pytest.raises(ValueError):
         fd.flash_decode(q.double(), k.double(), v.double(), 1)
+
+
+@pytest.mark.parametrize("case", [
+    # (b, sq, sk, heads, head_dim, causal, key_len)
+    (16, 256, 256, 8, 64, False, "ragged"),   # encoder self-attention
+    (16, 256, 256, 8, 64, True, None),        # decoder self-attention
+    (16, 256, 256, 8, 64, False, "with_zero"),  # cross, an all-masked row
+    (2, 72, 200, 4, 128, True, "ragged"),     # ragged edges, causal offset
+    (2, 8, 64, 2, 256, True, "with_zero"),    # 32-row tiles
+    (2, 40, 100, 2, 192, False, "ragged"),
+    (8, 1, 256, 8, 64, False, "ragged"),      # mha_decode's single query
+], ids=["enc256", "causal256", "cross_zero", "edges_d128", "d256", "d192",
+        "decode1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_mha_block_bwd_matches_plain(card, case, dtype):
+    b, sq, sk, h, d, causal, kl = case
+    q, k, v = _qkv(8, b, sq, sk, h * d, card, dtype)
+    g = _qkv(9, b, sq, sq, h * d, card, dtype)[0]
+    key_len = None
+    if kl is not None:
+        vals = np.random.RandomState(10).randint(max(1, sk // 2), sk + 1,
+                                                 size=b)
+        if kl == "with_zero":
+            vals[0] = 0
+        key_len = _lens(vals, card)
+    before = mha_block.bwd_launches
+    out = mha_block.mha_block_bwd(q, k, v, g, h, causal, 0.0,
+                                  key_len=key_len)
+    torch.cuda.synchronize()
+    assert mha_block.bwd_launches == before + 1
+    ref = mha_block.mha_block_bwd_reference(q, k, v, g, h, causal, 0.0,
+                                            key_len=key_len)
+    for name, o, r in zip(("dq", "dk", "dv"), out, ref):
+        assert o.shape == r.shape and o.dtype == dtype, name
+        err = (o.float() - r.float()).abs().max().item()
+        tol = TOL[torch.float32] if dtype == torch.float32 else \
+            TOL[dtype] * r.float().abs().max().item()
+        assert err <= tol, (name, err, tol)
+
+
+def test_mha_block_function_grads_match_autograd(card):
+    """The autograd Function (forward kernel, backward kernel) against
+    autograd over the plain forward, on strided q/k/v views.  Every row
+    keeps a live key: for a row whose keys are all masked the kernel, like
+    the Pallas one, passes dS to every key, where autograd over the masked
+    forward gives 0."""
+    b, s, hd, h = 4, 256, 512, 8
+    rng = np.random.RandomState(11)
+    qkv = torch.as_tensor(rng.standard_normal((b, s, 3 * hd)),
+                          dtype=torch.float32, device=card)
+    kl = _lens([256, 200, 129, 1], card)
+    g = torch.as_tensor(rng.standard_normal((b, s, hd)), dtype=torch.float32,
+                        device=card)
+    grads = []
+    for fn in (mha_block.mha_attention, mha_block.mha_reference):
+        leaf = qkv.clone().requires_grad_(True)
+        q, k, v = leaf[..., :hd], leaf[..., hd:2 * hd], leaf[..., 2 * hd:]
+        out = fn(q, k, v, h, False, 0.0, key_len=kl)
+        (gr,) = torch.autograd.grad(out, leaf, g)
+        grads.append(gr)
+    before = mha_block.bwd_launches
+    assert (grads[0] - grads[1]).abs().max().item() <= 1e-4
+    leaf = qkv.clone().requires_grad_(True)
+    out = mha_block.mha_attention(leaf[..., :hd], leaf[..., hd:2 * hd],
+                                  leaf[..., 2 * hd:], h, True)
+    out.sum().backward()
+    assert mha_block.bwd_launches == before + 1
+
+
+def test_bwd_wrapper_raises_instead_of_falling_back(card):
+    q, k, v = _qkv(12, 2, 8, 128, 64, card, torch.float32)
+    with pytest.raises(ValueError):
+        mha_block.mha_block_bwd(q, k, v, q, 4)            # head_dim 16
+    with pytest.raises(ValueError):
+        mha_block.mha_block_bwd(q, k, v, q.double(), 1)   # dO dtype
+    with pytest.raises(ValueError):
+        mha_block.mha_block_bwd(
+            q, k, v, q.transpose(1, 2).contiguous().transpose(1, 2), 1)
