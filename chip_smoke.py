@@ -12,15 +12,18 @@ catches its own failure:
      started together) and print nvcc's -Xptxas -v report;
   3. each kernel at its main paths' shapes (transformer-base: d_model 512,
      8 heads of 64; serving in float32 at batch 8, training at batch 16
-     in float32 and batch 128 in bfloat16) against its plain PyTorch
-     version on the card (float32: max abs error <= 1e-4; bfloat16: 2e-2,
-     of the output's largest magnitude for the backward), then timed with
-     CUDA events, L2 flushed before every launch: kernel, plain version,
-     and the library yardstick the port never calls
-     (F.scaled_dot_product_attention with an equivalent mask, and for the
-     backward its autograd backward alone), beside the least time the card
-     could take (bytes over 3.35 TB/s, or FLOP over 67 TFLOP/s for float32
-     and 989 TFLOP/s for bfloat16 inputs);
+     in float32 and batch 128 in bfloat16, the Scheduler's paged decode
+     over a 2560-block pool and its 2048-token causal prefill in float32
+     and bfloat16) against its plain PyTorch version on the card
+     (float32: max abs error <= 1e-4; bfloat16: 2e-2, of the output's
+     largest magnitude for the backward; the flash forward's lse 1e-4),
+     then timed with CUDA events, L2 flushed before every launch: kernel,
+     plain version, and the library yardstick the port never calls
+     (F.scaled_dot_product_attention with an equivalent mask, over a
+     pre-gathered dense view for the paged kernel, and for the backward
+     its autograd backward alone), beside the least time the card could
+     take (bytes over 3.35 TB/s, or FLOP over 67 TFLOP/s for float32 and
+     989 TFLOP/s for bfloat16 inputs);
   4. serving: decode.Generator(...).generate, greedy, on
      transformer.base() with seeded random weights, in two phases
      (A: translation, 256-token sources and short prefixes; B: a long
@@ -28,8 +31,23 @@ catches its own failure:
      kernel launch counts are set to 0 just before generate and read just
      after, and must equal what the gate predicts.  Then the same feeds
      through the composite tier (flash_attention "0"): prefill and
-     teacher-forced step logits must agree within 1e-3;
-  5. training: transformer.build + Adam(1e-4) through Executor.run on
+     teacher-forced step logits must agree within 1e-3.  Phase A's feeds
+     then go through serving.Scheduler at its default paged_kv=False
+     (host BlockPool, dense gather per step), counted the same way; every
+     request's tokens must equal the sequential batch-1 Generator's;
+  5. serving through the Scheduler, phase S: paged_kv=True (the pool on
+     the card, the rewritten step program) on transformer.base(), 2048-
+     token prompt windows with ragged prompts of 1024-2048 tokens, a
+     4096-slot cache, blocks of 16, 8 slots.  16 requests of 32 tokens:
+     a second wave of 8 submitted after the first wave's 4th decode step
+     and admitted while the first still decodes, one prompt repeated (a
+     prefix-cache hit), one request evicted mid-flight (it replays).
+     Launch counts are set to 0 before and read after and must equal the
+     gate's prediction from the scheduler's own step and prefill counts;
+     every request's tokens must equal the sequential Generator's; the
+     pool must drain to 0 blocks; tokens/s, TTFT, ms per decode step and
+     a profile of a few steps are printed;
+  6. training: transformer.build + Adam(1e-4) through Executor.run on
      transformer.base() (dropout 0, seq 256, random tokens from a seed).
      T1, float32, batch 16, ragged source lengths 128-256: 4 steps with
      the launch counts set to 0 before and 18 forward and 18 backward
@@ -39,11 +57,14 @@ catches its own failure:
      AMP, Adam multi_precision): 2 warm-up and 5 timed steps, tokens/s,
      ms per step, card busy time and idle share, peak memory and MFU;
      its first loss must match the composite's within 2e-2;
-  6. one {"kernels": [...]} line, the card's name and power limit, and
+  7. one {"kernels": [...]} line, the card's name and power limit, and
      last the {"ok": true, "device": ...} line.
 
 Exits non-zero, printing no result, when there is no CUDA device or when
-any check fails.
+any check fails.  A served request whose tokens differ from the
+sequential Generator's is reported with its first diverging step and the
+sequential run's top-2 logit gap there, the remaining phases still run
+for their numbers, and the script then exits 1.
 """
 
 from __future__ import annotations
@@ -80,6 +101,10 @@ T1_BATCH, T1_STEPS = 16, 4
 T2_BATCH, T2_WARMUP, T2_STEPS, T2_PROFILED = 128, 2, 5, 2
 LOSS_RTOL_F32 = 1e-4          # T1: kernels vs composite, float32
 LOSS_RTOL_BF16 = 2e-2         # T2: first loss, kernels vs composite
+LSE_TOL = 1e-4                # flash forward's float32 lse vs plain
+# phase S: the Scheduler over the device pool
+S_WINDOW, S_PROMPTS, S_MAX_LEN = 2048, (1024, 2048), 4096
+S_BLOCK, S_SLOTS, S_PROFILED = 16, 8, 6
 
 KERNELS = {
     "mha_block": {
@@ -97,7 +122,20 @@ KERNELS = {
         "replaces": "paddle_tpu/ops/pallas/flash_attention.py:630",
         "device_names": ("decode_split_kernel", "decode_merge_kernel"),
     },
+    "flash_decode_paged": {
+        "source": "paddle_tpu_torch/csrc/flash_decode_paged.cu",
+        "replaces": "paddle_tpu/ops/pallas/flash_attention.py:793",
+        "device_names": ("paged_split_kernel", "paged_merge_kernel"),
+    },
+    "flash_attention_fwd": {
+        "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+        "replaces": "paddle_tpu/ops/pallas/flash_attention.py:205",
+        "device_names": ("flash_fwd_kernel",),
+    },
 }
+# served requests whose tokens differed from the sequential Generator's:
+# reported at the end, after every phase ran (the script then exits 1)
+DIVERGED = []
 
 
 def log(*args):
@@ -309,6 +347,101 @@ def decode_case(name, b, sk, h, d, lens, device, rng):
                 + kv_len.numel() * kv_len.element_size())
 
 
+def paged_case(name, b, n, bs, lens, h, d, device, rng, dtype):
+    """Kernel #7 at the Scheduler's decode step: pools [n, bs, H*D], one
+    table row of max_len / bs block ids per request, drawn from a random
+    permutation of the pool."""
+    g = torch.Generator(device=device).manual_seed(int(rng.randint(1 << 30)))
+    hd = h * d
+    m = S_MAX_LEN // bs
+    q = torch.randn((b, 1, hd), generator=g, device=device).to(dtype)
+    kb, vb = (torch.randn((n, bs, hd), generator=g, device=device).to(dtype)
+              for _ in range(2))
+    table = torch.as_tensor(rng.permutation(n)[:b * m].reshape(b, m),
+                            device=device)
+    lengths = _lengths(rng, *lens, b, device)
+    live = sum(lengths.tolist())
+    from paddle_tpu_torch.ops.cuda import flash_decode_paged as fdp
+
+    kernel = lambda: fdp.flash_decode_paged(  # noqa: E731
+        q, kb, vb, table, lengths, h)
+    plain = lambda: fdp.flash_decode_paged_reference(  # noqa: E731
+        q, kb, vb, table, lengths, h)
+    # the library call reads a dense view gathered beforehand (not timed)
+    kd, vd = (_heads(t[table.reshape(-1)].reshape(b, m * bs, hd), h)
+              for t in (kb, vb))
+    mask = _sdpa_mask(lengths, b, 1, m * bs, device)
+    qh = _heads(q, h)
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qh, kd, vd, attn_mask=mask)
+    item = q.element_size()
+    return dict(kernel="flash_decode_paged", case=name,
+                fns=(kernel, plain, library),
+                shape=f"q {b}x1x{hd} pool {n}x{bs}x{hd} table {b}x{m} "
+                      f"lengths {lens[0]}-{lens[1]} "
+                      f"{str(dtype).replace('torch.', '')}",
+                dtype=dtype, tol=TOL if dtype == torch.float32 else BF16_TOL,
+                flop=4 * d * h * live,
+                bytes=item * hd * (2 * b + 2 * live)
+                + table.numel() * table.element_size()
+                + lengths.numel() * lengths.element_size())
+
+
+def flash_case(name, b, sq, sk, h, d, causal, lens, device, rng, dtype,
+               zero_row=False):
+    """Kernel #3's forward: (out, lse).  zero_row sets row 0's kv_len to
+    0, which must give out 0 and lse -1e30."""
+    g = torch.Generator(device=device).manual_seed(int(rng.randint(1 << 30)))
+    q, k, v = (torch.randn((b, s, h * d), generator=g, device=device)
+               .to(dtype) for s in (sq, sk, sk))
+    kv_len = None if lens is None else _lengths(rng, *lens, b, device)
+    if zero_row:
+        kv_len[0] = 0
+    pairs, rows = _live(b, sq, sk, causal, kv_len)
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    kernel = lambda: fa.flash_attention_lse(q, k, v, h, causal,  # noqa: E731
+                                            kv_len=kv_len)
+    plain = lambda: fa.flash_attention_fwd_reference(  # noqa: E731
+        q, k, v, h, causal, kv_len=kv_len)
+    mask = None
+    if kv_len is not None:
+        mask = _sdpa_mask(kv_len, b, sq, sk, device)
+        if causal:
+            mask = mask & torch.ones((sq, sk), dtype=torch.bool,
+                                     device=device).tril(sk - sq)
+    qh, kh, vh = _heads(q, h), _heads(k, h), _heads(v, h)
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qh, kh, vh, attn_mask=mask, is_causal=causal and mask is None)
+    item = q.element_size()
+    # q read, out written, live K and V rows read, lse written
+    nbytes = item * h * d * (2 * b * sq + 2 * rows) + 4 * b * h * sq + (
+        0 if kv_len is None else kv_len.numel() * kv_len.element_size())
+    lens_tag = lens if not zero_row else (0, lens[1])
+    return dict(kernel="flash_attention_fwd", case=name,
+                fns=(kernel, plain, library),
+                shape=_shape(b, sq, sk, h * d, causal, lens_tag, dtype),
+                dtype=dtype, tol=TOL if dtype == torch.float32 else BF16_TOL,
+                err=_flash_err, zero_row=zero_row,
+                flop=4 * d * h * pairs, bytes=nbytes)
+
+
+def _flash_err(out, ref, dtype, zero_row):
+    """Max abs error of the flash forward's out; its lse must agree within
+    LSE_TOL, and a kv_len-0 row 0 must give out 0 and lse -1e30."""
+    (o, lse), (ro, rlse) = out, ref
+    if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
+        return float("inf")
+    lse_err = (lse - rlse).abs().max().item()
+    if not lse_err <= LSE_TOL:
+        raise AssertionError(f"flash_attention_fwd: lse error {lse_err}")
+    if zero_row and not (torch.count_nonzero(o[0]).item() == 0
+                         and bool((lse[0] == -1e30).all())):
+        raise AssertionError("flash_attention_fwd: the kv_len-0 row is not "
+                             "out 0, lse -1e30")
+    return (o.float() - ro.float()).abs().max().item()
+
+
 def _max_err(out, ref, dtype):
     """Max abs error over the outputs; for the backward in bfloat16,
     relative to each output's largest magnitude."""
@@ -361,12 +494,32 @@ def check_kernels(device):
         ]
     cases.append(decode_case("flash_decode 1x2048", BATCH, 2048, h, d,
                              (512, 1056), device, rng))
+    pool = S_MAX_LEN // S_BLOCK * (S_SLOTS + 2)   # the Scheduler's default
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        cases.append(paged_case(f"paged decode {tag}", S_SLOTS, pool,
+                                S_BLOCK, (1024, S_MAX_LEN), h, d, device,
+                                rng, dtype))
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        cases.append(flash_case(f"prefill 2048 {tag}", S_SLOTS, S_WINDOW,
+                                S_WINDOW, h, d, True, None, device, rng,
+                                dtype))
+    cases += [
+        flash_case("off-grid 1000", BATCH, 1000, 1000, h, d, True,
+                   (500, 1000), device, rng, torch.float32),
+        flash_case("kv_len 0 row", BATCH, 1000, 1000, h, d, False,
+                   (500, 1000), device, rng, torch.float32, zero_row=True),
+    ]
     timer = Timer(device)
     for c in cases:
         kernel, plain, library = c.pop("fns")
         out, ref = kernel(), plain()
         torch.cuda.synchronize()
-        err = _max_err(out, ref, c["dtype"])
+        if "err" in c:
+            err = c.pop("err")(out, ref, c["dtype"], c.pop("zero_row"))
+        else:
+            err = _max_err(out, ref, c["dtype"])
         del out, ref
         if not err <= c["tol"]:
             raise AssertionError(f"{c['kernel']} {c['case']}: max error "
@@ -422,20 +575,18 @@ def teacher_forced(gen, feed, trg):
     return out
 
 
-def profile_decode_steps(gen, feed, tok, lengths, states, n_steps):
-    """Greedy steps under torch.profiler: host time per step, the card's
-    busy time per step (union of its operations) and idle share, and the
-    kernels that take most of the card's time."""
+def profile_calls(fn, n, top=5):
+    """n calls of fn under torch.profiler: host ms per call, the card's
+    busy ms per call (union of its operations), the idle share and the
+    kernels that take most of the card's time (ms per call)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n_steps):
-            logits, states = gen._step(tok, lengths, states, feed)
-            lengths = lengths + 1
-            tok = torch.argmax(logits, -1).cpu().numpy()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = device_spans(prof)
@@ -444,12 +595,26 @@ def profile_decode_steps(gen, feed, tok, lengths, states, n_steps):
     per_kernel = {}
     for name, a, b in spans:
         per_kernel[name[:90]] = per_kernel.get(name[:90], 0.0) + (b - a)
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]
+    ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]
     busy = busy_us(spans)
-    return {"steps": n_steps, "step_ms": wall_us / n_steps / 1e3,
-            "busy_ms_per_step": busy / n_steps / 1e3,
+    return {"steps": n, "step_ms": wall_us / n / 1e3,
+            "busy_ms_per_step": busy / n / 1e3,
             "idle_share": 1.0 - busy / wall_us,
-            "top_kernels": [[k, round(v / n_steps, 1)] for k, v in top]}
+            "top_kernels_ms_per_step": [[k, round(v / n / 1e3, 4)]
+                                        for k, v in ranked]}
+
+
+def profile_decode_steps(gen, feed, tok, lengths, states, n_steps):
+    """Greedy Generator steps under the profiler (profile_calls)."""
+    carry = {"tok": tok, "lengths": lengths, "states": states}
+
+    def one():
+        logits, carry["states"] = gen._step(carry["tok"], carry["lengths"],
+                                            carry["states"], feed)
+        carry["lengths"] = carry["lengths"] + 1
+        carry["tok"] = torch.argmax(logits, -1).cpu().numpy()
+
+    return profile_calls(one, n_steps)
 
 
 def run_phase(name, spec, scope, card):
@@ -549,12 +714,20 @@ def run_phase(name, spec, scope, card):
         f"{result['peak_mem_mib']:.0f} MiB  [{card}]")
     log(f"    launches {counts}; logits vs composite {errs}; greedy "
         f"agreement {agree:.3f}")
-    if profile_steps is not None:
-        log(f"    profiled steps: {profile_steps['step_ms']:.3f} ms/step, card "
-            f"busy {profile_steps['busy_ms_per_step']:.3f} ms/step, idle "
-            f"share {profile_steps['idle_share']:.3f}; top kernels "
-            f"{profile_steps['top_kernels']}")
+    log_profile(profile_steps)
+    if name == "A":
+        result["scheduler"], sched_counts = serve_dense(spec, scope, feed,
+                                                        card)
+        counts = {k: counts.get(k, 0) + n for k, n in sched_counts.items()}
     return result, counts
+
+
+def log_profile(prof):
+    if prof is not None:
+        log(f"    profiled steps: {prof['step_ms']:.3f} ms/step, card busy "
+            f"{prof['busy_ms_per_step']:.3f} ms/step, idle share "
+            f"{prof['idle_share']:.3f}; top kernels "
+            f"{prof['top_kernels_ms_per_step']}")
 
 
 def drive_main_path(card):
@@ -563,23 +736,277 @@ def drive_main_path(card):
     from paddle_tpu_torch.models import transformer
 
     cfg = transformer.base()
-    scope = Scope()   # one model serves both phases
-    results, launches = [], {"mha_block": 0, "flash_decode": 0}
+    scope = Scope()   # one model serves every phase, S included
+    results, launches = [], {}
     for name, (prefix_len, _, max_len) in PHASES.items():
-        spec = transformer.build_decode(cfg, src_len=SRC_LEN,
-                                        prefix_len=prefix_len,
-                                        max_len=max_len)
-        spec.prefill_startup.random_seed = SEED
-        spec.step_startup.random_seed = SEED
+        spec = decode_spec(cfg, prefix_len, max_len)
         res, counts = run_phase(name, spec, scope, card)
         results.append(res)
         for k, n in counts.items():
-            launches[k] += n
-    for k, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {k} never launched on the "
-                                 "serving path")
-    return results, launches
+            launches[k] = launches.get(k, 0) + n
+    return results, launches, scope
+
+
+def decode_spec(cfg, prefix_len, max_len):
+    from paddle_tpu_torch.models import transformer
+
+    spec = transformer.build_decode(cfg, src_len=SRC_LEN,
+                                    prefix_len=prefix_len, max_len=max_len)
+    spec.prefill_startup.random_seed = SEED
+    spec.step_startup.random_seed = SEED
+    return spec
+
+
+# ------------------------------------------------- serving.Scheduler
+
+
+SERVING_KERNELS = ("mha_block", "flash_decode", "flash_decode_paged",
+                   "flash_attention_fwd")
+
+
+def launch_counts():
+    from paddle_tpu_torch.ops.cuda import (flash_attention, flash_decode,
+                                           flash_decode_paged, mha_block)
+
+    return {"mha_block": mha_block.launches,
+            "flash_decode": flash_decode.launches,
+            "flash_decode_paged": flash_decode_paged.launches,
+            "flash_attention_fwd": flash_attention.launches}
+
+
+def _top2_gap(gen, feed, tokens, t):
+    """The sequential Generator's top-2 logit gap where it emits tokens[t],
+    teacher-forced on tokens[:t]."""
+    _, states, lengths, logits = gen._prefill(feed)
+    for tok in tokens[:t]:
+        logits, states = gen._step(np.asarray([tok]), lengths, states, feed)
+        lengths = lengths + 1
+    top = torch.topk(logits.float().reshape(-1), 2).values
+    return (top[0] - top[1]).item()
+
+
+def check_served(phase, reqs, feeds, gen, new_tokens):
+    """Every request done, with the sequential batch-1 Generator's tokens
+    for its feed.  A divergence is recorded in DIVERGED with its first
+    step and the top-2 logit gap there (ROADMAP.md C4)."""
+    refs = {}
+    for i, (req, feed) in enumerate(zip(reqs, feeds, strict=True)):
+        if req.status != "done" or len(req.tokens) != new_tokens:
+            raise AssertionError(f"phase {phase}: request {i} {req.status} "
+                                 f"with {len(req.tokens)} tokens: "
+                                 f"{req.error}")
+        key = id(feed)
+        if key not in refs:
+            refs[key] = gen.generate(feed, new_tokens, eos_id=-1)[0].tolist()
+        want = refs[key]
+        if req.tokens != want:
+            t = next(j for j, (a, b) in enumerate(zip(req.tokens, want))
+                     if a != b)
+            DIVERGED.append({"phase": phase, "request": i, "step": t,
+                             "got": req.tokens[t], "want": want[t],
+                             "top2_gap": _top2_gap(gen, feed, want, t)})
+            log(f"    DIVERGED {DIVERGED[-1]}")
+    return sum(r.tokens == refs[id(f)] for r, f in zip(reqs, feeds))
+
+
+def serve_dense(spec, scope, feed, card):
+    """Phase A's feeds through serving.Scheduler at its default
+    paged_kv=False: the host BlockPool, a dense gather of every table a
+    step.  Launches: 2 per layer per prefill batch (encoder, cross) and 2
+    per layer per step (mha_decode over the 256-slot cache and the
+    source)."""
+    from paddle_tpu_torch import CUDAPlace, decode, serving
+
+    place = CUDAPlace(0)
+    n_layer = sum(1 for s in spec.states if s.feed.startswith("cache_k_"))
+    feeds = [{k: v[i:i + 1] for k, v in feed.items()} for i in range(BATCH)]
+    sched = serving.Scheduler(spec, scope=scope, place=place,
+                              max_batch=BATCH)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    reqs = [sched.submit(f, NEW_TOKENS, eos_id=-1) for f in feeds]
+    sched.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    c = sched.counters
+    expect = dict.fromkeys(SERVING_KERNELS, 0)
+    expect["mha_block"] = 2 * n_layer * (c["prefill_batches"] + c["steps"])
+    if counts != expect:
+        raise AssertionError(f"phase A/scheduler: launches {counts}, the "
+                             f"gate predicts {expect} for {c['steps']} "
+                             f"steps and {c['prefill_batches']} prefills")
+    gen = decode.Generator(spec, scope=scope, place=place)
+    equal = check_served("A/scheduler", reqs, feeds, gen, NEW_TOKENS)
+    sched.pool.assert_quiesced()
+    res = {"paged_kv": False, "requests": len(reqs), "launches": counts,
+           "steps": c["steps"], "prefill_batches": c["prefill_batches"],
+           "tokens_per_s": len(reqs) * NEW_TOKENS / wall,
+           "requests_equal_to_sequential": equal, "card": card}
+    log(f"    scheduler (paged_kv=False): {len(reqs)}x{NEW_TOKENS} tokens, "
+        f"{res['tokens_per_s']:.1f} tokens/s, {c['steps']} steps, launches "
+        f"{counts}; {equal}/{len(reqs)} requests equal the sequential "
+        f"Generator  [{card}]")
+    return res, counts
+
+
+class Ticker:
+    """Drives sched.step() and keeps the host time of every iteration that
+    was one decode step and nothing else, and of every admission that ran
+    one prefill batch and no step (step() ends on the argmax's copy to the
+    host, so the time is the iteration's)."""
+
+    def __init__(self, sched):
+        self.sched = sched
+        self.decode_ms = []
+        self.prefill_ms = []
+
+    def __call__(self):
+        c = self.sched.counters
+        before = (c["steps"], c["prefill_batches"])
+        t0 = time.perf_counter()
+        did = self.sched.step()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = (c["steps"], c["prefill_batches"])
+        if after == (before[0] + 1, before[1]):
+            self.decode_ms.append(ms)
+        elif after == (before[0], before[1] + 1):
+            self.prefill_ms.append(ms)
+        return did
+
+    def until(self, n_decode):
+        while len(self.decode_ms) < n_decode:
+            self()
+
+
+def _request_feeds(rng, n, vocab):
+    """n single-request feeds: 256-token sources (ragged 128-256) and
+    2048-token prompt windows with ragged prompts of 1024-2048 tokens."""
+    return [{
+        "src_ids": rng.randint(2, vocab, size=(1, SRC_LEN)).astype(np.int64),
+        "src_lens": np.asarray([rng.randint(128, SRC_LEN + 1)], np.int64),
+        "trg_ids": rng.randint(2, vocab, size=(1, S_WINDOW)).astype(np.int64),
+        "prefix_lens": np.asarray(
+            [rng.randint(S_PROMPTS[0], S_PROMPTS[1] + 1)], np.int64),
+    } for _ in range(n)]
+
+
+def phase_s(card, scope):
+    """The Scheduler with paged_kv=True on transformer.base().
+
+    Traffic (16 requests of 32 tokens, 15 distinct prompts): wave 1 is
+    prompts 0-6; prompt 0 again after wave 1's 2nd decode step (a prefix
+    hit, two tokens behind the rest); wave 2, prompts 7-14, after the 4th
+    (admitted when wave 1 finishes, while the repeat still decodes); after
+    the 6th, request 3 is evicted and replays (prefill, then its own
+    tokens teacher-forced).
+
+    Launches, from the scheduler's own counts: per decode step (replay
+    steps included) 6 flash_decode_paged (self-attention through the
+    block tables) and 6 mha_block (mha_decode over the 256-token source);
+    per prefill batch 6 flash_attention_fwd (causal 2048x2048 decoder
+    self-attention: its score tile is over mha_block's budget) and 12
+    mha_block (encoder 256x256, cross 2048x256)."""
+    from paddle_tpu_torch import CUDAPlace, decode, serving
+    from paddle_tpu_torch.models import transformer
+
+    spec = decode_spec(transformer.base(), S_WINDOW, S_MAX_LEN)
+    n_layer = sum(1 for s in spec.states if s.feed.startswith("cache_k_"))
+    vocab = spec.prefill_program.global_block().var("src_word_emb").shape[0]
+    feeds = _request_feeds(np.random.RandomState(SEED + ord("S")), 15, vocab)
+    place = CUDAPlace(0)
+    sched = serving.Scheduler(spec, scope=scope, place=place,
+                              max_batch=S_SLOTS, block_size=S_BLOCK,
+                              paged_kv=True)
+    tick = Ticker(sched)
+    order = []
+
+    def submit(i):
+        order.append(feeds[i])
+        return sched.submit(feeds[i], NEW_TOKENS, eos_id=-1)
+
+    # the main path, counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    reqs = [submit(i) for i in range(7)]
+    tick.until(2)
+    reqs.append(submit(0))
+    tick.until(4)
+    reqs += [submit(i) for i in range(7, 15)]
+    tick.until(6)
+    if reqs[3].status != "running":
+        raise AssertionError(f"phase S: request 3 is {reqs[3].status}")
+    sched.preempt(reqs[3], evict=True)
+    while tick():
+        pass
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    st = sched.stats()
+
+    steps, batches = st["steps"], st["prefill_batches"]
+    expect = {"mha_block": n_layer * (steps + 2 * batches),
+              "flash_decode": 0,
+              "flash_decode_paged": n_layer * steps,
+              "flash_attention_fwd": n_layer * batches}
+    if counts != expect:
+        raise AssertionError(f"phase S: launches {counts}, the gate "
+                             f"predicts {expect} for {steps} steps and "
+                             f"{batches} prefill batches")
+    if st["pool"]["prefix_hits"] < 1 or st["replays"] < 1:
+        raise AssertionError(f"phase S: prefix hits "
+                             f"{st['pool']['prefix_hits']}, replays "
+                             f"{st['replays']}")
+    mid_flight = (min(r.first_token_t for r in reqs[8:])
+                  < max(r.finish_t for r in reqs[:8]))
+    if not mid_flight:
+        raise AssertionError("phase S: wave 2 was not admitted while wave "
+                             "1 decoded")
+
+    # a few decode steps of 8 prefix hits under the profiler (uncounted)
+    for i in range(7, 15):
+        sched.submit(feeds[i], S_PROFILED + 2, eos_id=-1)
+    tick()
+    prof = profile_calls(tick, S_PROFILED)
+    sched.run_until_idle()
+    pool_end = sched.pool.assert_quiesced()
+
+    gen = decode.Generator(spec, scope=scope, place=place)
+    equal = check_served("S", reqs, order, gen, NEW_TOKENS)
+    res = {"phase": "S", "paged_kv": True, "requests": len(reqs),
+           "new_tokens": NEW_TOKENS, "src_len": SRC_LEN, "window": S_WINDOW,
+           "prompt_lens": list(S_PROMPTS), "max_len": S_MAX_LEN,
+           "block_size": S_BLOCK, "max_batch": S_SLOTS,
+           "num_blocks": sched.pool.num_blocks, "launches": counts,
+           "steps": steps, "prefill_batches": batches,
+           "prefix_hits": st["pool"]["prefix_hits"],
+           "replays": st["replays"], "preemptions": st["preemptions"],
+           "wall_s": wall, "tokens_per_s": len(reqs) * NEW_TOKENS / wall,
+           "ttft_ms": st["ttft_ms"],
+           "decode_step_ms": statistics.median(tick.decode_ms),
+           "decode_steps_timed": len(tick.decode_ms),
+           "prefill_iteration_ms": tick.prefill_ms,
+           "step_profile": prof, "peak_mem_mib": peak / 2 ** 20,
+           "peak_occupancy": st["peak_occupancy"], "pool_end": pool_end,
+           "requests_equal_to_sequential": equal, "card": card}
+    log(f"  phase S: {len(reqs)}x{NEW_TOKENS} tokens in {wall:.3f} s "
+        f"({res['tokens_per_s']:.1f} tokens/s), TTFT {st['ttft_ms']}, "
+        f"{res['decode_step_ms']:.3f} ms per decode step (median of "
+        f"{len(tick.decode_ms)}), prefill iterations "
+        f"{[round(ms, 2) for ms in tick.prefill_ms]} ms, peak "
+        f"{res['peak_mem_mib']:.0f} MiB, pool "
+        f"occupancy peak {st['peak_occupancy']:.3f} of "
+        f"{sched.pool.num_blocks} blocks  [{card}]")
+    log(f"    {steps} steps, {batches} prefill batches, prefix hits "
+        f"{st['pool']['prefix_hits']}, replays {st['replays']}; launches "
+        f"{counts}; {equal}/{len(reqs)} requests equal the sequential "
+        f"Generator")
+    log_profile(prof)
+    return res, counts
 
 
 # ------------------------------------------------------------- training
@@ -658,9 +1085,11 @@ def _counts():
 
 
 def _zero_counts():
-    from paddle_tpu_torch.ops.cuda import flash_decode, mha_block
+    from paddle_tpu_torch.ops.cuda import (flash_attention, flash_decode,
+                                           flash_decode_paged, mha_block)
 
     mha_block.launches = mha_block.bwd_launches = flash_decode.launches = 0
+    flash_decode_paged.launches = flash_attention.launches = 0
 
 
 def _grad_diff(names, got, want):
@@ -734,34 +1163,6 @@ def phase_t1(card, device):
     return res, counts
 
 
-def profile_steps(exe, main, scope, feed, loss, n):
-    """Training steps under torch.profiler: host ms per step, the card's
-    busy ms per step (union of its operations), the idle share and the
-    kernels that take most of the card's time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_steps(exe, main, scope, feed, loss, n)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    spans = device_spans(prof)
-    if not spans:
-        return None   # the profiler saw no device activity
-    per_kernel = {}
-    for name, a, b in spans:
-        per_kernel[name[:90]] = per_kernel.get(name[:90], 0.0) + (b - a)
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-    busy = busy_us(spans)
-    return {"steps": n, "step_ms": wall_us / n / 1e3,
-            "busy_ms_per_step": busy / n / 1e3,
-            "idle_share": 1.0 - busy / wall_us,
-            "top_kernels_ms_per_step": [[k, round(v / n / 1e3, 3)]
-                                        for k, v in top]}
-
-
 def phase_t2(card, device):
     """bench.py's transformer configuration: batch 128, seq 256, bf16 AMP,
     Adam(1e-4, multi_precision=True)."""
@@ -796,7 +1197,9 @@ def phase_t2(card, device):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    prof = profile_steps(exe, main, scope, feed, loss, T2_PROFILED)
+    prof = profile_calls(
+        lambda: run_steps(exe, main, scope, feed, loss, 1), T2_PROFILED,
+        top=8)
     counts = _counts()
     n_steps = T2_WARMUP + T2_STEPS + T2_PROFILED
     expect = {"mha_block": n_attn * n_steps,
@@ -823,16 +1226,12 @@ def phase_t2(card, device):
         f"{res['ms_per_step']:.2f} ms/step, MFU {res['mfu']:.4f}, peak "
         f"{res['peak_mem_mib']:.0f} MiB; losses {losses}; composite first "
         f"{comp_first}; launches {counts}  [{card}]")
-    if prof is not None:
-        log(f"    profiled steps: {prof['step_ms']:.2f} ms/step, card busy "
-            f"{prof['busy_ms_per_step']:.2f} ms/step, idle share "
-            f"{prof['idle_share']:.3f}; top kernels "
-            f"{prof['top_kernels_ms_per_step']}")
+    log_profile(prof)
     return res, counts
 
 
 def drive_training(card, device):
-    """Phase 5: transformer.base() trained through Executor.run."""
+    """Phase 6: transformer.base() trained through Executor.run."""
     results, launches = [], {}
     for phase in (phase_t1, phase_t2):
         res, counts = phase(card, device)
@@ -878,15 +1277,33 @@ def main():
     log(f"[3] kernels vs plain versions at the main path's shapes [{card}]")
     cases = check_kernels(device)
 
-    log(f"[4] serving: transformer.base() through decode.Generator "
-        f"[{card}]")
-    phases, launches = drive_main_path(card)
+    log(f"[4] serving: transformer.base() through decode.Generator, then "
+        f"serving.Scheduler [{card}]")
+    phases, launches, scope = drive_main_path(card)
 
-    log(f"[5] training: transformer.base() through Executor.run [{card}]")
+    log(f"[5] serving: transformer.base() through serving.Scheduler over "
+        f"the device pool [{card}]")
+    res, counts = phase_s(card, scope)
+    phases.append(res)
+    del scope
+    torch.cuda.empty_cache()
+
+    log(f"[6] training: transformer.base() through Executor.run [{card}]")
     training, train_launches = drive_training(card, device)
-    for k, n in train_launches.items():
-        launches[k] = launches.get(k, 0) + n
+    for more in (counts, train_launches):
+        for k, n in more.items():
+            launches[k] = launches.get(k, 0) + n
+    never = [k for k in KERNELS if not launches.get(k)]
+    if never:
+        raise AssertionError(f"kernels {never} never launched on a path")
 
+    log("[7] results")
+    log(json.dumps({"phases": phases}))
+    log(json.dumps({"training": training}))
+    if DIVERGED:
+        log(f"FAILED: {len(DIVERGED)} served requests differ from the "
+            f"sequential Generator: {json.dumps(DIVERGED)}")
+        return 1
     kernels = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == name]
@@ -906,9 +1323,6 @@ def main():
                                          "bound_by", "flop", "bytes")}
                       for c in mine],
         })
-    log("[6] results")
-    log(json.dumps({"phases": phases}))
-    log(json.dumps({"training": training}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

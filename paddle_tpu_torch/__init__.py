@@ -10,7 +10,9 @@ The first slice serves transformer-base through decode.Generator:
 prefill and greedy steps, with the mha_block and flash_decode kernels.
 The second trains it: `backward.append_backward`, `optimizer` (SGD, Adam
 with f32 master weights), `amp.cast_model_to_bf16`, and the mha_block
-backward kernel.
+backward kernel.  The third serves it through `serving.Scheduler`
+(continuous batching over a host or device-resident paged KV pool), with
+the flash_decode_paged kernel and the flash attention forward.
 """
 
 from .framework import (
@@ -48,6 +50,7 @@ from . import clip
 from . import regularizer
 from . import optimizer
 from . import amp
+from . import serving
 from .backward import append_backward
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

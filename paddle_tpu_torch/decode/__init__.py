@@ -38,25 +38,46 @@ class StateSpec:
     update: step fetch (var name) producing the next step's value —
         None = constant across steps (encoder-side k/v);
     pad_to: pad axis 1 up to this length after prefill (prefix-seeded KV
-        caches grow to the preallocated max_len buffer).
+        caches grow to the preallocated max_len buffer);
+    verify_update / chunk_update: the same fetch in the Sq=k speculative
+        verify and Sq=chunk chunked-prefill programs (None while the spec
+        has none: the port's build_decode builds neither yet);
+    encode_from: fetch in the encode program seeding this CONSTANT state
+        when a chunked prompt never runs the prefill program.
     """
 
     def __init__(self, feed, init_from=None, update=None, pad_to=None,
-                 zeros=None, dtype="float32"):
+                 zeros=None, dtype="float32", verify_update=None,
+                 chunk_update=None, encode_from=None):
         self.feed = feed
         self.init_from = init_from
         self.update = update
         self.pad_to = pad_to
         self.zeros = zeros
         self.dtype = dtype
+        self.verify_update = verify_update
+        self.chunk_update = chunk_update
+        self.encode_from = encode_from
 
 
 class GenerationSpec:
+    """The contract between a model's builders and the decode drivers
+    (decode/__init__.py:72 of the JAX package): program pairs, feed and
+    fetch names, and the StateSpecs.  The verify_*, chunk_* and encode_*
+    program slots (speculative verify, chunked prefill) and the monitor
+    side-band have the JAX package's names; the port's build_decode leaves
+    the program slots None."""
+
     def __init__(self, *, prefill_program, prefill_startup, step_program,
                  step_startup, prefill_feeds, step_feeds, step_logits,
                  states, prefill_logits=None, lengths_name=None,
                  init_lengths_from=None, max_len=None, bos_id=0, eos_id=1,
-                 prev_ids_name="prev_ids"):
+                 prev_ids_name="prev_ids", verify_program=None,
+                 verify_startup=None, verify_logits=None, verify_len=None,
+                 monitor_fetches=None, monitor=None, chunk_program=None,
+                 chunk_startup=None, chunk_logits=None, chunk_len=None,
+                 encode_program=None, encode_startup=None,
+                 prompt_ids_name=None):
         self.prefill_program = prefill_program
         self.prefill_startup = prefill_startup
         self.step_program = step_program
@@ -72,6 +93,26 @@ class GenerationSpec:
         self.bos_id = bos_id
         self.eos_id = eos_id
         self.prev_ids_name = prev_ids_name
+        # Sq=k speculative-verify sibling of the step program
+        self.verify_program = verify_program
+        self.verify_startup = verify_startup
+        self.verify_logits = verify_logits
+        self.verify_len = verify_len
+        # Sq=chunk chunked-prefill sibling
+        self.chunk_program = chunk_program
+        self.chunk_startup = chunk_startup
+        self.chunk_logits = chunk_logits
+        self.chunk_len = chunk_len
+        # encoder-only program seeding the constant cross-attention k/v
+        # states when chunking skips the prefill program
+        self.encode_program = encode_program
+        self.encode_startup = encode_startup
+        # prefill feed holding the [B, prefix_len] prompt token ids
+        self.prompt_ids_name = prompt_ids_name
+        # observability side-band: extra step fetches handed to
+        # `monitor(outs)` after every step
+        self.monitor_fetches = list(monitor_fetches or [])
+        self.monitor = monitor
 
     def prefill_fetches(self):
         names = [s.init_from for s in self.states if s.init_from]
@@ -80,8 +121,32 @@ class GenerationSpec:
         return names
 
     def step_fetches(self):
-        return [self.step_logits] + [s.update for s in self.states
-                                     if s.update]
+        names = [self.step_logits] + [s.update for s in self.states
+                                      if s.update]
+        names += [n for n in self.monitor_fetches if n not in names]
+        return names
+
+    def notify_monitor(self, outs):
+        """Feed one step's fetched outputs to the monitor callback (a
+        no-op without one).  A monitor failure never takes down the decode
+        loop: it is observability, not correctness."""
+        if self.monitor is None:
+            return
+        try:
+            self.monitor(outs)
+        except Exception:  # noqa: BLE001
+            pass
+
+    def verify_fetches(self):
+        return [self.verify_logits] + [s.verify_update for s in self.states
+                                       if s.verify_update]
+
+    def chunk_fetches(self):
+        return [self.chunk_logits] + [s.chunk_update for s in self.states
+                                      if s.chunk_update]
+
+    def encode_fetches(self):
+        return [s.encode_from for s in self.states if s.encode_from]
 
 
 class Generator:
@@ -161,6 +226,7 @@ class Generator:
             sf[n] = np.asarray(feed[n])
         sf.update(states)
         outs = self._run("step", spec.step_program, spec.step_fetches(), sf)
+        spec.notify_monitor(outs)
         for s in spec.states:
             if s.update:
                 states[s.feed] = outs[s.update]

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 
 import numpy as np
 
@@ -288,6 +289,13 @@ class Program:
         self.blocks = [Block(self, 0)]
         self.current_block_idx = 0
         self.random_seed = 0
+
+    def clone(self) -> "Program":
+        """Deep copy of the whole program (framework.py:442 of the JAX
+        package, without its for_test pruning): ops, attrs and vars are
+        the copy's own, so a rewrite of the copy leaves this one as it
+        is."""
+        return copy.deepcopy(self)
 
     def global_block(self) -> Block:
         return self.blocks[0]

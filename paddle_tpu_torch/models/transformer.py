@@ -304,7 +304,8 @@ def build_decode(cfg: TransformerConfig = None, src_len=None, prefix_len=1,
     if verify_len is not None or chunk_len is not None:
         raise NotImplementedError(
             "build_decode verify_len/chunk_len (speculative verify, chunked "
-            "prefill) land with the serving Scheduler slice (ROADMAP.md A)")
+            "prefill) land with the chunked-prefill and speculative-decode "
+            "slice (ROADMAP.md A)")
     cfg = copy.copy(cfg or base())
     if cfg.moe_experts:
         raise NotImplementedError(

@@ -17,8 +17,16 @@ same gate: the mha_block tiers call the backward kernel's entry
 (`mha_block_bwd`) directly, so no forward kernel runs again, and the
 composite takes autograd over `attention_reference`.
 
-Ported kernels: mha_block (forward and backward) and flash_decode.  The
-streaming "flash" tier (kernels #3-#5), the paged KV pool and the
+The paged decode form (`BlockTable` input, serving/paged.py's rewrite of
+the step program) takes `_apply_attention_paged`: the flash_decode_paged
+kernel when `_paged_decode_choice` says so, `paged_attention_reference`
+(the pool gathered to a dense view, then the composite) otherwise.
+
+Ported kernels: mha_block (forward and backward), flash_decode,
+flash_decode_paged, and the streaming "flash" tier's forward (kernel #3,
+`flash_attention`), which takes every window the gate sends there (a
+causal prefill past 1024 keys at transformer-base widths, or one off the
+128 grid).  The flash tier's gradient (kernels #4 and #5) and the
 `seq_len_ramp` verify/chunk window raise NotImplementedError; the
 sequence-parallel ring has no branch, since the port has no device mesh
 yet.  All are later slices in ROADMAP.md.
@@ -32,7 +40,9 @@ import torch
 
 from .. import flags
 from ..framework.framework import grad_var_name
+from .cuda import flash_attention as _fa
 from .cuda import flash_decode as _fd
+from .cuda import flash_decode_paged as _fdp
 from .cuda import mha_block as _mha
 from .registry import register_grad, register_grad_maker, register_op
 
@@ -78,19 +88,6 @@ def _seq_len_bias(seq_len, b, sk):
     return torch.where(mask, zero, -1e30).reshape(b, 1, 1, sk)
 
 
-def flash_supported(q, k, num_heads, causal=False):
-    """Shape gate of the streaming flash tier (flash_attention.py:78) —
-    kept for routing parity; the tier itself is not ported yet."""
-    if len(q.shape) != 3 or len(k.shape) != 3:
-        return False
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        return False
-    head_dim = q.shape[-1] // num_heads
-    if head_dim * num_heads != q.shape[-1] or head_dim % 64 != 0:
-        return False
-    return not (causal and q.shape[1] > k.shape[1])
-
-
 def _on_card(x):
     return x.device.type == "cuda"
 
@@ -102,7 +99,7 @@ def _kernel_choice(q, k, num_heads, causal):
     if flag == "0":
         return None
     mha_ok = flag != "flash" and _mha.supported(q, k, num_heads, causal)
-    flash_ok = flash_supported(q, k, num_heads, causal)
+    flash_ok = _fa.supported(q, k, num_heads, causal)
     if flag == "interpret":
         if mha_ok:
             return "mha_block", "interpret"
@@ -173,16 +170,16 @@ def _refuse_ramp(seq_len_ramp):
         raise NotImplementedError(
             "fused_attention seq_len_ramp (the speculative-verify and "
             "chunked-prefill window) is not ported yet: it lands with the "
-            "serving Scheduler slice (ROADMAP.md A)")
+            "chunked-prefill and speculative-decode slice (ROADMAP.md A)")
 
 
-def _flash_tier_missing(q, k):
+def _flash_grad_missing(q, k):
     return NotImplementedError(
         f"attention shape q {tuple(q.shape)} k {tuple(k.shape)} selects "
-        "the streaming flash tier, whose kernel (flash_attention.py:"
-        "_fwd_kernel, kernel #3) and backward kernels (#4, #5) are not "
-        "ported yet (ROADMAP.md B); set flags 'flash_attention' to '0' for "
-        "the composite")
+        "the streaming flash tier, whose forward is ported (kernel #3) but "
+        "whose backward kernels (#4, #5: flash_attention.py:_bwd_dq_kernel "
+        "and _bwd_dkv_kernel) are not yet (ROADMAP.md B); set flags "
+        "'flash_attention' to '0' for the composite")
 
 
 def _composite(q, k, v, bias, *, num_heads, causal, scale, seq_len):
@@ -215,18 +212,97 @@ def _apply_attention(q, k, v, bias, *, num_heads, causal, scale,
     if name == "flash_decode":
         return _fd.flash_decode(q, k, v, num_heads, scale, kv_len=seq_len)
     if name == "flash":
-        raise _flash_tier_missing(q, k)
+        return _fa.flash_attention(q, k, v, num_heads, causal, scale,
+                                   kv_len=seq_len)
     return _composite(q, k, v, bias, num_heads=num_heads, causal=causal,
                       scale=scale, seq_len=seq_len)
+
+
+def _paged_decode_choice(q, k_blocks, num_heads):
+    """Paged single-query tier: ("flash_decode_paged", "cuda" |
+    "interpret") or None (the paged gather reference), with
+    _decode_choice's flag protocol (attention_ops.py:169): "0" gives None,
+    a refusing gate gives None, "interpret" routes to the kernel wrapper
+    (which runs its plain version on the CPU), a tensor on the card gets
+    the kernel.  There is no mha sibling: the pool never exists densely,
+    so the only kernel that can read it is the one that follows the block
+    table in place."""
+    flag = flags.get("flash_attention")
+    if flag == "0":
+        return None
+    if not _fdp.paged_decode_supported(q, k_blocks, num_heads):
+        return None
+    if flag == "interpret":
+        return "flash_decode_paged", "interpret"
+    if not _on_card(q):
+        return None
+    return "flash_decode_paged", "cuda"
+
+
+def paged_backend_choice(q, k_blocks, num_heads):
+    """'flash_decode_paged' | 'paged_reference': what the paged decode
+    path runs for these tensors (meta tensors work)."""
+    choice = _paged_decode_choice(q, k_blocks, num_heads)
+    return choice[0] if choice is not None else "paged_reference"
+
+
+def paged_attention_reference(q, k_blocks, v_blocks, block_table, lengths,
+                              *, num_heads, scale, max_len,
+                              seq_len_ramp=False):
+    """Reference paged decode (attention_ops.py:204): gather the table
+    (clipped into [0, N)) back to a dense [B, max_len, H*D] view on the
+    pool's device and run the composite under the SeqLen mask.  Sliced to
+    exactly max_len so its score shapes match the dense-gather path's."""
+    _refuse_ramp(seq_len_ramp)
+    b = q.shape[0]
+    n, bs, hd = k_blocks.shape
+    tab = block_table.to(device=k_blocks.device,
+                         dtype=torch.int64).clamp(0, n - 1)
+    m = tab.shape[1]
+    flat = tab.reshape(-1)
+    k = k_blocks[flat].reshape(b, m * bs, hd)[:, :max_len]
+    v = v_blocks[flat].reshape(b, m * bs, hd)[:, :max_len]
+    return _composite(q, k, v, None, num_heads=num_heads, causal=False,
+                      scale=scale, seq_len=lengths)
+
+
+def _apply_attention_paged(q, k_blocks, v_blocks, block_table, lengths, *,
+                           num_heads, scale, max_len, seq_len_ramp=False):
+    """Paged decode forward (attention_ops.py:232): q [B, 1, H*D] against
+    the shared block pool through each row's block table.  The kernel
+    when the gate says so, the paged gather reference otherwise.  On meta
+    tensors (shape inference) it is shape-only, never a kernel wrapper."""
+    _refuse_ramp(seq_len_ramp)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
+    choice = (None if q.shape[1] != 1
+              else _paged_decode_choice(q, k_blocks, num_heads))
+    TIER_CALLS["paged_reference" if choice is None
+               else "flash_decode_paged"] += 1
+    if choice is not None:
+        return _fdp.flash_decode_paged(q, k_blocks, v_blocks, block_table,
+                                       lengths, num_heads, scale)
+    return paged_attention_reference(
+        q, k_blocks, v_blocks, block_table, lengths, num_heads=num_heads,
+        scale=scale, max_len=max_len)
 
 
 @register_op("fused_attention")
 def fused_attention(ctx):
     if ctx.has_input("BlockTable"):
-        raise NotImplementedError(
-            "fused_attention over a paged KV pool (BlockTable) is not "
-            "ported yet: it lands with the serving Scheduler and the "
-            "flash_decode_paged kernel (ROADMAP.md A, B)")
+        # paged decode form (serving's step-program rewrite): K/V are the
+        # shared [N, block_size, H*D] pools, BlockTable routes each batch
+        # row, SeqLen is the live length, paged_max_len bounds the dense
+        # reference view.  causal is vacuous at Sq == 1; bias never rides
+        # the decode step.
+        ctx.set_output("Out", _apply_attention_paged(
+            ctx.input("Q"), ctx.input("K"), ctx.input("V"),
+            ctx.input("BlockTable"), ctx.input("SeqLen"),
+            num_heads=int(ctx.attr("num_heads")),
+            scale=float(ctx.attr("scale", 0.0)),
+            max_len=int(ctx.attr("paged_max_len")),
+            seq_len_ramp=bool(ctx.attr("seq_len_ramp", False))))
+        return
     ctx.set_output("Out", _apply_attention(
         ctx.input("Q"), ctx.input("K"), ctx.input("V"),
         ctx.input("Bias") if ctx.has_input("Bias") else None,
@@ -296,7 +372,7 @@ def fused_attention_grad(ctx):
         ctx.set_output("V@GRAD", dv)
         return
     if name == "flash":
-        raise _flash_tier_missing(q, k)
+        raise _flash_grad_missing(q, k)
     if name == "flash_decode":
         raise NotImplementedError(
             "the gradient of the flash_decode tier (single-query decode "

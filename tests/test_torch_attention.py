@@ -212,11 +212,19 @@ def test_gate_routes_card_tensors_to_the_kernels():
 
 
 def test_unported_tiers_raise():
+    """The flash tier's forward is ported (kernel #3, tests/
+    test_torch_flash.py); the seq_len_ramp window still raises, in the
+    dense and the paged form."""
     pflags.set("flash_attention", "interpret")
     q = torch.zeros((1, 8, 128))
-    with pytest.raises(NotImplementedError, match="kernel #3"):
-        pattn._apply_attention(q, q, q, None, num_heads=2, causal=True,
-                               scale=0.0)
+    out = pattn._apply_attention(q, q, q, None, num_heads=2, causal=True,
+                                 scale=0.0)
+    assert out.shape == q.shape
+    with pytest.raises(NotImplementedError, match="seq_len_ramp"):
+        pattn._apply_attention_paged(
+            q[:, :1], torch.zeros((2, 16, 128)), torch.zeros((2, 16, 128)),
+            torch.zeros((1, 1), dtype=torch.int64), torch.ones(1),
+            num_heads=2, scale=0.0, max_len=16, seq_len_ramp=True)
     with pytest.raises(NotImplementedError, match="seq_len_ramp"):
         pattn._apply_attention(q, q, q, None, num_heads=2, causal=False,
                                scale=0.0, seq_len=torch.ones(1),

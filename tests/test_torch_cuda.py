@@ -5,20 +5,22 @@ on a machine with an NVIDIA H100.  Whether a card is present is decided in
 the `card` fixture (never at import), so every xdist worker collects the
 same tests; without a card each test skips.
 
-Shapes are the serving and training slices' main paths at
+Shapes are the serving, training and Scheduler slices' main paths at
 transformer-base (d_model 512, 8 heads of 64), plus the edge cases of each
 kernel's masking contract.  Tolerances: max abs error 1e-4 in float32 (the
 kernels sum in another order than cuBLAS) and 2e-2 in bfloat16 (the plain
 version rounds the normalised probabilities to bfloat16 before P V, the
 kernels keep them in float32); the backward's bfloat16 outputs are held to
-2e-2 of their largest magnitude.
+2e-2 of their largest magnitude; the flash forward's float32 lse to 1e-4.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda import flash_decode as fd
+from paddle_tpu_torch.ops.cuda import flash_decode_paged as fdp
 from paddle_tpu_torch.ops.cuda import mha_block
 
 pytestmark = pytest.mark.cuda
@@ -231,3 +233,129 @@ def test_bwd_wrapper_raises_instead_of_falling_back(card):
     with pytest.raises(ValueError):
         mha_block.mha_block_bwd(
             q, k, v, q.transpose(1, 2).contiguous().transpose(1, 2), 1)
+
+
+# ------------------------------------------- kernel #7: flash_decode_paged
+
+
+def _pool_case(seed, b, n, bs, m, h, d, lengths, device, dtype):
+    """q, pools [N, bs, H*D] and block tables drawn from one random
+    permutation of the pool (scattered, never contiguous chains)."""
+    rng = np.random.RandomState(seed)
+    hd = h * d
+    q = torch.as_tensor(rng.standard_normal((b, 1, hd)).astype(np.float32),
+                        device=device).to(dtype)
+    kb, vb = (torch.as_tensor(rng.standard_normal((n, bs, hd))
+                              .astype(np.float32), device=device).to(dtype)
+              for _ in range(2))
+    table = torch.as_tensor(rng.permutation(n)[:b * m].reshape(b, m),
+                            device=device)
+    return q, kb, vb, table, _lens(lengths, device)
+
+
+@pytest.mark.parametrize("case", [
+    # (b, n, bs, m, heads, head_dim, lengths)
+    (8, 2560, 16, 256, 8, 64, "serving"),   # the Scheduler's decode step
+    (5, 23, 16, 4, 4, 64, [5, 16, 17, 37, 64]),  # across block edges
+    (4, 40, 32, 8, 2, 128, [0, 1, 200, 256]),    # bs 32, an empty row
+    (2, 9, 16, 3, 1, 256, [48, 7]),
+], ids=["serving", "edges", "bs32_zero", "d256"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_decode_paged_matches_plain(card, case, dtype):
+    b, n, bs, m, h, d, lengths = case
+    if lengths == "serving":
+        lengths = np.random.RandomState(13).randint(1024, 4097, size=b)
+    q, kb, vb, table, kl = _pool_case(14, b, n, bs, m, h, d, lengths, card,
+                                      dtype)
+    before = fdp.launches
+    out = fdp.flash_decode_paged(q, kb, vb, table, kl, h)
+    torch.cuda.synchronize()
+    assert fdp.launches == before + 1
+    ref = fdp.flash_decode_paged_reference(q, kb, vb, table, kl, h)
+    assert out.shape == ref.shape and out.dtype == dtype
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+    for row, n_live in enumerate(np.asarray(lengths)):
+        if n_live == 0:
+            assert torch.count_nonzero(out[row]).item() == 0
+
+
+def test_flash_decode_paged_never_reads_past_the_length(card):
+    """Junk table entries past ceil(len / bs) and NaNs planted in the
+    dead rows of live blocks cannot reach the output."""
+    b, n, bs, m, h, d = 3, 30, 16, 6, 2, 64
+    lengths = [20, 9, 96]
+    q, kb, vb, table, kl = _pool_case(15, b, n, bs, m, h, d, lengths, card,
+                                      torch.float32)
+    ref = fdp.flash_decode_paged(q, kb, vb, table, kl, h)
+    junk = table.clone()
+    junk[0, 2:] = (junk[0, 2:] + 1) % n
+    junk[1, 1:] = 10 ** 6               # out of the pool: clipped
+    for row, n_live in enumerate(lengths):
+        blk, off = divmod(n_live, bs)
+        if blk < m:
+            for t in (kb, vb):
+                t[table[row, blk], off:] = float("nan")
+    out = fdp.flash_decode_paged(q, kb, vb, junk, kl, h)
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, ref)
+
+
+# ---------------------------------------- kernel #3: flash attention fwd
+
+
+@pytest.mark.parametrize("case", [
+    # (b, sq, sk, heads, head_dim, causal, kv_len)
+    (8, 2048, 2048, 8, 64, True, None),      # the long-prompt prefill
+    (8, 1000, 1000, 8, 64, True, "ragged"),  # off the 128 grid
+    (4, 200, 200, 2, 64, True, "with_zero"),  # an empty row
+    (2, 72, 300, 4, 128, True, "ragged"),    # causal offset Sq < Sk
+    (3, 130, 257, 2, 64, False, "past_sk"),  # kv_len > Sk is clamped
+    (2, 64, 96, 1, 256, False, None),
+], ids=["causal2048", "causal1000", "zero_row", "offset_d128", "past_sk",
+        "d256"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_matches_plain(card, case, dtype):
+    b, sq, sk, h, d, causal, kl = case
+    q, k, v = _qkv(16, b, sq, sk, h * d, card, dtype)
+    kv_len = None
+    if kl is not None:
+        vals = np.random.RandomState(17).randint(max(1, sk // 2), sk + 1,
+                                                 size=b)
+        if kl == "with_zero":
+            vals[0] = 0
+        if kl == "past_sk":
+            vals[0] = sk + 60
+        kv_len = _lens(vals, card)
+    before = fa.launches
+    out, lse = fa.flash_attention_lse(q, k, v, h, causal, 0.0, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    ref, ref_lse = fa.flash_attention_fwd_reference(q, k, v, h, causal, 0.0,
+                                                    kv_len=kv_len)
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+    lse_err = (lse - ref_lse).abs().max().item()
+    assert lse_err <= 1e-4, lse_err
+    if kl == "with_zero":
+        assert torch.count_nonzero(out[0]).item() == 0
+        assert (lse[0] == -1e30).all()
+
+
+def test_new_wrappers_raise_instead_of_falling_back(card):
+    q, k, v = _qkv(18, 2, 8, 128, 64, card, torch.float32)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, v, 4)                  # head_dim 16
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k[:, :4], v[:, :4], 1, causal=True)  # Sq > Sk
+    pool = torch.zeros((4, 16, 64), device=card)
+    table = torch.zeros((2, 2), dtype=torch.int64, device=card)
+    lens = _lens([3, 4], card)
+    with pytest.raises(ValueError):
+        fdp.flash_decode_paged(q[:, :1], pool, pool, table, lens, 4)
+    with pytest.raises(ValueError):
+        fdp.flash_decode_paged(q[:, :2], pool, pool, table, lens, 1)

@@ -216,12 +216,14 @@ def test_fused_attention_composite(causal, seq_len, bias):
 
 
 def test_the_slice_registers_exactly_the_decode_op_types():
-    """The decode slice's 15 op types, and the training slice's loss,
-    reduction, cast, update and hand-written grad ops."""
+    """The decode slice's 15 op types, the training slice's loss,
+    reduction, cast, update and hand-written grad ops, and the Scheduler
+    slice's paged append."""
     assert sorted(preg.OPS) == sorted([
         "assign_value", "elementwise_add", "fill_constant", "fused_attention",
         "gather", "increment", "kv_cache_append", "layer_norm",
         "lookup_table", "mul", "relu", "reshape", "scale", "sequence_pool",
         "uniform_random",
         "adam", "cast", "lookup_table_grad", "mean", "sgd",
-        "softmax_with_cross_entropy", "sum"])
+        "softmax_with_cross_entropy", "sum",
+        "kv_cache_append_paged"])
