@@ -17,6 +17,11 @@ catches its own failure:
      and bfloat16) against its plain PyTorch version on the card
      (float32: max abs error <= 1e-4; bfloat16: 2e-2, of the output's
      largest magnitude for the backward; the flash forward's lse 1e-4),
+     and the flash tier's forward (#3) and backward (#4 dQ, #5 dK/dV) at
+     BERT-base pretraining's shapes (batch 16 x 2048 tokens and batch 8 x
+     4096, 12 heads of 64, masked and unmasked, bfloat16 and float32) and
+     at transformer widths (causal 2048, a causal Sq < Sk offset, an
+     off-grid 1000 with a kv_len-0 row),
      then timed with CUDA events, L2 flushed before every launch: kernel,
      plain version, and the library yardstick the port never calls
      (F.scaled_dot_product_attention with an equivalent mask, over a
@@ -57,7 +62,19 @@ catches its own failure:
      AMP, Adam multi_precision): 2 warm-up and 5 timed steps, tokens/s,
      ms per step, card busy time and idle share, peak memory and MFU;
      its first loss must match the composite's within 2e-2;
-  7. one {"kernels": [...]} line, the card's name and power limit, and
+  7. BERT-base masked-LM pretraining at 2048 tokens through
+     bert.build + Adam(1e-4) + Executor.run (dropout 0, random tokens and
+     ragged input masks of 1024-2048 real tokens from a seed): every
+     attention takes the flash tier, forward (#3) and grad (#3 again to
+     recompute out and lse, then #4 and #5).  L1, float32, batch 2: 3
+     steps with the launch counts set to 0 before and exactly 24 #3, 12
+     #4 and 12 #5 launches a step after; the same steps from the same
+     weights through the composite give the same losses (rtol 1e-4).  L2,
+     bench.py's long_2048_masked leg (batch 16, bf16 AMP, Adam
+     multi_precision): 2 warm-up, 3 timed and 1 profiled step, tokens/s,
+     ms per step, card busy time and idle share, peak memory and MFU; its
+     first loss must match the composite's within 2e-2;
+  8. one {"kernels": [...]} line, the card's name and power limit, and
      last the {"ok": true, "device": ...} line.
 
 Exits non-zero, printing no result, when there is no CUDA device or when
@@ -69,6 +86,7 @@ for their numbers, and the script then exits 1.
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -105,6 +123,12 @@ LSE_TOL = 1e-4                # flash forward's float32 lse vs plain
 # phase S: the Scheduler over the device pool
 S_WINDOW, S_PROMPTS, S_MAX_LEN = 2048, (1024, 2048), 4096
 S_BLOCK, S_SLOTS, S_PROFILED = 16, 8, 6
+# phase L: BERT-base pretraining at 2048 tokens (bench.py's long_2048
+# legs: batch max(64 // (S // 512), 4))
+L_SEQ = 2048
+L1_BATCH, L1_STEPS = 2, 3
+L2_BATCH, L2_WARMUP, L2_STEPS, L2_PROFILED = 16, 2, 3, 1
+BWD_REPS = 10                 # timed launches of each flash backward case
 
 KERNELS = {
     "mha_block": {
@@ -131,6 +155,16 @@ KERNELS = {
         "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "paddle_tpu/ops/pallas/flash_attention.py:205",
         "device_names": ("flash_fwd_kernel",),
+    },
+    "flash_attention_bwd_dq": {
+        "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "paddle_tpu/ops/pallas/flash_attention.py:318",
+        "device_names": ("flash_bwd_dq_kernel",),
+    },
+    "flash_attention_bwd_dkv": {
+        "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "paddle_tpu/ops/pallas/flash_attention.py:354",
+        "device_names": ("flash_bwd_dkv_kernel",),
     },
 }
 # served requests whose tokens differed from the sequential Generator's:
@@ -184,12 +218,12 @@ class Timer:
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
         self.reps, self.warmup = reps, warmup
 
-    def ms(self, fn):
+    def ms(self, fn, reps=None):
         for _ in range(self.warmup):
             fn()
         torch.cuda.synchronize()
         pairs = []
-        for _ in range(self.reps):
+        for _ in range(reps or self.reps):
             self.flush.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -200,13 +234,14 @@ class Timer:
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
-    def device_ms(self, fn, names):
+    def device_ms(self, fn, names, reps=None):
         from torch.profiler import ProfilerActivity, profile
 
+        reps = reps or self.reps
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(self.reps):
+            for _ in range(reps):
                 self.flush.zero_()
                 fn()
             torch.cuda.synchronize()
@@ -214,7 +249,7 @@ class Timer:
                 if any(n in s[0] for n in names)]
         if not mine:
             return None   # the profiler saw no device activity
-        return sum(b - a for _, a, b in mine) / self.reps / 1e3
+        return sum(b - a for _, a, b in mine) / reps / 1e3
 
 
 # ------------------------------------------------------- kernel checks
@@ -404,15 +439,10 @@ def flash_case(name, b, sq, sk, h, d, causal, lens, device, rng, dtype,
                                             kv_len=kv_len)
     plain = lambda: fa.flash_attention_fwd_reference(  # noqa: E731
         q, k, v, h, causal, kv_len=kv_len)
-    mask = None
-    if kv_len is not None:
-        mask = _sdpa_mask(kv_len, b, sq, sk, device)
-        if causal:
-            mask = mask & torch.ones((sq, sk), dtype=torch.bool,
-                                     device=device).tril(sk - sq)
+    mask, is_causal = _flash_mask(kv_len, b, sq, sk, causal, device)
     qh, kh, vh = _heads(q, h), _heads(k, h), _heads(v, h)
     library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        qh, kh, vh, attn_mask=mask, is_causal=causal and mask is None)
+        qh, kh, vh, attn_mask=mask, is_causal=is_causal)
     item = q.element_size()
     # q read, out written, live K and V rows read, lse written
     nbytes = item * h * d * (2 * b * sq + 2 * rows) + 4 * b * h * sq + (
@@ -440,6 +470,96 @@ def _flash_err(out, ref, dtype, zero_row):
         raise AssertionError("flash_attention_fwd: the kv_len-0 row is not "
                              "out 0, lse -1e30")
     return (o.float() - ro.float()).abs().max().item()
+
+
+def _flash_mask(kv_len, b, sq, sk, causal, device):
+    """(attn_mask or None, is_causal) giving SDPA the flash tier's live
+    pairs: kv_len, and the (Sk - Sq)-offset causal diagonal."""
+    mask = None
+    if kv_len is not None:
+        mask = _sdpa_mask(kv_len, b, sq, sk, device)
+    if causal and (mask is not None or sq != sk):
+        tri = torch.ones((sq, sk), dtype=torch.bool,
+                         device=device).tril(sk - sq)
+        mask = tri if mask is None else mask & tri
+    return mask, causal and mask is None
+
+
+def flash_bwd_cases(name, b, sq, sk, h, d, causal, lens, device, rng, dtype,
+                    zero_row=False):
+    """Kernels #4 and #5 at one shape, one case each, from the plain
+    forward's lse and delta (with no lse cotangent, as in the grad op).
+    Each case makes its inputs, and the library yardstick's forward
+    graph, when it runs, so that only one shape's tensors are alive at a
+    time.  zero_row sets row 0's kv_len to 0, which must give dq = dk =
+    dv = 0 there."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    seed = int(rng.randint(1 << 30))
+    kv_len = None if lens is None else _lengths(rng, *lens, b, device)
+    if zero_row:
+        kv_len[0] = 0
+    pairs, rows = _live(b, sq, sk, causal, kv_len)
+    item = torch.empty((), dtype=dtype).element_size()
+    # lse and delta read (float32 per row and head), and the lengths
+    extra = 8 * b * h * sq + (
+        0 if kv_len is None else kv_len.numel() * kv_len.element_size())
+
+    def make(which):
+        g = torch.Generator(device=device).manual_seed(seed)
+        q, k, v, dout = (torch.randn((b, s, h * d), generator=g,
+                                     device=device).to(dtype)
+                         for s in (sq, sk, sk, sq))
+        out, lse = fa.flash_attention_fwd_reference(q, k, v, h, causal,
+                                                    kv_len=kv_len)
+        delta = fa.bwd_delta(out, dout, h)
+        del out
+        args = (q, k, v, dout, lse, delta, h, causal)
+        if which == "dq":
+            kernel = lambda: (fa.flash_attention_bwd_dq(  # noqa: E731
+                *args, kv_len=kv_len),)
+            plain = lambda: fa.bwd_reference(  # noqa: E731
+                *args, 0.0, kv_len)[:1]
+        else:
+            kernel = lambda: fa.flash_attention_bwd_dkv(  # noqa: E731
+                *args, kv_len=kv_len)
+            plain = lambda: fa.bwd_reference(  # noqa: E731
+                *args, 0.0, kv_len)[1:]
+        mask, is_causal = _flash_mask(kv_len, b, sq, sk, causal, device)
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+            *(_heads(x, h) for x in leaves), attn_mask=mask,
+            is_causal=is_causal)
+        g_heads = _heads(dout, h).contiguous()
+        library = lambda: torch.autograd.grad(  # noqa: E731
+            sdpa_out, leaves, g_heads, retain_graph=True)
+        return kernel, plain, library
+
+    shape = _shape(b, sq, sk, h * d, causal,
+                   lens if not zero_row else (0, lens[1]), dtype)
+    tol = TOL if dtype == torch.float32 else BF16_TOL
+    common = dict(case=name, shape=shape, dtype=dtype, tol=tol,
+                  err=_bwd_err, zero_row=zero_row, reps=BWD_REPS)
+    return [
+        # QK^T, dO V^T and dS K on every live pair
+        dict(kernel="flash_attention_bwd_dq", fns=functools.partial(
+            make, "dq"), flop=6 * d * h * pairs,
+            bytes=item * h * d * (3 * b * sq + 2 * rows) + extra, **common),
+        # QK^T, dO V^T, P^T dO and dS^T q; dK and dV written for every key
+        dict(kernel="flash_attention_bwd_dkv", fns=functools.partial(
+            make, "dkv"), flop=8 * d * h * pairs,
+            bytes=item * h * d * (2 * b * sq + 2 * rows + 2 * b * sk)
+            + extra, **common),
+    ]
+
+
+def _bwd_err(out, ref, dtype, zero_row):
+    """_max_err of a flash backward kernel's outputs; with zero_row, row
+    0 of each must be exactly 0."""
+    if zero_row and any(torch.count_nonzero(o[0]).item() for o in out):
+        raise AssertionError("flash backward: the kv_len-0 row has "
+                             "non-zero gradients")
+    return _max_err(out, ref, dtype)
 
 
 def _max_err(out, ref, dtype):
@@ -500,6 +620,15 @@ def check_kernels(device):
         cases.append(paged_case(f"paged decode {tag}", S_SLOTS, pool,
                                 S_BLOCK, (1024, S_MAX_LEN), h, d, device,
                                 rng, dtype))
+    bert_h = 12                   # BERT-base: 12 heads of 64
+    bert_lens = (L_SEQ // 2, L_SEQ)
+    cases += [
+        flash_case("bert L2 b16 masked bf16", L2_BATCH, L_SEQ, L_SEQ, bert_h,
+                   d, False, bert_lens, device, rng, torch.bfloat16),
+        flash_case("bert long_4096 b8 masked bf16", 8, 2 * L_SEQ, 2 * L_SEQ,
+                   bert_h, d, False, (L_SEQ, 2 * L_SEQ), device, rng,
+                   torch.bfloat16),
+    ]
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).replace("torch.", "")
         cases.append(flash_case(f"prefill 2048 {tag}", S_SLOTS, S_WINDOW,
@@ -511,9 +640,33 @@ def check_kernels(device):
         flash_case("kv_len 0 row", BATCH, 1000, 1000, h, d, False,
                    (500, 1000), device, rng, torch.float32, zero_row=True),
     ]
+    # kernels #4 and #5: L2's shape first (the main path's), then the
+    # rest of the flash tier's training shapes
+    for args in (
+        ("bert L2 b16 masked bf16", L2_BATCH, L_SEQ, L_SEQ, bert_h, False,
+         bert_lens, torch.bfloat16),
+        ("bert b16 bf16", L2_BATCH, L_SEQ, L_SEQ, bert_h, False, None,
+         torch.bfloat16),
+        ("bert b16 masked f32", L2_BATCH, L_SEQ, L_SEQ, bert_h, False,
+         bert_lens, torch.float32),
+        ("bert long_4096 b8 masked bf16", 8, 2 * L_SEQ, 2 * L_SEQ, bert_h,
+         False, (L_SEQ, 2 * L_SEQ), torch.bfloat16),
+        ("causal 2048 b8 bf16", 8, S_WINDOW, S_WINDOW, h, True, None,
+         torch.bfloat16),
+        ("causal offset 1024x2048 f32", BATCH, 1024, S_WINDOW, h, True,
+         None, torch.float32),
+    ):
+        name, b, sq, sk, heads, causal, lens, dtype = args
+        cases += flash_bwd_cases(name, b, sq, sk, heads, d, causal, lens,
+                                 device, rng, dtype)
+    cases += flash_bwd_cases("off-grid 1000, kv_len 0 row", BATCH, 1000,
+                             1000, h, d, False, (500, 1000), device, rng,
+                             torch.float32, zero_row=True)
     timer = Timer(device)
     for c in cases:
-        kernel, plain, library = c.pop("fns")
+        fns = c.pop("fns")
+        kernel, plain, library = fns() if callable(fns) else fns
+        reps = c.pop("reps", None)
         out, ref = kernel(), plain()
         torch.cuda.synchronize()
         if "err" in c:
@@ -525,11 +678,12 @@ def check_kernels(device):
             raise AssertionError(f"{c['kernel']} {c['case']}: max error "
                                  f"{err} > {c['tol']}")
         c["max_abs_err"] = err
-        c["ms"] = timer.ms(kernel)
+        c["ms"] = timer.ms(kernel, reps)
         c["device_ms"] = timer.device_ms(
-            kernel, KERNELS[c["kernel"]]["device_names"])
-        c["plain_ms"] = timer.ms(plain)
-        c["library_ms"] = timer.ms(library)
+            kernel, KERNELS[c["kernel"]]["device_names"], reps)
+        c["plain_ms"] = timer.ms(plain, reps)
+        c["library_ms"] = timer.ms(library, reps)
+        del kernel, plain, library
         t_bytes = c["bytes"] / PEAK_BYTES_PER_S * 1e3
         t_ops = c["flop"] / PEAK_FLOP_PER_S[c.pop("dtype")] * 1e3
         c["bound_ms"] = max(t_bytes, t_ops)
@@ -1090,6 +1244,7 @@ def _zero_counts():
 
     mha_block.launches = mha_block.bwd_launches = flash_decode.launches = 0
     flash_decode_paged.launches = flash_attention.launches = 0
+    flash_attention.bwd_dq_launches = flash_attention.bwd_dkv_launches = 0
 
 
 def _grad_diff(names, got, want):
@@ -1246,6 +1401,184 @@ def drive_training(card, device):
     return results, launches
 
 
+# ------------------------------------------------ BERT at 2048 tokens
+
+
+def bert_flops_per_token(cfg, seq):
+    """Forward + backward matmul FLOPs per input token: the formula of
+    bench.py's _bert_flops_per_token, copied."""
+    h, f, L, v, m = (cfg.hidden, cfg.ffn, cfg.layers, cfg.vocab_size,
+                     cfg.max_predictions)
+    per_layer = 8 * h * h + 4 * h * f + 4 * seq * h  # qkv+out, ffn, scores+ctx
+    mlm = (m / seq) * (2 * h * h + 2 * h * v)  # transform + tied logits
+    pooler = 2 * h * h / seq
+    return 3.0 * (L * per_layer + mlm + pooler)
+
+
+def build_bert(cfg, use_amp):
+    """bert.build(use_input_mask=True) + Adam(1e-4), as bench.py builds
+    its long_2048_masked leg."""
+    from paddle_tpu_torch import (Program, amp, optimizer, program_guard,
+                                  unique_name)
+    from paddle_tpu_torch.models import bert
+
+    main, startup = Program(), Program()
+    main.random_seed = startup.random_seed = SEED
+    with program_guard(main, startup), unique_name.guard():
+        loss = bert.build(cfg, use_input_mask=True)[0]
+        if use_amp:
+            amp.cast_model_to_bf16(main, startup)
+        optimizer.Adam(learning_rate=1e-4,
+                       multi_precision=use_amp).minimize(loss)
+    return main, startup, loss
+
+
+def _bert_setup(batch, use_amp, seed, device):
+    """BERT-base at L_SEQ tokens (dropout 0): the program, its startup run
+    on the card, the starting persistables and a staged ragged batch."""
+    from paddle_tpu_torch import CUDAPlace, Executor, Scope
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig(max_positions=L_SEQ, dropout=0.0)
+    main, startup, loss = build_bert(cfg, use_amp)
+    n_attn = sum(op.type == "fused_attention"
+                 for op in main.global_block().ops)
+    scope, exe = Scope(), Executor(CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    feed = bert.synthetic_batch(batch, cfg, seed=seed, use_input_mask=True)
+    feed = {k: torch.as_tensor(v, device=device) for k, v in feed.items()}
+    return cfg, main, loss, n_attn, scope, exe, feed
+
+
+def _bert_counts():
+    from paddle_tpu_torch.ops.cuda import flash_attention, mha_block
+
+    return {"flash_attention_fwd": flash_attention.launches,
+            "flash_attention_bwd_dq": flash_attention.bwd_dq_launches,
+            "flash_attention_bwd_dkv": flash_attention.bwd_dkv_launches,
+            "mha_block": mha_block.launches,
+            "mha_block_bwd": mha_block.bwd_launches}
+
+
+def _bert_expect(n_attn, steps):
+    """Per step and attention: #3 in the forward and again in the grad
+    (out and lse recomputed), #4 and #5 once; no mha_block."""
+    return {"flash_attention_fwd": 2 * n_attn * steps,
+            "flash_attention_bwd_dq": n_attn * steps,
+            "flash_attention_bwd_dkv": n_attn * steps,
+            "mha_block": 0, "mha_block_bwd": 0}
+
+
+def _real_tokens(feed):
+    return int(feed["input_mask"].float().sum().item())
+
+
+def phase_l1(card, device):
+    """float32, batch 2, ragged masks: kernels vs composite."""
+    from paddle_tpu_torch import flags
+
+    cfg, main, loss, n_attn, scope, exe, feed = _bert_setup(
+        L1_BATCH, False, SEED + 3, device)
+    start = _persistables(scope, main)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    losses, _ = run_steps(exe, main, scope, feed, loss, L1_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _bert_counts()
+    expect = _bert_expect(n_attn, L1_STEPS)
+    if counts != expect:
+        raise AssertionError(f"L1: launches {counts}, expected {expect}")
+    _restore(scope, start)
+    flags.set("flash_attention", "0")
+    try:
+        comp, _ = run_steps(exe, main, scope, feed, loss, L1_STEPS)
+    finally:
+        flags.reset("flash_attention")
+    if not (np.all(np.isfinite(losses))
+            and np.allclose(losses, comp, rtol=LOSS_RTOL_F32, atol=0)):
+        raise AssertionError(f"L1: losses {losses} vs composite {comp}")
+    res = {"phase": "L1", "dtype": "float32", "batch": L1_BATCH,
+           "seq": L_SEQ, "steps": L1_STEPS, "real_tokens": _real_tokens(feed),
+           "launches": counts, "losses": losses, "composite_losses": comp,
+           "ms_per_step": wall / L1_STEPS * 1e3, "card": card}
+    log(f"  L1 float32 batch {L1_BATCH}: losses {losses}; composite {comp}; "
+        f"launches {counts}; {res['ms_per_step']:.1f} ms/step  [{card}]")
+    return res, counts
+
+
+def phase_l2(card, device):
+    """bench.py's long_2048_masked leg: batch 16, bf16 AMP,
+    Adam(1e-4, multi_precision=True)."""
+    from paddle_tpu_torch import flags
+
+    cfg, main, loss, n_attn, scope, exe, feed = _bert_setup(
+        L2_BATCH, True, SEED + 4, device)
+    start = _persistables(scope, main)
+    flags.set("flash_attention", "0")
+    try:
+        (comp_first,), _ = run_steps(exe, main, scope, feed, loss, 1)
+    finally:
+        flags.reset("flash_attention")
+    _restore(scope, start)
+    del start
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    _zero_counts()
+    warm, _ = run_steps(exe, main, scope, feed, loss, L2_WARMUP)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    timed, _ = run_steps(exe, main, scope, feed, loss, L2_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_calls(
+        lambda: run_steps(exe, main, scope, feed, loss, 1), L2_PROFILED,
+        top=8)
+    counts = _bert_counts()
+    expect = _bert_expect(n_attn, L2_WARMUP + L2_STEPS + L2_PROFILED)
+    if counts != expect:
+        raise AssertionError(f"L2: launches {counts}, expected {expect}")
+    losses = warm + timed
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"L2: losses {losses}")
+    if abs(losses[0] - comp_first) > LOSS_RTOL_BF16 * abs(comp_first):
+        raise AssertionError(f"L2: first loss {losses[0]} vs composite "
+                             f"{comp_first}")
+    tokens_per_s = L2_BATCH * L_SEQ * L2_STEPS / wall   # bench.py:331
+    fpt = bert_flops_per_token(cfg, L_SEQ)
+    res = {"phase": "L2", "dtype": "bfloat16 AMP", "batch": L2_BATCH,
+           "seq": L_SEQ, "warmup": L2_WARMUP, "steps": L2_STEPS,
+           "real_tokens": _real_tokens(feed), "launches": counts,
+           "losses": losses, "composite_first_loss": comp_first,
+           "tokens_per_s": tokens_per_s, "ms_per_step": wall / L2_STEPS * 1e3,
+           "mfu": tokens_per_s * fpt / PEAK_FLOP_PER_S[torch.bfloat16],
+           "flops_per_token": fpt, "peak_mem_mib": peak / 2 ** 20,
+           "profile": prof, "card": card}
+    log(f"  L2 bf16 AMP batch {L2_BATCH} x {L_SEQ}: {tokens_per_s:.1f} "
+        f"tokens/s, {res['ms_per_step']:.2f} ms/step, MFU "
+        f"{res['mfu']:.4f}, peak {res['peak_mem_mib']:.0f} MiB; losses "
+        f"{losses}; composite first {comp_first}; launches {counts}  "
+        f"[{card}]")
+    log_profile(prof)
+    return res, counts
+
+
+def drive_bert(card, device):
+    """Phase 7: BERT-base pretrained at 2048 tokens through Executor.run."""
+    results, launches = [], {}
+    for phase in (phase_l1, phase_l2):
+        res, counts = phase(card, device)
+        results.append(res)
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        torch.cuda.empty_cache()
+    return results, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -1290,14 +1623,19 @@ def main():
 
     log(f"[6] training: transformer.base() through Executor.run [{card}]")
     training, train_launches = drive_training(card, device)
-    for more in (counts, train_launches):
+
+    log(f"[7] pretraining: BERT-base at {L_SEQ} tokens through "
+        f"Executor.run [{card}]")
+    bert_runs, bert_launches = drive_bert(card, device)
+    training += bert_runs
+    for more in (counts, train_launches, bert_launches):
         for k, n in more.items():
             launches[k] = launches.get(k, 0) + n
     never = [k for k in KERNELS if not launches.get(k)]
     if never:
         raise AssertionError(f"kernels {never} never launched on a path")
 
-    log("[7] results")
+    log("[8] results")
     log(json.dumps({"phases": phases}))
     log(json.dumps({"training": training}))
     if DIVERGED:

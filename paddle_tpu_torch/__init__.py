@@ -12,7 +12,9 @@ The second trains it: `backward.append_backward`, `optimizer` (SGD, Adam
 with f32 master weights), `amp.cast_model_to_bf16`, and the mha_block
 backward kernel.  The third serves it through `serving.Scheduler`
 (continuous batching over a host or device-resident paged KV pool), with
-the flash_decode_paged kernel and the flash attention forward.
+the flash_decode_paged kernel and the flash attention forward.  The
+fourth pretrains BERT-base (models.bert) at 2048 tokens through the flash
+attention tier, with its backward kernels.
 """
 
 from .framework import (
@@ -53,4 +55,4 @@ from . import amp
 from . import serving
 from .backward import append_backward
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"

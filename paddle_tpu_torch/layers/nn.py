@@ -114,23 +114,91 @@ def gather(input, index):
     return out
 
 
-def elementwise_add(x, y, axis=-1, name=None):
-    helper = LayerHelper("elementwise_add", name=name)
+def elementwise_op(op_type, x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper(op_type, name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op(type="elementwise_add", inputs={"X": [x], "Y": [y]},
+    helper.append_op(type=op_type, inputs={"X": [x], "Y": [y]},
                      outputs={"Out": [out]}, attrs={"axis": axis})
+    if act:
+        helper.kwargs["act"] = act
+        return helper.append_activation(out)
     return out
 
 
-def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, name=None):
-    helper = LayerHelper("scale", name=name)
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_sub", x, y, axis, act, name)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_mul", x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_pow", x, y, axis, act, name)
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="matmul", inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]},
+        attrs={"transpose_X": transpose_x, "transpose_Y": transpose_y,
+               "alpha": float(alpha)},
+    )
+    return out
+
+
+def one_hot(input, depth):
+    helper = LayerHelper("one_hot", **locals())
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op(type="one_hot", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"depth": depth})
+    return out
+
+
+def slice(input, axes, starts, ends):
+    helper = LayerHelper("slice")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="slice", inputs={"Input": [input]}, outputs={"Out": [out]},
+        attrs={"axes": list(axes), "starts": list(starts),
+               "ends": list(ends)},
+    )
+    return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    """Sum over `dim`, or over everything (reduce_all) when dim is None."""
+    helper = LayerHelper("reduce_sum", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if dim is None:
+        attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
+    else:
+        attrs = {"dim": dim if isinstance(dim, (list, tuple)) else [dim],
+                 "keep_dim": keep_dim, "reduce_all": False}
+    helper.append_op(type="reduce_sum", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
+          name=None):
+    helper = LayerHelper("scale", **locals())
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op(
         type="scale", inputs={"X": [x]}, outputs={"Out": [out]},
         attrs={"scale": float(scale), "bias": float(bias),
                "bias_after_scale": bias_after_scale},
     )
-    return out
+    return helper.append_activation(out) if act else out
 
 
 def relu(x, name=None):

@@ -1,6 +1,6 @@
 """Op library: importing this package registers every op lowering of the
 ported slices (transformer.build_decode's programs, and transformer.build
-with its backward, optimizer and AMP ops)."""
+with its backward, optimizer and AMP ops, and bert.build's)."""
 
 from . import registry
 from . import math_ops
@@ -13,3 +13,4 @@ from . import kv_cache
 from . import attention_ops
 from . import loss_ops
 from . import optimizer_ops
+from . import misc_ops

@@ -1,5 +1,6 @@
-"""Activation ops: relu with its Out-based grad
-(paddle_tpu/ops/activation_ops.py:18-49, :74)."""
+"""Activation ops: relu and tanh with their Out-based grads, gelu with the
+generic one (paddle_tpu/ops/activation_ops.py:25-49, :55, :56, :71, :74,
+:76)."""
 
 from __future__ import annotations
 
@@ -9,26 +10,41 @@ from ..framework.framework import grad_var_name
 from .registry import register_grad, register_grad_maker, register_op
 
 
-@register_op("relu")
-def relu(ctx):
-    ctx.set_output("Out", torch.relu(ctx.input("X")))
+def _unary(name, fn):
+    def _act(ctx, fn=fn):
+        ctx.set_output("Out", fn(ctx.input("X"), ctx))
+
+    register_op(name)(_act)
 
 
-@register_grad_maker("relu")
-def _relu_grad_maker(op, block, no_grad_set):
-    """The grad op reads Out and dOut only, so the pre-activation input dies
-    at the end of the forward."""
-    x = op.input("X")[0]
-    if x in no_grad_set:
-        return []
-    out = op.output("Out")[0]
-    return [{"type": "relu_grad",
-             "inputs": {"Out": [out], "Out@GRAD": [grad_var_name(out)]},
-             "outputs": {"X@GRAD": [grad_var_name(x)]},
-             "attrs": dict(op.attrs)}]
+def _out_grad(name, dfn):
+    """Out-based gradient: the grad op reads Out and dOut only, so the
+    pre-activation input dies at the end of the forward."""
+
+    def _maker(op, block, no_grad_set, name=name):
+        x = op.input("X")[0]
+        if x in no_grad_set:
+            return []
+        out = op.output("Out")[0]
+        return [{"type": name + "_grad",
+                 "inputs": {"Out": [out], "Out@GRAD": [grad_var_name(out)]},
+                 "outputs": {"X@GRAD": [grad_var_name(x)]},
+                 "attrs": dict(op.attrs)}]
+
+    def _bwd(ctx, dfn=dfn):
+        out, dout = ctx.input("Out"), ctx.input("Out@GRAD")
+        ctx.set_output("X@GRAD", dfn(out, dout))
+
+    register_grad_maker(name)(_maker)
+    register_grad(name)(_bwd)
 
 
-@register_grad("relu")
-def relu_grad(ctx):
-    out, dout = ctx.input("Out"), ctx.input("Out@GRAD")
-    ctx.set_output("X@GRAD", dout * (out > 0).to(dout.dtype))
+_unary("relu", lambda x, ctx: torch.relu(x))
+_unary("tanh", lambda x, ctx: torch.tanh(x))
+# exact erf form by default, the tanh form when `approximate` is set
+# (jax.nn.gelu's two forms)
+_unary("gelu", lambda x, ctx: torch.nn.functional.gelu(
+    x, approximate="tanh" if ctx.attr("approximate", False) else "none"))
+
+_out_grad("relu", lambda out, dout: dout * (out > 0).to(dout.dtype))
+_out_grad("tanh", lambda out, dout: dout * (1.0 - out * out))

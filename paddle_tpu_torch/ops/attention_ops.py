@@ -14,8 +14,10 @@ kernel wrappers too, which run their plain versions there.
 
 The gradient (`fused_attention_grad`, attention_ops.py:411-488) takes the
 same gate: the mha_block tiers call the backward kernel's entry
-(`mha_block_bwd`) directly, so no forward kernel runs again, and the
-composite takes autograd over `attention_reference`.
+(`mha_block_bwd`) directly, so no forward kernel runs again; the flash
+tier recomputes (out, lse) with kernel #3, as the JAX vjp replay does,
+and calls `flash_attention_bwd` (kernels #4 and #5); the composite takes
+autograd over `attention_reference`.
 
 The paged decode form (`BlockTable` input, serving/paged.py's rewrite of
 the step program) takes `_apply_attention_paged`: the flash_decode_paged
@@ -23,13 +25,14 @@ kernel when `_paged_decode_choice` says so, `paged_attention_reference`
 (the pool gathered to a dense view, then the composite) otherwise.
 
 Ported kernels: mha_block (forward and backward), flash_decode,
-flash_decode_paged, and the streaming "flash" tier's forward (kernel #3,
-`flash_attention`), which takes every window the gate sends there (a
-causal prefill past 1024 keys at transformer-base widths, or one off the
-128 grid).  The flash tier's gradient (kernels #4 and #5) and the
-`seq_len_ramp` verify/chunk window raise NotImplementedError; the
-sequence-parallel ring has no branch, since the port has no device mesh
-yet.  All are later slices in ROADMAP.md.
+flash_decode_paged, and the streaming "flash" tier (kernel #3 forward,
+kernels #4 and #5 backward, `flash_attention`), which takes every window
+the gate sends there (a causal prefill past 1024 keys at transformer-base
+widths, BERT-base at 2048 tokens, or a window off the 128 grid).  The
+`seq_len_ramp` verify/chunk window and the gradient of the flash_decode
+tier raise NotImplementedError; the sequence-parallel ring has no branch,
+since the port has no device mesh yet.  All are later slices in
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -171,15 +174,6 @@ def _refuse_ramp(seq_len_ramp):
             "fused_attention seq_len_ramp (the speculative-verify and "
             "chunked-prefill window) is not ported yet: it lands with the "
             "chunked-prefill and speculative-decode slice (ROADMAP.md A)")
-
-
-def _flash_grad_missing(q, k):
-    return NotImplementedError(
-        f"attention shape q {tuple(q.shape)} k {tuple(k.shape)} selects "
-        "the streaming flash tier, whose forward is ported (kernel #3) but "
-        "whose backward kernels (#4, #5: flash_attention.py:_bwd_dq_kernel "
-        "and _bwd_dkv_kernel) are not yet (ROADMAP.md B); set flags "
-        "'flash_attention' to '0' for the composite")
 
 
 def _composite(q, k, v, bias, *, num_heads, causal, scale, seq_len):
@@ -350,7 +344,9 @@ def _fused_attention_grad_maker(op, block, no_grad_set):
 def fused_attention_grad(ctx):
     """dQ, dK, dV (and dBias) through the tier the forward took: the
     mha_block tiers call the backward kernel's entry on q, k, v and dOut
-    (no forward kernel runs), the composite pulls dOut back through
+    (no forward kernel runs); the flash tier recomputes out and lse with
+    kernel #3 (the grad op takes no Out) and runs kernels #4 and #5 with
+    no lse cotangent; the composite pulls dOut back through
     `attention_reference` with autograd."""
     q, k, v = ctx.input("Q"), ctx.input("K"), ctx.input("V")
     bias = ctx.input("Bias") if ctx.has_input("Bias") else None
@@ -372,7 +368,15 @@ def fused_attention_grad(ctx):
         ctx.set_output("V@GRAD", dv)
         return
     if name == "flash":
-        raise _flash_grad_missing(q, k)
+        out, lse = _fa.flash_attention_lse(q, k, v, num_heads, causal, scale,
+                                           kv_len=seq_len)
+        dq, dk, dv = _fa.flash_attention_bwd(
+            q, k, v, out, lse, dout.contiguous(), num_heads, causal, scale,
+            kv_len=seq_len)
+        ctx.set_output("Q@GRAD", dq)
+        ctx.set_output("K@GRAD", dk)
+        ctx.set_output("V@GRAD", dv)
+        return
     if name == "flash_decode":
         raise NotImplementedError(
             "the gradient of the flash_decode tier (single-query decode "

@@ -1,12 +1,20 @@
-"""Dense math ops: elementwise_add, mul, scale, sum, mean.
+"""Dense math ops: the elementwise family and comparisons, mul, matmul,
+scale, sum, mean, reduce_sum.
 
-Counterparts of paddle_tpu/ops/math_ops.py (elementwise_add :44, mul :55,
-scale :86, sum :98, mean :105).  Their gradients are the registry's
-generic ones: autograd over these lowerings reduces a broadcast Y back to
-its own shape, as `jax.vjp` does.  `mul` stays `torch.matmul`: the JAX package left it to XLA,
-outside any Pallas kernel.  A float32 matmul on the card runs in full
-float32 only while `torch.backends.cuda.matmul.allow_tf32` is False (the
-PyTorch default); the port relies on that and never turns it on.
+Counterparts of paddle_tpu/ops/math_ops.py (elementwise :36-51, mul :55,
+matmul :69, scale :86, sum :98, mean :105, reduce_sum :116-139,
+comparisons :192-205).  Their gradients are the registry's generic ones:
+autograd over these lowerings reduces a broadcast Y back to its own
+shape, as `jax.vjp` does.  `mul` and `matmul` stay `torch.matmul`: the
+JAX package left them to XLA, outside any Pallas kernel.  A float32
+matmul on the card runs in full float32 only while
+`torch.backends.cuda.matmul.allow_tf32` is False (the PyTorch default);
+the port relies on that and never turns it on.
+
+Mixed operand dtypes follow the JAX package's runtime dtypes, not the
+VarDescs': `jnp.matmul(x, y, preferred_element_type=x.dtype)` promotes
+the operands and returns X's dtype, so under AMP the float32 one-hot of
+BERT's position gather times a bfloat16 activation is a float32 product.
 """
 
 from __future__ import annotations
@@ -31,11 +39,31 @@ def _broadcast_y(x, y, axis):
     return y.reshape(new_shape)
 
 
-@register_op("elementwise_add")
-def elementwise_add(ctx):
-    x = ctx.input("X")
-    y = _broadcast_y(x, ctx.input("Y"), ctx.attr("axis", -1))
-    ctx.set_output("Out", x + y)
+def _make_elementwise(name, fn, no_grad=False):
+    @register_op(name, no_grad=no_grad)
+    def _ew(ctx, fn=fn):
+        x = ctx.input("X")
+        y = _broadcast_y(x, ctx.input("Y"), ctx.attr("axis", -1))
+        ctx.set_output("Out", fn(x, y))
+
+
+_make_elementwise("elementwise_add", torch.add)
+_make_elementwise("elementwise_sub", torch.sub)
+_make_elementwise("elementwise_mul", torch.mul)
+_make_elementwise("elementwise_div", torch.div)
+_make_elementwise("elementwise_pow", torch.pow)
+_make_elementwise("elementwise_mod", torch.remainder)   # jnp.mod's sign rule
+
+for _name, _fn in [("less_than", torch.lt), ("less_equal", torch.le),
+                   ("greater_than", torch.gt), ("greater_equal", torch.ge)]:
+    _make_elementwise(_name, _fn, no_grad=True)
+
+
+def _matmul(x, y):
+    """torch.matmul over the promoted operand dtype, returned in X's dtype
+    (jnp.matmul's preferred_element_type=x.dtype)."""
+    common = torch.promote_types(x.dtype, y.dtype)
+    return torch.matmul(x.to(common), y.to(common)).to(x.dtype)
 
 
 @register_op("mul")
@@ -47,8 +75,25 @@ def mul(ctx):
     yn = ctx.attr("y_num_col_dims", 1)
     xm = x.reshape(math.prod(x.shape[:xn]), -1)
     ym = y.reshape(math.prod(y.shape[:yn]), -1)
-    out = torch.matmul(xm, ym)
+    out = _matmul(xm, ym)
     ctx.set_output("Out", out.reshape(tuple(x.shape[:xn]) + tuple(y.shape[yn:])))
+
+
+@register_op("matmul")
+def matmul(ctx):
+    """Batched matmul with transpose_X / transpose_Y flags and alpha; 1-D
+    operands get the standard vector promotions (reference
+    matmul_op.cc)."""
+    x, y = ctx.input("X"), ctx.input("Y")
+    if x.dim() > 1 and ctx.attr("transpose_X", False):
+        x = x.transpose(-1, -2)
+    if y.dim() > 1 and ctx.attr("transpose_Y", False):
+        y = y.transpose(-1, -2)
+    out = _matmul(x, y)
+    alpha = ctx.attr("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * _in_dtype(alpha, out.dtype)
+    ctx.set_output("Out", out)
 
 
 def _in_dtype(value, dtype):
@@ -82,3 +127,23 @@ def mean(ctx):
     """Scalar mean kept as shape [1], accumulated in float32."""
     x = ctx.input("X")
     ctx.set_output("Out", x.float().mean().reshape(1).to(x.dtype))
+
+
+@register_op("reduce_sum")
+def reduce_sum(ctx):
+    """Sum over `dim` (keep_dim), or over everything with reduce_all; a
+    scalar result is kept as shape [1].  The sum stays in X's dtype, as
+    jnp.sum keeps int32 (torch.sum would widen it to int64)."""
+    x = ctx.input("X")
+    dim = ctx.attr("dim", [0])
+    if isinstance(dim, int):
+        dim = [dim]
+    keep = ctx.attr("keep_dim", False)
+    if ctx.attr("reduce_all", False):
+        out = x.sum(dtype=x.dtype)
+        out = out.reshape((1,) * x.dim()) if keep else out.reshape(1)
+    else:
+        out = x.sum(dim=tuple(dim), keepdim=keep, dtype=x.dtype)
+        if out.dim() == 0:
+            out = out.reshape(1)
+    ctx.set_output("Out", out)

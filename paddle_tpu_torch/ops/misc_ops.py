@@ -1,0 +1,31 @@
+"""check_prefix_mask (paddle_tpu/ops/misc_ops.py:334-357).
+
+BERT reduces its [B, S] 0/1 input_mask to per-row key lengths for the
+attention kernels' length masks, which cannot represent a hole in the
+middle of a row.  This op is the identity and checks that every row is a
+prefix mask (non-increasing along S).  The JAX package checks only when
+the value is concrete (its interpret executor); the port's executor is
+eager, so it always checks: on the mask's device, reading back one
+boolean, and only on a failure the first bad row.
+"""
+
+from __future__ import annotations
+
+from .registry import register_op
+
+
+@register_op("check_prefix_mask", no_grad=True)
+def check_prefix_mask(ctx):
+    x = ctx.input("X")
+    if x.device.type != "meta":
+        m = x != 0
+        bad = m[..., 1:] & ~m[..., :-1]      # a real token after padding
+        if bool(bad.any()):
+            row = int(bad.reshape(bad.shape[0], -1).any(-1).nonzero()[0, 0])
+            raise ValueError(
+                f"input_mask row {row} is not a prefix mask: found a real "
+                "token after padding (mask must be non-increasing along the "
+                "sequence axis — BERT pads at the end). use_input_mask "
+                "reduces the mask to per-row lengths, so a mid-sequence hole "
+                "would silently mis-attend.")
+    ctx.set_output("Out", x)

@@ -1,10 +1,13 @@
-"""Tensor ops: fill_constant, assign_value, cast, reshape, gather,
-lookup_table (with its hand-written grad), increment.
+"""Tensor ops: fill_constant, fill_constant_batch_size_like, assign,
+assign_value, cast, reshape, slice, gather, one_hot, lookup_table (with
+its hand-written grad), increment.
 
 Counterparts of paddle_tpu/ops/tensor_ops.py (fill_constant :25,
-assign_value :65, cast :78, reshape :83, gather :229, lookup_table :286,
-lookup_table_grad :311-342, increment :395).  Integer feeds keep int64 here, where the JAX package
-(x64 off) narrows them to int32: values agree, dtypes do not.
+fill_constant_batch_size_like :42, assign :60, assign_value :65, cast
+:78, reshape :83, slice :138, gather :229, one_hot :242, lookup_table
+:286, lookup_table_grad :311-342, increment :395).  Integer feeds keep
+int64 here, where the JAX package (x64 off) narrows them to int32: values
+agree, dtypes do not.
 """
 
 from __future__ import annotations
@@ -23,6 +26,24 @@ def fill_constant(ctx):
     dtype = dtype_to_torch(ctx.attr("dtype", "float32"))
     ctx.set_output("Out", torch.full(shape, ctx.attr("value", 0.0),
                                      dtype=dtype, device=ctx.device))
+
+
+@register_op("fill_constant_batch_size_like")
+def fill_constant_batch_size_like(ctx):
+    """The shape attr with dim output_dim_idx taken from Input's dim
+    input_dim_idx (its batch size)."""
+    x = ctx.input("Input")
+    shape = [int(s) for s in ctx.attr("shape")]
+    shape[ctx.attr("output_dim_idx", 0)] = x.shape[ctx.attr("input_dim_idx",
+                                                            0)]
+    dtype = dtype_to_torch(ctx.attr("dtype", "float32"))
+    ctx.set_output("Out", torch.full(shape, ctx.attr("value", 0.0),
+                                     dtype=dtype, device=x.device))
+
+
+@register_op("assign")
+def assign(ctx):
+    ctx.set_output("Out", ctx.input("X"))
 
 
 @register_op("assign_value")
@@ -52,10 +73,39 @@ def reshape(ctx):
     ctx.set_output("Out", x.reshape(shape))
 
 
+@register_op("slice")
+def slice_op(ctx):
+    """Input[starts:ends] along `axes`; a negative bound counts from the
+    end, and bounds are clamped into [0, dim]."""
+    x = ctx.input("Input")
+    idx = [slice(None)] * x.dim()
+    for ax, st, en in zip(ctx.attr("axes"), ctx.attr("starts"),
+                          ctx.attr("ends")):
+        dim = x.shape[ax]
+        st = max(st + dim, 0) if st < 0 else min(st, dim)
+        en = max(en + dim, 0) if en < 0 else min(en, dim)
+        idx[ax] = slice(st, en)
+    ctx.set_output("Out", x[tuple(idx)])
+
+
 @register_op("gather")
 def gather(ctx):
     x, index = ctx.input("X"), ctx.input("Index")
     ctx.set_output("Out", torch.index_select(x, 0, index.reshape(-1)))
+
+
+@register_op("one_hot", no_grad=True)
+def one_hot(ctx):
+    """Ids [..., 1] -> [..., depth]; ids without the trailing singleton
+    ([..., M] index tensors) -> [..., M, depth].  Always float32 (also
+    under AMP, whatever the VarDesc says); ids outside [0, depth) give a
+    zero row, as jax.nn.one_hot gives."""
+    x = ctx.input("X")
+    depth = ctx.attr("depth")
+    if x.dim() and x.shape[-1] == 1:
+        x = x.reshape(x.shape[:-1])
+    classes = torch.arange(depth, device=x.device)
+    ctx.set_output("Out", (x[..., None] == classes).to(torch.float32))
 
 
 @register_op("lookup_table")

@@ -364,15 +364,29 @@ def test_fused_attention_grad_matches(flag, causal, seq_len, bias):
                                    err_msg=name)
 
 
-def test_grad_of_unported_tiers_raises():
+@pytest.mark.parametrize("tier", ["flash", "flash_decode"])
+def test_grad_of_unported_tiers_raises(tier):
+    """The flash tier's grad is ported (kernels #4 and #5): at Sk 8 under
+    "interpret" it equals the JAX grad op.  The flash_decode tier's grad
+    still raises: decode programs take no grads."""
+    from paddle_tpu.ops import registry as jreg
     from paddle_tpu_torch.ops import registry as preg
 
-    pflags.set("flash_attention", "interpret")
-    q = torch.zeros((1, 8, 128))   # Sk 8: the streaming flash tier
-    fn = preg.get_runtime_info("fused_attention_grad").forward
-    ctx = preg.OpContext("fused_attention_grad",
-                         {"Q": [q], "K": [q], "V": [q], "Out@GRAD": [q]},
-                         {"num_heads": 2, "causal": True, "scale": 0.0},
-                         out_names={"Q@GRAD": ["q"]})
-    with pytest.raises(NotImplementedError, match="kernel #3"):
-        fn(ctx)
+    _set_both("flash_attention", "interpret")
+    sq = 8 if tier == "flash" else 1     # Sk 8: off mha_block's grid
+    q, k, v = _data(70, 1, sq, 8, 128)
+    g = np.random.RandomState(71).standard_normal(q.shape).astype(np.float32)
+    inputs = {"Q": [q], "K": [k], "V": [v], "Out@GRAD": [g]}
+    attrs = {"num_heads": 2, "causal": True, "scale": 0.0}
+    assert pattn.backend_choice(*(torch.empty(x.shape, device="meta")
+                                  for x in (q, k)), 2, True) == tier
+    if tier == "flash_decode":
+        with pytest.raises(NotImplementedError, match="decode programs"):
+            _grad_op(preg, "torch", inputs, attrs)
+        return
+    j = _grad_op(jreg, "jax", inputs, attrs)
+    p = _grad_op(preg, "torch", inputs, attrs)
+    assert sorted(p) == sorted(j) == ["K@GRAD", "Q@GRAD", "V@GRAD"]
+    for name in j:
+        np.testing.assert_allclose(p[name], j[name], rtol=0, atol=ATOL,
+                                   err_msg=name)

@@ -6,12 +6,15 @@ the `card` fixture (never at import), so every xdist worker collects the
 same tests; without a card each test skips.
 
 Shapes are the serving, training and Scheduler slices' main paths at
-transformer-base (d_model 512, 8 heads of 64), plus the edge cases of each
-kernel's masking contract.  Tolerances: max abs error 1e-4 in float32 (the
-kernels sum in another order than cuBLAS) and 2e-2 in bfloat16 (the plain
+transformer-base (d_model 512, 8 heads of 64), the BERT slice's flash-tier
+grad at BERT-base widths (12 heads of 64, 2048 tokens), plus the edge
+cases of each kernel's masking contract.  Tolerances: max abs error 1e-4
+in float32 (the kernels sum in another order than cuBLAS) and 2e-2 in
+bfloat16 (the plain
 version rounds the normalised probabilities to bfloat16 before P V, the
 kernels keep them in float32); the backward's bfloat16 outputs are held to
-2e-2 of their largest magnitude; the flash forward's float32 lse to 1e-4.
+2e-2 of their largest magnitude (the flash backward's too); the flash
+forward's float32 lse to 1e-4.
 """
 
 import numpy as np
@@ -359,3 +362,141 @@ def test_new_wrappers_raise_instead_of_falling_back(card):
         fdp.flash_decode_paged(q[:, :1], pool, pool, table, lens, 4)
     with pytest.raises(ValueError):
         fdp.flash_decode_paged(q[:, :2], pool, pool, table, lens, 1)
+
+
+# ------------------------------- kernels #4 and #5: flash attention bwd
+
+
+def _flash_bwd_inputs(seed, b, sq, sk, h, d, causal, kl, device, dtype):
+    """q, k, v, kv_len, the forward's (out, lse) from the plain version,
+    and the cotangents of out and of lse."""
+    q, k, v = _qkv(seed, b, sq, sk, h * d, device, dtype)
+    kv_len = None
+    if kl is not None:
+        vals = np.random.RandomState(seed + 1).randint(max(1, sk // 2),
+                                                       sk + 1, size=b)
+        if kl == "with_zero":
+            vals[0] = 0
+        if kl == "past_sk":
+            vals[0] = sk + 60
+        kv_len = _lens(vals, device)
+    out, lse = fa.flash_attention_fwd_reference(q, k, v, h, causal, 0.0,
+                                                kv_len=kv_len)
+    rng = np.random.RandomState(seed + 2)
+    g = torch.as_tensor(rng.standard_normal(q.shape).astype(np.float32),
+                        device=device).to(dtype)
+    g_lse = torch.as_tensor(rng.standard_normal((b, h, sq))
+                            .astype(np.float32), device=device)
+    return q, k, v, kv_len, out, lse, g, g_lse
+
+
+@pytest.mark.parametrize("case", [
+    # (b, sq, sk, heads, head_dim, causal, kv_len)
+    (2, 256, 256, 4, 64, False, "ragged"),   # BERT's masked encoder
+    (2, 256, 256, 4, 64, False, None),
+    (2, 200, 200, 2, 64, True, "with_zero"),  # off-grid, an empty row
+    (2, 72, 300, 4, 128, True, "ragged"),    # causal offset Sq < Sk
+    (3, 130, 257, 2, 64, False, "past_sk"),  # kv_len > Sk is clamped
+    (2, 64, 96, 1, 256, False, None),        # 32-row tiles
+    (2, 40, 100, 2, 192, True, None),
+], ids=["masked256", "unmasked256", "zero_row", "offset_d128", "past_sk",
+        "d256", "d192"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_bwd_matches_plain(card, case, dtype):
+    b, sq, sk, h, d, causal, kl = case
+    q, k, v, kv_len, out, lse, g, g_lse = _flash_bwd_inputs(
+        19, b, sq, sk, h, d, causal, kl, card, dtype)
+    before = (fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g, h, causal, 0.0,
+                                 kv_len=kv_len, g_lse=g_lse)
+    torch.cuda.synchronize()
+    assert (fa.bwd_dq_launches, fa.bwd_dkv_launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, g, h, causal,
+                                           0.0, kv_len=kv_len, g_lse=g_lse)
+    for name, o, r in zip(("dq", "dk", "dv"), got, ref):
+        assert o.shape == r.shape and o.dtype == dtype, name
+        err = (o.float() - r.float()).abs().max().item()
+        tol = TOL[torch.float32] if dtype == torch.float32 else \
+            TOL[dtype] * r.float().abs().max().item()
+        assert err <= tol, (name, err, tol)
+        if kl == "with_zero":
+            assert torch.count_nonzero(o[0]).item() == 0, name
+
+
+def test_flash_attention_function_grads_match_autograd(card):
+    """FlashAttentionFunction (kernel #3 forward, #4 and #5 backward)
+    against autograd over the plain forward, with cotangents on out and
+    on lse, on strided q/k/v views; every row keeps a live key."""
+    b, s, hd, h = 2, 320, 256, 4
+    rng = np.random.RandomState(20)
+    qkv = torch.as_tensor(rng.standard_normal((b, s, 3 * hd)),
+                          dtype=torch.float32, device=card)
+    kl = _lens([320, 131], card)
+    g = torch.as_tensor(rng.standard_normal((b, s, hd)), dtype=torch.float32,
+                        device=card)
+    g_lse = torch.as_tensor(rng.standard_normal((b, h, s)),
+                            dtype=torch.float32, device=card)
+    grads = []
+    before = (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    for fn in (fa.flash_attention_lse, fa.flash_attention_fwd_reference):
+        leaf = qkv.clone().requires_grad_(True)
+        q, k, v = leaf[..., :hd], leaf[..., hd:2 * hd], leaf[..., 2 * hd:]
+        out, lse = fn(q, k, v, h, True, 0.0, kv_len=kl)
+        (gr,) = torch.autograd.grad((out, lse), leaf, (g, g_lse))
+        grads.append(gr)
+    assert (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == \
+        tuple(n + 1 for n in before)
+    assert (grads[0] - grads[1]).abs().max().item() <= 1e-4
+
+
+def test_bert_flash_grad_op_matches_the_composite(card):
+    """fused_attention_grad on the card at BERT-base widths and 2048 tokens
+    with ragged key lengths: the gate picks the flash tier (kernel #3 to
+    recompute out and lse, then #4 and #5), and the grads equal the
+    composite's (flags flash_attention "0") within 1e-4."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.ops import attention_ops, registry
+
+    b, s, h, d = 2, 2048, 12, 64
+    q, k, v = _qkv(21, b, s, s, h * d, card, torch.float32)
+    g = _qkv(22, b, s, s, h * d, card, torch.float32)[0]
+    seq_len = _lens([2048, 1100], card)
+    assert attention_ops.backend_choice(q, k, h, False, False, True) == \
+        "flash"
+    info = registry.get_runtime_info("fused_attention_grad")
+    inputs = {"Q": [q], "K": [k], "V": [v], "Out@GRAD": [g],
+              "SeqLen": [seq_len]}
+    attrs = {"num_heads": h, "causal": False, "scale": 0.0}
+    out_names = {p: [p] for p in ("Q@GRAD", "K@GRAD", "V@GRAD")}
+    before = (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    got = registry.run_forward(info, inputs, attrs, out_names=out_names,
+                               device=card)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == \
+        tuple(n + 1 for n in before)
+    flags.set("flash_attention", "0")
+    try:
+        want = registry.run_forward(info, inputs, attrs, out_names=out_names,
+                                    device=card)
+    finally:
+        flags.reset("flash_attention")
+    for name in out_names:
+        err = (got[name][0] - want[name][0]).abs().max().item()
+        assert err <= 1e-4, (name, err)
+
+
+def test_bwd_kernels_raise_instead_of_falling_back(card):
+    b, s, h, d = 2, 64, 2, 64
+    q, k, v, kv_len, out, lse, g, _ = _flash_bwd_inputs(
+        23, b, s, s, h, d, False, None, card, torch.float32)
+    delta = fa.bwd_delta(out, g, h)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, 8)  # head_dim 16
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd_dq(q, k, v, g.double(), lse, delta, h)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd_dkv(q, k, v, g, lse[:, :1], delta, h)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta.double(), h)

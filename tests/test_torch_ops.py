@@ -217,8 +217,9 @@ def test_fused_attention_composite(causal, seq_len, bias):
 
 def test_the_slice_registers_exactly_the_decode_op_types():
     """The decode slice's 15 op types, the training slice's loss,
-    reduction, cast, update and hand-written grad ops, and the Scheduler
-    slice's paged append."""
+    reduction, cast, update and hand-written grad ops, the Scheduler
+    slice's paged append, and the BERT slice's ops (with those behind
+    Variable's operators)."""
     assert sorted(preg.OPS) == sorted([
         "assign_value", "elementwise_add", "fill_constant", "fused_attention",
         "gather", "increment", "kv_cache_append", "layer_norm",
@@ -226,4 +227,9 @@ def test_the_slice_registers_exactly_the_decode_op_types():
         "uniform_random",
         "adam", "cast", "lookup_table_grad", "mean", "sgd",
         "softmax_with_cross_entropy", "sum",
-        "kv_cache_append_paged"])
+        "kv_cache_append_paged",
+        "gelu", "tanh", "elementwise_mul", "elementwise_div", "matmul",
+        "reduce_sum", "one_hot", "slice", "check_prefix_mask", "assign",
+        "fill_constant_batch_size_like", "elementwise_sub",
+        "elementwise_pow", "elementwise_mod", "less_than", "less_equal",
+        "greater_than", "greater_equal"])

@@ -40,6 +40,7 @@ from paddle_tpu_torch import convert, flags as pflags, testing
 from paddle_tpu_torch.models import transformer as PT
 from paddle_tpu_torch.ops import attention_ops as pattn
 from paddle_tpu_torch.ops import registry as preg
+from paddle_tpu_torch.ops.cuda import flash_attention as pfa
 from paddle_tpu_torch.ops.cuda import mha_block as pmha
 
 SMALL = dict(src_vocab_size=64, trg_vocab_size=64, n_layer=2, n_head=2,
@@ -57,16 +58,16 @@ def _fresh_port():
         f.reset("flash_attention")
 
 
-def _feed():
-    feed = JT.synthetic_batch(BATCH, JT.TransformerConfig(**SMALL), seed=3)
-    feed["src_lens"] = np.asarray(SRC_LENS, np.int64)
+def _feed(small=SMALL, src_lens=SRC_LENS):
+    feed = JT.synthetic_batch(BATCH, JT.TransformerConfig(**small), seed=3)
+    feed["src_lens"] = np.asarray(src_lens, np.int64)
     return feed
 
 
-def _jax_build(use_amp, l2=0.0):
+def _jax_build(use_amp, l2=0.0, small=SMALL):
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup), jun.guard():
-        loss, _ = JT.build(JT.TransformerConfig(**SMALL), use_src_lens=True)
+        loss, _ = JT.build(JT.TransformerConfig(**small), use_src_lens=True)
         flipped = (jamp.cast_model_to_bf16(main, startup) if use_amp
                    else set())
         reg = fluid.regularizer.L2Decay(l2) if l2 else None
@@ -75,10 +76,10 @@ def _jax_build(use_amp, l2=0.0):
     return main, startup, loss, pg, flipped
 
 
-def _port_build(use_amp, l2=0.0):
+def _port_build(use_amp, l2=0.0, small=SMALL):
     main, startup = pt.Program(), pt.Program()
     with pt.program_guard(main, startup), pt.unique_name.guard():
-        loss, _ = PT.build(PT.TransformerConfig(**SMALL), use_src_lens=True)
+        loss, _ = PT.build(PT.TransformerConfig(**small), use_src_lens=True)
         flipped = (pamp.cast_model_to_bf16(main, startup) if use_amp
                    else set())
         reg = pt.regularizer.L2Decay(l2) if l2 else None
@@ -87,12 +88,12 @@ def _port_build(use_amp, l2=0.0):
     return main, startup, loss, pg, flipped
 
 
-def _jax_train(use_amp, steps):
+def _jax_train(use_amp, steps, small=SMALL, src_lens=SRC_LENS):
     """The JAX package's startup persistables, its per-step losses and the
     first step's param grads."""
     jflags.set("flash_attention", "interpret")
     try:
-        main, startup, loss, pg, flipped = _jax_build(use_amp)
+        main, startup, loss, pg, flipped = _jax_build(use_amp, small=small)
         scope = JScope()
         exe = fluid.Executor(fluid.CPUPlace())
         exe.run(startup, scope=scope)
@@ -101,7 +102,7 @@ def _jax_train(use_amp, steps):
         grads = [g.name for _, g in pg]
         losses, first = [], None
         for step in range(steps):
-            outs = exe.run(main, feed=_feed(), scope=scope,
+            outs = exe.run(main, feed=_feed(small, src_lens), scope=scope,
                            fetch_list=[loss.name] + (grads if not step
                                                      else []))
             losses.append(float(np.asarray(outs[0], np.float32).ravel()[0]))
@@ -126,24 +127,37 @@ def jax_amp():
     return _jax_train(True, 1)
 
 
-def _port_train(jrun, use_amp, steps):
+# seq 200: off mha_block's 128 grid, so every attention (encoder, causal
+# decoder self-attention, cross) takes the streaming flash tier
+SMALL_200 = dict(SMALL, max_length=200)
+SRC_LENS_200 = [200, 150, 77, 17]
+
+
+@pytest.fixture(scope="module")
+def jax_f32_flash():
+    return _jax_train(False, STEPS, SMALL_200, SRC_LENS_200)
+
+
+def _port_train(jrun, use_amp, steps, small=SMALL, src_lens=SRC_LENS):
     pflags.set("flash_attention", "interpret")
-    main, startup, loss, pg, flipped = _port_build(use_amp)
+    main, startup, loss, pg, flipped = _port_build(use_amp, small=small)
     scope = pt.Scope()
     convert.load_params(scope, jrun["params"], pt.CPUPlace(), [main])
     exe = pt.Executor(pt.CPUPlace())
     grads = [g.name for _, g in pg]
     losses, first = [], None
     pattn.TIER_CALLS.clear()
-    fwd0, bwd0 = pmha.launches, pmha.bwd_launches
+    counts = (pmha.launches, pmha.bwd_launches, pfa.launches,
+              pfa.bwd_dq_launches, pfa.bwd_dkv_launches)
     for step in range(steps):
-        outs = exe.run(main, feed=_feed(), scope=scope,
+        outs = exe.run(main, feed=_feed(small, src_lens), scope=scope,
                        fetch_list=[loss] + (grads if not step else []))
         losses.append(float(outs[0].ravel()[0]))
         if not step:
             first = dict(zip(grads, outs[1:]))
     # on the CPU the wrappers run their plain versions and count nothing
-    assert (pmha.launches, pmha.bwd_launches) == (fwd0, bwd0)
+    assert (pmha.launches, pmha.bwd_launches, pfa.launches,
+            pfa.bwd_dq_launches, pfa.bwd_dkv_launches) == counts
     return dict(main=main, scope=scope, losses=losses, grads=first,
                 flipped=flipped, tiers=dict(pattn.TIER_CALLS))
 
@@ -494,6 +508,22 @@ def test_grads_and_adam_losses_match_jax(jax_f32):
     for name, ref in jax_f32["after"].items():
         np.testing.assert_allclose(scope.find_var(name).numpy(), ref,
                                    rtol=1e-3, atol=1e-5, err_msg=name)
+
+
+def test_flash_tier_grads_and_adam_losses_match_jax(jax_f32_flash):
+    """The same model at seq 200: every attention's forward and grad takes
+    the flash tier (the plain versions of kernels #3, #4 and #5 against
+    the JAX package's Pallas kernels in interpret mode); grads rtol 1e-4 /
+    atol 1e-5 and three Adam losses rtol 2e-4."""
+    port = _port_train(jax_f32_flash, False, STEPS, SMALL_200, SRC_LENS_200)
+    assert port["tiers"] == {"flash": STEPS * 3 * SMALL["n_layer"]}
+    assert sorted(port["grads"]) == sorted(jax_f32_flash["grads"])
+    for name, ref in jax_f32_flash["grads"].items():
+        np.testing.assert_allclose(port["grads"][name], ref, rtol=1e-4,
+                                   atol=ATOL, err_msg=name)
+    np.testing.assert_allclose(port["losses"], jax_f32_flash["losses"],
+                               rtol=2e-4)
+    assert port["losses"][-1] < port["losses"][0]
 
 
 def test_amp_step_matches_jax(jax_amp):
