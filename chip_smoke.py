@@ -21,12 +21,17 @@ catches its own failure:
      BERT-base pretraining's shapes (batch 16 x 2048 tokens and batch 8 x
      4096, 12 heads of 64, masked and unmasked, bfloat16 and float32) and
      at transformer widths (causal 2048, a causal Sq < Sk offset, an
-     off-grid 1000 with a kv_len-0 row),
+     off-grid 1000 with a kv_len-0 row), and kernel #8 (batch-norm affine
+     + relu folded into a 1x1 conv) at ResNet-50's four conv3 sites
+     (batch 256, bfloat16: 2e-2 of the output's largest magnitude) and a
+     float32 case,
      then timed with CUDA events, L2 flushed before every launch: kernel,
      plain version, and the library yardstick the port never calls
      (F.scaled_dot_product_attention with an equivalent mask, over a
      pre-gathered dense view for the paged kernel, and for the backward
-     its autograd backward alone), beside the least time the card could
+     its autograd backward alone; for #8 a cuDNN 1x1 conv on the
+     activation materialised beforehand, and the composite: the affine +
+     relu materialised, then that conv), beside the least time the card could
      take (bytes over 3.35 TB/s, or FLOP over 67 TFLOP/s for float32 and
      989 TFLOP/s for bfloat16 inputs);
   4. serving: decode.Generator(...).generate, greedy, on
@@ -74,7 +79,23 @@ catches its own failure:
      multi_precision): 2 warm-up, 3 timed and 1 profiled step, tokens/s,
      ms per step, card busy time and idle share, peak memory and MFU; its
      first loss must match the composite's within 2e-2;
-  8. one {"kernels": [...]} line, the card's name and power limit, and
+  8. ResNet-50 training through resnet.build(dataset="imagenet",
+     fused_loss=True) + Momentum + Executor.run (224x224 images, 1000
+     classes, images and labels drawn as bench.py draws them).  R1,
+     float32, batch 8, Momentum(1e-5, 0.9): 3 steps on the card and the
+     same 3 on the port's CPU path from the same weights, losses within
+     rtol 1e-3, every forward conv with cuDNN's TF32 off.  R2, bench.py's
+     resnet50 step (batch 256, bf16 AMP, Momentum(0.1, 0.9,
+     multi_precision=True)): 2 warm-up, 3 timed and 1 profiled step,
+     img/s, ms per step, MFU, card busy time and idle share, peak memory
+     and the top kernels; its first loss within 2e-2 of a float32 forward
+     of the same weights and batch; no kernel of the port runs in it.
+     R/probe: kernel #8 at the 16 conv3 sites of one more R2 step (conv2's
+     output, the BN's saved statistics and affine, conv3's filter)
+     against the port's own batch_norm + relu + conv2d, exactly 16
+     launches; then the conv1x1 probe
+     (paddle_tpu_torch.tools.conv1x1_fuse_probe) at its four shapes;
+  9. one {"kernels": [...]} line, the card's name and power limit, and
      last the {"ok": true, "device": ...} line.
 
 Exits non-zero, printing no result, when there is no CUDA device or when
@@ -129,6 +150,18 @@ L_SEQ = 2048
 L1_BATCH, L1_STEPS = 2, 3
 L2_BATCH, L2_WARMUP, L2_STEPS, L2_PROFILED = 16, 2, 3, 1
 BWD_REPS = 10                 # timed launches of each flash backward case
+# phase R: ResNet-50 training (bench.py's resnet50 leg: batch 256, 224x224
+# images, 1000 classes, bf16 AMP, Momentum(0.1, 0.9, multi_precision))
+R_CLASSES, R_HW = 1000, 224
+# R1's learning rate: at bench.py's 0.1 a 3-step float32 trajectory at
+# batch 8 is chaotic (a 1e-7 relative change of the images moves the third
+# loss by 3% on the port's own CPU path); at 1e-5 it moves it by 2.7e-5
+# while the loss still falls 14% in 3 steps
+R1_BATCH, R1_STEPS, R1_LR = 8, 3, 1e-5
+R1_LOSS_RTOL = 1e-3           # card vs the port's CPU path, float32
+R2_BATCH, R2_WARMUP, R2_STEPS, R2_PROFILED = 256, 2, 3, 1
+RESNET50_FWD_FLOPS = 4.089e9  # per 224x224 image (bench.py:67)
+R_SITES = 16                  # conv3 sites: ResNet-50's 16 bottlenecks
 
 KERNELS = {
     "mha_block": {
@@ -165,6 +198,11 @@ KERNELS = {
         "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "paddle_tpu/ops/pallas/flash_attention.py:354",
         "device_names": ("flash_bwd_dkv_kernel",),
+    },
+    "bn_relu_conv1x1": {
+        "source": "paddle_tpu_torch/csrc/bn_relu_conv1x1.cu",
+        "replaces": "tools/conv1x1_fuse_probe.py:21",
+        "device_names": ("bn_relu_conv1x1_kernel",),
     },
 }
 # served requests whose tokens differed from the sequential Generator's:
@@ -553,6 +591,58 @@ def flash_bwd_cases(name, b, sq, sk, h, d, causal, lens, device, rng, dtype,
     ]
 
 
+def conv1x1_case(name, b, c, h, k, device, rng, dtype):
+    """Kernel #8 at a conv3 site of ResNet-50's bottlenecks: y [B,C,H,H],
+    scale/bias [C] float32, w [C,K].  The library yardstick is F.conv2d
+    alone on the activation materialised beforehand; the composite is the
+    probe's: the affine + relu materialised, then that conv."""
+    from paddle_tpu_torch.ops import nn_ops
+    from paddle_tpu_torch.ops.cuda import bn_relu_conv1x1 as brc
+    from paddle_tpu_torch.tools import conv1x1_fuse_probe as probe
+
+    g = torch.Generator(device=device).manual_seed(int(rng.randint(1 << 30)))
+    y = torch.randn((b, c, h, h), generator=g, device=device).to(dtype)
+    scale = torch.rand(c, generator=g, device=device) + 0.5
+    bias = torch.randn(c, generator=g, device=device) * 0.5
+    w = (torch.randn((c, k), generator=g, device=device)
+         * c ** -0.5).to(dtype)
+    w1c = w.t().reshape(k, c, 1, 1).contiguous()
+    act = torch.relu(y.float() * scale.reshape(1, c, 1, 1)
+                     + bias.reshape(1, c, 1, 1)).to(dtype)
+
+    def exact(fn):   # float32 convs in full float32, as the port runs them
+        def run():
+            with nn_ops.cudnn_fp32_exact():
+                return fn()
+        return run
+
+    kernel = lambda: brc.bn_relu_conv1x1(y, scale, bias, w)  # noqa: E731
+    plain = lambda: brc.bn_relu_conv1x1_reference(  # noqa: E731
+        y, scale, bias, w)
+    library = exact(lambda: torch.nn.functional.conv2d(act, w1c))
+    composite = exact(lambda: probe.composite(y, scale, bias, w1c))
+    item = y.element_size()
+    return dict(kernel="bn_relu_conv1x1", case=name,
+                fns=(kernel, plain, library), composite=composite,
+                shape=f"y {b}x{c}x{h}x{h} w {c}x{k} "
+                      f"{str(dtype).replace('torch.', '')}",
+                dtype=dtype, tol=TOL if dtype == torch.float32 else BF16_TOL,
+                err=_conv1x1_err, zero_row=False,
+                flop=2 * b * h * h * c * k,
+                bytes=item * (b * c * h * h + c * k + b * k * h * h) + 8 * c)
+
+
+def _conv1x1_err(out, ref, dtype, zero_row):
+    """Max abs error of #8; in bfloat16 relative to the output's largest
+    magnitude."""
+    if not torch.isfinite(out).all():
+        return float("inf")
+    err = (out.float() - ref.float()).abs().max().item()
+    if dtype == torch.bfloat16:
+        err /= max(ref.float().abs().max().item(), 1e-30)
+    return err
+
+
 def _bwd_err(out, ref, dtype, zero_row):
     """_max_err of a flash backward kernel's outputs; with zero_row, row
     0 of each must be exactly 0."""
@@ -662,6 +752,15 @@ def check_kernels(device):
     cases += flash_bwd_cases("off-grid 1000, kv_len 0 row", BATCH, 1000,
                              1000, h, d, False, (500, 1000), device, rng,
                              torch.float32, zero_row=True)
+    # kernel #8 at ResNet-50's four conv3 sites (batch 256, bf16; the
+    # 14x14 site first: R/probe launches it most), and one float32 case
+    for name, (b, c, hh, k), dtype in (
+            ("conv3 14x14 b256", (R2_BATCH, 256, 14, 1024), torch.bfloat16),
+            ("conv3 56x56 b256", (R2_BATCH, 64, 56, 256), torch.bfloat16),
+            ("conv3 28x28 b256", (R2_BATCH, 128, 28, 512), torch.bfloat16),
+            ("conv3 7x7 b256", (R2_BATCH, 512, 7, 2048), torch.bfloat16),
+            ("conv3 14x14 b64 f32", (64, 256, 14, 1024), torch.float32)):
+        cases.append(conv1x1_case(name, b, c, hh, k, device, rng, dtype))
     timer = Timer(device)
     for c in cases:
         fns = c.pop("fns")
@@ -683,7 +782,10 @@ def check_kernels(device):
             kernel, KERNELS[c["kernel"]]["device_names"], reps)
         c["plain_ms"] = timer.ms(plain, reps)
         c["library_ms"] = timer.ms(library, reps)
-        del kernel, plain, library
+        composite = c.pop("composite", None)
+        if composite is not None:
+            c["composite_ms"] = timer.ms(composite, reps)
+        del kernel, plain, library, composite
         t_bytes = c["bytes"] / PEAK_BYTES_PER_S * 1e3
         t_ops = c["flop"] / PEAK_FLOP_PER_S[c.pop("dtype")] * 1e3
         c["bound_ms"] = max(t_bytes, t_ops)
@@ -692,7 +794,10 @@ def check_kernels(device):
             f"err {err:.2e}  kernel {c['ms'] * 1e3:9.1f} us (device "
             f"{_us(c['device_ms'])})  plain "
             f"{c['plain_ms'] * 1e3:9.1f} us  library "
-            f"{c['library_ms'] * 1e3:9.1f} us  bound "
+            f"{c['library_ms'] * 1e3:9.1f} us  "
+            + (f"composite {c['composite_ms'] * 1e3:9.1f} us  "
+               if "composite_ms" in c else "")
+            + f"bound "
             f"{c['bound_ms'] * 1e3:7.1f} us ({c['bound_by']}: "
             f"{c['flop'] / 1e9:.3f} GFLOP, {c['bytes'] / 1e6:.1f} MB)")
         torch.cuda.empty_cache()
@@ -1239,12 +1344,14 @@ def _counts():
 
 
 def _zero_counts():
-    from paddle_tpu_torch.ops.cuda import (flash_attention, flash_decode,
-                                           flash_decode_paged, mha_block)
+    from paddle_tpu_torch.ops.cuda import (bn_relu_conv1x1, flash_attention,
+                                           flash_decode, flash_decode_paged,
+                                           mha_block)
 
     mha_block.launches = mha_block.bwd_launches = flash_decode.launches = 0
     flash_decode_paged.launches = flash_attention.launches = 0
     flash_attention.bwd_dq_launches = flash_attention.bwd_dkv_launches = 0
+    bn_relu_conv1x1.launches = 0
 
 
 def _grad_diff(names, got, want):
@@ -1579,6 +1686,294 @@ def drive_bert(card, device):
     return results, launches
 
 
+# ------------------------------------------------------ ResNet-50 training
+
+
+def build_resnet(use_amp, lr):
+    """resnet.build(dataset="imagenet", fused_loss=True) + Momentum(lr, 0.9,
+    multi_precision=use_amp), AMP cast before minimize, as bench.py builds
+    its resnet50 leg."""
+    from paddle_tpu_torch import (Program, amp, optimizer, program_guard,
+                                  unique_name)
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = Program(), Program()
+    main.random_seed = startup.random_seed = SEED
+    with program_guard(main, startup), unique_name.guard():
+        loss = resnet.build(dataset="imagenet", fused_loss=True)[0]
+        if use_amp:
+            amp.cast_model_to_bf16(main, startup)
+        _, params_grads = optimizer.Momentum(
+            learning_rate=lr, momentum=0.9,
+            multi_precision=use_amp).minimize(loss)
+    return main, startup, loss, params_grads
+
+
+def _resnet_feed(batch, seed):
+    """bench.py's draws (bench.py:466-470): img randn, then label."""
+    rng = np.random.RandomState(seed)
+    return {"img": rng.randn(batch, 3, R_HW, R_HW).astype(np.float32),
+            "label": rng.randint(0, R_CLASSES, (batch, 1)).astype(np.int64)}
+
+
+def _port_kernel_counts():
+    from paddle_tpu_torch.ops.cuda import bn_relu_conv1x1 as brc
+
+    counts = launch_counts()
+    counts.update(_bert_counts())
+    counts["bn_relu_conv1x1"] = brc.launches
+    return counts
+
+
+def phase_r1(card, device):
+    """float32, batch 8: Momentum steps on the card and the same steps on
+    the port's CPU path from the same weights; every forward conv runs
+    with cuDNN's TF32 off."""
+    from paddle_tpu_torch import CPUPlace, CUDAPlace, Executor, Scope
+
+    main, startup, loss, params_grads = build_resnet(False, R1_LR)
+    n_conv = sum(op.type == "conv2d" for op in main.global_block().ops)
+    scope, exe = Scope(), Executor(CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    start = _persistables(scope, main)
+    feed = _resnet_feed(R1_BATCH, SEED + 5)
+    grads = [g.name for _, g in params_grads]
+    seen, real_conv = [], torch.nn.functional.conv2d
+
+    def spy(x, *args, **kw):
+        seen.append((x.dtype, torch.backends.cudnn.allow_tf32))
+        return real_conv(x, *args, **kw)
+
+    torch.nn.functional.conv2d = spy
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses, g_card = run_steps(exe, main, scope, feed, loss, R1_STEPS,
+                                   grads)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        torch.nn.functional.conv2d = real_conv
+    if len(seen) != n_conv * R1_STEPS or any(
+            dt != torch.float32 or tf32 for dt, tf32 in seen):
+        raise AssertionError(f"R1: {len(seen)} forward convs, expected "
+                             f"{n_conv * R1_STEPS}, all float32 with "
+                             f"cudnn.allow_tf32 off: {set(seen)}")
+    cpu_scope = Scope()
+    for name, value in start.items():
+        cpu_scope.set_var(name, value.cpu())
+    del start
+    t0 = time.perf_counter()
+    cpu_losses, g_cpu = run_steps(Executor(CPUPlace()), main, cpu_scope,
+                                  feed, loss, R1_STEPS, grads)
+    cpu_wall = time.perf_counter() - t0
+    if not (np.all(np.isfinite(losses)) and np.allclose(
+            losses, cpu_losses, rtol=R1_LOSS_RTOL, atol=0)):
+        raise AssertionError(f"R1: card losses {losses} vs CPU {cpu_losses}")
+    rel, worst, l2 = _grad_diff(grads, [g.cpu() for g in g_card], g_cpu)
+    res = {"phase": "R1", "dtype": "float32", "batch": R1_BATCH,
+           "steps": R1_STEPS, "lr": R1_LR, "losses": losses,
+           "cpu_losses": cpu_losses, "max_rel_grad_diff": rel,
+           "max_rel_grad_diff_param": worst, "l2_rel_grad_diff": l2,
+           "forward_convs_tf32_off": len(seen),
+           "ms_per_step": wall / R1_STEPS * 1e3,
+           "cpu_ms_per_step": cpu_wall / R1_STEPS * 1e3, "card": card}
+    log(f"  R1 float32 batch {R1_BATCH}: card losses {losses}; CPU "
+        f"{cpu_losses}; step-1 grads vs CPU: largest relative difference "
+        f"{rel:.3e} ({worst}), L2 {l2:.3e}; {len(seen)} forward convs with "
+        f"TF32 off; {res['ms_per_step']:.1f} ms/step (CPU "
+        f"{res['cpu_ms_per_step']:.0f})  [{card}]")
+    return res
+
+
+def _f32_forward_loss(scope, feed, device):
+    """The loss of a float32 forward (resnet.build, no optimizer) over the
+    same weights and batch: the bf16 parameters read as float32."""
+    from paddle_tpu_torch import (CUDAPlace, Executor, Program, Scope,
+                                  program_guard, unique_name)
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = Program(), Program()
+    with program_guard(main, startup), unique_name.guard():
+        loss = resnet.build(dataset="imagenet", fused_loss=True)[0]
+    f32 = Scope()
+    for v in main.list_vars():
+        if v.persistable:
+            f32.set_var(v.name, scope.find_var(v.name).float())
+    (out,) = Executor(CUDAPlace(0)).run(main, feed=feed, fetch_list=[loss],
+                                        scope=f32, return_numpy=False)
+    return float(out.float().reshape(-1)[0])
+
+
+def phase_r2(card, device):
+    """bench.py's resnet50 step: batch 256, bf16 AMP, Momentum(0.1, 0.9,
+    multi_precision=True); no kernel of the port runs in it."""
+    from paddle_tpu_torch import CUDAPlace, Executor, Scope
+
+    main, startup, loss, _ = build_resnet(True, 0.1)
+    scope, exe = Scope(), Executor(CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    feed = {k: torch.as_tensor(v, device=device)
+            for k, v in _resnet_feed(R2_BATCH, 0).items()}
+    ref_first = _f32_forward_loss(scope, feed, device)
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    _zero_counts()
+    warm, _ = run_steps(exe, main, scope, feed, loss, R2_WARMUP)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    timed, _ = run_steps(exe, main, scope, feed, loss, R2_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_calls(
+        lambda: run_steps(exe, main, scope, feed, loss, 1), R2_PROFILED,
+        top=10)
+    counts = _port_kernel_counts()
+    if any(counts.values()):
+        raise AssertionError(f"R2: the ResNet step launched port kernels "
+                             f"{counts}")
+    losses = warm + timed
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"R2: losses {losses}")
+    if abs(losses[0] - ref_first) > LOSS_RTOL_BF16 * abs(ref_first):
+        raise AssertionError(f"R2: first loss {losses[0]} vs the float32 "
+                             f"forward's {ref_first}")
+    img_s = R2_BATCH * R2_STEPS / wall
+    res = {"phase": "R2", "dtype": "bfloat16 AMP", "batch": R2_BATCH,
+           "warmup": R2_WARMUP, "steps": R2_STEPS, "losses": losses,
+           "f32_forward_first_loss": ref_first, "images_per_s": img_s,
+           "ms_per_step": wall / R2_STEPS * 1e3,
+           "mfu": img_s * 3.0 * RESNET50_FWD_FLOPS /
+           PEAK_FLOP_PER_S[torch.bfloat16],
+           "peak_mem_mib": peak / 2 ** 20, "profile": prof, "card": card}
+    log(f"  R2 bf16 AMP batch {R2_BATCH}: {img_s:.1f} img/s, "
+        f"{res['ms_per_step']:.2f} ms/step, MFU {res['mfu']:.4f}, peak "
+        f"{res['peak_mem_mib']:.0f} MiB; losses {losses}; float32 forward "
+        f"{ref_first}  [{card}]")
+    log_profile(prof)
+    return res, (main, scope, exe, feed, loss)
+
+
+def conv3_sites(main):
+    """(batch_norm, relu, conv2d) of every bottleneck's conv3: a 1x1 conv
+    reading the relu of a batch norm of a 3x3 conv (conv2)."""
+    block = main.global_block()
+    producer = {}
+    for op in block.ops:
+        for n in op.output_arg_names:
+            producer.setdefault(n, op)
+    sites = []
+    for op in block.ops:
+        if op.type != "conv2d" or tuple(
+                block.var(op.input("Filter")[0]).shape[2:]) != (1, 1):
+            continue
+        relu = producer.get(op.input("Input")[0])
+        bn = relu is not None and relu.type == "relu" and producer.get(
+            relu.input("X")[0])
+        conv2 = bn and bn.type == "batch_norm" and producer.get(
+            bn.input("X")[0])
+        if conv2 and conv2.type == "conv2d" and tuple(
+                block.var(conv2.input("Filter")[0]).shape[2:]) == (3, 3):
+            sites.append((bn, relu, op))
+    return sites
+
+
+def _bn_relu_conv(bn, relu, conv, scope, y, device):
+    """The port's own batch_norm + relu + conv2d lowerings on y."""
+    from paddle_tpu_torch.ops import registry
+
+    def run(op, inputs):
+        return registry.run_forward(registry.get_runtime_info(op.type),
+                                    inputs, op.attrs, out_names=op.outputs,
+                                    device=device)
+
+    ins = {p: [scope.find_var(op_in) for op_in in bn.input(p)]
+           for p in ("Scale", "Bias", "Mean", "Variance")}
+    act = run(bn, dict(ins, X=[y]))["Y"][0]
+    act = run(relu, {"X": [act]})["Out"][0]
+    return run(conv, {"Input": [act], "Filter": [
+        scope.find_var(conv.input("Filter")[0])]})["Output"][0]
+
+
+def phase_rprobe(card, device, main, scope, exe, feed, loss):
+    """Kernel #8 at the 16 conv3 sites of R2's step: each site's y (conv2's
+    output), the BN's saved statistics and affine folded into scale' =
+    gamma * rstd and bias' = beta - mu * scale', conv3's filter as [C, K];
+    #8's output against the port's own batch_norm + relu + conv2d of that
+    y."""
+    from paddle_tpu_torch.ops.cuda import bn_relu_conv1x1 as brc
+
+    sites = conv3_sites(main)
+    if len(sites) != R_SITES:
+        raise AssertionError(f"R/probe: {len(sites)} conv3 sites, expected "
+                             f"{R_SITES}")
+    fetch = [loss]
+    for bn, _, _ in sites:
+        fetch += [bn.input("X")[0], bn.output("SavedMean")[0],
+                  bn.output("SavedVariance")[0]]
+    outs = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                   return_numpy=False)
+    torch.cuda.synchronize()
+    _zero_counts()
+    errs, shapes = [], []
+    for i, (bn, relu, conv) in enumerate(sites):
+        y, mu, rstd = outs[1 + 3 * i: 4 + 3 * i]
+        gamma = scope.find_var(bn.input("Scale")[0]).float()
+        beta = scope.find_var(bn.input("Bias")[0]).float()
+        s_ = (gamma * rstd.float()).contiguous()
+        b_ = (beta - mu.float() * s_).contiguous()
+        filt = scope.find_var(conv.input("Filter")[0])
+        w = filt.reshape(filt.shape[0], filt.shape[1]).t().contiguous()
+        z = brc.bn_relu_conv1x1(y.contiguous(), s_, b_, w)
+        ref = _bn_relu_conv(bn, relu, conv, scope, y, device)
+        torch.cuda.synchronize()
+        errs.append(_conv1x1_err(z, ref, torch.bfloat16, False))
+        shapes.append(f"{tuple(y.shape)}->{filt.shape[0]}")
+        del z, ref
+    launches = brc.launches
+    if launches != R_SITES:
+        raise AssertionError(f"R/probe: {launches} #8 launches, expected "
+                             f"{R_SITES}")
+    if not max(errs) <= BF16_TOL:
+        raise AssertionError(f"R/probe: #8 vs batch_norm + relu + conv2d: "
+                             f"errors {errs} > {BF16_TOL}")
+    res = {"phase": "R/probe", "sites": R_SITES, "launches": launches,
+           "max_rel_err": max(errs), "errs": errs, "shapes": shapes,
+           "card": card}
+    log(f"  R/probe: {R_SITES} conv3 sites of R2's step, #8 vs the port's "
+        f"batch_norm + relu + conv2d: largest error {max(errs):.2e} of the "
+        f"output's largest magnitude; {launches} launches  [{card}]")
+    return res, launches
+
+
+def drive_resnet(card, device):
+    """Phase 8: ResNet-50 trained through Executor.run (R1, R2), kernel #8
+    on R2's conv3 sites (R/probe), then the conv1x1 probe."""
+    from paddle_tpu_torch.ops.cuda import bn_relu_conv1x1 as brc
+    from paddle_tpu_torch.tools import conv1x1_fuse_probe
+
+    results = [phase_r1(card, device)]
+    torch.cuda.empty_cache()
+    res, state = phase_r2(card, device)
+    results.append(res)
+    res, site_launches = phase_rprobe(card, device, *state)
+    results.append(res)
+    del state
+    torch.cuda.empty_cache()
+    log(f"  conv1x1 probe (python -m paddle_tpu_torch.tools."
+        f"conv1x1_fuse_probe) [{card}]")
+    _zero_counts()
+    probe = conv1x1_fuse_probe.main(["--reps", "10"])
+    probe_launches = brc.launches
+    results.append({"phase": "R/conv1x1_probe", "launches": probe_launches,
+                    "shapes": probe, "card": card})
+    torch.cuda.empty_cache()
+    return results, {"bn_relu_conv1x1": site_launches + probe_launches}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -1606,13 +2001,20 @@ def main():
         for line in rec["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"    {line.strip()}")
+    laps = [time.perf_counter()]
+
+    def lap(step):
+        laps.append(time.perf_counter())
+        log(f"  {step} took {laps[-1] - laps[-2]:.1f} s wall")
 
     log(f"[3] kernels vs plain versions at the main path's shapes [{card}]")
     cases = check_kernels(device)
+    lap("[3]")
 
     log(f"[4] serving: transformer.base() through decode.Generator, then "
         f"serving.Scheduler [{card}]")
     phases, launches, scope = drive_main_path(card)
+    lap("[4]")
 
     log(f"[5] serving: transformer.base() through serving.Scheduler over "
         f"the device pool [{card}]")
@@ -1620,22 +2022,31 @@ def main():
     phases.append(res)
     del scope
     torch.cuda.empty_cache()
+    lap("[5]")
 
     log(f"[6] training: transformer.base() through Executor.run [{card}]")
     training, train_launches = drive_training(card, device)
+    lap("[6]")
 
     log(f"[7] pretraining: BERT-base at {L_SEQ} tokens through "
         f"Executor.run [{card}]")
     bert_runs, bert_launches = drive_bert(card, device)
     training += bert_runs
-    for more in (counts, train_launches, bert_launches):
+    lap("[7]")
+
+    log(f"[8] training: ResNet-50 through Executor.run, kernel #8 on its "
+        f"conv3 sites, the conv1x1 probe [{card}]")
+    resnet_runs, resnet_launches = drive_resnet(card, device)
+    training += resnet_runs
+    lap("[8]")
+    for more in (counts, train_launches, bert_launches, resnet_launches):
         for k, n in more.items():
             launches[k] = launches.get(k, 0) + n
     never = [k for k in KERNELS if not launches.get(k)]
     if never:
         raise AssertionError(f"kernels {never} never launched on a path")
 
-    log("[8] results")
+    log("[9] results")
     log(json.dumps({"phases": phases}))
     log(json.dumps({"training": training}))
     if DIVERGED:

@@ -14,7 +14,10 @@ backward kernel.  The third serves it through `serving.Scheduler`
 (continuous batching over a host or device-resident paged KV pool), with
 the flash_decode_paged kernel and the flash attention forward.  The
 fourth pretrains BERT-base (models.bert) at 2048 tokens through the flash
-attention tier, with its backward kernels.
+attention tier, with its backward kernels.  The fifth trains ResNet
+(models.resnet: convolutions, pooling, batch norm, Momentum) and carries
+the batch-norm + relu + 1x1 conv kernel of the conv1x1 probe
+(tools.conv1x1_fuse_probe).
 """
 
 from .framework import (
@@ -55,4 +58,4 @@ from . import amp
 from . import serving
 from .backward import append_backward
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"

@@ -3,9 +3,11 @@
 `load_params(scope, params, place, programs)` stages {name: ndarray} into
 `scope` as tensors on `place`, in the dtype each program declares.  Names
 and layouts are the JAX package's: `mul` weights are [in, out],
-embeddings [V, d].  Every name is checked against the persistable vars of
-`programs` (decode programs, or a training program with its optimizer
-state: learning rate, moments, beta powers and f32 master weights):
+embeddings [V, d], conv filters OIHW.  Every name is checked against the
+persistable vars of `programs` (decode programs, or a training program
+with its optimizer state: learning rate, Adam's moments and beta powers or
+Momentum's velocities, f32 master weights, and batch norms' running
+statistics, which stay float32 next to bf16 parameters under AMP):
 
   * a name no program declares, or a shape that disagrees, raises;
   * a trainable parameter of the programs missing from `params` raises.

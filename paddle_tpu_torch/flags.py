@@ -143,6 +143,12 @@ DEFINE_int("attn_flash_min_scores", 512 * 1024,
            "tile no longer fits attn_vmem_score_budget.  The JAX package's "
            "TPU default",
            trace_affecting=True)
+DEFINE_bool("conv1x1_as_dot", False,
+            "Lower pad-0 group-1 1x1 conv2d as a channel matmul "
+            "(torch.matmul over [B, C, H*W]) instead of a library "
+            "convolution; a strided one subsamples first.  The JAX "
+            "package's A/B lever, off by default as there",
+            trace_affecting=True)
 
 # the serving Scheduler's flags, with the JAX package's defaults and help
 DEFINE_int("serving_max_batch", 8,

@@ -127,6 +127,7 @@ class Parameter(Variable):
                                         {"learning_rate": 1.0})
         self.regularizer = kwargs.get("regularizer", None)
         self.gradient_clip_attr = kwargs.get("gradient_clip_attr", None)
+        self.do_model_average = kwargs.get("do_model_average", None)
 
 
 class Operator:

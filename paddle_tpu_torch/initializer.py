@@ -1,8 +1,8 @@
 """Parameter initializers — ops appended to the startup program, as in
 paddle_tpu/initializer.py: `exe.run(startup_program)` performs the
-initialization on the place the Executor runs on.  The serving slice needs
-Constant, Uniform/Xavier (through `uniform_random`) and NumpyArray
-(through `assign_value`).
+initialization on the place the Executor runs on.  The ported slices need
+Constant, Uniform/Xavier (through `uniform_random`), Normal (through
+`gaussian_random`) and NumpyArray (through `assign_value`).
 """
 
 from __future__ import annotations
@@ -50,6 +50,27 @@ class UniformInitializer(Initializer):
         )
 
 
+class NormalInitializer(Initializer):
+    """-> gaussian_random (conv2d's default filter init)."""
+
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        return block.append_op(
+            type="gaussian_random",
+            outputs={"Out": [var.name]},
+            attrs={
+                "shape": list(var.shape),
+                "dtype": var.dtype,
+                "mean": float(self.loc),
+                "std": float(self.scale),
+                "seed": self.seed,
+            },
+            infer_shape=False,
+        )
+
+
 def _fan_in_out(var):
     shape = var.shape
     if len(shape) == 1:
@@ -61,22 +82,21 @@ def _fan_in_out(var):
 
 
 class XavierInitializer(Initializer):
-    """Glorot init; the uniform form only (the normal form needs
-    `gaussian_random`, which is not on this slice)."""
+    """Glorot init, uniform or normal."""
 
     def __init__(self, uniform=True, fan_in=None, fan_out=None, seed=0):
-        if not uniform:
-            raise NotImplementedError(
-                "XavierInitializer(uniform=False) needs gaussian_random, "
-                "which lands with the long tail of ops (ROADMAP A)")
-        self.fan_in, self.fan_out, self.seed = fan_in, fan_out, seed
+        self.uniform, self.fan_in, self.fan_out = uniform, fan_in, fan_out
+        self.seed = seed
 
     def __call__(self, var, block):
         f_in, f_out = _fan_in_out(var)
         f_in = self.fan_in if self.fan_in is not None else f_in
         f_out = self.fan_out if self.fan_out is not None else f_out
-        limit = math.sqrt(6.0 / (f_in + f_out))
-        return UniformInitializer(-limit, limit, self.seed)(var, block)
+        if self.uniform:
+            limit = math.sqrt(6.0 / (f_in + f_out))
+            return UniformInitializer(-limit, limit, self.seed)(var, block)
+        std = math.sqrt(2.0 / (f_in + f_out))
+        return NormalInitializer(0.0, std, self.seed)(var, block)
 
 
 class NumpyArrayInitializer(Initializer):
@@ -98,6 +118,7 @@ class NumpyArrayInitializer(Initializer):
 
 Constant = ConstantInitializer
 Uniform = UniformInitializer
+Normal = NormalInitializer
 Xavier = XavierInitializer
 
 

@@ -15,16 +15,19 @@ from .framework.framework import (
 
 class ParamAttr:
     """A parameter's name, initializer, per-parameter learning-rate factor,
-    regularizer, trainability and gradient clip."""
+    regularizer, trainability, gradient clip and model-average
+    eligibility (None: eligible)."""
 
     def __init__(self, name=None, initializer=None, learning_rate=1.0,
-                 regularizer=None, trainable=True, gradient_clip=None):
+                 regularizer=None, trainable=True, gradient_clip=None,
+                 do_model_average=None):
         self.name = name
         self.initializer = initializer
         self.learning_rate = learning_rate
         self.regularizer = regularizer
         self.trainable = trainable
         self.gradient_clip = gradient_clip
+        self.do_model_average = do_model_average
 
     @staticmethod
     def _to_attr(arg):
@@ -95,7 +98,8 @@ class LayerHelper:
             name=name, shape=shape, dtype=dtype, trainable=attr.trainable,
             optimize_attr={"learning_rate": attr.learning_rate},
             regularizer=attr.regularizer,
-            gradient_clip_attr=attr.gradient_clip)
+            gradient_clip_attr=attr.gradient_clip,
+            do_model_average=attr.do_model_average)
         # mirror into the startup program with its init op
         sb = self.startup_program.global_block()
         if not sb.has_var(name):

@@ -1,5 +1,6 @@
 """Layer function namespace (counterpart of paddle_tpu/layers/): what
-transformer.build_decode, transformer.build and bert.build call.
+transformer.build_decode, transformer.build, bert.build and resnet.build
+call.
 Importing it patches Variable's arithmetic and comparison operators
 (math_op_patch), as the JAX package's does."""
 
@@ -7,6 +8,10 @@ from . import control_flow, io, nn, sequence, tensor
 from .control_flow import increment
 from .io import data
 from .nn import (
+    accuracy,
+    batch_norm,
+    conv2d,
+    cross_entropy,
     elementwise_add,
     elementwise_div,
     elementwise_mul,
@@ -23,12 +28,15 @@ from .nn import (
     mean,
     multi_head_attention,
     one_hot,
+    pool2d,
     reduce_sum,
     relu,
     reshape,
     scale,
     slice,
+    softmax,
     softmax_with_cross_entropy,
+    topk,
 )
 from .sequence import sequence_last_step, sequence_pool
 from .tensor import (

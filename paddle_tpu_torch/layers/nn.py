@@ -67,6 +67,111 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     return out
 
 
+def _pair(v, n=2):
+    if isinstance(v, (list, tuple)):
+        return list(v)
+    return [v] * n
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None):
+    """NCHW conv2d: Normal(0, sqrt(2 / fan_in)) OIHW filters, a
+    per-channel bias over dim 1, then the activation.  With groups equal
+    to the input channels it emits depthwise_conv2d, as the JAX package
+    does; that op is not ported yet (ROADMAP A)."""
+    from ..initializer import NormalInitializer
+
+    helper = LayerHelper("conv2d", **locals())
+    dtype = input.dtype
+    num_channels = input.shape[1]
+    groups = groups or 1
+    filter_size = _pair(filter_size)
+    stride, padding, dilation = _pair(stride), _pair(padding), _pair(dilation)
+    filter_shape = [num_filters, num_channels // groups] + filter_size
+    fan_in = (num_channels // groups) * filter_size[0] * filter_size[1]
+    w = helper.create_parameter(
+        attr=param_attr, shape=filter_shape, dtype=dtype,
+        default_initializer=NormalInitializer(0.0, (2.0 / fan_in) ** 0.5))
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type=("conv2d" if groups == 1 or groups != num_channels
+              else "depthwise_conv2d"),
+        inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [pre_bias]},
+        attrs={"strides": stride, "paddings": padding,
+               "dilations": dilation, "groups": groups,
+               "use_cudnn": use_cudnn},
+    )
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, exclusive=True, name=None):
+    helper = LayerHelper("pool2d", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="pool2d", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": _pair(pool_size),
+               "strides": _pair(pool_stride),
+               "paddings": _pair(pool_padding),
+               "global_pooling": global_pooling, "ceil_mode": ceil_mode,
+               "exclusive": exclusive},
+    )
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               name=None, moving_mean_name=None, moving_variance_name=None,
+               do_model_average_for_mean_and_var=False,
+               use_global_stats=False):
+    """Scale and Bias are trainable parameters; the moving mean and
+    variance are persistable, non-trainable parameters that the op
+    updates in place (MeanOut/VarianceOut are the same vars).  The op's
+    fused `act` attr stays None and the activation is its own op, as in
+    the JAX package."""
+    from ..initializer import ConstantInitializer
+
+    helper = LayerHelper("batch_norm", **locals())
+    dtype = input.dtype
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale = helper.create_parameter(
+        attr=param_attr, shape=[c], dtype=dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(attr=bias_attr, shape=[c], dtype=dtype,
+                                   is_bias=True)
+    stats = []
+    for stat_name, value in ((moving_mean_name, 0.0),
+                             (moving_variance_name, 1.0)):
+        v = helper.create_parameter(
+            attr=ParamAttr(name=stat_name, trainable=False,
+                           do_model_average=do_model_average_for_mean_and_var),
+            shape=[c], dtype=dtype,
+            default_initializer=ConstantInitializer(value))
+        v.stop_gradient = True
+        stats.append(v)
+    mean, variance = stats
+    saved_mean = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [variance]},
+        outputs={"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+                 "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout,
+               "use_global_stats": use_global_stats, "act": None},
+    )
+    return helper.append_activation(out)
+
+
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                epsilon=1e-5, param_attr=None, bias_attr=None, name=None):
     helper = LayerHelper("layer_norm", **locals())
@@ -230,6 +335,59 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, softmax_out
     return loss
+
+
+def softmax(input, use_cudnn=True, name=None):
+    helper = LayerHelper("softmax", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="cross_entropy", inputs={"X": [input], "Label": [label]},
+        outputs={"Y": [out]},
+        attrs={"soft_label": soft_label, "ignore_index": ignore_index},
+    )
+    return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", **locals())
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference("int64",
+                                                        stop_gradient=True)
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs={"k": k})
+    values.stop_gradient = True
+    return values, indices
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    """top_k + accuracy: the fraction of rows whose top k hit the label."""
+    helper = LayerHelper("accuracy", **locals())
+    topk_out, topk_indices = topk(input, k=k)
+    acc_out = helper.create_variable_for_type_inference("float32",
+                                                        stop_gradient=True)
+    if correct is None:
+        correct = helper.create_variable_for_type_inference(
+            "int32", stop_gradient=True)
+    if total is None:
+        total = helper.create_variable_for_type_inference(
+            "int32", stop_gradient=True)
+    helper.append_op(
+        type="accuracy",
+        inputs={"Out": [topk_out], "Indices": [topk_indices],
+                "Label": [label]},
+        outputs={"Accuracy": [acc_out], "Correct": [correct],
+                 "Total": [total]},
+    )
+    return acc_out
 
 
 def mean(x, name=None):

@@ -1,0 +1,116 @@
+"""ResNet image classification: cifar ResNet (basic blocks, depth 6n+2)
+and ImageNet ResNet-18 to -152 (counterpart of
+paddle_tpu/models/resnet.py).
+
+bench.py's resnet50 leg trains `build(dataset="imagenet",
+fused_loss=True)` with Momentum(0.1, 0.9, multi_precision=True) under bf16
+AMP at batch 256.  The builders emit the JAX package's ops, parameter
+names and attrs, so both packages build the same Program.
+"""
+
+from __future__ import annotations
+
+from .. import layers
+
+
+def conv_bn(input, ch_out, filter_size, stride, padding, act="relu"):
+    conv = layers.conv2d(input=input, num_filters=ch_out,
+                         filter_size=filter_size, stride=stride,
+                         padding=padding, act=None, bias_attr=False)
+    return layers.batch_norm(input=conv, act=act)
+
+
+def _shortcut(input, ch_out, stride):
+    ch_in = input.shape[1]
+    if ch_in != ch_out or stride != 1:
+        return conv_bn(input, ch_out, 1, stride, 0, act=None)
+    return input
+
+
+def basicblock(input, ch_out, stride):
+    short = _shortcut(input, ch_out, stride)
+    conv1 = conv_bn(input, ch_out, 3, stride, 1)
+    conv2 = conv_bn(conv1, ch_out, 3, 1, 1, act=None)
+    return layers.elementwise_add(x=short, y=conv2, act="relu")
+
+
+def bottleneck(input, ch_out, stride):
+    short = _shortcut(input, ch_out * 4, stride)
+    conv1 = conv_bn(input, ch_out, 1, 1, 0)
+    conv2 = conv_bn(conv1, ch_out, 3, stride, 1)
+    conv3 = conv_bn(conv2, ch_out * 4, 1, 1, 0, act=None)
+    return layers.elementwise_add(x=short, y=conv3, act="relu")
+
+
+def _layer_warp(block_fn, input, ch_out, count, stride):
+    x = block_fn(input, ch_out, stride)
+    for _ in range(1, count):
+        x = block_fn(x, ch_out, 1)
+    return x
+
+
+def resnet_cifar10(input, depth=32, class_dim=10, act="softmax"):
+    assert (depth - 2) % 6 == 0
+    n = (depth - 2) // 6
+    x = conv_bn(input, 16, 3, 1, 1)
+    x = _layer_warp(basicblock, x, 16, n, 1)
+    x = _layer_warp(basicblock, x, 32, n, 2)
+    x = _layer_warp(basicblock, x, 64, n, 2)
+    x = layers.pool2d(input=x, pool_type="avg", global_pooling=True)
+    return layers.fc(input=x, size=class_dim, act=act)
+
+
+IMAGENET_DEPTHS = {
+    18: ([2, 2, 2, 2], basicblock),
+    34: ([3, 4, 6, 3], basicblock),
+    50: ([3, 4, 6, 3], bottleneck),
+    101: ([3, 4, 23, 3], bottleneck),
+    152: ([3, 8, 36, 3], bottleneck),
+}
+
+
+def resnet_imagenet(input, depth=50, class_dim=1000, act="softmax"):
+    stages, block_fn = IMAGENET_DEPTHS[depth]
+    x = conv_bn(input, 64, 7, 2, 3)
+    x = layers.pool2d(input=x, pool_size=3, pool_stride=2, pool_padding=1,
+                      pool_type="max")
+    x = _layer_warp(block_fn, x, 64, stages[0], 1)
+    x = _layer_warp(block_fn, x, 128, stages[1], 2)
+    x = _layer_warp(block_fn, x, 256, stages[2], 2)
+    x = _layer_warp(block_fn, x, 512, stages[3], 2)
+    x = layers.pool2d(input=x, pool_type="avg", global_pooling=True)
+    return layers.fc(input=x, size=class_dim, act=act)
+
+
+def build(dataset="cifar10", depth=None, class_dim=None, fused_loss=False):
+    """-> (loss, prediction, accuracy).  fused_loss=True emits logits +
+    softmax_with_cross_entropy (one stable fused op) instead of softmax +
+    cross_entropy."""
+    if dataset == "cifar10":
+        shape, builder = [3, 32, 32], resnet_cifar10
+        depth = depth or 32
+        class_dim = class_dim or 10
+    else:
+        shape, builder = [3, 224, 224], resnet_imagenet
+        depth = depth or 50
+        class_dim = class_dim or 1000
+    img = layers.data(name="img", shape=shape, dtype="float32")
+    label = layers.data(name="label", shape=[1], dtype="int64")
+    act = None if fused_loss else "softmax"
+    prediction = builder(img, depth=depth, class_dim=class_dim, act=act)
+    if fused_loss:
+        loss = layers.mean(layers.softmax_with_cross_entropy(
+            logits=prediction, label=label))
+    else:
+        loss = layers.mean(layers.cross_entropy(input=prediction,
+                                                label=label))
+    acc = layers.accuracy(input=prediction, label=label)
+    return loss, prediction, acc
+
+
+def feed_shapes(batch_size, dataset="cifar10"):
+    shape = (3, 32, 32) if dataset == "cifar10" else (3, 224, 224)
+    return {
+        "img": ((batch_size,) + shape, "float32"),
+        "label": ((batch_size, 1), "int64"),
+    }

@@ -1,6 +1,7 @@
 """Op library: importing this package registers every op lowering of the
 ported slices (transformer.build_decode's programs, and transformer.build
-with its backward, optimizer and AMP ops, and bert.build's)."""
+with its backward, optimizer and AMP ops, bert.build's and
+resnet.build's)."""
 
 from . import registry
 from . import math_ops

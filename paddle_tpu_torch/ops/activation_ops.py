@@ -1,6 +1,6 @@
-"""Activation ops: relu and tanh with their Out-based grads, gelu with the
-generic one (paddle_tpu/ops/activation_ops.py:25-49, :55, :56, :71, :74,
-:76)."""
+"""Activation ops: relu and tanh with their Out-based grads, gelu and
+softmax with the generic one (paddle_tpu/ops/activation_ops.py:25-49, :55,
+:56, :71, :74, :76, softmax :139)."""
 
 from __future__ import annotations
 
@@ -48,3 +48,11 @@ _unary("gelu", lambda x, ctx: torch.nn.functional.gelu(
 
 _out_grad("relu", lambda out, dout: dout * (out > 0).to(dout.dtype))
 _out_grad("tanh", lambda out, dout: dout * (1.0 - out * out))
+
+
+@register_op("softmax")
+def softmax(ctx):
+    """Softmax over the last dim, computed in float32 and returned in X's
+    dtype."""
+    x = ctx.input("X")
+    ctx.set_output("Out", torch.softmax(x.float(), dim=-1).to(x.dtype))

@@ -27,7 +27,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("mha_block", "mha_block_bwd", "flash_decode",
-           "flash_decode_paged", "flash_attention_fwd", "flash_attention_bwd")
+           "flash_decode_paged", "flash_attention_fwd", "flash_attention_bwd",
+           "bn_relu_conv1x1")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

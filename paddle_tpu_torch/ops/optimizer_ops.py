@@ -1,5 +1,5 @@
-"""Optimizer update ops: sgd and adam (paddle_tpu/ops/optimizer_ops.py:37,
-:81).
+"""Optimizer update ops: sgd, momentum and adam
+(paddle_tpu/ops/optimizer_ops.py:37, :45, :81).
 
 Each update writes its outputs under the input var names (ParamOut is
 Param), so the Executor stores the new values over the old ones in the
@@ -42,6 +42,24 @@ def sgd(ctx):
     pc, had_master = _master(ctx, p)
     g = g.to(pc.dtype)
     _emit_param(ctx, p, pc - _lr(ctx, pc) * g, had_master)
+
+
+@register_op("momentum", no_grad=True)
+def momentum(ctx):
+    """v' = mu v + g;  p' = p - lr v', or with Nesterov p - lr (g + mu v').
+    The velocity lives in the master's dtype (float32 under AMP)."""
+    p, g, v = ctx.input("Param"), ctx.input("Grad"), ctx.input("Velocity")
+    pc, had_master = _master(ctx, p)
+    g = g.to(pc.dtype)
+    mu = _const(ctx.attr("mu"), pc)
+    lr = _lr(ctx, pc)
+    v_out = mu * v + g
+    if ctx.attr("use_nesterov", False):
+        p_out = pc - (g + mu * v_out) * lr
+    else:
+        p_out = pc - lr * v_out
+    _emit_param(ctx, p, p_out, had_master)
+    ctx.set_output("VelocityOut", v_out)
 
 
 @register_op("adam", no_grad=True)

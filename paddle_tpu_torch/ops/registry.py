@@ -28,7 +28,7 @@ from ..framework.core_types import (
     dtype_to_torch,
     is_float_dtype,
 )
-from ..framework.framework import grad_var_name
+from ..framework.framework import EMPTY_VAR_NAME, grad_var_name
 
 # batch-dim sentinel: -1 dims are replaced by this prime for meta-tensor
 # inference, then mapped back.  Large and prime so accidental collisions
@@ -97,6 +97,12 @@ class OpContext:
 
     def num_outputs(self, name):
         return len(self._out_names.get(name, []))
+
+    def wants(self, name):
+        """Whether the op desc names a real var for output `name` (a grad
+        op's output is EMPTY where no gradient is asked for)."""
+        names = self._out_names.get(name) or []
+        return bool(names) and names[0] != EMPTY_VAR_NAME
 
     def rng(self) -> torch.Generator:
         if self._rng is None:

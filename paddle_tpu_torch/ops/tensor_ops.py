@@ -1,13 +1,13 @@
 """Tensor ops: fill_constant, fill_constant_batch_size_like, assign,
-assign_value, cast, reshape, slice, gather, one_hot, lookup_table (with
-its hand-written grad), increment.
+assign_value, cast, reshape, slice, gather, one_hot, top_k, lookup_table
+(with its hand-written grad), increment.
 
 Counterparts of paddle_tpu/ops/tensor_ops.py (fill_constant :25,
 fill_constant_batch_size_like :42, assign :60, assign_value :65, cast
-:78, reshape :83, slice :138, gather :229, one_hot :242, lookup_table
-:286, lookup_table_grad :311-342, increment :395).  Integer feeds keep
-int64 here, where the JAX package (x64 off) narrows them to int32: values
-agree, dtypes do not.
+:78, reshape :83, slice :138, gather :229, one_hot :242, top_k :254,
+lookup_table :286, lookup_table_grad :311-342, increment :395).  Integer
+feeds keep int64 here, where the JAX package (x64 off) narrows them to
+int32: values agree, dtypes do not.
 """
 
 from __future__ import annotations
@@ -106,6 +106,15 @@ def one_hot(ctx):
         x = x.reshape(x.shape[:-1])
     classes = torch.arange(depth, device=x.device)
     ctx.set_output("Out", (x[..., None] == classes).to(torch.float32))
+
+
+@register_op("top_k", no_grad=True)
+def top_k(ctx):
+    """The k largest entries of the last dim, largest first, and their
+    int64 indices."""
+    vals, idx = torch.topk(ctx.input("X"), ctx.attr("k", 1), dim=-1)
+    ctx.set_output("Out", vals)
+    ctx.set_output("Indices", idx)
 
 
 @register_op("lookup_table")

@@ -3,11 +3,11 @@
 Counterpart of paddle_tpu/optimizer.py: the Optimizer base (minimize =
 append_backward, gradient clipping, regularization, then the optimization
 pass appending the global learning rate, the accumulators and one update
-op per parameter, stamped OpRole.Optimize), SGDOptimizer and
-AdamOptimizer with its beta-power `scale` ops.  The update ops are
-ordinary IR ops (ops/optimizer_ops.py) that write over their inputs in the
-scope.  The other optimizers (Momentum, Lars, Adagrad, Adamax, ...) and
-RecomputeOptimizer/ModelAverage are later work (ROADMAP.md A).
+op per parameter, stamped OpRole.Optimize), SGDOptimizer,
+MomentumOptimizer and AdamOptimizer with its beta-power `scale` ops.  The
+update ops are ordinary IR ops (ops/optimizer_ops.py) that write over
+their inputs in the scope.  The other optimizers (Lars, Adagrad, Adamax,
+...) and RecomputeOptimizer/ModelAverage are later work (ROADMAP.md A).
 
 `multi_precision=True` keeps an f32 master copy of every bf16 parameter
 (made by a `cast` op in the startup program) and f32 moments: the update
@@ -34,7 +34,8 @@ from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper
 from . import regularizer as regularizer_mod
 
-__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Adam", "AdamOptimizer"]
+__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
+           "MomentumOptimizer", "Adam", "AdamOptimizer"]
 
 
 class Optimizer:
@@ -204,6 +205,40 @@ class SGDOptimizer(Optimizer):
                                infer_shape=False)
 
 
+class MomentumOptimizer(Optimizer):
+    _velocity_acc_str = "velocity"
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "momentum"
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._velocity_acc_str, p,
+                                  dtype=self._acc_dtype(p))
+            if self._needs_master(p):
+                self._create_master_weight(p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p = param_and_grad[0]
+        velocity = self._get_accumulator(self._velocity_acc_str, p)
+        inputs = {"Param": [p], "Grad": [param_and_grad[1]],
+                  "Velocity": [velocity],
+                  "LearningRate": [self._create_param_lr(param_and_grad)]}
+        outputs = {"ParamOut": [p], "VelocityOut": [velocity]}
+        if self._needs_master(p):
+            master = self._master_weights[p.name]
+            inputs["MasterParam"] = [master]
+            outputs["MasterParamOut"] = [master]
+        return block.append_op(
+            type="momentum", inputs=inputs, outputs=outputs,
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov},
+            infer_shape=False)
+
+
 class AdamOptimizer(Optimizer):
     _moment1_acc_str = "moment1"
     _moment2_acc_str = "moment2"
@@ -270,4 +305,5 @@ class AdamOptimizer(Optimizer):
 
 
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

@@ -7,20 +7,23 @@ same tests; without a card each test skips.
 
 Shapes are the serving, training and Scheduler slices' main paths at
 transformer-base (d_model 512, 8 heads of 64), the BERT slice's flash-tier
-grad at BERT-base widths (12 heads of 64, 2048 tokens), plus the edge
-cases of each kernel's masking contract.  Tolerances: max abs error 1e-4
-in float32 (the kernels sum in another order than cuBLAS) and 2e-2 in
-bfloat16 (the plain
-version rounds the normalised probabilities to bfloat16 before P V, the
-kernels keep them in float32); the backward's bfloat16 outputs are held to
-2e-2 of their largest magnitude (the flash backward's too); the flash
-forward's float32 lse to 1e-4.
+grad at BERT-base widths (12 heads of 64, 2048 tokens), kernel #8
+(bn_relu_conv1x1) at ResNet-50's conv3 widths and the ResNet conv
+lowering in float32, plus the edge cases of each kernel's masking
+contract.  Tolerances: max abs error 1e-4 in float32 (the kernels sum in
+another order than cuBLAS) and 2e-2 in bfloat16 (the plain version
+rounds the normalised probabilities to bfloat16 before P V, the kernels
+keep them in float32); the backward's bfloat16 outputs are held to 2e-2
+of their largest magnitude (the flash backward's too); the flash
+forward's float32 lse to 1e-4; #8's bfloat16 output to 2e-2 of its
+largest magnitude.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.ops.cuda import bn_relu_conv1x1 as brc
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda import flash_decode as fd
 from paddle_tpu_torch.ops.cuda import flash_decode_paged as fdp
@@ -500,3 +503,88 @@ def test_bwd_kernels_raise_instead_of_falling_back(card):
         fa.flash_attention_bwd_dkv(q, k, v, g, lse[:, :1], delta, h)
     with pytest.raises(ValueError):
         fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta.double(), h)
+
+
+def _conv1x1_inputs(seed, b, c, hw, k, device, dtype):
+    rng = np.random.RandomState(seed)
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(a.astype(np.float32), device=device).to(dt)
+
+    return (t(rng.standard_normal((b, c) + hw)),
+            t(rng.rand(c) + 0.5, torch.float32),
+            t(rng.standard_normal(c) * 0.5, torch.float32),
+            t(rng.standard_normal((c, k)) * c ** -0.5))
+
+
+@pytest.mark.parametrize("case", [
+    # (b, c, (h, w), k)
+    (4, 64, (56, 56), 256),      # ResNet-50's conv3 sites, batch cut
+    (8, 128, (28, 28), 512),
+    (8, 256, (14, 14), 1024),
+    (16, 512, (7, 7), 2048),
+    (3, 40, (24, 24), 72),       # C, K and B*HW off every tile
+    (1, 7, (1, 3), 5),
+], ids=["56x56", "28x28", "14x14", "7x7", "ragged", "tiny"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_bn_relu_conv1x1_matches_plain(card, case, dtype):
+    b, c, hw, k = case
+    y, scale, bias, w = _conv1x1_inputs(3, b, c, hw, k, card, dtype)
+    before = brc.launches
+    out = brc.bn_relu_conv1x1(y, scale, bias, w)
+    torch.cuda.synchronize()
+    assert brc.launches == before + 1
+    ref = brc.bn_relu_conv1x1_reference(y, scale, bias, w)
+    assert out.shape == (b, k) + hw and out.dtype == dtype
+    err = (out.float() - ref.float()).abs().max().item()
+    if dtype == torch.bfloat16:
+        err /= ref.float().abs().max().item()
+    assert err <= TOL[dtype], err
+
+
+def test_bn_relu_conv1x1_wrapper_raises_instead_of_falling_back(card):
+    y, scale, bias, w = _conv1x1_inputs(4, 2, 8, (4, 4), 16, card,
+                                        torch.float32)
+    with pytest.raises(ValueError, match="dtypes"):
+        brc.bn_relu_conv1x1(y, scale, bias, w.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        brc.bn_relu_conv1x1(y.transpose(2, 3), scale, bias, w)
+    with pytest.raises(ValueError, match="disagree"):
+        brc.bn_relu_conv1x1(y, scale, bias, w[:4])
+
+
+def test_conv_lowering_runs_float32_without_tf32(card):
+    """The conv2d lowering and its grad on the card equal the CPU's in
+    float32 at 1e-5 relative: cuDNN's TF32 is off inside them (it would
+    round the inputs to 10 mantissa bits), and the global flag is left as
+    it was."""
+    from paddle_tpu_torch.ops import registry
+
+    rng = np.random.RandomState(5)
+    x = rng.standard_normal((8, 64, 28, 28)).astype(np.float32)
+    w = (rng.standard_normal((128, 64, 3, 3)) / 24).astype(np.float32)
+    gy = rng.standard_normal((8, 128, 28, 28)).astype(np.float32)
+    attrs = {"strides": [1, 1], "paddings": [1, 1], "dilations": [1, 1],
+             "groups": 1}
+    flag = torch.backends.cudnn.allow_tf32
+    res = {}
+    for dev in (torch.device("cpu"), card):
+        t = {n: torch.as_tensor(a, device=dev) for n, a in
+             (("x", x), ("w", w), ("gy", gy))}
+        fwd = registry.run_forward(
+            registry.get_runtime_info("conv2d"),
+            {"Input": [t["x"]], "Filter": [t["w"]]}, attrs,
+            out_names={"Output": ["o"]}, device=dev)["Output"][0]
+        grads = registry.run_forward(
+            registry.get_runtime_info("conv2d_grad"),
+            {"Input": [t["x"]], "Filter": [t["w"]], "Output": [fwd],
+             "Output@GRAD": [t["gy"]]}, attrs,
+            out_names={"Input@GRAD": ["gx"], "Filter@GRAD": ["gw"]},
+            device=dev)
+        res[dev.type] = [fwd, grads["Input@GRAD"][0],
+                         grads["Filter@GRAD"][0]]
+    assert torch.backends.cudnn.allow_tf32 == flag
+    for a, b in zip(res["cuda"], res["cpu"]):
+        scale = b.abs().max().item()
+        assert (a.cpu() - b).abs().max().item() <= 1e-5 * scale

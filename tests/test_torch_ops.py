@@ -218,8 +218,10 @@ def test_fused_attention_composite(causal, seq_len, bias):
 def test_the_slice_registers_exactly_the_decode_op_types():
     """The decode slice's 15 op types, the training slice's loss,
     reduction, cast, update and hand-written grad ops, the Scheduler
-    slice's paged append, and the BERT slice's ops (with those behind
-    Variable's operators)."""
+    slice's paged append, the BERT slice's ops (with those behind
+    Variable's operators), and the ResNet slice's conv, pool, batch norm
+    (with its hand-written grad), metric, loss, momentum and gaussian
+    ops."""
     assert sorted(preg.OPS) == sorted([
         "assign_value", "elementwise_add", "fill_constant", "fused_attention",
         "gather", "increment", "kv_cache_append", "layer_norm",
@@ -232,4 +234,7 @@ def test_the_slice_registers_exactly_the_decode_op_types():
         "reduce_sum", "one_hot", "slice", "check_prefix_mask", "assign",
         "fill_constant_batch_size_like", "elementwise_sub",
         "elementwise_pow", "elementwise_mod", "less_than", "less_equal",
-        "greater_than", "greater_equal"])
+        "greater_than", "greater_equal",
+        "conv2d", "pool2d", "batch_norm",
+        "batch_norm_grad", "top_k", "accuracy", "softmax", "cross_entropy",
+        "momentum", "gaussian_random"])
