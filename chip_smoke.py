@@ -77,8 +77,9 @@ catches its own failure:
      weights through the composite give the same losses (rtol 1e-4).  L2,
      bench.py's long_2048_masked leg (batch 16, bf16 AMP, Adam
      multi_precision): 2 warm-up, 3 timed and 1 profiled step, tokens/s,
-     ms per step, card busy time and idle share, peak memory and MFU; its
-     first loss must match the composite's within 2e-2;
+     ms per step, card busy time and idle share, the flash kernels' card
+     time and share of it, peak memory and MFU; its first loss must
+     match the composite's within 2e-2;
   8. ResNet-50 training through resnet.build(dataset="imagenet",
      fused_loss=True) + Momentum + Executor.run (224x224 images, 1000
      classes, images and labels drawn as bench.py draws them).  R1,
@@ -187,7 +188,8 @@ KERNELS = {
     "flash_attention_fwd": {
         "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "paddle_tpu/ops/pallas/flash_attention.py:205",
-        "device_names": ("flash_fwd_kernel",),
+        # flash_fwd_kernel: float32 (SIMT); flash_fwd_mma_kernel: bf16
+        "device_names": ("flash_fwd_kernel", "flash_fwd_mma_kernel"),
     },
     "flash_attention_bwd_dq": {
         "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -197,7 +199,8 @@ KERNELS = {
     "flash_attention_bwd_dkv": {
         "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "paddle_tpu/ops/pallas/flash_attention.py:354",
-        "device_names": ("flash_bwd_dkv_kernel",),
+        # float32 (SIMT), bf16 (tensor cores)
+        "device_names": ("flash_bwd_dkv_kernel", "flash_bwd_dkv_mma_kernel"),
     },
     "bn_relu_conv1x1": {
         "source": "paddle_tpu_torch/csrc/bn_relu_conv1x1.cu",
@@ -834,10 +837,12 @@ def teacher_forced(gen, feed, trg):
     return out
 
 
-def profile_calls(fn, n, top=5):
+def profile_calls(fn, n, top=5, kernels=()):
     """n calls of fn under torch.profiler: host ms per call, the card's
-    busy ms per call (union of its operations), the idle share and the
-    kernels that take most of the card's time (ms per call)."""
+    busy ms per call (union of its operations), the idle share, the
+    kernels that take most of the card's time (ms per call) and, for each
+    name of `kernels` (keys of KERNELS), its device ms per call and share
+    of the busy time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -856,11 +861,18 @@ def profile_calls(fn, n, top=5):
         per_kernel[name[:90]] = per_kernel.get(name[:90], 0.0) + (b - a)
     ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]
     busy = busy_us(spans)
+    mine = {}
+    for name in kernels:
+        us = sum(b - a for k, a, b in spans
+                 if any(d in k for d in KERNELS[name]["device_names"]))
+        mine[name] = {"ms_per_step": round(us / n / 1e3, 4),
+                      "share": round(us / busy, 4)}
     return {"steps": n, "step_ms": wall_us / n / 1e3,
             "busy_ms_per_step": busy / n / 1e3,
             "idle_share": 1.0 - busy / wall_us,
             "top_kernels_ms_per_step": [[k, round(v / n / 1e3, 4)]
-                                        for k, v in ranked]}
+                                        for k, v in ranked],
+            "kernels": mine}
 
 
 def profile_decode_steps(gen, feed, tok, lengths, states, n_steps):
@@ -987,6 +999,9 @@ def log_profile(prof):
             f"{prof['busy_ms_per_step']:.3f} ms/step, idle share "
             f"{prof['idle_share']:.3f}; top kernels "
             f"{prof['top_kernels_ms_per_step']}")
+        if prof["kernels"]:
+            log(f"    port kernels (ms/step, share of busy): "
+                f"{prof['kernels']}")
 
 
 def drive_main_path(card):
@@ -1644,7 +1659,8 @@ def phase_l2(card, device):
     peak = torch.cuda.max_memory_allocated()
     prof = profile_calls(
         lambda: run_steps(exe, main, scope, feed, loss, 1), L2_PROFILED,
-        top=8)
+        top=8, kernels=("flash_attention_fwd", "flash_attention_bwd_dq",
+                        "flash_attention_bwd_dkv"))
     counts = _bert_counts()
     expect = _bert_expect(n_attn, L2_WARMUP + L2_STEPS + L2_PROFILED)
     if counts != expect:

@@ -35,23 +35,58 @@
 // (batch 16, 12 heads of 64, bf16) the dq sweep computes 3 tile products a
 // live (row, key) pair and the dkv sweep 4, about 230 and 310 GFLOP at the
 // masked legs' ~0.75 live share, against ~0.3 GB of reads and writes: both
-// are bound by operations (bf16 tensor-core peak), not memory.  This first
-// version keeps mha_block_bwd.cu's SIMT structure and pays for it:
+// are bound by operations (bf16 tensor-core peak), not memory.
+//
+// dK/dV in bf16, flash_bwd_dkv_mma_kernel<D> (tensor cores, mma.sync
+// m16n8k16), computed in the transposed orientation so that every operand
+// but the streamed ones stays in registers:
+//   * grid (key tiles, heads, batch), 4 warps; each warp owns 16 keys and,
+//     at D 192 and 256, half of the D output columns (two warps share 16
+//     keys and each recomputes the score tiles, so that the dK and dV
+//     accumulators, D / 2 registers each, fit the register file): 64 keys
+//     a block at D <= 128, 32 above;
+//   * K and V are loaded once and, at D 64, kept as mma A fragments in
+//     registers (at D > 64 they stay in shared memory and are read with
+//     ldmatrix, for the same reason);
+//   * the loop runs over q tiles (64 rows at D 64, 32 above) from the first
+//     one that reaches the block's keys under causal; q, dO and the tile's
+//     lse and delta stream through a two-stage cp.async ring, tile t+1's
+//     copy issued before tile t's math; each thread scales and rounds the
+//     q chunks it copied, in place, to the bf16 q * scale of the plain
+//     version (1/sqrt(D) is not a power of two at D 128 and 192, so the
+//     scale cannot fold into S^T) before the barrier that publishes them;
+//   * each tile: S^T = K (q scale)^T, P^T = exp(S^T - lse) masked (only on
+//     tiles that cross Sq, kv_len or the causal diagonal); dV += P^T dO
+//     with P^T rounded to bf16 in registers as the A fragment; dP^T =
+//     V dO^T; dS^T = P^T o (dP^T - delta); dK += dS^T (q scale) with dS^T
+//     rounded to bf16 as the A fragment (the B fragments of q and dO by
+//     ldmatrix, .trans for the dK and dV products);
+//   * dK and dV stay in float32 registers and are written once, staged
+//     through shared memory into 16-byte stores: no atomics,
+//     deterministic; a key tile that no live pair reaches is written as
+//     zeros.
+// The rest is the first version's SIMT structure, on float32 FMAs:
+//   * dq (kernel #4, both dtypes) and dK/dV in float32 (tensor cores in
+//     float32 are TF32, which rounds the inputs to 10 mantissa bits: the
+//     float32 paths stay SIMT on purpose);
 //   * grid (q tiles, heads, batch) for dq and (key tiles, heads, batch) for
 //     dkv, 64-row tiles for D <= 128 and 32-row tiles above, so that four
 //     operand tiles and the score tiles fit in shared memory;
 //   * each block loops over the other axis inside the block (the Pallas
 //     kernels' sequential grid axis), accumulates its dQ, or its dK and dV,
 //     in registers and writes them once: no atomics, deterministic results;
-//   * q, k, v and dO are read in place in the [B, S, H*D] layout through
-//     their batch and row strides; dQ, dK and dV are written as [B, S, H*D];
 //   * 256 threads each hold 4 x 4 (or 2 x 2) score micro-tiles and 4 x D/16
-//     (or 2 x D/16) accumulator micro-tiles in float32 FMAs: no tensor
-//     cores, no TMA, no pipelining.  wgmma and TMA are later work.
+//     (or 2 x D/16) accumulator micro-tiles.
+// All read q, k, v and dO in place in the [B, S, H*D] layout through their
+// batch and row strides (the bf16 dkv kernel needs 16-byte aligned rows:
+// the entry returns cudaErrorMisalignedAddress otherwise) and write dQ, dK
+// and dV as [B, S, H*D].
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -372,11 +407,255 @@ flash_bwd_dkv_kernel(Args a) {
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const Args& a, bool dkv, cudaStream_t stream) {
+// ------------------------------------ kernel #5 in bf16: tensor cores
+
+namespace fm = flash_mma;
+
+constexpr int kWarps = 4;
+constexpr int kMmaThreads = 32 * kWarps;
+
+template <int D>
+struct DkvTile {
+  static constexpr int kSplit = D <= 128 ? 1 : 2;  // warps sharing 16 keys
+  static constexpr int kCols = D / kSplit;         // output columns a warp
+  static constexpr int kKeys = 16 * kWarps / kSplit;
+  static constexpr int kBQ = D == 64 ? 64 : 32;    // q rows a streamed tile
+  static constexpr bool kKvRegs = D == 64;         // K, V as A fragments
+  static constexpr int kStride = D + 8;            // padded shared row, bf16
+  // K and V, then two stages of (q, dO), then two stages of (lse, delta)
+  static constexpr size_t kSmem =
+      sizeof(fm::bf16) * (size_t)(2 * kKeys + 4 * kBQ) * kStride +
+      sizeof(float) * (size_t)(4 * kBQ);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dkv_mma_kernel(Args a) {
+  using Tile = DkvTile<D>;
+  constexpr int S = Tile::kStride;
+  constexpr int BQ = Tile::kBQ;
+  constexpr int KEYS = Tile::kKeys;
+  constexpr int KD = D / 16;           // k-steps of K q^T and V dO^T
+  constexpr int NQ = BQ / 8;           // n-tiles of a score row (q rows)
+  constexpr int NC = Tile::kCols / 8;  // n-tiles of this warp's dK, dV
+  constexpr int CH = D / 8;            // 16-byte chunks of a row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  fm::bf16* Ks = reinterpret_cast<fm::bf16*>(smem_raw);  // [KEYS][S]
+  fm::bf16* Vs = Ks + KEYS * S;                           // [KEYS][S]
+  fm::bf16* Qs = Vs + KEYS * S;                           // [2][BQ][S]
+  fm::bf16* Os = Qs + 2 * BQ * S;                         // [2][BQ][S] dO
+  float* Ls = reinterpret_cast<float*>(Os + 2 * BQ * S);  // [2][BQ] lse
+  float* Ds = Ls + 2 * BQ;                                // [2][BQ] delta
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kw = warp / Tile::kSplit;              // key group
+  const int c0 = (warp % Tile::kSplit) * Tile::kCols;  // first column
+  const int k0 = blockIdx.x * KEYS;
+  const int kb = k0 + 16 * kw;                     // this warp's first key
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int Sq = a.Sq, Sk = a.Sk;
+  const int off = Sk - Sq;
+  const bool causal = a.causal != 0;
+  const int kl = live_len(a.kv_len, b, Sk);
+
+  float dk[NC][4], dv[NC][4];
+#pragma unroll
+  for (int n = 0; n < NC; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  // a tile at or past kv_len has no live key: its grads are 0 (kv_len 0
+  // included)
+  if (k0 < kl) {
+    // rows wholly left of this tile's first key under the causal diagonal
+    // (row + off < k0) see none of its keys
+    const int q_begin = causal && k0 > off ? (k0 - off) / BQ * BQ : 0;
+    const int n_qt = (Sq - q_begin + BQ - 1) / BQ;
+    const fm::bf16* qp = static_cast<const fm::bf16*>(a.q) + b * a.q_bs +
+                         (long long)h * D;
+    const fm::bf16* op = static_cast<const fm::bf16*>(a.dout) + b * a.o_bs +
+                         (long long)h * D;
+    const long long rows = ((long long)b * a.H + h) * Sq;
+    const float* lp = a.lse + rows;
+    const float* dlp = a.delta + rows;
+    {
+      const fm::bf16* kp = static_cast<const fm::bf16*>(a.k) + b * a.k_bs +
+                           (long long)h * D;
+      const fm::bf16* vp = static_cast<const fm::bf16*>(a.v) + b * a.v_bs +
+                           (long long)h * D;
+      for (int i = tid; i < KEYS * CH; i += kMmaThreads) {
+        const int r = i / CH, c = (i % CH) * 8, key = k0 + r;
+        const bool in = key < kl;  // keys past kv_len read as zeros
+        const long long kr = in ? key : 0;
+        fm::cp_async16(Ks + r * S + c, kp + kr * a.k_rs + c, in);
+        fm::cp_async16(Vs + r * S + c, vp + kr * a.v_rs + c, in);
+      }
+    }
+    // q tile t's rows, dO rows, lse and delta into stage st; rows past Sq
+    // are zero-filled
+    auto load_q = [&](int t, int st) {
+      const int q0 = q_begin + t * BQ;
+      fm::bf16* qd = Qs + st * BQ * S;
+      fm::bf16* od = Os + st * BQ * S;
+      for (int i = tid; i < BQ * CH; i += kMmaThreads) {
+        const int r = i / CH, c = (i % CH) * 8, row = q0 + r;
+        const bool in = row < Sq;
+        const long long rr = in ? row : 0;
+        fm::cp_async16(qd + r * S + c, qp + rr * a.q_rs + c, in);
+        fm::cp_async16(od + r * S + c, op + rr * a.o_rs + c, in);
+      }
+      if (tid < 2 * BQ) {
+        const int r = tid % BQ, row = q0 + r;
+        const bool in = row < Sq;
+        float* dst = (tid < BQ ? Ls : Ds) + st * BQ + r;
+        fm::cp_async4(dst, (tid < BQ ? lp : dlp) + (in ? row : 0), in);
+      }
+    };
+    load_q(0, 0);
+    fm::cp_async_commit();  // with K and V
+
+    uint32_t kf[Tile::kKvRegs ? KD : 1][4], vf[Tile::kKvRegs ? KD : 1][4];
+    for (int t = 0; t < n_qt; ++t) {
+      const int st = t & 1;
+      if (t + 1 < n_qt) {
+        load_q(t + 1, st ^ 1);
+        fm::cp_async_commit();
+        fm::cp_async_wait<1>();
+      } else {
+        fm::cp_async_wait<0>();
+      }
+      const int q0 = q_begin + t * BQ;
+      const fm::bf16* qs = Qs + st * BQ * S;
+      const fm::bf16* os = Os + st * BQ * S;
+      const float* ls = Ls + st * BQ;
+      const float* ds = Ds + st * BQ;
+      // q * scale, rounded to bf16, over the chunks this thread copied
+      for (int i = tid; i < BQ * CH; i += kMmaThreads) {
+        const int r = i / CH, c = (i % CH) * 8;
+        if (q0 + r < Sq) {
+          uint4* x = reinterpret_cast<uint4*>(Qs + st * BQ * S + r * S + c);
+          uint4 y = *x;
+          fm::scale8(y, a.scale);
+          *x = y;
+        }
+      }
+      __syncthreads();
+      if constexpr (Tile::kKvRegs) {
+        if (t == 0) {
+#pragma unroll
+          for (int kk = 0; kk < KD; ++kk) {
+            fm::ldmatrix_x4(kf[kk], fm::a_frag(Ks, S, 16 * kw, 16 * kk, lane));
+            fm::ldmatrix_x4(vf[kk], fm::a_frag(Vs, S, 16 * kw, 16 * kk, lane));
+          }
+        }
+      }
+      // S^T = K (q scale)^T and dP^T = V dO^T: 16 keys x BQ rows
+      float s[NQ][4], dp[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t ak[4], av[4];
+        if constexpr (Tile::kKvRegs) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            ak[i] = kf[kk][i];
+            av[i] = vf[kk][i];
+          }
+        } else {
+          fm::ldmatrix_x4(ak, fm::a_frag(Ks, S, 16 * kw, 16 * kk, lane));
+          fm::ldmatrix_x4(av, fm::a_frag(Vs, S, 16 * kw, 16 * kk, lane));
+        }
+#pragma unroll
+        for (int j = 0; j < BQ / 16; ++j) {
+          uint32_t bq[4], bo[4];
+          fm::ldmatrix_x4(bq, fm::b_pair(qs, S, 16 * j, 16 * kk, lane));
+          fm::mma_bf16(s[2 * j], ak, bq[0], bq[1]);
+          fm::mma_bf16(s[2 * j + 1], ak, bq[2], bq[3]);
+          fm::ldmatrix_x4(bo, fm::b_pair(os, S, 16 * j, 16 * kk, lane));
+          fm::mma_bf16(dp[2 * j], av, bo[0], bo[1]);
+          fm::mma_bf16(dp[2 * j + 1], av, bo[2], bo[3]);
+        }
+      }
+      // P^T = exp(S^T - lse) on live pairs, dS^T = P^T o (dP^T - delta);
+      // the live test only on a tile that crosses Sq, kv_len or this
+      // warp's causal diagonal
+      const bool edge = q0 + BQ > Sq || kb + 16 > kl ||
+                        (causal && kb + 15 > q0 + off);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 8 * n + 2 * t4 + (e & 1);
+          float p = exp2f((s[n][e] - ls[r]) * fm::kLog2e);
+          if (edge) {
+            const int key = kb + g + 8 * (e >> 1), row = q0 + r;
+            if (row >= Sq || key >= kl || (causal && key > row + off))
+              p = 0.f;
+          }
+          s[n][e] = p;
+          dp[n][e] = p * (dp[n][e] - ds[r]);
+        }
+      // dV += P^T dO and dK += dS^T (q scale), A fragments rounded to bf16
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        uint32_t ap[4], ag[4];
+        fm::acc_to_a(ap, s, kk);
+        fm::acc_to_a(ag, dp, kk);
+#pragma unroll
+        for (int j = 0; j < NC / 2; ++j) {
+          uint32_t bo[4], bq[4];
+          fm::ldmatrix_x4_trans(bo,
+                                fm::bt_pair(os, S, 16 * kk, c0 + 16 * j, lane));
+          fm::mma_bf16(dv[2 * j], ap, bo[0], bo[1]);
+          fm::mma_bf16(dv[2 * j + 1], ap, bo[2], bo[3]);
+          fm::ldmatrix_x4_trans(bq,
+                                fm::bt_pair(qs, S, 16 * kk, c0 + 16 * j, lane));
+          fm::mma_bf16(dk[2 * j], ag, bq[0], bq[1]);
+          fm::mma_bf16(dk[2 * j + 1], ag, bq[2], bq[3]);
+        }
+      }
+      __syncthreads();  // the stage is free for tile t + 2
+    }
+  }
+  // dK and dV through this warp's own rows and columns of Ks and Vs (no
+  // warp reads them any more), then 16-byte stores of keys below Sk
+#pragma unroll
+  for (int n = 0; n < NC; ++n)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int at = (16 * kw + g + 8 * hr) * S + c0 + 8 * n + 2 * t4;
+      *reinterpret_cast<uint32_t*>(Ks + at) =
+          fm::pack_bf16(dk[n][2 * hr], dk[n][2 * hr + 1]);
+      *reinterpret_cast<uint32_t*>(Vs + at) =
+          fm::pack_bf16(dv[n][2 * hr], dv[n][2 * hr + 1]);
+    }
+  __syncwarp();
+  const long long hd = (long long)a.H * D;
+  constexpr int WCH = Tile::kCols / 8;  // 16-byte chunks of a warp's row
+  fm::bf16* dkp = static_cast<fm::bf16*>(a.out0);
+  fm::bf16* dvp = static_cast<fm::bf16*>(a.out1);
+  for (int i = lane; i < 16 * WCH; i += 32) {
+    const int r = i / WCH, c = c0 + (i % WCH) * 8, key = kb + r;
+    if (key >= Sk) continue;
+    const long long at = ((long long)b * Sk + key) * hd + (long long)h * D + c;
+    const int sa = (16 * kw + r) * S + c;
+    *reinterpret_cast<uint4*>(dkp + at) =
+        *reinterpret_cast<const uint4*>(Ks + sa);
+    *reinterpret_cast<uint4*>(dvp + at) =
+        *reinterpret_cast<const uint4*>(Vs + sa);
+  }
+}
+
+template <typename T, bool DKV, int D>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr int BT = TileRows<D>::value;
-  const size_t smem = smem_bytes<D>(dkv ? 2 : 1);
-  if (dkv) {
+  const size_t smem = smem_bytes<D>(DKV ? 2 : 1);
+  if constexpr (DKV) {
     cudaError_t err = cudaFuncSetAttribute(
         flash_bwd_dkv_kernel<T, D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -394,17 +673,52 @@ cudaError_t launch(const Args& a, bool dkv, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int D, const Args& a, bool dkv, cudaStream_t s) {
+template <typename T, bool DKV>
+cudaError_t dispatch_d(int D, const Args& a, cudaStream_t s) {
   switch (D) {
     case 64:
-      return launch<T, 64>(a, dkv, s);
+      return launch<T, DKV, 64>(a, s);
     case 128:
-      return launch<T, 128>(a, dkv, s);
+      return launch<T, DKV, 128>(a, s);
     case 192:
-      return launch<T, 192>(a, dkv, s);
+      return launch<T, DKV, 192>(a, s);
     case 256:
-      return launch<T, 256>(a, dkv, s);
+      return launch<T, DKV, 256>(a, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <int D>
+cudaError_t launch_dkv_mma(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = DkvTile<D>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_mma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  constexpr int keys = DkvTile<D>::kKeys;
+  dim3 grid((a.Sk + keys - 1) / keys, a.H, a.B);
+  flash_bwd_dkv_mma_kernel<D><<<grid, kMmaThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_dkv_mma(int D, const Args& a, cudaStream_t s) {
+  // cp.async moves 16 bytes: every row must start aligned
+  if (!fm::aligned16(a.q, a.q_bs, a.q_rs) ||
+      !fm::aligned16(a.k, a.k_bs, a.k_rs) ||
+      !fm::aligned16(a.v, a.v_bs, a.v_rs) ||
+      !fm::aligned16(a.dout, a.o_bs, a.o_rs) ||
+      !fm::aligned16(a.out0, 0, 0) || !fm::aligned16(a.out1, 0, 0))
+    return cudaErrorMisalignedAddress;
+  switch (D) {
+    case 64:
+      return launch_dkv_mma<64>(a, s);
+    case 128:
+      return launch_dkv_mma<128>(a, s);
+    case 192:
+      return launch_dkv_mma<192>(a, s);
+    case 256:
+      return launch_dkv_mma<256>(a, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -412,8 +726,12 @@ cudaError_t dispatch_d(int D, const Args& a, bool dkv, cudaStream_t s) {
 
 int run(const Args& a, int D, int dtype, bool dkv, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_d<float>(D, a, dkv, s);
-  if (dtype == 1) return (int)dispatch_d<__nv_bfloat16>(D, a, dkv, s);
+  if (dtype == 0)
+    return (int)(dkv ? dispatch_d<float, true>(D, a, s)
+                     : dispatch_d<float, false>(D, a, s));
+  if (dtype == 1)
+    return (int)(dkv ? dispatch_dkv_mma(D, a, s)
+                     : dispatch_d<__nv_bfloat16, false>(D, a, s));
   return (int)cudaErrorInvalidValue;
 }
 
@@ -422,7 +740,8 @@ int run(const Args& a, int D, int dtype, bool dkv, void* stream) {
 // q/dout [B, Sq, H*D], k/v [B, Sk, H*D] (last dim contiguous, batch and row
 // strides in elements); lse and delta [B, H, Sq] float32 contiguous;
 // kv_len [B] float32 or NULL (every key live); dq [B, Sq, H*D] contiguous.
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16 (both SIMT).  Returns
+// cudaGetLastError().
 extern "C" int flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq, const float* kv_len,
@@ -435,7 +754,9 @@ extern "C" int flash_attention_bwd_dq(
   return run(a, D, dtype, false, stream);
 }
 
-// The same inputs; dk and dv [B, Sk, H*D] contiguous.
+// The same inputs; dk and dv [B, Sk, H*D] contiguous.  dtype: 0 = float32
+// (SIMT kernel), 1 = bfloat16 (tensor-core kernel; q, k, v, dO rows 16-byte
+// aligned).
 extern "C" int flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dk, void* dv,

@@ -8,10 +8,11 @@ ctypes:
          -Xcompiler -fPIC -Xptxas -v -o <name>-<hash>.so <name>.cu
 
 The libraries land in `build/torch_kernels/` at the root of the checkout,
-named by a hash of the source and the flags, so an edited source builds
-anew and an unchanged one is reused.  `build()` starts one nvcc for every
-source that needs it, all at once, and waits for them all; nothing is
-compiled when a module is imported.
+named by a hash of the source, of every header it includes from `csrc/`
+(`#include "..."`, followed recursively) and of the flags, so an edited
+source or header builds anew and an unchanged one is reused.  `build()`
+starts one nvcc for every source that needs it, all at once, and waits
+for them all; nothing is compiled when a module is imported.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -33,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict = {}
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
 
 def _nvcc() -> str:
@@ -46,10 +49,28 @@ def _nvcc() -> str:
         "paddle_tpu_torch/csrc on the machine with the card")
 
 
+def _source_files(name: str) -> list:
+    """csrc/<name>.cu and every csrc header it includes, directly or
+    through another header, each once, in the order first reached."""
+    files, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            header = path.parent / inc.decode()
+            if header.exists():
+                todo.append(header)
+    return files
+
+
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256()
+    for path in _source_files(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> dict:

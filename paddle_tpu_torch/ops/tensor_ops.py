@@ -111,10 +111,14 @@ def one_hot(ctx):
 @register_op("top_k", no_grad=True)
 def top_k(ctx):
     """The k largest entries of the last dim, largest first, and their
-    int64 indices."""
-    vals, idx = torch.topk(ctx.input("X"), ctx.attr("k", 1), dim=-1)
-    ctx.set_output("Out", vals)
-    ctx.set_output("Indices", idx)
+    int64 indices; equal values keep their index order, lower index
+    first, as jax.lax.top_k orders them (torch.topk gives no order for
+    ties)."""
+    k = ctx.attr("k", 1)
+    vals, idx = torch.sort(ctx.input("X"), dim=-1, descending=True,
+                           stable=True)
+    ctx.set_output("Out", vals[..., :k])
+    ctx.set_output("Indices", idx[..., :k])
 
 
 @register_op("lookup_table")

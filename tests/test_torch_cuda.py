@@ -310,6 +310,40 @@ def test_flash_decode_paged_never_reads_past_the_length(card):
 
 # ---------------------------------------- kernel #3: flash attention fwd
 
+# Shapes at the edges of the bf16 kernels' tiles (16-row mma tiles, 64-key
+# tiles at D <= 128 and 32-key tiles above, 64 or 32 keys a dK/dV block),
+# for #3 and #4/#5: (b, sq, sk, heads, head_dim, causal, kv_len), kv_len a
+# list of per-image lengths
+EDGE_CASES = [
+    (2, 1, 65, 2, 64, False, None),          # one row; one key past a tile
+    (2, 17, 65, 2, 64, False, None),         # one row past an mma tile
+    (2, 17, 65, 2, 128, True, None),         # the same, causal offset 48
+    (2, 40, 100, 2, 64, False, [1, 63]),     # kv_len 1 and a tile less one
+    (2, 33, 70, 1, 192, False, [1, 63]),
+    (2, 16, 80, 2, 64, True, None),          # causal, Sq 16, Sk 80
+    (2, 16, 80, 1, 256, True, [80, 63]),
+]
+EDGE_IDS = ["sq1_sk65", "sq17_sk65", "sq17_sk65_causal_d128",
+            "kv_len_1_63", "kv_len_1_63_d192", "causal_16x80",
+            "causal_16x80_d256"]
+
+
+def _kv_len(kl, seed, b, sk, device):
+    """kv_len of a case: None, a list, or "ragged" (sk/2..sk), "with_zero"
+    (ragged, image 0 empty), "past_sk" (ragged, image 0 at sk + 60)."""
+    if kl is None:
+        return None
+    if isinstance(kl, list):
+        return _lens(kl, device)
+    vals = np.random.RandomState(seed).randint(max(1, sk // 2), sk + 1,
+                                               size=b)
+    if kl == "with_zero":
+        vals[0] = 0
+    if kl == "past_sk":
+        vals[0] = sk + 60
+    return _lens(vals, device)
+
+
 
 @pytest.mark.parametrize("case", [
     # (b, sq, sk, heads, head_dim, causal, kv_len)
@@ -319,22 +353,15 @@ def test_flash_decode_paged_never_reads_past_the_length(card):
     (2, 72, 300, 4, 128, True, "ragged"),    # causal offset Sq < Sk
     (3, 130, 257, 2, 64, False, "past_sk"),  # kv_len > Sk is clamped
     (2, 64, 96, 1, 256, False, None),
+    *EDGE_CASES,
 ], ids=["causal2048", "causal1000", "zero_row", "offset_d128", "past_sk",
-        "d256"])
+        "d256", *EDGE_IDS])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_flash_attention_matches_plain(card, case, dtype):
     b, sq, sk, h, d, causal, kl = case
     q, k, v = _qkv(16, b, sq, sk, h * d, card, dtype)
-    kv_len = None
-    if kl is not None:
-        vals = np.random.RandomState(17).randint(max(1, sk // 2), sk + 1,
-                                                 size=b)
-        if kl == "with_zero":
-            vals[0] = 0
-        if kl == "past_sk":
-            vals[0] = sk + 60
-        kv_len = _lens(vals, card)
+    kv_len = _kv_len(kl, 17, b, sk, card)
     before = fa.launches
     out, lse = fa.flash_attention_lse(q, k, v, h, causal, 0.0, kv_len=kv_len)
     torch.cuda.synchronize()
@@ -374,15 +401,7 @@ def _flash_bwd_inputs(seed, b, sq, sk, h, d, causal, kl, device, dtype):
     """q, k, v, kv_len, the forward's (out, lse) from the plain version,
     and the cotangents of out and of lse."""
     q, k, v = _qkv(seed, b, sq, sk, h * d, device, dtype)
-    kv_len = None
-    if kl is not None:
-        vals = np.random.RandomState(seed + 1).randint(max(1, sk // 2),
-                                                       sk + 1, size=b)
-        if kl == "with_zero":
-            vals[0] = 0
-        if kl == "past_sk":
-            vals[0] = sk + 60
-        kv_len = _lens(vals, device)
+    kv_len = _kv_len(kl, seed + 1, b, sk, device)
     out, lse = fa.flash_attention_fwd_reference(q, k, v, h, causal, 0.0,
                                                 kv_len=kv_len)
     rng = np.random.RandomState(seed + 2)
@@ -402,8 +421,9 @@ def _flash_bwd_inputs(seed, b, sq, sk, h, d, causal, kl, device, dtype):
     (3, 130, 257, 2, 64, False, "past_sk"),  # kv_len > Sk is clamped
     (2, 64, 96, 1, 256, False, None),        # 32-row tiles
     (2, 40, 100, 2, 192, True, None),
+    *EDGE_CASES,
 ], ids=["masked256", "unmasked256", "zero_row", "offset_d128", "past_sk",
-        "d256", "d192"])
+        "d256", "d192", *EDGE_IDS])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_flash_attention_bwd_matches_plain(card, case, dtype):
@@ -426,6 +446,38 @@ def test_flash_attention_bwd_matches_plain(card, case, dtype):
         assert err <= tol, (name, err, tol)
         if kl == "with_zero":
             assert torch.count_nonzero(o[0]).item() == 0, name
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_flash_attention_bf16_random_shapes_match_plain(card, seed):
+    """The bf16 tensor-core kernels #3 and #5 (and #4) at random shapes:
+    Sq and Sk from 1 to 300, every head_dim, causal or not, random kv_len
+    (past Sk included), against the plain versions with the file's
+    bf16 tolerances."""
+    rng = np.random.RandomState(100 + seed)
+    d = int(rng.choice([64, 128, 192, 256]))
+    h = int(rng.randint(1, 4))
+    b = int(rng.randint(1, 4))
+    sk = int(rng.randint(1, 301))
+    causal = bool(rng.randint(2))
+    sq = int(rng.randint(1, sk + 1)) if causal else int(rng.randint(1, 301))
+    kl = [int(x) for x in rng.randint(0, sk + 40, size=b)] \
+        if rng.randint(2) else None
+    q, k, v, kv_len, out, lse, g, g_lse = _flash_bwd_inputs(
+        200 + seed, b, sq, sk, h, d, causal, kl, card, torch.bfloat16)
+    got, got_lse = fa.flash_attention_lse(q, k, v, h, causal, 0.0,
+                                          kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert (got.float() - out.float()).abs().max().item() <= 2e-2
+    assert (got_lse - lse).abs().max().item() <= 1e-4
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, g, h, causal, 0.0,
+                                   kv_len=kv_len, g_lse=g_lse)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, g, h, causal,
+                                           0.0, kv_len=kv_len, g_lse=g_lse)
+    for name, o, r in zip(("dq", "dk", "dv"), grads, ref):
+        err = (o.float() - r.float()).abs().max().item()
+        assert err <= 2e-2 * r.float().abs().max().item(), (name, err)
 
 
 def test_flash_attention_function_grads_match_autograd(card):
@@ -588,3 +640,58 @@ def test_conv_lowering_runs_float32_without_tf32(card):
     for a, b in zip(res["cuda"], res["cpu"]):
         scale = b.abs().max().item()
         assert (a.cpu() - b).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_top_k_breaks_ties_lower_index_first_on_the_card(card, dtype):
+    """top_k on the card orders equal values as jax.lax.top_k does, lower
+    index first (the card's sort could order ties in yet another way),
+    and accuracy reads the same hits: X = [1, 2, 2, 2, 0, 2], an all-equal
+    row, and logits tied at their maximum."""
+    from paddle_tpu_torch.ops import registry
+
+    rng = np.random.RandomState(6)
+    logits = rng.standard_normal((64, 1000)).astype(np.float32)
+    logits[:, [3, 500, 999]] = logits.max(axis=1, keepdims=True) + 0.25
+    rows = np.zeros((66, 1000), np.float32)
+    rows[0, :6] = [1, 2, 2, 2, 0, 2]
+    rows[1] = 0.5
+    rows[2:] = logits
+    x = torch.as_tensor(rows, device=card).to(dtype)
+    got = registry.run_forward(
+        registry.get_runtime_info("top_k"), {"X": [x]}, {"k": 3},
+        out_names={"Out": ["o"], "Indices": ["i"]}, device=card)
+    idx = got["Indices"][0].cpu().numpy()
+    want = np.argsort(-x.float().cpu().numpy(), axis=-1, kind="stable")[:, :3]
+    np.testing.assert_array_equal(idx, want)
+    np.testing.assert_array_equal(idx[0], [1, 2, 3])
+    np.testing.assert_array_equal(idx[2:], np.tile([3, 500, 999], (64, 1)))
+    label = torch.full((66, 1), 500, dtype=torch.int64, device=card)
+    acc = registry.run_forward(
+        registry.get_runtime_info("accuracy"),
+        {"Out": got["Out"], "Indices": got["Indices"], "Label": [label]}, {},
+        out_names={"Accuracy": ["a"], "Correct": ["c"], "Total": ["t"]},
+        device=card)
+    assert acc["Correct"][0].item() == 64
+
+
+def test_bf16_flash_kernels_refuse_misaligned_rows(card):
+    """The bf16 tensor-core kernels (#3, #5) copy 16-byte chunks of each
+    row: a view whose rows do not start on 16 bytes is refused (no
+    fallback to another kernel); the same view in float32 runs."""
+    b, s, h, d = 2, 64, 2, 64
+    buf = torch.randn((b, s, 3 * h * d + 1), device=card)
+    for dtype, ok in ((torch.bfloat16, False), (torch.float32, True)):
+        t = buf.to(dtype)
+        q, k, v = (t[..., 1 + i * h * d:1 + (i + 1) * h * d]
+                   for i in range(3))
+        if ok:
+            fa.flash_attention_lse(q, k, v, h)
+            torch.cuda.synchronize()
+            continue
+        with pytest.raises(RuntimeError):
+            fa.flash_attention_lse(q, k, v, h)
+        lse = torch.zeros((b, h, s), device=card)
+        with pytest.raises(RuntimeError):
+            fa.flash_attention_bwd_dkv(q, k, v, q, lse, lse, h)

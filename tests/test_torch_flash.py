@@ -87,6 +87,53 @@ def test_flash_fwd_bf16_and_scale():
     np.testing.assert_allclose(pl, jl, rtol=0, atol=2e-2)
 
 
+# the bf16 kernels' tile edges (16-row mma tiles, 64- or 32-key tiles):
+# (b, sq, sk, heads, head_dim, causal, kv_len)
+BF16_EDGES = {
+    "sq1_sk65": (2, 1, 65, 2, 64, False, None),
+    "sq17_sk65_causal_d128": (2, 17, 65, 2, 128, True, None),
+    "kv_len_1_63": (2, 40, 100, 2, 64, False, [1, 63]),
+    "kv_len_1_63_d192": (2, 33, 70, 1, 192, False, [1, 63]),
+    "causal_16x80": (2, 16, 80, 2, 64, True, None),
+    "causal_16x80_d256": (2, 16, 80, 1, 256, True, [80, 63]),
+}
+
+
+@pytest.mark.parametrize("case", list(BF16_EDGES))
+def test_flash_fwd_bf16_tile_edges_match_pallas_interpret(case):
+    """bf16 at the shapes where the card's kernel crosses its tile edges:
+    the plain version the CPU runs against the Pallas kernel (bf16 rounds
+    P and the output at other points there: 2e-2)."""
+    b, sq, sk, h, d, causal, kv_len = BF16_EDGES[case]
+    q, k, v = _data(sq * sk, b, sq, sk, h * d)
+    kl = None if kv_len is None else np.asarray(kv_len, np.int64)
+    jo, jl, po, pl = _both(q, k, v, h, causal, kl, "bfloat16")
+    assert po.shape == jo.shape and pl.shape == jl.shape == (b, h, sq)
+    np.testing.assert_allclose(po, jo, rtol=0, atol=2e-2)
+    np.testing.assert_allclose(pl, jl, rtol=0, atol=2e-2)
+
+
+def test_kernel_library_is_keyed_by_its_headers(tmp_path, monkeypatch):
+    """A source's library name hashes every csrc header it includes, so an
+    edited header (flash_mma.cuh, shared by #3 and #5) builds anew."""
+    from paddle_tpu_torch.ops.cuda import _build
+
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <math.h>\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [p.name for p in _build._source_files("k")] == \
+        ["k.cu", "a.cuh", "b.cuh"]
+    first = _build.lib_path("k")
+    assert _build.lib_path("k") == first
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    second = _build.lib_path("k")
+    assert second != first and second.name.startswith("k-")
+    monkeypatch.undo()
+    assert [p.name for p in _build._source_files("flash_attention_bwd")] == \
+        ["flash_attention_bwd.cu", "flash_mma.cuh"]
+
+
 def test_flash_fwd_clamps_kv_len_to_sk():
     """kv_len past Sk means every key is live, as in the composite.  The
     JAX kernel pads Sk to its block grid and counts the zero padding keys

@@ -127,6 +127,35 @@ def test_flash_bwd_bf16_and_scale():
                                    atol=2e-2 * np.abs(r).max(), err_msg=name)
 
 
+# the bf16 dK/dV kernel's tile edges, as in test_torch_flash.py:
+# (b, sq, sk, heads, head_dim, causal, kv_len)
+BF16_EDGES = {
+    "sq1_sk65": (2, 1, 65, 2, 64, False, None),
+    "sq17_sk65_causal_d128": (2, 17, 65, 2, 128, True, None),
+    "kv_len_1_63": (2, 40, 100, 2, 64, False, [1, 63]),
+    "kv_len_1_63_d192": (2, 33, 70, 1, 192, False, [1, 63]),
+    "causal_16x80": (2, 16, 80, 2, 64, True, None),
+    "causal_16x80_d256": (2, 16, 80, 1, 256, True, [80, 63]),
+}
+
+
+@pytest.mark.parametrize("case", list(BF16_EDGES))
+def test_flash_bwd_bf16_tile_edges_match_jax_vjp(case):
+    """bf16 at the shapes where the card's dK/dV kernel crosses its tile
+    edges (16-key warps, 64- or 32-key blocks, 64- or 32-row q tiles): the
+    plain version against jax.vjp of the Pallas kernel, 2e-2 of each
+    gradient's largest magnitude."""
+    b, sq, sk, h, d, causal, kv_len = BF16_EDGES[case]
+    q, k, v, g, g_lse = _data(sq * sk, b, sq, sk, h, h * d)
+    kl = None if kv_len is None else np.asarray(kv_len, np.int64)
+    ref = _jax_grads(q, k, v, g, g_lse, h, causal, 0.0, kl, "bfloat16")
+    got = _port_bwd(q, k, v, g, g_lse, h, causal, 0.0, kl, torch.bfloat16)
+    for name, o, r in zip(("dq", "dk", "dv"), got, ref):
+        assert o.dtype == torch.bfloat16 and o.shape == r.shape, name
+        np.testing.assert_allclose(o.float().numpy(), r, rtol=0,
+                                   atol=2e-2 * np.abs(r).max(), err_msg=name)
+
+
 def test_flash_bwd_clamps_kv_len_to_sk():
     """kv_len past Sk means every key is live, as in the composite: the
     gradients equal jax.vjp of the composite (the JAX kernel counts its

@@ -308,6 +308,36 @@ def test_top_k_accuracy_softmax_cross_entropy_match_jax():
                      {"X@GRAD": ["x@GRAD"]})
 
 
+def _tied_logits():
+    """A bf16-rounded logit batch whose rows tie at their maximum."""
+    rng = np.random.RandomState(4)
+    x = _r(rng, 8, 10)
+    x[:, [2, 5, 7]] = x.max(axis=1, keepdims=True) + 0.25
+    return torch.as_tensor(x).to(torch.bfloat16).float().numpy()
+
+
+@pytest.mark.parametrize("x, k, label", [
+    ([[1, 2, 2, 2, 0, 2]], 1, [[1]]),
+    ([[1, 2, 2, 2, 0, 2]], 2, [[2]]),
+    ([[1, 2, 2, 2, 0, 2]], 3, [[3]]),
+    ([[0.5] * 7, [-1.0] * 7], 3, [[2], [4]]),
+    (_tied_logits(), 1, [[2]] * 4 + [[5]] * 4),
+    (_tied_logits(), 2, [[5]] * 4 + [[7]] * 4),
+], ids=["k1", "k2", "k3", "all_equal", "bf16_tied_max_k1",
+        "bf16_tied_max_k2"])
+def test_top_k_and_accuracy_break_ties_as_jax(x, k, label):
+    """Equal values come lower index first, as jax.lax.top_k gives them,
+    so accuracy reads the same hits in both packages."""
+    x = np.asarray(x, dtype=np.float32)
+    label = np.asarray(label, dtype=np.int64)
+    j, p = _assert_same("top_k", {"X": [x]}, {"k": k},
+                        {"Out": ["o"], "Indices": ["i"]})
+    np.testing.assert_array_equal(p["Indices"][0], j["Indices"][0])
+    _assert_same("accuracy", {"Out": p["Out"], "Indices": p["Indices"],
+                              "Label": [label]}, {},
+                 {"Accuracy": ["a"], "Correct": ["c"], "Total": ["t"]})
+
+
 @pytest.mark.parametrize("master", [False, True], ids=["plain", "master"])
 @pytest.mark.parametrize("nesterov", [False, True], ids=["heavy_ball",
                                                          "nesterov"])
