@@ -24,7 +24,8 @@ catches its own failure:
      off-grid 1000 with a kv_len-0 row), and kernel #8 (batch-norm affine
      + relu folded into a 1x1 conv) at ResNet-50's four conv3 sites
      (batch 256, bfloat16: 2e-2 of the output's largest magnitude) and a
-     float32 case,
+     float32 case, and last the bfloat16 backward at head_dim 128 (#2 at
+     T2's shape with 4 heads of 128, #4 and #5 at L2's with 6),
      then timed with CUDA events, L2 flushed before every launch: kernel,
      plain version, and the library yardstick the port never calls
      (F.scaled_dot_product_attention with an equivalent mask, over a
@@ -33,7 +34,9 @@ catches its own failure:
      activation materialised beforehand, and the composite: the affine +
      relu materialised, then that conv), beside the least time the card could
      take (bytes over 3.35 TB/s, or FLOP over 67 TFLOP/s for float32 and
-     989 TFLOP/s for bfloat16 inputs);
+     989 TFLOP/s for bfloat16 inputs), and for bfloat16 the TFLOP/s on
+     the device time (for #2 also what its kernels compute: S and dP
+     three times over);
   4. serving: decode.Generator(...).generate, greedy, on
      transformer.base() with seeded random weights, in two phases
      (A: translation, 256-token sources and short prefixes; B: a long
@@ -65,7 +68,8 @@ catches its own failure:
      weights through the composite must give the same losses (rtol
      1e-4).  T2, bench.py's transformer configuration (batch 128, bf16
      AMP, Adam multi_precision): 2 warm-up and 5 timed steps, tokens/s,
-     ms per step, card busy time and idle share, peak memory and MFU;
+     ms per step, card busy time and idle share, #1's and #2's card time
+     and share of it, peak memory and MFU;
      its first loss must match the composite's within 2e-2;
   7. BERT-base masked-LM pretraining at 2048 tokens through
      bert.build + Adam(1e-4) + Executor.run (dropout 0, random tokens and
@@ -173,7 +177,10 @@ KERNELS = {
     "mha_block_bwd": {
         "source": "paddle_tpu_torch/csrc/mha_block_bwd.cu",
         "replaces": "paddle_tpu/ops/pallas/mha_block.py:120",
-        "device_names": ("mha_bwd_dq_kernel", "mha_bwd_dkv_kernel"),
+        # float32 (SIMT), bf16 (tensor cores: stats, dQ, dK/dV)
+        "device_names": ("mha_bwd_dq_kernel", "mha_bwd_dkv_kernel",
+                         "mha_bwd_stats_mma_kernel", "mha_bwd_dq_mma_kernel",
+                         "mha_bwd_dkv_mma_kernel"),
     },
     "flash_decode": {
         "source": "paddle_tpu_torch/csrc/flash_decode.cu",
@@ -194,7 +201,8 @@ KERNELS = {
     "flash_attention_bwd_dq": {
         "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "paddle_tpu/ops/pallas/flash_attention.py:318",
-        "device_names": ("flash_bwd_dq_kernel",),
+        # float32 (SIMT), bf16 (tensor cores)
+        "device_names": ("flash_bwd_dq_kernel", "flash_bwd_dq_mma_kernel"),
     },
     "flash_attention_bwd_dkv": {
         "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -395,7 +403,10 @@ def bwd_case(name, b, sq, sk, h, d, causal, lens, device, rng, dtype):
                 shape=_shape(b, sq, sk, h * d, causal, lens, dtype),
                 dtype=dtype, tol=TOL if dtype == torch.float32 else BF16_TOL,
                 # dS K, dS^T q, P^T dO and the two recomputed products
-                flop=5 * 2 * d * h * pairs, bytes=nbytes)
+                flop=5 * 2 * d * h * pairs, bytes=nbytes,
+                # what the kernels compute: S and dP three times over
+                # (statistics, dQ, dK/dV), then the three products
+                exec_flop=9 * 2 * d * h * pairs)
 
 
 def decode_case(name, b, sk, h, d, lens, device, rng):
@@ -764,6 +775,14 @@ def check_kernels(device):
             ("conv3 7x7 b256", (R2_BATCH, 512, 7, 2048), torch.bfloat16),
             ("conv3 14x14 b64 f32", (64, 256, 14, 1024), torch.float32)):
         cases.append(conv1x1_case(name, b, c, hh, k, device, rng, dtype))
+    # the bf16 tensor-core backward at D 128 (q and dO as register
+    # fragments over 32-key tiles), beside D 64 above: 4 heads of 128 at
+    # T2's shape, 6 heads of 128 at BERT-base L2's
+    cases.append(bwd_case("encoder d128 b128 bf16", T2_BATCH, SEQ, SEQ, 4,
+                          128, False, train, device, rng, torch.bfloat16))
+    cases += flash_bwd_cases("bert L2 d128 b16 masked bf16", L2_BATCH, L_SEQ,
+                             L_SEQ, 6, 128, False, bert_lens, device, rng,
+                             torch.bfloat16)
     timer = Timer(device)
     for c in cases:
         fns = c.pop("fns")
@@ -789,10 +808,21 @@ def check_kernels(device):
         if composite is not None:
             c["composite_ms"] = timer.ms(composite, reps)
         del kernel, plain, library, composite
+        dtype = c.pop("dtype")
         t_bytes = c["bytes"] / PEAK_BYTES_PER_S * 1e3
-        t_ops = c["flop"] / PEAK_FLOP_PER_S[c.pop("dtype")] * 1e3
+        t_ops = c["flop"] / PEAK_FLOP_PER_S[dtype] * 1e3
         c["bound_ms"] = max(t_bytes, t_ops)
         c["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        # bf16 rate on the device time: the function's FLOP, and (#2)
+        # what its kernels compute
+        on_card = c["device_ms"] or c["ms"]
+        exec_flop = c.pop("exec_flop", c["flop"])
+        c["tflops"] = (c["flop"] / on_card / 1e9
+                       if dtype == torch.bfloat16 else None)
+        rate = ("" if c["tflops"] is None else
+                f"{c['tflops']:.1f} TFLOP/s"
+                + (f" ({exec_flop / on_card / 1e9:.1f} computed)"
+                   if exec_flop != c["flop"] else "") + "  ")
         log(f"  {c['kernel']:13s} {c['case']:24s} [{c['shape']}] "
             f"err {err:.2e}  kernel {c['ms'] * 1e3:9.1f} us (device "
             f"{_us(c['device_ms'])})  plain "
@@ -800,7 +830,7 @@ def check_kernels(device):
             f"{c['library_ms'] * 1e3:9.1f} us  "
             + (f"composite {c['composite_ms'] * 1e3:9.1f} us  "
                if "composite_ms" in c else "")
-            + f"bound "
+            + rate + f"bound "
             f"{c['bound_ms'] * 1e3:7.1f} us ({c['bound_by']}: "
             f"{c['flop'] / 1e9:.3f} GFLOP, {c['bytes'] / 1e6:.1f} MB)")
         torch.cuda.empty_cache()
@@ -1476,7 +1506,7 @@ def phase_t2(card, device):
     peak = torch.cuda.max_memory_allocated()
     prof = profile_calls(
         lambda: run_steps(exe, main, scope, feed, loss, 1), T2_PROFILED,
-        top=8)
+        top=8, kernels=("mha_block", "mha_block_bwd"))
     counts = _counts()
     n_steps = T2_WARMUP + T2_STEPS + T2_PROFILED
     expect = {"mha_block": n_attn * n_steps,
@@ -2085,7 +2115,8 @@ def main():
             "cases": [{k: c[k] for k in ("case", "shape", "max_abs_err", "ms",
                                          "device_ms", "plain_ms",
                                          "library_ms", "bound_ms",
-                                         "bound_by", "flop", "bytes")}
+                                         "bound_by", "flop", "bytes",
+                                         "tflops")}
                       for c in mine],
         })
     log(json.dumps({"kernels": kernels}))

@@ -1,7 +1,7 @@
-// Warp-level tensor-core helpers for the bf16 flash kernels (sm_90a):
-// flash_attention_fwd.cu (kernel #3) and flash_attention_bwd.cu's dK/dV
-// kernel (#5).  Each is one PTX instruction, so a fragment layout can be
-// checked one product at a time.
+// Warp-level tensor-core helpers for the bf16 attention kernels (sm_90a):
+// flash_attention_fwd.cu (kernel #3) and the backward bodies of
+// flash_bwd_mma.cuh (#4, #5 and mha_block's #2).  Each is one PTX
+// instruction, so a fragment layout can be checked one product at a time.
 //
 // mma.m16n8k16 (bf16 in, float32 accumulate), per lane with g = lane / 4
 // and t = lane % 4:

@@ -13,52 +13,69 @@
 // finite -1e30, as in the forward: a row with key_len > 0 gives masked
 // keys P = 0 exactly, and a row whose keys are all masked (key_len <= 0)
 // has P = 1/Sk over every key.  dS is not masked afterwards, exactly as in
-// the Pallas kernel, so such a row passes a gradient to every key.
+// the Pallas kernel, so such a row passes a gradient to every key.  Key
+// lengths are cast f32 -> int32 (astype), not clamped; one past Sk leaves
+// every key live.
 //
 // What bounds it on this card: at the training shapes (transformer-base,
 // D = 64, Sq = Sk = 256) the work is ~18 Sq Sk D FLOP per head against
 // ~7 S D element reads and writes, so it is bound by arithmetic.  The
 // Pallas kernel kept the whole [hc, Sq, Sk] score tile in VMEM; a Hopper
-// block has at most 227 KB of shared memory, so the design streams tiles
-// the way csrc/mha_block.cu streams the forward, in two kernels and no
-// atomics (the result is deterministic):
-//   * dq kernel, grid (q tiles, heads, batch).  Pass 1 streams the key
-//     tiles and keeps, per query row, the running max m, the running sum
-//     l and the running rowsum of exp(s - m) dP, rescaled like l, so that
-//     delta = that sum / l.  It stores m, 1/l and delta for the second
-//     kernel.  Pass 2 streams the key tiles again, forms dS and
+// block has at most 227 KB of shared memory, so both designs stream tiles
+// and keep the softmax statistics as per-row vectors, with no atomics
+// (the result is deterministic):
+//
+// bf16: tensor cores (mma.sync m16n8k16), three launches on the bodies of
+// flash_bwd_mma.cuh in its mha_block mask mode (an image with key_len <= 0
+// is visited "uniform": every key, scores taken as 0, lse = log Sk):
+//   * mha_bwd_stats_mma_kernel, grid (q tiles, heads, batch): S and dP
+//     over the live key tiles, an online row max, sum and rescaled
+//     rowsum(P o dP); stores lse = m + log l and delta [B, H, Sq];
+//   * mha_bwd_dq_mma_kernel: kernel #4's q-outer dQ body on that lse and
+//     delta (3 products a live pair);
+//   * mha_bwd_dkv_mma_kernel: kernel #5's k-outer dK/dV body (4 products).
+//   2 + 3 + 4 = 9 tile products a live pair, as the SIMT pair computes.
+// float32: the first version's SIMT kernels (tensor cores in float32 are
+// TF32, which would round the inputs to 10 mantissa bits):
+//   * mha_bwd_dq_kernel, grid (q tiles, heads, batch).  Pass 1 streams the
+//     key tiles and keeps, per query row, the running max m, the running
+//     sum l and the running rowsum of exp(s - m) dP, rescaled like l, so
+//     that delta = that sum / l.  It stores m, 1/l and delta for the
+//     second kernel.  Pass 2 streams the key tiles again, forms dS and
 //     accumulates dS K in registers.
-//   * dkv kernel, grid (key tiles, heads, batch), launched after it on the
-//     same stream.  Each block keeps its K and V tile in shared memory,
-//     streams the query tiles with their dO rows and row statistics,
-//     recomputes P and dS, and accumulates P^T dO and dS^T q in registers.
-// q, k, v and dO are read in place in the [B, S, H*D] layout through their
-// batch and row strides; dQ, dK and dV are written as [B, S, H*D].  Key
-// tiles past key_len or wholly above the causal diagonal are skipped
-// (their P and dS are 0), except where key_len <= 0, whose rows visit
-// every key.  64-row tiles for D <= 128, 32-row tiles above, so that the
-// four operand tiles fit in shared memory.  256 threads hold 4 x 4 (or
-// 2 x 2) score micro-tiles and 4 x D/16 (or 2 x D/16) accumulator
-// micro-tiles on strided rows and columns.  Simple and right first: SIMT
-// float32 FMAs, no tensor cores, no TMA, no pipelining.
+//   * mha_bwd_dkv_kernel, grid (key tiles, heads, batch), launched after
+//     it on the same stream.  Each block keeps its K and V tile in shared
+//     memory, streams the query tiles with their dO rows and row
+//     statistics, recomputes P and dS, and accumulates P^T dO and dS^T q
+//     in registers.
+//   * 64-row tiles for D <= 128, 32-row tiles above, so that the four
+//     operand tiles fit in shared memory.  256 threads hold 4 x 4 (or
+//     2 x 2) score micro-tiles and 4 x D/16 (or 2 x D/16) accumulator
+//     micro-tiles on strided rows and columns; float32 FMAs.
+// All read q, k, v and dO in place in the [B, S, H*D] layout through their
+// batch and row strides (bf16 rows must start on 16 bytes: the entry
+// returns cudaErrorMisalignedAddress otherwise) and write dQ, dK and dV as
+// [B, S, H*D].  Key tiles past key_len or wholly above the causal diagonal
+// are skipped (their P and dS are 0), except where key_len <= 0, whose
+// rows visit every key.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "flash_bwd_mma.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;  // 16 x 16 threads
 constexpr float kMasked = -1e30f;
 
+// the SIMT kernels run float32 only (bf16 takes the
+// tensor-core kernels)
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int D>
 struct TileRows {
@@ -497,12 +514,77 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 #undef MHA_BWD_CASE
 }
 
+// ---------------------------------------------------- bf16: tensor cores
+
+namespace fb = flash_bwd;
+
+template <int D>
+__global__ void __launch_bounds__(fb::kMmaThreads)
+mha_bwd_stats_mma_kernel(fb::Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  fb::q_outer_body<D, true, true>(a, smem_raw);
+}
+
+template <int D>
+__global__ void __launch_bounds__(fb::kMmaThreads)
+mha_bwd_dq_mma_kernel(fb::Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  fb::q_outer_body<D, true, false>(a, smem_raw);
+}
+
+template <int D>
+__global__ void __launch_bounds__(fb::kMmaThreads)
+mha_bwd_dkv_mma_kernel(fb::Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  fb::dkv_mma_body<D, true>(a, smem_raw);
+}
+
+// stats, then dQ, then dK/dV, on one stream; a = the dq launch's
+// arguments, lse and delta pointing into the stats buffer
+template <int D>
+cudaError_t launch_mma(fb::Args a, void* dk, void* dv, cudaStream_t s) {
+  constexpr size_t q_smem = fb::QTile<D>::kSmem;
+  fb::Args st = a;
+  st.out0 = const_cast<float*>(a.lse);
+  st.out1 = const_cast<float*>(a.delta);
+  cudaError_t err = fb::launch(mha_bwd_stats_mma_kernel<D>, fb::q_grid(a),
+                               q_smem, st, s);
+  if (err != cudaSuccess) return err;
+  err = fb::launch(mha_bwd_dq_mma_kernel<D>, fb::q_grid(a), q_smem, a, s);
+  if (err != cudaSuccess) return err;
+  a.out0 = dk;
+  a.out1 = dv;
+  return fb::launch(mha_bwd_dkv_mma_kernel<D>, fb::dkv_grid<D>(a),
+                    fb::DkvTile<D>::kSmem, a, s);
+}
+
+cudaError_t dispatch_mma(int D, const fb::Args& a, void* dk, void* dv,
+                         cudaStream_t s) {
+  if (!fb::rows_aligned(a) || !flash_mma::aligned16(dk, 0, 0) ||
+      !flash_mma::aligned16(dv, 0, 0))
+    return cudaErrorMisalignedAddress;
+  switch (D) {
+    case 64:
+      return launch_mma<64>(a, dk, dv, s);
+    case 128:
+      return launch_mma<128>(a, dk, dv, s);
+    case 192:
+      return launch_mma<192>(a, dk, dv, s);
+    case 256:
+      return launch_mma<256>(a, dk, dv, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // q/dout [B, Sq, H*D], k/v [B, Sk, H*D] (last dim contiguous, batch and row
 // strides in elements); dq [B, Sq, H*D] and dk/dv [B, Sk, H*D] contiguous;
-// stats: float32 scratch of 3 * B * H * Sq; key_len [B] float32 or NULL.
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError().
+// stats: float32 scratch of 3 * B * H * Sq (float32: m, 1/l, delta) or
+// 2 * B * H * Sq (bf16: lse, delta); key_len [B] float32 or NULL.
+// dtype: 0 = float32 (SIMT kernels), 1 = bfloat16 (tensor-core kernels;
+// q, k, v, dO rows 16-byte aligned).  Returns cudaGetLastError().
 extern "C" int mha_block_bwd(const void* q, const void* k, const void* v,
                              const void* dout, void* dq, void* dk, void* dv,
                              float* stats, const float* key_len, int B,
@@ -517,10 +599,12 @@ extern "C" int mha_block_bwd(const void* q, const void* k, const void* v,
                                   key_len, B, Sq, Sk, H, q_bs, q_rs, k_bs,
                                   k_rs, v_bs, v_rs, o_bs, o_rs, scale, causal,
                                   s);
-  if (dtype == 1)
-    return (int)dispatch_d<__nv_bfloat16>(D, q, k, v, dout, dq, dk, dv, stats,
-                                          key_len, B, Sq, Sk, H, q_bs, q_rs,
-                                          k_bs, k_rs, v_bs, v_rs, o_bs, o_rs,
-                                          scale, causal, s);
+  if (dtype == 1) {
+    const flash_bwd::Args a{q, k, v, dout, stats,
+                            stats + (long long)B * H * Sq, dq, nullptr,
+                            key_len, B, Sq, Sk, H, q_bs, q_rs, k_bs, k_rs,
+                            v_bs, v_rs, o_bs, o_rs, scale, causal};
+    return (int)dispatch_mma(D, a, dk, dv, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -24,9 +24,11 @@ makes (out, lse) one autograd op whose outputs are both differentiable.
 
 The entries run the plain versions for tensors on the CPU (and on the meta
 device) and launch the kernels for tensors on the card; anything else
-raises.  There is no fallback from a kernel to a plain version.
-`launches`, `bwd_dq_launches` and `bwd_dkv_launches` count kernel
-launches (#3, #4 and #5).
+raises.  There is no fallback from a kernel to a plain version.  In
+bfloat16 all three run on the tensor cores and need 16-byte aligned rows
+(a misaligned view raises); in float32 they are SIMT.  `launches`,
+`bwd_dq_launches` and `bwd_dkv_launches` count kernel launches (#3, #4
+and #5).
 """
 
 from __future__ import annotations

@@ -12,7 +12,10 @@ has no gradient.  `MHABlockFunction` joins the two as one autograd op.
 
 The entries run the plain versions for tensors on the CPU (and on the
 meta device, for shape inference) and launch the kernels for tensors on
-the card; anything else raises.  There is no fallback from a kernel to a
+the card; anything else raises.  In bfloat16 the backward runs three
+tensor-core kernels (row statistics, dQ, dK/dV; csrc/flash_bwd_mma.cuh,
+shared with the flash backward) and needs 16-byte aligned rows: a
+misaligned view raises.  There is no fallback from a kernel to a
 plain version.  `launches` and `bwd_launches` count kernel launches.
 """
 
@@ -225,8 +228,10 @@ def _launch_bwd(q, k, v, dout, num_heads, causal, scale, key_len):
     dq = torch.empty((b, sq, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, sk, hd), dtype=q.dtype, device=q.device)
-    # per-row m, 1/l and delta, from the dq kernel to the dkv kernel
-    stats = torch.empty((3, b, num_heads, sq), dtype=torch.float32,
+    # per-row statistics for the later kernels: m, 1/l and delta from the
+    # float32 dq kernel, or lse and delta from the bf16 stats kernel
+    planes = 3 if q.dtype == torch.float32 else 2
+    stats = torch.empty((planes, b, num_heads, sq), dtype=torch.float32,
                         device=q.device)
     rc = _bwd_lib()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),

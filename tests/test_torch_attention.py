@@ -298,6 +298,98 @@ def test_mha_block_bwd_bf16_and_scale():
                                    atol=2e-2 * np.abs(r).max())
 
 
+@pytest.mark.parametrize("sq,sk,causal,key_len,d", [
+    (1, 65, False, [1, 63], 64),     # one row; one key past a 64-key tile
+    (17, 65, True, [0, 63], 64),     # a key_len-0 image under causal
+    (17, 130, False, [1, 63], 128),  # one row past an mma tile
+    (33, 130, True, [0, 130], 64),
+    (65, 130, True, [129, 0], 128),
+], ids=["sq1_sk65", "sq17_causal_zero", "sq17_sk130_d128",
+        "sq33_causal_zero", "sq65_causal_zero_d128"])
+def test_mha_block_bwd_bf16_tile_edges_match_pallas_vjp(sq, sk, causal,
+                                                         key_len, d):
+    """bfloat16 at the tile edges of the card's tensor-core kernels (64-row
+    q tiles, 32- and 64-key tiles): the plain version against jax.vjp of
+    the Pallas kernel in interpret mode, within 2e-2 of each grad's
+    largest magnitude (the Pallas kernel rounds dS and P to bfloat16
+    before its dots, the plain version keeps them in float32).  A key_len-0
+    image has P = 1/Sk over every key, those right of the causal diagonal
+    too, in both."""
+    b, h = 2, 2
+    q, k, v = _data(sq + sk + d, b, sq, sk, h * d)
+    g = np.random.RandomState(sq).standard_normal(q.shape).astype(np.float32)
+    kl = np.asarray(key_len, np.int64)
+    ref = _jax_vjp(q, k, v, g, h, causal, 0.0, kl, "bfloat16")
+    out = pmha.mha_block_bwd(*(_t(x).to(torch.bfloat16) for x in (q, k, v, g)),
+                             h, causal, 0.0, key_len=_t(kl))
+    for name, r, o in zip(("dq", "dk", "dv"), ref, out):
+        assert o.dtype == torch.bfloat16 and o.shape == r.shape, name
+        np.testing.assert_allclose(o.float().numpy(), r, rtol=0,
+                                   atol=2e-2 * np.abs(r).max(), err_msg=name)
+
+
+def _mha_mode_bwd(q, k, v, dout, h, causal, scale, key_len):
+    """The card's bf16 mha_block backward in float32 torch: the shared
+    flash backward bodies in their mha_block mask mode
+    (csrc/flash_bwd_mma.cuh).  An image with key_len > 0 sees keys below
+    min(key_len, Sk) and, under causal, at or left of the diagonal; an
+    image with key_len <= 0 is "uniform": every key live, causal off,
+    every score taken as 0.  lse and delta come from the live scores as
+    the statistics kernel makes them, then P = exp(S - lse) on live pairs
+    (0 elsewhere) and the flash products."""
+    b, sq, hd = q.shape
+    sk = k.shape[1]
+    d = hd // h
+
+    def heads(x, s):
+        return x.reshape(b, s, h, d).transpose(1, 2)
+
+    qh, kh, vh, doh = heads(q * scale, sq), heads(k, sk), heads(v, sk), \
+        heads(dout, sq)
+    s = torch.matmul(qh, kh.transpose(-1, -2))            # [B, H, Sq, Sk]
+    kl = key_len.reshape(b).float().to(torch.int32)
+    uniform = (kl <= 0)[:, None, None, None]
+    cols = torch.arange(sk)
+    live = (cols < kl.clamp(0, sk)[:, None, None, None]) | uniform
+    if causal:
+        rows = torch.arange(sq)[:, None] + (sk - sq)
+        live = live & ((cols[None, :] <= rows) | uniform)
+    s = torch.where(uniform, 0.0, s)
+    lse = torch.logsumexp(torch.where(live, s, -torch.inf), -1, keepdim=True)
+    p = torch.where(live, torch.exp(s - lse), 0.0)
+    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    delta = (p * dp).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    grads = (torch.matmul(ds, kh) * scale, torch.matmul(ds.transpose(-1, -2), qh),
+             torch.matmul(p.transpose(-1, -2), doh))
+    return [x.transpose(1, 2).reshape(b, -1, hd) for x in grads]
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("sq,sk", [(40, 100), (100, 100)],
+                         ids=["offset", "square"])
+def test_mha_mask_mode_gives_the_plain_grads(sq, sk, causal):
+    """The card's bf16 #2 reuses #4/#5's bodies with a mask mode (scores 0
+    and lse = log Sk for a key_len <= 0 image, every key live, causal off;
+    key_len past Sk leaves every key live): that mode, written in float32
+    torch, gives mha_block_bwd_reference's grads within 1e-5, key_len 0,
+    a negative one, one past Sk and a ragged one included."""
+    b, h, d = 4, 2, 64
+    q, k, v = (_t(x) for x in _data(sq + sk, b, sq, sk, h * d))
+    g = _t(np.random.RandomState(7).standard_normal(q.shape)
+           .astype(np.float32))
+    kl = _t(np.asarray([0, 37, sk + 30, -2], np.float32))
+    want = pmha.mha_block_bwd_reference(q, k, v, g, h, causal, 0.0,
+                                        key_len=kl)
+    got = _mha_mode_bwd(q, k, v, g, h, causal, d ** -0.5, kl)
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), r.numpy(), rtol=0, atol=ATOL,
+                                   err_msg=name)
+    # the all-masked images pass a gradient to every key
+    for t in want[1:]:
+        assert bool((t[[0, 3]].abs().amax(-1) > 0).all())
+
+
 def test_mha_block_function_backward_is_the_bwd_entry():
     """MHABlockFunction (forward kernel, backward kernel) against autograd
     over the plain forward, on the CPU: the same gradients."""

@@ -171,8 +171,21 @@ def test_wrappers_raise_instead_of_falling_back(card):
     (2, 8, 64, 2, 256, True, "with_zero"),    # 32-row tiles
     (2, 40, 100, 2, 192, False, "ragged"),
     (8, 1, 256, 8, 64, False, "ragged"),      # mha_decode's single query
+    # tile edges of the bf16 tensor-core kernels (64-row q tiles, 64- or
+    # 32-key tiles); key_len 0 under causal: P = 1/Sk over every key
+    (2, 1, 65, 2, 64, False, [1, 63]),        # one row; one key past a tile
+    (2, 17, 65, 2, 128, True, None),          # one row past an mma tile
+    (2, 17, 130, 1, 192, False, [1, 63]),
+    (2, 17, 130, 2, 64, True, [0, 63]),       # an all-masked image, causal
+    (2, 33, 65, 2, 128, True, [0, 65]),
+    (2, 1, 130, 1, 256, True, [0, 1]),
+    (2, 16, 80, 1, 256, True, [0, 80]),
+    (2, 65, 130, 1, 192, True, [0, 129]),
 ], ids=["enc256", "causal256", "cross_zero", "edges_d128", "d256", "d192",
-        "decode1"])
+        "decode1", "sq1_sk65_kl_1_63", "sq17_sk65_causal_d128",
+        "sq17_sk130_kl_1_63_d192", "causal_zero_image", "causal_zero_d128",
+        "sq1_causal_zero_d256", "causal_16x80_zero_d256",
+        "sq65_causal_zero_d192"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_mha_block_bwd_matches_plain(card, case, dtype):
@@ -180,7 +193,9 @@ def test_mha_block_bwd_matches_plain(card, case, dtype):
     q, k, v = _qkv(8, b, sq, sk, h * d, card, dtype)
     g = _qkv(9, b, sq, sq, h * d, card, dtype)[0]
     key_len = None
-    if kl is not None:
+    if isinstance(kl, list):
+        key_len = _lens(kl, card)
+    elif kl is not None:
         vals = np.random.RandomState(10).randint(max(1, sk // 2), sk + 1,
                                                  size=b)
         if kl == "with_zero":
@@ -199,6 +214,57 @@ def test_mha_block_bwd_matches_plain(card, case, dtype):
         tol = TOL[torch.float32] if dtype == torch.float32 else \
             TOL[dtype] * r.float().abs().max().item()
         assert err <= tol, (name, err, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_mha_block_bwd_all_masked_image_reaches_every_key(card, dtype):
+    """An image with key_len 0 has every score at the finite -1e30, so P
+    = 1/Sk over every key, those right of the causal diagonal too, and dS
+    is not masked afterwards: every key of that image gets a gradient
+    (the Pallas kernel's semantics, ROADMAP C5), as in the plain
+    version; the other image, key_len 70, gives keys past 70 exactly 0."""
+    b, sq, sk, h, d = 2, 96, 160, 2, 64
+    q, k, v = _qkv(24, b, sq, sk, h * d, card, dtype)
+    g = _qkv(25, b, sq, sq, h * d, card, dtype)[0]
+    key_len = _lens([0, 70], card)
+    got = mha_block.mha_block_bwd(q, k, v, g, h, True, 0.0, key_len=key_len)
+    torch.cuda.synchronize()
+    ref = mha_block.mha_block_bwd_reference(q, k, v, g, h, True, 0.0,
+                                            key_len=key_len)
+    for name, o, r in zip(("dq", "dk", "dv"), got, ref):
+        err = (o.float() - r.float()).abs().max().item()
+        tol = TOL[torch.float32] if dtype == torch.float32 else \
+            TOL[dtype] * r.float().abs().max().item()
+        assert err <= tol, (name, err, tol)
+    dk, dv = got[1], got[2]
+    # image 0: every key row has a gradient, right of the diagonal too
+    for t in (dk, dv):
+        assert bool((t[0].float().abs().amax(dim=-1) > 0).all())
+        assert torch.count_nonzero(t[1, 70:]).item() == 0
+
+
+def test_flash_bwd_dq_kv_len_zero_row_is_exactly_zero(card):
+    """Kernel #4 alone, both dtypes: an image with kv_len 0 visits no key,
+    so its dQ is exactly 0, and the other images match the plain
+    version."""
+    b, s, h, d = 3, 200, 2, 64
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, kv_len, out, lse, g, g_lse = _flash_bwd_inputs(
+            26, b, s, s, h, d, True, [0, 130, 200], card, dtype)
+        delta = fa.bwd_delta(out, g, h, g_lse)
+        before = fa.bwd_dq_launches
+        dq = fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, h, True,
+                                       kv_len=kv_len)
+        torch.cuda.synchronize()
+        assert fa.bwd_dq_launches == before + 1
+        assert torch.count_nonzero(dq[0]).item() == 0, dtype
+        ref = fa.bwd_reference(q, k, v, g, lse, delta, h, True, 0.0,
+                               kv_len)[0]
+        err = (dq.float() - ref.float()).abs().max().item()
+        tol = TOL[torch.float32] if dtype == torch.float32 else \
+            TOL[dtype] * ref.float().abs().max().item()
+        assert err <= tol, (dtype, err, tol)
 
 
 def test_mha_block_function_grads_match_autograd(card):
@@ -677,21 +743,25 @@ def test_top_k_breaks_ties_lower_index_first_on_the_card(card, dtype):
 
 
 def test_bf16_flash_kernels_refuse_misaligned_rows(card):
-    """The bf16 tensor-core kernels (#3, #5) copy 16-byte chunks of each
-    row: a view whose rows do not start on 16 bytes is refused (no
-    fallback to another kernel); the same view in float32 runs."""
+    """The bf16 tensor-core kernels (#3, #4, #5 and #2's three) copy
+    16-byte chunks of each row: a view whose rows do not start on 16
+    bytes is refused (no fallback to another kernel); the same view in
+    float32 runs."""
     b, s, h, d = 2, 64, 2, 64
     buf = torch.randn((b, s, 3 * h * d + 1), device=card)
+    lse = torch.zeros((b, h, s), device=card)
     for dtype, ok in ((torch.bfloat16, False), (torch.float32, True)):
         t = buf.to(dtype)
         q, k, v = (t[..., 1 + i * h * d:1 + (i + 1) * h * d]
                    for i in range(3))
-        if ok:
-            fa.flash_attention_lse(q, k, v, h)
-            torch.cuda.synchronize()
-            continue
-        with pytest.raises(RuntimeError):
-            fa.flash_attention_lse(q, k, v, h)
-        lse = torch.zeros((b, h, s), device=card)
-        with pytest.raises(RuntimeError):
-            fa.flash_attention_bwd_dkv(q, k, v, q, lse, lse, h)
+        calls = (lambda: fa.flash_attention_lse(q, k, v, h),
+                 lambda: fa.flash_attention_bwd_dq(q, k, v, q, lse, lse, h),
+                 lambda: fa.flash_attention_bwd_dkv(q, k, v, q, lse, lse, h),
+                 lambda: mha_block.mha_block_bwd(q, k, v, q, h))
+        for call in calls:
+            if ok:
+                call()
+                torch.cuda.synchronize()
+                continue
+            with pytest.raises(RuntimeError):
+                call()

@@ -115,7 +115,8 @@ def test_flash_fwd_bf16_tile_edges_match_pallas_interpret(case):
 
 def test_kernel_library_is_keyed_by_its_headers(tmp_path, monkeypatch):
     """A source's library name hashes every csrc header it includes, so an
-    edited header (flash_mma.cuh, shared by #3 and #5) builds anew."""
+    edited header (flash_mma.cuh, shared by #2-#5, or flash_bwd_mma.cuh,
+    which includes it, shared by #2, #4 and #5) builds anew."""
     from paddle_tpu_torch.ops.cuda import _build
 
     (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <math.h>\n')
@@ -130,8 +131,9 @@ def test_kernel_library_is_keyed_by_its_headers(tmp_path, monkeypatch):
     second = _build.lib_path("k")
     assert second != first and second.name.startswith("k-")
     monkeypatch.undo()
-    assert [p.name for p in _build._source_files("flash_attention_bwd")] == \
-        ["flash_attention_bwd.cu", "flash_mma.cuh"]
+    for name in ("flash_attention_bwd", "mha_block_bwd"):
+        assert [p.name for p in _build._source_files(name)] == \
+            [f"{name}.cu", "flash_bwd_mma.cuh", "flash_mma.cuh"]
 
 
 def test_flash_fwd_clamps_kv_len_to_sk():
