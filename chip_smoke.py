@@ -172,7 +172,9 @@ KERNELS = {
     "mha_block": {
         "source": "paddle_tpu_torch/csrc/mha_block.cu",
         "replaces": "paddle_tpu/ops/pallas/mha_block.py:109",
-        "device_names": ("mha_fwd_kernel",),
+        # float32 (SIMT), bf16 (tensor cores), Sq = 1 (both dtypes)
+        "device_names": ("mha_fwd_kernel", "mha_fwd_mma_kernel",
+                         "mha_decode_kernel"),
     },
     "mha_block_bwd": {
         "source": "paddle_tpu_torch/csrc/mha_block_bwd.cu",
@@ -213,7 +215,9 @@ KERNELS = {
     "bn_relu_conv1x1": {
         "source": "paddle_tpu_torch/csrc/bn_relu_conv1x1.cu",
         "replaces": "tools/conv1x1_fuse_probe.py:21",
-        "device_names": ("bn_relu_conv1x1_kernel",),
+        # float32 (SIMT), bf16 (tensor cores)
+        "device_names": ("bn_relu_conv1x1_kernel",
+                         "bn_relu_conv1x1_mma_kernel"),
     },
 }
 # served requests whose tokens differed from the sequential Generator's:
@@ -324,19 +328,25 @@ def _heads(x, h):
     return x.view(b, s, h, hd // h).transpose(1, 2)
 
 
-def _live(b, sq, sk, causal, key_len):
+def _live(b, sq, sk, causal, key_len, uniform_empty=False):
     """Live (query, key) pairs and live key rows per image, as the kernels
     visit them: keys past key_len and above the causal diagonal are
-    skipped."""
+    skipped.  uniform_empty (mha_block): an image with key_len <= 0 is the
+    mean of V over every key, so its rows see all Sk keys, causal or not."""
     kl = [sk] * b if key_len is None else key_len.tolist()
-    if causal:
-        off = sk - sq
-        pairs = [sum(min(r + off + 1, n) for r in range(sq)) for n in kl]
-        rows = [min(sk, n) for n in kl]
-    else:
-        pairs = [sq * min(sk, n) for n in kl]
-        rows = [min(sk, n) for n in kl]
-    return sum(pairs), sum(rows)
+    off = sk - sq
+    pairs = rows = 0
+    for n in kl:
+        if uniform_empty and n <= 0:
+            pairs += sq * sk
+            rows += sk
+            continue
+        if causal:
+            pairs += sum(min(r + off + 1, n) for r in range(sq))
+        else:
+            pairs += sq * min(sk, n)
+        rows += min(sk, n)
+    return pairs, rows
 
 
 def _shape(b, sq, sk, hd, causal, lens, dtype):
@@ -346,12 +356,16 @@ def _shape(b, sq, sk, hd, causal, lens, dtype):
 
 
 def mha_case(name, b, sq, sk, h, d, causal, lens, device, rng,
-             dtype=torch.float32):
+             dtype=torch.float32, empty_first=False):
+    """Kernel #1; with empty_first, image 0 has key_len 0 (the mean of V
+    over every key)."""
     g = torch.Generator(device=device).manual_seed(int(rng.randint(1 << 30)))
     q, k, v = (torch.randn((b, s, h * d), generator=g, device=device)
                .to(dtype) for s in (sq, sk, sk))
     key_len = None if lens is None else _lengths(rng, *lens, b, device)
-    pairs, rows = _live(b, sq, sk, causal, key_len)
+    if empty_first:
+        key_len[0] = 0
+    pairs, rows = _live(b, sq, sk, causal, key_len, uniform_empty=True)
     item = q.element_size()
     nbytes = item * h * d * (2 * b * sq + 2 * rows) + (
         0 if key_len is None else key_len.numel() * key_len.element_size())
@@ -366,10 +380,14 @@ def mha_case(name, b, sq, sk, h, d, causal, lens, device, rng,
     qh, kh, vh = _heads(q, h), _heads(k, h), _heads(v, h)
     library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
         qh, kh, vh, attn_mask=mask, is_causal=causal and mask is None)
+    # bf16 Sq > 1 runs two sweeps: Q K^T twice, P V once
+    two_sweeps = dtype == torch.bfloat16 and sq > 1
     return dict(kernel="mha_block", case=name, fns=(kernel, plain, library),
-                shape=_shape(b, sq, sk, h * d, causal, lens, dtype),
+                shape=_shape(b, sq, sk, h * d, causal, lens, dtype)
+                + (" key_len[0] 0" if empty_first else ""),
                 dtype=dtype, tol=TOL if dtype == torch.float32 else BF16_TOL,
-                flop=4 * d * h * pairs, bytes=nbytes)
+                flop=4 * d * h * pairs, bytes=nbytes,
+                exec_flop=(6 if two_sweeps else 4) * d * h * pairs)
 
 
 def bwd_case(name, b, sq, sk, h, d, causal, lens, device, rng, dtype):
@@ -783,6 +801,22 @@ def check_kernels(device):
     cases += flash_bwd_cases("bert L2 d128 b16 masked bf16", L2_BATCH, L_SEQ,
                              L_SEQ, 6, 128, False, bert_lens, device, rng,
                              torch.bfloat16)
+    # added last, so that the cases above keep their inputs: #1 in bf16 at
+    # Sq = 1, at T2's shape with 4 heads of 128, and a causal batch whose
+    # image 0 has key_len 0 (the mean of V over every key); #8 at odd
+    # batches, whose pixel tiles cross images at unaligned rows
+    cases += [
+        mha_case("mha_decode 1x256 bf16", BATCH, 1, SRC_LEN, h, d, False,
+                 (128, SRC_LEN), device, rng, torch.bfloat16),
+        mha_case("train encoder d128 b128 bf16", T2_BATCH, SEQ, SEQ, 4, 128,
+                 False, train, device, rng, torch.bfloat16),
+        mha_case("causal key_len 0 b128 bf16", T2_BATCH, SEQ, SEQ, h, d,
+                 True, train, device, rng, torch.bfloat16, empty_first=True),
+        conv1x1_case("conv3 14x14 b37", 37, 256, 14, 1024, device, rng,
+                     torch.bfloat16),
+        conv1x1_case("conv3 7x7 b37", 37, 512, 7, 2048, device, rng,
+                     torch.bfloat16),
+    ]
     timer = Timer(device)
     for c in cases:
         fns = c.pop("fns")

@@ -23,29 +23,12 @@
 // of reads and writes: bound by bf16 tensor-core operations (989 TFLOP/s),
 // not by memory.  Two kernels, chosen by dtype in the entry:
 //
-// bf16, flash_fwd_mma_kernel<D> (tensor cores, mma.sync m16n8k16):
-//   * grid (q tiles, heads, batch), 64 query rows a block over 4 warps, 16
-//     rows a warp; under causal the q tiles launch heaviest (last) first;
-//   * Q is read once, scaled and rounded to bf16 as the plain version
-//     does, and kept in registers as mma A fragments (at D 192 and 256 it
-//     stays in shared memory and is read with ldmatrix per k-step, so that
-//     the D/2 output accumulators fit the register file);
-//   * K and V stream through a two-stage cp.async ring of key tiles, 64
-//     keys at D <= 128 and 32 at D 192 / 256; tile j+1's copy is issued
-//     before tile j's math; rows padded by 16 bytes (flash_mma.cuh), so
-//     ldmatrix is free of bank conflicts;
-//   * S = Q K^T stays in registers (B fragments of K by ldmatrix); the
-//     causal and kv_len mask is applied only on tiles that cross the
-//     diagonal or kv_len; tiles past the block's last live key are never
-//     loaded;
-//   * the online softmax runs on the accumulator fragments: a row's max
-//     and sum take two __shfl_xor within its quad; l adds P before the
-//     rounding; P is rounded to bf16 and repacked in registers as the A
-//     fragment of P V (V's B fragments by ldmatrix.trans).  No score tile
-//     in shared memory, no barrier between the two products (two a tile:
-//     data arrived, stage free);
-//   * the epilogue stages O / l through the warp's own Q rows and writes
-//     16-byte chunks; lse = m + log l.
+// bf16, flash_fwd_mma_kernel<D> (tensor cores, mma.sync m16n8k16): the
+//   flash mode of the body in flash_fwd_mma.cuh, shared with mha_block's
+//   bf16 forward (#1): 64 query rows a block, Q as register fragments, K
+//   and V through a two-stage cp.async ring, S and P in registers, an
+//   online softmax with P rounded to bf16 unnormalised, O / l and
+//   lse = m + log l in the epilogue;
 // float32, flash_fwd_kernel<float, D> (SIMT FMAs, kept on purpose: tensor
 // cores in float32 are TF32, which would round the inputs to 10 mantissa
 // bits): 256 threads each hold a 4 x 4 score micro-tile and a 4 x (D/16)
@@ -60,7 +43,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "flash_mma.cuh"
+#include "flash_fwd_mma.cuh"
 
 namespace {
 
@@ -252,239 +235,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ------------------------------------------- bf16: tensor-core kernel
 
-namespace fm = flash_mma;
-
-constexpr int kWarps = 4;                // 16 query rows each
-constexpr int kMmaThreads = 32 * kWarps;
-constexpr int kMmaBQ = 16 * kWarps;      // query rows per block
+namespace ff = flash_fwd;
+using Args = ff::Args;
 
 template <int D>
-struct MmaTile {
-  static constexpr int kBK = D <= 128 ? 64 : 32;  // keys per streamed tile
-  static constexpr bool kQRegs = D <= 128;        // Q as register fragments
-  static constexpr int kStride = D + 8;           // padded shared row, bf16
-  // Q tile, then two stages of K and V
-  static constexpr size_t kSmem =
-      sizeof(fm::bf16) * (size_t)(kMmaBQ + 4 * kBK) * kStride;
-};
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const fm::bf16* __restrict__ q,
-                     const fm::bf16* __restrict__ k,
-                     const fm::bf16* __restrict__ v, fm::bf16* __restrict__ out,
-                     float* __restrict__ lse, const float* __restrict__ kv_len,
-                     int Sq, int Sk, int H, long long q_bs, long long q_rs,
-                     long long k_bs, long long k_rs, long long v_bs,
-                     long long v_rs, float scale, int causal) {
-  using Tile = MmaTile<D>;
-  constexpr int BK = Tile::kBK;
-  constexpr int S = Tile::kStride;
-  constexpr int KD = D / 16;     // k-steps of Q K^T
-  constexpr int NK = BK / 8;     // n-tiles of a score row
-  constexpr int ND = D / 8;      // n-tiles of an output row
-  constexpr int CH = D / 8;      // 16-byte chunks of a row
+__global__ void __launch_bounds__(ff::kMmaThreads, ff::MmaTile<D>::kMinBlocks)
+flash_fwd_mma_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  fm::bf16* Qs = reinterpret_cast<fm::bf16*>(smem_raw);  // [kMmaBQ][S]
-  fm::bf16* Ks = Qs + kMmaBQ * S;                         // [2][BK][S]
-  fm::bf16* Vs = Ks + 2 * BK * S;                         // [2][BK][S]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  // heaviest first under causal: the last q tile sees the most keys
-  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kMmaBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int off = Sk - Sq;
-  const int kl = kv_len != nullptr ? max(0, min(Sk, (int)kv_len[b])) : Sk;
-  // keys this block visits (as flash_fwd_kernel): with kl > 0 key 0 is
-  // live on every row, so every running max is finite from tile 0 on
-  int kend = kl;
-  if (causal) kend = min(kend, min(q0 + kMmaBQ, Sq) + off);
-  const int n_kt = (kend + BK - 1) / BK;
-  const int wrow0 = q0 + 16 * warp;  // this warp's first query row
-
-  const fm::bf16* qp = q + b * q_bs + (long long)h * D;
-  const fm::bf16* kp = k + b * k_bs + (long long)h * D;
-  const fm::bf16* vp = v + b * v_bs + (long long)h * D;
-
-  // key tile kt into stage st; rows past kend are zero-filled, so that
-  // P V adds exactly 0 for them
-  auto load_kv = [&](int kt, int st) {
-    fm::bf16* kd = Ks + st * BK * S;
-    fm::bf16* vd = Vs + st * BK * S;
-    for (int i = tid; i < BK * CH; i += kMmaThreads) {
-      const int r = i / CH, c = (i % CH) * 8, key = kt * BK + r;
-      const bool in = key < kend;
-      const long long kr = in ? key : 0;
-      fm::cp_async16(kd + r * S + c, kp + kr * k_rs + c, in);
-      fm::cp_async16(vd + r * S + c, vp + kr * v_rs + c, in);
-    }
-  };
-  if (n_kt > 0) {
-    load_kv(0, 0);
-    fm::cp_async_commit();
-  }
-  // Q: scaled and rounded in bf16 (the plain version's q * scale)
-  for (int i = tid; i < kMmaBQ * CH; i += kMmaThreads) {
-    const int r = i / CH, c = (i % CH) * 8, row = q0 + r;
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (row < Sq) {
-      x = *reinterpret_cast<const uint4*>(qp + row * q_rs + c);
-      fm::scale8(x, scale);
-    }
-    *reinterpret_cast<uint4*>(Qs + r * S + c) = x;
-  }
-  __syncthreads();
-  uint32_t qf[Tile::kQRegs ? KD : 1][4];
-  if constexpr (Tile::kQRegs) {
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk)
-      fm::ldmatrix_x4(qf[kk], fm::a_frag(Qs, S, 16 * warp, 16 * kk, lane));
-  }
-
-  float o[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  // rows g and g + 8 of the warp: running max (natural units) and this
-  // lane's part of the running sum
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    if (kt + 1 < n_kt) {
-      load_kv(kt + 1, (kt + 1) & 1);
-      fm::cp_async_commit();
-      fm::cp_async_wait<1>();
-    } else {
-      fm::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const fm::bf16* kb = Ks + (kt & 1) * BK * S;
-    const fm::bf16* vb = Vs + (kt & 1) * BK * S;
-    const int k0 = kt * BK;
-
-    float s[NK][4];
-#pragma unroll
-    for (int n = 0; n < NK; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t a[4];
-      if constexpr (Tile::kQRegs) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = qf[kk][i];
-      } else {
-        fm::ldmatrix_x4(a, fm::a_frag(Qs, S, 16 * warp, 16 * kk, lane));
-      }
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) {
-        uint32_t bk[4];
-        fm::ldmatrix_x4(bk, fm::b_pair(kb, S, 16 * j, 16 * kk, lane));
-        fm::mma_bf16(s[2 * j], a, bk[0], bk[1]);
-        fm::mma_bf16(s[2 * j + 1], a, bk[2], bk[3]);
-      }
-    }
-    // mask only a tile that crosses kend or this warp's causal diagonal
-    if (k0 + BK > kend || (causal && k0 + BK - 1 > wrow0 + off)) {
-#pragma unroll
-      for (int n = 0; n < NK; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + 8 * n + 2 * t4 + (e & 1);
-          const int row = wrow0 + g + 8 * (e >> 1);
-          if (key >= kend) {
-            s[n][e] = -INFINITY;  // not visited: outside this softmax
-          } else if (causal && key > row + off) {
-            s[n][e] = kMasked;
-          }
-        }
-    }
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int n = 0; n < NK; ++n)
-        mx = fmaxf(mx, fmaxf(s[n][2 * hr], s[n][2 * hr + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run[hr], mx);
-      const float alpha = exp2f((m_run[hr] - m_new) * fm::kLog2e);  // 0 first
-      const float mb = m_new * fm::kLog2e;
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < NK; ++n)
-#pragma unroll
-        for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
-          const float p = exp2f(fmaf(s[n][e], fm::kLog2e, -mb));
-          s[n][e] = p;
-          sum += p;
-        }
-      l_run[hr] = l_run[hr] * alpha + sum;
-      m_run[hr] = m_new;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        o[n][2 * hr] *= alpha;
-        o[n][2 * hr + 1] *= alpha;
-      }
-    }
-    // O += P V, P rounded to bf16 in registers
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      fm::acc_to_a(a, s, kk);
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
-        uint32_t bv[4];
-        fm::ldmatrix_x4_trans(bv, fm::bt_pair(vb, S, 16 * kk, 16 * j, lane));
-        fm::mma_bf16(o[2 * j], a, bv[0], bv[1]);
-        fm::mma_bf16(o[2 * j + 1], a, bv[2], bv[3]);
-      }
-    }
-    __syncthreads();  // the stage is free for tile kt + 2
-  }
-
-  // epilogue: full row sums, lse, O / l through this warp's own Q rows
-  float inv[2];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    float l = l_run[hr];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[hr] = l == 0.f ? 0.f : 1.f / l;  // no live key -> O = 0
-    const int row = wrow0 + g + 8 * hr;
-    if (t4 == 0 && row < Sq)
-      lse[((long long)b * H + h) * Sq + row] =
-          l == 0.f ? kMasked : m_run[hr] + logf(l);
-  }
-  fm::bf16* ow = Qs + 16 * warp * S;
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr)
-      *reinterpret_cast<uint32_t*>(ow + (g + 8 * hr) * S + 8 * n + 2 * t4) =
-          fm::pack_bf16(o[n][2 * hr] * inv[hr], o[n][2 * hr + 1] * inv[hr]);
-  __syncwarp();
-  const long long hd = (long long)H * D;
-  for (int i = lane; i < 16 * CH; i += 32) {
-    const int r = i / CH, c = (i % CH) * 8, row = wrow0 + r;
-    if (row < Sq)
-      *reinterpret_cast<uint4*>(out + ((long long)b * Sq + row) * hd +
-                                (long long)h * D + c) =
-          *reinterpret_cast<const uint4*>(ow + r * S + c);
-  }
+  ff::fwd_mma_body<D, false>(a, smem_raw);
 }
-
-struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* out;
-  float* lse;
-  const float* kv_len;
-  int B, Sq, Sk, H;
-  long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs;
-  float scale;
-  int causal;
-};
 
 template <typename T, int D>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
@@ -518,37 +277,17 @@ cudaError_t dispatch_d(int D, const Args& a, cudaStream_t s) {
   }
 }
 
-template <int D>
-cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = MmaTile<D>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.Sq + kMmaBQ - 1) / kMmaBQ, a.H, a.B);
-  flash_fwd_mma_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const fm::bf16*>(a.q), static_cast<const fm::bf16*>(a.k),
-      static_cast<const fm::bf16*>(a.v), static_cast<fm::bf16*>(a.out), a.lse,
-      a.kv_len, a.Sq, a.Sk, a.H, a.q_bs, a.q_rs, a.k_bs, a.k_rs, a.v_bs,
-      a.v_rs, a.scale, a.causal);
-  return cudaGetLastError();
-}
-
 cudaError_t dispatch_mma(int D, const Args& a, cudaStream_t s) {
-  // cp.async and the Q loads move 16 bytes: every row must start aligned
-  if (!fm::aligned16(a.q, a.q_bs, a.q_rs) ||
-      !fm::aligned16(a.k, a.k_bs, a.k_rs) ||
-      !fm::aligned16(a.v, a.v_bs, a.v_rs) || !fm::aligned16(a.out, 0, 0))
-    return cudaErrorMisalignedAddress;
+  if (!ff::rows_aligned(a)) return cudaErrorMisalignedAddress;
   switch (D) {
     case 64:
-      return launch_mma<64>(a, s);
+      return ff::launch_mma<64>(flash_fwd_mma_kernel<64>, a, s);
     case 128:
-      return launch_mma<128>(a, s);
+      return ff::launch_mma<128>(flash_fwd_mma_kernel<128>, a, s);
     case 192:
-      return launch_mma<192>(a, s);
+      return ff::launch_mma<192>(flash_fwd_mma_kernel<192>, a, s);
     case 256:
-      return launch_mma<256>(a, s);
+      return ff::launch_mma<256>(flash_fwd_mma_kernel<256>, a, s);
     default:
       return cudaErrorInvalidValue;
   }

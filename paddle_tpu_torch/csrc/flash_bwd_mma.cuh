@@ -18,7 +18,8 @@
 // the rounding points of the Pallas bodies (flash_attention.py:335, :347,
 // :389, :392; mha_block.py:131, :137).
 //
-// Mask modes (the template flag kMha; each image's keys from live_keys()):
+// Mask modes (the template flag kMha; each image's keys from
+// flash_mma.cuh's live_keys()):
 //   * flash (kMha false): a key is live below kv_len (float32 lengths
 //     compared as int32, clamped to [0, Sk]) and, under causal, at or
 //     left of the (Sk - Sq)-offset diagonal; a kv_len-0 image visits no
@@ -92,30 +93,6 @@ struct Args {
   int causal;
 };
 
-// The keys image b's rows see: [0, kl), and under causal only those at or
-// left of the diagonal; uniform: every score taken as 0 (mha_block mode,
-// key_len <= 0).
-struct Live {
-  int kl;
-  bool causal;
-  bool uniform;
-};
-
-template <bool kMha>
-__device__ __forceinline__ Live live_keys(const Args& a, int b) {
-  Live r{a.Sk, a.causal != 0, false};
-  if (a.kv_len != nullptr) {
-    const int n = (int)a.kv_len[b];  // f32 -> int32, as astype
-    if (kMha && n <= 0) {
-      r.causal = false;
-      r.uniform = true;
-    } else {
-      r.kl = max(0, min(a.Sk, n));
-    }
-  }
-  return r;
-}
-
 // every operand row starts on 16 bytes
 inline bool rows_aligned(const Args& a) {
   return fm::aligned16(a.q, a.q_bs, a.q_rs) &&
@@ -162,7 +139,7 @@ __device__ __forceinline__ void q_outer_body(const Args& a,
   const int g = lane >> 2, t4 = lane & 3;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const Live lv = live_keys<kMha>(a, b);
+  const fm::Live lv = fm::live_keys<kMha>(a.kv_len, a.Sk, a.causal, b);
   const bool uniform = kMha && lv.uniform;
   // heaviest first under causal: the last q tile sees the most keys
   const int q0 =
@@ -446,7 +423,7 @@ __device__ __forceinline__ void dkv_mma_body(const Args& a,
   const int b = blockIdx.z;
   const int Sq = a.Sq, Sk = a.Sk;
   const int off = Sk - Sq;
-  const Live lv = live_keys<kMha>(a, b);
+  const fm::Live lv = fm::live_keys<kMha>(a.kv_len, a.Sk, a.causal, b);
   const bool uniform = kMha && lv.uniform;
   const bool causal = lv.causal;
   const int kl = lv.kl;

@@ -1,7 +1,8 @@
-// Warp-level tensor-core helpers for the bf16 attention kernels (sm_90a):
-// flash_attention_fwd.cu (kernel #3) and the backward bodies of
-// flash_bwd_mma.cuh (#4, #5 and mha_block's #2).  Each is one PTX
-// instruction, so a fragment layout can be checked one product at a time.
+// Warp-level tensor-core helpers for the bf16 kernels (sm_90a): the
+// forward body of flash_fwd_mma.cuh (#3 and mha_block's #1), the backward
+// bodies of flash_bwd_mma.cuh (#4, #5 and mha_block's #2) and
+// bn_relu_conv1x1.cu (#8).  Each is one PTX instruction, so a fragment
+// layout can be checked one product at a time.
 //
 // mma.m16n8k16 (bf16 in, float32 accumulate), per lane with g = lane / 4
 // and t = lane % 4:
@@ -46,6 +47,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(in_bounds ? 16 : 0)
+               : "memory");
+}
+
+// 8 bytes global -> shared, zero-filled when in_bounds is false
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool in_bounds) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in_bounds ? 8 : 0)
                : "memory");
 }
 
@@ -146,6 +156,34 @@ __device__ __forceinline__ void scale8(uint4& x, float s) {
     const float2 f = __bfloat1622float2(h[i]);
     h[i] = __floats2bfloat162_rn(f.x * s, f.y * s);
   }
+}
+
+// The keys image b's rows see in the attention bodies: [0, kl), and under
+// causal only those at or left of the (Sk - Sq)-offset diagonal; kv_len
+// arrives as float32 and compares as int32, clamped to [0, Sk].  uniform
+// (mha_block mode, key_len <= 0): every score is mha_block's finite -1e30,
+// so every key is live with equal scores, those right of the causal
+// diagonal too; it is visited with every score taken as 0, causal off.
+struct Live {
+  int kl;
+  bool causal;
+  bool uniform;
+};
+
+template <bool kMha>
+__device__ __forceinline__ Live live_keys(const float* kv_len, int Sk,
+                                          int causal, int b) {
+  Live r{Sk, causal != 0, false};
+  if (kv_len != nullptr) {
+    const int n = (int)kv_len[b];  // f32 -> int32, as astype
+    if (kMha && n <= 0) {
+      r.causal = false;
+      r.uniform = true;
+    } else {
+      r.kl = max(0, min(Sk, n));
+    }
+  }
+  return r;
 }
 
 __host__ __device__ inline bool aligned16(const void* p, long long stride0,

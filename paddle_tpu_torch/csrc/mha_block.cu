@@ -4,39 +4,61 @@
 // single-block MHA kernel, called from _mha_core).  Same function:
 //   S = (q * scale) K^T in float32, q scaled in its own dtype first;
 //   causal mask with the (Sk - Sq) diagonal offset and a key_len mask
-//   (lengths arrive as float32 and compare as int32), both by setting the
-//   score to the finite -1e30;
-//   a full-row softmax, then O = P V.
-// So a row whose keys are ALL masked softmaxes to the uniform mean of V,
-// exactly as the Pallas kernel does; -inf is never used as a mask value.
+//   (lengths arrive as float32 and compare as int32, not clamped), both
+//   by setting the score to the finite -1e30;
+//   a full-row softmax, the normalised P rounded to V's dtype, O = P V.
+// So a row whose keys are ALL masked (key_len <= 0) softmaxes to the
+// uniform mean of V over every key, those right of the causal diagonal
+// too, exactly as the Pallas kernel does; -inf is never used as a mask
+// value, and no lse is returned.
 //
-// What bounds it on this card: at the serving slice's prefill shapes
-// (transformer-base, D = 64, f32) the work is ~4 Sq Sk D FLOP per head
-// against ~2 (Sq + Sk) D * 4 bytes, so it is bound by float32 arithmetic
-// (67 TFLOP/s without tensor cores), not by memory.  The Pallas kernel
-// kept the whole [hc, Sq, Sk] score tile in VMEM; a Hopper block has at
-// most 227 KB of shared memory, and a 64 x 1024 f32 score tile alone is
-// 256 KB.  So the design follows the function, not the Pallas blocks:
-//   * q, k, v are read in place in the [B, S, H*D] layout through their
-//     batch and row strides (no head transposes through device memory),
-//     and the output is written as [B, Sq, H*D];
-//   * grid = (q-row tiles of 64, heads, batch); each block keeps its 64
-//     pre-scaled query rows in shared memory and streams 64-key tiles of
-//     K and V through shared memory with an online softmax (running max,
-//     running sum, rescaled accumulator), which equals the exact softmax
-//     up to float rounding;
-//   * 256 threads each hold a 4 x 4 score micro-tile and a 4 x (D/16)
-//     output micro-tile in registers, on strided rows/columns so that the
-//     shared-memory reads are conflict-free;
-//   * key tiles wholly past the causal diagonal or past key_len are never
-//     loaded when every row of the block still has a live key (their
-//     -1e30 scores would add exactly 0); a block whose key_len is 0 visits
-//     every key, so its rows come out as the uniform mean of V.
-// Simple and right first: no tensor cores, no TMA, no pipelining.
+// What bounds it on this card: at the training slice's shapes
+// (transformer-base, 8 heads of 64, Sq = Sk = 256) the work is ~4 Sq Sk D
+// FLOP a head against ~2 (Sq + Sk) D itemsize bytes, so the bf16 path is
+// near the line between the two (989 TFLOP/s against 3.35 TB/s) and the
+// float32 one is bound by arithmetic (67 TFLOP/s without tensor cores); a
+// single query (mha_decode, Sq = 1) reads K and V once for 4 Sk D FLOP and
+// is bound by memory.  The Pallas kernel kept the whole [hc, Sq, Sk] score
+// tile in VMEM; a Hopper block has at most 227 KB of shared memory.  So
+// the design follows the function, not the Pallas blocks, with three
+// kernels chosen in the entry by dtype and shape:
+//   * mha_fwd_mma_kernel<D> (bf16, Sq > 1): the mha_block mode of the
+//     tensor-core body in flash_fwd_mma.cuh, shared with the flash forward
+//     (#3): mma.sync m16n8k16, K and V through a cp.async ring, and two
+//     sweeps over the live key tiles, the row lse first and then
+//     P = exp(S - lse) rounded to bf16 as the A fragment of P V, so that P
+//     is rounded normalised where the Pallas kernel rounds it.  Rows must
+//     start on 16 bytes (cudaErrorMisalignedAddress otherwise);
+//   * mha_fwd_kernel<float, D> (float32, Sq > 1): SIMT FMAs in full
+//     float32 (tensor cores in float32 are TF32, which rounds the inputs to
+//     10 mantissa bits); grid = (q-row tiles of 64, heads, batch); each
+//     block keeps its 64 pre-scaled query rows in shared memory and
+//     streams 64-key tiles of K and V with an online softmax; 256 threads
+//     each hold a 4 x 4 score micro-tile and a 4 x (D/16) output
+//     micro-tile on strided rows/columns (conflict-free shared reads); key
+//     tiles wholly past the causal diagonal or past key_len are never
+//     loaded when every row still has a live key, and a key_len-0 block
+//     visits every key;
+//   * mha_decode_kernel<T, D> (both dtypes, Sq == 1 and Sk <=
+//     kDecodeMaxKeys): one block of 8 warps per (head, image); the warps
+//     stride over the live keys 4-16 at a time, each lane owning D/32
+//     columns, a key's score a warp-shuffle sum; the float32 scores of the
+//     row sit in shared memory (4 bytes a key), so the max, the sum and the
+//     normalised P (rounded to V's dtype, as the plain version rounds it)
+//     are formed once, without recomputing a score, and then O = P V is
+//     accumulated over the same keys and summed across the warps.  A
+//     longer cache (Sq == 1 past kDecodeMaxKeys) takes the block kernels.
+// All read q, k, v in place in the [B, S, H*D] layout through their batch
+// and row strides (no head transposes through device memory) and write
+// the output as [B, Sq, H*D].
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
+
+#include "flash_fwd_mma.cuh"
 
 namespace {
 
@@ -60,6 +82,7 @@ constexpr size_t smem_bytes() {
                                   kBQ * (kBK + 1) + 2 * kBQ);
 }
 
+// float32 only (bf16 takes mha_fwd_mma_kernel, Sq == 1 mha_decode_kernel)
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -225,44 +248,237 @@ mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------- bf16: tensor cores
+
+namespace ff = flash_fwd;
+using Args = ff::Args;
+
+template <int D>
+__global__ void __launch_bounds__(ff::kMmaThreads, ff::MmaTile<D>::kMinBlocks)
+mha_fwd_mma_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  ff::fwd_mma_body<D, true>(a, smem_raw);
+}
+
+// ------------------------------------------- Sq == 1: the decode body
+
+constexpr int kDecWarps = 8;
+constexpr int kDecThreads = 32 * kDecWarps;
+// a row's float32 scores live in shared memory: 64 KB at this limit
+constexpr int kDecodeMaxKeys = 16384;
+
+template <int D>
+constexpr size_t decode_smem(int Sk) {
+  return sizeof(float) *
+         ((size_t)((Sk + 3) & ~3) + kDecWarps * D + 2 * kDecWarps);
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// The DL = D / 32 columns a lane owns in a row: float32 lane + 32 i
+// (4-byte loads), bf16 pairs 2 lane + 64 (i / 2) + (i % 2) (4-byte loads
+// of two), so that a warp reads a row in coalesced 128-byte pieces.
+template <typename T>
+__device__ __forceinline__ int col_of(int i, int lane) {
+  if constexpr (std::is_same_v<T, float>) {
+    return lane + 32 * i;
+  } else {
+    return 2 * lane + 64 * (i >> 1) + (i & 1);
+  }
+}
+
+template <int DL>
+__device__ __forceinline__ void load_cols(const float* row, int lane,
+                                          float (&x)[DL]) {
+#pragma unroll
+  for (int i = 0; i < DL; ++i) x[i] = row[lane + 32 * i];
+}
+
+template <int DL>
+__device__ __forceinline__ void load_cols(const __nv_bfloat16* row, int lane,
+                                          float (&x)[DL]) {
+#pragma unroll
+  for (int i = 0; i < DL; i += 2) {
+    const float2 f = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(row + 2 * lane + 32 * i));
+    x[i] = f.x;
+    x[i + 1] = f.y;
+  }
+}
+
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   const float* key_len, int B, int Sq, int Sk, int H,
-                   long long q_bs, long long q_rs, long long k_bs,
-                   long long k_rs, long long v_bs, long long v_rs,
-                   float scale, int causal, cudaStream_t stream) {
+__global__ void __launch_bounds__(kDecThreads)
+mha_decode_kernel(Args a) {
+  constexpr int DL = D / 32;  // columns a lane owns
+  // keys a warp loads together (32 floats of K or V in flight a lane)
+  constexpr int U = D <= 64 ? 16 : D <= 128 ? 8 : 4;
+  extern __shared__ float smem[];
+  float* sc = smem;                           // [Sk] scores, then P
+  float* part = sc + ((a.Sk + 3) & ~3);       // [kDecWarps][D] partial O
+  float* red = part + kDecWarps * D;          // [2][kDecWarps] reductions
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the keys of the softmax: below min(Sk, key_len); with key_len <= 0
+  // every key, its score the same for all (mha_block's -1e30 mask)
+  int kend = a.Sk;
+  bool uniform = false;
+  if (a.kv_len != nullptr) {
+    const int n = (int)a.kv_len[b];  // f32 -> int32, as astype
+    if (n <= 0) {
+      uniform = true;
+    } else {
+      kend = min(kend, n);
+    }
+  }
+  const T* qp = static_cast<const T*>(a.q) + b * a.q_bs + (long long)h * D;
+  const T* kp = static_cast<const T*>(a.k) + b * a.k_bs + (long long)h * D;
+  const T* vp = static_cast<const T*>(a.v) + b * a.v_bs + (long long)h * D;
+
+  // 1. scores, into shared memory, and each warp's max
+  float mw = uniform ? 0.f : -INFINITY;
+  if (uniform) {
+    for (int j = tid; j < kend; j += kDecThreads) sc[j] = 0.f;
+  } else {
+    float qv[DL];
+    load_cols(qp, lane, qv);
+#pragma unroll
+    for (int i = 0; i < DL; ++i) qv[i] = to_f(from_f<T>(qv[i] * a.scale));
+    for (int j0 = warp * U; j0 < kend; j0 += kDecWarps * U) {
+      float kr[U][DL];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (j0 + u < kend) {
+          load_cols(kp + (j0 + u) * a.k_rs, lane, kr[u]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < DL; ++i) kr[u][i] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float s = 0.f;
+#pragma unroll
+        for (int i = 0; i < DL; ++i) s = fmaf(qv[i], kr[u][i], s);
+        s = warp_sum(s);
+        if (j0 + u < kend) {
+          if (lane == 0) sc[j0 + u] = s;
+          mw = fmaxf(mw, s);
+        }
+      }
+    }
+  }
+  if (lane == 0) red[warp] = mw;
+  __syncthreads();
+  float m = red[0];
+#pragma unroll
+  for (int w = 1; w < kDecWarps; ++w) m = fmaxf(m, red[w]);
+
+  // 2. exp(s - m) and the row sum
+  float ls = 0.f;
+  for (int j = tid; j < kend; j += kDecThreads) {
+    const float e = expf(sc[j] - m);
+    sc[j] = e;
+    ls += e;
+  }
+  ls = warp_sum(ls);
+  if (lane == 0) red[kDecWarps + warp] = ls;
+  __syncthreads();
+  float l = 0.f;
+#pragma unroll
+  for (int w = 0; w < kDecWarps; ++w) l += red[kDecWarps + w];
+
+  // 3. the normalised P, rounded to V's dtype before P V
+  for (int j = tid; j < kend; j += kDecThreads)
+    sc[j] = to_f(from_f<T>(sc[j] / l));
+  __syncthreads();
+
+  // 4. O = P V over the same keys, each warp its own, then summed
+  float acc[DL];
+#pragma unroll
+  for (int i = 0; i < DL; ++i) acc[i] = 0.f;
+  for (int j0 = warp * U; j0 < kend; j0 += kDecWarps * U) {
+    float vr[U][DL];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (j0 + u < kend) {
+        load_cols(vp + (j0 + u) * a.v_rs, lane, vr[u]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < DL; ++i) vr[u][i] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float p = j0 + u < kend ? sc[j0 + u] : 0.f;
+#pragma unroll
+      for (int i = 0; i < DL; ++i) acc[i] = fmaf(p, vr[u][i], acc[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < DL; ++i) part[warp * D + col_of<T>(i, lane)] = acc[i];
+  __syncthreads();
+  T* op = static_cast<T*>(a.out) + ((long long)b * a.H + h) * D;
+  for (int c = tid; c < D; c += kDecThreads) {
+    float o = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) o += part[w * D + c];
+    op[c] = from_f<T>(o);
+  }
+}
+
+// ------------------------------------------------------------ launches
+
+template <int D>
+cudaError_t launch_simt(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      mha_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mha_fwd_kernel<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  mha_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), key_len, Sq, Sk, H,
-      q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale, causal);
+  dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, a.B);
+  mha_fwd_kernel<float, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.kv_len,
+      a.Sq, a.Sk, a.H, a.q_bs, a.q_rs, a.k_bs, a.k_rs, a.v_bs, a.v_rs,
+      a.scale, a.causal);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       void* out, const float* key_len, int B, int Sq, int Sk,
-                       int H, long long q_bs, long long q_rs, long long k_bs,
-                       long long k_rs, long long v_bs, long long v_rs,
-                       float scale, int causal, cudaStream_t s) {
+template <typename T, int D>
+cudaError_t launch_decode(const Args& a, cudaStream_t stream) {
+  const size_t smem = decode_smem<D>(a.Sk);
+  cudaError_t err = cudaFuncSetAttribute(
+      mha_decode_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)decode_smem<D>(kDecodeMaxKeys));
+  if (err != cudaSuccess) return err;
+  mha_decode_kernel<T, D><<<dim3(a.H, a.B), kDecThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// f(std::integral_constant<int, D>) for the supported head dims
+template <typename F>
+cudaError_t by_head_dim(int D, F&& f) {
   switch (D) {
     case 64:
-      return launch<T, 64>(q, k, v, out, key_len, B, Sq, Sk, H, q_bs, q_rs,
-                           k_bs, k_rs, v_bs, v_rs, scale, causal, s);
+      return f(std::integral_constant<int, 64>{});
     case 128:
-      return launch<T, 128>(q, k, v, out, key_len, B, Sq, Sk, H, q_bs, q_rs,
-                            k_bs, k_rs, v_bs, v_rs, scale, causal, s);
+      return f(std::integral_constant<int, 128>{});
     case 192:
-      return launch<T, 192>(q, k, v, out, key_len, B, Sq, Sk, H, q_bs, q_rs,
-                            k_bs, k_rs, v_bs, v_rs, scale, causal, s);
+      return f(std::integral_constant<int, 192>{});
     case 256:
-      return launch<T, 256>(q, k, v, out, key_len, B, Sq, Sk, H, q_bs, q_rs,
-                            k_bs, k_rs, v_bs, v_rs, scale, causal, s);
+      return f(std::integral_constant<int, 256>{});
     default:
       return cudaErrorInvalidValue;
   }
@@ -272,21 +488,29 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 
 // q [B, Sq, H*D], k/v [B, Sk, H*D] (last dim contiguous, batch and row
 // strides in elements), out [B, Sq, H*D] contiguous, key_len [B] float32
-// or NULL.  dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError().
+// or NULL.  dtype: 0 = float32, 1 = bfloat16 (q, k, v rows 16-byte
+// aligned, else cudaErrorMisalignedAddress).  Sq == 1 with Sk <= 16384
+// takes the decode body, anything else the block kernels.  Returns
+// cudaGetLastError().
 extern "C" int mha_block_fwd(const void* q, const void* k, const void* v,
                              void* out, const float* key_len, int B, int Sq,
                              int Sk, int H, int D, long long q_bs,
                              long long q_rs, long long k_bs, long long k_rs,
                              long long v_bs, long long v_rs, float scale,
                              int causal, int dtype, void* stream) {
+  const Args a{q, k, v, out, nullptr, key_len, B, Sq, Sk, H, q_bs, q_rs,
+               k_bs, k_rs, v_bs, v_rs, scale, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch_d<float>(D, q, k, v, out, key_len, B, Sq, Sk, H,
-                                  q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale,
-                                  causal, s);
-  if (dtype == 1)
-    return (int)dispatch_d<__nv_bfloat16>(D, q, k, v, out, key_len, B, Sq,
-                                          Sk, H, q_bs, q_rs, k_bs, k_rs,
-                                          v_bs, v_rs, scale, causal, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && !ff::rows_aligned(a))
+    return (int)cudaErrorMisalignedAddress;
+  const bool decode = Sq == 1 && Sk <= kDecodeMaxKeys;
+  return (int)by_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    if (decode)
+      return dtype == 0 ? launch_decode<float, kD>(a, s)
+                        : launch_decode<__nv_bfloat16, kD>(a, s);
+    return dtype == 0 ? launch_simt<kD>(a, s)
+                      : ff::launch_mma<kD>(mha_fwd_mma_kernel<kD>, a, s);
+  });
 }

@@ -13,7 +13,10 @@ never writes the activation to device memory.
 
 `bn_relu_conv1x1` runs the plain version for tensors on the CPU (and on
 the meta device) and launches the kernel for tensors on the card;
-anything else raises.  `launches` counts kernel launches.
+anything else raises.  In bfloat16 the kernel is a pipelined tensor-core
+GEMM (`bn_relu_conv1x1_mma_kernel`) and y, w and z must start on 16 bytes
+(a misaligned view raises); float32 runs a SIMT kernel.  `launches`
+counts kernel launches.
 """
 
 from __future__ import annotations

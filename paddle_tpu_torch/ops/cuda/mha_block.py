@@ -12,11 +12,17 @@ has no gradient.  `MHABlockFunction` joins the two as one autograd op.
 
 The entries run the plain versions for tensors on the CPU (and on the
 meta device, for shape inference) and launch the kernels for tensors on
-the card; anything else raises.  In bfloat16 the backward runs three
-tensor-core kernels (row statistics, dQ, dK/dV; csrc/flash_bwd_mma.cuh,
-shared with the flash backward) and needs 16-byte aligned rows: a
-misaligned view raises.  There is no fallback from a kernel to a
-plain version.  `launches` and `bwd_launches` count kernel launches.
+the card; anything else raises.  The forward takes one of three kernels
+(csrc/mha_block.cu): in bfloat16 a tensor-core kernel (the mha_block mode
+of csrc/flash_fwd_mma.cuh, shared with the flash forward: the row lse
+first, then the normalised P rounded to bfloat16 before P V), in float32
+a SIMT kernel, and for a single query (Sq == 1, mha_decode) with at most
+`DECODE_MAX_KEYS` keys a decode kernel in either dtype.  In bfloat16 the
+backward runs three tensor-core kernels (row statistics, dQ, dK/dV;
+csrc/flash_bwd_mma.cuh, shared with the flash backward).  Every bfloat16
+kernel needs 16-byte aligned rows: a misaligned view raises.  There is
+no fallback from a kernel to a plain version.  `launches` and
+`bwd_launches` count kernel launches.
 """
 
 from __future__ import annotations
@@ -31,6 +37,9 @@ from . import _build
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 192, 256)
+# the longest key axis the forward's single-query body takes (its float32
+# scores sit in shared memory); csrc/mha_block.cu's kDecodeMaxKeys
+DECODE_MAX_KEYS = 16384
 
 launches = 0
 bwd_launches = 0

@@ -82,6 +82,108 @@ def test_mha_attention_matches_pallas_interpret(sq, causal, key_len):
                                    rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("sq,causal,key_len", [
+    (1, False, [128, 37]),       # mha_decode, single query
+    (1, False, [0, 90]),
+    (8, False, [128, 37]),
+    (128, False, None),
+    (128, True, None),
+    (128, True, [0, 90]),        # a key_len-0 image under causal
+    (64, True, [300, -3]),       # key_len past Sk, and a negative one
+], ids=["decode", "decode_zero", "cross", "self", "causal", "causal_zero",
+        "causal_past_negative"])
+def test_mha_attention_bf16_matches_pallas_interpret(sq, causal, key_len):
+    """bfloat16 inputs: the plain version against the Pallas kernel in
+    interpret mode, atol 2e-2 (both round q * scale and the normalised P
+    to bfloat16 and sum in float32 in other orders, so the bfloat16
+    output can differ by one step, 1.6e-2 at |o| in [2, 4)).  An image
+    with key_len <= 0 is the mean of V over every key, under causal too."""
+    b, sk, h, d = 2, 128, 2, 64
+    q, k, v = (x.astype(jnp.bfloat16).astype(np.float32)
+               for x in _data(sq + 11 * causal, b, sq, sk, h * d))
+    kl = None if key_len is None else np.asarray(key_len, np.int64)
+    qj = np.pad(q, ((0, 0), (0, 7), (0, 0))) if sq == 1 else q
+    ref = np.asarray(jmha.mha_attention(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (qj, k, v)), h, causal, 0.0,
+        True, key_len=None if kl is None else jnp.asarray(kl))
+        .astype(jnp.float32))[:, :sq]
+    out = pmha.mha_attention(*(_t(x).to(torch.bfloat16) for x in (q, k, v)),
+                             h, causal, 0.0,
+                             key_len=None if kl is None else _t(kl))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=0, atol=2e-2)
+    for i in range(b):
+        if kl is not None and kl[i] <= 0:
+            mean_v = torch.as_tensor(v[i]).to(torch.bfloat16).float().mean(0)
+            np.testing.assert_allclose(
+                out[i].float().numpy(),
+                np.broadcast_to(mean_v.numpy(), (sq, h * d)), rtol=0,
+                atol=2e-2)
+
+
+def _mha_mode_fwd(q, k, v, h, causal, scale, key_len):
+    """The card's bf16 mha_block forward as float32 torch: the shared
+    forward body in its mha_block mask mode (csrc/flash_fwd_mma.cuh).  An
+    image with key_len > 0 sees keys below min(key_len, Sk) and, under
+    causal, at or left of the diagonal; an image with key_len <= 0 is
+    "uniform": every key live, causal off, every score taken as 0.  The
+    first sweep gives each row's lse from its live scores; the second
+    forms P = exp(S - lse) on live pairs (0 elsewhere), rounds it to V's
+    dtype, and sums P V in float32, with no final division."""
+    b, sq, hd = q.shape
+    sk = k.shape[1]
+    d = hd // h
+
+    def heads(x, s):
+        return x.reshape(b, s, h, d).transpose(1, 2).float()
+
+    qh, kh, vh = heads(q * scale, sq), heads(k, sk), heads(v, sk)
+    s = torch.matmul(qh, kh.transpose(-1, -2))            # [B, H, Sq, Sk]
+    kl = key_len.reshape(b).float().to(torch.int32)
+    uniform = (kl <= 0)[:, None, None, None]
+    cols = torch.arange(sk)
+    live = (cols < kl.clamp(0, sk)[:, None, None, None]) | uniform
+    if causal:
+        rows = torch.arange(sq)[:, None] + (sk - sq)
+        live = live & ((cols[None, :] <= rows) | uniform)
+    s = torch.where(uniform, 0.0, s)
+    lse = torch.logsumexp(torch.where(live, s, -torch.inf), -1, keepdim=True)
+    p = torch.where(live, torch.exp(s - lse), 0.0).to(v.dtype).float()
+    o = torch.matmul(p, vh).to(q.dtype)
+    return o.transpose(1, 2).reshape(b, sq, hd)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("sq,sk", [(1, 100), (40, 100), (100, 100)],
+                         ids=["decode", "offset", "square"])
+def test_mha_mask_mode_forward_gives_the_plain_output(sq, sk, causal, dtype):
+    """The two-sweep forward of the card's bf16 #1 (lse first, then the
+    normalised P rounded to V's dtype), written in torch, gives
+    mha_reference's output: key_len 0, a negative one, one past Sk and a
+    ragged one, with and without causal.  atol 1e-5 in float32; 2e-2 in
+    bfloat16 (P = exp(S - lse) and exp(S - m) / l differ in their last
+    float32 bits, which can move P's bfloat16 rounding and then the
+    output's by one step)."""
+    b, h, d = 4, 2, 64
+    dt = getattr(torch, dtype)
+    q, k, v = (_t(x).to(dt) for x in _data(sq + sk + causal, b, sq, sk,
+                                             h * d))
+    kl = _t(np.asarray([0, 37, sk + 30, -2], np.float32))
+    want = pmha.mha_reference(q, k, v, h, causal, 0.0, key_len=kl)
+    got = _mha_mode_fwd(q, k, v, h, causal, d ** -0.5, kl)
+    assert got.dtype == want.dtype == dt
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               rtol=0, atol=1e-5 if dtype == "float32"
+                               else 2e-2)
+    # the key_len <= 0 images are the mean of V over every key
+    for i in (0, 3):
+        np.testing.assert_allclose(
+            want[i].float().numpy(),
+            np.broadcast_to(v[i].float().mean(0).numpy(), (sq, h * d)),
+            rtol=0, atol=1e-5 if dtype == "float32" else 2e-2)
+
+
 @pytest.mark.parametrize("sk", [200, 256, 300])
 @pytest.mark.parametrize("kv_len", [None, [200, 0, 17]],
                          ids=["unmasked", "ragged_with_zero"])

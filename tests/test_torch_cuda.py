@@ -11,9 +11,11 @@ grad at BERT-base widths (12 heads of 64, 2048 tokens), kernel #8
 (bn_relu_conv1x1) at ResNet-50's conv3 widths and the ResNet conv
 lowering in float32, plus the edge cases of each kernel's masking
 contract.  Tolerances: max abs error 1e-4 in float32 (the kernels sum in
-another order than cuBLAS) and 2e-2 in bfloat16 (the plain version
-rounds the normalised probabilities to bfloat16 before P V, the kernels
-keep them in float32); the backward's bfloat16 outputs are held to 2e-2
+another order than cuBLAS) and 2e-2 in bfloat16 (one bfloat16 step of an
+output in [2, 4); the forwards round P to bfloat16 before P V as the
+plain versions do, from float32 sums taken in another order, and the
+flash forward rounds it before the division by the row sum); the
+backward's bfloat16 outputs are held to 2e-2
 of their largest magnitude (the flash backward's too); the flash
 forward's float32 lse to 1e-4; #8's bfloat16 output to 2e-2 of its
 largest magnitude.
@@ -63,8 +65,21 @@ def _lens(values, device):
     (2, 72, 200, 4, 128, True, "ragged"),    # ragged edges, causal offset
     (3, 16, 128, 2, 64, False, "with_zero"),  # an all-masked row
     (2, 8, 64, 2, 256, True, "with_zero"),
+    # the Sq = 1 decode body: D 128 and 256, up to 2047 keys, and one
+    # cache past its limit (the block kernels take that one)
+    (2, 1, 1000, 2, 128, False, "ragged"),
+    (2, 1, 1000, 1, 256, False, "ragged"),
+    (3, 1, 2047, 2, 128, False, "ragged"),
+    (3, 1, 2047, 1, 256, False, "ragged"),
+    (2, 1, mha_block.DECODE_MAX_KEYS + 1, 1, 64, False, "ragged"),
+    (3, 1, 300, 2, 64, False, "past_and_negative"),
+    # a causal image with key_len 0: the mean of V over ALL keys
+    (3, 100, 300, 2, 64, True, "zero"),
+    (3, 72, 200, 2, 128, True, "past_and_negative"),
 ], ids=["enc256", "causal1024", "cross8x256", "decode1x256", "edges_d128",
-        "masked_row", "d256"])
+        "masked_row", "d256", "decode1x1000_d128", "decode1x1000_d256",
+        "decode1x2047_d128", "decode1x2047_d256", "decode_past_limit",
+        "decode_past_negative", "causal_zero", "causal_past_negative"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_mha_block_matches_plain(card, case, dtype):
@@ -74,8 +89,10 @@ def test_mha_block_matches_plain(card, case, dtype):
     if kl is not None:
         rng = np.random.RandomState(2)
         vals = rng.randint(max(1, sk // 2), sk + 1, size=b)
-        if kl == "with_zero":
+        if kl in ("with_zero", "zero"):
             vals[0] = 0
+        if kl == "past_and_negative":
+            vals[0], vals[1] = sk + 30, -2
         key_len = _lens(vals, card)
     before = mha_block.launches
     out = mha_block.mha_attention(q, k, v, h, causal, 0.0, key_len=key_len)
@@ -89,6 +106,12 @@ def test_mha_block_matches_plain(card, case, dtype):
         # finite -1e30 masking: an all-masked row is the mean of V
         mean_v = v[0].float().mean(dim=0)
         assert torch.allclose(out[0].float(), mean_v.expand(sq, -1),
+                              atol=TOL[dtype])
+    empty = {"zero": 0, "past_and_negative": 1}.get(kl)
+    if empty is not None:
+        # key_len <= 0: the mean of V over every key, causal or not
+        mean_v = v[empty].float().mean(dim=0)
+        assert torch.allclose(out[empty].float(), mean_v.expand(sq, -1),
                               atol=TOL[dtype])
 
 
@@ -643,7 +666,18 @@ def _conv1x1_inputs(seed, b, c, hw, k, device, dtype):
     (16, 512, (7, 7), 2048),
     (3, 40, (24, 24), 72),       # C, K and B*HW off every tile
     (1, 7, (1, 3), 5),
-], ids=["56x56", "28x28", "14x14", "7x7", "ragged", "tiny"])
+    # odd batches: pixel tiles cross images at unaligned rows (HW 196:
+    # 8-byte copies; HW 49: 4-byte words), C off the 32-channel stage
+    (37, 256, (14, 14), 1024),
+    (5, 512, (7, 7), 2048),
+    (3, 200, (14, 14), 136),
+    (7, 72, (7, 7), 100),        # K % 8 != 0: w by scalar loads
+    (3, 33, (5, 5), 24),         # an odd number of y elements
+    (3, 64, (5, 6), 40),         # HW 30: image regions, HW % 4 == 2
+    (2, 16, (13, 13), 24),       # HW 169, odd and past the regions: words
+], ids=["56x56", "28x28", "14x14", "7x7", "ragged", "tiny", "14x14_b37",
+        "7x7_b5", "14x14_c200", "7x7_c72_k100", "odd_total", "hw30",
+        "hw169"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_bn_relu_conv1x1_matches_plain(card, case, dtype):
@@ -670,6 +704,24 @@ def test_bn_relu_conv1x1_wrapper_raises_instead_of_falling_back(card):
         brc.bn_relu_conv1x1(y.transpose(2, 3), scale, bias, w)
     with pytest.raises(ValueError, match="disagree"):
         brc.bn_relu_conv1x1(y, scale, bias, w[:4])
+
+
+def test_bn_relu_conv1x1_bf16_refuses_misaligned_y(card):
+    """The bf16 kernel copies y, w and z in 16-, 8- or 4-byte pieces from
+    their start: a y that does not start on 16 bytes is refused (no
+    fallback), and the same view in float32 runs."""
+    b, c, hw, k = 2, 64, (8, 8), 128
+    for dtype, ok in ((torch.bfloat16, False), (torch.float32, True)):
+        y, scale, bias, w = _conv1x1_inputs(6, b, c, hw, k, card, dtype)
+        buf = torch.empty(y.numel() + 1, dtype=dtype, device=card)
+        shifted = buf[1:].view(y.shape)
+        shifted.copy_(y)
+        if ok:
+            brc.bn_relu_conv1x1(shifted, scale, bias, w)
+            torch.cuda.synchronize()
+            continue
+        with pytest.raises(RuntimeError):
+            brc.bn_relu_conv1x1(shifted, scale, bias, w)
 
 
 def test_conv_lowering_runs_float32_without_tf32(card):
@@ -743,10 +795,10 @@ def test_top_k_breaks_ties_lower_index_first_on_the_card(card, dtype):
 
 
 def test_bf16_flash_kernels_refuse_misaligned_rows(card):
-    """The bf16 tensor-core kernels (#3, #4, #5 and #2's three) copy
+    """The bf16 tensor-core kernels (#1, #3, #4, #5 and #2's three) copy
     16-byte chunks of each row: a view whose rows do not start on 16
-    bytes is refused (no fallback to another kernel); the same view in
-    float32 runs."""
+    bytes is refused (no fallback to another kernel), and so is #1's
+    single-query body in bf16; the same views in float32 run."""
     b, s, h, d = 2, 64, 2, 64
     buf = torch.randn((b, s, 3 * h * d + 1), device=card)
     lse = torch.zeros((b, h, s), device=card)
@@ -757,7 +809,9 @@ def test_bf16_flash_kernels_refuse_misaligned_rows(card):
         calls = (lambda: fa.flash_attention_lse(q, k, v, h),
                  lambda: fa.flash_attention_bwd_dq(q, k, v, q, lse, lse, h),
                  lambda: fa.flash_attention_bwd_dkv(q, k, v, q, lse, lse, h),
-                 lambda: mha_block.mha_block_bwd(q, k, v, q, h))
+                 lambda: mha_block.mha_block_bwd(q, k, v, q, h),
+                 lambda: mha_block.mha_attention(q, k, v, h),
+                 lambda: mha_block.mha_attention(q[:, :1], k, v, h))
         for call in calls:
             if ok:
                 call()
