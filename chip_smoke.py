@@ -25,7 +25,10 @@ catches its own failure:
      + relu folded into a 1x1 conv) at ResNet-50's four conv3 sites
      (batch 256, bfloat16: 2e-2 of the output's largest magnitude) and a
      float32 case, and last the bfloat16 backward at head_dim 128 (#2 at
-     T2's shape with 4 heads of 128, #4 and #5 at L2's with 6),
+     T2's shape with 4 heads of 128, #4 and #5 at L2's with 6), #7 at
+     phase S's real lengths (1024-2080) in both dtypes and #6 in
+     bfloat16; one call of #6 or #7 must be exactly one launch of its
+     kernel in a profiler trace (no merge, cast or scratch kernel);
      then timed with CUDA events, L2 flushed before every launch: kernel,
      plain version, and the library yardstick the port never calls
      (F.scaled_dot_product_attention with an equivalent mask, over a
@@ -57,6 +60,8 @@ catches its own failure:
      prefix-cache hit), one request evicted mid-flight (it replays).
      Launch counts are set to 0 before and read after and must equal the
      gate's prediction from the scheduler's own step and prefill counts;
+     the profiles of phases B and S give #6's and #7's card ms per step
+     and share of the busy time;
      every request's tokens must equal the sequential Generator's; the
      pool must drain to 0 blocks; tokens/s, TTFT, ms per decode step and
      a profile of a few steps are printed;
@@ -187,12 +192,13 @@ KERNELS = {
     "flash_decode": {
         "source": "paddle_tpu_torch/csrc/flash_decode.cu",
         "replaces": "paddle_tpu/ops/pallas/flash_attention.py:630",
-        "device_names": ("decode_split_kernel", "decode_merge_kernel"),
+        # one cluster launch a call (body in csrc/decode_stream.cuh)
+        "device_names": ("dense_decode_kernel",),
     },
     "flash_decode_paged": {
         "source": "paddle_tpu_torch/csrc/flash_decode_paged.cu",
         "replaces": "paddle_tpu/ops/pallas/flash_attention.py:793",
-        "device_names": ("paged_split_kernel", "paged_merge_kernel"),
+        "device_names": ("paged_decode_kernel",),
     },
     "flash_attention_fwd": {
         "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -303,6 +309,20 @@ class Timer:
         if not mine:
             return None   # the profiler saw no device activity
         return sum(b - a for _, a, b in mine) / reps / 1e3
+
+
+def device_ops_of_one_call(fn):
+    """The names of the operations the card ran for one call of fn (after
+    a warm-up call), from a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [name for name, _, _ in device_spans(prof)]
 
 
 # ------------------------------------------------------- kernel checks
@@ -427,10 +447,10 @@ def bwd_case(name, b, sq, sk, h, d, causal, lens, device, rng, dtype):
                 exec_flop=9 * 2 * d * h * pairs)
 
 
-def decode_case(name, b, sk, h, d, lens, device, rng):
+def decode_case(name, b, sk, h, d, lens, device, rng, dtype=torch.float32):
     g = torch.Generator(device=device).manual_seed(int(rng.randint(1 << 30)))
     q, k, v = (torch.randn((b, s, h * d), generator=g, device=device)
-               for s in (1, sk, sk))
+               .to(dtype) for s in (1, sk, sk))
     kv_len = _lengths(rng, *lens, b, device)
     live = sum(min(sk, n) for n in kv_len.tolist())
     from paddle_tpu_torch.ops.cuda import flash_decode
@@ -445,10 +465,11 @@ def decode_case(name, b, sk, h, d, lens, device, rng):
         qh, kh, vh, attn_mask=mask)
     return dict(kernel="flash_decode", case=name, fns=(kernel, plain, library),
                 shape=f"q {b}x1x{h * d} k {b}x{sk}x{h * d} "
-                      f"kv_len {lens[0]}-{lens[1]} float32",
-                dtype=torch.float32, tol=TOL,
+                      f"kv_len {lens[0]}-{lens[1]} "
+                      f"{str(dtype).replace('torch.', '')}",
+                dtype=dtype, tol=TOL if dtype == torch.float32 else BF16_TOL,
                 flop=4 * d * h * live,
-                bytes=4 * h * d * (2 * b + 2 * live)
+                bytes=q.element_size() * h * d * (2 * b + 2 * live)
                 + kv_len.numel() * kv_len.element_size())
 
 
@@ -817,6 +838,17 @@ def check_kernels(device):
         conv1x1_case("conv3 7x7 b37", 37, 512, 7, 2048, device, rng,
                      torch.bfloat16),
     ]
+    # added last, so that the cases above keep their inputs: #7 at phase
+    # S's real lengths (prompts of 1024-2048 plus up to 32 new tokens) in
+    # both dtypes, and #6 in bf16
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        cases.append(paged_case(
+            f"paged decode S {tag}", S_SLOTS, pool, S_BLOCK,
+            (S_PROMPTS[0], S_PROMPTS[1] + NEW_TOKENS), h, d, device, rng,
+            dtype))
+    cases.append(decode_case("flash_decode 1x2048 bf16", BATCH, 2048, h, d,
+                             (512, 1056), device, rng, torch.bfloat16))
     timer = Timer(device)
     for c in cases:
         fns = c.pop("fns")
@@ -833,6 +865,12 @@ def check_kernels(device):
             raise AssertionError(f"{c['kernel']} {c['case']}: max error "
                                  f"{err} > {c['tol']}")
         c["max_abs_err"] = err
+        if c["kernel"] in ("flash_decode", "flash_decode_paged"):
+            ops = device_ops_of_one_call(kernel)
+            names = KERNELS[c["kernel"]]["device_names"]
+            if len(ops) != 1 or not any(n in ops[0] for n in names):
+                raise AssertionError(f"{c['kernel']} {c['case']}: one call "
+                                     f"ran {ops}, not one launch of {names}")
         c["ms"] = timer.ms(kernel, reps)
         c["device_ms"] = timer.device_ms(
             kernel, KERNELS[c["kernel"]]["device_names"], reps)
@@ -939,7 +977,8 @@ def profile_calls(fn, n, top=5, kernels=()):
             "kernels": mine}
 
 
-def profile_decode_steps(gen, feed, tok, lengths, states, n_steps):
+def profile_decode_steps(gen, feed, tok, lengths, states, n_steps,
+                         kernels=()):
     """Greedy Generator steps under the profiler (profile_calls)."""
     carry = {"tok": tok, "lengths": lengths, "states": states}
 
@@ -949,7 +988,7 @@ def profile_decode_steps(gen, feed, tok, lengths, states, n_steps):
         carry["lengths"] = carry["lengths"] + 1
         carry["tok"] = torch.argmax(logits, -1).cpu().numpy()
 
-    return profile_calls(one, n_steps)
+    return profile_calls(one, n_steps, kernels=kernels)
 
 
 def run_phase(name, spec, scope, card):
@@ -1013,8 +1052,9 @@ def run_phase(name, spec, scope, card):
         tok = torch.argmax(logits, -1).cpu().numpy()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-    profile_steps = profile_decode_steps(gen, feed, tok, lengths, states,
-                                         min(8, max_len - int(lengths.max())))
+    profile_steps = profile_decode_steps(
+        gen, feed, tok, lengths, states, min(8, max_len - int(lengths.max())),
+        kernels=("mha_block",) + (("flash_decode",) if name == "B" else ()))
 
     # kernel tiers vs the composite, same feeds
     kern = teacher_forced(gen, feed, trg)
@@ -1309,7 +1349,8 @@ def phase_s(card, scope):
     for i in range(7, 15):
         sched.submit(feeds[i], S_PROFILED + 2, eos_id=-1)
     tick()
-    prof = profile_calls(tick, S_PROFILED)
+    prof = profile_calls(tick, S_PROFILED,
+                         kernels=("flash_decode_paged", "mha_block"))
     sched.run_until_idle()
     pool_end = sched.pool.assert_quiesced()
 

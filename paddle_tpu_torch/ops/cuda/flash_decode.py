@@ -5,29 +5,28 @@ Port of the decode part of paddle_tpu/ops/pallas/flash_attention.py
 (`_decode_kernel`, entry `flash_decode`).  q [B, 1, H*D], k/v
 [B, Sk, H*D] -> [B, 1, H*D]; kv_len [B] bounds the live keys.  Keys at or
 past kv_len are never read, and kv_len == 0 gives 0 (not the mean of V:
-that is mha_block's masked-row semantics).
+that is mha_block's masked-row semantics).  kv_len may be float32, int64
+or int32; the kernel reads it as it is (float32, then int32).
 
 `flash_decode` runs the plain version for tensors on the CPU (and on the
 meta device) and launches the kernel for tensors on the card; anything
-else raises.  `launches` counts kernel launches (one per call; the call
-runs a split pass and a merge pass).
+else raises.  `launches` counts kernel launches: one per call, one
+cluster of CTAs per (batch, head) that merges its partials on chip
+(`decode_stream`), with no scratch tensor and no cast kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
 from . import _build
-
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128, 192, 256)
-_MIN_CHUNK = 64    # keys per split block
-_MAX_SPLITS = 64
+from .decode_stream import (DTYPES, HEAD_DIMS, LENGTH_KINDS,
+                            cluster_ranks, stream_handle)
 
 launches = 0
+_FN = None
 
 
 def decode_supported(q, k, num_heads):
@@ -35,7 +34,7 @@ def decode_supported(q, k, num_heads):
     [B, 1, H*D] single-query form, head_dim a multiple of 64, any Sk."""
     if len(q.shape) != 3 or len(k.shape) != 3:
         return False
-    if q.dtype not in _DTYPES:
+    if q.dtype not in DTYPES:
         return False
     head_dim = q.shape[-1] // num_heads
     if head_dim * num_heads != q.shape[-1] or head_dim % 64 != 0:
@@ -74,28 +73,22 @@ def flash_decode_reference(q, k, v, num_heads, scale=0.0, kv_len=None):
 
 
 def _lib():
-    lib = _build.load("flash_decode")
-    fn = lib.flash_decode_fwd
-    if fn.argtypes is None:
+    global _FN
+    if _FN is None:
+        fn = _build.load("flash_decode").flash_decode_fwd
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
-                       ll, ll, ll, ll, ll, ctypes.c_float, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                       ll, ll, ll, ll, ll, ll, ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
-    return fn
-
-
-def split_plan(sk):
-    """(splits, chunk): the key axis cut into `splits` blocks of `chunk`
-    keys, at least _MIN_CHUNK keys each and at most _MAX_SPLITS blocks."""
-    chunk = max(_MIN_CHUNK, math.ceil(sk / _MAX_SPLITS))
-    return math.ceil(sk / chunk), chunk
+        _FN = fn
+    return _FN
 
 
 def _launch(q, k, v, num_heads, scale, kv_len):
     global launches
     if not (k.device == q.device and v.device == q.device):
         raise ValueError("flash_decode: q, k, v must be on one device")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_decode: dtypes {q.dtype}/{k.dtype}/"
                          f"{v.dtype}; the kernel takes float32 or bfloat16, "
                          "all alike")
@@ -108,32 +101,31 @@ def _launch(q, k, v, num_heads, scale, kv_len):
         raise ValueError(f"flash_decode: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} disagree for {num_heads} heads")
     d = hd // num_heads
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_decode: head_dim {d} not in {_HEAD_DIMS}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_decode: head_dim {d} not in {HEAD_DIMS}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_decode: the last dim of q, k, v must be "
                          "contiguous")
-    kl = None
+    kl, kind, kl_s = None, 0, 0
     if kv_len is not None:
-        if kv_len.numel() != b:
-            raise ValueError(f"flash_decode: kv_len has {kv_len.numel()} "
-                             f"entries for batch {b}")
-        kl = kv_len.reshape(b).to(device=q.device,
-                                  dtype=torch.float32).contiguous()
-    splits, chunk = split_plan(sk)
-    n = b * num_heads * splits
-    part_m = torch.empty(n, dtype=torch.float32, device=q.device)
-    part_l = torch.empty(n, dtype=torch.float32, device=q.device)
-    part_acc = torch.empty(n * d, dtype=torch.float32, device=q.device)
+        if kv_len.numel() != b or kv_len.device != q.device:
+            raise ValueError(f"flash_decode: kv_len {tuple(kv_len.shape)} "
+                             f"on {kv_len.device} for batch {b} on "
+                             f"{q.device}")
+        kind = LENGTH_KINDS.get(kv_len.dtype)
+        if kind is None:
+            raise ValueError(f"flash_decode: kv_len dtype {kv_len.dtype}; "
+                             f"the kernel reads {list(LENGTH_KINDS)}")
+        kl = kv_len.reshape(b)
+        kl_s = kl.stride(0)
     out = torch.empty((b, 1, hd), dtype=q.dtype, device=q.device)
     rc = _lib()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        kl.data_ptr() if kl is not None else None,
-        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        b, sk, num_heads, d, splits, chunk,
+        None if kl is None else kl.data_ptr(), kind,
+        b, sk, num_heads, d, cluster_ranks(sk),
         q.stride(0), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        float(_resolve_scale(hd, num_heads, scale)), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        kl_s, float(_resolve_scale(hd, num_heads, scale)), DTYPES[q.dtype],
+        stream_handle(q.device))
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{rc}")

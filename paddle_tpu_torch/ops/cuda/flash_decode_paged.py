@@ -12,8 +12,11 @@ the output), and lengths[b] == 0 gives 0.
 `flash_decode_paged` runs the plain version for tensors on the CPU (and
 on the meta device) and launches the kernel for tensors on the card;
 anything else raises.  There is no fallback from the kernel to the plain
-version.  `launches` counts kernel launches (one per call; the call runs
-a split pass and a merge pass).
+version.  `launches` counts kernel launches: one per call, one cluster
+of CTAs per (batch, head) that merges its partials on chip
+(`decode_stream`), with no scratch tensor.  The table (int64 as the
+Scheduler feeds it, or int32) and the lengths (int64, int32 or float32)
+are read as they are, so no cast kernel runs either.
 """
 
 from __future__ import annotations
@@ -23,13 +26,14 @@ import ctypes
 import torch
 
 from . import _build
-from .flash_decode import split_plan
+from .decode_stream import (DTYPES, HEAD_DIMS, LENGTH_KINDS, TABLE_KINDS,
+                            TILE, cluster_ranks, stream_handle,
+                            table_slots)
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128, 192, 256)
 _BLOCK_MULTIPLE = 16   # the Pallas kernel's sublane tile (_DECODE_ROWS)
 
 launches = 0
+_FN = None
 
 
 def paged_decode_supported(q, k_blocks, num_heads):
@@ -38,7 +42,7 @@ def paged_decode_supported(q, k_blocks, num_heads):
     of 16 and head_dim a multiple of 64, float32 or bfloat16."""
     if len(q.shape) != 3 or len(k_blocks.shape) != 3:
         return False
-    if q.dtype not in _DTYPES:
+    if q.dtype not in DTYPES:
         return False
     head_dim = q.shape[-1] // num_heads
     if head_dim * num_heads != q.shape[-1] or head_dim % 64 != 0:
@@ -80,27 +84,36 @@ def flash_decode_paged_reference(q, k_blocks, v_blocks, block_table,
 
 
 def _lib():
-    lib = _build.load("flash_decode_paged")
-    fn = lib.flash_decode_paged_fwd
-    if fn.argtypes is None:
+    global _FN
+    if _FN is None:
+        fn = _build.load("flash_decode_paged").flash_decode_paged_fwd
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                       ll, ll, ll, ll, ll, ctypes.c_float, i, p]
+        fn.argtypes = [p, p, p, p, p, i, p, i, i, i, i, i, i, i, i, i,
+                       ll, ll, ll, ll, ll, ll, ll, ll, ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
-    return fn
+        _FN = fn
+    return _FN
 
 
 def _launch(q, k_blocks, v_blocks, block_table, lengths, num_heads, scale):
     global launches
-    tensors = (k_blocks, v_blocks, block_table, lengths)
-    if any(t.device != q.device for t in tensors):
+    dev = q.device
+    if (k_blocks.device != dev or v_blocks.device != dev
+            or block_table.device != dev or lengths.device != dev):
         raise ValueError("flash_decode_paged: q, the pools, the table and "
                          "the lengths must be on one device")
-    if (q.dtype not in _DTYPES or k_blocks.dtype != q.dtype
+    if (q.dtype not in DTYPES or k_blocks.dtype != q.dtype
             or v_blocks.dtype != q.dtype):
         raise ValueError(f"flash_decode_paged: dtypes {q.dtype}/"
                          f"{k_blocks.dtype}/{v_blocks.dtype}; the kernel "
                          "takes float32 or bfloat16, all alike")
+    tab_kind = TABLE_KINDS.get(block_table.dtype)
+    len_kind = LENGTH_KINDS.get(lengths.dtype)
+    if tab_kind is None or len_kind is None:
+        raise ValueError(f"flash_decode_paged: table {block_table.dtype}, "
+                         f"lengths {lengths.dtype}; the kernel reads tables "
+                         f"of {list(TABLE_KINDS)} and lengths of "
+                         f"{list(LENGTH_KINDS)}")
     if (q.dim() != 3 or q.shape[1] != 1 or k_blocks.dim() != 3
             or v_blocks.shape != k_blocks.shape or block_table.dim() != 2):
         raise ValueError(f"flash_decode_paged: shapes {tuple(q.shape)}, "
@@ -110,35 +123,31 @@ def _launch(q, k_blocks, v_blocks, block_table, lengths, num_heads, scale):
     n, bs, _ = k_blocks.shape
     m = block_table.shape[1]
     if (k_blocks.shape[2] != hd or hd % num_heads or block_table.shape[0] != b
-            or lengths.numel() != b or m < 1):
+            or lengths.numel() != b or m < 1 or bs % TILE):
         raise ValueError(f"flash_decode_paged: q {tuple(q.shape)}, pool "
                          f"{tuple(k_blocks.shape)}, table "
                          f"{tuple(block_table.shape)} and {lengths.numel()} "
-                         f"lengths disagree for {num_heads} heads")
+                         f"lengths disagree for {num_heads} heads (or the "
+                         f"block size is not a multiple of {TILE})")
     d = hd // num_heads
-    if d not in _HEAD_DIMS:
+    if d not in HEAD_DIMS:
         raise ValueError(f"flash_decode_paged: head_dim {d} not in "
-                         f"{_HEAD_DIMS}")
+                         f"{HEAD_DIMS}")
     if any(t.stride(-1) != 1 for t in (q, k_blocks, v_blocks)):
         raise ValueError("flash_decode_paged: the last dim of q and the "
                          "pools must be contiguous")
-    tab = block_table.to(torch.int32).contiguous()
-    kl = lengths.reshape(b).to(torch.float32).contiguous()
-    splits, chunk = split_plan(m * bs)
-    parts = b * num_heads * splits
-    part_m = torch.empty(parts, dtype=torch.float32, device=q.device)
-    part_l = torch.empty(parts, dtype=torch.float32, device=q.device)
-    part_acc = torch.empty(parts * d, dtype=torch.float32, device=q.device)
-    out = torch.empty((b, 1, hd), dtype=q.dtype, device=q.device)
+    kl = lengths.reshape(b)
+    ranks = cluster_ranks(m * bs)
+    out = torch.empty((b, 1, hd), dtype=q.dtype, device=dev)
     rc = _lib()(
         q.data_ptr(), k_blocks.data_ptr(), v_blocks.data_ptr(),
-        tab.data_ptr(), kl.data_ptr(), out.data_ptr(), part_m.data_ptr(),
-        part_l.data_ptr(), part_acc.data_ptr(),
-        b, n, bs, m, num_heads, d, splits, chunk,
-        q.stride(0), k_blocks.stride(0), k_blocks.stride(1),
-        v_blocks.stride(0), v_blocks.stride(1),
-        float(_resolve_scale(hd, num_heads, scale)), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), block_table.data_ptr(), tab_kind, kl.data_ptr(),
+        len_kind, b, n, bs, m, num_heads, d, ranks,
+        table_slots(m * bs, ranks), q.stride(0), k_blocks.stride(0),
+        k_blocks.stride(1), v_blocks.stride(0), v_blocks.stride(1),
+        block_table.stride(0), block_table.stride(1), kl.stride(0),
+        float(_resolve_scale(hd, num_heads, scale)), DTYPES[q.dtype],
+        stream_handle(dev))
     if rc != 0:
         raise RuntimeError(f"flash_decode_paged kernel launch failed: CUDA "
                            f"error {rc}")

@@ -136,7 +136,11 @@ def test_mha_block_reads_strided_views(card):
     (3, 1000, 4, 128, None),        # every key live
     (2, 136, 1, 256, "with_zero"),
     (2, 200, 2, 64, "past_the_cache"),  # kv_len > Sk: every key live
-], ids=["main2048", "ragged_zero", "unmasked_d128", "d256", "past_cache"])
+    (3, 300, 2, 64, "rank0"),       # kv_len <= 16: rank 0 alone is live
+    (2, 40, 2, 128, "with_zero"),   # 3 tiles: a cluster of 4 ranks
+    (2, 2048, 2, 256, "main"),      # D 256: the 2-stage ring cycles
+], ids=["main2048", "ragged_zero", "unmasked_d128", "d256", "past_cache",
+        "rank0_only", "few_tiles", "d256_long"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_flash_decode_matches_plain(card, case, dtype):
@@ -151,6 +155,8 @@ def test_flash_decode_matches_plain(card, case, dtype):
         kv_len = _lens(vals, card)
     elif kl == "past_the_cache":
         kv_len = _lens([sk + 50, sk], card)
+    elif kl == "rank0":
+        kv_len = _lens([1, 16, 9], card)
     before = fd.launches
     out = fd.flash_decode(q, k, v, h, 0.0, kv_len=kv_len)
     torch.cuda.synchronize()
@@ -354,7 +360,11 @@ def _pool_case(seed, b, n, bs, m, h, d, lengths, device, dtype):
     (5, 23, 16, 4, 4, 64, [5, 16, 17, 37, 64]),  # across block edges
     (4, 40, 32, 8, 2, 128, [0, 1, 200, 256]),    # bs 32, an empty row
     (2, 9, 16, 3, 1, 256, [48, 7]),
-], ids=["serving", "edges", "bs32_zero", "d256"])
+    (3, 40, 16, 8, 2, 64, [1, 16, 9]),           # rank 0 alone is live
+    (3, 12, 16, 3, 2, 128, [48, 0, 33]),         # 3 pages: 4 ranks
+    (2, 300, 16, 128, 2, 256, [2048, 1000]),     # D 256, a long reach
+], ids=["serving", "edges", "bs32_zero", "d256", "rank0_only", "few_pages",
+        "d256_long"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_flash_decode_paged_matches_plain(card, case, dtype):
@@ -395,6 +405,107 @@ def test_flash_decode_paged_never_reads_past_the_length(card):
     out = fdp.flash_decode_paged(q, kb, vb, junk, kl, h)
     assert torch.isfinite(out).all()
     assert torch.equal(out, ref)
+
+
+def _offset_view(t, offset):
+    """t's values in a view whose rows start `offset` elements into a
+    wider buffer: strided, and off the 16-byte grid unless offset is a
+    multiple of 16 bytes."""
+    buf = torch.zeros(t.shape[:-1] + (t.shape[-1] + 8,), dtype=t.dtype,
+                      device=t.device)
+    view = buf[..., offset:offset + t.shape[-1]]
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("dtype,offset", [
+    (torch.float32, 1), (torch.float32, 2), (torch.bfloat16, 2),
+    (torch.bfloat16, 4)], ids=["f32_4B", "f32_8B", "bf16_4B", "bf16_8B"])
+def test_decode_kernels_copy_unaligned_views(card, dtype, offset):
+    """K/V views whose rows start on 4 or 8 bytes take the narrow cp.async
+    copies (#6 and #7), and give what the contiguous tensors give."""
+    q, kb, vb, table, kl = _pool_case(21, 3, 40, 16, 6, 2, 64, [5, 96, 40],
+                                      card, dtype)
+    kv, vv = _offset_view(kb, offset), _offset_view(vb, offset)
+    assert kv.data_ptr() % 16 != 0
+    ref = fdp.flash_decode_paged(q, kb, vb, table, kl, 2)
+    assert torch.equal(fdp.flash_decode_paged(q, kv, vv, table, kl, 2), ref)
+    q, k, v = _qkv(22, 3, 1, 300, 128, card, dtype)
+    kv_len = _lens([7, 300, 150], card)
+    ref = fd.flash_decode(q, k, v, 2, kv_len=kv_len)
+    out = fd.flash_decode(q, _offset_view(k, offset), _offset_view(v, offset),
+                          2, kv_len=kv_len)
+    assert torch.equal(out, ref)
+
+
+def test_decode_kernels_refuse_rows_off_4_bytes(card):
+    """A bf16 view whose rows start on 2 bytes cannot be copied by
+    cp.async: both wrappers raise (no fallback)."""
+    q, kb, vb, table, kl = _pool_case(23, 2, 10, 16, 2, 1, 64, [5, 20],
+                                      card, torch.bfloat16)
+    with pytest.raises(RuntimeError):
+        fdp.flash_decode_paged(q, _offset_view(kb, 1), _offset_view(vb, 1),
+                               table, kl, 1)
+    q, k, v = _qkv(24, 2, 1, 64, 64, card, torch.bfloat16)
+    with pytest.raises(RuntimeError):
+        fd.flash_decode(q, _offset_view(k, 1), _offset_view(v, 1), 1)
+
+
+def test_paged_cluster_that_cannot_fit_raises(card):
+    """A table reach whose block-id slice overflows shared memory is a
+    launch the occupancy check refuses: the wrapper raises."""
+    q, kb, vb, _, kl = _pool_case(25, 1, 4, 16, 1, 1, 64, [20], card,
+                                  torch.float32)
+    table = torch.zeros((1, 1 << 19), dtype=torch.int32, device=card)
+    before = fdp.launches
+    with pytest.raises(RuntimeError):
+        fdp.flash_decode_paged(q, kb, vb, table, kl, 1)
+    assert fdp.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_table_and_length_dtypes_are_bitwise_equal(card, dtype):
+    """int64 and int32 tables, int64, int32 and float32 lengths: the kernel
+    reads each as it is, and every combination gives the same bits."""
+    q, kb, vb, table, kl = _pool_case(26, 8, 600, 16, 64, 8, 64,
+                                      np.linspace(0, 1024, 8).astype(int),
+                                      card, dtype)
+    ref = fdp.flash_decode_paged(q, kb, vb, table, kl, 8)
+    for tab in (table.to(torch.int32), table):
+        for lens in (kl.to(torch.int32), kl.float(), kl):
+            out = fdp.flash_decode_paged(q, kb, vb, tab, lens, 8)
+            assert torch.equal(out, ref)
+    q, k, v = _qkv(27, 4, 1, 500, 256, card, dtype)
+    kv_len = _lens([0, 17, 256, 499], card)
+    ref = fd.flash_decode(q, k, v, 4, kv_len=kv_len)
+    for lens in (kv_len.to(torch.int32), kv_len.float()):
+        assert torch.equal(fd.flash_decode(q, k, v, 4, kv_len=lens), ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_decode_rows_do_not_depend_on_the_batch_or_the_run(card, dtype):
+    """The merge is in a fixed order with no atomics: two identical calls
+    give the same bits, and a row gives the same bits alone (batch 1) as
+    in a batch of 8."""
+    lengths = np.linspace(1024, 2080, 8).astype(int)
+    q, kb, vb, table, kl = _pool_case(28, 8, 2560, 16, 256, 8, 64, lengths,
+                                      card, dtype)
+    out = fdp.flash_decode_paged(q, kb, vb, table, kl, 8)
+    assert torch.equal(fdp.flash_decode_paged(q, kb, vb, table, kl, 8), out)
+    for row in (0, 5):
+        one = fdp.flash_decode_paged(q[row:row + 1], kb, vb,
+                                     table[row:row + 1], kl[row:row + 1], 8)
+        assert torch.equal(one, out[row:row + 1])
+    q, k, v = _qkv(29, 8, 1, 2048, 512, card, dtype)
+    kv_len = _lens(np.linspace(512, 1056, 8).astype(int), card)
+    out = fd.flash_decode(q, k, v, 8, kv_len=kv_len)
+    assert torch.equal(fd.flash_decode(q, k, v, 8, kv_len=kv_len), out)
+    for row in (0, 7):
+        one = fd.flash_decode(q[row:row + 1], k[row:row + 1],
+                              v[row:row + 1], 8, kv_len=kv_len[row:row + 1])
+        assert torch.equal(one, out[row:row + 1])
 
 
 # ---------------------------------------- kernel #3: flash attention fwd
