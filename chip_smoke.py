@@ -64,7 +64,32 @@ catches its own failure:
      and share of the busy time;
      every request's tokens must equal the sequential Generator's; the
      pool must drain to 0 blocks; tokens/s, TTFT, ms per decode step and
-     a profile of a few steps are printed;
+     a profile of a few steps are printed.  Then, on the same weights,
+     blocks of 16, 8 slots and S's request feeds (each phase its own
+     seed):
+     V, speculative decoding (build_decode(verify_len=4), spec_k 4, 8
+     requests of 32 tokens, prompts of 1024-2048, a prefix hit, an
+     eviction after the 2nd round), in two legs: V/trunc, the draft is
+     build_draft(tier="trunc") (3 decoder layers on the target's
+     scope); V/self, the draft is the target's own configuration, so
+     every proposal must be accepted.  Reported: rounds, proposals,
+     acceptance, tokens per row and round, host ms per round, and, from a
+     profile of 4 rounds, card busy per round split into the draft steps,
+     the verify window and its composite self-attention;
+     C, chunked prefill (build_decode(chunk_len=512), prefill_chunk 512):
+     4 prompts of 256-512 tokens prefill whole and decode; after their
+     2nd step 4 of 1024-2048 arrive and run 512-row windows, one per
+     iteration after the decode step; one of them is exported after its
+     first window and imported into a second Scheduler.  Reported: chunk
+     passes and ms per pass, the gaps between decode steps, TTFT, and card
+     busy per pass;
+     H, the two-tier handoff: a prefill tier (prefill_chunk 512, blocks of
+     16) runs 4 prompts with prefill_only=True and a decode tier with
+     blocks of 32 resumes each from its record (kv_payload,
+     recorded_tokens).  Reported: payload bytes, export and adoption ms.
+     Each of V, C and H asserts the launch counts the gate predicts from
+     the schedulers' counters, tokens equal to the sequential
+     Generator's, and a drained pool;
   6. training: transformer.build + Adam(1e-4) through Executor.run on
      transformer.base() (dropout 0, seq 256, random tokens from a seed).
      T1, float32, batch 16, ragged source lengths 128-256: 4 steps with
@@ -1125,13 +1150,19 @@ def drive_main_path(card):
     return results, launches, scope
 
 
-def decode_spec(cfg, prefix_len, max_len):
+def decode_spec(cfg, prefix_len, max_len, **windows):
+    """build_decode at SRC_LEN, every startup seeded; `windows` are
+    verify_len / chunk_len."""
     from paddle_tpu_torch.models import transformer
 
     spec = transformer.build_decode(cfg, src_len=SRC_LEN,
-                                    prefix_len=prefix_len, max_len=max_len)
-    spec.prefill_startup.random_seed = SEED
-    spec.step_startup.random_seed = SEED
+                                    prefix_len=prefix_len, max_len=max_len,
+                                    **windows)
+    for startup in (spec.prefill_startup, spec.step_startup,
+                    spec.verify_startup, spec.chunk_startup,
+                    spec.encode_startup):
+        if startup is not None:
+            startup.random_seed = SEED
     return spec
 
 
@@ -1229,33 +1260,43 @@ def serve_dense(spec, scope, feed, card):
     return res, counts
 
 
-class Ticker:
-    """Drives sched.step() and keeps the host time of every iteration that
-    was one decode step and nothing else, and of every admission that ran
-    one prefill batch and no step (step() ends on the argmax's copy to the
-    host, so the time is the iteration's)."""
+class Recorder:
+    """Drives sched.step() and keeps, for every iteration, its host ms,
+    its end on the host clock, the deltas of the scheduler's counters and
+    the tokens each of `reqs` emitted in it (step() ends on the argmax's
+    copy to the host, so the time is the iteration's)."""
 
-    def __init__(self, sched):
-        self.sched = sched
-        self.decode_ms = []
-        self.prefill_ms = []
+    KEYS = ("steps", "spec_rounds", "draft_steps", "prefill_batches",
+            "chunk_passes", "replays", "adopted")
+
+    def __init__(self, sched, reqs=()):
+        self.sched, self.reqs, self.log = sched, reqs, []
 
     def __call__(self):
         c = self.sched.counters
-        before = (c["steps"], c["prefill_batches"])
+        before = {k: c[k] for k in self.KEYS}
+        toks = [len(r.tokens) for r in self.reqs]
         t0 = time.perf_counter()
         did = self.sched.step()
-        ms = (time.perf_counter() - t0) * 1e3
-        after = (c["steps"], c["prefill_batches"])
-        if after == (before[0] + 1, before[1]):
-            self.decode_ms.append(ms)
-        elif after == (before[0], before[1] + 1):
-            self.prefill_ms.append(ms)
+        t1 = time.perf_counter()
+        rec = {k: c[k] - before[k] for k in self.KEYS}
+        rec.update(ms=(t1 - t0) * 1e3, end=t1, emitted=[
+            len(r.tokens) - n for r, n in zip(self.reqs, toks)])
+        self.log.append(rec)
         return did
 
-    def until(self, n_decode):
-        while len(self.decode_ms) < n_decode:
+    def until(self, key, n):
+        """Step until `key` has grown by n in total."""
+        while sum(r[key] for r in self.log) < n:
             self()
+
+    def pure(self, key):
+        """Iterations that did one `key` and no prefill, chunk pass or
+        replay."""
+        others = {"prefill_batches", "chunk_passes", "replays",
+                  "adopted"} - {key}
+        return [r for r in self.log
+                if r[key] == 1 and not any(r[k] for k in others)]
 
 
 def _request_feeds(rng, n, vocab):
@@ -1297,7 +1338,7 @@ def phase_s(card, scope):
     sched = serving.Scheduler(spec, scope=scope, place=place,
                               max_batch=S_SLOTS, block_size=S_BLOCK,
                               paged_kv=True)
-    tick = Ticker(sched)
+    tick = Recorder(sched)
     order = []
 
     def submit(i):
@@ -1310,11 +1351,11 @@ def phase_s(card, scope):
     _zero_counts()
     t0 = time.perf_counter()
     reqs = [submit(i) for i in range(7)]
-    tick.until(2)
+    tick.until("steps", 2)
     reqs.append(submit(0))
-    tick.until(4)
+    tick.until("steps", 4)
     reqs += [submit(i) for i in range(7, 15)]
-    tick.until(6)
+    tick.until("steps", 6)
     if reqs[3].status != "running":
         raise AssertionError(f"phase S: request 3 is {reqs[3].status}")
     sched.preempt(reqs[3], evict=True)
@@ -1356,6 +1397,8 @@ def phase_s(card, scope):
 
     gen = decode.Generator(spec, scope=scope, place=place)
     equal = check_served("S", reqs, order, gen, NEW_TOKENS)
+    decode_ms = [r["ms"] for r in tick.pure("steps")]
+    prefill_ms = [r["ms"] for r in tick.pure("prefill_batches")]
     res = {"phase": "S", "paged_kv": True, "requests": len(reqs),
            "new_tokens": NEW_TOKENS, "src_len": SRC_LEN, "window": S_WINDOW,
            "prompt_lens": list(S_PROMPTS), "max_len": S_MAX_LEN,
@@ -1366,17 +1409,17 @@ def phase_s(card, scope):
            "replays": st["replays"], "preemptions": st["preemptions"],
            "wall_s": wall, "tokens_per_s": len(reqs) * NEW_TOKENS / wall,
            "ttft_ms": st["ttft_ms"],
-           "decode_step_ms": statistics.median(tick.decode_ms),
-           "decode_steps_timed": len(tick.decode_ms),
-           "prefill_iteration_ms": tick.prefill_ms,
+           "decode_step_ms": statistics.median(decode_ms),
+           "decode_steps_timed": len(decode_ms),
+           "prefill_iteration_ms": prefill_ms,
            "step_profile": prof, "peak_mem_mib": peak / 2 ** 20,
            "peak_occupancy": st["peak_occupancy"], "pool_end": pool_end,
            "requests_equal_to_sequential": equal, "card": card}
     log(f"  phase S: {len(reqs)}x{NEW_TOKENS} tokens in {wall:.3f} s "
         f"({res['tokens_per_s']:.1f} tokens/s), TTFT {st['ttft_ms']}, "
         f"{res['decode_step_ms']:.3f} ms per decode step (median of "
-        f"{len(tick.decode_ms)}), prefill iterations "
-        f"{[round(ms, 2) for ms in tick.prefill_ms]} ms, peak "
+        f"{len(decode_ms)}), prefill iterations "
+        f"{[round(ms, 2) for ms in prefill_ms]} ms, peak "
         f"{res['peak_mem_mib']:.0f} MiB, pool "
         f"occupancy peak {st['peak_occupancy']:.3f} of "
         f"{sched.pool.num_blocks} blocks  [{card}]")
@@ -1386,6 +1429,506 @@ def phase_s(card, scope):
         f"Generator")
     log_profile(prof)
     return res, counts
+
+
+# ------------------------------- the Scheduler's spec, chunk, handoff paths
+
+SPEC_K = 4                    # phase V's verify window
+C_CHUNK = 512                 # phases C and H: chunk window rows
+C_SHORT = (256, 512)          # phase C's monolithic prompts
+H_BLOCK = 32                  # phase H's decode tier: another block size
+V_PROFILED = 4                # rounds (V) or iterations (C) profiled
+
+
+def _phase_seed(name):
+    return SEED + sum(map(ord, name))
+
+
+def _labelled(label, fn):
+    """fn inside a profiler range, the card synchronised on both sides, so
+    that the kernels it launched run inside the range."""
+    from torch.profiler import record_function
+
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        with record_function(label):
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+        return out
+
+    return run
+
+
+def profile_labelled(drive, n, patches):
+    """n calls of drive() under torch.profiler with `patches` (a list of
+    (object, attribute, label)) wrapped by _labelled: host ms and card
+    busy ms per call, the idle share, and for each label the card busy
+    ms per call of the kernels that started inside its ranges.  The
+    wrappers' synchronisations lengthen the host time, so host numbers
+    come from unprofiled runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
+    for (obj, attr, label), (_, _, fn) in zip(patches, saved):
+        setattr(obj, attr, _labelled(label, fn))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                drive()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+    labels = {label for _, _, label in patches}
+    # the ranges themselves appear on the device timeline too (the
+    # profiler's annotation spans): count the operations only
+    spans = [sp for sp in device_spans(prof) if sp[0] not in labels]
+    if not spans:
+        return None   # the profiler saw no device activity
+    out = {"calls": n, "busy_ms_per_call": busy_us(spans) / n / 1e3,
+           "idle_share": 1.0 - busy_us(spans) / wall_us, "labels": {}}
+    for _, _, label in patches:
+        ranges = [(e.time_range.start, e.time_range.end)
+                  for e in prof.events() if e.name == label]
+        mine = [sp for sp in spans if any(a <= sp[1] < b for a, b in ranges)]
+        per_kernel = {}
+        for name, a, b in mine:
+            per_kernel[name[:80]] = per_kernel.get(name[:80], 0.0) + (b - a)
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:4]
+        out["labels"][label] = {
+            "ranges": len(ranges), "device_ops": len(mine),
+            "busy_ms_per_call": busy_us(mine) / n / 1e3,
+            "top_ms_per_call": [[k, round(v / n / 1e3, 4)] for k, v in top]}
+    return out
+
+
+def _label_ms(prof):
+    return {k: round(v["busy_ms_per_call"], 4)
+            for k, v in prof["labels"].items()}
+
+
+def _v_expect(c, n_layer, d_layer):
+    """Phase V's launches from the scheduler's counters: a plain step
+    (replays included) runs #7 and #1 (mha_decode over the source) in
+    every target layer, a draft step in every draft layer; the verify
+    window runs none (its self-attention is the paged composite, its
+    Sq = 4 cross-attention is off #1's grid and under the flash tier's
+    floor); a prefill batch runs #3 (causal 2048) and two #1 (encoder,
+    cross) per layer of the target and of the draft."""
+    plain = c["steps"] - c["spec_rounds"]
+    step = n_layer * plain + d_layer * c["draft_steps"]
+    return {"mha_block": step + 2 * (n_layer + d_layer)
+            * c["prefill_batches"],
+            "flash_decode": 0, "flash_decode_paged": step,
+            "flash_attention_fwd": (n_layer + d_layer)
+            * c["prefill_batches"]}
+
+
+def phase_v(card, scope, leg):
+    """Speculative decoding through serving.Scheduler(spec_decode=True)
+    on transformer.base() over the device pool: build_decode(verify_len=
+    4), spec_k 4, 8 requests of 32 tokens with prompts of 1024-2048.
+    leg "trunc": build_draft(tier="trunc"), 3 decoder layers on the
+    target's scope; leg "self": the draft is a second build_decode of the
+    target's configuration, so every proposal is accepted.
+
+    Traffic: prompts 0-6; prompt 0 again after the 1st round (a prefix
+    hit); after the 2nd round request 3 is evicted and replays (target and
+    draft teacher-forced in lockstep)."""
+    from paddle_tpu_torch import CUDAPlace, decode, serving
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import attention_ops
+
+    name = f"V/{leg}"
+    cfg = transformer.base()
+    spec = decode_spec(cfg, S_WINDOW, S_MAX_LEN, verify_len=SPEC_K)
+    if leg == "trunc":
+        draft, _ = transformer.build_draft(cfg, src_len=SRC_LEN,
+                                           prefix_len=S_WINDOW,
+                                           max_len=S_MAX_LEN, tier="trunc",
+                                           scope=scope)
+    else:
+        draft = decode_spec(cfg, S_WINDOW, S_MAX_LEN)
+    n_layer = sum(1 for s in spec.states if s.feed.startswith("cache_k_"))
+    d_layer = sum(1 for s in draft.states if s.feed.startswith("cache_k_"))
+    vocab = spec.prefill_program.global_block().var("src_word_emb").shape[0]
+    feeds = _request_feeds(np.random.RandomState(_phase_seed(name)), 7,
+                           vocab)
+    place = CUDAPlace(0)
+    sched = serving.Scheduler(spec, scope=scope, place=place,
+                              max_batch=S_SLOTS, block_size=S_BLOCK,
+                              paged_kv=True, spec_decode=True, spec_k=SPEC_K,
+                              draft_spec=draft)
+    reqs, order = [], []
+    tick = Recorder(sched, reqs)
+
+    def submit(i):
+        order.append(feeds[i])
+        reqs.append(sched.submit(feeds[i], NEW_TOKENS, eos_id=-1))
+
+    # the main path, counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    for i in range(7):
+        submit(i)
+    tick.until("spec_rounds", 1)
+    submit(0)
+    tick.until("spec_rounds", 2)
+    if reqs[3].status != "running":
+        raise AssertionError(f"phase {name}: request 3 is {reqs[3].status}")
+    sched.preempt(reqs[3], evict=True)
+    while tick():
+        pass
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    st = sched.stats()
+    expect = _v_expect(st, n_layer, d_layer)
+    if counts != expect:
+        raise AssertionError(f"phase {name}: launches {counts}, the gate "
+                             f"predicts {expect} for {st['steps']} steps, "
+                             f"{st['spec_rounds']} rounds, "
+                             f"{st['draft_steps']} draft steps and "
+                             f"{st['prefill_batches']} prefill batches")
+    if st["pool"]["prefix_hits"] < 1 or st["replays"] < 1:
+        raise AssertionError(f"phase {name}: prefix hits "
+                             f"{st['pool']['prefix_hits']}, replays "
+                             f"{st['replays']}")
+    rounds = tick.pure("spec_rounds")
+    per_row = [n for r in rounds for n in r["emitted"] if n]
+    if leg == "self":
+        # every proposal accepted: a request's first round emits spec_k
+        # tokens; a full acceptance leaves the draft one row behind, so
+        # each later round spends a draft step on that row and emits
+        # spec_k - 1 (until the budget's last round)
+        if st["spec_accepted"] != st["spec_proposed"]:
+            DIVERGED.append({"phase": name, "accepted": st["spec_accepted"],
+                             "proposed": st["spec_proposed"]})
+            log(f"    DIVERGED {DIVERGED[-1]}")
+
+    # a few rounds of 8 prefix hits under the profiler (uncounted): card
+    # busy split into the draft steps, the verify window and its
+    # composite self-attention
+    for i in range(7):
+        sched.submit(feeds[i], V_PROFILED * SPEC_K + 2, eos_id=-1)
+    sched.submit(feeds[0], V_PROFILED * SPEC_K + 2, eos_id=-1)
+    sched.step()
+    prof = profile_labelled(sched.step, V_PROFILED, [
+        (sched, "_run_draft_step", "draft"),
+        (sched, "_run_verify", "verify"),
+        (attention_ops, "paged_attention_reference", "verify_attention")])
+    sched.run_until_idle()
+    pool_end = sched.pool.assert_quiesced()
+
+    gen = decode.Generator(spec, scope=scope, place=place)
+    equal = check_served(name, reqs, order, gen, NEW_TOKENS)
+    round_ms = [r["ms"] for r in rounds]
+    res = {"phase": name, "paged_kv": True, "spec_k": SPEC_K,
+           "draft_layers": d_layer, "requests": len(reqs),
+           "new_tokens": NEW_TOKENS, "window": S_WINDOW,
+           "prompt_lens": list(S_PROMPTS), "max_len": S_MAX_LEN,
+           "block_size": S_BLOCK, "max_batch": S_SLOTS, "launches": counts,
+           "steps": st["steps"], "spec_rounds": st["spec_rounds"],
+           "draft_steps": st["draft_steps"],
+           "prefill_batches": st["prefill_batches"],
+           "spec_proposed": st["spec_proposed"],
+           "spec_accepted": st["spec_accepted"],
+           "acceptance": st["spec_accepted"] / max(1, st["spec_proposed"]),
+           "spec_tokens": st["spec_tokens"],
+           "tokens_per_row_round": sum(per_row) / max(1, len(per_row)),
+           "tokens_per_row_round_hist": {
+               str(k): per_row.count(k) for k in sorted(set(per_row))},
+           "first_round_tokens": rounds[0]["emitted"] if rounds else None,
+           "prefix_hits": st["pool"]["prefix_hits"],
+           "replays": st["replays"], "wall_s": wall,
+           "tokens_per_s": len(reqs) * NEW_TOKENS / wall,
+           "ttft_ms": st["ttft_ms"],
+           "round_ms": statistics.median(round_ms) if round_ms else None,
+           "rounds_timed": len(round_ms), "round_profile": prof,
+           "peak_mem_mib": peak / 2 ** 20, "pool_end": pool_end,
+           "requests_equal_to_sequential": equal, "card": card}
+    log(f"  phase {name}: {len(reqs)}x{NEW_TOKENS} tokens in {wall:.3f} s "
+        f"({res['tokens_per_s']:.1f} tokens/s), {st['spec_rounds']} rounds, "
+        f"accepted {st['spec_accepted']}/{st['spec_proposed']} "
+        f"({res['acceptance']:.3f}), {res['tokens_per_row_round']:.3f} "
+        f"tokens per row and round {res['tokens_per_row_round_hist']}, "
+        f"{res['round_ms']} ms per round (median of {len(round_ms)}), TTFT "
+        f"{st['ttft_ms']}, peak {res['peak_mem_mib']:.0f} MiB  [{card}]")
+    log(f"    {st['steps']} target launches, {st['draft_steps']} draft steps, "
+        f"{st['prefill_batches']} prefill batches, prefix hits "
+        f"{st['pool']['prefix_hits']}, replays {st['replays']}; launches "
+        f"{counts}; {equal}/{len(reqs)} requests equal the sequential "
+        f"Generator")
+    if prof is not None:
+        log(f"    profiled rounds (8 rows): card busy "
+            f"{prof['busy_ms_per_call']:.3f} ms per round, idle share "
+            f"{prof['idle_share']:.3f} (synchronised wrappers); of it "
+            f"{_label_ms(prof)} ms per round; {prof['labels']}")
+    return res, counts
+
+
+def _c_expect(c, n_layer):
+    """Phases C and H: a prefill batch runs #3 (causal 2048) and two #1 per
+    layer; a chunked request one encode pass (#1 over the source in every
+    layer); a chunk window #1 (its 512x256 cross-attention) in every layer
+    and no other kernel (its ramp self-attention is the paged composite);
+    a decode step #7 and #1 (mha_decode) in every layer."""
+    return {"mha_block": n_layer * (2 * c["prefill_batches"] + c["chunked"]
+                                    + c["chunk_passes"] + c["steps"]),
+            "flash_decode": 0, "flash_decode_paged": n_layer * c["steps"],
+            "flash_attention_fwd": n_layer * c["prefill_batches"]}
+
+
+def _add(a, b):
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def phase_c(card, scope, spec):
+    """Chunked prefill through serving.Scheduler(prefill_chunk=512) on
+    transformer.base() over the device pool.  Four requests with prompts
+    of 256-512 tokens take the monolithic prefill (#3) and decode; after
+    their 2nd decode step four with prompts of 1024-2048 arrive and run
+    2-4 chunk windows each, one per loop iteration after the decode step.
+    The second long request is exported after its first window and
+    imported into a second Scheduler, where it re-chunks from 0."""
+    from paddle_tpu_torch import CUDAPlace, decode, serving
+    from paddle_tpu_torch.ops import attention_ops
+
+    n_layer = sum(1 for s in spec.states if s.feed.startswith("cache_k_"))
+    vocab = spec.prefill_program.global_block().var("src_word_emb").shape[0]
+    rng = np.random.RandomState(_phase_seed("C"))
+    short = _request_feeds(rng, 4, vocab)
+    for f in short:
+        f["prefix_lens"] = np.asarray([rng.randint(C_SHORT[0],
+                                                   C_SHORT[1] + 1)], np.int64)
+    long = _request_feeds(rng, 4, vocab)
+    place = CUDAPlace(0)
+
+    def scheduler():
+        return serving.Scheduler(spec, scope=scope, place=place,
+                                 max_batch=S_SLOTS, block_size=S_BLOCK,
+                                 paged_kv=True, prefill_chunk=C_CHUNK)
+
+    a = scheduler()
+    # the paged rewrite of the chunk window is built on its first use;
+    # build it now, so that this one-time host cost stays out of the gaps
+    a._chunk_step_program()
+    reqs = []
+    tick = Recorder(a, reqs)
+
+    # the main path, counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    reqs += [a.submit(f, NEW_TOKENS, eos_id=-1) for f in short]
+    tick.until("steps", 2)
+    arrive = len(tick.log)
+    reqs += [a.submit(f, NEW_TOKENS, eos_id=-1, request_id=f"long{i}")
+             for i, f in enumerate(long)]
+    tick.until("chunk_passes", 2)
+    moving = reqs[5]
+    if moving not in a._prefilling or moving._chunk_pos <= 0:
+        raise AssertionError("phase C: request long1 is not mid-prefill")
+    record = next(r for r in a.export_requests()
+                  if r["request_id"] == "long1")
+    moving.cancel()
+    while tick():
+        pass
+    b = scheduler()
+    (moved,) = b.import_requests([record])
+    b.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    st, st_b = a.stats(), b.stats()
+    expect = _add(_c_expect(st, n_layer), _c_expect(st_b, n_layer))
+    if counts != expect:
+        raise AssertionError(f"phase C: launches {counts}, the gate "
+                             f"predicts {expect} for {st}, {st_b}")
+    if moving.status != "cancelled" or st["chunked"] != 4 \
+            or st_b["chunked"] != 1:
+        raise AssertionError(f"phase C: long1 {moving.status}, chunked "
+                             f"{st['chunked']} + {st_b['chunked']}")
+    # decode gaps: host time between the ends of consecutive iterations
+    # that ran a decode step, from the long arrivals until the last
+    # chunked prompt graduated
+    last_pass = max(i for i, r in enumerate(tick.log) if r["chunk_passes"])
+    ends = [r["end"] for r in tick.log[arrive:last_pass + 2] if r["steps"]]
+    gaps = [(b_ - a_) * 1e3 for a_, b_ in zip(ends, ends[1:])]
+    pass_ms = a.stats()["prefill_chunk_ms"]
+
+    # chunk passes of two fresh long prompts under the profiler
+    # (uncounted): card busy per pass and its composite self-attention
+    fresh = _request_feeds(rng, 2, vocab)
+    for f in fresh:
+        a.submit(f, 2, eos_id=-1)
+    a.step()
+    prof = profile_labelled(a.step, V_PROFILED, [
+        (a, "_run_chunk", "chunk"),
+        (attention_ops, "paged_attention_reference", "chunk_attention")])
+    a.run_until_idle()
+    pool_end = a.pool.assert_quiesced()
+    b.pool.assert_quiesced()
+
+    gen = decode.Generator(spec, scope=scope, place=place)
+    served = [r for r in reqs if r is not moving] + [moved]
+    fed = [f for r, f in zip(reqs, short + long) if r is not moving] \
+        + [long[1]]
+    equal = check_served("C", served, fed, gen, NEW_TOKENS)
+    ttft_long = sorted((r.first_token_t - r.submit_t) * 1e3
+                       for r in reqs[4:] if r is not moving)
+    res = {"phase": "C", "paged_kv": True, "chunk": C_CHUNK,
+           "requests": len(served), "new_tokens": NEW_TOKENS,
+           "short_prompts": list(C_SHORT), "long_prompts": list(S_PROMPTS),
+           "launches": counts, "steps": st["steps"] + st_b["steps"],
+           "prefill_batches": st["prefill_batches"],
+           "chunked": st["chunked"] + st_b["chunked"],
+           "chunk_passes": st["chunk_passes"] + st_b["chunk_passes"],
+           "chunk_pass_ms": pass_ms,
+           "decode_gap_ms_max": max(gaps), "decode_gap_ms": gaps,
+           "decode_step_ms": statistics.median(
+               r["ms"] for r in tick.pure("steps")),
+           "ttft_ms": st["ttft_ms"], "ttft_long_ms": ttft_long,
+           "wall_s": wall, "peak_mem_mib": peak / 2 ** 20,
+           "pass_profile": prof, "pool_end": pool_end,
+           "requests_equal_to_sequential": equal, "card": card}
+    log(f"  phase C: {len(served)}x{NEW_TOKENS} tokens in {wall:.3f} s, "
+        f"{res['chunk_passes']} chunk passes of {C_CHUNK} rows "
+        f"({pass_ms} ms), longest decode gap "
+        f"{res['decode_gap_ms_max']:.2f} ms (gaps "
+        f"{[round(g, 2) for g in gaps]}), decode step "
+        f"{res['decode_step_ms']:.3f} ms, TTFT {st['ttft_ms']}, long "
+        f"prompts' TTFT {[round(t, 1) for t in ttft_long]} ms, peak "
+        f"{res['peak_mem_mib']:.0f} MiB  [{card}]")
+    log(f"    launches {counts}; {equal}/{len(served)} requests equal the "
+        f"sequential Generator (one exported mid-prefill)")
+    if prof is not None:
+        log(f"    profiled chunk passes: card busy "
+            f"{prof['busy_ms_per_call']:.3f} ms each, idle share "
+            f"{prof['idle_share']:.3f} (synchronised wrappers); of it "
+            f"{_label_ms(prof)} ms; {prof['labels']}")
+    return res, counts
+
+
+def phase_h(card, scope, spec):
+    """The two-tier handoff: a prefill-tier Scheduler (prefill_chunk=512,
+    blocks of 16) runs four prompts of 1024-2048 tokens with
+    prefill_only=True; a decode-tier Scheduler with blocks of 32 resumes
+    each from its handoff record (kv_payload, recorded_tokens)."""
+    from paddle_tpu_torch import CUDAPlace, decode, serving
+
+    n_layer = sum(1 for s in spec.states if s.feed.startswith("cache_k_"))
+    vocab = spec.prefill_program.global_block().var("src_word_emb").shape[0]
+    feeds = _request_feeds(np.random.RandomState(_phase_seed("H")), 4, vocab)
+    place = CUDAPlace(0)
+    pre = serving.Scheduler(spec, scope=scope, place=place,
+                            max_batch=S_SLOTS, block_size=S_BLOCK,
+                            paged_kv=True, prefill_chunk=C_CHUNK)
+    dec = serving.Scheduler(spec, scope=scope, place=place,
+                            max_batch=S_SLOTS, block_size=H_BLOCK,
+                            paged_kv=True)
+    spans = {"export": [], "adopt": []}
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spans[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    pre.pool.export_rows = timed("export", pre.pool.export_rows)
+    dec.pool.adopt_rows = timed("adopt", dec.pool.adopt_rows)
+
+    # the main path, counted
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    handles = [pre.submit(f, NEW_TOKENS, eos_id=-1, prefill_only=True)
+               for f in feeds]
+    pre.run_until_idle()
+    moved, payload_bytes = [], []
+    for h in handles:
+        if h.status != "prefilled":
+            raise AssertionError(f"phase H: {h.status} {h.error}")
+        rec = h.handoff
+        payload_bytes.append(
+            sum(v.nbytes for v in rec["kv"].values())
+            + sum(v.nbytes for v in rec["states"].values()))
+        moved.append(dec.submit(
+            serving.decode_feed(rec["feed"]), rec["max_new_tokens"],
+            eos_id=rec["eos_id"], recorded_tokens=rec["tokens"],
+            kv_payload={"cursor": rec["cursor"], "rows": rec["kv"],
+                        "states": rec["states"],
+                        "last_tok": rec["last_tok"],
+                        "n_tokens": rec["n_tokens"]}))
+    dec.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    st_p, st_d = pre.stats(), dec.stats()
+    expect = _add(_c_expect(st_p, n_layer), _c_expect(st_d, n_layer))
+    if counts != expect:
+        raise AssertionError(f"phase H: launches {counts}, the gate "
+                             f"predicts {expect} for {st_p}, {st_d}")
+    if st_p["handoffs"] != len(feeds) or st_d["adopted"] != len(feeds):
+        raise AssertionError(f"phase H: {st_p['handoffs']} handoffs, "
+                             f"{st_d['adopted']} adopted")
+    pre.pool.assert_quiesced()
+    pool_end = dec.pool.assert_quiesced()
+    gen = decode.Generator(spec, scope=scope, place=place)
+    equal = check_served("H", moved, feeds, gen, NEW_TOKENS)
+    res = {"phase": "H", "prefill_block_size": S_BLOCK,
+           "decode_block_size": H_BLOCK, "chunk": C_CHUNK,
+           "requests": len(moved), "launches": counts,
+           "chunk_passes": st_p["chunk_passes"], "steps": st_d["steps"],
+           "payload_bytes": payload_bytes,
+           "prompt_rows": [int(f["prefix_lens"][0]) for f in feeds],
+           "export_ms": spans["export"], "adopt_ms": spans["adopt"],
+           "ttft_ms": st_p["ttft_ms"], "wall_s": wall, "pool_end": pool_end,
+           "requests_equal_to_sequential": equal, "card": card}
+    log(f"  phase H: {len(moved)} requests handed off ({st_p['chunk_passes']} "
+        f"chunk passes on the prefill tier, {st_d['steps']} steps on the "
+        f"decode tier), payload "
+        f"{[round(n / 2 ** 20, 2) for n in payload_bytes]} MiB for "
+        f"{res['prompt_rows']} rows, export "
+        f"{[round(ms, 2) for ms in spans['export']]} ms, adopt "
+        f"{[round(ms, 2) for ms in spans['adopt']]} ms, prefill-tier TTFT "
+        f"{st_p['ttft_ms']}  [{card}]")
+    log(f"    launches {counts}; {equal}/{len(moved)} requests equal the "
+        f"sequential Generator")
+    return res, counts
+
+
+def drive_scheduler_paths(card, scope):
+    """Phases V (trunc, self), C and H on the one model of [4] and [5]."""
+    from paddle_tpu_torch.models import transformer
+
+    results, launches = [], {}
+    for leg in ("trunc", "self"):
+        res, counts = phase_v(card, scope, leg)
+        results.append(res)
+        launches = _add(launches, counts)
+        torch.cuda.empty_cache()
+    spec = decode_spec(transformer.base(), S_WINDOW, S_MAX_LEN,
+                       chunk_len=C_CHUNK)
+    for phase in (phase_c, phase_h):
+        res, counts = phase(card, scope, spec)
+        results.append(res)
+        launches = _add(launches, counts)
+        torch.cuda.empty_cache()
+    return results, launches
 
 
 # ------------------------------------------------------------- training
@@ -2138,9 +2681,13 @@ def main():
     lap("[4]")
 
     log(f"[5] serving: transformer.base() through serving.Scheduler over "
-        f"the device pool [{card}]")
+        f"the device pool: phase S, then speculative decoding (V/trunc, "
+        f"V/self), chunked prefill (C) and the two-tier handoff (H) [{card}]")
     res, counts = phase_s(card, scope)
     phases.append(res)
+    more, more_counts = drive_scheduler_paths(card, scope)
+    phases += more
+    counts = _add(counts, more_counts)
     del scope
     torch.cuda.empty_cache()
     lap("[5]")

@@ -41,7 +41,7 @@ class StateSpec:
         caches grow to the preallocated max_len buffer);
     verify_update / chunk_update: the same fetch in the Sq=k speculative
         verify and Sq=chunk chunked-prefill programs (None while the spec
-        has none: the port's build_decode builds neither yet);
+        has none);
     encode_from: fetch in the encode program seeding this CONSTANT state
         when a chunked prompt never runs the prefill program.
     """
@@ -64,9 +64,8 @@ class GenerationSpec:
     """The contract between a model's builders and the decode drivers
     (decode/__init__.py:72 of the JAX package): program pairs, feed and
     fetch names, and the StateSpecs.  The verify_*, chunk_* and encode_*
-    program slots (speculative verify, chunked prefill) and the monitor
-    side-band have the JAX package's names; the port's build_decode leaves
-    the program slots None."""
+    program slots (speculative verify, chunked prefill, the encoder-only
+    pass) and the monitor side-band have the JAX package's names."""
 
     def __init__(self, *, prefill_program, prefill_startup, step_program,
                  step_startup, prefill_feeds, step_feeds, step_logits,
@@ -164,10 +163,14 @@ class Generator:
         self._ensure_vars()
 
     def _ensure_vars(self):
-        """Run both startup programs in a THROWAWAY scope and copy over only
-        vars the real scope lacks."""
+        """Run every startup program of the spec (prefill, step, verify,
+        chunk, encode) in a THROWAWAY scope and copy over only vars the
+        real scope lacks."""
         exe = Executor(self.device)
-        for startup in (self.spec.prefill_startup, self.spec.step_startup):
+        spec = self.spec
+        for startup in (spec.prefill_startup, spec.step_startup,
+                        spec.verify_startup, spec.chunk_startup,
+                        spec.encode_startup):
             if startup is None or not startup.global_block().ops:
                 continue
             tmp = Scope()
@@ -178,7 +181,8 @@ class Generator:
 
     def _run(self, tag, program, fetch_names, feed):
         """Replay `program` with `feed` (name -> array or tensor) over the
-        scope; returns {fetch_name: tensor}."""
+        scope; returns {fetch_name: tensor}.  One replay function per tag
+        ("prefill", "step", "encode")."""
         fn = self._fns.get(tag)
         if fn is None:
             fn = program_as_function(program, self.scope, fetch_names,

@@ -42,6 +42,7 @@ from .sequence import sequence_last_step, sequence_pool
 from .tensor import (
     assign,
     cast,
+    concat,
     create_global_var,
     create_parameter,
     fill_constant,

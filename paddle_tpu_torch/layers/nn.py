@@ -398,9 +398,12 @@ def mean(x, name=None):
 
 
 def fused_attention(q, k, v, num_heads, causal=False, scale=0.0, bias=None,
-                    seq_len=None, name=None):
+                    seq_len=None, seq_len_ramp=False, name=None):
     """Fused scaled-dot-product attention over [B, S, H*D] projections —
-    one `fused_attention` op; seq_len [B] is the key-padding length."""
+    one `fused_attention` op; seq_len [B] is the key-padding length.
+    seq_len_ramp: query t's key limit is seq_len[b] + t instead of one
+    limit per row (the Sq = k verify and chunk windows; the composite
+    computes it)."""
     helper = LayerHelper("fused_attention", name=name)
     out = helper.create_variable_for_type_inference(q.dtype)
     inputs = {"Q": [q], "K": [k], "V": [v]}
@@ -408,10 +411,11 @@ def fused_attention(q, k, v, num_heads, causal=False, scale=0.0, bias=None,
         inputs["Bias"] = [bias]
     if seq_len is not None:
         inputs["SeqLen"] = [seq_len]
+    attrs = {"num_heads": num_heads, "causal": causal, "scale": scale}
+    if seq_len_ramp:
+        attrs["seq_len_ramp"] = True
     helper.append_op(type="fused_attention", inputs=inputs,
-                     outputs={"Out": [out]},
-                     attrs={"num_heads": num_heads, "causal": causal,
-                            "scale": scale})
+                     outputs={"Out": [out]}, attrs=attrs)
     return out
 
 

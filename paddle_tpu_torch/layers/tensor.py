@@ -1,5 +1,5 @@
 """Tensor layer functions: create_parameter, create_global_var, cast,
-sums, assign, fill_constant, fill_constant_batch_size_like
+concat, sums, assign, fill_constant, fill_constant_batch_size_like
 (paddle_tpu/layers/tensor.py:22-135)."""
 
 from __future__ import annotations
@@ -38,6 +38,15 @@ def cast(x, dtype):
     helper.append_op(type="cast", inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs={"in_dtype": x.dtype,
                             "out_dtype": convert_dtype(dtype)})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    """One `concat` op joining the `input` Variables along `axis`."""
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input[0].dtype)
+    helper.append_op(type="concat", inputs={"X": input},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
     return out
 
 

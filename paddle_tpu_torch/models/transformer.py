@@ -3,11 +3,13 @@ programs.
 
 Counterpart of paddle_tpu/models/transformer.py: the configs, `build` (the
 training graph and its loss), `encoder`/`decoder`, `feed_shapes`,
-`synthetic_batch`, and the prefill/step programs of `build_decode`.  Every
+`synthetic_batch`, the decode programs of `build_decode` (prefill, step,
+the Sq = k verify and Sq = chunk windows, the encoder-only pass), and
+`build_draft`'s truncated draft for speculative decoding.  Every
 parameter name is the JAX package's, so weights carried across with
 `convert.load_params` land where these programs read them.  Dropout, the
-fused loss head (`fused_head`), MoE FFNs and the Sq=k verify/chunk windows
-are later slices (ROADMAP.md A).
+fused loss head (`fused_head`), MoE FFNs and the int8 draft tier are
+later slices (ROADMAP.md A).
 """
 
 from __future__ import annotations
@@ -300,12 +302,13 @@ def build_decode(cfg: TransformerConfig = None, src_len=None, prefix_len=1,
     STEP (one new token): appends the token's k/v rows into the [B,
     max_len, H*D] caches at each row's cursor (kv_cache_append), attends
     single-query over the cache with seq_len = cursor + 1, and emits
-    next-token logits."""
-    if verify_len is not None or chunk_len is not None:
-        raise NotImplementedError(
-            "build_decode verify_len/chunk_len (speculative verify, chunked "
-            "prefill) land with the chunked-prefill and speculative-decode "
-            "slice (ROADMAP.md A)")
+    next-token logits.
+
+    VERIFY (verify_len=k >= 2) and CHUNK (chunk_len=c >= 2): the Sq = k
+    window of `_window_program`, for speculative verify and chunked
+    prefill.  With chunk_len, ENCODE is the encoder-only pass that seeds
+    the cross-attention k/v of a chunked prompt, which never runs the
+    prefill program (transformer.py:542-696 of the JAX package)."""
     cfg = copy.copy(cfg or base())
     if cfg.moe_experts:
         raise NotImplementedError(
@@ -418,6 +421,116 @@ def build_decode(cfg: TransformerConfig = None, src_len=None, prefix_len=1,
                            name="logits_proj")
         step_logits = layers.reshape(logits, shape=[-1, cfg.trg_vocab_size])
 
+    # ---- Sq = k windows: speculative verify + chunked prefill -------
+    def _window_program(k, update_attr):
+        """One Sq = k ramp-masked pass: prev_ids [B, k] append at the
+        cursor, query t attends keys < cursor + 1 + t.  Each row runs the
+        step's ops on the step's weights (the embedding scale and one
+        position gather per row), so its logits and appended rows are what
+        one-at-a-time processing of those positions computes, up to the
+        summation order of the wider matmuls.  `update_attr` names the
+        StateSpec slot (verify_update / chunk_update) that records each
+        cache's output, so one spec carries both programs."""
+        prog, startup = Program(), Program()
+        with program_guard(prog, startup), unique_name.guard():
+            prev_ids = layers.data(name="prev_ids", shape=[k],
+                                   dtype="int64")
+            gen_lengths = layers.data(name="gen_lengths", shape=[],
+                                      dtype="int64")
+            src_lens_s = layers.data(name="src_lens", shape=[],
+                                     dtype="int64")
+            # ids [B, k] keep their axis -> [B, k, d]
+            emb = layers.embedding(
+                input=prev_ids, size=[cfg.trg_vocab_size, cfg.d_model],
+                param_attr=ParamAttr(name=trg_emb_name))
+            emb = layers.scale(emb, scale=cfg.d_model ** 0.5)
+            pos_tab = layers.create_parameter(
+                shape=[max_len, cfg.d_model], dtype="float32",
+                name=f"{trg_emb_name}_pos_m{max_len}",
+                default_initializer=NumpyArrayInitializer(
+                    _position_encoding(max_len, cfg.d_model)))
+            pos_tab.trainable = False
+            pos_tab.stop_gradient = True
+            pos_rows = []
+            for t in range(k):
+                lens_t = gen_lengths if t == 0 else layers.increment(
+                    gen_lengths, value=t, in_place=False)
+                pos_rows.append(layers.reshape(
+                    layers.gather(pos_tab, lens_t),
+                    shape=[-1, 1, cfg.d_model]))
+            x = layers.elementwise_add(
+                x=emb, y=layers.concat(pos_rows, axis=1))
+            new_lens = layers.increment(gen_lengths, value=1,
+                                        in_place=False)
+            for i in range(cfg.n_layer):
+                st = states[4 * i:4 * i + 4]
+                cache_k = layers.data(name=f"cache_k_{i}",
+                                      shape=[max_len, hd])
+                cache_v = layers.data(name=f"cache_v_{i}",
+                                      shape=[max_len, hd])
+                enc_k = layers.data(name=f"enc_k_{i}", shape=[src_len, hd])
+                enc_v = layers.data(name=f"enc_v_{i}", shape=[src_len, hd])
+
+                def self_attn(q, h, i=i, ck=cache_k, cv=cache_v, st=st):
+                    kn, vn = _kv_fc(h, i, "self", cfg)
+                    ok, ov = layers.kv_cache_append(ck, cv, kn, vn,
+                                                    gen_lengths)
+                    setattr(st[0], update_attr, ok.name)
+                    setattr(st[1], update_attr, ov.name)
+                    # per-query ramp: position t's key limit is
+                    # cursor + 1 + t, so a rejected suffix stays masked
+                    return layers.fused_attention(q, ok, ov, cfg.n_head,
+                                                  causal=False,
+                                                  seq_len=new_lens,
+                                                  seq_len_ramp=True)
+
+                def cross_attn(q, ek=enc_k, ev=enc_v):
+                    return layers.fused_attention(q, ek, ev, cfg.n_head,
+                                                  causal=False,
+                                                  seq_len=src_lens_s)
+
+                x = _decoder_sublayers(x, i, cfg, self_attn, cross_attn)
+            x = _pre_ln(x, name="dec_ln")
+            logits = layers.fc(input=x, size=cfg.trg_vocab_size,
+                               num_flatten_dims=2, bias_attr=False,
+                               name="logits_proj")
+            out_logits = layers.reshape(logits,
+                                        shape=[-1, cfg.trg_vocab_size])
+        return prog, startup, out_logits.name
+
+    verify = verify_startup = verify_logits_name = None
+    if verify_len is not None:
+        if int(verify_len) < 2:
+            raise ValueError("verify_len must be >= 2 (a 1-wide verify "
+                             "window is the plain step program)")
+        verify, verify_startup, verify_logits_name = _window_program(
+            int(verify_len), "verify_update")
+
+    chunk = chunk_startup = chunk_logits_name = None
+    encode = encode_startup = None
+    if chunk_len is not None:
+        if int(chunk_len) < 2:
+            raise ValueError("chunk_len must be >= 2 (prompt tokens must "
+                             "run the ramp window, not the Sq = 1 step)")
+        chunk, chunk_startup, chunk_logits_name = _window_program(
+            int(chunk_len), "chunk_update")
+        # a chunked prompt never runs the prefill program: the constant
+        # cross-attention k/v come from this encoder-only pass (the
+        # prefill's encoder ops on the same weights)
+        encode, encode_startup = Program(), Program()
+        with program_guard(encode, encode_startup), unique_name.guard():
+            src_ids = layers.data(name="src_ids", shape=[src_len],
+                                  dtype="int64")
+            src_lens_e = layers.data(name="src_lens", shape=[],
+                                     dtype="int64")
+            enc_in, _ = _embed_rows(src_ids, cfg.src_vocab_size, cfg,
+                                    src_emb_name, src_len, "s")
+            enc_out = encoder(enc_in, cfg, src_lens=src_lens_e)
+            for i in range(cfg.n_layer):
+                ek, ev = _kv_fc(enc_out, i, "cross", cfg)
+                states[4 * i + 2].encode_from = ek.name
+                states[4 * i + 3].encode_from = ev.name
+
     return decode_mod.GenerationSpec(
         prefill_program=prefill, prefill_startup=prefill_startup,
         step_program=step, step_startup=step_startup,
@@ -429,4 +542,49 @@ def build_decode(cfg: TransformerConfig = None, src_len=None, prefix_len=1,
         lengths_name="gen_lengths",
         init_lengths_from="prefix_lens",
         max_len=max_len,
+        verify_program=verify, verify_startup=verify_startup,
+        verify_logits=verify_logits_name,
+        verify_len=None if verify is None else int(verify_len),
+        chunk_program=chunk, chunk_startup=chunk_startup,
+        chunk_logits=chunk_logits_name,
+        chunk_len=None if chunk is None else int(chunk_len),
+        encode_program=encode, encode_startup=encode_startup,
+        prompt_ids_name="trg_ids",
     )
+
+
+def clone_scope(scope):
+    """Flat copy of a scope's var bindings (transformer.py:699): tensors
+    are shared, rebinding a name stays local.  The int8 draft tier needs
+    it to bake its weights without touching the target's."""
+    from ..framework.scope import Scope
+
+    out = Scope()
+    for n in scope.local_var_names():
+        out.set_var(n, scope.find_var(n))
+    return out
+
+
+def build_draft(cfg: TransformerConfig = None, src_len=None, prefix_len=1,
+                max_len=None, tier="trunc", scope=None):
+    """A cheap draft GenerationSpec for speculative decoding and the scope
+    it runs against (transformer.py:726).
+
+    tier='trunc': the target with the bottom half of its decoder layers
+    (dec0..dec{L//2-1} with dec_ln, logits_proj and the embeddings); every
+    parameter name is the target's, so the draft runs on the target's own
+    scope (the returned scope is `scope`).  tier='int8' (the full-depth
+    target quantized to int8) waits for the int8 ops and
+    contrib/quantize.py (ROADMAP.md A4) and raises NotImplementedError."""
+    cfg = cfg or base()
+    if tier == "trunc":
+        dcfg = copy.copy(cfg)
+        dcfg.n_layer = max(1, cfg.n_layer // 2)
+        return build_decode(dcfg, src_len=src_len, prefix_len=prefix_len,
+                            max_len=max_len), scope
+    if tier == "int8":
+        raise NotImplementedError(
+            "the int8 draft tier needs int8_ops and contrib/quantize.py, "
+            "which are not ported yet (ROADMAP.md A4)")
+    raise ValueError(f"unknown draft tier {tier!r} "
+                     "(expected 'trunc' or 'int8')")

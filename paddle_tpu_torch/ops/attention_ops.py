@@ -24,15 +24,20 @@ the step program) takes `_apply_attention_paged`: the flash_decode_paged
 kernel when `_paged_decode_choice` says so, `paged_attention_reference`
 (the pool gathered to a dense view, then the composite) otherwise.
 
+The `seq_len_ramp` window (speculative verify and chunked prefill:
+query t sees keys < seq_len[b] + t) folds the ramp into an additive bias
+and so always takes the composite, as in the JAX package: every kernel
+tier's in-kernel mask has a single limit per row.  Its paged form, and
+any paged call with Sq != 1, takes `paged_attention_reference`.
+
 Ported kernels: mha_block (forward and backward), flash_decode,
 flash_decode_paged, and the streaming "flash" tier (kernel #3 forward,
 kernels #4 and #5 backward, `flash_attention`), which takes every window
 the gate sends there (a causal prefill past 1024 keys at transformer-base
 widths, BERT-base at 2048 tokens, or a window off the 128 grid).  The
-`seq_len_ramp` verify/chunk window and the gradient of the flash_decode
-tier raise NotImplementedError; the sequence-parallel ring has no branch,
-since the port has no device mesh yet.  All are later slices in
-ROADMAP.md.
+gradient of the flash_decode tier raises NotImplementedError; the
+sequence-parallel ring has no branch, since the port has no device mesh
+yet.  Both are later slices in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -89,6 +94,28 @@ def _seq_len_bias(seq_len, b, sk):
     mask = pos < seq_len.reshape(b, 1).to(pos.dtype)
     zero = torch.zeros((), dtype=torch.float32, device=seq_len.device)
     return torch.where(mask, zero, -1e30).reshape(b, 1, 1, sk)
+
+
+def _seq_len_bias_ramp(seq_len, b, sq, sk):
+    """[B] lengths -> [B,1,Sq,Sk] per-query key mask (attention_ops.py:301):
+    query t sees keys at positions < seq_len[b] + t.  At Sq == 1 the ramp
+    term is 0 and this is `_seq_len_bias` bitwise: the same compare, the
+    same where, the same -1e30."""
+    pos = torch.arange(sk, device=seq_len.device)[None, None, :]
+    lim = (seq_len.reshape(b, 1).to(pos.dtype)
+           + torch.arange(sq, device=seq_len.device)[None, :])[:, :, None]
+    zero = torch.zeros((), dtype=torch.float32, device=seq_len.device)
+    return torch.where(pos < lim, zero, -1e30).reshape(b, 1, sq, sk)
+
+
+def _fold_ramp(q, k, bias, seq_len, seq_len_ramp):
+    """(bias, seq_len) with a ramp folded into the bias and the single
+    limit dropped (attention_ops.py:326), so the gate picks the
+    composite."""
+    if seq_len_ramp and seq_len is not None:
+        lb = _seq_len_bias_ramp(seq_len, q.shape[0], q.shape[1], k.shape[1])
+        return (lb if bias is None else bias + lb), None
+    return bias, seq_len
 
 
 def _on_card(x):
@@ -168,14 +195,6 @@ def backend_choice(q, k, num_heads, causal=False, bias=False, seq_len=False):
                            seq_len is not None and seq_len is not False)[0]
 
 
-def _refuse_ramp(seq_len_ramp):
-    if seq_len_ramp:
-        raise NotImplementedError(
-            "fused_attention seq_len_ramp (the speculative-verify and "
-            "chunked-prefill window) is not ported yet: it lands with the "
-            "chunked-prefill and speculative-decode slice (ROADMAP.md A)")
-
-
 def _composite(q, k, v, bias, *, num_heads, causal, scale, seq_len):
     if seq_len is not None:
         lb = _seq_len_bias(seq_len, q.shape[0], k.shape[1])
@@ -188,7 +207,7 @@ def _apply_attention(q, k, v, bias, *, num_heads, causal, scale,
                      seq_len=None, seq_len_ramp=False):
     """Gate-selected attention forward.  On meta tensors (shape inference)
     it is always the composite, never a kernel wrapper."""
-    _refuse_ramp(seq_len_ramp)
+    bias, seq_len = _fold_ramp(q, k, bias, seq_len, seq_len_ramp)
     name = "composite"
     if q.device.type != "meta":
         name, _ = _backend_choice(q, k, num_heads, causal, bias is not None,
@@ -245,9 +264,9 @@ def paged_attention_reference(q, k_blocks, v_blocks, block_table, lengths,
                               seq_len_ramp=False):
     """Reference paged decode (attention_ops.py:204): gather the table
     (clipped into [0, N)) back to a dense [B, max_len, H*D] view on the
-    pool's device and run the composite under the SeqLen mask.  Sliced to
+    pool's device and run the composite under the SeqLen mask, or under
+    the per-query ramp for the Sq = k verify and chunk windows.  Sliced to
     exactly max_len so its score shapes match the dense-gather path's."""
-    _refuse_ramp(seq_len_ramp)
     b = q.shape[0]
     n, bs, hd = k_blocks.shape
     tab = block_table.to(device=k_blocks.device,
@@ -256,6 +275,10 @@ def paged_attention_reference(q, k_blocks, v_blocks, block_table, lengths,
     flat = tab.reshape(-1)
     k = k_blocks[flat].reshape(b, m * bs, hd)[:, :max_len]
     v = v_blocks[flat].reshape(b, m * bs, hd)[:, :max_len]
+    if seq_len_ramp:
+        bias = _seq_len_bias_ramp(lengths, b, q.shape[1], max_len)
+        return attention_reference(q, k, v, bias, num_heads=num_heads,
+                                   causal=False, scale=scale)
     return _composite(q, k, v, None, num_heads=num_heads, causal=False,
                       scale=scale, seq_len=lengths)
 
@@ -264,12 +287,13 @@ def _apply_attention_paged(q, k_blocks, v_blocks, block_table, lengths, *,
                            num_heads, scale, max_len, seq_len_ramp=False):
     """Paged decode forward (attention_ops.py:232): q [B, 1, H*D] against
     the shared block pool through each row's block table.  The kernel
-    when the gate says so, the paged gather reference otherwise.  On meta
-    tensors (shape inference) it is shape-only, never a kernel wrapper."""
-    _refuse_ramp(seq_len_ramp)
+    when the gate says so, the paged gather reference otherwise; a ramp
+    window (q [B, k, H*D]) always takes the reference, since the kernel
+    is single-query by contract.  On meta tensors (shape inference) it is
+    shape-only, never a kernel wrapper."""
     if q.device.type == "meta":
         return torch.empty_like(q)
-    choice = (None if q.shape[1] != 1
+    choice = (None if seq_len_ramp or q.shape[1] != 1
               else _paged_decode_choice(q, k_blocks, num_heads))
     TIER_CALLS["paged_reference" if choice is None
                else "flash_decode_paged"] += 1
@@ -278,7 +302,7 @@ def _apply_attention_paged(q, k_blocks, v_blocks, block_table, lengths, *,
                                        lengths, num_heads, scale)
     return paged_attention_reference(
         q, k_blocks, v_blocks, block_table, lengths, num_heads=num_heads,
-        scale=scale, max_len=max_len)
+        scale=scale, max_len=max_len, seq_len_ramp=seq_len_ramp)
 
 
 @register_op("fused_attention")
@@ -347,7 +371,9 @@ def fused_attention_grad(ctx):
     (no forward kernel runs); the flash tier recomputes out and lse with
     kernel #3 (the grad op takes no Out) and runs kernels #4 and #5 with
     no lse cotangent; the composite pulls dOut back through
-    `attention_reference` with autograd."""
+    `attention_reference` with autograd.  A ramp window folds into a
+    constant bias and takes the composite, as its forward does (the JAX
+    grad replays `_apply_attention`, attention_ops.py:459)."""
     q, k, v = ctx.input("Q"), ctx.input("K"), ctx.input("V")
     bias = ctx.input("Bias") if ctx.has_input("Bias") else None
     seq_len = ctx.input("SeqLen") if ctx.has_input("SeqLen") else None
@@ -355,8 +381,10 @@ def fused_attention_grad(ctx):
     num_heads = int(ctx.attr("num_heads"))
     causal = bool(ctx.attr("causal", False))
     scale = float(ctx.attr("scale", 0.0))
-    _refuse_ramp(bool(ctx.attr("seq_len_ramp", False)))
-    name, _ = _backend_choice(q, k, num_heads, causal, bias is not None,
+    ramp, seq_len = _fold_ramp(q, k, None, seq_len,
+                               bool(ctx.attr("seq_len_ramp", False)))
+    name, _ = _backend_choice(q, k, num_heads, causal,
+                              bias is not None or ramp is not None,
                               seq_len is not None)
     if name in ("mha_block", "mha_decode"):
         # causal is vacuous for the single query of mha_decode
@@ -385,9 +413,11 @@ def fused_attention_grad(ctx):
     leaves = [x.detach().requires_grad_(True)
               for x in ((q, k, v) if bias is None else (q, k, v, bias))]
     with torch.enable_grad():
-        out = _composite(*leaves[:3], leaves[3] if bias is not None else None,
-                         num_heads=num_heads, causal=causal, scale=scale,
-                         seq_len=seq_len)
+        full = leaves[3] if bias is not None else None
+        if ramp is not None:
+            full = ramp if full is None else full + ramp
+        out = _composite(*leaves[:3], full, num_heads=num_heads,
+                         causal=causal, scale=scale, seq_len=seq_len)
         grads = torch.autograd.grad(out, leaves, dout, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g
              for x, g in zip(leaves, grads)]

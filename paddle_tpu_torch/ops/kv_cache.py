@@ -80,20 +80,23 @@ def append_paged(blocks, new, table, lengths):
     cursor falls past the table's M columns drops, a block id in [-N, 0)
     wraps to id + N (NumPy indexing), and any other id outside [0, N)
     drops.  Duplicate targets (the Scheduler pads a short batch by
-    replicating row 0, same table and cursor) write identical values."""
+    replicating row 0, same table and cursor) write identical values.
+
+    The whole [B, T] window lands in one `index_put_`: a 512-row chunk
+    window is one scatter per pool, not 512."""
     n, bs = blocks.shape[0], blocks.shape[1]
     b, m = table.shape
     table = table.to(device=blocks.device, dtype=torch.int64)
     lengths = lengths.reshape(b).to(device=blocks.device, dtype=torch.int64)
-    rows = torch.arange(b, device=blocks.device)
-    for t in range(new.shape[1]):
-        pos = lengths + t
-        slot = torch.div(pos, bs, rounding_mode="floor")
-        in_table = (slot >= 0) & (slot < m)
-        blk = table[rows, slot.clamp(0, m - 1)]
-        blk = torch.where(blk < 0, blk + n, blk)
-        keep = in_table & (blk >= 0) & (blk < n)
-        blocks[blk[keep], (pos % bs)[keep]] = new[keep, t].to(blocks.dtype)
+    pos = lengths[:, None] + torch.arange(new.shape[1],
+                                          device=blocks.device)
+    slot = torch.div(pos, bs, rounding_mode="floor")
+    in_table = (slot >= 0) & (slot < m)
+    blk = torch.gather(table, 1, slot.clamp(0, m - 1))
+    blk = torch.where(blk < 0, blk + n, blk)
+    keep = (in_table & (blk >= 0) & (blk < n)).nonzero(as_tuple=True)
+    blocks.index_put_((blk[keep], (pos % bs)[keep]),
+                      new[keep].to(blocks.dtype))
     return blocks
 
 

@@ -1,11 +1,13 @@
 """Tensor ops: fill_constant, fill_constant_batch_size_like, assign,
-assign_value, cast, reshape, slice, gather, one_hot, top_k, lookup_table
-(with its hand-written grad), increment.
+assign_value, cast, reshape, concat, slice, gather, one_hot, top_k,
+lookup_table (with its hand-written grad), increment.
 
 Counterparts of paddle_tpu/ops/tensor_ops.py (fill_constant :25,
 fill_constant_batch_size_like :42, assign :60, assign_value :65, cast
-:78, reshape :83, slice :138, gather :229, one_hot :242, top_k :254,
-lookup_table :286, lookup_table_grad :311-342, increment :395).  Integer
+:78, reshape :83, concat :118, slice :138, gather :229, one_hot :242,
+top_k :254, lookup_table :286, lookup_table_grad :311-342, increment
+:395).  Shape inference and grads are the registry's generic ones (a
+meta-tensor run; an autograd replay).  Integer
 feeds keep int64 here, where the JAX package (x64 off) narrows them to
 int32: values agree, dtypes do not.
 """
@@ -71,6 +73,13 @@ def reshape(ctx):
     shape = ([x.shape[i] if s == 0 else s for i, s in enumerate(shape[:nd])]
              + list(shape[nd:]))
     ctx.set_output("Out", x.reshape(shape))
+
+
+@register_op("concat")
+def concat(ctx):
+    """The X list joined along `axis`; absent inputs are skipped."""
+    xs = [x for x in ctx.inputs("X") if x is not None]
+    ctx.set_output("Out", torch.cat(xs, dim=ctx.attr("axis", 0)))
 
 
 @register_op("slice")

@@ -6,15 +6,22 @@
     req = sched.submit(feed, max_new_tokens=32)
     tokens = req.result()
 
-`Scheduler` runs on the card unless given `place=CPUPlace()`.  The RPC
-front end (`serve`, `ServingClient`) and the overload control plane wait
-for a later slice (ROADMAP.md A).
+`Scheduler` runs on the card unless given `place=CPUPlace()`.  Over the
+device pool (`paged_kv=True`) it also serves speculative decoding
+(`spec_decode=True` with a `build_draft` spec), chunked prefill
+(`prefill_chunk=`) and the two-tier handoff (`submit(prefill_only=True)`
+on a prefill-tier Scheduler, `submit(kv_payload=...)` on a decode-tier
+one; `decode_feed` unpacks the record's feed).  The RPC front end
+(`serve`, `ServingClient`) and the overload control plane (`admission`)
+wait for a later slice (ROADMAP.md A).
 """
 
 from .scheduler import (
     Scheduler,
     SchedulerDraining,
     ServedRequest,
+    decode_feed,
+    encode_feed,
     prompt_key,
 )
 
@@ -22,5 +29,7 @@ __all__ = [
     "Scheduler",
     "SchedulerDraining",
     "ServedRequest",
+    "decode_feed",
+    "encode_feed",
     "prompt_key",
 ]

@@ -315,22 +315,43 @@ def test_gate_routes_card_tensors_to_the_kernels():
 
 def test_unported_tiers_raise():
     """The flash tier's forward is ported (kernel #3, tests/
-    test_torch_flash.py); the seq_len_ramp window still raises, in the
-    dense and the paged form."""
-    pflags.set("flash_attention", "interpret")
+    test_torch_flash.py), and so is the seq_len_ramp window: in the dense
+    and the paged form it takes the composite under the ramp bias, as the
+    JAX package's does (atol 1e-5), under "interpret" too, and no kernel
+    tier is counted for it."""
+    _set_both("flash_attention", "interpret")
     q = torch.zeros((1, 8, 128))
     out = pattn._apply_attention(q, q, q, None, num_heads=2, causal=True,
                                  scale=0.0)
     assert out.shape == q.shape
-    with pytest.raises(NotImplementedError, match="seq_len_ramp"):
-        pattn._apply_attention_paged(
-            q[:, :1], torch.zeros((2, 16, 128)), torch.zeros((2, 16, 128)),
-            torch.zeros((1, 1), dtype=torch.int64), torch.ones(1),
-            num_heads=2, scale=0.0, max_len=16, seq_len_ramp=True)
-    with pytest.raises(NotImplementedError, match="seq_len_ramp"):
-        pattn._apply_attention(q, q, q, None, num_heads=2, causal=False,
-                               scale=0.0, seq_len=torch.ones(1),
-                               seq_len_ramp=True)
+    qn, kn, vn = _data(80, 2, 4, 128, 128)
+    lens = np.asarray([1, 120], np.int64)
+    pattn.TIER_CALLS.clear()
+    got = pattn._apply_attention(_t(qn), _t(kn), _t(vn), None, num_heads=2,
+                                 causal=False, scale=0.0, seq_len=_t(lens),
+                                 seq_len_ramp=True)
+    assert dict(pattn.TIER_CALLS) == {"composite": 1}
+    want = jattn._apply_attention(jnp.asarray(qn), jnp.asarray(kn),
+                                  jnp.asarray(vn), None, num_heads=2,
+                                  causal=False, scale=0.0,
+                                  seq_len=jnp.asarray(lens),
+                                  seq_len_ramp=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=ATOL)
+    rng = np.random.RandomState(81)
+    kb, vb = (rng.standard_normal((12, 16, 128)).astype(np.float32)
+              for _ in range(2))
+    table = np.asarray([[3, 0, 7, 1], [11, 2, 5, 9]], np.int64)
+    got = pattn._apply_attention_paged(
+        _t(qn), _t(kb), _t(vb), _t(table), _t(lens), num_heads=2, scale=0.0,
+        max_len=60, seq_len_ramp=True)
+    assert pattn.TIER_CALLS["paged_reference"] == 1
+    want = jattn._apply_attention_paged(
+        jnp.asarray(qn), jnp.asarray(kb), jnp.asarray(vb), table,
+        jnp.asarray(lens), num_heads=2, scale=0.0, max_len=60,
+        seq_len_ramp=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=ATOL)
 
 
 def test_meta_tensors_never_reach_a_kernel_wrapper():
@@ -528,13 +549,14 @@ def _grad_op(reg, backend, inputs, attrs):
                          ids=["composite", "mha_block"])
 @pytest.mark.parametrize("causal,seq_len,bias", [
     (False, True, False), (True, False, False), (True, True, False),
-    (False, False, True),
-], ids=["seq_len", "causal", "causal_seq_len", "bias"])
+    (False, False, True), (False, "ramp", False), (False, "ramp", True),
+], ids=["seq_len", "causal", "causal_seq_len", "bias", "ramp", "ramp_bias"])
 def test_fused_attention_grad_matches(flag, causal, seq_len, bias):
     """The op-level grad lowering in both packages, same tier, atol 1e-5:
     autograd over attention_reference against jax.vjp of the composite
     ("0"), and the backward kernel's plain version against the Pallas
-    backward ("interpret"; a bias sends both to the composite)."""
+    backward ("interpret"; a bias or a seq_len_ramp window sends both to
+    the composite)."""
     _set_both("flash_attention", flag)
     from paddle_tpu.ops import registry as jreg
     from paddle_tpu_torch.ops import registry as preg
@@ -550,6 +572,8 @@ def test_fused_attention_grad_matches(flag, causal, seq_len, bias):
         inputs["Bias"] = [rng.standard_normal((b, 1, sq, sk))
                           .astype(np.float32)]
     attrs = {"num_heads": h, "causal": causal, "scale": 0.0}
+    if seq_len == "ramp":
+        attrs["seq_len_ramp"] = True
     j = _grad_op(jreg, "jax", inputs, attrs)
     p = _grad_op(preg, "torch", inputs, attrs)
     assert sorted(p) == sorted(j)

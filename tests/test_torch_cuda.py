@@ -930,3 +930,137 @@ def test_bf16_flash_kernels_refuse_misaligned_rows(card):
                 continue
             with pytest.raises(RuntimeError):
                 call()
+
+
+# ---------------------------------------------------- serving's new paths
+
+SERVE_CFG = dict(src_vocab_size=64, trg_vocab_size=64, n_layer=2, n_head=2,
+                 d_model=128, d_inner=256, dropout=0.0)
+SERVE_S, SERVE_WINDOW, SERVE_MAX_LEN, SERVE_MNT = 128, 256, 512, 10
+
+
+def _serve_world(device, **spec_kw):
+    """A head_dim-64 decode spec, seeded random weights (matrices and the
+    embedding times 3, so that greedy tokens do not collapse) on `device`,
+    seeded single-request feeds, and the sequential Generator's tokens
+    for each."""
+    from paddle_tpu_torch import Scope, decode
+    from paddle_tpu_torch.models import transformer
+
+    spec = transformer.build_decode(
+        transformer.TransformerConfig(**SERVE_CFG), src_len=SERVE_S,
+        prefix_len=SERVE_WINDOW, max_len=SERVE_MAX_LEN, **spec_kw)
+    for startup in (spec.prefill_startup, spec.step_startup):
+        startup.random_seed = 7
+    scope = Scope()
+    gen = decode.Generator(spec, scope=scope, place=device)
+    with torch.no_grad():
+        for n in scope.local_var_names():
+            if n.endswith(".w_0") or n == "src_word_emb":
+                scope.find_var(n).mul_(3.0)
+    rng = np.random.RandomState(11)
+    feeds = [{
+        "src_ids": rng.randint(2, 64, size=(1, SERVE_S)).astype(np.int64),
+        "src_lens": np.asarray([rng.randint(64, SERVE_S + 1)], np.int64),
+        "trg_ids": rng.randint(2, 64, size=(1, SERVE_WINDOW)).astype(
+            np.int64),
+        "prefix_lens": np.asarray([n], np.int64),
+    } for n in (256, 200, 130, 70, 17)]
+    refs = [gen.generate(f, SERVE_MNT, eos_id=-1)[0].tolist() for f in feeds]
+    return spec, scope, feeds, refs
+
+
+def _served(reqs, refs):
+    for i, (r, ref) in enumerate(zip(reqs, refs, strict=True)):
+        assert r.status == "done", (i, r.status, r.error)
+        assert r.tokens == ref, f"request {i} vs the sequential Generator"
+
+
+def test_spec_decode_on_the_card_equals_sequential(card):
+    """Speculative decoding over the device pool: the trunc draft and the
+    target itself as the draft (every proposal accepted).  Tokens equal
+    the sequential Generator's; plain and draft steps launch #7."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.models import transformer
+
+    spec, scope, feeds, refs = _serve_world(card, verify_len=4)
+    cfg = transformer.TransformerConfig(**SERVE_CFG)
+    kw = dict(src_len=SERVE_S, prefix_len=SERVE_WINDOW,
+              max_len=SERVE_MAX_LEN)
+    drafts = (transformer.build_draft(cfg, tier="trunc", scope=scope,
+                                      **kw)[0],
+              transformer.build_decode(cfg, **kw))
+    for draft in drafts:
+        sched = serving.Scheduler(spec, scope, place=card, max_batch=4,
+                                  block_size=16, paged_kv=True,
+                                  spec_decode=True, spec_k=4,
+                                  draft_spec=draft)
+        fdp.launches = 0
+        reqs = [sched.submit(f, SERVE_MNT, eos_id=-1) for f in feeds]
+        sched.run_until_idle(max_steps=500)
+        _served(reqs, refs)
+        st = sched.stats()
+        assert st["spec_rounds"] > 0 and fdp.launches > 0
+        sched.pool.assert_quiesced()
+    assert st["spec_accepted"] == st["spec_proposed"]
+
+
+def test_chunked_prefill_on_the_card_equals_sequential(card):
+    """Chunk windows of 64 rows over the device pool, interleaved with the
+    decode steps of the short prompts, and one request exported mid-chunk
+    into a second Scheduler: tokens equal the sequential Generator's; the
+    encode pass and the windows' cross-attention launch #1."""
+    from paddle_tpu_torch import serving
+
+    spec, scope, feeds, refs = _serve_world(card, chunk_len=64)
+    a = serving.Scheduler(spec, scope, place=card, max_batch=4,
+                          block_size=16, paged_kv=True, prefill_chunk=64)
+    mha_block.launches = 0
+    reqs = [a.submit(f, SERVE_MNT, eos_id=-1, request_id=str(i))
+            for i, f in enumerate(feeds)]
+    a.step()
+    a.step()
+    rec = next(r for r in a.export_requests() if r["request_id"] == "1")
+    reqs[1].cancel()
+    a.run_until_idle(max_steps=500)
+    b = serving.Scheduler(spec, scope, place=card, max_batch=4,
+                          block_size=16, paged_kv=True, prefill_chunk=64)
+    (moved,) = b.import_requests([rec])
+    b.run_until_idle(max_steps=500)
+    assert reqs[1].status == "cancelled"
+    _served(reqs[:1] + reqs[2:] + [moved], refs[:1] + refs[2:] + [refs[1]])
+    assert a.counters["chunked"] >= 2 and mha_block.launches > 0
+    a.pool.assert_quiesced()
+    b.pool.assert_quiesced()
+
+
+def test_two_tier_handoff_on_the_card_equals_sequential(card):
+    """A prefill tier (chunks of 64, blocks of 16) hands each request off
+    to a decode tier with blocks of 32: tokens equal the sequential
+    Generator's."""
+    from paddle_tpu_torch import serving
+
+    spec, scope, feeds, refs = _serve_world(card, chunk_len=64)
+    pre = serving.Scheduler(spec, scope, place=card, max_batch=4,
+                            block_size=16, paged_kv=True, prefill_chunk=64)
+    dec = serving.Scheduler(spec, scope, place=card, max_batch=4,
+                            block_size=32, paged_kv=True)
+    handles = [pre.submit(f, SERVE_MNT, eos_id=-1, prefill_only=True)
+               for f in feeds]
+    pre.run_until_idle(max_steps=500)
+    moved = []
+    for h in handles:
+        assert h.status == "prefilled", (h.status, h.error)
+        rec = h.handoff
+        moved.append(dec.submit(
+            serving.decode_feed(rec["feed"]), rec["max_new_tokens"],
+            eos_id=rec["eos_id"], recorded_tokens=rec["tokens"],
+            kv_payload={"cursor": rec["cursor"], "rows": rec["kv"],
+                        "states": rec["states"],
+                        "last_tok": rec["last_tok"],
+                        "n_tokens": rec["n_tokens"]}))
+    dec.run_until_idle(max_steps=500)
+    _served(moved, refs)
+    assert dec.counters["adopted"] == len(feeds)
+    pre.pool.assert_quiesced()
+    dec.pool.assert_quiesced()

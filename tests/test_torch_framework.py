@@ -2,9 +2,9 @@
 JAX package's.
 
 `transformer.build_decode` at a head_dim-64 config must build the same
-prefill, step and startup programs in both packages: op types in order,
-input/output names, attrs, var shapes and dtypes (the
-`paddle_tpu.program.v1` dict of each).  The port's startup must create
+prefill, step, verify, chunk and encode programs and their startups in
+both packages: op types in order, input/output names, attrs, var shapes
+and dtypes (the `paddle_tpu.program.v1` dict of each).  The port's startup must create
 exactly the JAX package's parameter names and shapes.
 """
 
@@ -23,7 +23,9 @@ from paddle_tpu_torch.models import transformer as PT
 SMALL = dict(src_vocab_size=64, trg_vocab_size=64, n_layer=2, n_head=2,
              d_model=128, d_inner=256, dropout=0.0)
 PROGRAMS = ("prefill_program", "prefill_startup", "step_program",
-            "step_startup")
+            "step_startup", "verify_program", "verify_startup",
+            "chunk_program", "chunk_startup", "encode_program",
+            "encode_startup")
 
 
 @pytest.fixture(autouse=True)
@@ -33,7 +35,8 @@ def _fresh_port():
 
 
 def _specs(prefix_len):
-    kw = dict(src_len=128, prefix_len=prefix_len, max_len=256)
+    kw = dict(src_len=128, prefix_len=prefix_len, max_len=256, verify_len=4,
+              chunk_len=8)
     return (JT.build_decode(JT.TransformerConfig(**SMALL), **kw),
             PT.build_decode(PT.TransformerConfig(**SMALL), **kw))
 
@@ -59,13 +62,16 @@ def test_generation_specs_agree():
     js, ps = _specs(8)
     for attr in ("prefill_feeds", "step_feeds", "prefill_logits",
                  "step_logits", "lengths_name", "init_lengths_from",
-                 "max_len", "bos_id", "eos_id", "prev_ids_name"):
+                 "max_len", "bos_id", "eos_id", "prev_ids_name",
+                 "verify_logits", "verify_len", "chunk_logits", "chunk_len",
+                 "prompt_ids_name"):
         assert getattr(ps, attr) == getattr(js, attr), attr
-    assert ps.prefill_fetches() == js.prefill_fetches()
-    assert ps.step_fetches() == js.step_fetches()
+    for fetches in ("prefill_fetches", "step_fetches", "verify_fetches",
+                    "chunk_fetches", "encode_fetches"):
+        assert getattr(ps, fetches)() == getattr(js, fetches)(), fetches
     for jst, pst in zip(js.states, ps.states, strict=True):
         for attr in ("feed", "init_from", "update", "pad_to", "zeros",
-                     "dtype"):
+                     "dtype", "verify_update", "chunk_update", "encode_from"):
             assert getattr(pst, attr) == getattr(jst, attr), attr
 
 
@@ -77,7 +83,7 @@ def test_decode_op_types_are_the_slice():
         "lookup_table", "scale", "elementwise_add", "layer_norm", "mul",
         "relu", "fused_attention", "sequence_pool", "reshape", "gather",
         "increment", "kv_cache_append", "uniform_random", "fill_constant",
-        "assign_value"}
+        "assign_value", "concat"}
 
 
 def test_startup_creates_the_jax_parameters():
@@ -194,9 +200,27 @@ def test_load_params_checks_names_and_shapes():
 
 @pytest.mark.parametrize("kw", [dict(verify_len=2), dict(chunk_len=4)])
 def test_later_slices_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PT.build_decode(PT.TransformerConfig(**SMALL), src_len=128,
-                        prefix_len=8, max_len=256, **kw)
+    """The verify and chunk windows are ported: a window of 2 or more
+    builds, and a width of 1 raises ValueError in both packages (a 1-wide
+    window is the step program).  What is still a later slice raises
+    NotImplementedError naming ROADMAP: MoE FFNs, and the int8 draft tier
+    of build_draft (it waits for int8_ops, ROADMAP A4)."""
+    kw1 = {k: 1 for k in kw}
+    for T, cfg in ((PT, PT.TransformerConfig(**SMALL)),
+                   (JT, JT.TransformerConfig(**SMALL))):
+        spec = T.build_decode(cfg, src_len=128, prefix_len=8, max_len=256,
+                              **kw)
+        width = next(iter(kw.values()))
+        which = "verify" if "verify_len" in kw else "chunk"
+        assert getattr(spec, which + "_len") == width
+        assert getattr(spec, which + "_program") is not None
+        with pytest.raises(ValueError, match=which):
+            T.build_decode(cfg, src_len=128, prefix_len=8, max_len=256,
+                           **kw1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PT.build_decode(PT.TransformerConfig(moe_experts=4, **SMALL),
                         src_len=128, prefix_len=8, max_len=256)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PT.build_draft(PT.TransformerConfig(**SMALL), src_len=128,
+                       prefix_len=8, max_len=256, tier="int8",
+                       scope=pt.Scope())

@@ -219,9 +219,9 @@ def test_the_slice_registers_exactly_the_decode_op_types():
     """The decode slice's 15 op types, the training slice's loss,
     reduction, cast, update and hand-written grad ops, the Scheduler
     slice's paged append, the BERT slice's ops (with those behind
-    Variable's operators), and the ResNet slice's conv, pool, batch norm
+    Variable's operators), the ResNet slice's conv, pool, batch norm
     (with its hand-written grad), metric, loss, momentum and gaussian
-    ops."""
+    ops, and the verify/chunk windows' concat."""
     assert sorted(preg.OPS) == sorted([
         "assign_value", "elementwise_add", "fill_constant", "fused_attention",
         "gather", "increment", "kv_cache_append", "layer_norm",
@@ -237,4 +237,4 @@ def test_the_slice_registers_exactly_the_decode_op_types():
         "greater_than", "greater_equal",
         "conv2d", "pool2d", "batch_norm",
         "batch_norm_grad", "top_k", "accuracy", "softmax", "cross_entropy",
-        "momentum", "gaussian_random"])
+        "momentum", "gaussian_random", "concat"])

@@ -76,6 +76,70 @@ def test_append_paged_matches_jax_exactly(t):
     assert not np.array_equal(ref, pool)
 
 
+def _append_paged_loop(blocks, new, table, lengths):
+    """The per-row-of-the-window loop that append_paged replaced: one
+    masked store per window position t."""
+    n, bs = blocks.shape[0], blocks.shape[1]
+    b, m = table.shape
+    rows = torch.arange(b)
+    for t in range(new.shape[1]):
+        pos = lengths + t
+        slot = torch.div(pos, bs, rounding_mode="floor")
+        in_table = (slot >= 0) & (slot < m)
+        blk = table[rows, slot.clamp(0, m - 1)]
+        blk = torch.where(blk < 0, blk + n, blk)
+        keep = in_table & (blk >= 0) & (blk < n)
+        blocks[blk[keep], (pos % bs)[keep]] = new[keep, t]
+    return blocks
+
+
+def _window_case(seed, t):
+    """A chunk-sized window: 6 rows over a 128-block pool of 16-row
+    blocks, 36 table columns, disjoint block ids per row except the pad
+    rows 4 and 5, which repeat row 0 (same table, cursor and values).
+    Row 1 holds a negative id (wraps to 127), row 2's cursor runs past its
+    table (the tail drops), row 3's table ends in ids past the pool
+    (drop)."""
+    rng = np.random.RandomState(seed)
+    n, bs, hd, m = 128, 16, 3, 36
+    pool = rng.standard_normal((n, bs, hd)).astype(np.float32)
+    new = rng.standard_normal((6, t, hd)).astype(np.float32)
+    table = np.zeros((6, m), np.int64)
+    table[0] = np.arange(0, 36)
+    table[1] = np.arange(36, 72)
+    table[1, 0] = -1
+    table[2] = np.arange(72, 108)
+    table[3, :19] = np.arange(108, 127)
+    table[3, 19:] = 200
+    table[4:] = table[0]
+    lengths = np.asarray([10, 5, m * bs - max(t // 2, 1), 250, 10, 10],
+                         np.int64)
+    new[4:] = new[0]
+    return pool, new, table, lengths
+
+
+@pytest.mark.parametrize("t", [1, 4, 512])
+def test_append_paged_one_scatter_matches_the_loop(t):
+    """The one-scatter write equals the loop over window positions it
+    replaced, and the JAX package's scatter, bitwise, at a window of 1, 4
+    and 512 rows, through a wrapped negative id, a cursor past the table
+    and ids past the pool (both drop), and replicated pad rows."""
+    pool, new, table, lengths = _window_case(40 + t, t)
+    args = [torch.as_tensor(a) for a in (new, table, lengths)]
+    loop = _append_paged_loop(torch.as_tensor(pool.copy()), *args)
+    out = pkv.append_paged(torch.as_tensor(pool.copy()), *args)
+    np.testing.assert_array_equal(out.numpy(), loop.numpy())
+    ref = np.asarray(jkv.append_paged(jnp.asarray(pool), jnp.asarray(new),
+                                      table, lengths))
+    np.testing.assert_array_equal(out.numpy(), ref)
+    assert not np.array_equal(ref[127], pool[127])   # the wrapped id
+    for case in (_append_case(3 + t, t),) if t < 12 else ():
+        small = [torch.as_tensor(a) for a in case[1:]]
+        np.testing.assert_array_equal(
+            pkv.append_paged(torch.as_tensor(case[0].copy()), *small),
+            _append_paged_loop(torch.as_tensor(case[0].copy()), *small))
+
+
 def test_append_paged_op_matches_jax_and_writes_in_place():
     pool, new, table, lengths = _append_case(9, 1)
     ins = {"KBlocks": [pool], "VBlocks": [pool * 2], "K": [new],
@@ -203,9 +267,14 @@ def test_paged_op_takes_the_kernel_tier_under_interpret():
     assert dict(pattn.TIER_CALLS) == {"flash_decode_paged": 1,
                                       "paged_reference": 1}
     np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=0, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="seq_len_ramp"):
-        pattn._apply_attention_paged(*_t(q, kb, vb, table, kl),
-                                     seq_len_ramp=True, **kw)
+    # a ramp window always takes the paged reference, kernel gate or not;
+    # at Sq = 1 its mask is the SeqLen mask, so it gives the reference's
+    # output bitwise
+    pflags.set("flash_attention", "interpret")
+    ramp = pattn._apply_attention_paged(*_t(q, kb, vb, table, kl),
+                                        seq_len_ramp=True, **kw)
+    assert pattn.TIER_CALLS["paged_reference"] == 2
+    np.testing.assert_array_equal(ramp.numpy(), ref.numpy())
 
 
 # ---------------------------------------------------------------- pools

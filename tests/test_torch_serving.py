@@ -261,15 +261,21 @@ def test_later_slices_and_the_card_default_raise():
         with pytest.raises(RuntimeError, match="CPUPlace"):
             serving.Scheduler(spec)
     cpu = pt.CPUPlace()
-    for kw in (dict(spec_decode=True), dict(prefill_chunk=4),
-               dict(admission=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # spec decode and chunked prefill are ported and, as in the JAX
+    # package, ride the paged pool only; admission is still a later slice
+    for kw in (dict(spec_decode=True), dict(prefill_chunk=4)):
+        with pytest.raises(ValueError, match="paged"):
             serving.Scheduler(spec, place=cpu, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        serving.Scheduler(spec, place=cpu, admission=True)
     sched = serving.Scheduler(spec, place=cpu)
     feed = _feeds(8, 1, 0)[0]
     for kw in (dict(prefill_only=True), dict(kv_payload={})):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sched.submit(feed, 4, **kw)
+        req = sched.submit(feed, 4, **kw)
+        assert req.status == "queued"
+        assert req.prefill_only is ("prefill_only" in kw)
+        assert (req._kv_payload == {}) is ("kv_payload" in kw)
+    sched.close()
     sched.drain()
     with pytest.raises(serving.SchedulerDraining):
         sched.submit(feed, 4)
