@@ -50,7 +50,16 @@ catches its own failure:
      teacher-forced step logits must agree within 1e-3.  Phase A's feeds
      then go through serving.Scheduler at its default paged_kv=False
      (host BlockPool, dense gather per step), counted the same way; every
-     request's tokens must equal the sequential batch-1 Generator's;
+     request's tokens must equal the sequential batch-1 Generator's.
+     Phase Beam: generate(method="beam", beam_size=4) at phase A's feeds
+     (8 sources, so the step runs at 32 rows): beam 1 must give greedy's
+     tokens, beam 4's tokens and scores must equal the same search under
+     Generator(mode="interpret") (scores within 1e-5), best beam first,
+     and its launches the gate's prediction.  Every serving program of
+     [4] and [5] runs through the Executor's jit path: eagerly at a
+     signature's first call, captured as a CUDA graph at its second,
+     replayed after; each phase prints the graphs it captured (and their
+     seconds), replayed and warmed up, and its peak memory;
   5. serving through the Scheduler, phase S: paged_kv=True (the pool on
      the card, the rewritten step program) on transformer.base(), 2048-
      token prompt windows with ragged prompts of 1024-2048 tokens, a
@@ -61,7 +70,11 @@ catches its own failure:
      Launch counts are set to 0 before and read after and must equal the
      gate's prediction from the scheduler's own step and prefill counts;
      the profiles of phases B and S give #6's and #7's card ms per step
-     and share of the busy time;
+     and share of the busy time; before the counted run, uncounted
+     traffic of the same shapes on other prompts captures its programs,
+     and after it the captured step at one signature is held against an
+     eager replay of its ops on the same feed (logits within 1e-5, equal
+     launch counts);
      every request's tokens must equal the sequential Generator's; the
      pool must drain to 0 blocks; tokens/s, TTFT, ms per decode step and
      a profile of a few steps are printed.  Then, on the same weights,
@@ -74,15 +87,18 @@ catches its own failure:
      scope); V/self, the draft is the target's own configuration, so
      every proposal must be accepted.  Reported: rounds, proposals,
      acceptance, tokens per row and round, host ms per round, and, from a
-     profile of 4 rounds, card busy per round split into the draft steps,
-     the verify window and its composite self-attention;
+     profile of 4 rounds, card busy per round split into the draft steps
+     and the verify window (a replayed graph runs no Python, so a range
+     around a function inside a captured program would see nothing);
      C, chunked prefill (build_decode(chunk_len=512), prefill_chunk 512):
-     4 prompts of 256-512 tokens prefill whole and decode; after their
-     2nd step 4 of 1024-2048 arrive and run 512-row windows, one per
-     iteration after the decode step; one of them is exported after its
-     first window and imported into a second Scheduler.  Reported: chunk
-     passes and ms per pass, the gaps between decode steps, TTFT, and card
-     busy per pass;
+     after uncounted warm-up traffic of the same shapes, 4 prompts of
+     256-512 tokens prefill whole and decode; after their 2nd step 4 of
+     1024-2048 arrive and run 512-row windows, one per iteration after the
+     decode step; one of them is exported after its first window and
+     imported into a second Scheduler.  Reported: chunk passes and ms per
+     pass, the gaps between decode steps, TTFT, and card busy per pass;
+     then the C10 line: C's longest decode gap against S's longest
+     monolithic prefill iteration, in the same run;
      H, the two-tier handoff: a prefill tier (prefill_chunk 512, blocks of
      16) runs 4 prompts with prefill_only=True and a decode tier with
      blocks of 32 resumes each from its record (kv_payload,
@@ -176,6 +192,9 @@ T2_BATCH, T2_WARMUP, T2_STEPS, T2_PROFILED = 128, 2, 5, 2
 LOSS_RTOL_F32 = 1e-4          # T1: kernels vs composite, float32
 LOSS_RTOL_BF16 = 2e-2         # T2: first loss, kernels vs composite
 LSE_TOL = 1e-4                # flash forward's float32 lse vs plain
+PARITY_TOL = 1e-5             # captured vs eager replay of S's step logits
+BEAM_K = 4                    # phase Beam's beam_size
+BEAM_TOL = 1e-5               # phase Beam: scores, captured vs interpret
 # phase S: the Scheduler over the device pool
 S_WINDOW, S_PROMPTS, S_MAX_LEN = 2048, (1024, 2048), 4096
 S_BLOCK, S_SLOTS, S_PROFILED = 16, 8, 6
@@ -336,18 +355,25 @@ class Timer:
         return sum(b - a for _, a, b in mine) / reps / 1e3
 
 
-def device_ops_of_one_call(fn):
+def device_ops_of_one_call(fn, tries=3):
     """The names of the operations the card ran for one call of fn (after
-    a warm-up call), from a torch.profiler trace."""
+    a warm-up call), from a torch.profiler trace.  A trace that holds no
+    operation of the card at all (the profiler saw nothing, which happens
+    now and then) is taken again, up to `tries` times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [name for name, _, _ in device_spans(prof)]
+    names = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [name for name, _, _ in device_spans(prof)]
+        if names:
+            break
+    return names
 
 
 # ------------------------------------------------------- kernel checks
@@ -1035,6 +1061,7 @@ def run_phase(name, spec, scope, card):
     torch.cuda.reset_peak_memory_stats()
     mha_block.launches = 0
     flash_decode.launches = 0
+    g0 = graph_stats()
     t0 = time.perf_counter()
     tokens = gen.generate(feed, NEW_TOKENS)
     torch.cuda.synchronize()
@@ -1042,6 +1069,7 @@ def run_phase(name, spec, scope, card):
     counts = {"mha_block": mha_block.launches,
               "flash_decode": flash_decode.launches}
     peak = torch.cuda.max_memory_allocated()
+    graphs = graph_stats(g0)
 
     if not (tokens.dtype == np.int64 and tokens.ndim == 2
             and tokens.shape[0] == BATCH and 1 <= tokens.shape[1] <= NEW_TOKENS
@@ -1103,7 +1131,7 @@ def run_phase(name, spec, scope, card):
         "launches": counts, "generate_s": gen_s,
         "tokens_per_s": tokens.size / gen_s,
         "prefill_ms": statistics.median(prefill_ms), "step_ms": step_ms,
-        "step_profile": profile_steps,
+        "step_profile": profile_steps, "graphs": graphs,
         "peak_mem_mib": peak / 2 ** 20,
         "logits_max_abs_diff_vs_composite": errs,
         "greedy_agreement_vs_composite": agree, "card": card,
@@ -1113,7 +1141,7 @@ def run_phase(name, spec, scope, card):
         f"{result['prefill_ms']:.2f} ms, {step_ms:.3f} ms/step, peak "
         f"{result['peak_mem_mib']:.0f} MiB  [{card}]")
     log(f"    launches {counts}; logits vs composite {errs}; greedy "
-        f"agreement {agree:.3f}")
+        f"agreement {agree:.3f}; CUDA graphs in generate {graphs}")
     log_profile(profile_steps)
     if name == "A":
         result["scheduler"], sched_counts = serve_dense(spec, scope, feed,
@@ -1134,7 +1162,8 @@ def log_profile(prof):
 
 
 def drive_main_path(card):
-    """Phase 4: transformer-base served through decode.Generator."""
+    """Phase 4: transformer-base served through decode.Generator, greedy
+    (A, B) and beam search (Beam)."""
     from paddle_tpu_torch import Scope
     from paddle_tpu_torch.models import transformer
 
@@ -1147,7 +1176,92 @@ def drive_main_path(card):
         results.append(res)
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
+    res, counts = phase_beam(card, scope)
+    results.append(res)
+    for k, n in counts.items():
+        launches[k] = launches.get(k, 0) + n
     return results, launches, scope
+
+
+def phase_beam(card, scope):
+    """Beam search through decode.Generator.generate(method="beam") on
+    transformer.base() in float32, at phase A's feeds (batch 8, 256-token
+    sources, prefixes of 1-8 in a 256-slot cache) with beam_size BEAM_K:
+    the step program runs at 8 x BEAM_K rows, captured, with #1
+    (mha_decode) for its self- and cross-attention.  Beam 1 must give
+    greedy's tokens; beam BEAM_K's tokens and scores must equal the same
+    search with mode="interpret" (every program replayed eagerly, on the
+    card; scores within BEAM_TOL), best beam first.  Launches: 2 #1 a
+    layer for the prefill and 2 a layer a step."""
+    from paddle_tpu_torch import CUDAPlace, decode
+    from paddle_tpu_torch.models import transformer
+
+    prefix_len, prefix_range, max_len = PHASES["A"]
+    spec = decode_spec(transformer.base(), prefix_len, max_len)
+    n_layer = sum(1 for s in spec.states if s.feed.startswith("cache_k_"))
+    vocab = spec.prefill_program.global_block().var("src_word_emb").shape[0]
+    feed, _ = make_feed(np.random.RandomState(SEED + ord("A")), prefix_len,
+                        prefix_range, vocab)
+    place = CUDAPlace(0)
+    gen = decode.Generator(spec, scope=scope, place=place)
+    greedy = gen.generate(feed, NEW_TOKENS, eos_id=-1)
+    one, _ = gen.generate(feed, NEW_TOKENS, method="beam", beam_size=1,
+                          eos_id=-1)
+    if not np.array_equal(one[:, 0], greedy):
+        raise AssertionError("phase Beam: beam 1 differs from greedy")
+    gen.generate(feed, 2, method="beam", beam_size=BEAM_K, eos_id=-1)
+
+    # the main path, counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    g0 = graph_stats()
+    t0 = time.perf_counter()
+    tokens, scores = gen.generate(feed, NEW_TOKENS, method="beam",
+                                  beam_size=BEAM_K, eos_id=-1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    graphs = graph_stats(g0)
+    peak = torch.cuda.max_memory_allocated()
+    steps = tokens.shape[-1] - 1
+    expect = dict.fromkeys(SERVING_KERNELS, 0)
+    expect["mha_block"] = 2 * n_layer * (1 + steps)
+    if counts != expect:
+        raise AssertionError(f"phase Beam: launches {counts}, the gate "
+                             f"predicts {expect} for {steps} steps")
+    if tokens.shape != (BATCH, BEAM_K, NEW_TOKENS) \
+            or not (np.diff(scores, axis=1) <= 0).all():
+        raise AssertionError(f"phase Beam: tokens {tokens.shape}, scores "
+                             f"{scores.tolist()}")
+    eager = decode.Generator(spec, scope=scope, place=place,
+                             mode="interpret")
+    t0 = time.perf_counter()
+    e_tokens, e_scores = eager.generate(feed, NEW_TOKENS, method="beam",
+                                        beam_size=BEAM_K, eos_id=-1)
+    torch.cuda.synchronize()
+    eager_wall = time.perf_counter() - t0
+    err = float(np.abs(scores - e_scores).max())
+    if not (np.array_equal(tokens, e_tokens) and err <= BEAM_TOL):
+        raise AssertionError(f"phase Beam: captured vs interpret tokens "
+                             f"equal {np.array_equal(tokens, e_tokens)}, "
+                             f"scores {err}")
+    res = {"phase": "Beam", "batch": BATCH, "beam_size": BEAM_K,
+           "rows": BATCH * BEAM_K, "src_len": SRC_LEN, "max_len": max_len,
+           "tokens": list(tokens.shape), "launches": counts,
+           "generate_s": wall, "tokens_per_s": BATCH * NEW_TOKENS / wall,
+           "beam_tokens_per_s": BATCH * BEAM_K * NEW_TOKENS / wall,
+           "interpret_generate_s": eager_wall,
+           "scores_max_abs_diff_vs_interpret": err, "graphs": graphs,
+           "peak_mem_mib": peak / 2 ** 20, "beam1_equals_greedy": True,
+           "card": card}
+    log(f"  phase Beam: {BATCH}x{BEAM_K} beams x {NEW_TOKENS} tokens in "
+        f"{wall:.3f} s ({res['tokens_per_s']:.1f} tokens/s of the best "
+        f"beam, {res['beam_tokens_per_s']:.1f} over every beam; "
+        f"mode=\"interpret\" {eager_wall:.3f} s), scores vs interpret "
+        f"{err}, beam 1 = greedy, launches {counts}, CUDA graphs {graphs}, "
+        f"peak {res['peak_mem_mib']:.0f} MiB  [{card}]")
+    return res, counts
 
 
 def decode_spec(cfg, prefix_len, max_len, **windows):
@@ -1181,6 +1295,19 @@ def launch_counts():
             "flash_decode": flash_decode.launches,
             "flash_decode_paged": flash_decode_paged.launches,
             "flash_attention_fwd": flash_attention.launches}
+
+
+def graph_stats(since=None):
+    """The CUDA graphs captured (and the seconds spent capturing them),
+    replayed and warmed up eagerly since `since` (a graph_stats() dict) or
+    since the last reset."""
+    from paddle_tpu_torch.framework import cuda_graph
+
+    now = dict(cuda_graph.STATS)
+    if since is not None:
+        now = {k: v - since[k] for k, v in now.items()}
+    now["capture_s"] = round(now["capture_s"], 4)
+    return now
 
 
 def _top2_gap(gen, feed, tokens, t):
@@ -1232,13 +1359,17 @@ def serve_dense(spec, scope, feed, card):
     sched = serving.Scheduler(spec, scope=scope, place=place,
                               max_batch=BATCH)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _zero_counts()
+    g0 = graph_stats()
     t0 = time.perf_counter()
     reqs = [sched.submit(f, NEW_TOKENS, eos_id=-1) for f in feeds]
     sched.run_until_idle()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
+    graphs = graph_stats(g0)
+    peak = torch.cuda.max_memory_allocated()
     c = sched.counters
     expect = dict.fromkeys(SERVING_KERNELS, 0)
     expect["mha_block"] = 2 * n_layer * (c["prefill_batches"] + c["steps"])
@@ -1252,19 +1383,23 @@ def serve_dense(spec, scope, feed, card):
     res = {"paged_kv": False, "requests": len(reqs), "launches": counts,
            "steps": c["steps"], "prefill_batches": c["prefill_batches"],
            "tokens_per_s": len(reqs) * NEW_TOKENS / wall,
+           "graphs": graphs, "peak_mem_mib": peak / 2 ** 20,
            "requests_equal_to_sequential": equal, "card": card}
     log(f"    scheduler (paged_kv=False): {len(reqs)}x{NEW_TOKENS} tokens, "
         f"{res['tokens_per_s']:.1f} tokens/s, {c['steps']} steps, launches "
-        f"{counts}; {equal}/{len(reqs)} requests equal the sequential "
-        f"Generator  [{card}]")
+        f"{counts}; CUDA graphs {graphs}, peak "
+        f"{res['peak_mem_mib']:.0f} MiB; {equal}/{len(reqs)} requests equal "
+        f"the sequential Generator  [{card}]")
     return res, counts
 
 
 class Recorder:
     """Drives sched.step() and keeps, for every iteration, its host ms,
-    its end on the host clock, the deltas of the scheduler's counters and
-    the tokens each of `reqs` emitted in it (step() ends on the argmax's
-    copy to the host, so the time is the iteration's)."""
+    its end on the host clock, the deltas of the scheduler's counters, the
+    tokens each of `reqs` emitted in it (step() ends on the argmax's copy
+    to the host, so the time is the iteration's) and how many programs it
+    ran at a signature seen for the first or second time (an eager
+    warm-up or a CUDA graph capture)."""
 
     KEYS = ("steps", "spec_rounds", "draft_steps", "prefill_batches",
             "chunk_passes", "replays", "adopted")
@@ -1276,12 +1411,15 @@ class Recorder:
         c = self.sched.counters
         before = {k: c[k] for k in self.KEYS}
         toks = [len(r.tokens) for r in self.reqs]
+        g0 = graph_stats()
         t0 = time.perf_counter()
         did = self.sched.step()
         t1 = time.perf_counter()
+        g = graph_stats(g0)
         rec = {k: c[k] - before[k] for k in self.KEYS}
         rec.update(ms=(t1 - t0) * 1e3, end=t1, emitted=[
-            len(r.tokens) - n for r, n in zip(self.reqs, toks)])
+            len(r.tokens) - n for r, n in zip(self.reqs, toks)],
+            first_time=g["captures"] + g["warmups"])
         self.log.append(rec)
         return did
 
@@ -1309,6 +1447,32 @@ def _request_feeds(rng, n, vocab):
         "prefix_lens": np.asarray(
             [rng.randint(S_PROMPTS[0], S_PROMPTS[1] + 1)], np.int64),
     } for _ in range(n)]
+
+
+def warm_up(sched, groups, new_tokens=3):
+    """Uncounted traffic of the counted run's shapes, on other prompts:
+    each group of feeds is submitted at once and served to the end, so
+    that every program signature it reaches runs once eagerly and, seen
+    again, is captured.  Then the prefix registry is evicted, the pool
+    must be empty, and the scheduler's counters and samples start from 0.
+    Returns the graphs captured and warmed up, and their seconds."""
+    g0 = graph_stats()
+    t0 = time.perf_counter()
+    for group in groups:
+        for f in group:
+            sched.submit(f, new_tokens, eos_id=-1)
+        sched.run_until_idle()
+    torch.cuda.synchronize()
+    sched.pool.assert_quiesced()
+    for k in sched.counters:
+        sched.counters[k] = 0
+    sched.counters["peak_occupancy"] = 0.0
+    sched._ttft_samples.clear()
+    sched._chunk_samples.clear()
+    sched.pool.hits = sched.pool.misses = sched.pool.evictions = 0
+    out = graph_stats(g0)
+    out["wall_s"] = round(time.perf_counter() - t0, 3)
+    return out
 
 
 def phase_s(card, scope):
@@ -1345,10 +1509,16 @@ def phase_s(card, scope):
         order.append(feeds[i])
         return sched.submit(feeds[i], NEW_TOKENS, eos_id=-1)
 
+    warm = _request_feeds(np.random.RandomState(_phase_seed("S/warm")), 18,
+                          vocab)
+    warmed = warm_up(sched, [warm[:8], warm[8:16], warm[16:17],
+                             warm[17:]])
+
     # the main path, counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
+    g0 = graph_stats()
     t0 = time.perf_counter()
     reqs = [submit(i) for i in range(7)]
     tick.until("steps", 2)
@@ -1364,6 +1534,7 @@ def phase_s(card, scope):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
+    graphs = graph_stats(g0)
     peak = torch.cuda.max_memory_allocated()
     st = sched.stats()
 
@@ -1393,6 +1564,8 @@ def phase_s(card, scope):
     prof = profile_calls(tick, S_PROFILED,
                          kernels=("flash_decode_paged", "mha_block"))
     sched.run_until_idle()
+    parity = capture_parity(sched, feeds[7:15])
+    sched.run_until_idle()
     pool_end = sched.pool.assert_quiesced()
 
     gen = decode.Generator(spec, scope=scope, place=place)
@@ -1413,6 +1586,7 @@ def phase_s(card, scope):
            "decode_steps_timed": len(decode_ms),
            "prefill_iteration_ms": prefill_ms,
            "step_profile": prof, "peak_mem_mib": peak / 2 ** 20,
+           "graphs": graphs, "warm_up": warmed, "capture_parity": parity,
            "peak_occupancy": st["peak_occupancy"], "pool_end": pool_end,
            "requests_equal_to_sequential": equal, "card": card}
     log(f"  phase S: {len(reqs)}x{NEW_TOKENS} tokens in {wall:.3f} s "
@@ -1425,10 +1599,66 @@ def phase_s(card, scope):
         f"{sched.pool.num_blocks} blocks  [{card}]")
     log(f"    {steps} steps, {batches} prefill batches, prefix hits "
         f"{st['pool']['prefix_hits']}, replays {st['replays']}; launches "
-        f"{counts}; {equal}/{len(reqs)} requests equal the sequential "
+        f"{counts}; CUDA graphs {graphs} (warm-up traffic before: "
+        f"{warmed}); {equal}/{len(reqs)} requests equal the sequential "
         f"Generator")
     log_profile(prof)
+    log(f"    capture parity at one step signature (8 rows): {parity}")
     return res, counts
+
+
+def capture_parity(sched, feeds):
+    """S's paged step at one signature (8 prefix hits decoding), run as
+    the Scheduler runs it (a replay of its captured graph) and as an eager
+    replay of the same program's ops on the same feed: the logits' max abs
+    difference (expected 0; fails above PARITY_TOL) and each run's launch
+    counts (must be equal).  Both runs append the same rows at the same
+    cursors, so the pool is left as one run leaves it."""
+    from paddle_tpu_torch.framework.executor import program_as_function
+
+    for f in feeds:
+        sched.submit(f, 6, eos_id=-1)
+    for _ in range(4):
+        sched.step()
+    batch = list(sched._active)
+    if len(batch) != len(feeds):
+        raise AssertionError(f"phase S: {len(batch)} of {len(feeds)} "
+                             "requests decoding for the parity check")
+    spec = sched.spec
+    fetch = spec.step_fetches()
+    feed = sched._window_feed(
+        spec, batch, np.asarray([r._last_tok for r in batch]),
+        [r._cursor for r in batch], sched._carried + sched._const,
+        "_states", sched._paged, tag="step")
+    eager = program_as_function(sched._paged_step_program(),
+                                sched._gen.scope, fetch, sched.device,
+                                mode="interpret")
+
+    def counted(run):
+        before = launch_counts()
+        with torch.inference_mode():
+            outs = run()
+        torch.cuda.synchronize()
+        after = launch_counts()
+        return outs, {k: after[k] - before[k] for k in after}
+
+    with torch.inference_mode():
+        for _ in range(3):   # at this signature: warm-up, capture, replay
+            sched._run_paged_exec(feed, fetch)
+    g0 = graph_stats()
+    cap, cap_counts = counted(lambda: sched._run_paged_exec(feed, fetch))
+    replayed = graph_stats(g0)
+    ref, ref_counts = counted(lambda: dict(zip(fetch, eager(feed))))
+    err = (cap[spec.step_logits].float()
+           - ref[spec.step_logits].float()).abs().max().item()
+    res = {"rows": len(batch), "max_abs_diff": err,
+           "captured_launches": cap_counts, "eager_launches": ref_counts,
+           "replayed": replayed["replays"] == 1
+           and replayed["captures"] == 0}
+    if not (err <= PARITY_TOL and cap_counts == ref_counts
+            and res["replayed"]):
+        raise AssertionError(f"phase S: capture parity {res}")
+    return res
 
 
 # ------------------------------- the Scheduler's spec, chunk, handoff paths
@@ -1541,7 +1771,6 @@ def phase_v(card, scope, leg):
     draft teacher-forced in lockstep)."""
     from paddle_tpu_torch import CUDAPlace, decode, serving
     from paddle_tpu_torch.models import transformer
-    from paddle_tpu_torch.ops import attention_ops
 
     name = f"V/{leg}"
     cfg = transformer.base()
@@ -1574,6 +1803,7 @@ def phase_v(card, scope, leg):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
+    g0 = graph_stats()
     t0 = time.perf_counter()
     for i in range(7):
         submit(i)
@@ -1588,6 +1818,7 @@ def phase_v(card, scope, leg):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
+    graphs = graph_stats(g0)
     peak = torch.cuda.max_memory_allocated()
     st = sched.stats()
     expect = _v_expect(st, n_layer, d_layer)
@@ -1614,16 +1845,16 @@ def phase_v(card, scope, leg):
             log(f"    DIVERGED {DIVERGED[-1]}")
 
     # a few rounds of 8 prefix hits under the profiler (uncounted): card
-    # busy split into the draft steps, the verify window and its
-    # composite self-attention
+    # busy split into the draft steps and the verify window
     for i in range(7):
-        sched.submit(feeds[i], V_PROFILED * SPEC_K + 2, eos_id=-1)
-    sched.submit(feeds[0], V_PROFILED * SPEC_K + 2, eos_id=-1)
+        sched.submit(feeds[i], 2 * V_PROFILED * SPEC_K + 2, eos_id=-1)
+    sched.submit(feeds[0], 2 * V_PROFILED * SPEC_K + 2, eos_id=-1)
     sched.step()
     prof = profile_labelled(sched.step, V_PROFILED, [
         (sched, "_run_draft_step", "draft"),
-        (sched, "_run_verify", "verify"),
-        (attention_ops, "paged_attention_reference", "verify_attention")])
+        (sched, "_run_verify", "verify")])
+    # and unlabelled (no synchronising wrapper): the idle share
+    plain = profile_calls(sched.step, V_PROFILED // 2)
     sched.run_until_idle()
     pool_end = sched.pool.assert_quiesced()
 
@@ -1652,6 +1883,7 @@ def phase_v(card, scope, leg):
            "ttft_ms": st["ttft_ms"],
            "round_ms": statistics.median(round_ms) if round_ms else None,
            "rounds_timed": len(round_ms), "round_profile": prof,
+           "round_profile_unlabelled": plain, "graphs": graphs,
            "peak_mem_mib": peak / 2 ** 20, "pool_end": pool_end,
            "requests_equal_to_sequential": equal, "card": card}
     log(f"  phase {name}: {len(reqs)}x{NEW_TOKENS} tokens in {wall:.3f} s "
@@ -1664,8 +1896,9 @@ def phase_v(card, scope, leg):
     log(f"    {st['steps']} target launches, {st['draft_steps']} draft steps, "
         f"{st['prefill_batches']} prefill batches, prefix hits "
         f"{st['pool']['prefix_hits']}, replays {st['replays']}; launches "
-        f"{counts}; {equal}/{len(reqs)} requests equal the sequential "
-        f"Generator")
+        f"{counts}; CUDA graphs {graphs}; {equal}/{len(reqs)} requests "
+        f"equal the sequential Generator")
+    log_profile(plain)
     if prof is not None:
         log(f"    profiled rounds (8 rows): card busy "
             f"{prof['busy_ms_per_call']:.3f} ms per round, idle share "
@@ -1699,7 +1932,6 @@ def phase_c(card, scope, spec):
     The second long request is exported after its first window and
     imported into a second Scheduler, where it re-chunks from 0."""
     from paddle_tpu_torch import CUDAPlace, decode, serving
-    from paddle_tpu_torch.ops import attention_ops
 
     n_layer = sum(1 for s in spec.states if s.feed.startswith("cache_k_"))
     vocab = spec.prefill_program.global_block().var("src_word_emb").shape[0]
@@ -1717,9 +1949,19 @@ def phase_c(card, scope, spec):
                                  paged_kv=True, prefill_chunk=C_CHUNK)
 
     a = scheduler()
-    # the paged rewrite of the chunk window is built on its first use;
-    # build it now, so that this one-time host cost stays out of the gaps
+    # the paged rewrite of the chunk window is built on its first use, and
+    # each program is run eagerly, then captured, at its first two calls
+    # of a signature: warm these one-time host costs up on other prompts,
+    # so that they stay out of the gaps
     a._chunk_step_program()
+    warm = _request_feeds(np.random.RandomState(_phase_seed("C/warm")), 12,
+                          vocab)
+    for f in warm[:4] + warm[6:10]:
+        f["prefix_lens"] = np.asarray([rng.randint(C_SHORT[0],
+                                                   C_SHORT[1] + 1)], np.int64)
+    # (16 tokens: the short prompts still decode when the long ones
+    # graduate, so that the steps reach the 8-row bucket)
+    warmed = warm_up(a, [warm[:6], warm[6:]], new_tokens=16)
     reqs = []
     tick = Recorder(a, reqs)
 
@@ -1727,6 +1969,7 @@ def phase_c(card, scope, spec):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
+    g0 = graph_stats()
     t0 = time.perf_counter()
     reqs += [a.submit(f, NEW_TOKENS, eos_id=-1) for f in short]
     tick.until("steps", 2)
@@ -1748,6 +1991,7 @@ def phase_c(card, scope, spec):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
+    graphs = graph_stats(g0)
     peak = torch.cuda.max_memory_allocated()
     st, st_b = a.stats(), b.stats()
     expect = _add(_c_expect(st, n_layer), _c_expect(st_b, n_layer))
@@ -1762,19 +2006,26 @@ def phase_c(card, scope, spec):
     # that ran a decode step, from the long arrivals until the last
     # chunked prompt graduated
     last_pass = max(i for i, r in enumerate(tick.log) if r["chunk_passes"])
-    ends = [r["end"] for r in tick.log[arrive:last_pass + 2] if r["steps"]]
-    gaps = [(b_ - a_) * 1e3 for a_, b_ in zip(ends, ends[1:])]
+    stepped = [r for r in tick.log[arrive:last_pass + 2] if r["steps"]]
+    gaps = [(b_["end"] - a_["end"]) * 1e3
+            for a_, b_ in zip(stepped, stepped[1:])]
+    # a gap whose iteration ran a program at a new signature (eagerly, or
+    # capturing it)
+    first_time = [bool(r["first_time"]) for r in stepped[1:]]
     pass_ms = a.stats()["prefill_chunk_ms"]
 
     # chunk passes of two fresh long prompts under the profiler
-    # (uncounted): card busy per pass and its composite self-attention
+    # (uncounted): card busy per pass
     fresh = _request_feeds(rng, 2, vocab)
     for f in fresh:
         a.submit(f, 2, eos_id=-1)
     a.step()
-    prof = profile_labelled(a.step, V_PROFILED, [
-        (a, "_run_chunk", "chunk"),
-        (attention_ops, "paged_attention_reference", "chunk_attention")])
+    prof = profile_labelled(a.step, V_PROFILED, [(a, "_run_chunk", "chunk")])
+    # and unlabelled (no synchronising wrapper): the idle share
+    for f in _request_feeds(rng, 2, vocab):
+        a.submit(f, 2, eos_id=-1)
+    a.step()
+    plain = profile_calls(a.step, 2)
     a.run_until_idle()
     pool_end = a.pool.assert_quiesced()
     b.pool.assert_quiesced()
@@ -1795,11 +2046,15 @@ def phase_c(card, scope, spec):
            "chunk_passes": st["chunk_passes"] + st_b["chunk_passes"],
            "chunk_pass_ms": pass_ms,
            "decode_gap_ms_max": max(gaps), "decode_gap_ms": gaps,
+           "decode_gap_first_time": first_time,
+           "decode_gap_ms_max_steady": max(
+               [g for g, f in zip(gaps, first_time) if not f], default=None),
            "decode_step_ms": statistics.median(
                r["ms"] for r in tick.pure("steps")),
            "ttft_ms": st["ttft_ms"], "ttft_long_ms": ttft_long,
            "wall_s": wall, "peak_mem_mib": peak / 2 ** 20,
-           "pass_profile": prof, "pool_end": pool_end,
+           "pass_profile": prof, "pass_profile_unlabelled": plain,
+           "graphs": graphs, "warm_up": warmed, "pool_end": pool_end,
            "requests_equal_to_sequential": equal, "card": card}
     log(f"  phase C: {len(served)}x{NEW_TOKENS} tokens in {wall:.3f} s, "
         f"{res['chunk_passes']} chunk passes of {C_CHUNK} rows "
@@ -1809,8 +2064,11 @@ def phase_c(card, scope, spec):
         f"{res['decode_step_ms']:.3f} ms, TTFT {st['ttft_ms']}, long "
         f"prompts' TTFT {[round(t, 1) for t in ttft_long]} ms, peak "
         f"{res['peak_mem_mib']:.0f} MiB  [{card}]")
-    log(f"    launches {counts}; {equal}/{len(served)} requests equal the "
+    log(f"    launches {counts}; CUDA graphs {graphs} (warm-up traffic "
+        f"before: {warmed}); gaps whose iteration ran a program at a new "
+        f"signature: {first_time}; {equal}/{len(served)} requests equal the "
         f"sequential Generator (one exported mid-prefill)")
+    log_profile(plain)
     if prof is not None:
         log(f"    profiled chunk passes: card busy "
             f"{prof['busy_ms_per_call']:.3f} ms each, idle share "
@@ -1853,7 +2111,9 @@ def phase_h(card, scope, spec):
 
     # the main path, counted
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _zero_counts()
+    g0 = graph_stats()
     t0 = time.perf_counter()
     handles = [pre.submit(f, NEW_TOKENS, eos_id=-1, prefill_only=True)
                for f in feeds]
@@ -1877,6 +2137,8 @@ def phase_h(card, scope, spec):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
+    graphs = graph_stats(g0)
+    peak = torch.cuda.max_memory_allocated()
     st_p, st_d = pre.stats(), dec.stats()
     expect = _add(_c_expect(st_p, n_layer), _c_expect(st_d, n_layer))
     if counts != expect:
@@ -1897,6 +2159,7 @@ def phase_h(card, scope, spec):
            "prompt_rows": [int(f["prefix_lens"][0]) for f in feeds],
            "export_ms": spans["export"], "adopt_ms": spans["adopt"],
            "ttft_ms": st_p["ttft_ms"], "wall_s": wall, "pool_end": pool_end,
+           "graphs": graphs, "peak_mem_mib": peak / 2 ** 20,
            "requests_equal_to_sequential": equal, "card": card}
     log(f"  phase H: {len(moved)} requests handed off ({st_p['chunk_passes']} "
         f"chunk passes on the prefill tier, {st_d['steps']} steps on the "
@@ -1906,9 +2169,24 @@ def phase_h(card, scope, spec):
         f"{[round(ms, 2) for ms in spans['export']]} ms, adopt "
         f"{[round(ms, 2) for ms in spans['adopt']]} ms, prefill-tier TTFT "
         f"{st_p['ttft_ms']}  [{card}]")
-    log(f"    launches {counts}; {equal}/{len(moved)} requests equal the "
-        f"sequential Generator")
+    log(f"    launches {counts}; CUDA graphs {graphs}, peak "
+        f"{res['peak_mem_mib']:.0f} MiB; {equal}/{len(moved)} requests equal "
+        f"the sequential Generator")
     return res, counts
+
+
+def c10_line(phases, card):
+    """ROADMAP C10's check, on a line of its own: phase C's longest gap
+    between decode steps against phase S's longest monolithic prefill
+    iteration (7-8 prompts), in the same run."""
+    by = {p["phase"]: p for p in phases if "phase" in p}
+    gap = by["C"]["decode_gap_ms_max"]
+    steady = by["C"]["decode_gap_ms_max_steady"]
+    prefill = max(by["S"]["prefill_iteration_ms"])
+    log(f"  C10: phase C's longest decode gap {gap:.2f} ms (without the "
+        f"iterations that ran a program at a new signature: {steady} ms) "
+        f"vs phase S's longest monolithic prefill iteration {prefill:.2f} "
+        f"ms: {'bounded' if gap < prefill else 'NOT bounded'}  [{card}]")
 
 
 def drive_scheduler_paths(card, scope):
@@ -2688,6 +2966,7 @@ def main():
     more, more_counts = drive_scheduler_paths(card, scope)
     phases += more
     counts = _add(counts, more_counts)
+    c10_line(phases, card)
     del scope
     torch.cuda.empty_cache()
     lap("[5]")

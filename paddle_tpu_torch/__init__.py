@@ -2,8 +2,10 @@
 
 Same Fluid contract as the JAX package: `layers.*` build a Program, the
 Executor runs it, parameters live in a Scope under the same names.  Op
-lowerings are plain torch functions run eagerly; the attention kernels
-are CUDA C++ for Hopper (sm_90a) in csrc/.  This package imports neither
+lowerings are plain torch functions, run eagerly or, on the Executor's
+jit path (which decode.Generator and serving.Scheduler take), recorded
+into CUDA graphs on the card and replayed; the attention kernels are
+CUDA C++ for Hopper (sm_90a) in csrc/.  This package imports neither
 jax nor paddle_tpu.
 
 The first slice serves transformer-base through decode.Generator:

@@ -11,10 +11,16 @@ A model describes generation as TWO programs over one shared scope
     single-query over them.
 
 GenerationSpec is the contract between the builders and this driver;
-Generator owns the host loop (greedy argmax; beam search waits for the
-`beam_search` op).  Each program runs as a replay of its ops
-(framework.executor.program_as_function) on the Generator's place, under
-torch.inference_mode().
+Generator owns the host loop: greedy argmax, or beam search driven by the
+per-step `beam_search` op with the caches reordered on beam hops by one
+gather (kv_cache.gather_beams).  Each program runs through
+framework.executor.program_as_function on the Generator's place, under
+torch.inference_mode(), one function per (tag, feed shapes and dtypes,
+flags.trace_signature()) as in the JAX package: on the card a step is
+captured as a CUDA graph at its second call and replayed after.  So that
+the graph reads the caches where they lie, the decode states live in the
+Generator's own buffers (one per name, shape and dtype), which every
+prefill refills in place.
 """
 
 from __future__ import annotations
@@ -155,12 +161,29 @@ class Generator:
     tables, or every weight when generating from scratch) are initialized
     from the startup programs."""
 
-    def __init__(self, spec: GenerationSpec, scope=None, place=None):
+    def __init__(self, spec: GenerationSpec, scope=None, place=None,
+                 mode="jit"):
         self.spec = spec
         self.scope = scope if scope is not None else Scope()
         self.device = as_device(place)
-        self._fns = {}  # program tag -> replay function
+        # "jit": programs captured as CUDA graphs on the card; "interpret":
+        # their ops replayed eagerly at every call
+        self.mode = mode
+        # (tag, feed shapes and dtypes, trace signature) -> replay function
+        self._fns = {}
+        self._slots = {}   # (state, shape, dtype) -> the state's buffer
+        self._pool = None
         self._ensure_vars()
+
+    def graph_pool(self):
+        """The memory pool every CUDA graph of this Generator (and of a
+        Scheduler over it) allocates from: one pool, safe because replays
+        are serial on one stream and each graph's outputs are copied out
+        of it, or are the caller's own tensors written in place, before
+        another graph replays.  None on the CPU."""
+        if self._pool is None and self.device.type == "cuda":
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
 
     def _ensure_vars(self):
         """Run every startup program of the spec (prefill, step, verify,
@@ -181,17 +204,37 @@ class Generator:
 
     def _run(self, tag, program, fetch_names, feed):
         """Replay `program` with `feed` (name -> array or tensor) over the
-        scope; returns {fetch_name: tensor}.  One replay function per tag
-        ("prefill", "step", "encode")."""
-        fn = self._fns.get(tag)
+        scope; returns {fetch_name: tensor}.  One function per (tag, feed
+        shapes and dtypes, flags.trace_signature()), the JAX package's key
+        (decode/__init__.py:223-236)."""
+        from .. import flags
+
+        sig = tuple((n, tuple(v.shape), str(v.dtype))
+                    for n, v in sorted(feed.items()))
+        key = (tag, sig, flags.trace_signature())
+        fn = self._fns.get(key)
         if fn is None:
             fn = program_as_function(program, self.scope, fetch_names,
-                                     self.device)
-            self._fns[tag] = fn
+                                     self.device,
+                                     graph_pool=self.graph_pool(),
+                                     mode=self.mode)
+            self._fns[key] = fn
         return dict(zip(fetch_names, fn(feed)))
 
+    def _slot(self, name, shape, dtype):
+        key = (name, tuple(shape), dtype)
+        buf = self._slots.get(key)
+        if buf is None:
+            buf = self._slots[key] = torch.empty(shape, dtype=dtype,
+                                                 device=self.device)
+        return buf
+
     @torch.inference_mode()
-    def _prefill(self, feed):
+    def _prefill(self, feed, slots=True):
+        """Run the prefill program; returns (batch, states, lengths,
+        logits).  With `slots` the states are the Generator's own buffers,
+        refilled in place (an earlier prefill's states are overwritten);
+        without, fresh tensors (the Scheduler copies rows out of them)."""
         spec = self.spec
         pf = {n: np.asarray(feed[n]) for n in spec.prefill_feeds}
         batch = next(iter(pf.values())).shape[0]
@@ -201,14 +244,26 @@ class Generator:
         for s in spec.states:
             if s.init_from:
                 v = outs[s.init_from]
-                if s.pad_to is not None and v.shape[1] < s.pad_to:
-                    pad = [0, 0] * (v.dim() - 2) + [0, s.pad_to - v.shape[1]]
-                    v = torch.nn.functional.pad(v, pad)
+                rows = v.shape[1]
+                shape = (v.shape[0], max(rows, s.pad_to or 0)) \
+                    + tuple(v.shape[2:])
             else:
-                v = torch.zeros((batch,) + tuple(s.zeros or ()),
-                                dtype=dtype_to_torch(s.dtype),
-                                device=self.device)
-            states[s.feed] = v
+                v, rows = None, 0
+                shape = (batch,) + tuple(s.zeros or ())
+            dtype = v.dtype if v is not None else dtype_to_torch(s.dtype)
+            if slots:
+                buf = self._slot(s.feed, shape, dtype)
+            elif v is not None and shape == tuple(v.shape):
+                states[s.feed] = v
+                continue
+            else:
+                buf = torch.empty(shape, dtype=dtype, device=self.device)
+            if v is not None:
+                buf[:, :rows].copy_(v)
+                buf[:, rows:].zero_()
+            else:
+                buf.zero_()
+            states[s.feed] = buf
         if spec.init_lengths_from is not None:
             lengths = np.asarray(feed[spec.init_lengths_from],
                                  np.int64).reshape(batch).copy()
@@ -240,17 +295,22 @@ class Generator:
         return (self.spec.max_len is None
                 or int(np.max(lengths)) < self.spec.max_len)
 
-    def generate(self, feed, max_new_tokens, method="greedy", bos_id=None,
-                 eos_id=None):
+    def generate(self, feed, max_new_tokens, method="greedy", beam_size=4,
+                 bos_id=None, eos_id=None):
         """feed: {prefill feed name: array} (+ any step_feeds constants).
-        Returns int64 tokens [B, T] (rows padded with eos after their eos),
+
+        greedy -> int64 tokens [B, T] (rows padded with eos after their
+        eos); beam -> (tokens [B, K, T], scores [B, K]), best beam first.
         T <= max_new_tokens, bounded further by the cache's max_len."""
-        if method != "greedy":
-            raise NotImplementedError(
-                f"generation method {method!r}: the port has greedy only; "
-                "beam search waits for the beam_search op (ROADMAP A)")
         bos = self.spec.bos_id if bos_id is None else bos_id
         eos = self.spec.eos_id if eos_id is None else eos_id
+        if method == "greedy":
+            return self._greedy(feed, max_new_tokens, bos, eos)
+        if method == "beam":
+            return self._beam(feed, max_new_tokens, int(beam_size), bos, eos)
+        raise ValueError(f"unknown generation method {method!r}")
+
+    def _greedy(self, feed, max_new_tokens, bos, eos):
         batch, states, lengths, logits = self._prefill(feed)
         out = []
         finished = np.zeros(batch, bool)
@@ -270,6 +330,87 @@ class Generator:
         if not out:
             return np.zeros((batch, 0), np.int64)
         return np.stack(out, axis=1)
+
+    @torch.inference_mode()
+    def _beam(self, feed, max_new_tokens, k, bos, eos):
+        """Beam search (decode/__init__.py:_beam of the JAX package): the
+        prefill's logits fan out to the top k of their log_softmax (or all
+        beams start at bos with only beam 0 alive), each step scores the
+        top k of every beam's log_softmax and the `beam_search` op picks
+        the survivors, tokens, caches and cursors hop to their parent
+        beams, and the search stops when every beam has finished.  The
+        step runs at batch * k rows, over states tiled into the
+        Generator's buffers and reordered in place, so a captured step
+        keeps reading them where they lie."""
+        from ..ops import kv_cache, registry
+        from ..ops.beam_search_ops import top_k
+
+        spec = self.spec
+        batch, states, lengths, logits = self._prefill(feed, slots=False)
+        tiled = {}
+        for name, v in states.items():
+            buf = self._slot(name, (batch * k,) + tuple(v.shape[1:]),
+                             v.dtype)
+            buf.view((batch, k) + tuple(v.shape[1:])).copy_(
+                v[:, None].expand((batch, k) + tuple(v.shape[1:])))
+            tiled[name] = buf
+        states = tiled
+        lengths = np.repeat(lengths, k, axis=0)
+        tiled_feed = dict(feed)
+        for n in spec.step_feeds:
+            tiled_feed[n] = np.repeat(np.asarray(feed[n]), k, axis=0)
+        info = registry.get_op_info("beam_search")
+        if logits is not None:
+            top_scores, top_ids = top_k(
+                torch.log_softmax(logits.float(), dim=-1), k)
+            pre_ids = top_ids.cpu().numpy().astype(np.int64)     # [B, K]
+            pre_scores = top_scores.cpu().numpy().astype(np.float32)
+            tokens = pre_ids[..., None]
+        else:
+            pre_ids = np.full((batch, k), bos, np.int64)
+            pre_scores = np.concatenate(
+                [np.zeros((batch, 1), np.float32),
+                 np.full((batch, k - 1), -1e30, np.float32)], axis=1)
+            tokens = np.zeros((batch, k, 0), np.int64)
+        while tokens.shape[-1] < max_new_tokens and self._room(lengths):
+            if np.all(pre_ids == eos):
+                break   # every beam finished, the prefill's eos included
+            logits, states = self._step(pre_ids.reshape(-1), lengths,
+                                        states, tiled_feed)
+            lengths += 1
+            cand_scores, cand_ids = top_k(
+                torch.log_softmax(logits.float(), dim=-1), k)  # [B*K, K]
+            dev = cand_scores.device
+            cand_scores = (cand_scores.reshape(batch, k, k)
+                           + torch.as_tensor(pre_scores, device=dev)[..., None])
+            outs = registry.run_forward(
+                info,
+                {"pre_ids": [torch.as_tensor(pre_ids, device=dev)],
+                 "pre_scores": [torch.as_tensor(pre_scores, device=dev)],
+                 "ids": [cand_ids.reshape(batch, k, k)],
+                 "scores": [cand_scores]},
+                {"beam_size": k, "end_id": int(eos)})
+            sel_ids = outs["selected_ids"][0].cpu().numpy().astype(np.int64)
+            sel_scores = outs["selected_scores"][0].cpu().numpy().astype(
+                np.float32)
+            parent_t = outs["parent_idx"][0]
+            parent = parent_t.cpu().numpy().astype(np.int64)
+            # the beam hop: histories, caches and cursors follow their
+            # parent beams
+            tokens = np.concatenate(
+                [np.take_along_axis(tokens, parent[..., None], axis=1),
+                 sel_ids[..., None]], axis=-1)
+            for s in spec.states:
+                if s.update:
+                    st = states[s.feed]
+                    st.copy_(kv_cache.gather_beams(st, parent_t, batch, k))
+            lengths = np.take_along_axis(
+                lengths.reshape(batch, k), parent, axis=1).reshape(-1)
+            pre_ids, pre_scores = sel_ids, sel_scores
+        order = np.argsort(-pre_scores, axis=1)
+        tokens = np.take_along_axis(tokens, order[..., None], axis=1)
+        scores = np.take_along_axis(pre_scores, order, axis=1)
+        return tokens, scores
 
 
 def _argmax(logits, batch):

@@ -7,8 +7,12 @@ spelling and a docstring (counterpart of paddle_tpu/flags.py).
 Env override: PADDLE_TPU_<NAME-UPPERCASED>, the JAX package's spelling, so
 one environment steers both packages the same way.
 
-Only the flags the port's slices read are defined: the attention gate's
-and the serving Scheduler's.  The attention-gate
+Only the flags the port's slices read are defined: the Executor's, the
+attention gate's and the serving Scheduler's.  `executor_mode` is the
+one flag whose default differs from the JAX package's: "interpret" here,
+"jit" there, so that training keeps the eager replay until ROADMAP A3
+captures it (decode.Generator and serving.Scheduler take the jit path
+whatever the flag says).  The attention-gate
 defaults are the JAX package's (sized for TPU v5e VMEM), kept so that the
 same shapes take the same tier in both packages; an H100-derived gate is
 later work (ROADMAP A5).
@@ -117,6 +121,11 @@ def reset(name):
         flag.value = None
 
 
+DEFINE_string("executor_mode", "interpret",
+              "Executor lowering: 'jit' (segments between no_jit ops, each "
+              "captured as a CUDA graph on the card) or 'interpret' (per-op "
+              "eager replay).  The JAX package defaults to 'jit'; the port "
+              "keeps 'interpret' until training capture lands (ROADMAP A3)")
 DEFINE_string("flash_attention", "auto",
               "Attention-kernel gate: auto (kernels for tensors on the card, "
               "the composite on the CPU) | force/1 | interpret (route to the "

@@ -222,6 +222,7 @@ class Block:
             return self.vars[name]
         var = Variable(self, **kwargs)
         self.vars[var.name] = var
+        self.program._bump_version()
         return var
 
     def create_parameter(self, **kwargs):
@@ -232,6 +233,7 @@ class Block:
             return global_block.vars[name]
         param = Parameter(global_block, **kwargs)
         global_block.vars[param.name] = param
+        self.program._bump_version()
         return param
 
     def var(self, name) -> Variable:
@@ -266,6 +268,7 @@ class Block:
                   infer_shape=True):
         op = Operator(self, type, inputs, outputs, attrs)
         self.ops.append(op)
+        self.program._bump_version()
         if infer_shape:
             from ..ops import registry
 
@@ -290,6 +293,15 @@ class Program:
         self.blocks = [Block(self, 0)]
         self.current_block_idx = 0
         self.random_seed = 0
+        self._version = 0
+
+    # -- versioning (the Executor's plan cache keys off this) -------------
+    def _bump_version(self):
+        self._version += 1
+
+    @property
+    def version(self):
+        return self._version
 
     def clone(self) -> "Program":
         """Deep copy of the whole program (framework.py:442 of the JAX
@@ -297,6 +309,28 @@ class Program:
         the copy's own, so a rewrite of the copy leaves this one as it
         is."""
         return copy.deepcopy(self)
+
+    def _prune(self, targets) -> "Program":
+        """A copy that keeps only the ops needed to compute `targets`
+        (framework.py:_prune of the JAX package): a reverse liveness walk
+        over block 0."""
+        needed = {t.name if isinstance(t, Variable) else str(t)
+                  for t in targets}
+        p = copy.deepcopy(self)
+        blk = p.global_block()
+        kept = []
+        for op in reversed(blk.ops):
+            if set(op.output_arg_names) & needed:
+                kept.append(op)
+                needed |= set(op.input_arg_names)
+        blk.ops = kept[::-1]
+        live = set(needed)
+        for op in blk.ops:
+            live |= set(op.input_arg_names) | set(op.output_arg_names)
+        blk.vars = collections.OrderedDict(
+            (n, v) for n, v in blk.vars.items() if n in live)
+        p._bump_version()
+        return p
 
     def global_block(self) -> Block:
         return self.blocks[0]

@@ -1,7 +1,7 @@
 """Op library: importing this package registers every op lowering of the
 ported slices (transformer.build_decode's programs, and transformer.build
 with its backward, optimizer and AMP ops, bert.build's and
-resnet.build's)."""
+resnet.build's, and beam_search)."""
 
 from . import registry
 from . import math_ops
@@ -15,3 +15,4 @@ from . import attention_ops
 from . import loss_ops
 from . import optimizer_ops
 from . import misc_ops
+from . import beam_search_ops

@@ -35,9 +35,9 @@ flash_decode_paged, and the streaming "flash" tier (kernel #3 forward,
 kernels #4 and #5 backward, `flash_attention`), which takes every window
 the gate sends there (a causal prefill past 1024 keys at transformer-base
 widths, BERT-base at 2048 tokens, or a window off the 128 grid).  The
-gradient of the flash_decode tier raises NotImplementedError; the
-sequence-parallel ring has no branch, since the port has no device mesh
-yet.  Both are later slices in ROADMAP.md.
+gradient of the flash_decode tier pulls dOut back through the composite
+with the kv_len mask, as the JAX rule does.  The sequence-parallel ring
+has no branch, since the port has no device mesh yet (ROADMAP.md A6).
 """
 
 from __future__ import annotations
@@ -371,7 +371,9 @@ def fused_attention_grad(ctx):
     (no forward kernel runs); the flash tier recomputes out and lse with
     kernel #3 (the grad op takes no Out) and runs kernels #4 and #5 with
     no lse cotangent; the composite pulls dOut back through
-    `attention_reference` with autograd.  A ramp window folds into a
+    `attention_reference` with autograd, and so does the flash_decode
+    tier, whose JAX rule is that composite with the kv_len bias
+    (flash_attention.py:_decode_bwd_rule).  A ramp window folds into a
     constant bias and takes the composite, as its forward does (the JAX
     grad replays `_apply_attention`, attention_ops.py:459)."""
     q, k, v = ctx.input("Q"), ctx.input("K"), ctx.input("V")
@@ -405,11 +407,8 @@ def fused_attention_grad(ctx):
         ctx.set_output("K@GRAD", dk)
         ctx.set_output("V@GRAD", dv)
         return
-    if name == "flash_decode":
-        raise NotImplementedError(
-            "the gradient of the flash_decode tier (single-query decode "
-            "over a long cache) is not ported: decode programs take no "
-            "grads (ROADMAP.md B)")
+    # the flash_decode tier's grad is the composite's with the kv_len
+    # bias, as the JAX rule computes it (flash_attention.py:_decode_bwd_rule)
     leaves = [x.detach().requires_grad_(True)
               for x in ((q, k, v) if bias is None else (q, k, v, bias))]
     with torch.enable_grad():

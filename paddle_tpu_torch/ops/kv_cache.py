@@ -26,8 +26,8 @@ import torch
 from ..framework.core_types import as_device, convert_dtype, dtype_to_torch
 from .registry import register_infer_shape, register_op
 
-__all__ = ["append", "append_paged", "BlockPool", "DeviceBlockPool",
-           "PoolExhausted"]
+__all__ = ["append", "append_paged", "gather_beams", "BlockPool",
+           "DeviceBlockPool", "PoolExhausted"]
 
 
 def append(cache, new, lengths):
@@ -41,6 +41,15 @@ def append(cache, new, lengths):
     rows = torch.arange(b, device=cache.device)[:, None]
     cache[rows, pos] = new.to(cache.dtype)
     return cache
+
+
+def gather_beams(cache, parent, batch, beam):
+    """Beam-hop reorder (paddle_tpu/ops/kv_cache.py:90-97): the rows of
+    `cache` [batch * beam, ...] taken from their parent beams, `parent`
+    [batch, beam], by one gather; returns a new tensor."""
+    idx = (torch.arange(batch, device=cache.device)[:, None] * beam
+           + parent.to(device=cache.device, dtype=torch.int64))
+    return cache.index_select(0, idx.reshape(-1))
 
 
 @register_op("kv_cache_append")
@@ -83,20 +92,37 @@ def append_paged(blocks, new, table, lengths):
     replicating row 0, same table and cursor) write identical values.
 
     The whole [B, T] window lands in one `index_put_`: a 512-row chunk
-    window is one scatter per pool, not 512."""
+    window is one scatter per pool, not 512.  Its shape is static (no
+    `nonzero`, no read back to the host, so a CUDA graph can hold it): a
+    dropped write is turned into a copy of the first kept one, the same
+    target and the same value, or, when nothing is kept, into a write of
+    block 0's row 0 over itself."""
     n, bs = blocks.shape[0], blocks.shape[1]
     b, m = table.shape
+    t = new.shape[1]
     table = table.to(device=blocks.device, dtype=torch.int64)
     lengths = lengths.reshape(b).to(device=blocks.device, dtype=torch.int64)
-    pos = lengths[:, None] + torch.arange(new.shape[1],
-                                          device=blocks.device)
+    pos = lengths[:, None] + torch.arange(t, device=blocks.device)
     slot = torch.div(pos, bs, rounding_mode="floor")
     in_table = (slot >= 0) & (slot < m)
     blk = torch.gather(table, 1, slot.clamp(0, m - 1))
     blk = torch.where(blk < 0, blk + n, blk)
-    keep = (in_table & (blk >= 0) & (blk < n)).nonzero(as_tuple=True)
-    blocks.index_put_((blk[keep], (pos % bs)[keep]),
-                      new[keep].to(blocks.dtype))
+    keep = (in_table & (blk >= 0) & (blk < n)).reshape(b * t)
+    blk, off = blk.reshape(b * t), (pos % bs).reshape(b * t)
+    rows = new.reshape((b * t,) + tuple(new.shape[2:])).to(blocks.dtype)
+    # the first kept write (0 when none is): a one-element index, since
+    # indexing by a 0-d tensor would read it back to the host
+    first = torch.argmax(keep.to(torch.int32)).reshape(1)
+    some = keep.any()
+    zero = torch.zeros((), dtype=torch.int64, device=blocks.device)
+    blk = torch.where(keep, blk,
+                      torch.where(some, blk.index_select(0, first), zero))
+    off = torch.where(keep, off,
+                      torch.where(some, off.index_select(0, first), zero))
+    fill = torch.where(some, rows.index_select(0, first)[0], blocks[0, 0])
+    rows = torch.where(keep.reshape((-1,) + (1,) * (rows.dim() - 1)), rows,
+                       fill)
+    blocks.index_put_((blk, off), rows)
     return blocks
 
 

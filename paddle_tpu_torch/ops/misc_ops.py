@@ -4,20 +4,28 @@ BERT reduces its [B, S] 0/1 input_mask to per-row key lengths for the
 attention kernels' length masks, which cannot represent a hole in the
 middle of a row.  This op is the identity and checks that every row is a
 prefix mask (non-increasing along S).  The JAX package checks only when
-the value is concrete (its interpret executor); the port's executor is
-eager, so it always checks: on the mask's device, reading back one
-boolean, and only on a failure the first bad row.
+the value is concrete (its interpret executor), not under tracing
+(:341-346).  The port checks whenever the op runs eagerly: on the mask's
+device, reading back one boolean, and only on a failure the first bad
+row.  Inside a CUDA graph capture (the Executor's jit path) it does not
+check, since reading a value back is a host sync a capture cannot hold.
 """
 
 from __future__ import annotations
 
+import torch
+
 from .registry import register_op
+
+
+def _capturing(x):
+    return x.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
 
 
 @register_op("check_prefix_mask", no_grad=True)
 def check_prefix_mask(ctx):
     x = ctx.input("X")
-    if x.device.type != "meta":
+    if x.device.type != "meta" and not _capturing(x):
         m = x != 0
         bad = m[..., 1:] & ~m[..., :-1]      # a real token after padding
         if bool(bad.any()):

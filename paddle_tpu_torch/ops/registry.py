@@ -2,7 +2,9 @@
 
 Counterpart of paddle_tpu/ops/registry.py.  A lowering is a plain
 function over torch.Tensors that runs eagerly on whatever device its
-inputs live on; there is no jit, no segments and no torch.compile.
+inputs live on.  The Executor's jit path (framework/executor.py) runs
+them in segments, each captured as a CUDA graph on the card; an op
+registered `no_jit` runs on the host between segments.
 Build-time shape/dtype inference runs the lowering once on
 `torch.device("meta")` tensors, the role `jax.eval_shape` plays in the JAX
 package.
@@ -45,6 +47,9 @@ class OpInfo:
     backward: Optional[Callable] = None  # hand-written grad lowering fn(ctx)
     stateful: bool = False  # draws from ctx.rng()
     no_grad: bool = False  # no gradient (optimizer updates, grad ops)
+    # runs on the host between the jit path's segments (feed/fetch, I/O,
+    # print, host-shaped ops), never inside a captured segment
+    no_jit: bool = False
     # raised when backward has to differentiate through a no_grad op
     # (None: the op silently contributes nothing)
     grad_error: Optional[str] = None
@@ -112,7 +117,7 @@ class OpContext:
         return self._rng
 
 
-def register_op(op_type, *, stateful=False, no_grad=False,
+def register_op(op_type, *, stateful=False, no_grad=False, no_jit=False,
                 infer_shape=None):
     """Register the forward lowering for `op_type`."""
 
@@ -120,7 +125,8 @@ def register_op(op_type, *, stateful=False, no_grad=False,
         if op_type in OPS:
             raise ValueError(f"op {op_type} registered twice")
         OPS[op_type] = OpInfo(type=op_type, forward=fn, stateful=stateful,
-                              no_grad=no_grad, infer_shape=infer_shape)
+                              no_grad=no_grad, no_jit=no_jit,
+                              infer_shape=infer_shape)
         return fn
 
     return deco

@@ -146,12 +146,8 @@ def decode_feed(enc):
 
 
 def _stack(rows, pad):
-    """Stack per-request rows (tensors or numpy arrays) and pad the batch
-    to its bucket by repeating row 0."""
-    if isinstance(rows[0], torch.Tensor):
-        out = torch.stack(rows)
-        return torch.cat([out, out[:1].expand(pad, *out.shape[1:])]) \
-            if pad else out
+    """Stack per-request numpy rows and pad the batch to its bucket by
+    repeating row 0."""
     out = np.stack(rows)
     return np.concatenate([out, np.repeat(out[:1], pad, 0)]) if pad else out
 
@@ -333,6 +329,8 @@ class Scheduler:
         self._table_width = bpseq  # block-table columns per request
         self._paged_prog = None    # lazy build_paged_step rewrite
         self._paged_fns = {}       # (tag, feed sig, trace sig) -> fn
+        # (tag, state, bucket) -> (stacked states, the rows stacked)
+        self._stacks = {}
         self.prefix_cache = bool(prefix_cache)
         # state classification: paged = positional KV (pool-backed),
         # carried = dense per-step state (an RNN hidden), const = computed
@@ -908,14 +906,14 @@ class Scheduler:
                 feed[name] = np.concatenate(
                     [r.feed[name] for r in group]
                     + [group[0].feed[name]] * pad)
-        _, states, lengths, logits = self._gen._prefill(feed)
+        _, states, lengths, logits = self._gen._prefill(feed, slots=False)
         # the draft prefills the same feed, so its KV chain covers the
         # prompt too; its rows ride the same block tables ("draft:"
         # streams), so CoW, prefix sharing and eviction cover it
         paged = {s.feed: states[s.feed] for s in self._paged}
         dstates = None
         if self.spec_decode:
-            _, dstates, _, _ = self._draft_gen._prefill(feed)
+            _, dstates, _, _ = self._draft_gen._prefill(feed, slots=False)
             paged.update({"draft:" + s.feed: dstates[s.feed]
                           for s in self._draft_paged})
         self.counters["prefills"] += len(group)
@@ -1064,7 +1062,7 @@ class Scheduler:
             window = toks[req._chunk_pos:req._chunk_pos + c]
         feed = self._window_feed(spec, [req], window.reshape(1, c),
                                  [req._chunk_pos], self._const, "_states",
-                                 self._paged)
+                                 self._paged, tag="chunk")
         outs = self._run_paged_exec(feed, spec.chunk_fetches(), tag="chunk",
                                     program=self._chunk_step_program())
         for s in self._paged:
@@ -1416,8 +1414,33 @@ class Scheduler:
         for name in spec.step_feeds:
             feed[name] = _stack([r.feed[name][0] for r in batch], pad)
         for s in self._carried + self._const:
-            feed[s.feed] = _stack([r._states[s.feed] for r in batch], pad)
+            feed[s.feed] = self._state_stack(
+                "dense", s.feed, [r._states[s.feed] for r in batch], pad)
         return feed
+
+    def _state_stack(self, tag, name, rows, pad):
+        """The batch's per-request state rows stacked [bucket, ...], pad
+        rows repeating row 0, in a buffer kept per (tag, state, bucket) and
+        rewritten only when the rows change (the batch's membership or
+        order, or a carried state's new value): a captured program reads
+        it where it lies, and a steady batch copies nothing for it."""
+        n = len(rows)
+        key = (tag, name, n + pad)
+        shape = (n + pad,) + tuple(rows[0].shape)
+        hit = self._stacks.get(key)
+        if hit is not None and hit[0].shape == shape \
+                and hit[0].dtype == rows[0].dtype:
+            buf, held = hit
+            if len(held) == n and all(a is b for a, b in zip(held, rows)):
+                return buf
+        else:
+            buf = torch.empty(shape, dtype=rows[0].dtype,
+                              device=rows[0].device)
+        torch.stack(rows, out=buf[:n])
+        if pad:
+            buf[n:].copy_(buf[:1].expand((pad,) + shape[1:]))
+        self._stacks[key] = (buf, tuple(rows))
+        return buf
 
     def _run_step(self, batch, prev_toks):
         """One step program run for `batch`, padded to a bucket (pad rows
@@ -1496,7 +1519,8 @@ class Scheduler:
             fn = program_as_function(
                 self._paged_step_program() if program is None else program,
                 self._gen.scope if scope is None else scope, fetch_names,
-                self.device)
+                self.device, graph_pool=self._gen.graph_pool(),
+                mode=self._gen.mode)
             self._paged_fns[key] = fn
         return dict(zip(fetch_names, fn(feed)))
 
@@ -1511,7 +1535,7 @@ class Scheduler:
         feed = self._window_feed(spec, batch, np.asarray(prev_toks),
                                  [r._cursor for r in batch],
                                  self._carried + self._const, "_states",
-                                 self._paged)
+                                 self._paged, tag="step")
         outs = self._run_paged_exec(feed, spec.step_fetches())
         spec.notify_monitor(outs)
         for s in self._paged:
@@ -1527,13 +1551,15 @@ class Scheduler:
         return toks
 
     def _window_feed(self, spec, batch, ids, curs, states, state_attr,
-                     streams, prefix=""):
+                     streams, prefix="", tag="step"):
         """A paged program's feeds for `batch`, padded to its bucket by
         replicating row 0 (its table and cursor too, so a pad row's append
         repeats row 0's write): ids [n, w], the write cursors, the
-        step-feed constants, the dense `states` (`state_attr` names the
-        request's dict: "_states" or "_draft_states"), the block table
-        and the pool streams (`prefix` + name)."""
+        step-feed constants and the block table as host arrays (a captured
+        program copies them into its own buffers), the dense `states`
+        (`state_attr` names the request's dict: "_states" or
+        "_draft_states") stacked on the device per `tag`
+        (`_state_stack`), and the pool streams (`prefix` + name)."""
         n = len(batch)
         bucket = self._bucket(n)
         pad = bucket - n
@@ -1549,7 +1575,8 @@ class Scheduler:
         for name in spec.step_feeds:
             feed[name] = _stack([r.feed[name][0] for r in batch], pad)
         for s in states:
-            feed[s.feed] = _stack(
+            feed[s.feed] = self._state_stack(
+                tag, prefix + s.feed,
                 [getattr(r, state_attr)[s.feed] for r in batch], pad)
         feed[BLOCK_TABLE_VAR] = table
         for s in streams:
@@ -1565,7 +1592,7 @@ class Scheduler:
         dspec = self._draft_spec
         feed = self._window_feed(dspec, batch, np.asarray(prev_toks), dcurs,
                                  self._draft_const, "_draft_states",
-                                 self._draft_paged, "draft:")
+                                 self._draft_paged, "draft:", tag="draft")
         outs = self._run_paged_exec(feed, dspec.step_fetches(), tag="draft",
                                     program=self._draft_step_program(),
                                     scope=self._draft_gen.scope)
@@ -1582,7 +1609,7 @@ class Scheduler:
         n = len(batch)
         feed = self._window_feed(spec, batch, inps,
                                  [r._cursor for r in batch], self._const,
-                                 "_states", self._paged)
+                                 "_states", self._paged, tag="verify")
         outs = self._run_paged_exec(feed, spec.verify_fetches(),
                                     tag="verify",
                                     program=self._verify_step_program())

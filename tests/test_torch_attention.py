@@ -584,9 +584,9 @@ def test_fused_attention_grad_matches(flag, causal, seq_len, bias):
 
 @pytest.mark.parametrize("tier", ["flash", "flash_decode"])
 def test_grad_of_unported_tiers_raises(tier):
-    """The flash tier's grad is ported (kernels #4 and #5): at Sk 8 under
-    "interpret" it equals the JAX grad op.  The flash_decode tier's grad
-    still raises: decode programs take no grads."""
+    """Neither tier's grad raises any more: the flash tier's (kernels #4
+    and #5, at Sk 8 under "interpret") and the flash_decode tier's (the
+    composite with the kv_len bias, ROADMAP C11) equal the JAX grad op."""
     from paddle_tpu.ops import registry as jreg
     from paddle_tpu_torch.ops import registry as preg
 
@@ -598,13 +598,40 @@ def test_grad_of_unported_tiers_raises(tier):
     attrs = {"num_heads": 2, "causal": True, "scale": 0.0}
     assert pattn.backend_choice(*(torch.empty(x.shape, device="meta")
                                   for x in (q, k)), 2, True) == tier
-    if tier == "flash_decode":
-        with pytest.raises(NotImplementedError, match="decode programs"):
-            _grad_op(preg, "torch", inputs, attrs)
-        return
     j = _grad_op(jreg, "jax", inputs, attrs)
     p = _grad_op(preg, "torch", inputs, attrs)
     assert sorted(p) == sorted(j) == ["K@GRAD", "Q@GRAD", "V@GRAD"]
     for name in j:
         np.testing.assert_allclose(p[name], j[name], rtol=0, atol=ATOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("kv_len", [None, (256, 131, 300)])
+def test_flash_decode_grad_matches_jax(kv_len):
+    """ROADMAP C11: the grad through the flash_decode tier (Sq = 1, a
+    256-key cache past attn_decode_min_keys 200, under "interpret") equals
+    the JAX rule's pull-back through the composite with the kv_len bias
+    (flash_attention.py:_decode_bwd_rule), rtol 1e-4; a kv_len past the
+    cache counts every key, as the port's forward clamps it."""
+    from paddle_tpu.ops import registry as jreg
+    from paddle_tpu_torch.ops import registry as preg
+
+    _set_both("flash_attention", "interpret")
+    _set_both("attn_decode_min_keys", 200)
+    b, sk, h, d = 3, 256, 2, 64
+    q, k, v = _data(72, b, 1, sk, h * d)
+    rng = np.random.RandomState(73)
+    g = rng.standard_normal(q.shape).astype(np.float32)
+    inputs = {"Q": [q], "K": [k], "V": [v], "Out@GRAD": [g]}
+    if kv_len is not None:
+        inputs["SeqLen"] = [np.asarray(kv_len, np.int64)]
+    attrs = {"num_heads": h, "causal": False, "scale": 0.0}
+    assert pattn.backend_choice(
+        *(torch.empty(x.shape, device="meta") for x in (q, k)), h,
+        seq_len=kv_len is not None) == "flash_decode"
+    j = _grad_op(jreg, "jax", inputs, attrs)
+    p = _grad_op(preg, "torch", inputs, attrs)
+    assert sorted(p) == sorted(j) == ["K@GRAD", "Q@GRAD", "V@GRAD"]
+    for name in j:
+        np.testing.assert_allclose(p[name], j[name], rtol=1e-4, atol=1e-6,
                                    err_msg=name)

@@ -10,7 +10,10 @@ transformer-base (d_model 512, 8 heads of 64), the BERT slice's flash-tier
 grad at BERT-base widths (12 heads of 64, 2048 tokens), kernel #8
 (bn_relu_conv1x1) at ResNet-50's conv3 widths and the ResNet conv
 lowering in float32, plus the edge cases of each kernel's masking
-contract.  Tolerances: max abs error 1e-4 in float32 (the kernels sum in
+contract.  Last, the Executor's jit path: captured decode steps against
+their eager runs (bound and copied arguments, a moved pool, the launch
+counts a replay adds) and a captured training step against the
+interpreter's.  Tolerances: max abs error 1e-4 in float32 (the kernels sum in
 another order than cuBLAS) and 2e-2 in bfloat16 (one bfloat16 step of an
 output in [2, 4); the forwards round P to bfloat16 before P V as the
 plain versions do, from float32 sums taken in another order, and the
@@ -1064,3 +1067,149 @@ def test_two_tier_handoff_on_the_card_equals_sequential(card):
     assert dec.counters["adopted"] == len(feeds)
     pre.pool.assert_quiesced()
     dec.pool.assert_quiesced()
+
+
+# ------------------------------------------- the jit path: captured graphs
+
+
+def test_captured_decode_step_equals_its_eager_run(card):
+    """One decode step at one signature, three times over the same cursor
+    (the append rewrites the same row): the first call runs eagerly, the
+    second captures and replays, the third replays.  The logits agree
+    within 1e-6 and the launch counts of every call are equal."""
+    from paddle_tpu_torch import decode
+    from paddle_tpu_torch.framework import cuda_graph
+
+    spec, scope, feeds, _ = _serve_world(card)
+    gen = decode.Generator(spec, scope=scope, place=card)
+    feed = {k: np.concatenate([f[k] for f in feeds[:4]]) for k in feeds[0]}
+    _, states, lengths, logits = gen._prefill(feed)
+    tok = torch.argmax(logits, -1).cpu().numpy()
+    cuda_graph.reset_stats()
+    outs, counts = [], []
+    for _ in range(3):
+        before = (mha_block.launches, fd.launches)
+        logits, states = gen._step(tok, lengths, states, feed)
+        outs.append(logits.clone())
+        counts.append((mha_block.launches - before[0],
+                       fd.launches - before[1]))
+    torch.cuda.synchronize()
+    assert cuda_graph.STATS["warmups"] == 1
+    assert cuda_graph.STATS["captures"] == 1
+    assert cuda_graph.STATS["replays"] == 1
+    assert counts[0] == counts[1] == counts[2] and sum(counts[0]) > 0
+    for o in outs[1:]:
+        assert (o - outs[0]).abs().max().item() <= 1e-6
+
+
+def test_a_new_tensor_every_call_is_copied_into_the_graph(card):
+    """The step's caches passed as a new tensor at every call (clones):
+    the capture binds none of them but copies each into the graph's own
+    buffer, so the graph still replays (one capture, then replays), the
+    logits equal the eager warm-up's within 1e-6 and the returned caches
+    hold the appended row, as the eager call's do."""
+    from paddle_tpu_torch import decode
+    from paddle_tpu_torch.framework import cuda_graph
+
+    spec, scope, feeds, _ = _serve_world(card)
+    gen = decode.Generator(spec, scope=scope, place=card)
+    feed = {k: np.concatenate([f[k] for f in feeds[:2]]) for k in feeds[0]}
+    _, states, lengths, logits = gen._prefill(feed)
+    tok = torch.argmax(logits, -1).cpu().numpy()
+    base = {k: v.clone() for k, v in states.items()}
+    cuda_graph.reset_stats()
+    outs = []
+    for _ in range(4):
+        fresh = {k: v.clone() for k, v in base.items()}
+        logits, new = gen._step(tok, lengths, fresh, feed)
+        outs.append((logits.clone(), {k: v.clone() for k, v in new.items()}))
+    torch.cuda.synchronize()
+    assert cuda_graph.STATS["captures"] == 1
+    assert cuda_graph.STATS["replays"] == 2
+    for logits, new in outs[1:]:
+        assert (logits - outs[0][0]).abs().max().item() <= 1e-6
+        for k, v in new.items():
+            assert (v - outs[0][1][k]).abs().max().item() <= 1e-6, k
+
+
+def test_moved_pool_storage_is_captured_again(card):
+    """Mid-flight, every pool stream moves to a new storage: the paged
+    step's graph over the old pool is never replayed (its signature holds
+    the old addresses), the step runs eagerly, is captured again over the
+    new pool, and every request's tokens still equal the sequential
+    Generator's."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.framework import cuda_graph
+
+    spec, scope, feeds, refs = _serve_world(card)
+    sched = serving.Scheduler(spec, scope, place=card, max_batch=8,
+                              block_size=16, paged_kv=True)
+    reqs = [sched.submit(f, SERVE_MNT, eos_id=-1) for f in feeds]
+    for _ in range(5):
+        sched.step()
+    captured = cuda_graph.STATS["captures"]
+    assert captured >= 1
+    for name in list(sched.pool._streams):
+        sched.pool._streams[name] = sched.pool._streams[name].clone()
+    sched.run_until_idle(max_steps=500)
+    assert cuda_graph.STATS["captures"] > captured
+    _served(reqs, refs)
+    sched.pool.assert_quiesced()
+
+
+def test_replays_add_the_captured_launch_counts(card):
+    """A replay runs no Python, so it adds the launch and tier counts its
+    capture recorded: n steps count n times one eager step's."""
+    from paddle_tpu_torch import decode
+    from paddle_tpu_torch.ops import attention_ops
+
+    spec, scope, feeds, _ = _serve_world(card)
+    gen = decode.Generator(spec, scope=scope, place=card)
+    feed = feeds[0]
+    _, states, lengths, logits = gen._prefill(feed)
+    tok = torch.argmax(logits, -1).cpu().numpy()
+    per_step = None
+    for i in range(6):
+        before = (mha_block.launches, fd.launches,
+                  dict(attention_ops.TIER_CALLS))
+        logits, states = gen._step(tok, lengths, states, feed)
+        lengths = lengths + 1
+        tok = torch.argmax(logits, -1).cpu().numpy()
+        tiers = {k: v - before[2].get(k, 0)
+                 for k, v in attention_ops.TIER_CALLS.items()
+                 if v != before[2].get(k, 0)}
+        step = (mha_block.launches - before[0], fd.launches - before[1],
+                tiers)
+        per_step = per_step or step
+        assert step == per_step, f"step {i}"
+    assert per_step[0] + per_step[1] > 0 and per_step[2]
+
+
+def test_jit_executor_trains_as_the_interpreter_on_the_card(card):
+    """A tiny transformer training program (head_dim 64, float32, Adam):
+    4 steps under Executor(mode="jit"), whose step is captured at its
+    second run, give the interpreter's losses (rtol 1e-5), from the same
+    weights."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import transformer
+
+    cfg = transformer.TransformerConfig(
+        src_vocab_size=64, trg_vocab_size=64, n_layer=1, n_head=2,
+        d_model=128, d_inner=256, dropout=0.0, max_length=64)
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        loss, _ = transformer.build(cfg, use_src_lens=True)
+        pt.optimizer.Adam(1e-3).minimize(loss)
+    startup.random_seed = 3
+    feeds = [dict(transformer.synthetic_batch(4, cfg, seed=s),
+                  src_lens=np.asarray([64, 50, 33, 9], np.int64))
+             for s in range(4)]
+    losses = {}
+    for mode in ("interpret", "jit"):
+        scope = pt.Scope()
+        pt.Executor(card, mode="interpret").run(startup, scope=scope)
+        exe = pt.Executor(card, mode=mode)
+        losses[mode] = [float(exe.run(main, feed=f, scope=scope,
+                                      fetch_list=[loss])[0].ravel()[0])
+                        for f in feeds]
+    np.testing.assert_allclose(losses["jit"], losses["interpret"], rtol=1e-5)

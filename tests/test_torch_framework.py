@@ -175,6 +175,16 @@ def test_gate_flags_keep_the_jax_defaults():
     assert pflags.get("attn_decode_min_keys") == 2048
 
 
+def test_executor_mode_default_is_the_one_divergence():
+    """`executor_mode` is the one flag whose default differs from the JAX
+    package's: the port's Executor replays ops eagerly ("interpret") by
+    default so that training keeps the eager replay until its step is
+    captured (ROADMAP A3); the JAX package jits ("jit")."""
+    assert pflags.get("executor_mode") == "interpret"
+    assert jflags.get("executor_mode") == "jit"
+    assert pt.Executor(pt.CPUPlace()).mode == "interpret"
+
+
 def test_load_params_checks_names_and_shapes():
     _, ps = _specs(8)
     progs = [ps.prefill_program, ps.step_program]
