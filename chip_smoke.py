@@ -107,46 +107,68 @@ catches its own failure:
      the schedulers' counters, tokens equal to the sequential
      Generator's, and a drained pool;
   6. training: transformer.build + Adam(1e-4) through Executor.run on
-     transformer.base() (dropout 0, seq 256, random tokens from a seed).
-     T1, float32, batch 16, ragged source lengths 128-256: 4 steps with
-     the launch counts set to 0 before and 18 forward and 18 backward
-     mha_block launches a step after; the same 4 steps from the same
-     weights through the composite must give the same losses (rtol
-     1e-4).  T2, bench.py's transformer configuration (batch 128, bf16
-     AMP, Adam multi_precision): 2 warm-up and 5 timed steps, tokens/s,
-     ms per step, card busy time and idle share, #1's and #2's card time
-     and share of it, peak memory and MFU;
-     its first loss must match the composite's within 2e-2;
+     transformer.base() (seq 256, random tokens from a seed), on the
+     default (jit) path: each training step after its signature's eager
+     warm-up is one captured CUDA graph, its parameters and moments
+     donated (written in place), and after a phase every graph must bind
+     every argument but the feeds (none copied in at a call).  T1,
+     float32, dropout 0, batch 16, ragged source lengths 128-256: 4
+     steps with the launch counts set to 0 before and 18 forward and 18
+     backward mha_block launches a step after; the same 4 steps from the
+     same weights through the composite must give the same losses (rtol
+     1e-4); then 4 steps each run twice from the same persistables and
+     run counter, by the interpreter (mode="interpret") and by the
+     captured graph, losses within rtol 1e-5.  T2, bench.py's
+     transformer configuration (dropout 0, batch 128, bf16 AMP, Adam
+     multi_precision): 2 warm-up (eager, capture) and 5 timed replays,
+     tokens/s, ms per step, card busy time and idle share (profiled, and
+     1 - card / host), #1's and #2's card time and share of it, graphs,
+     capture seconds, graph-pool MiB, peak memory and MFU; its first loss
+     must match the composite's within 2e-2.  T2/drop, T2's step at the
+     published dropout 0.1 (44 dropouts a step): the warm-up and the
+     capture each equal the interpreter's step from the same state and
+     counter (rtol 1e-5), the same numbers as T2; every step fetches the
+     first dropout's mask: the last two (two consecutive replays) differ
+     and 0.9 +- 0.001 of each is kept;
   7. BERT-base masked-LM pretraining at 2048 tokens through
-     bert.build + Adam(1e-4) + Executor.run (dropout 0, random tokens and
-     ragged input masks of 1024-2048 real tokens from a seed): every
-     attention takes the flash tier, forward (#3) and grad (#3 again to
-     recompute out and lse, then #4 and #5).  L1, float32, batch 2: 3
-     steps with the launch counts set to 0 before and exactly 24 #3, 12
-     #4 and 12 #5 launches a step after; the same steps from the same
-     weights through the composite give the same losses (rtol 1e-4).  L2,
-     bench.py's long_2048_masked leg (batch 16, bf16 AMP, Adam
-     multi_precision): 2 warm-up, 3 timed and 1 profiled step, tokens/s,
-     ms per step, card busy time and idle share, the flash kernels' card
-     time and share of it, peak memory and MFU; its first loss must
-     match the composite's within 2e-2;
+     bert.build + Adam(1e-4) + Executor.run on the jit path (dropout 0,
+     random tokens and ragged input masks of 1024-2048 real tokens from a
+     seed): every attention takes the flash tier, forward (#3) and grad
+     (#3 again to recompute out and lse, then #4 and #5).  L1, float32,
+     batch 2: 3 steps with the launch counts set to 0 before and exactly
+     24 #3, 12 #4 and 12 #5 launches a step after; the same steps from
+     the same weights through the composite give the same losses (rtol
+     1e-4); 3 steps jit vs interpret as T1.  L2, bench.py's
+     long_2048_masked leg (batch 16, bf16 AMP, Adam multi_precision): 2
+     warm-up, 3 timed and 1 profiled step, T2's numbers and the flash
+     kernels' card time and share; its first loss must match the
+     composite's within 2e-2;
   8. ResNet-50 training through resnet.build(dataset="imagenet",
-     fused_loss=True) + Momentum + Executor.run (224x224 images, 1000
-     classes, images and labels drawn as bench.py draws them).  R1,
-     float32, batch 8, Momentum(1e-5, 0.9): 3 steps on the card and the
-     same 3 on the port's CPU path from the same weights, losses within
-     rtol 1e-3, every forward conv with cuDNN's TF32 off.  R2, bench.py's
-     resnet50 step (batch 256, bf16 AMP, Momentum(0.1, 0.9,
-     multi_precision=True)): 2 warm-up, 3 timed and 1 profiled step,
-     img/s, ms per step, MFU, card busy time and idle share, peak memory
-     and the top kernels; its first loss within 2e-2 of a float32 forward
-     of the same weights and batch; no kernel of the port runs in it.
-     R/probe: kernel #8 at the 16 conv3 sites of one more R2 step (conv2's
-     output, the BN's saved statistics and affine, conv3's filter)
-     against the port's own batch_norm + relu + conv2d, exactly 16
-     launches; then the conv1x1 probe
-     (paddle_tpu_torch.tools.conv1x1_fuse_probe) at its four shapes;
-  9. one {"kernels": [...]} line, the card's name and power limit, and
+     fused_loss=True) + Momentum + Executor.run on the jit path (224x224
+     images, 1000 classes, images and labels drawn as bench.py draws
+     them).  R1, float32, batch 8, Momentum(1e-5, 0.9): 3 steps on the
+     card and the same 3 on the port's CPU path from the same weights,
+     losses within rtol 1e-3, every forward conv of the steps that ran
+     their ops (warm-ups, captures) with cuDNN's TF32 off; 3 steps jit vs
+     interpret as T1.  R2, bench.py's resnet50 step (batch 256, bf16
+     AMP, Momentum(0.1, 0.9, multi_precision=True)): 2 warm-up, 3 timed
+     and 1 profiled step, img/s, MFU and T2's numbers, the top kernels;
+     its first loss within 2e-2 of a float32 forward of the same weights
+     and batch; no kernel of the port runs in it.  R/probe: kernel #8 at
+     the 16 conv3 sites of one more R2 step (conv2's output, the BN's
+     saved statistics and affine, conv3's filter) against the port's own
+     batch_norm + relu + conv2d, exactly 16 launches; then the conv1x1
+     probe (paddle_tpu_torch.tools.conv1x1_fuse_probe) at its four
+     shapes;
+  9. GoogLeNet training, phase G: bench.py's googlenet leg
+     (googlenet.build(with_aux=True), batch 128, 3x224x224, 1000
+     classes, bf16 AMP, Momentum(0.01, 0.9, multi_precision=True),
+     random_seed 1, the feed from RandomState(0)) on the jit path: 2
+     warm-up, 5 timed and 1 profiled step, img/s and T2's numbers, finite
+     losses, no port kernel; then the float32 clone(for_test=True)
+     forward loss at batch 8 on the card within rtol 1e-3 of the port's
+     CPU path;
+ 10. one {"kernels": [...]} line, the card's name and power limit, and
      last the {"ok": true, "device": ...} line.
 
 Exits non-zero, printing no result, when there is no CUDA device or when
@@ -216,6 +238,15 @@ R1_LOSS_RTOL = 1e-3           # card vs the port's CPU path, float32
 R2_BATCH, R2_WARMUP, R2_STEPS, R2_PROFILED = 256, 2, 3, 1
 RESNET50_FWD_FLOPS = 4.089e9  # per 224x224 image (bench.py:67)
 R_SITES = 16                  # conv3 sites: ResNet-50's 16 bottlenecks
+JIT_RTOL = 1e-5               # a step's loss, jit vs interpret (expected 0)
+KEEP_TOL = 1e-3               # T2/drop: |kept share of a mask - 0.9|
+# phase G: GoogLeNet training (bench.py's googlenet leg, bench.py:497-545
+# and _setup :186-202: batch 128, 3x224x224, 1000 classes, with_aux, bf16
+# AMP, Momentum(0.01, 0.9, multi_precision), random_seed 1, the feed from
+# RandomState(0))
+G_BATCH, G_WARMUP, G_STEPS, G_PROFILED = 128, 2, 5, 1
+G_CHECK_BATCH = 8             # G's float32 test forward, card vs CPU
+G_LOSS_RTOL = 1e-3            # cuDNN and the CPU sum in other orders
 
 KERNELS = {
     "mha_block": {
@@ -2249,8 +2280,100 @@ def _persistables(scope, program):
 
 
 def _restore(scope, snapshot):
+    """Copy the snapshot into the scope's own tensors: a captured step
+    binds every persistable where it lies, and one that moved would be
+    copied into its graph at every call."""
     for name, value in snapshot.items():
-        scope.set_var(name, value.clone())
+        scope.find_var(name).copy_(value)
+
+
+def _interpret_step(eager, main, scope, feed, loss):
+    """One step by the interpreter in a scratch scope holding a copy of
+    `scope`'s persistables and run counter: [loss].  The allocator caches
+    blocks per stream, and the jit path's warm-up runs on a side stream:
+    the cache is released on both sides of the step, so that the two
+    streams' caches never sit on the card together."""
+    from paddle_tpu_torch import Scope
+    from paddle_tpu_torch.framework.executor import _RNG_COUNTER_NAME
+
+    torch.cuda.empty_cache()
+    scratch = Scope()
+    for name, value in _persistables(scope, main).items():
+        scratch.set_var(name, value)
+    scratch.set_var(_RNG_COUNTER_NAME, scope.find_var(_RNG_COUNTER_NAME))
+    losses, _ = run_steps(eager, main, scratch, feed, loss, 1)
+    del scratch
+    torch.cuda.empty_cache()
+    return losses
+
+
+def jit_vs_interpret(phase, exe, main, scope, feed, loss, n):
+    """n steps on the default path (`exe`, jit), each run first by the
+    interpreter in a scratch scope from the same persistables and run
+    counter; the losses must agree within rtol 1e-5 (expected 0).
+    Returns (jit losses, interpret losses)."""
+    from paddle_tpu_torch import Executor
+
+    eager = Executor(exe.device, mode="interpret")
+    jit, ref = [], []
+    for _ in range(n):
+        ref += _interpret_step(eager, main, scope, feed, loss)
+        jit += run_steps(exe, main, scope, feed, loss, 1)[0]
+    if not np.allclose(jit, ref, rtol=JIT_RTOL, atol=0):
+        raise AssertionError(f"{phase}: jit losses {jit} vs interpret {ref}")
+    return jit, ref
+
+
+def captured_graphs(phase, exe, feed):
+    """The graphs `exe` captured: (graphs, arguments bound).  Raises if
+    none was captured, or if a graph copies in at every call an argument
+    that is not a feed (a persistable that moved)."""
+    from paddle_tpu_torch.framework.cuda_graph import CapturedSegment
+
+    n_graphs = n_bound = 0
+    for plan in exe._cache.values():
+        for seg in plan:
+            fn = getattr(seg, "fn", None)
+            if not isinstance(fn, CapturedSegment):
+                continue
+            for g in fn._graphs.values():
+                copied = {seg.in_names[i] for i, _, _ in g.copied} - set(feed)
+                if copied:
+                    raise AssertionError(
+                        f"{phase}: segment {fn.label} copies {sorted(copied)} "
+                        "in at every call")
+                n_graphs += 1
+                n_bound += len(g.bound)
+    if not n_graphs:
+        raise AssertionError(f"{phase}: no step was captured")
+    return n_graphs, n_bound
+
+
+def capture_fields(before, prof, ms_per_step):
+    """A training phase's CUDA graphs since `before` (captured, seconds,
+    graph-pool MiB, replays, eager warm-ups), the card's busy ms a step
+    and the idle share, profiled and as 1 - card / host."""
+    gs = graph_stats(before)
+    busy = prof["busy_ms_per_step"] if prof else None
+    return {"graphs_captured": gs["captures"], "capture_s": gs["capture_s"],
+            "graph_pool_mib": gs["pool_bytes"] / 2 ** 20,
+            "replays": gs["replays"], "warmups": gs["warmups"],
+            "card_busy_ms_per_step": busy,
+            "idle_share_profiled": prof["idle_share"] if prof else None,
+            "idle_share_unprofiled": (1.0 - busy / ms_per_step
+                                      if busy else None),
+            "peak_mem_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+            "peak_reserved_mib": torch.cuda.max_memory_reserved() / 2 ** 20}
+
+
+def log_capture(phase, res):
+    log(f"    {phase} captured: {res['graphs_captured']} graphs "
+        f"({res['capture_s']} s, pool {res['graph_pool_mib']:.0f} MiB), "
+        f"{res['replays']} replays, {res['warmups']} warm-ups; card busy "
+        f"{res['card_busy_ms_per_step']} ms/step, idle share profiled "
+        f"{res['idle_share_profiled']}, unprofiled "
+        f"{res['idle_share_unprofiled']}; peak {res['peak_mem_mib']:.0f} "
+        f"MiB allocated, {res['peak_reserved_mib']:.0f} MiB reserved")
 
 
 def _train_feed(cfg, batch, seed, ragged, device):
@@ -2353,16 +2476,23 @@ def phase_t1(card, device):
     _, g_again = run_steps(exe, main, scope, feed, loss, 1, grads)
     rel, worst, l2 = _grad_diff(grads, g_kernel, g_comp)
     rerun, _, _ = _grad_diff(grads, g_again, g_kernel)
+    # each step twice from the same state and run counter: the captured
+    # graph's replay and the interpreter
+    _restore(scope, start)
+    jit, ref = jit_vs_interpret("T1", exe, main, scope, feed, loss, T1_STEPS)
+    graphs, bound = captured_graphs("T1", exe, feed)
     res = {"phase": "T1", "dtype": "float32", "batch": T1_BATCH, "seq": SEQ,
            "steps": T1_STEPS, "launches": counts, "losses": losses,
            "composite_losses": comp, "max_rel_grad_diff": rel,
            "max_rel_grad_diff_param": worst, "l2_rel_grad_diff": l2,
-           "rerun_max_rel_grad_diff": rerun,
+           "rerun_max_rel_grad_diff": rerun, "jit_losses": jit,
+           "interpret_losses": ref, "graphs": graphs, "bound_args": bound,
            "ms_per_step": wall / T1_STEPS * 1e3, "card": card}
     log(f"  T1 float32 batch {T1_BATCH}: losses {losses}; composite {comp}; "
         f"largest relative grad difference {rel:.3e} ({worst}), L2 "
         f"{l2:.3e}, kernels rerun {rerun:.3e}; launches {counts}; "
-        f"{res['ms_per_step']:.1f} ms/step  [{card}]")
+        f"{res['ms_per_step']:.1f} ms/step; jit {jit} = interpret {ref}; "
+        f"{graphs} graphs, {bound} arguments bound  [{card}]")
     return res, counts
 
 
@@ -2392,14 +2522,15 @@ def phase_t2(card, device):
 
     torch.cuda.synchronize()
     _zero_counts()
+    before = graph_stats()
+    torch.cuda.reset_peak_memory_stats()
+    # the first step runs eagerly, the second is captured, later ones replay
     warm, _ = run_steps(exe, main, scope, feed, loss, T2_WARMUP)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     timed, _ = run_steps(exe, main, scope, feed, loss, T2_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
     prof = profile_calls(
         lambda: run_steps(exe, main, scope, feed, loss, 1), T2_PROFILED,
         top=8, kernels=("mha_block", "mha_block_bwd"))
@@ -2415,6 +2546,7 @@ def phase_t2(card, device):
     if abs(losses[0] - comp_first) > LOSS_RTOL_BF16 * abs(comp_first):
         raise AssertionError(f"T2: first loss {losses[0]} vs composite "
                              f"{comp_first}")
+    graphs, bound = captured_graphs("T2", exe, feed)
     tokens_per_s = 2 * T2_BATCH * SEQ * T2_STEPS / wall   # src + trg
     res = {"phase": "T2", "dtype": "bfloat16 AMP", "batch": T2_BATCH,
            "seq": SEQ, "warmup": T2_WARMUP, "steps": T2_STEPS,
@@ -2423,18 +2555,116 @@ def phase_t2(card, device):
            "tokens_per_s": tokens_per_s, "ms_per_step": wall / T2_STEPS * 1e3,
            "mfu": tokens_per_s * flops_per_token(cfg) /
            PEAK_FLOP_PER_S[torch.bfloat16],
-           "flops_per_token": flops_per_token(cfg),
-           "peak_mem_mib": peak / 2 ** 20, "profile": prof, "card": card}
+           "flops_per_token": flops_per_token(cfg), "graphs": graphs,
+           "bound_args": bound, "profile": prof, "card": card}
+    res.update(capture_fields(before, prof, res["ms_per_step"]))
     log(f"  T2 bf16 AMP batch {T2_BATCH}: {tokens_per_s:.1f} tokens/s, "
-        f"{res['ms_per_step']:.2f} ms/step, MFU {res['mfu']:.4f}, peak "
-        f"{res['peak_mem_mib']:.0f} MiB; losses {losses}; composite first "
-        f"{comp_first}; launches {counts}  [{card}]")
+        f"{res['ms_per_step']:.2f} ms/step, MFU {res['mfu']:.4f}; losses "
+        f"{losses}; composite first {comp_first}; launches {counts}  "
+        f"[{card}]")
+    log_capture("T2", res)
+    log_profile(prof)
+    return res, counts
+
+
+def _mask_elements(main, batch):
+    """Elements of every dropout mask of one step at `batch`."""
+    block = main.global_block()
+    return sum(int(np.prod([batch if d == -1 else d for d in
+                            block.var(op.output("Mask")[0]).shape]))
+               for op in block.ops if op.type == "dropout")
+
+
+def phase_t2drop(card, device):
+    """Transformer-base at its published configuration (dropout 0.1) in
+    T2's step: batch 128, seq 256, bf16 AMP, Adam(1e-4,
+    multi_precision=True), captured.  Every step also fetches the first
+    dropout's mask.  The eager warm-up and the capture each equal the
+    interpreter's step from the same state and run counter; the last two
+    replays draw different masks, 0.9 of each kept."""
+    from paddle_tpu_torch import CUDAPlace, Executor, Scope
+    from paddle_tpu_torch.models import transformer
+
+    cfg = transformer.TransformerConfig(max_length=SEQ)
+    main, startup, loss, _ = build_training(cfg, True, False)
+    ops = main.global_block().ops
+    n_attn = sum(op.type == "fused_attention" for op in ops)
+    n_drop = sum(op.type == "dropout" for op in ops)
+    mask = next(op.output("Mask")[0] for op in ops if op.type == "dropout")
+    scope, exe = Scope(), Executor(CUDAPlace(0))
+    eager = Executor(CUDAPlace(0), mode="interpret")
+    exe.run(startup, scope=scope)
+    feed = _train_feed(cfg, T2_BATCH, SEED + 6, False, device)
+    masks = []
+
+    def step():
+        out, m = exe.run(main, feed=feed, fetch_list=[loss, mask],
+                         scope=scope, return_numpy=False)
+        masks[:] = masks[-1:] + [m]
+        return float(out.float().reshape(-1)[0])
+
+    torch.cuda.synchronize()
+    _zero_counts()
+    before = graph_stats()
+    torch.cuda.reset_peak_memory_stats()
+    # the eager warm-up and the capture, each after the interpreter's step
+    # from the same persistables and run counter in a scratch scope
+    warm, ref = [], []
+    for _ in range(T2_WARMUP):
+        ref += _interpret_step(eager, main, scope, feed, loss)
+        warm.append(step())
+    if not np.allclose(warm, ref, rtol=JIT_RTOL, atol=0):
+        raise AssertionError(f"T2/drop: jit losses {warm} vs interpret {ref}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [step() for _ in range(T2_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof = profile_calls(step, T2_PROFILED, top=8,
+                         kernels=("mha_block", "mha_block_bwd"))
+    res = capture_fields(before, prof, wall / T2_STEPS * 1e3)
+    counts = _counts()
+    n_steps = 2 * T2_WARMUP + T2_STEPS + T2_PROFILED
+    expect = {"mha_block": n_attn * n_steps,
+              "mha_block_bwd": n_attn * n_steps}
+    if counts != expect:
+        raise AssertionError(f"T2/drop: launches {counts}, expected {expect}")
+    if torch.equal(masks[0], masks[1]):
+        raise AssertionError("T2/drop: two consecutive replays drew the "
+                             "same mask")
+    kept = [float((m != 0).float().mean()) for m in masks]
+    if max(abs(k - 0.9) for k in kept) > KEEP_TOL:
+        raise AssertionError(f"T2/drop: kept shares {kept}, expected 0.9")
+    losses = warm + timed
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"T2/drop: losses {losses}")
+    graphs, bound = captured_graphs("T2/drop", exe, feed)
+    tokens_per_s = 2 * T2_BATCH * SEQ * T2_STEPS / wall
+    res.update({
+        "phase": "T2/drop", "dtype": "bfloat16 AMP", "dropout": cfg.dropout,
+        "batch": T2_BATCH, "seq": SEQ, "warmup": T2_WARMUP,
+        "steps": T2_STEPS, "launches": counts, "losses": losses,
+        "interpret_losses": ref, "dropouts_per_step": n_drop,
+        "mask_elements_per_step": _mask_elements(main, T2_BATCH),
+        "kept_share": kept, "tokens_per_s": tokens_per_s,
+        "ms_per_step": wall / T2_STEPS * 1e3,
+        "mfu": tokens_per_s * flops_per_token(cfg) /
+        PEAK_FLOP_PER_S[torch.bfloat16], "graphs": graphs,
+        "bound_args": bound, "profile": prof, "card": card})
+    log(f"  T2/drop bf16 AMP batch {T2_BATCH}, dropout {cfg.dropout} "
+        f"({n_drop} dropouts, {res['mask_elements_per_step']} mask elements "
+        f"a step): {tokens_per_s:.1f} tokens/s, {res['ms_per_step']:.2f} "
+        f"ms/step, MFU {res['mfu']:.4f}; losses {losses}; warm-up and "
+        f"capture vs interpret {ref}; kept shares of the last two masks "
+        f"{kept}, they differ; launches {counts}  [{card}]")
+    log_capture("T2/drop", res)
     log_profile(prof)
     return res, counts
 
 
 def drive_training(card, device):
-    """Phase 6: transformer.base() trained through Executor.run."""
+    """Phase 6: transformer.base() trained through Executor.run (T1, T2;
+    main() runs T2/drop after them)."""
     results, launches = [], {}
     for phase in (phase_t1, phase_t2):
         res, counts = phase(card, device)
@@ -2547,12 +2777,19 @@ def phase_l1(card, device):
     if not (np.all(np.isfinite(losses))
             and np.allclose(losses, comp, rtol=LOSS_RTOL_F32, atol=0)):
         raise AssertionError(f"L1: losses {losses} vs composite {comp}")
+    _restore(scope, start)
+    jit, ref = jit_vs_interpret("L1", exe, main, scope, feed, loss, L1_STEPS)
+    graphs, bound = captured_graphs("L1", exe, feed)
     res = {"phase": "L1", "dtype": "float32", "batch": L1_BATCH,
            "seq": L_SEQ, "steps": L1_STEPS, "real_tokens": _real_tokens(feed),
            "launches": counts, "losses": losses, "composite_losses": comp,
+           "jit_losses": jit, "interpret_losses": ref, "graphs": graphs,
+           "bound_args": bound,
            "ms_per_step": wall / L1_STEPS * 1e3, "card": card}
     log(f"  L1 float32 batch {L1_BATCH}: losses {losses}; composite {comp}; "
-        f"launches {counts}; {res['ms_per_step']:.1f} ms/step  [{card}]")
+        f"launches {counts}; {res['ms_per_step']:.1f} ms/step; jit {jit} = "
+        f"interpret {ref}; {graphs} graphs, {bound} arguments bound  "
+        f"[{card}]")
     return res, counts
 
 
@@ -2575,14 +2812,14 @@ def phase_l2(card, device):
 
     torch.cuda.synchronize()
     _zero_counts()
+    before = graph_stats()
+    torch.cuda.reset_peak_memory_stats()
     warm, _ = run_steps(exe, main, scope, feed, loss, L2_WARMUP)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     timed, _ = run_steps(exe, main, scope, feed, loss, L2_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
     prof = profile_calls(
         lambda: run_steps(exe, main, scope, feed, loss, 1), L2_PROFILED,
         top=8, kernels=("flash_attention_fwd", "flash_attention_bwd_dq",
@@ -2597,6 +2834,7 @@ def phase_l2(card, device):
     if abs(losses[0] - comp_first) > LOSS_RTOL_BF16 * abs(comp_first):
         raise AssertionError(f"L2: first loss {losses[0]} vs composite "
                              f"{comp_first}")
+    graphs, bound = captured_graphs("L2", exe, feed)
     tokens_per_s = L2_BATCH * L_SEQ * L2_STEPS / wall   # bench.py:331
     fpt = bert_flops_per_token(cfg, L_SEQ)
     res = {"phase": "L2", "dtype": "bfloat16 AMP", "batch": L2_BATCH,
@@ -2605,13 +2843,14 @@ def phase_l2(card, device):
            "losses": losses, "composite_first_loss": comp_first,
            "tokens_per_s": tokens_per_s, "ms_per_step": wall / L2_STEPS * 1e3,
            "mfu": tokens_per_s * fpt / PEAK_FLOP_PER_S[torch.bfloat16],
-           "flops_per_token": fpt, "peak_mem_mib": peak / 2 ** 20,
+           "flops_per_token": fpt, "graphs": graphs, "bound_args": bound,
            "profile": prof, "card": card}
+    res.update(capture_fields(before, prof, res["ms_per_step"]))
     log(f"  L2 bf16 AMP batch {L2_BATCH} x {L_SEQ}: {tokens_per_s:.1f} "
         f"tokens/s, {res['ms_per_step']:.2f} ms/step, MFU "
-        f"{res['mfu']:.4f}, peak {res['peak_mem_mib']:.0f} MiB; losses "
-        f"{losses}; composite first {comp_first}; launches {counts}  "
-        f"[{card}]")
+        f"{res['mfu']:.4f}; losses {losses}; composite first {comp_first}; "
+        f"launches {counts}  [{card}]")
+    log_capture("L2", res)
     log_profile(prof)
     return res, counts
 
@@ -2687,6 +2926,7 @@ def phase_r1(card, device):
         return real_conv(x, *args, **kw)
 
     torch.nn.functional.conv2d = spy
+    before = graph_stats()
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2696,10 +2936,14 @@ def phase_r1(card, device):
         wall = time.perf_counter() - t0
     finally:
         torch.nn.functional.conv2d = real_conv
-    if len(seen) != n_conv * R1_STEPS or any(
-            dt != torch.float32 or tf32 for dt, tf32 in seen):
+    # a replay runs no Python: the convs are seen in the steps that ran
+    # their ops (eager warm-ups and captures), the replays run those
+    gs = graph_stats(before)
+    eager = gs["warmups"] + gs["captures"]
+    if len(seen) != n_conv * eager or eager + gs["replays"] != R1_STEPS \
+            or any(dt != torch.float32 or tf32 for dt, tf32 in seen):
         raise AssertionError(f"R1: {len(seen)} forward convs, expected "
-                             f"{n_conv * R1_STEPS}, all float32 with "
+                             f"{n_conv * eager} ({gs}), all float32 with "
                              f"cudnn.allow_tf32 off: {set(seen)}")
     cpu_scope = Scope()
     for name, value in start.items():
@@ -2713,18 +2957,22 @@ def phase_r1(card, device):
             losses, cpu_losses, rtol=R1_LOSS_RTOL, atol=0)):
         raise AssertionError(f"R1: card losses {losses} vs CPU {cpu_losses}")
     rel, worst, l2 = _grad_diff(grads, [g.cpu() for g in g_card], g_cpu)
+    jit, ref = jit_vs_interpret("R1", exe, main, scope, feed, loss, R1_STEPS)
+    graphs, bound = captured_graphs("R1", exe, feed)
     res = {"phase": "R1", "dtype": "float32", "batch": R1_BATCH,
            "steps": R1_STEPS, "lr": R1_LR, "losses": losses,
            "cpu_losses": cpu_losses, "max_rel_grad_diff": rel,
            "max_rel_grad_diff_param": worst, "l2_rel_grad_diff": l2,
-           "forward_convs_tf32_off": len(seen),
+           "forward_convs_tf32_off": len(seen), "jit_losses": jit,
+           "interpret_losses": ref, "graphs": graphs, "bound_args": bound,
            "ms_per_step": wall / R1_STEPS * 1e3,
            "cpu_ms_per_step": cpu_wall / R1_STEPS * 1e3, "card": card}
     log(f"  R1 float32 batch {R1_BATCH}: card losses {losses}; CPU "
         f"{cpu_losses}; step-1 grads vs CPU: largest relative difference "
         f"{rel:.3e} ({worst}), L2 {l2:.3e}; {len(seen)} forward convs with "
         f"TF32 off; {res['ms_per_step']:.1f} ms/step (CPU "
-        f"{res['cpu_ms_per_step']:.0f})  [{card}]")
+        f"{res['cpu_ms_per_step']:.0f}); jit {jit} = interpret {ref}; "
+        f"{graphs} graphs, {bound} arguments bound  [{card}]")
     return res
 
 
@@ -2762,14 +3010,14 @@ def phase_r2(card, device):
 
     torch.cuda.synchronize()
     _zero_counts()
+    before = graph_stats()
+    torch.cuda.reset_peak_memory_stats()
     warm, _ = run_steps(exe, main, scope, feed, loss, R2_WARMUP)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     timed, _ = run_steps(exe, main, scope, feed, loss, R2_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
     prof = profile_calls(
         lambda: run_steps(exe, main, scope, feed, loss, 1), R2_PROFILED,
         top=10)
@@ -2783,18 +3031,20 @@ def phase_r2(card, device):
     if abs(losses[0] - ref_first) > LOSS_RTOL_BF16 * abs(ref_first):
         raise AssertionError(f"R2: first loss {losses[0]} vs the float32 "
                              f"forward's {ref_first}")
+    graphs, bound = captured_graphs("R2", exe, feed)
     img_s = R2_BATCH * R2_STEPS / wall
     res = {"phase": "R2", "dtype": "bfloat16 AMP", "batch": R2_BATCH,
            "warmup": R2_WARMUP, "steps": R2_STEPS, "losses": losses,
            "f32_forward_first_loss": ref_first, "images_per_s": img_s,
            "ms_per_step": wall / R2_STEPS * 1e3,
            "mfu": img_s * 3.0 * RESNET50_FWD_FLOPS /
-           PEAK_FLOP_PER_S[torch.bfloat16],
-           "peak_mem_mib": peak / 2 ** 20, "profile": prof, "card": card}
+           PEAK_FLOP_PER_S[torch.bfloat16], "graphs": graphs,
+           "bound_args": bound, "profile": prof, "card": card}
+    res.update(capture_fields(before, prof, res["ms_per_step"]))
     log(f"  R2 bf16 AMP batch {R2_BATCH}: {img_s:.1f} img/s, "
-        f"{res['ms_per_step']:.2f} ms/step, MFU {res['mfu']:.4f}, peak "
-        f"{res['peak_mem_mib']:.0f} MiB; losses {losses}; float32 forward "
-        f"{ref_first}  [{card}]")
+        f"{res['ms_per_step']:.2f} ms/step, MFU {res['mfu']:.4f}; losses "
+        f"{losses}; float32 forward {ref_first}  [{card}]")
+    log_capture("R2", res)
     log_profile(prof)
     return res, (main, scope, exe, feed, loss)
 
@@ -2916,6 +3166,118 @@ def drive_resnet(card, device):
     return results, {"bn_relu_conv1x1": site_launches + probe_launches}
 
 
+# ------------------------------------------------------ GoogLeNet training
+
+
+def build_googlenet(use_amp):
+    """googlenet.build(with_aux=True) + Momentum(0.01, 0.9,
+    multi_precision=use_amp), random_seed 1, AMP cast before minimize, as
+    bench.py's _setup builds its googlenet leg."""
+    from paddle_tpu_torch import (Program, amp, optimizer, program_guard,
+                                  unique_name)
+    from paddle_tpu_torch.models import googlenet
+
+    main, startup = Program(), Program()
+    main.random_seed = startup.random_seed = 1
+    with program_guard(main, startup), unique_name.guard():
+        loss = googlenet.build(with_aux=True)[0]
+        if use_amp:
+            amp.cast_model_to_bf16(main, startup)
+        optimizer.Momentum(learning_rate=0.01, momentum=0.9,
+                           multi_precision=use_amp).minimize(loss)
+    return main, startup, loss
+
+
+def _googlenet_feed(batch):
+    """bench.py's draws (bench.py:531-536): RandomState(0), img randn, then
+    label."""
+    rng = np.random.RandomState(0)
+    return {"img": rng.randn(batch, 3, R_HW, R_HW).astype(np.float32),
+            "label": rng.randint(0, R_CLASSES, (batch, 1)).astype(np.int64)}
+
+
+def _g_f32_check(device):
+    """The float32 `clone(for_test=True)` forward loss at batch 8 on the
+    card and on the port's CPU path, from the same weights."""
+    from paddle_tpu_torch import CPUPlace, CUDAPlace, Executor, Scope
+
+    main, startup, loss = build_googlenet(False)
+    test = main.clone(for_test=True)
+    scope = Scope()
+    Executor(CUDAPlace(0)).run(startup, scope=scope)
+    feed = _googlenet_feed(G_CHECK_BATCH)
+    (on_card,) = Executor(CUDAPlace(0)).run(test, feed=feed,
+                                            fetch_list=[loss], scope=scope)
+    cpu_scope = Scope()
+    for name, value in _persistables(scope, test).items():
+        cpu_scope.set_var(name, value.cpu())
+    (on_cpu,) = Executor(CPUPlace()).run(test, feed=feed, fetch_list=[loss],
+                                         scope=cpu_scope)
+    on_card, on_cpu = float(on_card.ravel()[0]), float(on_cpu.ravel()[0])
+    if not (np.isfinite(on_card) and abs(on_card - on_cpu)
+            <= G_LOSS_RTOL * abs(on_cpu)):
+        raise AssertionError(f"G: float32 test loss on the card {on_card} vs "
+                             f"the CPU's {on_cpu}")
+    return on_card, on_cpu
+
+
+def phase_g(card, device):
+    """bench.py's googlenet leg: batch 128, bf16 AMP, Momentum(0.01, 0.9,
+    multi_precision=True), captured; no kernel of the port runs in it.
+    Then the float32 test forward, card vs CPU."""
+    from paddle_tpu_torch import CUDAPlace, Executor, Scope
+    from paddle_tpu_torch.framework.core_types import dtype_to_torch
+
+    main, startup, loss = build_googlenet(True)
+    n_drop = sum(op.type == "dropout" for op in main.global_block().ops)
+    scope, exe = Scope(), Executor(CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    block = main.global_block()
+    # staged on the card once, in the declared dtypes (img is bf16 under
+    # AMP, as bench.py casts it)
+    feed = {k: torch.as_tensor(v, device=device).to(
+                dtype_to_torch(block.var(k).dtype))
+            for k, v in _googlenet_feed(G_BATCH).items()}
+
+    torch.cuda.synchronize()
+    _zero_counts()
+    before = graph_stats()
+    torch.cuda.reset_peak_memory_stats()
+    warm, _ = run_steps(exe, main, scope, feed, loss, G_WARMUP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed, _ = run_steps(exe, main, scope, feed, loss, G_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof = profile_calls(
+        lambda: run_steps(exe, main, scope, feed, loss, 1), G_PROFILED,
+        top=10)
+    counts = _port_kernel_counts()
+    if any(counts.values()):
+        raise AssertionError(f"G: the GoogLeNet step launched port kernels "
+                             f"{counts}")
+    losses = warm + timed
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"G: losses {losses}")
+    graphs, bound = captured_graphs("G", exe, feed)
+    res = {"phase": "G", "dtype": "bfloat16 AMP", "batch": G_BATCH,
+           "warmup": G_WARMUP, "steps": G_STEPS, "dropouts": n_drop,
+           "losses": losses, "images_per_s": G_BATCH * G_STEPS / wall,
+           "ms_per_step": wall / G_STEPS * 1e3, "graphs": graphs,
+           "bound_args": bound, "profile": prof, "card": card}
+    res.update(capture_fields(before, prof, res["ms_per_step"]))
+    del scope, exe, feed
+    torch.cuda.empty_cache()
+    res["f32_test_loss"], res["f32_test_loss_cpu"] = _g_f32_check(device)
+    log(f"  G bf16 AMP batch {G_BATCH}: {res['images_per_s']:.1f} img/s, "
+        f"{res['ms_per_step']:.2f} ms/step; losses {losses}; float32 test "
+        f"forward at batch {G_CHECK_BATCH}: card {res['f32_test_loss']}, "
+        f"CPU {res['f32_test_loss_cpu']}  [{card}]")
+    log_capture("G", res)
+    log_profile(prof)
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -2971,9 +3333,15 @@ def main():
     torch.cuda.empty_cache()
     lap("[5]")
 
-    log(f"[6] training: transformer.base() through Executor.run [{card}]")
+    log(f"[6] training: transformer.base() through Executor.run on the "
+        f"jit path (T1, T2, T2/drop) [{card}]")
     training, train_launches = drive_training(card, device)
-    lap("[6]")
+    lap("[6] T1, T2")
+    res, drop_launches = phase_t2drop(card, device)
+    training.append(res)
+    train_launches = _add(train_launches, drop_launches)
+    torch.cuda.empty_cache()
+    lap("[6] T2/drop")
 
     log(f"[7] pretraining: BERT-base at {L_SEQ} tokens through "
         f"Executor.run [{card}]")
@@ -2986,6 +3354,11 @@ def main():
     resnet_runs, resnet_launches = drive_resnet(card, device)
     training += resnet_runs
     lap("[8]")
+
+    log(f"[9] training: GoogLeNet through Executor.run [{card}]")
+    training.append(phase_g(card, device))
+    torch.cuda.empty_cache()
+    lap("[9] G")
     for more in (counts, train_launches, bert_launches, resnet_launches):
         for k, n in more.items():
             launches[k] = launches.get(k, 0) + n
@@ -2993,7 +3366,8 @@ def main():
     if never:
         raise AssertionError(f"kernels {never} never launched on a path")
 
-    log("[9] results")
+    log(f"  all phases took {laps[-1] - laps[0]:.1f} s wall")
+    log("[10] results")
     log(json.dumps({"phases": phases}))
     log(json.dumps({"training": training}))
     if DIVERGED:

@@ -31,6 +31,15 @@ pool stream comes back as the caller's own tensor).  A donated input (a
 persistable the segment overwrites) gets its new value copied into its
 own storage inside the graph, so a parameter keeps its address.
 
+A segment that holds a stateful op (dropout) is called with the run's
+`torch.Generator`, which its graph registers
+(`CUDAGraph.register_generator_state`).  At every replay torch copies the
+generator's current seed and offset into the graph and advances the
+offset by what the graph draws, so the caller reseeds the generator
+before a call and the replay draws what an eager run from that seed
+would.  A draw from a generator the graph did not register fails the
+capture (torch asserts), and that failure names the segment.
+
 Python does not run during a replay, so the capture records the change
 of every kernel launch counter (`launches`, `*_launches` of the modules in
 `ops/cuda/`) and of `attention_ops.TIER_CALLS`, and every replay adds it:
@@ -46,15 +55,19 @@ import time
 
 import torch
 
-# captures, the seconds spent in them, replays and eager warm-ups, over
-# every CapturedSegment of the process (chip_smoke.py reads and resets it)
-STATS = {"captures": 0, "capture_s": 0.0, "replays": 0, "warmups": 0}
+# captures, the seconds spent in them and the bytes the caching allocator
+# reserved during them (the graph pools' growth), replays and eager
+# warm-ups, over every CapturedSegment of the process (chip_smoke.py reads
+# and resets it)
+STATS = {"captures": 0, "capture_s": 0.0, "pool_bytes": 0, "replays": 0,
+         "warmups": 0}
 
 _SIDE_STREAMS = {}
 
 
 def reset_stats():
-    STATS.update(captures=0, capture_s=0.0, replays=0, warmups=0)
+    STATS.update(captures=0, capture_s=0.0, pool_bytes=0, replays=0,
+                 warmups=0)
 
 
 def _side_stream(device):
@@ -125,7 +138,8 @@ class CapturedSegment:
     `torch.cuda.graph_pool_handle()` shared with the owner's other graphs
     (None: a private pool a graph); `where` is the dict the segment
     function writes its running op into; `label` names the segment in
-    errors."""
+    errors.  `rng`, the generator a stateful segment draws from, is None
+    for one that draws nothing."""
 
     def __init__(self, fn, in_names, out_names, device, donate=(), pool=None,
                  where=None, label=""):
@@ -152,25 +166,25 @@ class CapturedSegment:
         seen = self._seen.pop(shape_key, None)
         if seen is None:
             self._seen[shape_key] = sig
-            return self._warm_up(args)
+            return self._warm_up(args, rng)
         # a tensor on the card found where the warm-up found it is bound;
         # one that moved since (a new tensor every call) is copied
         bound = [i for i, (a, b) in enumerate(zip(sig, seen))
                  if a[0] == "d" and a[1] == b[1]]
-        graph = self._graphs[shape_key] = self._capture(args, bound)
+        graph = self._graphs[shape_key] = self._capture(args, bound, rng)
         return self._outputs(graph, args)
 
     # -- the three kinds of call ------------------------------------------
 
-    def _run(self, args):
-        outs = list(self.fn(None, *args))
+    def _run(self, args, rng):
+        outs = list(self.fn(rng, *args))
         for i, o in self.donate:
             if outs[o] is not args[i]:
                 args[i].copy_(outs[o])
                 outs[o] = args[i]
         return outs
 
-    def _warm_up(self, args):
+    def _warm_up(self, args, rng):
         STATS["warmups"] += 1
         cur = torch.cuda.current_stream(self.device)
         side = _side_stream(self.device)
@@ -178,16 +192,25 @@ class CapturedSegment:
         with torch.cuda.stream(side):
             args = [a if a.device.type == "cuda" else a.to(self.device)
                     for a in args]
-            outs = self._run(args)
+            outs = self._run(args, rng)
         cur.wait_stream(side)
         for o in outs:
             if isinstance(o, torch.Tensor) and o.device.type == "cuda":
                 o.record_stream(cur)
         return tuple(outs)
 
-    def _capture(self, args, bound):
+    def _capture(self, args, bound, rng):
         t0 = time.perf_counter()
+        # torch.cuda.graph releases the allocator's cache before it
+        # records; release it first, so that the growth of the reserved
+        # bytes over the capture is what the graph pool took
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_stats(self.device).get(
+            "reserved_bytes.all.current", 0)
         g = _Graph()
+        if rng is not None:
+            g.graph.register_generator_state(rng)
         g.bound = tuple((i, args[i].data_ptr()) for i in bound)
         staged = list(args)
         for i, a in enumerate(args):
@@ -201,7 +224,7 @@ class CapturedSegment:
         before = _counters()
         try:
             with torch.cuda.graph(g.graph, pool=self.pool):
-                outs = self._run(staged)
+                outs = self._run(staged, rng)
         except Exception as e:
             op = self.where.get("op")
             raise RuntimeError(
@@ -217,6 +240,8 @@ class CapturedSegment:
         g.graph.replay()
         STATS["captures"] += 1
         STATS["capture_s"] += time.perf_counter() - t0
+        STATS["pool_bytes"] += torch.cuda.memory_stats(self.device).get(
+            "reserved_bytes.all.current", 0) - reserved
         return g
 
     def _replay(self, g, args):

@@ -16,14 +16,15 @@ Counterpart of paddle_tpu/framework/executor.py, with its two paths:
     card it is a `cuda_graph.CapturedSegment`: run eagerly the first time
     a signature is seen, captured as a CUDA graph the second time and
     replayed after, which is what `jax.jit` of a segment is to XLA
-    (`_compile_segment`, :451).  A segment that holds a stateful op is
-    never captured: a graph would freeze the draw of the torch.Generator
-    seeded per run (only startup programs hold such ops).
+    (`_compile_segment`, :451).  A training step is one segment, and is
+    captured whole, its stateful ops (dropout) included: the graph draws
+    from the run's generator (below), registered with it.  A startup
+    program is run once, so its segment only ever runs eagerly.
 
-The port's default is "interpret" (flags.py's `executor_mode`), where the
-JAX package's is "jit": training stays on the eager replay until ROADMAP
-A3 captures it.  decode.Generator and serving.Scheduler always take the
-jit path, through `program_as_function`.
+The default is "jit", as in the JAX package (flags.py's `executor_mode`);
+`mode="interpret"` or the flag forces the eager replay.
+decode.Generator and serving.Scheduler always take the jit path, through
+`program_as_function`.
 
 Feeds are staged in the declared dtype (int64 stays int64); fetches come
 back as numpy arrays unless `return_numpy=False` (bfloat16 tensors as
@@ -32,10 +33,16 @@ under `torch.no_grad()`: tensors a startup creates are ordinary tensors
 that the grad lowerings may replay under autograd (tensors born under
 `torch.inference_mode()` could not be saved for backward).
 
-Stateful ops (uniform_random) draw from a `torch.Generator` on the place,
-seeded from Program.random_seed and the scope's run counter, so one
-program run twice in one scope draws differently and a rerun in a fresh
-scope draws the same.
+Stateful ops (uniform_random, dropout) draw, in op order, from one
+`torch.Generator` per Executor (and per `program_as_function`), on its
+place.  Before each run it is reseeded from Program.random_seed and the
+scope's run counter, `(random_seed << 20) + counter`, which resets its
+offset: one program run twice in one scope draws differently, a rerun in
+a fresh scope draws the same, and the jit path draws what the interpreter
+draws for the same seed and counter (the JAX package folds the same two
+numbers into its key, `_next_rng_key` :795-803).  A captured graph reads
+the generator's seed and offset at every replay, so reseeding is enough
+for a replay to draw anew.
 """
 
 from __future__ import annotations
@@ -78,12 +85,17 @@ def stage_feed(value, device, program, name, captured=False):
     return torch.as_tensor(np.asarray(value), dtype=dtype, device=device)
 
 
-def _next_generator(program, scope, device):
-    counter = scope.find_var(_RNG_COUNTER_NAME) or 0
-    scope.set_var(_RNG_COUNTER_NAME, counter + 1)
-    gen = torch.Generator(device=device)
+def _reseed(gen, program, counter):
     gen.manual_seed((int(program.random_seed or 0) << 20) + counter)
     return gen
+
+
+def _next_generator(gen, program, scope):
+    """Reseed `gen` for this run from the scope's run counter, and count
+    the run."""
+    counter = scope.find_var(_RNG_COUNTER_NAME) or 0
+    scope.set_var(_RNG_COUNTER_NAME, counter + 1)
+    return _reseed(gen, program, counter)
 
 
 def _last_reads(ops):
@@ -260,14 +272,11 @@ def make_segment_fn(seg, device, where=None):
 
 
 def _compile_segment(seg, device, graph_pool=None, capture=True):
-    """The segment's callable on `device`: its ops run eagerly on the CPU,
-    for a stateful segment and without `capture`; captured as a CUDA
-    graph otherwise."""
+    """The segment's callable on `device`: its ops run eagerly on the CPU
+    and without `capture`; captured as a CUDA graph otherwise."""
     where = {}
     fn = make_segment_fn(seg, device, where)
-    # a stateful segment draws from the torch.Generator seeded per run: a
-    # graph would replay its first draw forever
-    if device.type != "cuda" or seg.stateful or not capture:
+    if device.type != "cuda" or not capture:
         return fn
     from .cuda_graph import CapturedSegment
 
@@ -295,6 +304,7 @@ class Executor:
                              "'jit'")
         self._cache = {}
         self._graph_pool = None
+        self._rng = torch.Generator(device=self.device)
 
     def run(self, program: Program = None, feed: dict = None,
             fetch_list=None, scope: Scope = None, return_numpy: bool = True):
@@ -306,7 +316,7 @@ class Executor:
                   for name, value in (feed or {}).items()}
         for name, value in staged.items():
             scope.set_var(name, value)
-        rng = _next_generator(program, scope, self.device)
+        rng = _next_generator(self._rng, program, scope)
         fetch_names = [_as_fetch_name(f) for f in fetch_list or []]
         with torch.no_grad():
             if self.mode == "interpret":
@@ -364,7 +374,8 @@ class Executor:
                             f"var {n!r} has no value in scope (did you run "
                             "the startup program?)")
                     args.append(v)
-                for n, v in zip(item.out_names, item.fn(rng, *args)):
+                gen = rng if item.stateful else None
+                for n, v in zip(item.out_names, item.fn(gen, *args)):
                     scope.set_var(n, v)
             else:   # a no_jit op, on the host between segments
                 op = block.ops[item]
@@ -386,8 +397,10 @@ def program_as_function(program, scope, fetch_names, place=None,
     card are read where they lie, and `graph_pool` (a
     `torch.cuda.graph_pool_handle()`) is the memory pool its graphs share
     with the caller's other graphs; `mode="interpret"` runs the ops
-    eagerly there instead.  Raises when a `no_jit` op lies on the fetch
-    path."""
+    eagerly there instead.  Stateful ops draw from the function's own
+    generator, reseeded from `program.random_seed` and a count of the
+    function's calls before each one.  Raises when a `no_jit` op lies on
+    the fetch path."""
     device = as_device(place)
     fetch_names = list(fetch_names)
     plan = build_plan(program, fetch_names)
@@ -401,8 +414,10 @@ def program_as_function(program, scope, fetch_names, place=None,
         raise ValueError("program contains host-side (no_jit) ops on the "
                          f"fetch path: {host_ops}")
     seg = plan[0]
-    captured = device.type == "cuda" and not seg.stateful and mode == "jit"
+    captured = device.type == "cuda" and mode == "jit"
     seg.fn = _compile_segment(seg, device, graph_pool, captured)
+    gen = torch.Generator(device=device)
+    calls = [0]
     in_names = list(seg.in_names)
     unknown = [n for n in fetch_names
                if n not in seg.out_names and n not in in_names]
@@ -422,7 +437,9 @@ def program_as_function(program, scope, fetch_names, place=None,
                 raise RuntimeError(f"var {n!r} has no value: feed it or run "
                                    "the startup program first")
             args.append(v)
-        outs = seg.fn(None, *args)
+        rng = _reseed(gen, program, calls[0]) if seg.stateful else None
+        calls[0] += 1
+        outs = seg.fn(rng, *args)
         return tuple(outs[out_index[n]] if n in out_index
                      else args[in_names.index(n)] for n in fetch_names)
 

@@ -303,12 +303,32 @@ class Program:
     def version(self):
         return self._version
 
-    def clone(self) -> "Program":
-        """Deep copy of the whole program (framework.py:442 of the JAX
-        package, without its for_test pruning): ops, attrs and vars are
-        the copy's own, so a rewrite of the copy leaves this one as it
-        is."""
-        return copy.deepcopy(self)
+    def clone(self, for_test=False) -> "Program":
+        """Deep copy of the whole program: ops, attrs and vars are the
+        copy's own, so a rewrite of the copy leaves this one as it is.
+        With `for_test` (framework.py:442-477 of the JAX package) the copy
+        is an evaluation program: ops whose role is Backward or Optimize
+        are dropped, `is_test` is set on every op that carries it and on
+        dropout and batch_norm, and the `_`-prefixed runtime scratch attrs
+        are stripped."""
+        p = copy.deepcopy(self)
+        if not for_test:
+            return p
+        for blk in p.blocks:
+            keep = []
+            for op in blk.ops:
+                for k in [k for k in op.attrs if k.startswith("_")]:
+                    del op.attrs[k]
+                role = op.attrs.get(OpRole.ATTR_NAME, OpRole.Forward)
+                if role & OpRole.Backward or role == OpRole.Optimize:
+                    continue
+                if "is_test" in op.attrs or op.type in ("dropout",
+                                                        "batch_norm"):
+                    op.attrs["is_test"] = True
+                keep.append(op)
+            blk.ops = keep
+        p._bump_version()
+        return p
 
     def _prune(self, targets) -> "Program":
         """A copy that keeps only the ops needed to compute `targets`

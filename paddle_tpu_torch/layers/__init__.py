@@ -1,6 +1,6 @@
 """Layer function namespace (counterpart of paddle_tpu/layers/): what
-transformer.build_decode, transformer.build, bert.build and resnet.build
-call.
+transformer.build_decode, transformer.build, bert.build, resnet.build and
+googlenet.build call.
 Importing it patches Variable's arithmetic and comparison operators
 (math_op_patch), as the JAX package's does."""
 
@@ -12,6 +12,7 @@ from .nn import (
     batch_norm,
     conv2d,
     cross_entropy,
+    dropout,
     elementwise_add,
     elementwise_div,
     elementwise_mul,

@@ -203,6 +203,22 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
     return out
 
 
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    """-> dropout op (Out and its Mask); `seed` is stored as 0 when None."""
+    helper = LayerHelper("dropout", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mask = helper.create_variable_for_type_inference(x.dtype,
+                                                     stop_gradient=True)
+    helper.append_op(
+        type="dropout", inputs={"X": [x]},
+        outputs={"Out": [out], "Mask": [mask]},
+        attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+               "seed": seed if seed is not None else 0,
+               "dropout_implementation": dropout_implementation})
+    return out
+
+
 def reshape(x, shape, name=None):
     helper = LayerHelper("reshape", name=name)
     out = helper.create_variable_for_type_inference(x.dtype)

@@ -10,8 +10,9 @@ input mask's per-row lengths as SeqLen), a masked-LM head tied to the
 word embedding over the masked positions (gathered by a one-hot matmul)
 and a next-sentence head on [CLS].  At 2048 tokens and BERT-base widths
 every attention takes the streaming flash tier (kernels #3, #4, #5).
-Dropout, the fused loss head (`fused_head`) and MoE FFNs are later slices
-(ROADMAP.md A): build raises for them.
+Dropout sits where the JAX package puts it (the embeddings, each
+attention and FFN branch).  The fused loss head (`fused_head`) and MoE
+FFNs are later slices (ROADMAP.md A): build raises for them.
 """
 
 from __future__ import annotations
@@ -68,10 +69,6 @@ def tiny(vocab=128, seq=16):
 
 
 def _check_trainable(cfg: BertConfig, fused_head):
-    if cfg.dropout:
-        raise NotImplementedError(
-            f"dropout {cfg.dropout}: the dropout op is not ported yet "
-            "(ROADMAP.md A); build with BertConfig(dropout=0.0)")
     if cfg.moe_experts:
         raise NotImplementedError(
             "MoE FFNs land with the moe op family (ROADMAP.md A)")
@@ -86,11 +83,15 @@ def _encoder_layer(x, cfg, name, attn_seq_len=None):
         layers.layer_norm(x, begin_norm_axis=2, name=f"{name}_ln1"),
         d_model=cfg.hidden, num_heads=cfg.heads, causal=False,
         attn_seq_len=attn_seq_len, name=f"{name}_attn")
+    if cfg.dropout:
+        attn = layers.dropout(x=attn, dropout_prob=cfg.dropout)
     x = layers.elementwise_add(x=x, y=attn)
     h_in = layers.layer_norm(x, begin_norm_axis=2, name=f"{name}_ln2")
     h = layers.fc(h_in, size=cfg.ffn, num_flatten_dims=2, act="gelu",
                   name=f"{name}_fc1")
     h = layers.fc(h, size=cfg.hidden, num_flatten_dims=2, name=f"{name}_fc2")
+    if cfg.dropout:
+        h = layers.dropout(x=h, dropout_prob=cfg.dropout)
     return layers.elementwise_add(x=x, y=h)
 
 
@@ -137,6 +138,8 @@ def build(cfg: BertConfig = None, seq_len=None, checkpoints=None,
         # the AMP pass into bf16, which holds no odd integer above 256
         seq_lens = layers.reduce_sum(layers.cast(imask, "int32"), dim=1)
         seq_lens.stop_gradient = True
+    if cfg.dropout:
+        x = layers.dropout(x=x, dropout_prob=cfg.dropout)
     for i in range(cfg.layers):
         x = _encoder_layer(x, cfg, f"enc{i}", attn_seq_len=seq_lens)
         if checkpoints is not None:

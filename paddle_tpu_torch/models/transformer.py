@@ -6,10 +6,12 @@ training graph and its loss), `encoder`/`decoder`, `feed_shapes`,
 `synthetic_batch`, the decode programs of `build_decode` (prefill, step,
 the Sq = k verify and Sq = chunk windows, the encoder-only pass), and
 `build_draft`'s truncated draft for speculative decoding.  Every
-parameter name is the JAX package's, so weights carried across with
-`convert.load_params` land where these programs read them.  Dropout, the
-fused loss head (`fused_head`), MoE FFNs and the int8 draft tier are
-later slices (ROADMAP.md A).
+parameter name is the JAX package's, and the training graph places its
+dropouts where the JAX package's does (the embeddings, the FFN hidden,
+every residual branch), so the two Program dicts are equal op for op and
+weights carried across with `convert.load_params` land where these
+programs read them.  The fused loss head (`fused_head`), MoE FFNs and the
+int8 draft tier are later slices (ROADMAP.md A).
 """
 
 from __future__ import annotations
@@ -81,10 +83,6 @@ def _position_encoding(seq_len, d_model):
 
 
 def _check_trainable(cfg: TransformerConfig):
-    if cfg.dropout:
-        raise NotImplementedError(
-            f"dropout {cfg.dropout}: the dropout op is not ported yet "
-            "(ROADMAP.md A); build with TransformerConfig(dropout=0.0)")
     if cfg.moe_experts:
         raise NotImplementedError(
             "MoE FFNs land with the moe op family (ROADMAP.md A)")
@@ -103,7 +101,10 @@ def _embed(ids, vocab_size, cfg: TransformerConfig, param_name, seq_len):
             _position_encoding(seq_len, cfg.d_model)))
     pos.trainable = False
     pos.stop_gradient = True
-    return layers.elementwise_add(x=emb, y=pos, axis=1)
+    x = layers.elementwise_add(x=emb, y=pos, axis=1)
+    if cfg.dropout:
+        x = layers.dropout(x=x, dropout_prob=cfg.dropout)
+    return x
 
 
 def _pre_ln(x, name=None):
@@ -113,8 +114,16 @@ def _pre_ln(x, name=None):
 def _ffn(x, cfg: TransformerConfig, name):
     h = layers.fc(input=x, size=cfg.d_inner, num_flatten_dims=2, act="relu",
                   name=f"{name}_fc1")
+    if cfg.dropout:
+        h = layers.dropout(x=h, dropout_prob=cfg.dropout)
     return layers.fc(input=h, size=cfg.d_model, num_flatten_dims=2,
                      name=f"{name}_fc2")
+
+
+def _residual(x, sub, cfg: TransformerConfig):
+    if cfg.dropout:
+        sub = layers.dropout(x=sub, dropout_prob=cfg.dropout)
+    return layers.elementwise_add(x=x, y=sub)
 
 
 def encoder(src, cfg: TransformerConfig, checkpoints=None, src_lens=None):
@@ -127,11 +136,11 @@ def encoder(src, cfg: TransformerConfig, checkpoints=None, src_lens=None):
             _pre_ln(x, name=f"enc{i}_ln1"), d_model=cfg.d_model,
             num_heads=cfg.n_head, causal=False, attn_seq_len=src_lens,
             name=f"enc{i}_attn")
-        x = layers.elementwise_add(x=x, y=attn)
+        x = _residual(x, attn, cfg)
         if checkpoints is not None:
             checkpoints.append(x)
-        x = layers.elementwise_add(
-            x=x, y=_ffn(_pre_ln(x, name=f"enc{i}_ln2"), cfg, f"enc{i}_ffn"))
+        x = _residual(x, _ffn(_pre_ln(x, name=f"enc{i}_ln2"), cfg,
+                              f"enc{i}_ffn"), cfg)
         if checkpoints is not None:
             checkpoints.append(x)
     return _pre_ln(x, name="enc_ln")
@@ -146,18 +155,18 @@ def decoder(trg, enc_out, cfg: TransformerConfig, checkpoints=None,
         self_attn = layers.multi_head_attention(
             _pre_ln(x, name=f"dec{i}_ln1"), d_model=cfg.d_model,
             num_heads=cfg.n_head, causal=True, name=f"dec{i}_self")
-        x = layers.elementwise_add(x=x, y=self_attn)
+        x = _residual(x, self_attn, cfg)
         if checkpoints is not None:
             checkpoints.append(x)
         cross = layers.multi_head_attention(
             _pre_ln(x, name=f"dec{i}_ln2"), keys=enc_out,
             d_model=cfg.d_model, num_heads=cfg.n_head, causal=False,
             attn_seq_len=src_lens, name=f"dec{i}_cross")
-        x = layers.elementwise_add(x=x, y=cross)
+        x = _residual(x, cross, cfg)
         if checkpoints is not None:
             checkpoints.append(x)
-        x = layers.elementwise_add(
-            x=x, y=_ffn(_pre_ln(x, name=f"dec{i}_ln3"), cfg, f"dec{i}_ffn"))
+        x = _residual(x, _ffn(_pre_ln(x, name=f"dec{i}_ln3"), cfg,
+                              f"dec{i}_ffn"), cfg)
         if checkpoints is not None:
             checkpoints.append(x)
     return _pre_ln(x, name="dec_ln")

@@ -50,12 +50,20 @@ def assign(ctx):
 
 @register_op("assign_value")
 def assign_value(ctx):
+    """The constant, staged from the host once per op and device (kept in
+    the op's `_`-prefixed scratch attrs, which the desc leaves out) and
+    cloned at each run: a CUDA graph capture cannot hold a copy from
+    pageable host memory, and the eager warm-up before it stages the
+    constant."""
     dtype = dtype_to_torch(ctx.attr("dtype", "float32"))
-    shape = [int(s) for s in ctx.attr("shape")]
-    host = np.asarray(ctx.attr("values"))
-    out = torch.from_numpy(host).reshape(shape).to(dtype=dtype,
-                                                   device=ctx.device)
-    ctx.set_output("Out", out)
+    key = f"_staged_{ctx.device}"
+    staged = ctx.attrs.get(key)
+    if staged is None or staged.dtype != dtype:
+        host = np.asarray(ctx.attr("values"))
+        shape = [int(s) for s in ctx.attr("shape")]
+        staged = ctx.attrs[key] = torch.from_numpy(host).reshape(shape).to(
+            dtype=dtype, device=ctx.device)
+    ctx.set_output("Out", staged.clone())
 
 
 @register_op("cast")

@@ -43,10 +43,10 @@ ATOL = 1e-5
 BATCH, STEPS, LR = 4, 3, 1e-3
 
 
-def _small(mod, s):
+def _small(mod, s, dropout=0.0):
     return mod.BertConfig(vocab_size=64, hidden=128, layers_=2, heads=2,
                           ffn=256, max_positions=s, max_predictions=4,
-                          dropout=0.0)
+                          dropout=dropout)
 
 
 @pytest.fixture(autouse=True)
@@ -353,10 +353,10 @@ def _normalized(prog):
     return d
 
 
-def _jax_build(s, use_amp, mask):
+def _jax_build(s, use_amp, mask, dropout=0.0):
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup), jun.guard():
-        loss = JB.build(_small(JB, s), use_input_mask=mask)[0]
+        loss = JB.build(_small(JB, s, dropout), use_input_mask=mask)[0]
         flipped = (jamp.cast_model_to_bf16(main, startup) if use_amp
                    else set())
         _, pg = fluid.optimizer.Adam(LR, multi_precision=use_amp).minimize(
@@ -364,23 +364,28 @@ def _jax_build(s, use_amp, mask):
     return main, startup, loss, pg, flipped
 
 
-def _port_build(s, use_amp, mask):
+def _port_build(s, use_amp, mask, dropout=0.0):
     main, startup = pt.Program(), pt.Program()
     with pt.program_guard(main, startup), pt.unique_name.guard():
-        loss = PB.build(_small(PB, s), use_input_mask=mask)[0]
+        loss = PB.build(_small(PB, s, dropout), use_input_mask=mask)[0]
         flipped = (pamp.cast_model_to_bf16(main, startup) if use_amp
                    else set())
         _, pg = pt.optimizer.Adam(LR, multi_precision=use_amp).minimize(loss)
     return main, startup, loss, pg, flipped
 
 
+@pytest.mark.parametrize("dropout", [0.0, 0.1], ids=["nodrop", "dropout"])
 @pytest.mark.parametrize("use_amp", [False, True], ids=["f32", "amp"])
 @pytest.mark.parametrize("mask", [False, True], ids=["unmasked", "masked"])
-def test_bert_programs_are_identical(use_amp, mask):
+def test_bert_programs_are_identical(use_amp, mask, dropout):
     """After minimize: the same main and startup programs, op for op, var
-    for var, the same (param, grad) pairs and the same AMP flips."""
-    jm, js, _, jpg, jflipped = _jax_build(128, use_amp, mask)
-    pm, ps, _, ppg, pflipped = _port_build(128, use_amp, mask)
+    for var, the same (param, grad) pairs and the same AMP flips; at
+    dropout 0.1 with every dropout and dropout_grad where the JAX package
+    puts it."""
+    jm, js, _, jpg, jflipped = _jax_build(128, use_amp, mask, dropout)
+    pm, ps, _, ppg, pflipped = _port_build(128, use_amp, mask, dropout)
+    n_drop = sum(op.type == "dropout" for op in pm.global_block().ops)
+    assert n_drop == (5 if dropout else 0)
     for j, p in ((jm, pm), (js, ps)):
         jd, pd = _normalized(j), _normalized(p)
         jops, pops = jd["blocks"][0]["ops"], pd["blocks"][0]["ops"]
@@ -395,7 +400,9 @@ def test_bert_programs_are_identical(use_amp, mask):
 
 def test_bert_base_op_census_and_unported_options():
     """BERT-base at 2048 tokens: 12 fused_attention ops and their grads;
-    dropout, fused_head and MoE raise naming ROADMAP."""
+    at its published dropout 0.1, 25 dropout ops (the embeddings, then the
+    attention and FFN branches of 12 layers) and their grads; fused_head
+    and MoE raise naming ROADMAP."""
     main, startup = pt.Program(), pt.Program()
     with pt.program_guard(main, startup), pt.unique_name.guard():
         loss = PB.build(PB.BertConfig(max_positions=2048, dropout=0.0),
@@ -405,8 +412,14 @@ def test_bert_base_op_census_and_unported_options():
     assert types.count("fused_attention") == 12
     assert types.count("fused_attention_grad") == 12
     assert types.count("gelu") == 13 and types.count("tanh") == 1
-    for cfg, kw in ((PB.base(), {}),
-                    (PB.BertConfig(dropout=0.0, moe_experts=4), {}),
+    assert "dropout" not in types
+    main = pt.Program()
+    with pt.program_guard(main, pt.Program()), pt.unique_name.guard():
+        loss = PB.build(PB.base())[0]
+        pt.optimizer.Adam(1e-4).minimize(loss)
+    types = [op.type for op in main.global_block().ops]
+    assert types.count("dropout") == types.count("dropout_grad") == 25
+    for cfg, kw in ((PB.BertConfig(dropout=0.0, moe_experts=4), {}),
                     (PB.BertConfig(dropout=0.0), {"fused_head": True})):
         with pt.program_guard(pt.Program(), pt.Program()), \
                 pt.unique_name.guard():
@@ -433,12 +446,12 @@ def _feed(s, mask):
                               use_input_mask=mask)
 
 
-def _jax_train(s, mask, use_amp, steps):
+def _jax_train(s, mask, use_amp, steps, dropout=0.0):
     """The JAX package's startup persistables, per-step losses and the
     first step's param grads."""
     jflags.set("flash_attention", "interpret")
     try:
-        main, startup, loss, pg, _ = _jax_build(s, use_amp, mask)
+        main, startup, loss, pg, _ = _jax_build(s, use_amp, mask, dropout)
         scope = JScope()
         exe = fluid.Executor(fluid.CPUPlace())
         exe.run(startup, scope=scope)
@@ -459,9 +472,9 @@ def _jax_train(s, mask, use_amp, steps):
     return dict(params=params, losses=losses, grads=first)
 
 
-def _port_train(jrun, s, mask, use_amp, steps):
+def _port_train(jrun, s, mask, use_amp, steps, dropout=0.0):
     pflags.set("flash_attention", "interpret")
-    main, _, loss, pg, _ = _port_build(s, use_amp, mask)
+    main, _, loss, pg, _ = _port_build(s, use_amp, mask, dropout)
     scope = pt.Scope()
     convert.load_params(scope, jrun["params"], pt.CPUPlace(), [main])
     exe = pt.Executor(pt.CPUPlace())
@@ -507,6 +520,26 @@ def test_bert_grads_and_adam_losses_match_jax(jax_f32):
                                    atol=ATOL, err_msg=name)
     np.testing.assert_allclose(port["losses"], ref["losses"], rtol=2e-4)
     assert port["losses"][-1] < port["losses"][0]
+
+
+def test_bert_dropout_training_matches_jax_with_carried_masks(monkeypatch):
+    """At dropout 0.1 (S 128, masked), with both packages' dropout drawing
+    the same masks (testing.seeded_dropout, keyed by each Mask var's
+    name): every param@GRAD within rtol 1e-4 / atol 1e-5, three Adam
+    losses within rtol 2e-4."""
+    for reg, as_array in (
+            (jreg, lambda k, x: jnp.asarray(k, dtype=x.dtype)),
+            (preg, lambda k, x: torch.as_tensor(k).to(x.device, x.dtype))):
+        info = reg.OPS["dropout"]
+        monkeypatch.setattr(info, "forward",
+                            testing.seeded_dropout(info.forward, as_array))
+    ref = _jax_train(128, True, False, STEPS, dropout=0.1)
+    port = _port_train(ref, 128, True, False, STEPS, dropout=0.1)
+    assert sorted(port["grads"]) == sorted(ref["grads"])
+    for name, want in ref["grads"].items():
+        np.testing.assert_allclose(port["grads"][name], want, rtol=1e-4,
+                                   atol=ATOL, err_msg=name)
+    np.testing.assert_allclose(port["losses"], ref["losses"], rtol=2e-4)
 
 
 def test_bert_amp_step_matches_jax():

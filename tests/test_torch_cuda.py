@@ -1213,3 +1213,62 @@ def test_jit_executor_trains_as_the_interpreter_on_the_card(card):
                                       fetch_list=[loss])[0].ravel()[0])
                         for f in feeds]
     np.testing.assert_allclose(losses["jit"], losses["interpret"], rtol=1e-5)
+
+
+def test_jit_executor_captures_dropout_training_as_the_interpreter(card):
+    """A tiny transformer at dropout 0.1 (float32, Adam): under
+    Executor(mode="jit") its step is captured with the run's generator
+    registered (a CUDA graph at the second run, replayed at the third);
+    from the same state and run counter its 3 losses and masks equal
+    mode="interpret"'s (losses rtol 1e-5, masks exactly), and a mask
+    differs from step to step."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import cuda_graph
+    from paddle_tpu_torch.models import transformer
+
+    cfg = transformer.TransformerConfig(
+        src_vocab_size=64, trg_vocab_size=64, n_layer=1, n_head=2,
+        d_model=128, d_inner=256, dropout=0.1, max_length=64)
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 5
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        loss, _ = transformer.build(cfg, use_src_lens=True)
+        pt.optimizer.Adam(1e-3).minimize(loss)
+    mask = next(op.output("Mask")[0] for op in main.global_block().ops
+                if op.type == "dropout")
+    feed = dict(transformer.synthetic_batch(4, cfg, seed=1),
+                src_lens=np.asarray([64, 50, 33, 9], np.int64))
+    runs = {}
+    for mode in ("interpret", "jit"):
+        scope = pt.Scope()
+        pt.Executor(card, mode="interpret").run(startup, scope=scope)
+        exe = pt.Executor(card, mode=mode)
+        cuda_graph.reset_stats()
+        runs[mode] = [exe.run(main, feed=feed, scope=scope,
+                              fetch_list=[loss, mask]) for _ in range(3)]
+        stats = dict(cuda_graph.STATS)
+    assert stats["captures"] >= 1 and stats["replays"] >= 1, stats
+    np.testing.assert_allclose([r[0].ravel()[0] for r in runs["jit"]],
+                               [r[0].ravel()[0] for r in runs["interpret"]],
+                               rtol=1e-5)
+    for a, b in zip(runs["jit"], runs["interpret"]):
+        np.testing.assert_array_equal(a[1], b[1])
+    masks = [r[1] for r in runs["jit"]]
+    assert not np.array_equal(masks[1], masks[2])
+    assert not np.array_equal(masks[0], masks[1])
+
+
+def test_capture_without_a_registered_generator_raises(card):
+    """A draw from a generator the graph did not register fails the
+    capture, and the error names the segment (no eager fallback)."""
+    from paddle_tpu_torch.framework.cuda_graph import CapturedSegment
+
+    x = torch.ones(64, device=card)
+    stray = torch.Generator(device=card)
+    stray.manual_seed(0)
+    seg = CapturedSegment(lambda rng, a: (a * torch.rand(
+        a.shape, generator=stray, device=a.device),), ["x"], ["y"], card,
+        label="stray")
+    seg(None, x)                     # warm-up, eager
+    with pytest.raises(RuntimeError, match="segment stray"):
+        seg(None, x)                 # capture

@@ -176,13 +176,13 @@ def test_gate_flags_keep_the_jax_defaults():
 
 
 def test_executor_mode_default_is_the_one_divergence():
-    """`executor_mode` is the one flag whose default differs from the JAX
-    package's: the port's Executor replays ops eagerly ("interpret") by
-    default so that training keeps the eager replay until its step is
-    captured (ROADMAP A3); the JAX package jits ("jit")."""
-    assert pflags.get("executor_mode") == "interpret"
-    assert jflags.get("executor_mode") == "jit"
-    assert pt.Executor(pt.CPUPlace()).mode == "interpret"
+    """`executor_mode` was once the one flag whose default differed from
+    the JAX package's; now that a training step is captured on the card,
+    both packages default to "jit", and an Executor built without a mode
+    takes it."""
+    assert pflags.get("executor_mode") == jflags.get("executor_mode") == "jit"
+    assert pt.Executor(pt.CPUPlace()).mode == "jit"
+    assert pt.Executor(pt.CPUPlace(), mode="interpret").mode == "interpret"
 
 
 def test_load_params_checks_names_and_shapes():

@@ -221,7 +221,8 @@ def test_the_slice_registers_exactly_the_decode_op_types():
     slice's paged append, the BERT slice's ops (with those behind
     Variable's operators), the ResNet slice's conv, pool, batch norm
     (with its hand-written grad), metric, loss, momentum and gaussian
-    ops, the verify/chunk windows' concat and beam search's step op."""
+    ops, the verify/chunk windows' concat, beam search's step op, and
+    dropout with its grad: 55 op types."""
     assert sorted(preg.OPS) == sorted([
         "assign_value", "elementwise_add", "fill_constant", "fused_attention",
         "gather", "increment", "kv_cache_append", "layer_norm",
@@ -237,4 +238,6 @@ def test_the_slice_registers_exactly_the_decode_op_types():
         "greater_than", "greater_equal",
         "conv2d", "pool2d", "batch_norm",
         "batch_norm_grad", "top_k", "accuracy", "softmax", "cross_entropy",
-        "momentum", "gaussian_random", "concat", "beam_search"])
+        "momentum", "gaussian_random", "concat", "beam_search",
+        "dropout", "dropout_grad"])
+    assert len(preg.OPS) == 55

@@ -177,15 +177,23 @@ def _normalized(prog):
     return d
 
 
-@pytest.mark.parametrize("use_amp,l2", [(False, 0.0), (True, 0.0),
-                                        (False, 1e-4)],
-                         ids=["f32", "amp", "l2decay"])
-def test_training_programs_are_identical(use_amp, l2):
+SMALL_DROP = dict(SMALL, dropout=0.1)
+
+
+@pytest.mark.parametrize("use_amp,l2,small", [
+    (False, 0.0, SMALL), (True, 0.0, SMALL), (False, 1e-4, SMALL),
+    (False, 0.0, SMALL_DROP), (True, 0.0, SMALL_DROP)],
+    ids=["f32", "amp", "l2decay", "dropout", "dropout_amp"])
+def test_training_programs_are_identical(use_amp, l2, small):
     """After minimize: the same main and startup programs, op for op (type,
     inputs, outputs, attrs with op_role and op_role_var), var for var;
-    with L2Decay, the same decay `scale` and `sum` ops on every grad."""
-    jm, js, _, jpg, jflipped = _jax_build(use_amp, l2)
-    pm, ps, _, ppg, pflipped = _port_build(use_amp, l2)
+    with L2Decay, the same decay `scale` and `sum` ops on every grad; at
+    dropout 0.1, the 16 dropouts (and their grads) where the JAX package
+    puts them."""
+    jm, js, _, jpg, jflipped = _jax_build(use_amp, l2, small)
+    pm, ps, _, ppg, pflipped = _port_build(use_amp, l2, small)
+    assert sum(op.type == "dropout_grad" for op in pm.global_block().ops) \
+        == (16 if small["dropout"] else 0)
     for j, p in ((jm, pm), (js, ps)):
         jd, pd = _normalized(j), _normalized(p)
         jops, pops = jd["blocks"][0]["ops"], pd["blocks"][0]["ops"]
@@ -481,8 +489,14 @@ def test_calc_gradient_matches_jax():
 
 
 def test_untrainable_configs_raise():
-    with pytest.raises(NotImplementedError, match="dropout"):
+    """MoE FFNs and the fused loss head raise; dropout builds (its op is
+    ported): 2 embeddings, 2 x 3 encoder and 2 x 4 decoder sites."""
+    with pytest.raises(NotImplementedError, match="MoE"):
+        PT.build(PT.TransformerConfig(**dict(SMALL, moe_experts=4)))
+    main = pt.Program()
+    with pt.program_guard(main, pt.Program()), pt.unique_name.guard():
         PT.build(PT.TransformerConfig(**dict(SMALL, dropout=0.1)))
+    assert [op.type for op in main.global_block().ops].count("dropout") == 16
     with pytest.raises(NotImplementedError, match="fused_head"):
         PT.build(PT.TransformerConfig(**SMALL), fused_head=True)
 
@@ -508,6 +522,33 @@ def test_grads_and_adam_losses_match_jax(jax_f32):
     for name, ref in jax_f32["after"].items():
         np.testing.assert_allclose(scope.find_var(name).numpy(), ref,
                                    rtol=1e-3, atol=1e-5, err_msg=name)
+
+
+# seq 32 (ragged source lengths up to 32), dropout 0.1
+SMALL_DROP_32 = dict(SMALL_DROP, max_length=32)
+SRC_LENS_32 = [32, 25, 9, 3]
+
+
+def test_dropout_grads_and_adam_losses_match_jax_with_carried_masks(
+        monkeypatch):
+    """At dropout 0.1, with both packages' dropout drawing the same masks
+    (testing.seeded_dropout, keyed by each Mask var's name): every
+    param@GRAD within rtol 1e-4 / atol 1e-5, three Adam losses within
+    rtol 2e-4."""
+    for reg, as_array in (
+            (jreg, lambda k, x: jnp.asarray(k, dtype=x.dtype)),
+            (preg, lambda k, x: torch.as_tensor(k).to(x.device, x.dtype))):
+        info = reg.OPS["dropout"]
+        monkeypatch.setattr(info, "forward",
+                            testing.seeded_dropout(info.forward, as_array))
+    ref = _jax_train(False, STEPS, SMALL_DROP_32, SRC_LENS_32)
+    port = _port_train(ref, False, STEPS, SMALL_DROP_32, SRC_LENS_32)
+    assert sorted(port["grads"]) == sorted(ref["grads"])
+    for name, want in ref["grads"].items():
+        np.testing.assert_allclose(port["grads"][name], want, rtol=1e-4,
+                                   atol=ATOL, err_msg=name)
+    np.testing.assert_allclose(port["losses"], ref["losses"], rtol=2e-4)
+    assert port["losses"][-1] < port["losses"][0]
 
 
 def test_flash_tier_grads_and_adam_losses_match_jax(jax_f32_flash):
