@@ -27,7 +27,9 @@ catches its own failure:
      float32 case, and last the bfloat16 backward at head_dim 128 (#2 at
      T2's shape with 4 heads of 128, #4 and #5 at L2's with 6), #7 at
      phase S's real lengths (1024-2080) in both dtypes and #6 in
-     bfloat16; one call of #6 or #7 must be exactly one launch of its
+     bfloat16, and #6 at the GRU translator's decode step (one head of
+     256 over 24 keys, all live: batch 8, and 32 for beam 4, in both
+     dtypes); one call of #6 or #7 must be exactly one launch of its
      kernel in a profiler trace (no merge, cast or scratch kernel);
      then timed with CUDA events, L2 flushed before every launch: kernel,
      plain version, and the library yardstick the port never calls
@@ -168,7 +170,31 @@ catches its own failure:
      losses, no port kernel; then the float32 clone(for_test=True)
      forward loss at batch 8 on the card within rtol 1e-3 of the port's
      CPU path;
- 10. one {"kernels": [...]} line, the card's name and power limit, and
+ 10. the recurrent family on the jit path, at bench.py's widths.  SL1
+     (stacked_lstm.build(seq_len=100, hidden_dim=512, stacked_num=2),
+     dict 30000, emb 512, float32, batch 4) and MT1
+     (machine_translation.build: src and trg 24, dict 10000, emb and
+     hidden 256, float32, batch 8): 3 Adam(1e-3) steps on the card and
+     the same steps on the port's CPU path from the same weights, losses
+     within rtol 1e-3 (TF32 off), then each step run by the interpreter
+     and by the graph from the same state (rtol 1e-5); MT1 prints its
+     attention tiers (the composite: 576 scores are below
+     attn_flash_min_scores).  SL2 and MT2, bench.py's stacked_lstm
+     (bench.py:554-605: batch 64, the 8-batch cycling feed) and
+     machine_translation (bench.py:816-853: batch 128) legs, bf16 AMP,
+     Adam(1e-3, multi_precision), random_seed 1: 2 warm-up, 5 timed and
+     1 profiled step, T2's numbers in examples/s, the first loss within
+     2e-2 of a float32 forward of the same weights and batch, no port
+     kernel; for SL2 the LSTM loops' card time in one interpreted step
+     (forward, the grad's replay, backward) and the reference's K40m
+     figure on its own line.  MT/decode: build_decode at MT1's widths
+     over MT1's trained weights in a fresh scope, 8 source rows: the
+     teacher-forced steps within 2e-4 of the train program's logits;
+     greedy (32 tokens) equal to mode="interpret", beam 1 equal to
+     greedy, beam 4 on the captured step equal to mode="interpret"
+     (scores within 1e-5); one #6 launch a step (one head of 256 over 24
+     keys), counted; tokens/s, host and card ms a step;
+ 11. one {"kernels": [...]} line, the card's name and power limit, and
      last the {"ok": true, "device": ...} line.
 
 Exits non-zero, printing no result, when there is no CUDA device or when
@@ -181,6 +207,7 @@ for their numbers, and the script then exits 1.
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import statistics
 import subprocess
@@ -247,6 +274,23 @@ KEEP_TOL = 1e-3               # T2/drop: |kept share of a mask - 0.9|
 G_BATCH, G_WARMUP, G_STEPS, G_PROFILED = 128, 2, 5, 1
 G_CHECK_BATCH = 8             # G's float32 test forward, card vs CPU
 G_LOSS_RTOL = 1e-3            # cuDNN and the CPU sum in other orders
+# phases SL and MT: bench.py's stacked_lstm leg (bench.py:554-605:
+# stacked_lstm.build(seq_len=100, hidden_dim=512, stacked_num=2), dict
+# 30000, emb 512, batch 64, the 8-batch cycling feed) and its
+# machine_translation leg (bench.py:816-853: src and trg 24, dict 10000,
+# emb and hidden 256, batch 128); both bf16 AMP with Adam(1e-3,
+# multi_precision), random_seed 1 (bench.py's _setup, :186-202)
+SL_SEQ, SL_HIDDEN, SL_LAYERS, SL_DICT = 100, 512, 2, 30000
+SL1_BATCH, SL2_BATCH = 4, 64
+MT_SRC, MT_DICT, MT_EMB, MT_HIDDEN = 24, 10000, 256, 256
+MT1_BATCH, MT2_BATCH, MT_DEC_BATCH = 8, 128, 8
+RNN1_STEPS = 3                # SL1, MT1: float32 steps, card vs CPU
+RNN2_WARMUP, RNN2_STEPS, RNN2_PROFILED = 2, 5, 1
+RNN_LOSS_RTOL = 1e-3          # card vs the port's CPU path, float32
+TF_LOGITS_TOL = 2e-4          # MT/decode: a step vs the train logits
+# the reference's published rate for this leg: 184 ms/batch of 64 on a
+# Tesla K40m (benchmark/README.md:112-119, quoted at bench.py:555-556)
+SL_K40M_MS = 184.0
 
 KERNELS = {
     "mha_block": {
@@ -308,6 +352,16 @@ DIVERGED = []
 
 def log(*args):
     print(*args, flush=True)
+
+
+def reset_peak_memory():
+    """Open a phase's peak-memory window.  Garbage cycles of earlier
+    phases (an Executor's plans, a Generator's functions) can still hold
+    card memory, and when Python's cycle collector frees them depends on
+    unrelated allocations: collect them first, so that the peak is the
+    phase's own."""
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
 
 
 def card_line():
@@ -530,29 +584,34 @@ def bwd_case(name, b, sq, sk, h, d, causal, lens, device, rng, dtype):
 
 
 def decode_case(name, b, sk, h, d, lens, device, rng, dtype=torch.float32):
+    """Kernel #6 over a dense cache: kv_len drawn from `lens`, or (lens
+    None) every key live, as the translator's decode step feeds it."""
     g = torch.Generator(device=device).manual_seed(int(rng.randint(1 << 30)))
     q, k, v = (torch.randn((b, s, h * d), generator=g, device=device)
                .to(dtype) for s in (1, sk, sk))
-    kv_len = _lengths(rng, *lens, b, device)
-    live = sum(min(sk, n) for n in kv_len.tolist())
+    kv_len = None if lens is None else _lengths(rng, *lens, b, device)
+    live = (b * sk if kv_len is None
+            else sum(min(sk, n) for n in kv_len.tolist()))
     from paddle_tpu_torch.ops.cuda import flash_decode
 
     kernel = lambda: flash_decode.flash_decode(q, k, v, h,  # noqa: E731
                                                kv_len=kv_len)
     plain = lambda: flash_decode.flash_decode_reference(  # noqa: E731
         q, k, v, h, kv_len=kv_len)
-    mask = _sdpa_mask(kv_len, b, 1, sk, device)
+    mask = None if kv_len is None else _sdpa_mask(kv_len, b, 1, sk, device)
     qh, kh, vh = _heads(q, h), _heads(k, h), _heads(v, h)
     library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
         qh, kh, vh, attn_mask=mask)
+    lens_bytes = 0 if kv_len is None else kv_len.numel() * kv_len.element_size()
     return dict(kernel="flash_decode", case=name, fns=(kernel, plain, library),
                 shape=f"q {b}x1x{h * d} k {b}x{sk}x{h * d} "
-                      f"kv_len {lens[0]}-{lens[1]} "
-                      f"{str(dtype).replace('torch.', '')}",
+                      + ("all keys live" if lens is None
+                         else f"kv_len {lens[0]}-{lens[1]}")
+                      + f" {str(dtype).replace('torch.', '')}",
                 dtype=dtype, tol=TOL if dtype == torch.float32 else BF16_TOL,
                 flop=4 * d * h * live,
                 bytes=q.element_size() * h * d * (2 * b + 2 * live)
-                + kv_len.numel() * kv_len.element_size())
+                + lens_bytes)
 
 
 def paged_case(name, b, n, bs, lens, h, d, device, rng, dtype):
@@ -931,6 +990,15 @@ def check_kernels(device):
             dtype))
     cases.append(decode_case("flash_decode 1x2048 bf16", BATCH, 2048, h, d,
                              (512, 1056), device, rng, torch.bfloat16))
+    # added last: #6 at the GRU translator's decode step (MT/decode): one
+    # head of 256 over 24 encoder keys, all live, less than one key block;
+    # batch 8 (greedy) and 32 (beam 4 over 8 rows), both dtypes
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        for b in (MT_DEC_BATCH, MT_DEC_BATCH * BEAM_K):
+            cases.append(decode_case(
+                f"MT decode 1x{MT_SRC} d{MT_HIDDEN} b{b} {tag}", b, MT_SRC,
+                1, MT_HIDDEN, None, device, rng, dtype))
     timer = Timer(device)
     for c in cases:
         fns = c.pop("fns")
@@ -1089,7 +1157,7 @@ def run_phase(name, spec, scope, card):
 
     # the main path, counted
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak_memory()
     mha_block.launches = 0
     flash_decode.launches = 0
     g0 = graph_stats()
@@ -1244,7 +1312,7 @@ def phase_beam(card, scope):
 
     # the main path, counted
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak_memory()
     _zero_counts()
     g0 = graph_stats()
     t0 = time.perf_counter()
@@ -1390,7 +1458,7 @@ def serve_dense(spec, scope, feed, card):
     sched = serving.Scheduler(spec, scope=scope, place=place,
                               max_batch=BATCH)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak_memory()
     _zero_counts()
     g0 = graph_stats()
     t0 = time.perf_counter()
@@ -1547,7 +1615,7 @@ def phase_s(card, scope):
 
     # the main path, counted
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak_memory()
     _zero_counts()
     g0 = graph_stats()
     t0 = time.perf_counter()
@@ -1832,7 +1900,7 @@ def phase_v(card, scope, leg):
 
     # the main path, counted
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak_memory()
     _zero_counts()
     g0 = graph_stats()
     t0 = time.perf_counter()
@@ -1998,7 +2066,7 @@ def phase_c(card, scope, spec):
 
     # the main path, counted
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak_memory()
     _zero_counts()
     g0 = graph_stats()
     t0 = time.perf_counter()
@@ -2142,7 +2210,7 @@ def phase_h(card, scope, spec):
 
     # the main path, counted
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak_memory()
     _zero_counts()
     g0 = graph_stats()
     t0 = time.perf_counter()
@@ -2523,7 +2591,7 @@ def phase_t2(card, device):
     torch.cuda.synchronize()
     _zero_counts()
     before = graph_stats()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak_memory()
     # the first step runs eagerly, the second is captured, later ones replay
     warm, _ = run_steps(exe, main, scope, feed, loss, T2_WARMUP)
     torch.cuda.synchronize()
@@ -2606,7 +2674,7 @@ def phase_t2drop(card, device):
     torch.cuda.synchronize()
     _zero_counts()
     before = graph_stats()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak_memory()
     # the eager warm-up and the capture, each after the interpreter's step
     # from the same persistables and run counter in a scratch scope
     warm, ref = [], []
@@ -2813,7 +2881,7 @@ def phase_l2(card, device):
     torch.cuda.synchronize()
     _zero_counts()
     before = graph_stats()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak_memory()
     warm, _ = run_steps(exe, main, scope, feed, loss, L2_WARMUP)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2876,12 +2944,11 @@ def build_resnet(use_amp, lr):
     its resnet50 leg."""
     from paddle_tpu_torch import (Program, amp, optimizer, program_guard,
                                   unique_name)
-    from paddle_tpu_torch.models import resnet
 
     main, startup = Program(), Program()
     main.random_seed = startup.random_seed = SEED
     with program_guard(main, startup), unique_name.guard():
-        loss = resnet.build(dataset="imagenet", fused_loss=True)[0]
+        loss = _resnet_model()
         if use_amp:
             amp.cast_model_to_bf16(main, startup)
         _, params_grads = optimizer.Momentum(
@@ -2976,16 +3043,22 @@ def phase_r1(card, device):
     return res
 
 
-def _f32_forward_loss(scope, feed, device):
-    """The loss of a float32 forward (resnet.build, no optimizer) over the
-    same weights and batch: the bf16 parameters read as float32."""
+def _resnet_model():
+    from paddle_tpu_torch.models import resnet
+
+    return resnet.build(dataset="imagenet", fused_loss=True)[0]
+
+
+def _f32_forward_loss(model, scope, feed):
+    """The loss of a float32 forward (`model()` builds the model alone, no
+    optimizer) over the same weights and batch: the bf16 parameters read
+    as float32."""
     from paddle_tpu_torch import (CUDAPlace, Executor, Program, Scope,
                                   program_guard, unique_name)
-    from paddle_tpu_torch.models import resnet
 
     main, startup = Program(), Program()
     with program_guard(main, startup), unique_name.guard():
-        loss = resnet.build(dataset="imagenet", fused_loss=True)[0]
+        loss = model()
     f32 = Scope()
     for v in main.list_vars():
         if v.persistable:
@@ -3005,13 +3078,13 @@ def phase_r2(card, device):
     exe.run(startup, scope=scope)
     feed = {k: torch.as_tensor(v, device=device)
             for k, v in _resnet_feed(R2_BATCH, 0).items()}
-    ref_first = _f32_forward_loss(scope, feed, device)
+    ref_first = _f32_forward_loss(_resnet_model, scope, feed)
     torch.cuda.empty_cache()
 
     torch.cuda.synchronize()
     _zero_counts()
     before = graph_stats()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak_memory()
     warm, _ = run_steps(exe, main, scope, feed, loss, R2_WARMUP)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3242,7 +3315,7 @@ def phase_g(card, device):
     torch.cuda.synchronize()
     _zero_counts()
     before = graph_stats()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak_memory()
     warm, _ = run_steps(exe, main, scope, feed, loss, G_WARMUP)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3276,6 +3349,408 @@ def phase_g(card, device):
     log_capture("G", res)
     log_profile(prof)
     return res
+
+
+# ----------------------------------------- the recurrent family (SL, MT)
+
+
+def _sl_model(**kw):
+    from paddle_tpu_torch.models import stacked_lstm
+
+    return stacked_lstm.build(seq_len=SL_SEQ, hidden_dim=SL_HIDDEN,
+                              stacked_num=SL_LAYERS, **kw)[0]
+
+
+def _mt_model(**kw):
+    from paddle_tpu_torch.models import machine_translation as mt
+
+    return mt.build(src_seq_len=MT_SRC, trg_seq_len=MT_SRC,
+                    dict_size=MT_DICT, emb_dim=MT_EMB, hidden_dim=MT_HIDDEN,
+                    **kw)[0]
+
+
+RNN_MODELS = {"SL": _sl_model, "MT": _mt_model}
+
+
+def build_rnn(model, use_amp):
+    """bench.py's _setup (bench.py:186-202) for its stacked_lstm and
+    machine_translation legs: random_seed 1, the AMP cast before
+    minimize, Adam(1e-3, multi_precision=use_amp)."""
+    from paddle_tpu_torch import (Program, amp, optimizer, program_guard,
+                                  unique_name)
+
+    main, startup = Program(), Program()
+    main.random_seed = startup.random_seed = 1
+    with program_guard(main, startup), unique_name.guard():
+        loss = RNN_MODELS[model]()
+        if use_amp:
+            amp.cast_model_to_bf16(main, startup)
+        optimizer.Adam(learning_rate=1e-3,
+                       multi_precision=use_amp).minimize(loss)
+    return main, startup, loss
+
+
+def rnn_feeds(model, batch):
+    """bench.py's draws: stacked_lstm's 8-batch cycle (4 word batches,
+    each twice, labels drawn independently; bench.py:573-584), the
+    translator's one batch over its feed_shapes (bench.py:836-840)."""
+    from paddle_tpu_torch.models import machine_translation as mt
+
+    rng = np.random.RandomState(0)
+    if model == "SL":
+        words4 = rng.randint(0, SL_DICT, (4, batch, SL_SEQ)).astype(np.int64)
+        words = np.concatenate([words4, words4], axis=0)
+        labels = rng.randint(0, 2, (8, batch, 1)).astype(np.int64)
+        return [{"words": w, "label": lb} for w, lb in zip(words, labels)]
+    return [{name: rng.randint(0, MT_DICT, shape).astype(dtype)
+             for name, (shape, dtype) in mt.feed_shapes(
+                 batch, MT_SRC, MT_SRC).items()}]
+
+
+def run_feeds(exe, main, scope, feeds, loss, n, start=0):
+    """n training steps, step i on feeds[(start + i) % len(feeds)]."""
+    losses = []
+    for i in range(n):
+        losses += run_steps(exe, main, scope,
+                            feeds[(start + i) % len(feeds)], loss, 1)[0]
+    return losses
+
+
+def phase_rnn1(model, card, device):
+    """SL1 / MT1, float32 at bench.py's widths: RNN1_STEPS Adam steps on
+    the card and the same steps on the port's CPU path from the same
+    weights (losses within RNN_LOSS_RTOL, TF32 off); then each step run by
+    the interpreter and by the captured graph from the same state.
+    Returns (result, the card scope)."""
+    from paddle_tpu_torch import CPUPlace, CUDAPlace, Executor, Scope
+    from paddle_tpu_torch.ops import attention_ops
+
+    phase = f"{model}1"
+    batch = SL1_BATCH if model == "SL" else MT1_BATCH
+    main, startup, loss = build_rnn(model, False)
+    scope, exe = Scope(), Executor(CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    start = _persistables(scope, main)
+    feeds = rnn_feeds(model, batch)
+    card_feeds = [{k: torch.as_tensor(v, device=device) for k, v in f.items()}
+                  for f in feeds]
+    attention_ops.TIER_CALLS.clear()
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = run_feeds(exe, main, scope, card_feeds, loss, RNN1_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tiers = dict(attention_ops.TIER_CALLS)
+    counts = _port_kernel_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{phase}: launched port kernels {counts}")
+    cpu_scope = Scope()
+    for name, value in start.items():
+        cpu_scope.set_var(name, value.cpu())
+    del start
+    t0 = time.perf_counter()
+    cpu_losses = run_feeds(Executor(CPUPlace()), main, cpu_scope, feeds,
+                           loss, RNN1_STEPS)
+    cpu_wall = time.perf_counter() - t0
+    del cpu_scope
+    if not (np.all(np.isfinite(losses)) and np.allclose(
+            losses, cpu_losses, rtol=RNN_LOSS_RTOL, atol=0)):
+        raise AssertionError(f"{phase}: card losses {losses} vs CPU "
+                             f"{cpu_losses}")
+    jit, ref = jit_vs_interpret(phase, exe, main, scope, card_feeds[0], loss,
+                                RNN1_STEPS)
+    graphs, bound = captured_graphs(phase, exe, card_feeds[0])
+    res = {"phase": phase, "dtype": "float32", "batch": batch,
+           "steps": RNN1_STEPS, "losses": losses, "cpu_losses": cpu_losses,
+           "jit_losses": jit, "interpret_losses": ref,
+           "attention_tiers": tiers, "graphs": graphs, "bound_args": bound,
+           "ms_per_step": wall / RNN1_STEPS * 1e3,
+           "cpu_ms_per_step": cpu_wall / RNN1_STEPS * 1e3, "card": card}
+    log(f"  {phase} float32 batch {batch}: card losses {losses}; CPU "
+        f"{cpu_losses}; jit {jit} = interpret {ref}; attention tiers "
+        f"{tiers}; {res['ms_per_step']:.1f} ms/step (CPU "
+        f"{res['cpu_ms_per_step']:.0f}); {graphs} graphs, {bound} arguments "
+        f"bound  [{card}]")
+    return res, scope
+
+
+def lstm_time_split(main, scope, feed, loss):
+    """The card's time in the recurrent ops over one step run by the
+    interpreter from a copy of the state, under torch.profiler: the
+    forward loops, the grad's replay of them under autograd, and its
+    backward (the grad op's time less the replay), in ms and as shares
+    of the step's busy time.  A captured step runs no Python, so the
+    split is taken where the ops run one by one: the same kernels."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from paddle_tpu_torch import CUDAPlace, Executor, Scope
+    from paddle_tpu_torch.ops import registry
+
+    fwd = registry.OPS["fused_lstm"]
+    grad = registry.get_runtime_info("fused_lstm_grad")
+    real_fwd, real_grad = fwd.forward, grad.forward
+
+    def labelled(fn, label):
+        def run(ctx):
+            torch.cuda.synchronize()
+            with record_function(label(ctx)):
+                fn(ctx)
+                torch.cuda.synchronize()
+        return run
+
+    fwd.forward = labelled(real_fwd, lambda ctx: "lstm replay"
+                           if torch.is_grad_enabled() else "lstm forward")
+    grad.forward = labelled(real_grad, lambda ctx: "lstm grad")
+    scratch = Scope()
+    for name, value in _persistables(scope, main).items():
+        scratch.set_var(name, value)
+    eager = Executor(CUDAPlace(0), mode="interpret")
+    try:
+        run_steps(eager, main, scratch, feed, loss, 1)   # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run_steps(eager, main, scratch, feed, loss, 1)
+            torch.cuda.synchronize()
+    finally:
+        fwd.forward, grad.forward = real_fwd, real_grad
+        del scratch
+        torch.cuda.empty_cache()
+    labels = ("lstm forward", "lstm replay", "lstm grad")
+    spans = [sp for sp in device_spans(prof) if sp[0] not in labels]
+    if not spans:
+        return None   # the profiler saw no device activity
+    busy = busy_us(spans)
+    ms = {}
+    for label in labels:
+        ranges = [(e.time_range.start, e.time_range.end)
+                  for e in prof.events() if e.name == label]
+        ms[label] = busy_us([sp for sp in spans
+                             if any(a <= sp[1] < b for a, b in ranges)]) / 1e3
+    split = {"forward_ms": ms["lstm forward"],
+             "replay_ms": ms["lstm replay"],
+             "backward_ms": ms["lstm grad"] - ms["lstm replay"],
+             "step_busy_ms": busy / 1e3}
+    for k in ("forward", "replay", "backward"):
+        split[f"{k}_share"] = split[f"{k}_ms"] / split["step_busy_ms"]
+    return split
+
+
+def phase_rnn2(model, card, device):
+    """SL2 / MT2, bench.py's leg: bf16 AMP, Adam(1e-3, multi_precision),
+    its feeds staged on the card (SL's 8-batch cycle: warm-up, timed and
+    profiled steps walk it in order) on the jit path: RNN2_WARMUP warm-up
+    (eager, capture), RNN2_STEPS timed and RNN2_PROFILED profiled steps;
+    examples/s, ms per step, card busy and idle share, graphs, capture
+    seconds, graph-pool MiB, peak memory; the first loss within 2e-2 of a
+    float32 forward of the same weights and batch; no port kernel."""
+    from paddle_tpu_torch import CUDAPlace, Executor, Scope
+
+    phase = f"{model}2"
+    batch = SL2_BATCH if model == "SL" else MT2_BATCH
+    main, startup, loss = build_rnn(model, True)
+    scope, exe = Scope(), Executor(CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    feeds = [{k: torch.as_tensor(v, device=device) for k, v in f.items()}
+             for f in rnn_feeds(model, batch)]
+    ref_first = _f32_forward_loss(RNN_MODELS[model], scope, feeds[0])
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    _zero_counts()
+    before = graph_stats()
+    reset_peak_memory()
+    warm = run_feeds(exe, main, scope, feeds, loss, RNN2_WARMUP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = run_feeds(exe, main, scope, feeds, loss, RNN2_STEPS,
+                      start=RNN2_WARMUP)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    nxt = feeds[(RNN2_WARMUP + RNN2_STEPS) % len(feeds)]
+    prof = profile_calls(
+        lambda: run_steps(exe, main, scope, nxt, loss, 1), RNN2_PROFILED,
+        top=10)
+    counts = _port_kernel_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{phase}: launched port kernels {counts}")
+    losses = warm + timed
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{phase}: losses {losses}")
+    if abs(losses[0] - ref_first) > LOSS_RTOL_BF16 * abs(ref_first):
+        raise AssertionError(f"{phase}: first loss {losses[0]} vs the "
+                             f"float32 forward's {ref_first}")
+    graphs, bound = captured_graphs(phase, exe, feeds[0])
+    res = {"phase": phase, "dtype": "bfloat16 AMP", "batch": batch,
+           "warmup": RNN2_WARMUP, "steps": RNN2_STEPS, "losses": losses,
+           "f32_forward_first_loss": ref_first,
+           "examples_per_s": batch * RNN2_STEPS / wall,
+           "ms_per_step": wall / RNN2_STEPS * 1e3, "graphs": graphs,
+           "bound_args": bound, "profile": prof, "card": card}
+    res.update(capture_fields(before, prof, res["ms_per_step"]))
+    if model == "SL":
+        res["lstm_split"] = lstm_time_split(main, scope, feeds[0], loss)
+    log(f"  {phase} bf16 AMP batch {batch}: {res['examples_per_s']:.1f} "
+        f"examples/s, {res['ms_per_step']:.2f} ms/step; losses {losses}; "
+        f"float32 forward {ref_first}  [{card}]")
+    if model == "SL":
+        log(f"    the LSTM loops in an interpreted step's card time: "
+            f"{res['lstm_split']}")
+        log(f"  the reference: {SL_K40M_MS:.0f} ms/batch of 64, "
+            f"{64 / SL_K40M_MS * 1e3:.1f} examples/s on a Tesla K40m "
+            f"(benchmark/README.md:112-119, bench.py:555-556), a point of "
+            f"comparison, not a yardstick")
+    log_capture(phase, res)
+    log_profile(prof)
+    del scope, exe, feeds
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_mt_decode(card, device, train_scope):
+    """MT/decode: build_decode at MT1's widths (float32), MT1's trained
+    weights carried into a fresh scope, 8 source rows.  Step t's
+    teacher-forced logits equal the train program's at t within
+    TF_LOGITS_TOL; greedy (NEW_TOKENS) equals mode="interpret"; beam 1
+    equals greedy; beam BEAM_K on the captured step gives the interpreted
+    search's tokens, scores within BEAM_TOL; every step's attention (one
+    head of 256 over 24 keys) is one #6 launch."""
+    from paddle_tpu_torch import (CUDAPlace, Executor, Program, Scope,
+                                  decode, program_guard, unique_name)
+    from paddle_tpu_torch.models import machine_translation as mt
+
+    spec = mt.build_decode(src_seq_len=MT_SRC, dict_size=MT_DICT,
+                           emb_dim=MT_EMB, hidden_dim=MT_HIDDEN)
+    progs = [spec.prefill_program, spec.step_program]
+    scope = Scope()
+    for p in progs:
+        for v in p.list_vars():
+            if v.persistable:
+                scope.set_var(v.name, train_scope.find_var(v.name).clone())
+    feed = rnn_feeds("MT", MT_DEC_BATCH)[0]
+    src = {"src_ids": feed["src_ids"]}
+    place = CUDAPlace(0)
+
+    # the train program's logits on the same weights (no optimizer)
+    main, startup = Program(), Program()
+    with program_guard(main, startup), unique_name.guard():
+        _, logits = mt.build(src_seq_len=MT_SRC, trg_seq_len=MT_SRC,
+                             dict_size=MT_DICT, emb_dim=MT_EMB,
+                             hidden_dim=MT_HIDDEN)
+    (ref,) = Executor(place).run(main, feed=feed, fetch_list=[logits],
+                                 scope=scope, return_numpy=False)
+    gen = decode.Generator(spec, scope=scope, place=place)
+    with torch.inference_mode():
+        _, states, lengths, pl = gen._prefill(src)
+        tf_err = 0.0
+        for t in range(MT_SRC):
+            lg, states = gen._step(feed["trg_ids"][:, t], lengths, states, {})
+            tf_err = max(tf_err, (lg - ref[:, t]).abs().max().item())
+    if pl is not None or not tf_err <= TF_LOGITS_TOL:
+        raise AssertionError(f"MT/decode: teacher-forced steps vs the train "
+                             f"logits {tf_err}")
+    del ref
+
+    gen.generate(src, 2, eos_id=-1)   # warm-up at the counted signatures
+    gen.generate(src, 2, method="beam", beam_size=BEAM_K, eos_id=-1)
+    expect = dict.fromkeys(SERVING_KERNELS, 0)
+    expect["flash_decode"] = NEW_TOKENS
+    torch.cuda.synchronize()
+    reset_peak_memory()
+    _zero_counts()
+    g0 = graph_stats()
+    t0 = time.perf_counter()
+    greedy = gen.generate(src, NEW_TOKENS, eos_id=-1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    if counts != expect or greedy.shape != (MT_DEC_BATCH, NEW_TOKENS):
+        raise AssertionError(f"MT/decode greedy: launches {counts}, "
+                             f"expected {expect}; tokens {greedy.shape}")
+    _zero_counts()
+    t0 = time.perf_counter()
+    tokens, scores = gen.generate(src, NEW_TOKENS, method="beam",
+                                  beam_size=BEAM_K, eos_id=-1)
+    torch.cuda.synchronize()
+    beam_wall = time.perf_counter() - t0
+    beam_counts = launch_counts()
+    if beam_counts != expect:
+        raise AssertionError(f"MT/decode beam: launches {beam_counts}, "
+                             f"expected {expect}")
+    graphs = graph_stats(g0)
+    peak = torch.cuda.max_memory_allocated()
+    one, _ = gen.generate(src, NEW_TOKENS, method="beam", beam_size=1,
+                          eos_id=-1)
+    eager = decode.Generator(spec, scope=scope, place=place,
+                             mode="interpret")
+    e_greedy = eager.generate(src, NEW_TOKENS, eos_id=-1)
+    e_tokens, e_scores = eager.generate(src, NEW_TOKENS, method="beam",
+                                        beam_size=BEAM_K, eos_id=-1)
+    err = float(np.abs(scores - e_scores).max())
+    if not (np.array_equal(greedy, e_greedy)
+            and np.array_equal(one[:, 0], greedy)
+            and np.array_equal(tokens, e_tokens) and err <= BEAM_TOL
+            and (np.diff(scores, axis=1) <= 0).all()):
+        raise AssertionError(
+            f"MT/decode: greedy = interpret {np.array_equal(greedy, e_greedy)}"
+            f", beam 1 = greedy {np.array_equal(one[:, 0], greedy)}, beam "
+            f"tokens = interpret {np.array_equal(tokens, e_tokens)}, scores "
+            f"{err}")
+    with torch.inference_mode():
+        _, states, lengths, _ = gen._prefill(src)
+        prof = profile_decode_steps(
+            gen, {}, np.full(MT_DEC_BATCH, spec.bos_id), lengths, states, 8,
+            kernels=("flash_decode",))
+    res = {"phase": "MT/decode", "batch": MT_DEC_BATCH, "src_len": MT_SRC,
+           "hidden": MT_HIDDEN, "new_tokens": NEW_TOKENS,
+           "teacher_forced_max_abs_err": tf_err,
+           "greedy_s": wall, "tokens_per_s": MT_DEC_BATCH * NEW_TOKENS / wall,
+           "host_ms_per_step": wall / NEW_TOKENS * 1e3,
+           "card_busy_ms_per_step": prof["busy_ms_per_step"] if prof else None,
+           "beam_s": beam_wall,
+           "beam_tokens_per_s": MT_DEC_BATCH * NEW_TOKENS / beam_wall,
+           "beam_scores_max_abs_diff_vs_interpret": err,
+           "launches": counts, "beam_launches": beam_counts,
+           "graphs": graphs, "peak_mem_mib": peak / 2 ** 20,
+           "profile": prof, "card": card}
+    log(f"  MT/decode float32 batch {MT_DEC_BATCH}: teacher-forced steps vs "
+        f"the train logits {tf_err:.2e}; greedy {NEW_TOKENS} tokens in "
+        f"{wall:.3f} s ({res['tokens_per_s']:.1f} tokens/s, "
+        f"{res['host_ms_per_step']:.3f} host ms/step, card "
+        f"{res['card_busy_ms_per_step']} ms/step) = interpret; beam 1 = "
+        f"greedy; beam {BEAM_K} ({MT_DEC_BATCH * BEAM_K} rows) "
+        f"{beam_wall:.3f} s, tokens = interpret, scores {err}; launches "
+        f"{counts} and {beam_counts}; CUDA graphs {graphs}; peak "
+        f"{res['peak_mem_mib']:.0f} MiB  [{card}]")
+    log_profile(prof)
+    return res, {"flash_decode": counts["flash_decode"]
+                 + beam_counts["flash_decode"]}
+
+
+def drive_rnn(card, device, lap=lambda phase: None):
+    """Phase 10: the stacked LSTM (SL1, SL2) and the GRU translator (MT1,
+    MT2, MT/decode); `lap(phase)` after each."""
+    results = []
+    res, scope = phase_rnn1("SL", card, device)
+    results.append(res)
+    del scope
+    torch.cuda.empty_cache()
+    lap("[10] SL1")
+    results.append(phase_rnn2("SL", card, device))
+    lap("[10] SL2")
+    res, mt_scope = phase_rnn1("MT", card, device)
+    results.append(res)
+    torch.cuda.empty_cache()
+    lap("[10] MT1")
+    results.append(phase_rnn2("MT", card, device))
+    lap("[10] MT2")
+    res, launches = phase_mt_decode(card, device, mt_scope)
+    results.append(res)
+    del mt_scope
+    torch.cuda.empty_cache()
+    lap("[10] MT/decode")
+    return results, launches
 
 
 def main():
@@ -3359,7 +3834,13 @@ def main():
     training.append(phase_g(card, device))
     torch.cuda.empty_cache()
     lap("[9] G")
-    for more in (counts, train_launches, bert_launches, resnet_launches):
+
+    log(f"[10] the recurrent family: the stacked LSTM (SL1, SL2) and the "
+        f"GRU translator (MT1, MT2, MT/decode) [{card}]")
+    rnn_runs, rnn_launches = drive_rnn(card, device, lap)
+    training += rnn_runs
+    for more in (counts, train_launches, bert_launches, resnet_launches,
+                 rnn_launches):
         for k, n in more.items():
             launches[k] = launches.get(k, 0) + n
     never = [k for k in KERNELS if not launches.get(k)]
@@ -3367,7 +3848,7 @@ def main():
         raise AssertionError(f"kernels {never} never launched on a path")
 
     log(f"  all phases took {laps[-1] - laps[0]:.1f} s wall")
-    log("[10] results")
+    log("[11] results")
     log(json.dumps({"phases": phases}))
     log(json.dumps({"training": training}))
     if DIVERGED:

@@ -1,6 +1,7 @@
 """Layer function namespace (counterpart of paddle_tpu/layers/): what
-transformer.build_decode, transformer.build, bert.build, resnet.build and
-googlenet.build call.
+transformer.build_decode, transformer.build, bert.build, resnet.build,
+googlenet.build, stacked_lstm.build and machine_translation's build and
+build_decode call.
 Importing it patches Variable's arithmetic and comparison operators
 (math_op_patch), as the JAX package's does."""
 
@@ -23,13 +24,19 @@ from .nn import (
     fc,
     fused_attention,
     gather,
+    gru,
     kv_cache_append,
     layer_norm,
+    lstm,
     matmul,
     mean,
     multi_head_attention,
     one_hot,
     pool2d,
+    reduce_max,
+    reduce_mean,
+    reduce_min,
+    reduce_prod,
     reduce_sum,
     relu,
     reshape,

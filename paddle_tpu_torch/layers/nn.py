@@ -1,5 +1,5 @@
 """Neural-network layer functions of the ported slices (counterparts of
-paddle_tpu/layers/nn.py:18-1178): each appends ops to the default main
+paddle_tpu/layers/nn.py:18-1250): each appends ops to the default main
 program and returns output Variables; nothing executes here.  Helper
 names, parameter names and attrs are the JAX package's, so both packages
 build the same Program."""
@@ -296,18 +296,39 @@ def slice(input, axes, starts, ends):
     return out
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    """Sum over `dim`, or over everything (reduce_all) when dim is None."""
-    helper = LayerHelper("reduce_sum", name=name)
+def _reduce_layer(op_type, input, dim, keep_dim, name):
+    """Reduce over `dim`, or over everything (reduce_all) when dim is
+    None."""
+    helper = LayerHelper(op_type, name=name)
     out = helper.create_variable_for_type_inference(input.dtype)
     if dim is None:
         attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
     else:
         attrs = {"dim": dim if isinstance(dim, (list, tuple)) else [dim],
                  "keep_dim": keep_dim, "reduce_all": False}
-    helper.append_op(type="reduce_sum", inputs={"X": [input]},
+    helper.append_op(type=op_type, inputs={"X": [input]},
                      outputs={"Out": [out]}, attrs=attrs)
     return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_sum", input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_mean", input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_max", input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_min", input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_prod", input, dim, keep_dim, name)
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
@@ -482,3 +503,51 @@ def multi_head_attention(queries, keys=None, values=None, *, d_model,
     return fc(input=ctx, size=d_model, num_flatten_dims=2,
               param_attr=_suffixed_attr(param_attr, "o"), bias_attr=False,
               name=f"{name}_out" if name else None)
+
+
+def _rnn_params(helper, input, hidden_size, gates, param_attr, bias_attr):
+    d = input.shape[-1]
+    wx = helper.create_parameter(attr=_suffixed_attr(param_attr, "wx"),
+                                 shape=[d, gates * hidden_size],
+                                 dtype=input.dtype)
+    wh = helper.create_parameter(attr=_suffixed_attr(param_attr, "wh"),
+                                 shape=[hidden_size, gates * hidden_size],
+                                 dtype=input.dtype)
+    b = helper.create_parameter(attr=bias_attr, shape=[gates * hidden_size],
+                                dtype=input.dtype, is_bias=True)
+    return {"X": [input], "WeightX": [wx], "WeightH": [wh], "Bias": [b]}
+
+
+def lstm(input, hidden_size, *, param_attr=None, bias_attr=None,
+         is_reverse=False, name=None):
+    """One LSTM layer over [B, S, D] -> ([B, S, H], last hidden, last
+    cell): one `fused_lstm` op, WeightX [D, 4H] and WeightH [H, 4H]
+    (named `<param_attr>_wx` / `_wh` when the attr has a name)."""
+    helper = LayerHelper("lstm", **locals())
+    inputs = _rnn_params(helper, input, hidden_size, 4, param_attr,
+                         bias_attr)
+    out, last_h, last_c = (helper.create_variable_for_type_inference(
+        input.dtype) for _ in range(3))
+    helper.append_op(
+        type="fused_lstm", inputs=inputs,
+        outputs={"Out": [out], "LastH": [last_h], "LastC": [last_c]},
+        attrs={"is_reverse": is_reverse})
+    return out, last_h, last_c
+
+
+def gru(input, hidden_size, *, param_attr=None, bias_attr=None,
+        is_reverse=False, h0=None, name=None):
+    """One GRU layer over [B, S, D] -> ([B, S, H], last hidden): one
+    `fused_gru` op; h0 [B, H] is the optional initial hidden state (the
+    translator's decode step carries it)."""
+    helper = LayerHelper("gru", **locals())
+    inputs = _rnn_params(helper, input, hidden_size, 3, param_attr,
+                         bias_attr)
+    if h0 is not None:
+        inputs["H0"] = [h0]
+    out, last_h = (helper.create_variable_for_type_inference(input.dtype)
+                   for _ in range(2))
+    helper.append_op(type="fused_gru", inputs=inputs,
+                     outputs={"Out": [out], "LastH": [last_h]},
+                     attrs={"is_reverse": is_reverse})
+    return out, last_h

@@ -1,1 +1,1 @@
-from . import transformer
+from . import machine_translation, stacked_lstm, transformer

@@ -1,7 +1,8 @@
 """Op library: importing this package registers every op lowering of the
 ported slices (transformer.build_decode's programs, and transformer.build
-with its backward, optimizer and AMP ops, bert.build's and
-resnet.build's, and beam_search)."""
+with its backward, optimizer and AMP ops, bert.build's, resnet.build's,
+googlenet.build's, stacked_lstm.build's and machine_translation's, and
+beam_search)."""
 
 from . import registry
 from . import math_ops
@@ -16,3 +17,4 @@ from . import loss_ops
 from . import optimizer_ops
 from . import misc_ops
 from . import beam_search_ops
+from . import rnn_ops

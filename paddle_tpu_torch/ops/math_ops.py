@@ -1,8 +1,8 @@
 """Dense math ops: the elementwise family and comparisons, mul, matmul,
-scale, sum, mean, reduce_sum.
+scale, sum, mean, and the reduce family (sum, mean, max, min, prod).
 
 Counterparts of paddle_tpu/ops/math_ops.py (elementwise :36-51, mul :55,
-matmul :69, scale :86, sum :98, mean :105, reduce_sum :116-139,
+matmul :69, scale :86, sum :98, mean :105, the reduce family :116-139,
 comparisons :192-205).  Their gradients are the registry's generic ones:
 autograd over these lowerings reduces a broadcast Y back to its own
 shape, as `jax.vjp` does.  `mul` and `matmul` stay `torch.matmul`: the
@@ -129,21 +129,51 @@ def mean(ctx):
     ctx.set_output("Out", x.float().mean().reshape(1).to(x.dtype))
 
 
-@register_op("reduce_sum")
-def reduce_sum(ctx):
-    """Sum over `dim` (keep_dim), or over everything with reduce_all; a
-    scalar result is kept as shape [1].  The sum stays in X's dtype, as
-    jnp.sum keeps int32 (torch.sum would widen it to int64)."""
+def _reduce(fn, ctx):
+    """The reduce family's one lowering (math_ops.py:116-139 of the JAX
+    package): over `dim` (keep_dim), or over everything with reduce_all; a
+    scalar result is kept as shape [1]."""
     x = ctx.input("X")
     dim = ctx.attr("dim", [0])
     if isinstance(dim, int):
         dim = [dim]
     keep = ctx.attr("keep_dim", False)
     if ctx.attr("reduce_all", False):
-        out = x.sum(dtype=x.dtype)
+        out = fn(x, tuple(range(x.dim())), False)
         out = out.reshape((1,) * x.dim()) if keep else out.reshape(1)
     else:
-        out = x.sum(dim=tuple(dim), keepdim=keep, dtype=x.dtype)
+        out = fn(x, tuple(dim), keep)
         if out.dim() == 0:
             out = out.reshape(1)
     ctx.set_output("Out", out)
+
+
+def _sum(x, dim, keep):
+    """Stays in X's dtype, as jnp.sum keeps int32 (torch.sum would widen
+    it to int64)."""
+    return x.sum(dim=dim, keepdim=keep, dtype=x.dtype)
+
+
+def _mean(x, dim, keep):
+    """A bfloat16 mean sums in float32 and rounds once, as jnp.mean."""
+    if x.dtype == torch.bfloat16:
+        return x.float().mean(dim=dim, keepdim=keep).to(x.dtype)
+    return x.mean(dim=dim, keepdim=keep)
+
+
+def _prod(x, dim, keep):
+    for d in sorted((d % x.dim() for d in dim), reverse=True):
+        x = x.prod(dim=d, keepdim=keep, dtype=x.dtype)
+    return x
+
+
+# amax/amin, not max(dim).values: their backward splits the cotangent
+# equally among tied maxima, as jax.vjp of jnp.max does
+for _name, _fn in [
+    ("reduce_sum", _sum),
+    ("reduce_mean", _mean),
+    ("reduce_max", lambda x, dim, keep: torch.amax(x, dim=dim, keepdim=keep)),
+    ("reduce_min", lambda x, dim, keep: torch.amin(x, dim=dim, keepdim=keep)),
+    ("reduce_prod", _prod),
+]:
+    register_op(_name)(functools.partial(_reduce, _fn))

@@ -13,7 +13,10 @@ lowering in float32, plus the edge cases of each kernel's masking
 contract.  Last, the Executor's jit path: captured decode steps against
 their eager runs (bound and copied arguments, a moved pool, the launch
 counts a replay adds) and a captured training step against the
-interpreter's.  Tolerances: max abs error 1e-4 in float32 (the kernels sum in
+interpreter's; then the recurrent slice: #6 at the GRU translator's
+decode step (one head of 256 over 24 keys, batch 8 and 32) and a
+captured stacked-LSTM training step against the interpreter's.
+Tolerances: max abs error 1e-4 in float32 (the kernels sum in
 another order than cuBLAS) and 2e-2 in bfloat16 (one bfloat16 step of an
 output in [2, 4); the forwards round P to bfloat16 before P V as the
 plain versions do, from float32 sums taken in another order, and the
@@ -1272,3 +1275,65 @@ def test_capture_without_a_registered_generator_raises(card):
     seg(None, x)                     # warm-up, eager
     with pytest.raises(RuntimeError, match="segment stray"):
         seg(None, x)                 # capture
+
+
+@pytest.mark.parametrize("batch", [8, 32], ids=["b8", "beam4x8"])
+@pytest.mark.parametrize("kv", [None, "short"], ids=["all_live", "short"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_decode_at_the_translators_shape(card, batch, kv, dtype):
+    """#6 at the GRU translator's decode step: one head of 256 over 24
+    encoder keys, less than one key block: a cluster of 2 ranks, rank 1's
+    tile half live (warps 2 and 3 of it dead).  With no kv_len every key is
+    live; with lengths of 1-16 rank 1 holds no live key, and its partial
+    (m = -inf, l = 0) must merge with weight 0, not NaN."""
+    from paddle_tpu_torch.ops.cuda.decode_stream import cluster_ranks
+
+    sk, h, d = 24, 1, 256
+    assert cluster_ranks(sk) == 2
+    q, k, v = _qkv(8, batch, 1, sk, h * d, card, dtype)
+    kv_len = None
+    if kv == "short":
+        kv_len = _lens(np.resize([1, 5, 16, 9, 12, 3, 16, 8], batch), card)
+    before = fd.launches
+    out = fd.flash_decode(q, k, v, h, 0.0, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert fd.launches == before + 1
+    ref = fd.flash_decode_reference(q, k, v, h, 0.0, kv_len=kv_len)
+    assert torch.isfinite(out).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+
+
+def test_jit_executor_trains_stacked_lstm_as_the_interpreter(card):
+    """A small stacked-LSTM classifier (2 layers, the second reversed,
+    float32, Adam): under Executor(mode="jit") its step (the time loops,
+    the generic grads replaying them, reduce_max's tie-splitting grad) is
+    captured at its second run and replayed after; its 4 losses equal the
+    interpreter's (rtol 1e-5) from the same weights."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import cuda_graph
+    from paddle_tpu_torch.models import stacked_lstm
+
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = 3
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        loss = stacked_lstm.build(seq_len=20, dict_size=100, emb_dim=32,
+                                  hidden_dim=64, stacked_num=2)[0]
+        pt.optimizer.Adam(1e-3).minimize(loss)
+    rng = np.random.RandomState(0)
+    feeds = [{"words": rng.randint(0, 100, (8, 20)).astype(np.int64),
+              "label": rng.randint(0, 2, (8, 1)).astype(np.int64)}
+             for _ in range(4)]
+    losses = {}
+    for mode in ("interpret", "jit"):
+        scope = pt.Scope()
+        pt.Executor(card, mode="interpret").run(startup, scope=scope)
+        exe = pt.Executor(card, mode=mode)
+        cuda_graph.reset_stats()
+        losses[mode] = [float(exe.run(main, feed=f, scope=scope,
+                                      fetch_list=[loss])[0].ravel()[0])
+                        for f in feeds]
+        stats = dict(cuda_graph.STATS)
+    assert stats["captures"] >= 1 and stats["replays"] >= 2, stats
+    np.testing.assert_allclose(losses["jit"], losses["interpret"], rtol=1e-5)

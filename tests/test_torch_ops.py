@@ -221,8 +221,9 @@ def test_the_slice_registers_exactly_the_decode_op_types():
     slice's paged append, the BERT slice's ops (with those behind
     Variable's operators), the ResNet slice's conv, pool, batch norm
     (with its hand-written grad), metric, loss, momentum and gaussian
-    ops, the verify/chunk windows' concat, beam search's step op, and
-    dropout with its grad: 55 op types."""
+    ops, the verify/chunk windows' concat, beam search's step op,
+    dropout with its grad, and the recurrent slice's fused LSTM and GRU
+    with the rest of the reduce family: 61 op types."""
     assert sorted(preg.OPS) == sorted([
         "assign_value", "elementwise_add", "fill_constant", "fused_attention",
         "gather", "increment", "kv_cache_append", "layer_norm",
@@ -239,5 +240,7 @@ def test_the_slice_registers_exactly_the_decode_op_types():
         "conv2d", "pool2d", "batch_norm",
         "batch_norm_grad", "top_k", "accuracy", "softmax", "cross_entropy",
         "momentum", "gaussian_random", "concat", "beam_search",
-        "dropout", "dropout_grad"])
-    assert len(preg.OPS) == 55
+        "dropout", "dropout_grad",
+        "fused_lstm", "fused_gru", "reduce_mean", "reduce_max",
+        "reduce_min", "reduce_prod"])
+    assert len(preg.OPS) == 61
