@@ -194,7 +194,36 @@ catches its own failure:
      greedy, beam 4 on the captured step equal to mode="interpret"
      (scores within 1e-5); one #6 launch a step (one head of 256 over 24
      keys), counted; tokens/s, host and card ms a step;
- 11. one {"kernels": [...]} line, the card's name and power limit, and
+ 11. serving a saved model, phase I, float32 on the jit path.  I/infer,
+     bench.py's infer leg (bench.py:671-813) for resnet.build(dataset=
+     "imagenet"), googlenet.build(), alexnet.build() and vgg.build(depth=
+     19) at 3x224x224, random_seed 1: each model's startup on the card,
+     save_inference_model of its main prediction, then clone(for_test=
+     True), InferenceTranspiler().transpile (the conv+bn fold, conv+relu,
+     fc fuse, dropout strip) and _prune; batch 16 from RandomState(0): 2
+     warm-up, 20 timed and 1 profiled forward, img/s, ms per batch, card
+     ms, idle share (profiled and 1 - card / host), peak memory, graphs and
+     the top 5 kernels; the same forward without the transpiler (card ms,
+     top kernels); checks, each max printed: (a) the transpiled logits
+     (the fc output that feeds the softmax) within 1e-4 of the
+     untranspiled ones' largest magnitude, (b) a Predictor on the card
+     over the saved directory within 1e-6 relative of (a)'s transpiled
+     output, (c) the same directory in a Predictor on the CPU at batch 2
+     within 1e-3 of the card's, (d) for ResNet-50, 4 clones of its
+     Predictor in 4 threads, 3 runs each (warm-up, capture and replay
+     while the others run), equal to the sequential run (rtol 1e-6, atol
+     1e-7), then a round of replays timed beside one predictor; no port
+     kernel runs; the reference's published 2S Xeon 6148 rates on their
+     own line, as a CPU reference.  I/gen: transformer-base's training
+     program (seq 256, source lengths) saved from a seeded startup as an
+     inference model of its logits, loaded into a Predictor on the card,
+     Predictor.generate of 32 greedy tokens at phase B's shape (batch 8,
+     prefixes of 512-1024, a 2048-slot cache): tokens equal a
+     decode.Generator's over the saving scope, #1 and #6 launched as the
+     gate predicts (counted), and a later generate on the same spec reuses
+     the cached Generator and captures no graph; tokens/s, prefill ms and
+     host ms per step;
+ 12. one {"kernels": [...]} line, the card's name and power limit, and
      last the {"ok": true, "device": ...} line.
 
 Exits non-zero, printing no result, when there is no CUDA device or when
@@ -209,9 +238,12 @@ from __future__ import annotations
 import functools
 import gc
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -3753,6 +3785,404 @@ def drive_rnn(card, device, lap=lambda phase: None):
     return results, launches
 
 
+# ------------------------------------------- serving a saved model (I)
+
+# phase I/infer: bench.py's infer leg (bench.py:671-813): each model built
+# with random_seed 1, clone(for_test=True), the InferenceTranspiler's
+# passes, _prune to the main prediction, batch 16 of 3x224x224 float32
+# images from RandomState(0); the reference's published bs=16 rates on a 2S
+# Xeon 6148 (bench.py:600-605, BASELINE.md:34-37), a CPU reference
+INFER_PUBLISHED = {"resnet50": 217.69, "googlenet": 600.94,
+                   "alexnet": 850.51, "vgg19": 96.75}
+I_BATCH, I_WARMUP, I_STEPS, I_PROFILED = 16, 2, 20, 1
+I_CPU_BATCH = 2               # check (c): the CPU Predictor's batch
+I_CLONES, I_CLONE_RUNS = 4, 3  # check (d), on ResNet-50's Predictor
+I_FOLD_TOL = 1e-4             # (a) transpiled vs not, of the largest logit
+I_SAVED_TOL = 1e-6            # (b) the saved model's Predictor vs (a)
+I_CPU_TOL = 1e-3              # (c) card vs CPU (PERF.md's cuDNN vs CPU)
+I_CLONE_RTOL, I_CLONE_ATOL = 1e-6, 1e-7   # (d), tests/test_inference.py's
+
+
+def _saved_dir(name):
+    """A fresh directory for a saved model, inside the checkout's ignored
+    build/ tree."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "chip_smoke_saved", name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
+def build_infer_model(name):
+    """bench.py's build_model (bench.py:691-711): (main, startup,
+    prediction), the main prediction head, random_seed 1."""
+    from paddle_tpu_torch import Program, program_guard, unique_name
+    from paddle_tpu_torch.models import alexnet, googlenet, resnet, vgg
+
+    main, startup = Program(), Program()
+    main.random_seed = startup.random_seed = 1
+    with program_guard(main, startup), unique_name.guard():
+        if name == "resnet50":
+            built = resnet.build(dataset="imagenet")
+        elif name == "vgg19":
+            built = vgg.build(image_shape=(3, R_HW, R_HW), class_dim=1000,
+                              depth=19)
+        else:
+            built = {"googlenet": googlenet, "alexnet": alexnet}[name].build()
+    return main, startup, built[1]
+
+
+def _softmax_input(program, prediction):
+    """The fc output that feeds the prediction's softmax."""
+    for op in program.global_block().ops:
+        if op.type == "softmax" and op.outputs["Out"] == [prediction.name]:
+            return op.inputs["X"][0]
+    raise AssertionError(f"no softmax writes {prediction.name}")
+
+
+def _rel_err(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def time_forwards(fn, warmup, steps, profiled):
+    """`warmup` calls, then `steps` timed ones (host clock, synchronised),
+    then `profiled` under torch.profiler: (host ms per call, profile)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / steps * 1e3
+    return host_ms, profile_calls(fn, profiled, top=5)
+
+
+def _clone_runs(clones, feeds, runs):
+    """Clone t runs feeds[t * runs:(t + 1) * runs] in its own thread, all
+    started together: (outputs in feed order, wall seconds)."""
+    outs, errors = [None] * len(feeds), []
+    barrier = threading.Barrier(len(clones))
+
+    def worker(t, p):
+        try:
+            barrier.wait(timeout=120)
+            for i in range(t * runs, (t + 1) * runs):
+                outs[i] = p.run(feeds[i])[0]
+        except Exception as e:  # noqa: BLE001  (re-raised after join)
+            errors.append((t, e))
+
+    threads = [threading.Thread(target=worker, args=(t, p))
+               for t, p in enumerate(clones)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"I/infer clones: {errors or 'a thread hung'}")
+    return outs, wall
+
+
+def check_clones(pred, card):
+    """(d): I_CLONES clones of `pred` in as many threads, I_CLONE_RUNS runs
+    each (a warm-up, a capture, a replay, while the others run), against
+    `pred`'s sequential run of the same feeds; then a second round of the
+    same clones, every call a replay, timed beside `pred` running the same
+    feeds alone."""
+    rng = np.random.RandomState(1)
+    feeds = [{"img": rng.randn(I_BATCH, 3, R_HW, R_HW).astype(np.float32)}
+             for _ in range(I_CLONES * I_CLONE_RUNS)]
+    sequential = [pred.run(f)[0] for f in feeds]
+    clones = [pred.clone() for _ in range(I_CLONES)]
+    g0 = graph_stats()
+    first, first_wall = _clone_runs(clones, feeds, I_CLONE_RUNS)
+    graphs = graph_stats(g0)
+    again, clones_wall = _clone_runs(clones, feeds, I_CLONE_RUNS)
+    t0 = time.perf_counter()
+    for f in feeds:
+        pred.run(f)
+    alone_wall = time.perf_counter() - t0
+    err = 0.0
+    for got, want in zip(first + again, sequential + sequential):
+        if not np.allclose(got, want, rtol=I_CLONE_RTOL, atol=I_CLONE_ATOL):
+            raise AssertionError(f"I/infer (d): a clone's output differs from "
+                                 f"the sequential run by "
+                                 f"{np.abs(got - want).max()}")
+        err = max(err, float(np.abs(got - want).max()))
+    n_img = len(feeds) * I_BATCH
+    res = {"clones": I_CLONES, "runs_each": I_CLONE_RUNS,
+           "max_abs_diff_vs_sequential": err, "graphs_first_round": graphs,
+           "first_round_img_per_s": n_img / first_wall,
+           "clones_img_per_s": n_img / clones_wall,
+           "one_predictor_img_per_s": n_img / alone_wall}
+    log(f"    (d) {I_CLONES} clones x {I_CLONE_RUNS} runs in threads = the "
+        f"sequential run (max abs {err:.2e}); first round (warm-up, capture,"
+        f" replay) {res['first_round_img_per_s']:.1f} img/s, graphs "
+        f"{graphs}; replays: clones {res['clones_img_per_s']:.1f} img/s vs "
+        f"one predictor {res['one_predictor_img_per_s']:.1f} img/s  [{card}]")
+    return res
+
+
+def phase_infer_model(name, card):
+    """One model of bench.py's infer leg on the card, with checks (a)-(d)
+    ((d) for ResNet-50 only)."""
+    from paddle_tpu_torch import (CPUPlace, CUDAPlace, Executor, Scope, io,
+                                  scope_guard)
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.transpiler import InferenceTranspiler
+
+    place = CUDAPlace(0)
+    main, startup, prediction = build_infer_model(name)
+    infer = main.clone(for_test=True)
+    logits = _softmax_input(infer, prediction)
+    fetch = [logits, prediction.name]
+    scope, exe = Scope(), Executor(place)
+    exe.run(startup, scope=scope)
+    saved = _saved_dir(name)
+    with scope_guard(scope):
+        io.save_inference_model(saved, ["img"], [prediction], exe,
+                                main_program=main)
+    rng = np.random.RandomState(0)
+    images = rng.randn(I_BATCH, 3, R_HW, R_HW).astype(np.float32)
+    feed = {"img": torch.as_tensor(images, device=place.device)}
+
+    # the same forward without the transpiler
+    plain = infer._prune([prediction])
+    plain_exe = Executor(place)
+
+    def plain_fwd():
+        return plain_exe.run(plain, feed=feed, fetch_list=fetch, scope=scope,
+                             return_numpy=False)
+
+    plain_out = [t.cpu().numpy() for t in plain_fwd()]
+    plain_ms, plain_prof = time_forwards(plain_fwd, I_WARMUP, I_STEPS,
+                                         I_PROFILED)
+    del plain_exe
+    torch.cuda.empty_cache()
+
+    # bench.py's order: transpile, then prune
+    InferenceTranspiler().transpile(infer, scope=scope)
+    infer = infer._prune([prediction])
+    types = [op.type for op in infer.global_block().ops]
+    t_exe = Executor(place)
+
+    def fwd():
+        return t_exe.run(infer, feed=feed, fetch_list=fetch, scope=scope,
+                         return_numpy=False)
+
+    torch.cuda.synchronize()
+    _zero_counts()
+    reset_peak_memory()
+    g0 = graph_stats()
+    host_ms, prof = time_forwards(fwd, I_WARMUP, I_STEPS, I_PROFILED)
+    graphs = graph_stats(g0)
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 20,
+            torch.cuda.max_memory_reserved() / 2 ** 20)
+    counts = _port_kernel_counts()
+    if any(counts.values()):
+        raise AssertionError(f"I/infer {name}: port kernels launched {counts}")
+    out = [t.cpu().numpy() for t in fwd()]
+    if not all(np.isfinite(o).all() for o in out) or \
+            out[1].shape != (I_BATCH, 1000):
+        raise AssertionError(f"I/infer {name}: outputs {out[1].shape}")
+
+    # (a) the fold and fuses change no output
+    fold_err = _rel_err(out[0], plain_out[0])
+    if not fold_err <= I_FOLD_TOL:
+        raise AssertionError(f"I/infer {name} (a): transpiled logits vs the "
+                             f"untranspiled {fold_err} > {I_FOLD_TOL}")
+    del t_exe
+    torch.cuda.empty_cache()
+    # (b) the saved model, loaded into a Predictor on the card
+    pred = create_predictor(Config(saved, place=place))
+    (got,) = pred.run({"img": images})
+    saved_err = _rel_err(got, out[1])
+    if not saved_err <= I_SAVED_TOL:
+        raise AssertionError(f"I/infer {name} (b): the saved model's "
+                             f"Predictor vs the transpiled forward "
+                             f"{saved_err} > {I_SAVED_TOL}")
+    # (c) the same directory on the CPU, at batch I_CPU_BATCH
+    small = {"img": images[:I_CPU_BATCH]}
+    (on_cpu,) = create_predictor(Config(saved, place=CPUPlace())).run(small)
+    (on_card,) = pred.run(small)
+    cpu_err = _rel_err(on_card, on_cpu)
+    if not cpu_err <= I_CPU_TOL:
+        raise AssertionError(f"I/infer {name} (c): card vs CPU {cpu_err} > "
+                             f"{I_CPU_TOL}")
+    busy = prof["busy_ms_per_step"] if prof else None
+    plain_busy = plain_prof["busy_ms_per_step"] if plain_prof else None
+    res = {"phase": "I/infer", "model": name, "batch": I_BATCH,
+           "dtype": "float32", "ops": len(types),
+           "batch_norms_left": types.count("batch_norm"),
+           "img_per_s": I_BATCH / host_ms * 1e3, "ms_per_batch": host_ms,
+           "card_busy_ms": busy,
+           "idle_share_profiled": prof["idle_share"] if prof else None,
+           "idle_share_unprofiled": 1.0 - busy / host_ms if busy else None,
+           "peak_mem_mib": peak[0], "peak_reserved_mib": peak[1],
+           "graphs": graphs, "top_kernels_ms":
+               prof["top_kernels_ms_per_step"] if prof else None,
+           "untranspiled_ms_per_batch": plain_ms,
+           "untranspiled_card_busy_ms": plain_busy,
+           "untranspiled_top_kernels_ms": plain_prof[
+               "top_kernels_ms_per_step"] if plain_prof else None,
+           "a_fold_max_rel_err": fold_err, "b_saved_max_rel_err": saved_err,
+           "c_cpu_max_rel_err": cpu_err,
+           "cpu_reference_img_per_s": INFER_PUBLISHED[name], "card": card}
+    log(f"  I/infer {name} batch {I_BATCH} float32: "
+        f"{res['img_per_s']:.1f} img/s, {host_ms:.3f} ms/batch, card {busy} "
+        f"ms, idle profiled {res['idle_share_profiled']}, unprofiled "
+        f"{res['idle_share_unprofiled']}; peak {peak[0]:.0f} MiB allocated, "
+        f"{peak[1]:.0f} reserved; graphs {graphs}; {len(types)} ops, "
+        f"{types.count('batch_norm')} batch norms left  [{card}]")
+    log(f"    top kernels (ms): {res['top_kernels_ms']}")
+    log(f"    untranspiled: {plain_ms:.3f} ms/batch, card {plain_busy} ms; "
+        f"top kernels {res['untranspiled_top_kernels_ms']}")
+    log(f"    (a) transpiled vs untranspiled logits {fold_err:.2e} of the "
+        f"largest; (b) saved-model Predictor vs (a) {saved_err:.2e}; (c) "
+        f"card vs CPU Predictor at batch {I_CPU_BATCH} {cpu_err:.2e}")
+    if name == "resnet50":
+        res["d"] = check_clones(pred, card)
+    del pred, scope
+    shutil.rmtree(saved, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_gen(card):
+    """I/gen: transformer-base's training program (seq 256, src_lens),
+    seeded startup, saved as an inference model of its logits; a Predictor
+    on the card loads it and generates NEW_TOKENS greedy tokens at phase
+    B's shape (batch 8, 256-token sources, prefixes of 512-1024, a
+    2048-slot cache).  The tokens equal a decode.Generator's over the
+    saving scope; #1 and #6 launch as the gate predicts; a later generate
+    on the same spec reuses the cached Generator and captures nothing."""
+    from paddle_tpu_torch import (CUDAPlace, Executor, Program, Scope,
+                                  decode, io, program_guard, scope_guard,
+                                  unique_name)
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops.cuda import flash_decode, mha_block
+
+    place = CUDAPlace(0)
+    cfg = transformer.base()
+    main, startup = Program(), Program()
+    startup.random_seed = SEED
+    with program_guard(main, startup), unique_name.guard():
+        _, logits = transformer.build(cfg, seq_len=SEQ, use_src_lens=True)
+    scope, exe = Scope(), Executor(place)
+    exe.run(startup, scope=scope)
+    saved = _saved_dir("transformer_base")
+    t0 = time.perf_counter()
+    with scope_guard(scope):
+        io.save_inference_model(saved, ["src_ids", "trg_ids", "src_lens"],
+                                [logits], exe, main_program=main)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = create_predictor(Config(saved, place=place))
+    load_s = time.perf_counter() - t0
+    prefix_len, prefix_range, max_len = PHASES["B"]
+    spec = decode_spec(cfg, prefix_len, max_len)
+    n_layer = sum(1 for s in spec.states if s.feed.startswith("cache_k_"))
+    feed, _ = make_feed(np.random.RandomState(SEED + ord("I")), prefix_len,
+                        prefix_range, cfg.trg_vocab_size)
+    pred.generate(spec, feed, 2)      # uncounted warm-up
+    gen = pred._generators[id(spec)][1]
+
+    torch.cuda.synchronize()
+    reset_peak_memory()
+    _zero_counts()
+    g0 = graph_stats()
+    t0 = time.perf_counter()
+    tokens = pred.generate(spec, feed, NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"mha_block": mha_block.launches,
+              "flash_decode": flash_decode.launches}
+    graphs = graph_stats(g0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    steps = tokens.shape[1] - 1
+    expect = {"mha_block": 3 * n_layer + n_layer * steps,
+              "flash_decode": n_layer * steps}
+    if counts != expect or not (counts["mha_block"] > 0
+                                and counts["flash_decode"] > 0):
+        raise AssertionError(f"I/gen: launches {counts}, the gate predicts "
+                             f"{expect}")
+    ref = decode.Generator(spec, scope=scope, place=place).generate(
+        feed, NEW_TOKENS)
+    if not np.array_equal(tokens, ref):
+        raise AssertionError("I/gen: the Predictor's tokens differ from the "
+                             "saving scope's Generator's")
+    g1 = graph_stats()
+    t0 = time.perf_counter()
+    again = pred.generate(spec, feed, NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    graphs2 = graph_stats(g1)
+    if not (np.array_equal(again, tokens) and len(pred._generators) == 1
+            and pred._generators[id(spec)][1] is gen
+            and graphs2["captures"] == 0):
+        raise AssertionError(f"I/gen: a later generate on the same spec: "
+                             f"tokens equal {np.array_equal(again, tokens)}, "
+                             f"generators {len(pred._generators)}, graphs "
+                             f"{graphs2}")
+    prefill_ms = []
+    with torch.inference_mode():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gen._prefill(feed)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    prefill = statistics.median(prefill_ms)
+    res = {"phase": "I/gen", "batch": BATCH, "src_len": SRC_LEN,
+           "prefix_len": prefix_len, "max_len": max_len,
+           "tokens": list(tokens.shape), "save_s": save_s, "load_s": load_s,
+           "launches": counts, "graphs_counted_run": graphs,
+           "graphs_later_run": graphs2,
+           "tokens_per_s": tokens.size / wall2,
+           "tokens_per_s_counted_run": tokens.size / wall,
+           "prefill_ms": prefill,
+           "host_ms_per_step": (wall2 * 1e3 - prefill) / steps,
+           "peak_mem_mib": peak, "card": card}
+    log(f"  I/gen transformer-base saved ({save_s:.1f} s) and loaded into a "
+        f"Predictor ({load_s:.1f} s): {tokens.shape[0]}x{tokens.shape[1]} "
+        f"tokens = the saving scope's Generator; launches {counts}; counted "
+        f"run {res['tokens_per_s_counted_run']:.1f} tokens/s, graphs "
+        f"{graphs}; later run {res['tokens_per_s']:.1f} tokens/s, prefill "
+        f"{prefill:.2f} ms, {res['host_ms_per_step']:.3f} host ms/step, "
+        f"graphs {graphs2}; peak {peak:.0f} MiB  [{card}]")
+    del pred, scope, gen
+    shutil.rmtree(saved, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res, counts
+
+
+def drive_saved_models(card, lap=lambda phase: None):
+    """Phase 11: bench.py's infer leg (I/infer) and Predictor.generate
+    (I/gen); `lap(phase)` after each."""
+    results = []
+    for name in INFER_PUBLISHED:
+        results.append(phase_infer_model(name, card))
+        lap(f"[11] I/infer {name}")
+    log("    CPU reference, not a yardstick: the reference's published "
+        "bs=16 float32 rates on a 2S Xeon 6148 (IntelOptimizedPaddle.md, "
+        f"bench.py:600-605), img/s: {json.dumps(INFER_PUBLISHED)}")
+    rn = results[0]
+    log(f"    ResNet-50 forward, batch {I_BATCH}: card "
+        f"{rn['untranspiled_card_busy_ms']} ms without the transpiler, "
+        f"{rn['card_busy_ms']} ms with it (host "
+        f"{rn['untranspiled_ms_per_batch']:.3f} vs "
+        f"{rn['ms_per_batch']:.3f} ms)  [{card}]")
+    res, counts = phase_gen(card)
+    results.append(res)
+    lap("[11] I/gen")
+    return results, counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -3839,8 +4269,14 @@ def main():
         f"GRU translator (MT1, MT2, MT/decode) [{card}]")
     rnn_runs, rnn_launches = drive_rnn(card, device, lap)
     training += rnn_runs
+
+    log(f"[11] serving a saved model: bench.py's infer leg (I/infer: "
+        f"{', '.join(INFER_PUBLISHED)}) and Predictor.generate (I/gen) "
+        f"[{card}]")
+    saved_runs, saved_launches = drive_saved_models(card, lap)
+    phases += saved_runs
     for more in (counts, train_launches, bert_launches, resnet_launches,
-                 rnn_launches):
+                 rnn_launches, saved_launches):
         for k, n in more.items():
             launches[k] = launches.get(k, 0) + n
     never = [k for k in KERNELS if not launches.get(k)]
@@ -3848,7 +4284,7 @@ def main():
         raise AssertionError(f"kernels {never} never launched on a path")
 
     log(f"  all phases took {laps[-1] - laps[0]:.1f} s wall")
-    log("[11] results")
+    log("[12] results")
     log(json.dumps({"phases": phases}))
     log(json.dumps({"training": training}))
     if DIVERGED:

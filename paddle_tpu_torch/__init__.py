@@ -19,7 +19,11 @@ fourth pretrains BERT-base (models.bert) at 2048 tokens through the flash
 attention tier, with its backward kernels.  The fifth trains ResNet
 (models.resnet: convolutions, pooling, batch norm, Momentum) and carries
 the batch-norm + relu + 1x1 conv kernel of the conv1x1 probe
-(tools.conv1x1_fuse_probe).
+(tools.conv1x1_fuse_probe).  Later slices capture the Executor's steps
+as CUDA graphs, train GoogLeNet and the recurrent models, and save, load
+and serve a saved model: `io` (the JAX package's file formats),
+`transpiler.InferenceTranspiler` and `inference.Predictor`, with VGG and
+AlexNet (`nets`, `models.vgg`, `models.alexnet`).
 """
 
 from .framework import (
@@ -58,6 +62,10 @@ from . import regularizer
 from . import optimizer
 from . import amp
 from . import serving
+from . import io
+from . import nets
+from . import transpiler
+from . import inference
 from .backward import append_backward
 
 __version__ = "0.5.0"

@@ -47,10 +47,25 @@ a replayed call counts what an eager one would.
 
 There is no fallback: a capture that fails raises, naming the op that
 was running, and nothing is retried eagerly.
+
+Threads.  Several threads may each drive their own segments (one
+Executor a thread, as `inference.Predictor.clone()` gives them).  Every
+eager warm-up and every capture of the process runs under one lock
+(`_LOCK`), so they share the side stream and torch's capture stream one
+at a time, and no capture's counter delta can take in another thread's
+counts.  A capture runs in the thread-local capture mode, so a CUDA call
+that another thread makes meanwhile (a replay, an allocation, a copy to
+the host) neither fails nor invalidates it.  Replays run concurrently
+with each other and with a capture, on the caller's current stream; each
+adds its counter delta to the shared counters and to `STATS` under the
+lock.  (A kernel launched eagerly outside the jit path in another
+thread while a capture runs would still be counted into that capture's
+delta: no path of the port does that.)
 """
 
 from __future__ import annotations
 
+import threading
 import time
 
 import torch
@@ -63,6 +78,8 @@ STATS = {"captures": 0, "capture_s": 0.0, "pool_bytes": 0, "replays": 0,
          "warmups": 0}
 
 _SIDE_STREAMS = {}
+# held by every warm-up and capture, and around each replay's counter update
+_LOCK = threading.RLock()
 
 
 def reset_stats():
@@ -163,15 +180,18 @@ class CapturedSegment:
         graph = self._graphs.get(shape_key)
         if graph is not None and graph.matches(sig):
             return self._replay(graph, args)
-        seen = self._seen.pop(shape_key, None)
-        if seen is None:
-            self._seen[shape_key] = sig
-            return self._warm_up(args, rng)
-        # a tensor on the card found where the warm-up found it is bound;
-        # one that moved since (a new tensor every call) is copied
-        bound = [i for i, (a, b) in enumerate(zip(sig, seen))
-                 if a[0] == "d" and a[1] == b[1]]
-        graph = self._graphs[shape_key] = self._capture(args, bound, rng)
+        with _LOCK:
+            seen = self._seen.pop(shape_key, None)
+            if seen is None:
+                self._seen[shape_key] = sig
+                return self._warm_up(args, rng)
+            # a tensor on the card found where the warm-up found it is
+            # bound; one that moved since (a new tensor every call) is
+            # copied
+            bound = [i for i, (a, b) in enumerate(zip(sig, seen))
+                     if a[0] == "d" and a[1] == b[1]]
+            graph = self._graphs[shape_key] = self._capture(args, bound,
+                                                            rng)
         return self._outputs(graph, args)
 
     # -- the three kinds of call ------------------------------------------
@@ -223,7 +243,8 @@ class CapturedSegment:
         self._stage(g, args)
         before = _counters()
         try:
-            with torch.cuda.graph(g.graph, pool=self.pool):
+            with torch.cuda.graph(g.graph, pool=self.pool,
+                                  capture_error_mode="thread_local"):
                 outs = self._run(staged, rng)
         except Exception as e:
             op = self.where.get("op")
@@ -247,8 +268,9 @@ class CapturedSegment:
     def _replay(self, g, args):
         self._stage(g, args)
         g.graph.replay()
-        _add_counters(g.delta)
-        STATS["replays"] += 1
+        with _LOCK:
+            _add_counters(g.delta)
+            STATS["replays"] += 1
         return self._outputs(g, args)
 
     # -- helpers -----------------------------------------------------------

@@ -200,6 +200,10 @@ def _jsonable_attrs(attrs):
             out[k] = int(v)
         elif isinstance(v, np.floating):
             out[k] = float(v)
+        elif isinstance(v, Block):
+            # a BLOCK attr serializes as its block index (reference
+            # framework.proto AttrType.BLOCK)
+            out[k] = {"__block__": v.idx}
         else:
             out[k] = v
     return out
@@ -366,11 +370,70 @@ class Program:
             yield from blk.vars.values()
 
     def to_dict(self):
-        return {
+        d = {
             "format": "paddle_tpu.program.v1",
             "random_seed": self.random_seed,
             "blocks": [b.to_dict() for b in self.blocks],
         }
+        # side tables of the JAX package's memory passes, carried through
+        # save and load
+        removed = getattr(self, "_memory_opt_removed", None)
+        if removed:
+            d["memory_opt_removed"] = dict(removed)
+        reuse = getattr(self, "_reuse_plan", None)
+        if reuse:
+            d["reuse_plan"] = dict(reuse)
+        return d
+
+    @staticmethod
+    def from_dict(d) -> "Program":
+        """The inverse of `to_dict` (framework.py:518-565 of the JAX
+        package): blocks and their vars first, so that a BLOCK attr can
+        name any block, then the ops, with `__ndarray__` and `__block__`
+        attrs restored.  A var with `is_parameter` becomes a Parameter
+        with its `trainable`."""
+        p = Program()
+        p.random_seed = d.get("random_seed", 0)
+        if d.get("memory_opt_removed"):
+            p._memory_opt_removed = dict(d["memory_opt_removed"])
+        if d.get("reuse_plan"):
+            p._reuse_plan = dict(d["reuse_plan"])
+        p.blocks = []
+        for bd in d["blocks"]:
+            blk = Block(p, bd["idx"], bd.get("parent_idx", -1))
+            blk.forward_block_idx = bd.get("forward_block_idx", -1)
+            p.blocks.append(blk)
+            for vd in bd["vars"]:
+                kwargs = dict(
+                    name=vd["name"],
+                    type=vd.get("type", VarType.LOD_TENSOR),
+                    persistable=vd.get("persistable", False),
+                    stop_gradient=vd.get("stop_gradient", False),
+                    is_data=vd.get("is_data", False),
+                    lod_level=vd.get("lod_level", 0),
+                )
+                if vd.get("is_parameter"):
+                    v = Parameter(blk, vd["shape"], vd["dtype"], **kwargs)
+                    v.trainable = vd.get("trainable", True)
+                else:
+                    v = Variable(blk, shape=vd["shape"], dtype=vd["dtype"],
+                                 **kwargs)
+                blk.vars[v.name] = v
+        for bd, blk in zip(d["blocks"], p.blocks):
+            for od in bd["ops"]:
+                attrs = {}
+                for k, v in od["attrs"].items():
+                    if isinstance(v, dict) and "__ndarray__" in v:
+                        attrs[k] = np.array(v["__ndarray__"], dtype=v["dtype"])
+                    elif isinstance(v, dict) and "__block__" in v:
+                        attrs[k] = p.blocks[v["__block__"]]
+                    else:
+                        attrs[k] = v
+                blk.ops.append(Operator(blk, od["type"], od["inputs"],
+                                        od["outputs"], attrs))
+        if not p.blocks:
+            p.blocks = [Block(p, 0)]
+        return p
 
     def __repr__(self):
         lines = []

@@ -1,7 +1,7 @@
 """Layer function namespace (counterpart of paddle_tpu/layers/): what
 transformer.build_decode, transformer.build, bert.build, resnet.build,
-googlenet.build, stacked_lstm.build and machine_translation's build and
-build_decode call.
+googlenet.build, stacked_lstm.build, machine_translation's build and
+build_decode, vgg.build, alexnet.build and nets call.
 Importing it patches Variable's arithmetic and comparison operators
 (math_op_patch), as the JAX package's does."""
 
@@ -27,6 +27,7 @@ from .nn import (
     gru,
     kv_cache_append,
     layer_norm,
+    lrn,
     lstm,
     matmul,
     mean,

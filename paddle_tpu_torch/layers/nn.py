@@ -172,6 +172,21 @@ def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
     return helper.append_activation(out)
 
 
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    """Local response normalisation across channels (NCHW): Out and the
+    op's MidOut (k + alpha * windowed sum of squares)."""
+    helper = LayerHelper("lrn", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    mid = helper.create_variable_for_type_inference(input.dtype,
+                                                    stop_gradient=True)
+    helper.append_op(
+        type="lrn", inputs={"X": [input]},
+        outputs={"Out": [out], "MidOut": [mid]},
+        attrs={"n": n, "k": k, "alpha": alpha, "beta": beta},
+    )
+    return out
+
+
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                epsilon=1e-5, param_attr=None, bias_attr=None, name=None):
     helper = LayerHelper("layer_norm", **locals())

@@ -1,1 +1,1 @@
-from . import machine_translation, stacked_lstm, transformer
+from . import alexnet, machine_translation, stacked_lstm, transformer, vgg

@@ -1,0 +1,50 @@
+"""VGG-16/19 image classification (counterpart of
+paddle_tpu/models/vgg.py; reference benchmark/fluid/models/vgg.py)."""
+
+from __future__ import annotations
+
+from .. import layers, nets
+
+
+def vgg16(input, class_dim, dropout=True, depth=16):
+    """depth 16: conv groups of 2-2-3-3-3; 19: 2-2-4-4-4 (the published
+    inference row, IntelOptimizedPaddle.md:73).  Each conv is followed by
+    a batch norm and relu, each group by a 2x2 max pool."""
+    def group(x, num_convs, filters):
+        return nets.img_conv_group(
+            input=x, conv_num_filter=[filters] * num_convs,
+            conv_filter_size=3, conv_act="relu", conv_with_batchnorm=True,
+            conv_batchnorm_drop_rate=[0.0] * num_convs, pool_size=2,
+            pool_stride=2, pool_type="max")
+
+    deep = 4 if depth >= 19 else 3
+    x = group(input, 2, 64)
+    x = group(x, 2, 128)
+    x = group(x, deep, 256)
+    x = group(x, deep, 512)
+    x = group(x, deep, 512)
+    if dropout:
+        x = layers.dropout(x=x, dropout_prob=0.5)
+    x = layers.fc(input=x, size=512, act=None)
+    x = layers.batch_norm(input=x, act="relu")
+    if dropout:
+        x = layers.dropout(x=x, dropout_prob=0.5)
+    x = layers.fc(input=x, size=512, act=None)
+    return layers.fc(input=x, size=class_dim, act="softmax")
+
+
+def build(image_shape=(3, 32, 32), class_dim=10, depth=16):
+    """-> (loss, prediction, accuracy)."""
+    img = layers.data(name="img", shape=list(image_shape), dtype="float32")
+    label = layers.data(name="label", shape=[1], dtype="int64")
+    prediction = vgg16(img, class_dim, depth=depth)
+    loss = layers.mean(layers.cross_entropy(input=prediction, label=label))
+    acc = layers.accuracy(input=prediction, label=label)
+    return loss, prediction, acc
+
+
+def feed_shapes(batch_size, image_shape=(3, 32, 32)):
+    return {
+        "img": ((batch_size,) + tuple(image_shape), "float32"),
+        "label": ((batch_size, 1), "int64"),
+    }

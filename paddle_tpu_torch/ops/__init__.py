@@ -1,8 +1,9 @@
 """Op library: importing this package registers every op lowering of the
 ported slices (transformer.build_decode's programs, and transformer.build
 with its backward, optimizer and AMP ops, bert.build's, resnet.build's,
-googlenet.build's, stacked_lstm.build's and machine_translation's, and
-beam_search)."""
+googlenet.build's, stacked_lstm.build's and machine_translation's,
+beam_search, vgg's and alexnet's lrn, the inference transpiler's fc, and
+io.py's save and load ops)."""
 
 from . import registry
 from . import math_ops
@@ -18,3 +19,4 @@ from . import optimizer_ops
 from . import misc_ops
 from . import beam_search_ops
 from . import rnn_ops
+from . import io_ops

@@ -1,4 +1,5 @@
-"""check_prefix_mask (paddle_tpu/ops/misc_ops.py:334-357).
+"""check_prefix_mask (paddle_tpu/ops/misc_ops.py:334-357) and fc
+(:283-296).
 
 BERT reduces its [B, S] 0/1 input_mask to per-row key lengths for the
 attention kernels' length masks, which cannot represent a hole in the
@@ -13,9 +14,31 @@ check, since reading a value back is a host sync a capture cannot hold.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .registry import register_op
+
+
+@register_op("fc")
+def fc(ctx):
+    """Input @ W + Bias as one op, the inference transpiler's fc_fuse of
+    mul + bias add: Input flattened to [prod(dims[:in_num_col_dims]),
+    rest], the product accumulated in float32 (torch.matmul; no TF32 in
+    float32) and cast to Input's dtype, then the bias added with torch's
+    promotion (the JAX lowering's jnp.matmul with
+    preferred_element_type=float32, then + bias)."""
+    x, w = ctx.input("Input"), ctx.input("W")
+    bias = ctx.input("Bias")
+    ncd = int(ctx.attr("in_num_col_dims", 1))
+    lead = tuple(x.shape[:ncd])
+    x2 = x.reshape(math.prod(lead), -1)
+    common = torch.promote_types(x.dtype, w.dtype)
+    out = torch.matmul(x2.to(common), w.to(common)).to(x.dtype)
+    if bias is not None:
+        out = out + bias.reshape(1, -1)
+    ctx.set_output("Out", out.reshape(lead + (w.shape[1],)))
 
 
 def _capturing(x):

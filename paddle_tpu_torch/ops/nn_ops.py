@@ -1,12 +1,12 @@
 """NN ops: conv2d with a grad that does not replay the forward, pool2d,
 batch_norm with its hand-written grad, layer_norm and its recomputing
-grad.
+grad, lrn.
 
 Counterparts of paddle_tpu/ops/nn_ops.py (conv2d :49-75 with the
 conv1x1_as_dot branch :33-46, pool2d :153-193,
 batch_norm :219-267, its grad maker :270 and batch_norm_grad :298-358,
-layer_norm :361).  Layouts are the JAX package's: NCHW inputs, OIHW
-filters.  A convolution is a library call (`F.conv2d`, cuDNN on the
+layer_norm :361, lrn :413-429).  Layouts are the JAX package's: NCHW
+inputs, OIHW filters.  A convolution is a library call (`F.conv2d`, cuDNN on the
 card), as the JAX package leaves it to XLA outside any Pallas kernel.
 
 cuDNN rounds float32 convolutions through TF32 unless
@@ -309,3 +309,21 @@ def layer_norm(ctx):
 # the grad replays the normalisation from X instead of keeping x_hat alive
 # from the forward to the backward
 register_remat_grad("layer_norm")
+
+
+@register_op("lrn")
+def lrn(ctx):
+    """Local response normalisation across the channels of NCHW X
+    (reference lrn_op.cc): MidOut = k + alpha * (the sum of x^2 over a
+    window of n channels, zero-padded at the edges), Out = X /
+    MidOut^beta.  The grad is the registry's generic one."""
+    x = ctx.input("X")
+    n = ctx.attr("n", 5)
+    half, c = n // 2, x.shape[1]
+    sq = F.pad(x.square(), (0, 0, 0, 0, half, n - 1 - half))
+    acc = sq[:, 0:c]
+    for i in range(1, n):
+        acc = acc + sq[:, i:i + c]
+    mid = ctx.attr("k", 1.0) + ctx.attr("alpha", 1e-4) * acc
+    ctx.set_output("MidOut", mid)
+    ctx.set_output("Out", x / torch.pow(mid, ctx.attr("beta", 0.75)))

@@ -1337,3 +1337,162 @@ def test_jit_executor_trains_stacked_lstm_as_the_interpreter(card):
         stats = dict(cuda_graph.STATS)
     assert stats["captures"] >= 1 and stats["replays"] >= 2, stats
     np.testing.assert_allclose(losses["jit"], losses["interpret"], rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the saved-model slice: io, the Predictor, the transpiler on the card
+# ---------------------------------------------------------------------------
+
+
+def _resnet8_test_program():
+    """cifar ResNet-8's test clone, pruned to its prediction, with its
+    startup (batch norms in it: a Predictor transpiles on load)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 1
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        _, prediction, _ = resnet.build(dataset="cifar10", depth=8)
+    return main.clone(for_test=True)._prune([prediction]), startup, \
+        prediction
+
+
+def _saved_resnet8(tmp_path):
+    import paddle_tpu_torch as pt
+
+    test, startup, prediction = _resnet8_test_program()
+    d = str(tmp_path / "resnet8")
+    with pt.scope_guard(pt.Scope()):
+        exe = pt.Executor(pt.CPUPlace())
+        exe.run(startup)
+        pt.io.save_inference_model(d, ["img"], [prediction], exe,
+                                   main_program=test)
+    return d
+
+
+def _images(n, seed=0):
+    return np.random.RandomState(seed).standard_normal(
+        (n, 3, 32, 32)).astype(np.float32)
+
+
+def test_predictor_on_the_card_equals_the_cpu(card, tmp_path):
+    """The same saved directory in a Predictor on the card (each run a
+    replayed graph after the second) and on the CPU: rtol 1e-3 (cuDNN in
+    float32 without TF32 sums in other orders)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import inference
+
+    d = _saved_resnet8(tmp_path)
+    on_card = inference.create_predictor(inference.Config(d, place=card))
+    on_cpu = inference.create_predictor(inference.Config(
+        d, place=pt.CPUPlace()))
+    for seed in range(3):
+        feed = {"img": _images(4, seed)}
+        (got,), (want,) = on_card.run(feed), on_cpu.run(feed)
+        np.testing.assert_allclose(got, want, rtol=1e-3,
+                                   atol=1e-3 * np.abs(want).max())
+
+
+def test_bf16_file_loads_onto_the_card(card, tmp_path):
+    """A bfloat16 tensor saved by `save` (per var) and `save_combine`
+    loads through the Executor on the card, bit for bit."""
+    import paddle_tpu_torch as pt
+
+    value = torch.as_tensor(np.random.RandomState(1).standard_normal(
+        (5, 7)).astype(np.float32)).to(torch.bfloat16)
+    prog = pt.Program()
+    prog.global_block().create_var(name="h", shape=(5, 7), dtype="bfloat16",
+                                   persistable=True)
+    src = pt.Scope()
+    src.set_var("h", value)
+    for filename in (None, "params"):
+        d = str(tmp_path / f"bf16_{filename}")
+        with pt.scope_guard(src):
+            pt.io.save_persistables(pt.Executor(pt.CPUPlace()), d, prog,
+                                    filename)
+        dst = pt.Scope()
+        with pt.scope_guard(dst):
+            pt.io.load_persistables(pt.Executor(card), d, prog, filename)
+        got = dst.find_var("h")
+        assert got.device.type == "cuda" and got.dtype == torch.bfloat16
+        assert torch.equal(got.cpu().view(torch.int16),
+                           value.view(torch.int16))
+
+
+def test_clones_capturing_concurrently_equal_the_sequential_run(card,
+                                                                tmp_path):
+    """Two clones of a Predictor on the card, each in its own thread, start
+    together (a barrier): each warms up, captures and replays its own
+    graphs while the other does, 4 runs each; every output equals the base
+    predictor's sequential run (rtol 1e-6, atol 1e-7), and each clone
+    captured one graph."""
+    import threading
+
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.framework import cuda_graph
+
+    base = inference.create_predictor(inference.Config(
+        _saved_resnet8(tmp_path), place=card))
+    n_threads, runs = 2, 4
+    feeds = [{"img": _images(4, i)} for i in range(n_threads * runs)]
+    sequential = [base.run(f)[0] for f in feeds]
+    clones = [base.clone() for _ in range(n_threads)]
+    results, errors = [None] * len(feeds), []
+    barrier = threading.Barrier(n_threads)
+
+    def worker(t, pred):
+        try:
+            barrier.wait(timeout=60)
+            for r in range(runs):
+                i = t * runs + r
+                results[i] = pred.run(feeds[i])[0]
+        except Exception as e:  # surfaced after join
+            errors.append((t, e))
+
+    cuda_graph.reset_stats()
+    threads = [threading.Thread(target=worker, args=(t, p))
+               for t, p in enumerate(clones)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors
+    assert cuda_graph.STATS["captures"] == n_threads, cuda_graph.STATS
+    assert cuda_graph.STATS["replays"] == n_threads * (runs - 2)
+    for got, ref in zip(results, sequential):
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-7)
+
+
+def test_transpile_after_a_captured_run_replays_the_folded_weights(card):
+    """Run the test program on the jit path until its graph replays, then
+    fold its batch norms: the next runs capture the folded program anew
+    (the old graph bound the old filters' addresses) and agree with the
+    unfolded outputs (rtol 1e-4) and with an eager run of the folded
+    program (rtol 1e-6)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import cuda_graph
+
+    test, startup, prediction = _resnet8_test_program()
+    scope = pt.Scope()
+    pt.Executor(card).run(startup, scope=scope)
+    exe = pt.Executor(card)
+    feed = {"img": _images(4)}
+    cuda_graph.reset_stats()
+    before = [exe.run(test, feed=feed, fetch_list=[prediction],
+                      scope=scope)[0] for _ in range(3)]
+    assert cuda_graph.STATS["captures"] == 1
+    assert cuda_graph.STATS["replays"] == 1
+    pt.transpiler.InferenceTranspiler().transpile(test, scope=scope)
+    assert not any(op.type == "batch_norm" for op in test.global_block().ops)
+    after = [exe.run(test, feed=feed, fetch_list=[prediction],
+                     scope=scope)[0] for _ in range(3)]
+    assert cuda_graph.STATS["captures"] == 2
+    assert cuda_graph.STATS["replays"] == 2
+    (eager,) = pt.Executor(card, mode="interpret").run(
+        test, feed=feed, fetch_list=[prediction], scope=scope)
+    for a in after:
+        np.testing.assert_allclose(a, before[0], rtol=1e-4,
+                                   atol=1e-4 * np.abs(before[0]).max())
+        np.testing.assert_allclose(a, eager, rtol=1e-6, atol=1e-7)

@@ -222,8 +222,10 @@ def test_the_slice_registers_exactly_the_decode_op_types():
     Variable's operators), the ResNet slice's conv, pool, batch norm
     (with its hand-written grad), metric, loss, momentum and gaussian
     ops, the verify/chunk windows' concat, beam search's step op,
-    dropout with its grad, and the recurrent slice's fused LSTM and GRU
-    with the rest of the reduce family: 61 op types."""
+    dropout with its grad, the recurrent slice's fused LSTM and GRU
+    with the rest of the reduce family, and the saved-model slice's fc
+    (the inference transpiler's), lrn (AlexNet's) and io.py's four save
+    and load ops: 67 op types."""
     assert sorted(preg.OPS) == sorted([
         "assign_value", "elementwise_add", "fill_constant", "fused_attention",
         "gather", "increment", "kv_cache_append", "layer_norm",
@@ -242,5 +244,6 @@ def test_the_slice_registers_exactly_the_decode_op_types():
         "momentum", "gaussian_random", "concat", "beam_search",
         "dropout", "dropout_grad",
         "fused_lstm", "fused_gru", "reduce_mean", "reduce_max",
-        "reduce_min", "reduce_prod"])
-    assert len(preg.OPS) == 61
+        "reduce_min", "reduce_prod",
+        "fc", "lrn", "save", "load", "save_combine", "load_combine"])
+    assert len(preg.OPS) == 67
