@@ -223,7 +223,55 @@ catches its own failure:
      gate predicts (counted), and a later generate on the same spec reuses
      the cached Generator and captures no graph; tokens/s, prefill ms and
      host ms per step;
- 12. one {"kernels": [...]} line, the card's name and power limit, and
+ 12. the serving front end (serving.serve, ServingClient, telemetry,
+     overload control) on transformer-base, float32, captured, weights
+     from a seeded startup.  F/rpc: serve(..., paged_kv=True) at phase
+     S's shapes on 127.0.0.1 port 0, telemetry on, admission off; every
+     bucket's signatures warmed on the loop thread, then 16 requests of
+     32 tokens from 8 client threads, each with its own ServingClient,
+     streaming through on_token: tokens equal the sequential Generator's,
+     #1, #3 and #7 launched as the gate predicts from the scheduler's
+     counters (counted), one stitched trace a request (the client's
+     channel attempt -> "serving.submit" -> "serving.request"), STATUS's
+     registry snapshot counts the submits, PING and STATS answer, an
+     expired SUBMIT is refused before the Scheduler counts it, DRAIN
+     refuses and undrain serves, a client gone after 2 tokens cancels its
+     request, QUIESCE finds 0 blocks in use, and every eager warm-up and
+     capture ran on the Scheduler's loop thread; tokens/s, TTFT p50/p99
+     by the client's clock and by serving.ttft_ms, host ms per decode
+     step beside phase S's from the same run; then the same traffic on
+     other prompts with telemetry off, through the wire and in process
+     (8 threads submitting and iterating stream()), each counted and
+     checked alike: their host ms per decode step tell the instruments'
+     cost from the wire's.  F/tax, bench.py's
+     telemetry tax (bench.py:1141-1174) at this width and bench.py's
+     traffic (8 streams, 32-token sources, 8-token prompts, 24 new
+     tokens, a 96-slot cache, the host pool): 10 interleaved pairs of
+     continuous rounds, telemetry off and on, medians, quartiles and the
+     overhead, of the medians and pair by pair.
+     F/sweep, bench.py's Poisson open-loop sweep (bench.py:1176-1275) on
+     that Scheduler: 0.5, 1, 2 and 4 times the sequential tier's capacity,
+     40 requests a rate, 25% shared prompts, SLO = streams x the
+     sequential latency: p50/p99 a rate, QPS at SLO, the queue depth's
+     p99 and the prefix hit rate from the registry.  F/overload,
+     bench.py's overload A/B (bench.py:1729-1930) at this width (16-token
+     sources, 4-token prompts, 12 new tokens, a 48-slot cache, 6 slots, 96
+     blocks of 8, 64 prompts): capacity measured after the estimators are
+     reset and settled, SLO 3 x the calm estimate (250-10,000 ms), then
+     5-second open-loop Poisson bursts at 1, 2, 4 and 8 times capacity,
+     half interactive (deadline = the SLO), half batch, with the admission
+     gate and brownout ON and OFF: goodput at SLO a leg, rejects,
+     expiries and clamps; every accepted request's tokens are a prefix of
+     the sequential Generator's (all of them when done unclamped), no
+     interactive request done short.  Every served request of F/tax and
+     F/sweep equals the sequential Generator's too.  These legs launch #6
+     (the host pool's dense cache and the source) and #7 (the device
+     pool's sweep), never #1 (mha_decode takes multiples of 128 keys; the
+     32- and 16-key prefill windows take the composite): each leg's
+     launches are zeroed before it, read after it and held against the
+     prediction from its scheduler's decode steps, and [3] holds both
+     kernels at these shapes;
+ 13. one {"kernels": [...]} line, the card's name and power limit, and
      last the {"ok": true, "device": ...} line.
 
 Exits non-zero, printing no result, when there is no CUDA device or when
@@ -240,11 +288,13 @@ import gc
 import json
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -646,13 +696,14 @@ def decode_case(name, b, sk, h, d, lens, device, rng, dtype=torch.float32):
                 + lens_bytes)
 
 
-def paged_case(name, b, n, bs, lens, h, d, device, rng, dtype):
+def paged_case(name, b, n, bs, lens, h, d, device, rng, dtype,
+               max_len=S_MAX_LEN):
     """Kernel #7 at the Scheduler's decode step: pools [n, bs, H*D], one
     table row of max_len / bs block ids per request, drawn from a random
     permutation of the pool."""
     g = torch.Generator(device=device).manual_seed(int(rng.randint(1 << 30)))
     hd = h * d
-    m = S_MAX_LEN // bs
+    m = max_len // bs
     q = torch.randn((b, 1, hd), generator=g, device=device).to(dtype)
     kb, vb = (torch.randn((n, bs, hd), generator=g, device=device).to(dtype)
               for _ in range(2))
@@ -1031,6 +1082,28 @@ def check_kernels(device):
             cases.append(decode_case(
                 f"MT decode 1x{MT_SRC} d{MT_HIDDEN} b{b} {tag}", b, MT_SRC,
                 1, MT_HIDDEN, None, device, rng, dtype))
+    # added last: phase [12]'s bench.py legs.  Their prefill windows (32
+    # and 16 keys) pass neither kernel gate and take the composite, and
+    # mha_decode takes key counts that are multiples of 128 only: the host
+    # pool's decode step runs #6 over the dense cache (F/tax and F/sweep:
+    # 96 slots at batch 8, kv_len the prompt plus the tokens so far;
+    # F/overload: 48 slots at batch 6) and over the source (32 or 16 keys,
+    # all live); the device pool's sweep runs #7 over 96-slot tables and
+    # #6 over the source
+    for b, cache, src, prefix, new in (
+            (TAX_STREAMS, TAX_MAX_LEN, TAX_SRC, TAX_PREFIX, TAX_TOKENS),
+            (OV_BATCH, OV_MAX_LEN, OV_SRC, OV_PREFIX, OV_TOKENS)):
+        cases += [
+            decode_case(f"front end 1x{cache} b{b}", b, cache, h, d,
+                        (prefix + 1, prefix + new), device, rng),
+            decode_case(f"front end source 1x{src} b{b}", b, src, h, d,
+                        None, device, rng),
+        ]
+    cases.append(paged_case(
+        "paged decode F/sweep", TAX_STREAMS,
+        TAX_MAX_LEN // S_BLOCK * (TAX_STREAMS + 2), S_BLOCK,
+        (TAX_PREFIX + 1, TAX_PREFIX + TAX_TOKENS), h, d, device, rng,
+        torch.float32, max_len=TAX_MAX_LEN))
     timer = Timer(device)
     for c in cases:
         fns = c.pop("fns")
@@ -1395,12 +1468,12 @@ def phase_beam(card, scope):
     return res, counts
 
 
-def decode_spec(cfg, prefix_len, max_len, **windows):
-    """build_decode at SRC_LEN, every startup seeded; `windows` are
-    verify_len / chunk_len."""
+def decode_spec(cfg, prefix_len, max_len, src_len=SRC_LEN, **windows):
+    """build_decode (at SRC_LEN by default), every startup seeded;
+    `windows` are verify_len / chunk_len."""
     from paddle_tpu_torch.models import transformer
 
-    spec = transformer.build_decode(cfg, src_len=SRC_LEN,
+    spec = transformer.build_decode(cfg, src_len=src_len,
                                     prefix_len=prefix_len, max_len=max_len,
                                     **windows)
     for startup in (spec.prefill_startup, spec.step_startup,
@@ -1437,7 +1510,7 @@ def graph_stats(since=None):
     now = dict(cuda_graph.STATS)
     if since is not None:
         now = {k: v - since[k] for k, v in now.items()}
-    now["capture_s"] = round(now["capture_s"], 4)
+    now["capture_s"] = round(now["capture_s"], 4) + 0.0   # never -0.0
     return now
 
 
@@ -1537,6 +1610,7 @@ class Recorder:
 
     def __init__(self, sched, reqs=()):
         self.sched, self.reqs, self.log = sched, reqs, []
+        self._step = sched.step
 
     def __call__(self):
         c = self.sched.counters
@@ -1544,7 +1618,7 @@ class Recorder:
         toks = [len(r.tokens) for r in self.reqs]
         g0 = graph_stats()
         t0 = time.perf_counter()
-        did = self.sched.step()
+        did = self._step()
         t1 = time.perf_counter()
         g = graph_stats(g0)
         rec = {k: c[k] - before[k] for k in self.KEYS}
@@ -1580,6 +1654,19 @@ def _request_feeds(rng, n, vocab):
     } for _ in range(n)]
 
 
+def _reset_served(sched):
+    """The prefix registry evicted, the pool empty (or it raises), the
+    scheduler's counters and samples back to 0."""
+    with sched._step_lock:
+        sched.pool.assert_quiesced()
+        for k in sched.counters:
+            sched.counters[k] = 0
+        sched.counters["peak_occupancy"] = 0.0
+        sched._ttft_samples.clear()
+        sched._chunk_samples.clear()
+        sched.pool.hits = sched.pool.misses = sched.pool.evictions = 0
+
+
 def warm_up(sched, groups, new_tokens=3):
     """Uncounted traffic of the counted run's shapes, on other prompts:
     each group of feeds is submitted at once and served to the end, so
@@ -1594,13 +1681,7 @@ def warm_up(sched, groups, new_tokens=3):
             sched.submit(f, new_tokens, eos_id=-1)
         sched.run_until_idle()
     torch.cuda.synchronize()
-    sched.pool.assert_quiesced()
-    for k in sched.counters:
-        sched.counters[k] = 0
-    sched.counters["peak_occupancy"] = 0.0
-    sched._ttft_samples.clear()
-    sched._chunk_samples.clear()
-    sched.pool.hits = sched.pool.misses = sched.pool.evictions = 0
+    _reset_served(sched)
     out = graph_stats(g0)
     out["wall_s"] = round(time.perf_counter() - t0, 3)
     return out
@@ -4183,6 +4264,904 @@ def drive_saved_models(card, lap=lambda phase: None):
     return results, counts
 
 
+# ------------------------------------------- [12] the serving front end
+
+# F/rpc: phase S's shapes over loopback TCP (serve + ServingClient)
+FE_REQUESTS, FE_CLIENTS = 16, 8
+FE_TIMEOUT_S = 300.0          # a client's read deadline (never reached)
+# F/tax and F/sweep: bench.py's serving leg (bench.py:966-1275) at
+# transformer-base width: 8 streams, 32-token sources, 8-token prompts, 24
+# new tokens, a 96-slot cache, the host pool
+TAX_STREAMS, TAX_SRC, TAX_PREFIX, TAX_TOKENS, TAX_MAX_LEN = 8, 32, 8, 24, 96
+TAX_PAIRS = 10                # interleaved dark/instrumented round pairs
+SWEEP_MULTS, SWEEP_REQUESTS = (0.5, 1.0, 2.0, 4.0), 40
+# F/overload: bench.py's overload A/B (bench.py:1729-1930) at this width
+OV_SRC, OV_PREFIX, OV_TOKENS, OV_MAX_LEN = 16, 4, 12, 48
+OV_BATCH, OV_BLOCK, OV_BLOCKS, OV_PROMPTS = 6, 8, 96, 64
+OV_MULTS, OV_BURST_S, OV_BURST_MAX = (1.0, 2.0, 4.0, 8.0), 5.0, 1800
+
+
+def _threads_since(before):
+    from paddle_tpu_torch.framework import cuda_graph
+
+    now = dict(cuda_graph.THREADS)
+    return {f"{kind}@{name}": n - before.get((kind, name), 0)
+            for (kind, name), n in now.items()
+            if n - before.get((kind, name), 0)}
+
+
+def _pcts(values):
+    v = np.asarray(values, np.float64)
+    return {"p50": float(np.percentile(v, 50)),
+            "p99": float(np.percentile(v, 99)), "n": int(v.size)}
+
+
+def _one_trace_each(n, timeout=30.0):
+    """Every request's spans form one trace: the client's channel attempt,
+    the handler's "serving.submit" under it and the Scheduler's
+    "serving.request" under that.  The server's spans end just after it
+    sent DONE: wait for all of them.  Returns the traces that hold."""
+    from paddle_tpu_torch import telemetry
+
+    deadline = time.monotonic() + timeout
+    while True:
+        spans = telemetry.spans()
+        done = sum(r["name"] in ("serving.submit", "serving.request")
+                   for r in spans)
+        if done >= 2 * n or time.monotonic() > deadline:
+            break
+        time.sleep(0.02)
+    by_trace = {}
+    for r in spans:
+        by_trace.setdefault(r["trace"], []).append(r)
+    good = 0
+    for recs in by_trace.values():
+        names = {r["name"]: r for r in recs}
+        a = names.get("rpc.serving.attempt")
+        s = names.get("serving.submit")
+        q = names.get("serving.request")
+        if (len(recs) == 3 and a and s and q and s["parent"] == a["span"]
+                and q["parent"] == s["span"] and q["status"] == "ok"):
+            good += 1
+    if good != n or len(by_trace) != n:
+        raise AssertionError(f"phase F/rpc: {good} of {len(by_trace)} "
+                             f"traces stitched, {n} requests")
+    return good
+
+
+def phase_f_rpc(card, s_step_ms):
+    """transformer-base served over loopback TCP: serve(..., paged_kv=True)
+    at phase S's shapes (256-token sources, 2048-token windows, prompts
+    of 1024-2048 tokens, a 4096-slot cache, blocks of 16, 8 slots),
+    telemetry on, admission off.
+
+    Warm-up: every bucket (1, 2, 4, 8) twice, each group submitted at
+    once (under the step lock, so that it is admitted whole) and served
+    to the end by the loop thread: its eager warm-up, then its capture.
+    Counted: 16 requests of 32 tokens from 8 client threads, each with its
+    own ServingClient, streaming through on_token; launches predicted
+    from the scheduler's counters as in phase S.  Then the wire's other
+    ops: PING, STATS, STATUS, an expired SUBMIT, DRAIN, a client gone
+    after 2 tokens, QUIESCE."""
+    from paddle_tpu_torch import CUDAPlace, Scope, decode, serving, telemetry
+    from paddle_tpu_torch.framework import cuda_graph
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.resilience import RpcPolicy
+    from paddle_tpu_torch.serving import rpc
+
+    place = CUDAPlace(0)
+    spec = decode_spec(transformer.base(), S_WINDOW, S_MAX_LEN)
+    n_layer = sum(1 for s in spec.states if s.feed.startswith("cache_k_"))
+    vocab = spec.prefill_program.global_block().var("src_word_emb").shape[0]
+    scope = Scope()
+    gen = decode.Generator(spec, scope=scope, place=place)  # seeded startup
+    feeds = _request_feeds(np.random.RandomState(_phase_seed("F/rpc")),
+                           FE_REQUESTS + 1, vocab)
+    telemetry.enable()
+    telemetry.reset_metrics()
+    telemetry.reset_spans()
+    policy = RpcPolicy(call_timeout=FE_TIMEOUT_S, max_attempts=1)
+    srv, sched = serving.serve(spec, scope, place=place, max_batch=S_SLOTS,
+                               block_size=S_BLOCK, paged_kv=True)
+    # from here on, every program the server runs is the loop thread's
+    threads0 = dict(cuda_graph.THREADS)
+    cli = serving.ServingClient(srv.endpoint, policy)
+    try:
+        warm_n = 2 * sum(sched._buckets)
+        warm = _request_feeds(
+            np.random.RandomState(_phase_seed("F/rpc/warm")), warm_n, vocab)
+        g0 = graph_stats()
+        t0 = time.perf_counter()
+        it = iter(warm)
+        for b in list(sched._buckets) * 2:
+            with sched._step_lock:
+                hs = [sched.submit(next(it), 3, eos_id=-1) for _ in range(b)]
+            for h in hs:
+                h.result(timeout=FE_TIMEOUT_S)
+        warmed = graph_stats(g0)
+        warmed["wall_s"] = round(time.perf_counter() - t0, 3)
+        st = cli.status()
+        warm_submitted = st["metrics"]["counters"]["serving.submitted"]
+        if warm_submitted != warm_n:
+            raise AssertionError(f"phase F/rpc: STATUS counts "
+                                 f"{warm_submitted} warm-up submits of "
+                                 f"{warm_n}")
+        _reset_served(sched)
+        telemetry.reset_metrics()
+        telemetry.reset_spans()
+
+        def window(label, fs, via):
+            """FE_REQUESTS requests of NEW_TOKENS tokens from FE_CLIENTS
+            threads, each taking every FE_CLIENTS-th feed: through the
+            wire (its own ServingClient, streaming through on_token) or
+            in process (submit, then iterate the handle's stream()).
+            Launches held against the prediction from the scheduler's
+            counters, as in phase S."""
+            out = [None] * FE_REQUESTS
+
+            def client(k):
+                c = (serving.ServingClient(srv.endpoint, policy)
+                     if via == "rpc" else None)
+                try:
+                    for i in range(k, FE_REQUESTS, FE_CLIENTS):
+                        first, t = [], time.perf_counter()
+                        if c is not None:
+                            toks, status = c.generate(
+                                fs[i], NEW_TOKENS, eos_id=-1,
+                                on_token=lambda _t: first or first.append(
+                                    time.perf_counter()))
+                            toks = toks.tolist()
+                        else:
+                            h = sched.submit(fs[i], NEW_TOKENS, eos_id=-1)
+                            for _ in h.stream():
+                                first or first.append(time.perf_counter())
+                            toks, status = list(h.tokens), h.status
+                        out[i] = (toks, status,
+                                  (first[0] - t) * 1e3 if first else None)
+                finally:
+                    if c is not None:
+                        c.close()
+
+            torch.cuda.synchronize()
+            reset_peak_memory()
+            _zero_counts()
+            c0 = dict(sched.counters)
+            g0 = graph_stats()
+            rec = sched.step = Recorder(sched)   # the loop thread calls it
+            workers = [threading.Thread(target=client, args=(k,))
+                       for k in range(FE_CLIENTS)]
+            t0 = time.perf_counter()
+            for w in workers:
+                w.start()
+            for w in workers:
+                w.join(timeout=FE_TIMEOUT_S)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            del sched.step
+            counts = launch_counts()
+            graphs = graph_stats(g0)
+            peak = torch.cuda.max_memory_allocated()
+            if any(r is None for r in out):
+                raise AssertionError(f"phase F/rpc ({label}): a client "
+                                     "thread did not finish")
+            steps = sched.counters["steps"] - c0["steps"]
+            batches = sched.counters["prefill_batches"] \
+                - c0["prefill_batches"]
+            expect = {"mha_block": n_layer * (steps + 2 * batches),
+                      "flash_decode": 0,
+                      "flash_decode_paged": n_layer * steps,
+                      "flash_attention_fwd": n_layer * batches}
+            if counts != expect:
+                raise AssertionError(f"phase F/rpc ({label}): launches "
+                                     f"{counts}, the gate predicts {expect} "
+                                     f"for {steps} steps and {batches} "
+                                     "prefill batches")
+            decode_ms = [r["ms"] for r in rec.pure("steps")]
+            return out, {
+                "window": label, "via": via, "telemetry": telemetry.enabled(),
+                "launches": counts, "steps": steps,
+                "prefill_batches": batches, "wall_s": wall,
+                "tokens_per_s": FE_REQUESTS * NEW_TOKENS / wall,
+                "ttft_client_ms": _pcts([r[2] for r in out]),
+                "host_ms_per_decode_step": statistics.median(decode_ms),
+                "decode_steps_timed": len(decode_ms), "graphs": graphs,
+                "peak_mem_mib": peak / 2 ** 20}
+
+        # the main path, counted: telemetry on, through the wire
+        results, lit = window("instrumented", feeds, "rpc")
+        counts, steps = lit["launches"], lit["steps"]
+        batches, wall, graphs = lit["prefill_batches"], lit["wall_s"], \
+            lit["graphs"]
+        traces = _one_trace_each(FE_REQUESTS)
+        st = cli.status()
+        snap = st["metrics"]
+        submitted = snap["counters"]["serving.submitted"]
+        if submitted != FE_REQUESTS:
+            raise AssertionError(f"phase F/rpc: STATUS counts {submitted} "
+                                 f"submits, {FE_REQUESTS} sent")
+        ttft_reg = snap["histograms"]["serving.ttft_ms"]
+        if ttft_reg["count"] != FE_REQUESTS:
+            raise AssertionError(f"phase F/rpc: serving.ttft_ms {ttft_reg}")
+        # the same traffic on other prompts with telemetry off, through
+        # the wire and then in process: what the instruments cost on the
+        # step's host time, and what the handler threads' frames cost
+        telemetry.disable()
+        controls = []
+        for label, via in (("dark", "rpc"), ("dark in-process", "local")):
+            fs = _request_feeds(np.random.RandomState(_phase_seed(
+                f"F/rpc/{label}")), FE_REQUESTS, vocab)
+            out, win = window(label, fs, via)
+            counts = _add(counts, win["launches"])
+            controls.append((win, out, fs))
+        telemetry.enable()
+
+        # the wire's other ops
+        pong = cli.ping()
+        stats = cli.stats()
+        if not pong["ok"] or stats["completed"] != 3 * FE_REQUESTS:
+            raise AssertionError(f"phase F/rpc: PING {pong}, STATS "
+                                 f"completed {stats['completed']}")
+        host, port = srv.endpoint.rsplit(":", 1)
+        with socket.create_connection((host, int(port)), 10.0) as s:
+            s.settimeout(30.0)
+            rpc._send_frame(s, rpc.OP_SUBMIT, rpc._pack_submit(
+                feeds[0], {"max_new_tokens": 4, "deadline_ms": 0}))
+            op, payload = rpc._recv_frame(s)
+        reason = json.loads(payload.decode("utf-8")).get("reason") \
+            if op == rpc.OP_REJECT else None
+        if reason != "expired" or sched.counters["submitted"] != \
+                3 * FE_REQUESTS:
+            raise AssertionError(f"phase F/rpc: an expired SUBMIT got op "
+                                 f"{op} ({reason}); submitted "
+                                 f"{sched.counters['submitted']}")
+        cli.drain(True)
+        try:
+            cli.generate(feeds[1], 2, eos_id=-1)
+            raise AssertionError("phase F/rpc: a draining server served")
+        except serving.ReplicaDraining:
+            pass
+        cli.drain(False)
+        toks, status = cli.generate(feeds[1], 2, eos_id=-1)
+        if status != "done" or toks.tolist() != results[1][0][:2]:
+            raise AssertionError(f"phase F/rpc: after undrain {status} "
+                                 f"{toks.tolist()}")
+        with socket.create_connection((host, int(port)), 10.0) as s:
+            s.settimeout(30.0)
+            rpc._send_frame(s, rpc.OP_SUBMIT, rpc._pack_submit(
+                feeds[FE_REQUESTS], {"max_new_tokens": 500, "eos_id": -1}))
+            for _ in range(2):
+                op, _ = rpc._recv_frame(s)
+                if op != rpc.OP_TOKEN:
+                    raise AssertionError(f"phase F/rpc: op {op} streaming")
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline and not (
+                sched.counters["cancelled"] >= 1 and not sched._active):
+            time.sleep(0.02)
+        if sched.counters["cancelled"] < 1 or sched._active:
+            raise AssertionError("phase F/rpc: a closed client's request "
+                                 "was not cancelled")
+        quiesced = cli.quiesce(timeout_s=60.0)
+        if quiesced["used_blocks"] != 0:
+            raise AssertionError(f"phase F/rpc: QUIESCE {quiesced}")
+    finally:
+        cli.close()
+        srv.shutdown()
+        srv.server_close()
+        sched.close()
+        telemetry.disable()
+    ran_on = _threads_since(threads0)
+    if any(not k.endswith("@serving-sched") for k in ran_on):
+        raise AssertionError(f"phase F/rpc: warm-ups or captures off the "
+                             f"loop thread: {ran_on}")
+
+    def served(out):
+        return [types.SimpleNamespace(status=s, tokens=t, error=None)
+                for t, s, _ in out]
+
+    equal = check_served("F/rpc", served(results), feeds[:FE_REQUESTS],
+                         gen, NEW_TOKENS)
+    for win, out, fs in controls:
+        win["requests_equal_to_sequential"] = check_served(
+            f"F/rpc ({win['window']})", served(out), fs, gen, NEW_TOKENS)
+    controls = [win for win, _, _ in controls]
+    res = {"phase": "F/rpc", "requests": FE_REQUESTS,
+           "clients": FE_CLIENTS, "new_tokens": NEW_TOKENS,
+           "window": S_WINDOW, "prompt_lens": list(S_PROMPTS),
+           "max_len": S_MAX_LEN, "block_size": S_BLOCK,
+           "max_batch": S_SLOTS, "launches": counts, "steps": steps,
+           "prefill_batches": batches, "wall_s": wall,
+           "tokens_per_s": lit["tokens_per_s"],
+           "ttft_client_ms": lit["ttft_client_ms"],
+           "ttft_registry_ms": ttft_reg,
+           "host_ms_per_decode_step": lit["host_ms_per_decode_step"],
+           "decode_steps_timed": lit["decode_steps_timed"],
+           "phase_s_host_ms_per_decode_step": s_step_ms,
+           "controls": controls,
+           "graphs": graphs, "warm_up": warmed,
+           "warm_up_submitted": warm_submitted,
+           "ran_on": ran_on, "traces": traces,
+           "peak_mem_mib": lit["peak_mem_mib"], "quiesce": quiesced,
+           "requests_equal_to_sequential": equal, "card": card}
+    log(f"  F/rpc: {FE_REQUESTS}x{NEW_TOKENS} tokens from {FE_CLIENTS} "
+        f"client threads in {wall:.3f} s ({res['tokens_per_s']:.1f} "
+        f"tokens/s), TTFT client p50/p99 "
+        f"{res['ttft_client_ms']['p50']:.2f}/"
+        f"{res['ttft_client_ms']['p99']:.2f} ms, serving.ttft_ms p50/p99 "
+        f"{ttft_reg['p50']}/{ttft_reg['p99']} ms; host ms per decode step "
+        f"{res['host_ms_per_decode_step']:.3f} (median of "
+        f"{res['decode_steps_timed']}) beside phase S's {s_step_ms:.3f}  "
+        f"[{card}]")
+    for win in controls:
+        how = "through the wire" if win["via"] == "rpc" else "in process"
+        log(f"    control, {win['window']} ({how}, telemetry off): "
+            f"{win['tokens_per_s']:.1f} tokens/s, TTFT client p50/p99 {win['ttft_client_ms']['p50']:.2f}/"
+            f"{win['ttft_client_ms']['p99']:.2f} ms, host ms per decode "
+            f"step {win['host_ms_per_decode_step']:.3f} (median of "
+            f"{win['decode_steps_timed']}); {win['steps']} steps, "
+            f"launches {win['launches']}; "
+            f"{win['requests_equal_to_sequential']}/{FE_REQUESTS} requests "
+            f"equal the sequential Generator")
+    log(f"    {steps} steps, {batches} prefill batches; launches (all three "
+        f"windows) {counts}; "
+        f"CUDA graphs in the counted run {graphs} (warm-up: {warmed}); "
+        f"warm-ups and captures by thread {ran_on}; {traces} stitched "
+        f"traces; STATUS serving.submitted {warm_submitted} (warm-up) + "
+        f"{submitted}; peak {res['peak_mem_mib']:.0f} MiB; "
+        f"{equal}/{FE_REQUESTS} requests equal the sequential Generator")
+    log("    PING, STATS, STATUS answered; expired SUBMIT refused; DRAIN "
+        "refused a submit, undrain served it; a client gone after 2 "
+        f"tokens cancelled its request; QUIESCE {quiesced}")
+    return res, counts
+
+
+def _bench_feed(vocab, src_len, prefix, seed):
+    """bench.py's serving and overload feeds (bench.py:1004-1011,
+    :1769-1776): full-length sources and prompts from RandomState(seed)."""
+    r = np.random.RandomState(seed)
+    return {
+        "src_ids": r.randint(2, vocab, (1, src_len)).astype(np.int64),
+        "src_lens": np.full(1, src_len, np.int64),
+        "trg_ids": r.randint(2, vocab, (1, prefix)).astype(np.int64),
+        "prefix_lens": np.full(1, prefix, np.int64),
+    }
+
+
+def _warm_buckets(sched, feed, new_tokens=2, buckets=None):
+    """Every bucket's (or `buckets`') prefill and step signatures run twice
+    (an eager warm-up, then a capture) on fresh prompts, in the calling
+    thread."""
+    seed = 0
+    for _ in range(2):
+        for b in sched._buckets if buckets is None else buckets:
+            hs = [sched.submit(feed(9000 + seed + i), new_tokens, eos_id=-1)
+                  for i in range(b)]
+            seed += b
+            sched.run_until_idle(max_steps=100000)
+            if not all(h.status == "done" for h in hs):
+                raise AssertionError("warm-up request not done")
+
+
+def _check_prefixes(phase, handles):
+    """Each (handle, reference) pair: the handle's tokens are a prefix of
+    the sequential Generator's (all of them for a request done at full
+    length).  A divergence goes to DIVERGED.  Returns the pairs equal."""
+    bad = 0
+    for i, (h, ref) in enumerate(handles):
+        toks = list(h.tokens)
+        if toks != list(ref[:len(toks)]):
+            t = next(j for j, (a, b) in enumerate(zip(toks, ref)) if a != b)
+            DIVERGED.append({"phase": phase, "request": i, "step": t,
+                             "got": toks[t], "want": int(ref[t])})
+            log(f"    DIVERGED {DIVERGED[-1]}")
+            bad += 1
+    return len(handles) - bad
+
+
+def _front_expect(steps, n_layer, paged):
+    """A bench.py leg's launches for `steps` decode steps: its prefill
+    windows take the composite (no kernel); a host-pool step runs #6 twice
+    a layer (the dense cache and the source), a device-pool step #7 and #6
+    once each."""
+    return {"mha_block": 0,
+            "flash_decode": n_layer * steps * (1 if paged else 2),
+            "flash_decode_paged": n_layer * steps if paged else 0,
+            "flash_attention_fwd": 0}
+
+
+class _Counted:
+    """One leg's launch counts: zeroed on entry, read on exit and held
+    against _front_expect for the scheduler's decode steps in between."""
+
+    def __init__(self, phase, sched, n_layer):
+        self.phase, self.sched, self.n_layer = phase, sched, n_layer
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        _zero_counts()
+        self.steps0 = self.sched.counters["steps"]
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.counts = launch_counts()
+        self.steps = self.sched.counters["steps"] - self.steps0
+        if exc[0] is not None:
+            return False
+        expect = _front_expect(self.steps, self.n_layer,
+                               self.sched.paged_kv)
+        if self.counts != expect or not self.steps:
+            raise AssertionError(f"phase {self.phase}: launches "
+                                 f"{self.counts}, the gate predicts "
+                                 f"{expect} for {self.steps} steps")
+        return False
+
+
+def _host_pool_split(sched, feed, seed0):
+    """One continuous round (TAX_STREAMS requests) stepped by hand, with
+    host timers around the host pool's per-row gathers and row writes and
+    the step program's call: host ms a decode step and its parts."""
+    acc = {"gather": 0.0, "write_row": 0.0, "program": 0.0}
+
+    def timed(obj, name, key):
+        fn = getattr(obj, name)
+
+        def wrap(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            acc[key] += time.perf_counter() - t
+            return out
+        setattr(obj, name, wrap)
+
+    timed(sched.pool, "gather", "gather")
+    timed(sched.pool, "write_row", "write_row")
+    timed(sched._gen, "_step", "program")
+    try:
+        tick = Recorder(sched)
+        for i in range(TAX_STREAMS):
+            sched.submit(feed(seed0 + i), TAX_TOKENS, eos_id=-1)
+        tick()   # the prefill
+        for k in acc:
+            acc[k] = 0.0
+        steps = 0
+        while tick():
+            steps += tick.log[-1]["steps"]
+    finally:
+        for obj, name in ((sched.pool, "gather"),
+                          (sched.pool, "write_row"), (sched._gen, "_step")):
+            del obj.__dict__[name]
+    ms = statistics.median(r["ms"] for r in tick.pure("steps"))
+    out = {k: 1e3 * v / steps for k, v in acc.items()}
+    out["step"] = ms
+    out["rest"] = ms - sum(out[k] for k in acc)
+    return out
+
+
+def _poisson_sweep(sched, feed, seq_qps, slo_ms):
+    """bench.py's open-loop sweep on a started Scheduler: SWEEP_REQUESTS
+    Poisson arrivals at each of SWEEP_MULTS x the sequential capacity,
+    25% of them one shared prompt.  Returns the sweep, QPS at SLO (the
+    highest achieved rate whose p99 met the SLO) with its p99, and the
+    served (handle, prompt seed) pairs."""
+    sweep, qps_at_slo, p99_at_slo, served = {}, 0.0, None, []
+    for mult in SWEEP_MULTS:
+        rate = mult * seq_qps
+        gaps = np.random.RandomState(int(10 * mult)).exponential(
+            1.0 / rate, size=SWEEP_REQUESTS)
+        sub = []
+        t_start = time.perf_counter()
+        for i, gap in enumerate(gaps):
+            time.sleep(max(0.0, gap))
+            seed = 100 + (i % 4 if i % 4 == 0 else i)  # 25% shared
+            sub.append((sched.submit(feed(seed), TAX_TOKENS, eos_id=-1),
+                        seed))
+        for h, _ in sub:
+            h.result(timeout=600)
+        wall = time.perf_counter() - t_start
+        if not all(h.status == "done" and len(h.tokens) == TAX_TOKENS
+                   for h, _ in sub):
+            raise AssertionError("F/sweep: a request not done")
+        served += sub
+        lat = [1e3 * h.latency() for h, _ in sub]
+        p50, p99 = (float(np.percentile(lat, q)) for q in (50, 99))
+        qps = SWEEP_REQUESTS / wall
+        sweep[f"{mult:g}x"] = {"offered_qps": rate, "achieved_qps": qps,
+                               "p50_ms": p50, "p99_ms": p99,
+                               "met_slo": p99 <= slo_ms}
+        if p99 <= slo_ms and qps > qps_at_slo:
+            qps_at_slo, p99_at_slo = qps, p99
+    return sweep, qps_at_slo, p99_at_slo, served
+
+
+def phase_f_tax_sweep(card):
+    """bench.py's serving leg at transformer-base width: the telemetry tax
+    (identical continuous rounds on the host pool, telemetry off and on,
+    interleaved) with a split of the host pool's decode step, then the
+    Poisson open-loop sweep (telemetry on; the queue depth and the prefix
+    hit rate read from the registry) on bench.py's host-pool Scheduler
+    and on a device-pool one (paged_kv=True)."""
+    from paddle_tpu_torch import CUDAPlace, Scope, decode, serving, telemetry
+    from paddle_tpu_torch.models import transformer
+
+    place = CUDAPlace(0)
+    spec = decode_spec(transformer.base(), TAX_PREFIX, TAX_MAX_LEN,
+                       src_len=TAX_SRC)
+    n_layer = sum(1 for s in spec.states if s.feed.startswith("cache_k_"))
+    vocab = spec.prefill_program.global_block().var("src_word_emb").shape[0]
+    scope = Scope()
+    gen = decode.Generator(spec, scope=scope, place=place)
+    cache, refs = {}, {}
+
+    def feed(seed):
+        if seed not in cache:
+            cache[seed] = _bench_feed(vocab, TAX_SRC, TAX_PREFIX, seed)
+        return cache[seed]
+
+    def ref(seed):
+        if seed not in refs:
+            refs[seed] = gen.generate(feed(seed), TAX_TOKENS,
+                                      eos_id=-1)[0].tolist()
+        return refs[seed]
+
+    # the sequential tier: per-request generate(), warmed (eager, capture)
+    streams = [100 + i for i in range(TAX_STREAMS)]
+    for _ in range(2):
+        gen.generate(feed(streams[0]), 2, eos_id=-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for seed in streams:
+        ref(seed)
+    t_seq = time.perf_counter() - t0
+    seq_lat_ms = 1e3 * t_seq / TAX_STREAMS
+    seq_qps = TAX_STREAMS / t_seq
+    slo_ms = TAX_STREAMS * seq_lat_ms
+
+    sched = serving.Scheduler(spec, scope, place=place,
+                              max_batch=TAX_STREAMS)
+    _warm_buckets(sched, feed)
+
+    def cb_round(seed0):
+        t0 = time.perf_counter()
+        rs = [sched.submit(feed(seed0 + i), TAX_TOKENS, eos_id=-1)
+              for i in range(TAX_STREAMS)]
+        sched.run_until_idle(max_steps=100000)
+        torch.cuda.synchronize()
+        if not all(r.status == "done" and len(r.tokens) == TAX_TOKENS
+                   for r in rs):
+            raise AssertionError("F/tax: a request not done")
+        return time.perf_counter() - t0, rs
+
+    cb_round(20_000)   # settle caches and the allocator
+    dark, lit, rounds = [], [], []
+    with _Counted("F/tax", sched, n_layer) as tax_counted:
+        for k in range(TAX_PAIRS):
+            for on, times, seed0 in ((False, dark, 21_000),
+                                     (True, lit, 22_000)):
+                sched.pool.assert_quiesced()
+                (telemetry.enable if on else telemetry.disable)()
+                dt, rs = cb_round(seed0 + 100 * k)
+                times.append(dt)
+                rounds.append((rs, seed0 + 100 * k))
+        telemetry.disable()
+    checked = [(r, ref(seed0 + i)) for rs, seed0 in rounds
+               for i, r in enumerate(rs)]
+    t_dark, t_lit = statistics.median(dark), statistics.median(lit)
+    overhead = 100.0 * (t_lit - t_dark) / t_dark
+    q_dark, q_lit = (np.percentile(t, [25, 75]).tolist()
+                     for t in (dark, lit))
+    # each pair's own overhead: drift between pairs cancels inside one
+    per_pair = [100.0 * (b - a) / a for a, b in zip(dark, lit)]
+    q_pair = np.percentile(per_pair, [25, 50, 75]).tolist()
+    sched.pool.assert_quiesced()
+    split = _host_pool_split(sched, feed, 23_000)
+    equal_tax = _check_prefixes("F/tax", checked)
+    tax = {"phase": "F/tax", "streams": TAX_STREAMS, "src_len": TAX_SRC,
+           "prefix": TAX_PREFIX, "new_tokens": TAX_TOKENS,
+           "max_len": TAX_MAX_LEN, "pairs": TAX_PAIRS, "dark_s": dark,
+           "instrumented_s": lit, "dark_median_s": t_dark,
+           "instrumented_median_s": t_lit, "overhead_pct": overhead,
+           "dark_quartiles_s": q_dark, "instrumented_quartiles_s": q_lit,
+           "pair_overhead_pct_quartiles": q_pair,
+           "launches": tax_counted.counts, "steps": tax_counted.steps,
+           "host_pool_step_ms": split,
+           "requests_equal_to_sequential": equal_tax, "card": card}
+    log(f"  F/tax: {TAX_PAIRS} interleaved pairs of {TAX_STREAMS}x"
+        f"{TAX_TOKENS}-token continuous rounds on the host pool: dark "
+        f"median {t_dark:.4f} s (quartiles {q_dark[0]:.4f}-{q_dark[1]:.4f},"
+        f" range {min(dark):.4f}-{max(dark):.4f}), instrumented "
+        f"{t_lit:.4f} s (quartiles {q_lit[0]:.4f}-{q_lit[1]:.4f}, range "
+        f"{min(lit):.4f}-{max(lit):.4f}), overhead of the medians "
+        f"{overhead:.2f}%, per pair p25/p50/p75 {q_pair[0]:.2f}/"
+        f"{q_pair[1]:.2f}/{q_pair[2]:.2f}% ({equal_tax}/{len(checked)} "
+        f"requests equal the sequential Generator)  [{card}]")
+    log(f"    {tax_counted.steps} decode steps, launches "
+        f"{tax_counted.counts}")
+    log(f"    a host-pool decode step of {TAX_STREAMS} rows: "
+        f"{split['step']:.3f} host ms (median): gathers "
+        f"{split['gather']:.3f}, the program's call {split['program']:.3f}, "
+        f"row writes {split['write_row']:.3f}, the rest (argmax read-back, "
+        f"Python) {split['rest']:.3f}; the sequential Generator "
+        f"{seq_lat_ms / TAX_TOKENS:.3f} ms a token")
+
+    results, counts = [tax], dict(tax_counted.counts)
+    paged = serving.Scheduler(spec, scope, place=place,
+                              max_batch=TAX_STREAMS, block_size=S_BLOCK,
+                              paged_kv=True)
+    _warm_buckets(paged, feed)
+    for label, sc in (("F/sweep", sched), ("F/sweep/paged", paged)):
+        telemetry.reset_metrics()
+        telemetry.reset_spans()
+        telemetry.enable()
+        with _Counted(label, sc, n_layer) as counted:
+            sc.start()
+            try:
+                sweep, qps_at_slo, p99_at_slo, served = _poisson_sweep(
+                    sc, feed, seq_qps, slo_ms)
+                snap = telemetry.snapshot()
+            finally:
+                sc.close()
+                telemetry.disable()
+        counts = _add(counts, counted.counts)
+        served = [(h, ref(seed)) for h, seed in served]
+        equal = _check_prefixes(label, served)
+        hits = snap["counters"]["kv.prefix_hits"]
+        misses = snap["counters"]["kv.prefix_misses"]
+        qd = snap["histograms"]["serving.queue_depth_per_step"]
+        fill = snap["histograms"]["serving.bucket_fill"]
+        res = {"phase": label, "paged_kv": sc.paged_kv, "slo_ms": slo_ms,
+               "sequential_latency_ms": seq_lat_ms,
+               "sequential_capacity_qps": seq_qps,
+               "requests_per_rate": SWEEP_REQUESTS, "sweep": sweep,
+               "qps_at_slo": qps_at_slo, "p99_at_slo_ms": p99_at_slo,
+               "queue_depth_per_step": qd, "bucket_fill": fill,
+               "prefix_hit_rate": hits / max(1, hits + misses),
+               "launches": counted.counts, "steps": counted.steps,
+               "requests_equal_to_sequential": equal, "card": card}
+        results.append(res)
+        log(f"  {label} (paged_kv={sc.paged_kv}): sequential tier "
+            f"{seq_lat_ms:.2f} ms a request ({seq_qps:.2f} req/s), SLO "
+            f"{slo_ms:.1f} ms; QPS at SLO {qps_at_slo:.2f} (p99 "
+            f"{p99_at_slo} ms); registry: queue depth per step p50/p99 "
+            f"{qd['p50']}/{qd['p99']}, bucket fill mean {fill['mean']}, "
+            f"prefix hit rate {res['prefix_hit_rate']:.4f}; "
+            f"{equal}/{len(served)} requests equal the sequential "
+            f"Generator; {counted.steps} decode steps, launches "
+            f"{counted.counts}  [{card}]")
+        for k, v in sweep.items():
+            log(f"    {k}: offered {v['offered_qps']:.2f} req/s, achieved "
+                f"{v['achieved_qps']:.2f}, p50 {v['p50_ms']:.1f} ms, p99 "
+                f"{v['p99_ms']:.1f} ms, met SLO {v['met_slo']}")
+    return results, counts
+
+
+def _live_capture_skew(spec, scope, place, prompts):
+    """What a CUDA-graph capture during live traffic does to the admission
+    estimators: a Scheduler with admission on, every bucket but the
+    largest warmed, its EWMAs reset and settled on a smaller bucket's
+    rounds; then one round at the largest bucket, whose first calls are an
+    eager warm-up and a capture.  After every iteration a probe prices a
+    calm request (OV_TOKENS tokens, no backlog) against a 250 ms deadline,
+    the F/overload SLO's floor, through the gate's own arithmetic."""
+    from paddle_tpu_torch import serving
+
+    sched = serving.Scheduler(spec, scope, place=place, max_batch=OV_BATCH,
+                              block_size=OV_BLOCK, num_blocks=OV_BLOCKS,
+                              admission=True)
+    oc = sched._overload
+    _warm_buckets(sched, lambda s: prompts[s % OV_PROMPTS],
+                  buckets=sched._buckets[:-1])
+    oc._step_ms = oc._prefill_ms = None
+    small = sched._buckets[-2]
+    for k in range(4):
+        for i in range(small):
+            sched.submit(prompts[(small * k + i) % OV_PROMPTS], OV_TOKENS,
+                         eos_id=-1)
+        sched.run_until_idle(max_steps=100000)
+    before, pre_before = oc.step_ms(), oc._prefill_ms
+    est_before = oc.estimate_ms(OV_TOKENS, 0)
+    for i in range(OV_BATCH):   # prompts neither round has seen: a prefill
+        sched.submit(prompts[20 + i], OV_TOKENS, eos_id=-1)
+    trail, ests, rejects = [], [], 0
+    while sched.step():
+        trail.append(oc.step_ms())
+        est = oc.estimate_ms(OV_TOKENS, 0)
+        ests.append(est)
+        rejects += est > 250.0
+    settled = trail[-1]
+    res = {"before_ms": before, "peak_ms": max(trail), "settled_ms": settled,
+           "steps_over_2x": sum(1 for v in trail if v > 2 * settled),
+           "prefill_before": pre_before, "prefill_after": oc._prefill_ms,
+           "est_before": est_before, "est_peak": max(ests),
+           "probes": len(ests), "rejects": rejects, "trail_ms": trail}
+    sched.pool.assert_quiesced()
+    sched.close()
+    return res
+
+
+def phase_f_overload(card):
+    """bench.py's overload A/B at transformer-base width: the same open-loop
+    Poisson burst at 1x, 2x, 4x and 8x of the measured capacity, with the
+    admission gate and brownout ON and OFF; half the arrivals interactive
+    (deadline = the SLO), half batch.  Goodput counts the interactive
+    requests done inside the SLO over the leg's wall clock."""
+    from paddle_tpu_torch import CUDAPlace, Scope, decode, serving
+    from paddle_tpu_torch.models import transformer
+
+    place = CUDAPlace(0)
+    spec = decode_spec(transformer.base(), OV_PREFIX, OV_MAX_LEN,
+                       src_len=OV_SRC)
+    n_layer = sum(1 for s in spec.states if s.feed.startswith("cache_k_"))
+    vocab = spec.prefill_program.global_block().var("src_word_emb").shape[0]
+    scope = Scope()
+    gen = decode.Generator(spec, scope=scope, place=place)
+    prompts = [_bench_feed(vocab, OV_SRC, OV_PREFIX, 31_000 + p)
+               for p in range(OV_PROMPTS)]
+    refs = [gen.generate(f, OV_TOKENS, eos_id=-1)[0].tolist()
+            for f in prompts]
+
+    def mk_sched(admission):
+        sched = serving.Scheduler(spec, scope, place=place,
+                                  max_batch=OV_BATCH, block_size=OV_BLOCK,
+                                  num_blocks=OV_BLOCKS, admission=admission)
+        _warm_buckets(sched, lambda s: prompts[s % OV_PROMPTS])
+        poisoned = None
+        if sched._overload is not None:
+            # warm-up and capture times fed the estimators: start over
+            poisoned = sched._overload.view()
+            sched._overload._step_ms = None
+            sched._overload._prefill_ms = None
+        return sched, poisoned
+
+    live = _live_capture_skew(spec, scope, place, prompts)
+    sched_on, poisoned = mk_sched(True)
+    for k in range(6):   # settle rounds rebuild the estimators
+        hs = [sched_on.submit(prompts[(24 * k + i) % OV_PROMPTS], OV_TOKENS,
+                              eos_id=-1) for i in range(24)]
+        sched_on.run_until_idle(max_steps=100000)
+        if not all(h.status == "done" for h in hs):
+            raise AssertionError("F/overload: a settle request not done")
+    t0 = time.perf_counter()
+    hs = [sched_on.submit(prompts[i % OV_PROMPTS], OV_TOKENS, eos_id=-1)
+          for i in range(48)]
+    sched_on.run_until_idle(max_steps=100000)
+    capacity = 48 / (time.perf_counter() - t0)
+    settled = sched_on._overload.view()
+    est_calm = sched_on._overload.estimate_ms(OV_TOKENS, 0) or 100.0
+    slo_ms = float(min(10_000.0, max(250.0, 3.0 * est_calm)))
+
+    def burst(sched, mult, seed):
+        rate = mult * capacity
+        n_req = min(OV_BURST_MAX, max(48, int(OV_BURST_S * rate)))
+        r = np.random.RandomState(seed)
+        arrivals = np.cumsum(r.exponential(1.0 / rate, size=n_req))
+        kinds = r.rand(n_req) < 0.5
+        which = r.randint(0, OV_PROMPTS, size=n_req)
+        accepted, rejected = [], 0
+        t_start = time.perf_counter()
+        for at, interactive, p in zip(arrivals, kinds, which):
+            time.sleep(max(0.0, float(at) - (time.perf_counter() - t_start)))
+            try:
+                if interactive:
+                    h = sched.submit(prompts[p], OV_TOKENS, deadline_ms=slo_ms,
+                                     eos_id=-1, priority="interactive")
+                else:
+                    h = sched.submit(prompts[p], OV_TOKENS, eos_id=-1,
+                                     priority="batch")
+                accepted.append((bool(interactive), int(p), h))
+            except serving.AdmissionRejected:
+                rejected += 1
+        for _, _, h in accepted:
+            h.result(timeout=600.0)
+        wall = time.perf_counter() - t_start
+        equal = _check_prefixes(f"F/overload {mult:g}x",
+                                [(h, refs[p]) for _, p, h in accepted])
+        clamped_interactive = sum(
+            1 for i, _, h in accepted
+            if i and h.status == "done" and len(h.tokens) != OV_TOKENS)
+        if clamped_interactive:
+            raise AssertionError(f"F/overload: {clamped_interactive} "
+                                 "interactive requests done short")
+        lats = [h.latency() * 1e3 for i, _, h in accepted
+                if i and h.status == "done"]
+        good = sum(1 for lat in lats if lat <= slo_ms)
+        return {"offered_qps": rate, "offered_n": n_req,
+                "accepted": len(accepted), "rejected": rejected,
+                "interactive_expired": sum(
+                    1 for i, _, h in accepted if i and h.status == "expired"),
+                "batch_clamped": sum(
+                    1 for i, _, h in accepted
+                    if not i and h.status == "done"
+                    and len(h.tokens) < OV_TOKENS),
+                "goodput_qps": good / wall, "wall_s": wall,
+                "p99_ms": float(np.percentile(lats, 99)) if lats else None,
+                "accepted_equal_to_sequential": equal}
+
+    sweep = {"on": {}, "off": {}}
+    with _Counted("F/overload ON", sched_on, n_layer) as on_counted:
+        sched_on.start()
+        try:
+            for mult in OV_MULTS:
+                sweep["on"][f"{mult:g}x"] = burst(sched_on, mult,
+                                                  int(10 * mult))
+            on_counters = dict(sched_on._overload.counters)
+            with sched_on._step_lock:
+                sched_on.pool.assert_quiesced()
+        finally:
+            sched_on.close()
+    sched_off, _ = mk_sched(False)
+    with _Counted("F/overload OFF", sched_off, n_layer) as off_counted:
+        sched_off.start()
+        try:
+            for mult in OV_MULTS:
+                sweep["off"][f"{mult:g}x"] = burst(sched_off, mult,
+                                                   int(10 * mult))
+            with sched_off._step_lock:
+                sched_off.pool.assert_quiesced()
+        finally:
+            sched_off.close()
+    counts = _add(on_counted.counts, off_counted.counts)
+    res = {"phase": "F/overload", "max_batch": OV_BATCH,
+           "live_capture": live,
+           "src_len": OV_SRC, "prefix": OV_PREFIX, "new_tokens": OV_TOKENS,
+           "max_len": OV_MAX_LEN, "num_blocks": OV_BLOCKS,
+           "prompts": OV_PROMPTS, "capacity_qps": capacity,
+           "slo_ms": slo_ms, "estimators_after_warm_up": poisoned,
+           "estimators_settled": settled, "sweep": sweep,
+           "overload_counters_on": on_counters,
+           "launches": {"on": on_counted.counts, "off": off_counted.counts},
+           "steps": {"on": on_counted.steps, "off": off_counted.steps},
+           "goodput_on_4x": sweep["on"]["4x"]["goodput_qps"], "card": card}
+    log(f"  F/overload: capacity {capacity:.2f} req/s, SLO {slo_ms:.1f} ms "
+        f"(3 x the calm estimate {est_calm:.2f} ms); goodput at SLO, 4x ON "
+        f"{res['goodput_on_4x']:.2f} req/s; ON counters {on_counters}  "
+        f"[{card}]")
+    log(f"    estimators after the warm-up (its eager runs and captures): "
+        f"step {poisoned['step_ms_ewma']} ms, prefill "
+        f"{poisoned['prefill_tok_ms_ewma']} ms/token; settled: step "
+        f"{settled['step_ms_ewma']} ms, prefill "
+        f"{settled['prefill_tok_ms_ewma']} ms/token")
+    log(f"    a capture in live traffic (bucket {OV_BATCH} first reached "
+        f"after the estimators settled on bucket {OV_BATCH - 2}): step EWMA "
+        f"{live['before_ms']:.3f} -> peak {live['peak_ms']:.3f} ms, "
+        f"{live['steps_over_2x']} steps above 2x its settled value, prefill "
+        f"EWMA {live['prefill_before']:.4f} -> {live['prefill_after']:.4f} "
+        f"ms/token; a calm {OV_TOKENS}-token estimate {live['est_before']:.1f}"
+        f" -> peak {live['est_peak']:.1f} ms, {live['rejects']} of "
+        f"{live['probes']} probe admissions at the SLO refused")
+    for leg in ("on", "off"):
+        for k, v in sweep[leg].items():
+            log(f"    {leg.upper()} {k}: offered {v['offered_n']} at "
+                f"{v['offered_qps']:.1f} req/s, accepted {v['accepted']}, "
+                f"rejected {v['rejected']}, interactive expired "
+                f"{v['interactive_expired']}, batch clamped "
+                f"{v['batch_clamped']}, goodput {v['goodput_qps']:.2f} "
+                f"req/s, interactive p99 {v['p99_ms']} ms, wall "
+                f"{v['wall_s']:.2f} s, {v['accepted_equal_to_sequential']}/"
+                f"{v['accepted']} equal to the sequential Generator")
+    log(f"    decode steps ON {on_counted.steps}, OFF {off_counted.steps}; "
+        f"launches ON {on_counted.counts}, OFF {off_counted.counts}")
+    return res, counts
+
+
+def drive_front_end(card, s_step_ms, lap=lambda phase: None):
+    """Phase 12: F/rpc, F/tax and F/sweep, F/overload; `lap(phase)` after
+    each.  Returns the results and the launches of every counted leg."""
+    res, counts = phase_f_rpc(card, s_step_ms)
+    results = [res]
+    torch.cuda.empty_cache()
+    lap("[12] F/rpc")
+    more, more_counts = phase_f_tax_sweep(card)
+    results += more
+    counts = _add(counts, more_counts)
+    torch.cuda.empty_cache()
+    lap("[12] F/tax, F/sweep")
+    res, more_counts = phase_f_overload(card)
+    results.append(res)
+    counts = _add(counts, more_counts)
+    torch.cuda.empty_cache()
+    lap("[12] F/overload")
+    return results, counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -4275,8 +5254,16 @@ def main():
         f"[{card}]")
     saved_runs, saved_launches = drive_saved_models(card, lap)
     phases += saved_runs
+
+    log(f"[12] the serving front end: transformer-base over loopback TCP "
+        f"(F/rpc), the telemetry tax (F/tax), the Poisson sweep (F/sweep) "
+        f"and the overload A/B (F/overload) [{card}]")
+    s_step_ms = next(p for p in phases
+                     if p.get("phase") == "S")["decode_step_ms"]
+    front_runs, front_launches = drive_front_end(card, s_step_ms, lap)
+    phases += front_runs
     for more in (counts, train_launches, bert_launches, resnet_launches,
-                 rnn_launches, saved_launches):
+                 rnn_launches, saved_launches, front_launches):
         for k, n in more.items():
             launches[k] = launches.get(k, 0) + n
     never = [k for k in KERNELS if not launches.get(k)]
@@ -4284,7 +5271,7 @@ def main():
         raise AssertionError(f"kernels {never} never launched on a path")
 
     log(f"  all phases took {laps[-1] - laps[0]:.1f} s wall")
-    log("[12] results")
+    log("[13] results")
     log(json.dumps({"phases": phases}))
     log(json.dumps({"training": training}))
     if DIVERGED:

@@ -8,8 +8,8 @@ Env override: PADDLE_TPU_<NAME-UPPERCASED>, the JAX package's spelling, so
 one environment steers both packages the same way.
 
 Only the flags the port's slices read are defined: the Executor's, the
-attention gate's and the serving Scheduler's, each with the JAX
-package's default (decode.Generator and serving.Scheduler take the jit
+attention gate's, the serving Scheduler's and its front end's (telemetry,
+the RPC channel, overload control), each with the JAX package's default (decode.Generator and serving.Scheduler take the jit
 path whatever `executor_mode` says).  The attention-gate
 defaults are the JAX package's (sized for TPU v5e VMEM), kept so that the
 same shapes take the same tier in both packages; an H100-derived gate is
@@ -240,3 +240,62 @@ DEFINE_bool("serving_admission", False,
             "Scheduling-only — admission decides WHETHER a request "
             "enters, never the shapes or tokens of one that does (the "
             "parity contract is arrival-visible, outcome-invisible)")
+
+# the serving front end's flags (telemetry, the resilient channel, overload
+# control), with the JAX package's defaults and help
+DEFINE_bool("telemetry", False,
+            "Master gate for telemetry: counters/gauges/histograms record "
+            "and spans trace (including trace-context propagation on RPC "
+            "frame headers).  Off by default — every instrument checks one "
+            "module-level bool and returns.  Read once at import; flip at "
+            "runtime via telemetry.enable()/disable()")
+DEFINE_int("telemetry_max_spans", 50000,
+           "Bound on the in-process span ring buffer: oldest spans are "
+           "dropped past this count, so enabled-mode memory is O(1) over "
+           "a soak.  Read once when telemetry is imported")
+DEFINE_int("rpc_max_attempts", 4,
+           "resilience.RpcPolicy default: total attempts per RPC (1 = no "
+           "retry).  Only transport faults (refused/reset/closed/timeout) "
+           "retry; server-side OP_ERROR replies never do")
+DEFINE_int("rpc_backoff_ms", 50,
+           "resilience.RpcPolicy default: base retry backoff in ms; "
+           "attempt k sleeps min(2s, base * 2^k) * (1 + jitter)")
+DEFINE_int("rpc_call_timeout_ms", 30000,
+           "resilience.RpcPolicy default per-op deadline in ms; a call "
+           "exceeding it invalidates the socket (late replies can never "
+           "desync the stream) and counts as a retryable fault")
+DEFINE_int("retry_budget_ratio", 10,
+           "resilience.RetryBudget earn rate as a percent: every call "
+           "deposits ratio/100 retry tokens (capped), every retry "
+           "spends one — the gRPC retry-throttling idiom, bounding "
+           "retry amplification at ~ratio% of offered load no matter how "
+           "many clients storm.  0 disables the budget (retries bounded "
+           "only by rpc_max_attempts).  Client-side only")
+DEFINE_int("brownout_queue_high", 12,
+           "Brownout pressure threshold: a scheduler step observing "
+           "more than this many waiting requests counts as pressured; "
+           "brownout_up_after consecutive pressured steps escalate the "
+           "ladder one rung (see serving/overload.py).  Scheduling-only "
+           "— drives admission policy, never a traced executable")
+DEFINE_int("brownout_up_after", 4,
+           "Brownout escalation hysteresis: consecutive pressured "
+           "observations required before the ladder climbs one rung "
+           "(NORMAL -> CLAMP_BATCH -> SHED_BATCH -> TIGHTEN_SLO).  "
+           "Scheduling-only policy knob")
+DEFINE_int("brownout_down_after", 16,
+           "Brownout recovery hysteresis: consecutive calm observations "
+           "required before the ladder descends one rung.  Deliberately "
+           "larger than brownout_up_after so degradation releases "
+           "slower than it engages (no flapping at the threshold).  "
+           "Scheduling-only policy knob")
+DEFINE_int("brownout_clamp_tokens", 8,
+           "CLAMP_BATCH rung: batch-priority admissions have "
+           "max_new_tokens clamped to this while browned out.  The "
+           "clamped generation is a PREFIX of the unclamped one (greedy "
+           "decode's prefix property), so the parity contract holds — "
+           "the clamp changes how much decodes, never what")
+DEFINE_int("brownout_slo_tighten_pct", 50,
+           "TIGHTEN_SLO rung: interactive admissions must fit their "
+           "feasibility estimate in (100 - pct)% of the caller's "
+           "deadline — headroom reserved for requests already in "
+           "flight.  Scheduling-only policy knob")

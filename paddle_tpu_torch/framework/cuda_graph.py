@@ -65,6 +65,7 @@ delta: no path of the port does that.)
 
 from __future__ import annotations
 
+import collections
 import threading
 import time
 
@@ -76,6 +77,10 @@ import torch
 # and resets it)
 STATS = {"captures": 0, "capture_s": 0.0, "pool_bytes": 0, "replays": 0,
          "warmups": 0}
+# eager warm-ups and captures by the thread that ran them, keyed ("warmups"
+# or "captures", thread name): a server keeps them all on its Scheduler's
+# loop thread, never on a connection's handler thread
+THREADS = collections.Counter()
 
 _SIDE_STREAMS = {}
 # held by every warm-up and capture, and around each replay's counter update
@@ -85,6 +90,7 @@ _LOCK = threading.RLock()
 def reset_stats():
     STATS.update(captures=0, capture_s=0.0, pool_bytes=0, replays=0,
                  warmups=0)
+    THREADS.clear()
 
 
 def _side_stream(device):
@@ -206,6 +212,7 @@ class CapturedSegment:
 
     def _warm_up(self, args, rng):
         STATS["warmups"] += 1
+        THREADS["warmups", threading.current_thread().name] += 1
         cur = torch.cuda.current_stream(self.device)
         side = _side_stream(self.device)
         side.wait_stream(cur)
@@ -260,6 +267,7 @@ class CapturedSegment:
         g.alias = tuple(by_id.get(id(o)) for o in outs)
         g.graph.replay()
         STATS["captures"] += 1
+        THREADS["captures", threading.current_thread().name] += 1
         STATS["capture_s"] += time.perf_counter() - t0
         STATS["pool_bytes"] += torch.cuda.memory_stats(self.device).get(
             "reserved_bytes.all.current", 0) - reserved

@@ -16,6 +16,11 @@ dense caches and replaces each state with the op's output every step, and
 the serving Scheduler installs the pool tensor the paged op returns, so
 nothing else sees the old value — and a step neither allocates nor copies
 a whole cache or pool.
+
+The pools carry the JAX package's `kv.*` instruments (telemetry): blocks in
+use, prefix hits, misses and evictions, and `kv.h2d_bytes`, the bytes the
+pool moves toward a step (the host pool's dense gathers, the device pool's
+row uploads; flat across paged decode steps, which append in place).
 """
 
 from __future__ import annotations
@@ -24,10 +29,22 @@ import numpy as np
 import torch
 
 from ..framework.core_types import as_device, convert_dtype, dtype_to_torch
+from ..telemetry import registry as _telem
 from .registry import register_infer_shape, register_op
 
 __all__ = ["append", "append_paged", "gather_beams", "BlockPool",
            "DeviceBlockPool", "PoolExhausted"]
+
+_G_BLOCKS_IN_USE = _telem.gauge("kv.blocks_in_use")
+_C_PREFIX_HITS = _telem.counter("kv.prefix_hits")
+_C_PREFIX_MISSES = _telem.counter("kv.prefix_misses")
+_C_EVICTIONS = _telem.counter("kv.evictions")
+# bytes the pool moves toward a step: the host pool's dense gathers (the
+# [max_len, ...] views a dense step is fed) and the device pool's row
+# uploads (prefill writes); paged decode steps add nothing
+_C_H2D_BYTES = _telem.counter("kv.h2d_bytes")
+# blocks resident on the device (the device pool only)
+_G_DEVICE_BLOCKS = _telem.gauge("kv.device_blocks")
 
 
 def append(cache, new, lengths):
@@ -244,6 +261,10 @@ class BlockPool:
         """Blocks needed to cover n_positions rows."""
         return -(-int(n_positions) // self.block_size)
 
+    def _note_usage(self):
+        if _telem._ENABLED:
+            _G_BLOCKS_IN_USE.set(self.used_blocks())
+
     def alloc(self, n):
         """n fresh blocks (refcount 1 each).  Evicts idle prefix chains
         LRU-first when the free list runs dry; raises PoolExhausted when
@@ -258,6 +279,7 @@ class BlockPool:
         out = [self._free.pop() for _ in range(n)]
         for b in out:
             self._refs[b] = 1
+        self._note_usage()
         return out
 
     def retain(self, blocks):
@@ -276,6 +298,7 @@ class BlockPool:
             self._refs[b] -= 1
             if self._refs[b] == 0:
                 self._free.append(b)
+        self._note_usage()
 
     def clone_block(self, src):
         """Copy-on-write: a fresh block with every stream's rows copied
@@ -361,6 +384,8 @@ class BlockPool:
             flat = data[np.asarray(blocks[:nb], np.int64)].reshape(
                 (nb * self.block_size,) + data.shape[2:])
             out[:length] = flat[:length]
+        if _telem._ENABLED:
+            _C_H2D_BYTES.inc(out.nbytes)
         return out
 
     # -- prefix cache ----------------------------------------------------
@@ -388,8 +413,10 @@ class BlockPool:
         ent = self._prefix.get(key)
         if ent is None:
             self.misses += 1
+            _C_PREFIX_MISSES.inc()
             return None
         self.hits += 1
+        _C_PREFIX_HITS.inc()
         self._use_tick += 1
         ent[3] = self._use_tick
         self.retain(ent[0])
@@ -400,6 +427,7 @@ class BlockPool:
         if ent is not None:
             self.release(ent[0])
             self.evictions += 1
+            _C_EVICTIONS.inc()
 
     def _evict_idle(self, need):
         """Evict LRU prefix chains whose blocks are held ONLY by the
@@ -430,6 +458,7 @@ class BlockPool:
                 f"BlockPool not quiesced: {leaked} of {self.num_blocks} "
                 f"blocks still referenced after "
                 f"{len(self._prefix)} prefix entries remain")
+        self._note_usage()
         return self.stats()
 
     def stats(self):
@@ -482,6 +511,11 @@ class DeviceBlockPool(BlockPool):
                 (self.num_blocks, self.block_size) + tuple(tail_shape),
                 dtype=dtype_to_torch(dtype), device=self.device)
 
+    def _note_usage(self):
+        if _telem._ENABLED:
+            _G_BLOCKS_IN_USE.set(self.used_blocks())
+            _G_DEVICE_BLOCKS.set(self.used_blocks())
+
     def stream(self, name):
         """The live pool tensor of one stream."""
         return self._streams[name]
@@ -504,7 +538,10 @@ class DeviceBlockPool(BlockPool):
         return dst
 
     def write_rows_multi(self, jobs_by_stream):
-        """One `index_put_` per stream for every row of every job."""
+        """One `index_put_` per stream for every row of every job (every
+        write_row* of this pool lands here, so `kv.h2d_bytes` counts each
+        uploaded row once)."""
+        total = 0
         with torch.inference_mode():
             for name, jobs in jobs_by_stream.items():
                 if not jobs:
@@ -515,7 +552,10 @@ class DeviceBlockPool(BlockPool):
                 rows = torch.cat([torch.as_tensor(r).to(self.device,
                                                         data.dtype)
                                   for _, _, r in jobs])
+                total += rows.nbytes
                 data.index_put_((blk, off), rows)
+        if _telem._ENABLED:
+            _C_H2D_BYTES.inc(total)
 
     def gather(self, name, blocks, length, pad_to):
         data = self._streams[name]

@@ -61,8 +61,22 @@ tests and by chip_smoke.py, as for batching.
 
 Each Scheduler runs on one device: the card unless it is given
 `place=CPUPlace()`, as `decode.Generator`.  Steps run under
-`torch.inference_mode()`.  The overload control plane (admission) is a
-later slice (ROADMAP.md A) and raises NotImplementedError.
+`torch.inference_mode()`.
+
+Overload control (`admission=True` or the `serving_admission` flag):
+`submit` prices the request against the backlog with
+serving/overload.py's estimators and raises AdmissionRejected before any
+block is allocated; every iteration feeds the brownout ladder the queue
+depth.  The estimators read host wall time around a step or a prefill,
+and on the card a launch returns before the card is done: every such
+window here ends on a read-back of the card's result (the step's argmax,
+the prefill's first token, or a synchronize where there is none), so it
+covers the card's work.
+
+Telemetry (the `telemetry` flag, or `telemetry.enable()`): the JAX
+Scheduler's instruments under the same names, at the same sites
+(`serving.*` histograms, counters and gauges, and one "serving.request"
+span a request, a child of the submitter's current span).
 """
 
 from __future__ import annotations
@@ -78,6 +92,9 @@ import numpy as np
 import torch
 
 from ..ops.kv_cache import BlockPool, DeviceBlockPool, PoolExhausted
+from ..telemetry import registry as _telem
+from ..telemetry import tracing as _tracing
+from .overload import PRIORITIES, AdmissionRejected, OverloadControl
 from .paged import BLOCK_TABLE_VAR, build_paged_step
 
 __all__ = ["Scheduler", "ServedRequest", "SchedulerDraining", "prompt_key",
@@ -89,19 +106,35 @@ __all__ = ["Scheduler", "ServedRequest", "SchedulerDraining", "prompt_key",
 # evicted from the map.
 _RID_RETAIN = 4096
 
-# request classes (serving/overload.py:PRIORITIES of the JAX package):
-# batch work is evicted first under pool pressure
-PRIORITIES = ("interactive", "batch")
+_H_STEP_MS = _telem.histogram("serving.step_ms")
+_H_BUCKET_FILL = _telem.histogram(
+    "serving.bucket_fill", bounds=tuple(i / 16 for i in range(1, 17)))
+_G_QUEUE = _telem.gauge("serving.queue_depth")
+_G_ACTIVE = _telem.gauge("serving.active")
+# the wait queue sampled once per scheduler step: the gauge holds only the
+# latest value, so scrapes read mean/p99 occupancy from here
+_H_QUEUE_DEPTH = _telem.histogram("serving.queue_depth_per_step")
+_C_SUBMITTED = _telem.counter("serving.submitted")
+_C_ADMISSIONS = _telem.counter("serving.admissions")
+_C_EVICTIONS = _telem.counter("serving.evictions")
+_C_STEPS = _telem.counter("serving.steps")
+_C_REPLAYS = _telem.counter("serving.replays")
+# speculative decoding: proposals made and accepted, the per-row
+# acceptance rate and the tokens a row emits a round
+_C_SPEC_PROPOSED = _telem.counter("serving.spec_proposed")
+_C_SPEC_ACCEPTED = _telem.counter("serving.spec_accepted")
+_H_SPEC_ACCEPT = _telem.histogram(
+    "serving.spec_accept_rate", bounds=tuple(i / 8 for i in range(1, 9)))
+_H_TOKENS_PER_STEP = _telem.histogram(
+    "serving.tokens_per_step", bounds=(1, 2, 3, 4, 6, 8, 12, 16))
+# time to first token per request (submit -> first emit) and each chunked
+# prefill pass's wall time
+_H_TTFT = _telem.histogram("serving.ttft_ms")
+_H_CHUNK_MS = _telem.histogram("serving.prefill_chunk_ms")
 
 # "prefilled" is the prefill tier's terminal: prompt processed, first
 # token emitted, the handoff record parked on req.handoff
 _STATUS_DONE = ("done", "expired", "cancelled", "error", "prefilled")
-
-
-def _later_slice(what):
-    return NotImplementedError(
-        f"{what} is not ported yet: it lands with a later serving slice "
-        "(ROADMAP.md A)")
 
 
 class SchedulerDraining(RuntimeError):
@@ -213,6 +246,11 @@ class ServedRequest:
         self._draft_gap = None
         self._ttft_sink = None      # scheduler's TTFT observer
         self._cancel_flag = False
+        self._span = None           # telemetry request span
+        # bumps per attached RPC streamer: a handler whose connection died
+        # cancels only if no newer handler re-attached (the idempotent
+        # resubmit's race guard)
+        self._stream_gen = 0
 
     # -- caller-facing ----------------------------------------------------
 
@@ -302,9 +340,6 @@ class Scheduler:
         from .. import flags
         from ..decode import Generator
 
-        if admission if admission is not None \
-                else flags.get("serving_admission"):
-            raise _later_slice("serving admission control (overload.py)")
         self.spec = spec
         if spec.max_len is None:
             raise ValueError("serving needs spec.max_len (KV pool bound)")
@@ -319,6 +354,12 @@ class Scheduler:
         self.flush_deadline = (
             flags.get("serving_flush_deadline_ms")
             if flush_deadline_ms is None else flush_deadline_ms) / 1e3
+        # overload control (admission gate + brownout ladder): opt-in, as
+        # admission changes which requests exist
+        if admission is None:
+            admission = flags.get("serving_admission")
+        self._overload = OverloadControl(self.max_batch) if admission \
+            else None
         bpseq = -(-int(spec.max_len) // self.block_size)
         if num_blocks is None:
             # every slot can hold a full sequence, plus prefix-cache slack
@@ -373,7 +414,7 @@ class Scheduler:
             "cancelled": 0, "errors": 0, "steps": 0, "prefills": 0,
             "prefill_batches": 0, "preemptions": 0, "replays": 0,
             "dedup_hits": 0, "imported": 0, "exported": 0,
-            "peak_active": 0, "peak_occupancy": 0.0,
+            "peak_active": 0, "peak_occupancy": 0.0, "rejected": 0,
             "spec_rounds": 0, "draft_steps": 0, "spec_proposed": 0,
             "spec_accepted": 0, "spec_tokens": 0,
             "chunked": 0, "chunk_passes": 0, "handoffs": 0, "adopted": 0,
@@ -464,6 +505,8 @@ class Scheduler:
     # -- submission --------------------------------------------------------
 
     def _observe_ttft(self, ms):
+        if _telem._ENABLED:
+            _H_TTFT.observe(ms)
         self._ttft_samples.append(ms)
 
     def submit(self, feed, max_new_tokens, deadline_ms=None, on_token=None,
@@ -485,7 +528,12 @@ class Scheduler:
         resumes decoding.
 
         priority ("interactive" | "batch"): batch work is evicted first
-        under pool pressure.
+        under pool pressure, clamped and shed first under brownout.  With
+        admission on, submit() raises AdmissionRejected (with a
+        retry_after_ms hint) before any ServedRequest or KV block exists
+        when the deadline is infeasible against the backlog or brownout
+        sheds the class.  Continuations (recorded_tokens, kv_payload)
+        bypass the gate: they were accepted once already.
 
         prefill_only=True is the prefill tier's mode: the request runs its
         prompt (chunked or not), emits the first token, then retires
@@ -521,6 +569,10 @@ class Scheduler:
                     if recorded_tokens is None and prior.tokens:
                         recorded_tokens = [int(t) for t in prior.tokens]
                     del self._by_rid[request_id]
+        if self._overload is not None and recorded_tokens is None \
+                and kv_payload is None:
+            max_new_tokens = self._admit(feed, max_new_tokens, deadline_ms,
+                                         eos_id, bos_id, priority)
         fixed = {}
         for name, v in feed.items():
             v = np.asarray(v)
@@ -551,6 +603,11 @@ class Scheduler:
             # pool at admission, only the token tail past them is forced
             req._kv_payload = kv_payload
             req._needs_replay = False
+        if _telem._ENABLED:
+            # queue -> decode -> retirement, parented on the submitter's
+            # current span (an RPC handler's "serving.submit")
+            req._span = _tracing.start_span("serving.request", rid=req.rid)
+            _C_SUBMITTED.inc()
         with self._lock:
             self._waiting.append(req)
             self.counters["submitted"] += 1
@@ -565,8 +622,39 @@ class Scheduler:
                             break
                     else:
                         break
+            if _telem._ENABLED:
+                _G_QUEUE.set(len(self._waiting))
         self._work.set()
         return req
+
+    def _admit(self, feed, max_new_tokens, deadline_ms, eos_id, bos_id,
+               priority):
+        """The feasibility gate (scheduler.py:562-591 of the JAX package):
+        price the backlog and the prompt's tokens (about zero on a
+        prefix-cache hit), then admit, clamp or raise AdmissionRejected,
+        before the request exists, so a reject never allocates a block."""
+        with self._lock:
+            backlog = sum(
+                max(0, r.max_new_tokens - len(r.tokens))
+                for q in (self._waiting, self._active, self._preempted,
+                          self._prefilling)
+                for r in q)
+        prompt_tokens = 1
+        if self.spec.init_lengths_from is not None \
+                and self.spec.init_lengths_from in feed:
+            prompt_tokens = max(1, int(np.asarray(
+                feed[self.spec.init_lengths_from]).reshape(-1)[0]))
+        cached = bool(self.prefix_cache and self._streams_ready
+                      and self.pool.has_prefix(
+                          prompt_key(feed, eos_id, bos_id)))
+        try:
+            return self._overload.admit(
+                priority, int(max_new_tokens), deadline_ms, backlog,
+                prompt_tokens=prompt_tokens, cached=cached)
+        except AdmissionRejected:
+            with self._lock:
+                self.counters["rejected"] += 1
+            raise
 
     def _feed_rank(self, name):
         # per-sequence rank of a feed (without batch dim), from the spec's
@@ -686,7 +774,27 @@ class Scheduler:
         either admit a group (one batched prefill) or run one decode step
         (a plain step and/or a draft-and-verify round), followed by one
         chunk pass when a chunked prompt is mid-prefill.  Returns whether
-        it did any work."""
+        it did any work.  With admission on, every iteration (busy or
+        idle) feeds the brownout ladder the queue depth."""
+        if not _telem._ENABLED and self._overload is None:
+            return self._step_impl()
+        t0 = time.perf_counter()
+        did = self._step_impl()
+        if self._overload is not None:
+            with self._lock:
+                depth = len(self._waiting)
+            self._overload.observe_queue(depth)
+        if _telem._ENABLED and did:
+            _H_STEP_MS.observe((time.perf_counter() - t0) * 1e3)
+            _C_STEPS.inc()
+            with self._lock:
+                depth = len(self._waiting)
+                _G_QUEUE.set(depth)
+                _G_ACTIVE.set(len(self._active))
+            _H_QUEUE_DEPTH.observe(depth)
+        return did
+
+    def _step_impl(self):
         with self._step_lock, torch.inference_mode():
             self._sweep()
             if self._maybe_admit():
@@ -710,6 +818,10 @@ class Scheduler:
             req._blocks = []
         req._states = {}
         req._finish(status, error)
+        if req._span is not None:
+            req._span.end("ok" if status == "done" else status,
+                          tokens=len(req.tokens))
+            req._span = None
         key = {"done": "completed", "expired": "expired",
                "cancelled": "cancelled", "error": "errors",
                "prefilled": "completed"}[status]
@@ -865,11 +977,13 @@ class Scheduler:
             req._needs_replay = False
             if replay:
                 self.counters["replays"] += 1
+                _C_REPLAYS.inc()
                 self._replay(req)
             if not req.done:
                 self._activate(req)
             if not replay:
                 self.counters["admitted"] += 1
+                _C_ADMISSIONS.inc()
 
     def _activate(self, req):
         """A prompt is processed and its first token out: retire a request
@@ -906,6 +1020,7 @@ class Scheduler:
                 feed[name] = np.concatenate(
                     [r.feed[name] for r in group]
                     + [group[0].feed[name]] * pad)
+        t0 = time.perf_counter()
         _, states, lengths, logits = self._gen._prefill(feed, slots=False)
         # the draft prefills the same feed, so its KV chain covers the
         # prompt too; its rows ride the same block tables ("draft:"
@@ -916,13 +1031,22 @@ class Scheduler:
             _, dstates, _, _ = self._draft_gen._prefill(feed, slots=False)
             paged.update({"draft:" + s.feed: dstates[s.feed]
                           for s in self._draft_paged})
+        # the first tokens' read-back ends the prefill's window on the card
+        toks = None if logits is None else _argmax(logits, n)
+        if self._overload is not None:
+            if toks is None:
+                self._sync()
+            # per prompt token, as the chunk passes observe
+            self._overload.observe_prefill(
+                (time.perf_counter() - t0) * 1e3,
+                tokens=max(1, int(np.sum(
+                    np.asarray(lengths).reshape(-1)[:n]))))
         self.counters["prefills"] += len(group)
         self.counters["prefill_batches"] += 1
         if not self._streams_ready:
             for name, v in paged.items():
                 self.pool.add_stream(name, tuple(v.shape[2:]), v.dtype)
             self._streams_ready = True
-        toks = None if logits is None else _argmax(logits, n)
         jobs = {name: [] for name in paged}
         for b, req in enumerate(group):
             n_rows = int(lengths[b])
@@ -1023,6 +1147,7 @@ class Scheduler:
             with self._lock:
                 self._waiting.insert(0, req)
             self.counters["preemptions"] += 1
+            _C_EVICTIONS.inc()
             return
         except Exception:  # noqa: BLE001 — request-scoped failure
             import traceback
@@ -1073,9 +1198,14 @@ class Scheduler:
         if done:
             req._last_tok = int(torch.argmax(
                 outs[spec.chunk_logits].reshape(c, -1)[c - 1]))
-        elif self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)  # the pass, not its enqueue
-        self._chunk_samples.append((time.perf_counter() - t0) * 1e3)
+        else:
+            self._sync()  # the pass, not its enqueue
+        ms = (time.perf_counter() - t0) * 1e3
+        if _telem._ENABLED:
+            _H_CHUNK_MS.observe(ms)
+        self._chunk_samples.append(ms)
+        if self._overload is not None:
+            self._overload.observe_prefill(ms, tokens=real)
         self.counters["chunk_passes"] += 1
         self._note_occupancy()
         return done
@@ -1095,6 +1225,7 @@ class Scheduler:
         req._needs_replay = False
         if replay:
             self.counters["replays"] += 1
+            _C_REPLAYS.inc()
             self._replay(req)
         else:
             req._emit(req._last_tok)
@@ -1102,6 +1233,7 @@ class Scheduler:
             self._activate(req)
         if not replay:
             self.counters["admitted"] += 1
+            _C_ADMISSIONS.inc()
         with self._lock:
             self.counters["peak_active"] = max(
                 self.counters["peak_active"], len(self._active))
@@ -1167,6 +1299,7 @@ class Scheduler:
             req._last_tok = prev
         self._activate(req)
         self.counters["admitted"] += 1
+        _C_ADMISSIONS.inc()
 
     # -- replay (evicted-state rebuild) ------------------------------------
 
@@ -1250,6 +1383,7 @@ class Scheduler:
         req.status = "queued"
         self._preempted.append(req)
         self.counters["preemptions"] += 1
+        _C_EVICTIONS.inc()
 
     def _evict(self, req):
         self._active.remove(req)
@@ -1257,6 +1391,7 @@ class Scheduler:
         req.status = "queued"
         self._preempted.append(req)
         self.counters["preemptions"] += 1
+        _C_EVICTIONS.inc()
 
     def _evict_blocks(self, req):
         if req._blocks:
@@ -1393,6 +1528,10 @@ class Scheduler:
                 emitted[e - 2] if e >= 2 else old_last)
             for tok in emitted:
                 req._emit(tok)
+            if _telem._ENABLED:
+                if p:
+                    _H_SPEC_ACCEPT.observe((m - 1) / p)
+                _H_TOKENS_PER_STEP.observe(float(e))
             if emitted[-1] == eos or len(req.tokens) >= req.max_new_tokens:
                 self._active.remove(req)
                 self._retire(req, "done")
@@ -1400,6 +1539,9 @@ class Scheduler:
         self.counters["spec_proposed"] += n_prop
         self.counters["spec_accepted"] += n_acc
         self.counters["spec_tokens"] += n_tok
+        if _telem._ENABLED:
+            _C_SPEC_PROPOSED.inc(n_prop)
+            _C_SPEC_ACCEPTED.inc(n_acc)
 
     def _step_feed(self, batch, prev_toks, pad):
         """The step program's dense feeds for `batch`, padded to its
@@ -1460,9 +1602,13 @@ class Scheduler:
         prev = feed.pop(spec.prev_ids_name)
         lengths = feed.pop(spec.lengths_name) \
             if spec.lengths_name is not None else None
+        t0 = time.perf_counter()
         logits, states = self._gen._step(prev, lengths, states, feed)
+        toks = _argmax(logits, n)  # the read-back ends the step's window
+        if self._overload is not None:
+            self._overload.observe_step((time.perf_counter() - t0) * 1e3)
         self.counters["steps"] += 1
-        toks = _argmax(logits, n)
+        _H_BUCKET_FILL.observe(n / (n + pad))
         rows = torch.arange(n, device=self.device)
         curs = torch.as_tensor([r._cursor for r in batch],
                                device=self.device)
@@ -1536,12 +1682,16 @@ class Scheduler:
                                  [r._cursor for r in batch],
                                  self._carried + self._const, "_states",
                                  self._paged, tag="step")
+        t0 = time.perf_counter()
         outs = self._run_paged_exec(feed, spec.step_fetches())
         spec.notify_monitor(outs)
         for s in self._paged:
             self.pool.set_stream(s.feed, outs[s.update])
-        self.counters["steps"] += 1
         toks = _argmax(outs[spec.step_logits], n)
+        if self._overload is not None:
+            self._overload.observe_step((time.perf_counter() - t0) * 1e3)
+        self.counters["steps"] += 1
+        _H_BUCKET_FILL.observe(n / self._bucket(n))
         for s in self._carried:
             for i, req in enumerate(batch):
                 req._states[s.feed] = outs[s.update][i].clone()
@@ -1610,16 +1760,27 @@ class Scheduler:
         feed = self._window_feed(spec, batch, inps,
                                  [r._cursor for r in batch], self._const,
                                  "_states", self._paged, tag="verify")
+        t0 = time.perf_counter()
         outs = self._run_paged_exec(feed, spec.verify_fetches(),
                                     tag="verify",
                                     program=self._verify_step_program())
         for s in self._paged:
             self.pool.set_stream(s.feed, outs[s.verify_update])
-        self.counters["steps"] += 1
-        self._note_occupancy()
         logits = outs[spec.verify_logits]
         logits = logits.reshape(-1, self.spec_k, logits.shape[-1])[:n]
-        return torch.argmax(logits, dim=-1).cpu().numpy().astype(np.int64)
+        toks = torch.argmax(logits, dim=-1).cpu().numpy().astype(np.int64)
+        if self._overload is not None:
+            self._overload.observe_step((time.perf_counter() - t0) * 1e3)
+        self.counters["steps"] += 1
+        _H_BUCKET_FILL.observe(n / self._bucket(n))
+        self._note_occupancy()
+        return toks
+
+    def _sync(self):
+        """Wait for the card (a no-op on the CPU): ends a timed window
+        that has no read-back of its own."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _note_occupancy(self):
         self.counters["peak_occupancy"] = max(
@@ -1654,5 +1815,7 @@ class Scheduler:
                 "prefill_chunk_ms": self._dist(self._chunk_samples),
                 "pool": self.pool.stats(),
                 "buckets": list(self._buckets),
+                "overload": None if self._overload is None
+                else self._overload.view(),
             })
             return out

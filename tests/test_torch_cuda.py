@@ -1072,6 +1072,62 @@ def test_two_tier_handoff_on_the_card_equals_sequential(card):
     dec.pool.assert_quiesced()
 
 
+def test_rpc_server_on_the_card_equals_sequential(card):
+    """`serve` on the card (device pool, admission on) and 4 clients, each
+    in its own thread: tokens equal the sequential Generator's, #7 is
+    launched, every warm-up and capture runs on the Scheduler's loop
+    thread (none on a connection's handler), and once the estimators are
+    warm the admission gate refuses a deadline no step could meet."""
+    import threading
+
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.framework import cuda_graph
+    from paddle_tpu_torch.resilience import RpcPolicy
+
+    spec, scope, feeds, refs = _serve_world(card)
+    srv, sched = serving.serve(spec, scope, place=card, max_batch=4,
+                               block_size=16, paged_kv=True, admission=True)
+    policy = RpcPolicy(call_timeout=60.0, max_attempts=1)
+    cuda_graph.reset_stats()
+    fdp.launches = 0
+    out = [None] * 4
+
+    def client(i):
+        cli = serving.ServingClient(srv.endpoint, policy)
+        try:
+            out[i] = cli.generate(feeds[i], SERVE_MNT, eos_id=-1)
+        finally:
+            cli.close()
+
+    try:
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        for i, res in enumerate(out):
+            assert res is not None and res[1] == "done", i
+            assert res[0].tolist() == refs[i], f"request {i}"
+        assert fdp.launches > 0
+        ran_on = {name for _, name in cuda_graph.THREADS}
+        assert ran_on == {"serving-sched"}, cuda_graph.THREADS
+        assert cuda_graph.STATS["captures"] > 0
+        assert sched._overload.step_ms() is not None
+        cli = serving.ServingClient(srv.endpoint, policy)
+        try:
+            with pytest.raises(serving.AdmissionRejected) as ei:
+                cli.generate(feeds[4], SERVE_MNT, eos_id=-1,
+                             deadline_ms=5.0)
+            assert ei.value.reason == "infeasible"
+            assert cli.quiesce(timeout_s=30.0)["used_blocks"] == 0
+        finally:
+            cli.close()
+    finally:
+        srv.shutdown()
+        sched.close()
+
+
 # ------------------------------------------- the jit path: captured graphs
 
 

@@ -262,12 +262,14 @@ def test_later_slices_and_the_card_default_raise():
             serving.Scheduler(spec)
     cpu = pt.CPUPlace()
     # spec decode and chunked prefill are ported and, as in the JAX
-    # package, ride the paged pool only; admission is still a later slice
+    # package, ride the paged pool only; admission is ported (the overload
+    # control plane, tests/test_torch_overload.py)
     for kw in (dict(spec_decode=True), dict(prefill_chunk=4)):
         with pytest.raises(ValueError, match="paged"):
             serving.Scheduler(spec, place=cpu, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serving.Scheduler(spec, place=cpu, admission=True)
+    gated = serving.Scheduler(spec, place=cpu, admission=True)
+    assert gated.stats()["overload"]["state"] == "normal"
+    assert serving.Scheduler(spec, place=cpu).stats()["overload"] is None
     sched = serving.Scheduler(spec, place=cpu)
     feed = _feeds(8, 1, 0)[0]
     for kw in (dict(prefill_only=True), dict(kv_payload={})):
