@@ -162,14 +162,26 @@ catches its own failure:
      batch_norm + relu + conv2d, exactly 16 launches; then the conv1x1
      probe (paddle_tpu_torch.tools.conv1x1_fuse_probe) at its four
      shapes;
-  9. GoogLeNet training, phase G: bench.py's googlenet leg
-     (googlenet.build(with_aux=True), batch 128, 3x224x224, 1000
-     classes, bf16 AMP, Momentum(0.01, 0.9, multi_precision=True),
-     random_seed 1, the feed from RandomState(0)) on the jit path: 2
-     warm-up, 5 timed and 1 profiled step, img/s and T2's numbers, finite
-     losses, no port kernel; then the float32 clone(for_test=True)
-     forward loss at batch 8 on the card within rtol 1e-3 of the port's
-     CPU path;
+  9. image training: bench.py's five image legs (bench.py:497-553),
+     each built as its _setup builds it (bf16 AMP, Momentum(0.01, 0.9,
+     multi_precision=True), random_seed 1) and fed from RandomState(0),
+     on the jit path: G (googlenet.build(), with its aux heads, batch
+     128, 3x224x224, 1000 classes), AN (alexnet.build(), batch 256,
+     3x224x224, 1000 classes), V16 (vgg.build(image_shape=(3, 32, 32),
+     class_dim=10), batch 128), MN (mnist.build_conv(), batch 256,
+     1x28x28, 10 classes) and SE (se_resnext.build(), batch 128,
+     3x224x224: grouped 3x3 convs of 32 groups, sigmoid gates).  Each: 2
+     warm-up, 5 timed and 1 profiled step, img/s (G's and AN's published
+     K40m rates beside), T2's numbers and the card's time by kernel
+     class, finite losses, every argument but the feeds bound, no port
+     kernel, then the float32 clone(for_test=True) forward at batch 8
+     (SE 4) on the card within rtol 1e-3 of the port's CPU path, the
+     loss and the logits, and its lap; then B/book, the book's main
+     programs (tests/book/_programs: fit_a_line, recognize_digits_mlp,
+     word2vec, their grad and optimizer ops as the JAX package dumped
+     them) from the port's own startup: 3 steps at batch 64 on the card
+     (captured at the second) within rtol 1e-4 of the same steps on the
+     port's CPU path, no port kernel;
  10. the recurrent family on the jit path, at bench.py's widths.  SL1
      (stacked_lstm.build(seq_len=100, hidden_dim=512, stacked_num=2),
      dict 30000, emb 512, float32, batch 4) and MT1
@@ -283,6 +295,7 @@ for their numbers, and the script then exits 1.
 
 from __future__ import annotations
 
+import collections
 import functools
 import gc
 import json
@@ -349,13 +362,55 @@ RESNET50_FWD_FLOPS = 4.089e9  # per 224x224 image (bench.py:67)
 R_SITES = 16                  # conv3 sites: ResNet-50's 16 bottlenecks
 JIT_RTOL = 1e-5               # a step's loss, jit vs interpret (expected 0)
 KEEP_TOL = 1e-3               # T2/drop: |kept share of a mask - 0.9|
-# phase G: GoogLeNet training (bench.py's googlenet leg, bench.py:497-545
-# and _setup :186-202: batch 128, 3x224x224, 1000 classes, with_aux, bf16
-# AMP, Momentum(0.01, 0.9, multi_precision), random_seed 1, the feed from
-# RandomState(0))
-G_BATCH, G_WARMUP, G_STEPS, G_PROFILED = 128, 2, 5, 1
-G_CHECK_BATCH = 8             # G's float32 test forward, card vs CPU
-G_LOSS_RTOL = 1e-3            # cuDNN and the CPU sum in other orders
+# [9]'s image legs: bench.py's bench_image_model (bench.py:497-553; the
+# build of _setup :186-202: random_seed 1, bf16 AMP, Momentum(0.01, 0.9,
+# multi_precision); the feed from RandomState(0)): 2 warm-up, 5 timed and 1
+# profiled step each, then a float32 test forward, card vs CPU
+IMG_WARMUP, IMG_STEPS, IMG_PROFILED = 2, 5, 1
+IMG_RTOL = 1e-3               # cuDNN and the CPU sum in other orders
+ImageLeg = collections.namedtuple("ImageLeg", [
+    "module", "builder", "kwargs", "batch", "image", "classes",
+    "check_batch",            # the float32 test forward's batch
+    "reference"])             # the reference's published img/s, or None
+IMAGE_LEGS = {   # the K40m rates: bench.py:499-500, BASELINE.md:15-16
+    "G": ImageLeg("googlenet", "build", {}, 128, (3, 224, 224), 1000, 8,
+                  128 / 1.149),
+    "AN": ImageLeg("alexnet", "build", {}, 256, (3, 224, 224), 1000, 8,
+                   256 / 0.602),
+    "V16": ImageLeg("vgg", "build", {"image_shape": (3, 32, 32),
+                                     "class_dim": 10},
+                    128, (3, 32, 32), 10, 8, None),
+    "MN": ImageLeg("mnist", "build_conv", {}, 256, (1, 28, 28), 10, 8, None),
+    "SE": ImageLeg("se_resnext", "build", {}, 128, (3, 224, 224), 1000, 4,
+                   None),
+}
+# phase B/book: the book's main programs (tests/book/_programs), 3 steps
+# from the port's own startup, card vs the port's CPU path
+BOOK_PROGRAMS = {
+    # program: (loss var, feed maker(rng, batch))
+    "fit_a_line": ("mean_0.tmp_0", lambda rng, b: {
+        "x": rng.standard_normal((b, 13)).astype(np.float32),
+        "y": rng.standard_normal((b, 1)).astype(np.float32)}),
+    "recognize_digits_mlp": ("mean_1.tmp_0", lambda rng, b: {
+        "img": rng.rand(b, 784).astype(np.float32),
+        "label": rng.randint(0, 10, (b, 1)).astype(np.int64)}),
+    "word2vec": ("mean_2.tmp_0", lambda rng, b: {
+        n: rng.randint(0, 1000, (b, 1)).astype(np.int64)
+        for n in ("word_0", "word_1", "word_2", "word_3", "target")}),
+}
+BOOK_BATCH, BOOK_STEPS, BOOK_RTOL = 64, 3, 1e-4
+# the image legs' card time by kernel class (profile_calls' classes):
+# cuDNN's convolutions with their layout transforms, and the GEMMs, under
+# one label
+KERNEL_CLASSES = {
+    "pooling": ("pool",),
+    "copies and casts": ("copy", "Memcpy"),
+    "cudnn convs and gemms": ("cudnn", "conv", "Conv", "xmma", "cutlass",
+                              "gemm", "Gemm", "tensorTransform",
+                              "nchwToNhwc", "nhwcToNchw"),
+    "reductions": ("reduce_kernel",),
+    "elementwise": ("elementwise",),
+}
 # phases SL and MT: bench.py's stacked_lstm leg (bench.py:554-605:
 # stacked_lstm.build(seq_len=100, hidden_dim=512, stacked_num=2), dict
 # 30000, emb 512, batch 64, the 8-batch cycling feed) and its
@@ -1194,12 +1249,14 @@ def teacher_forced(gen, feed, trg):
     return out
 
 
-def profile_calls(fn, n, top=5, kernels=()):
+def profile_calls(fn, n, top=5, kernels=(), classes=None):
     """n calls of fn under torch.profiler: host ms per call, the card's
     busy ms per call (union of its operations), the idle share, the
-    kernels that take most of the card's time (ms per call) and, for each
-    name of `kernels` (keys of KERNELS), its device ms per call and share
-    of the busy time."""
+    kernels that take most of the card's time (ms per call), for each
+    name of `kernels` (keys of KERNELS) its device ms per call and share
+    of the busy time, and with `classes` ({label: name substrings}) the
+    device ms per call of each class (a kernel counts in the first class
+    whose substring its name holds, else in "other")."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1224,12 +1281,19 @@ def profile_calls(fn, n, top=5, kernels=()):
                  if any(d in k for d in KERNELS[name]["device_names"]))
         mine[name] = {"ms_per_step": round(us / n / 1e3, 4),
                       "share": round(us / busy, 4)}
+    by_class = {}
+    for name, a, b in spans if classes else ():
+        label = next((c for c, subs in classes.items()
+                      if any(sub in name for sub in subs)), "other")
+        by_class[label] = by_class.get(label, 0.0) + (b - a) / n / 1e3
     return {"steps": n, "step_ms": wall_us / n / 1e3,
             "busy_ms_per_step": busy / n / 1e3,
             "idle_share": 1.0 - busy / wall_us,
             "top_kernels_ms_per_step": [[k, round(v / n / 1e3, 4)]
                                         for k, v in ranked],
-            "kernels": mine}
+            "kernels": mine,
+            "classes_ms_per_step": {c: round(v, 4)
+                                    for c, v in by_class.items()}}
 
 
 def profile_decode_steps(gen, feed, tok, lengths, states, n_steps,
@@ -1363,6 +1427,9 @@ def log_profile(prof):
         if prof["kernels"]:
             log(f"    port kernels (ms/step, share of busy): "
                 f"{prof['kernels']}")
+        if prof["classes_ms_per_step"]:
+            log(f"    card ms/step by kernel class: "
+                f"{prof['classes_ms_per_step']}")
 
 
 def drive_main_path(card):
@@ -3352,70 +3419,85 @@ def drive_resnet(card, device):
     return results, {"bn_relu_conv1x1": site_launches + probe_launches}
 
 
-# ------------------------------------------------------ GoogLeNet training
+# ------------------------------------------------- image training ([9])
 
 
-def build_googlenet(use_amp):
-    """googlenet.build(with_aux=True) + Momentum(0.01, 0.9,
+def build_image(leg, use_amp):
+    """IMAGE_LEGS[leg]'s model + Momentum(0.01, 0.9,
     multi_precision=use_amp), random_seed 1, AMP cast before minimize, as
-    bench.py's _setup builds its googlenet leg."""
+    bench.py's _setup builds its image legs."""
+    import importlib
+
     from paddle_tpu_torch import (Program, amp, optimizer, program_guard,
                                   unique_name)
-    from paddle_tpu_torch.models import googlenet
 
+    cfg = IMAGE_LEGS[leg]
+    build = getattr(importlib.import_module(
+        f"paddle_tpu_torch.models.{cfg.module}"), cfg.builder)
     main, startup = Program(), Program()
     main.random_seed = startup.random_seed = 1
     with program_guard(main, startup), unique_name.guard():
-        loss = googlenet.build(with_aux=True)[0]
+        loss, prediction, _ = build(**cfg.kwargs)
         if use_amp:
             amp.cast_model_to_bf16(main, startup)
         optimizer.Momentum(learning_rate=0.01, momentum=0.9,
                            multi_precision=use_amp).minimize(loss)
-    return main, startup, loss
+    return main, startup, loss, prediction
 
 
-def _googlenet_feed(batch):
-    """bench.py's draws (bench.py:531-536): RandomState(0), img randn, then
-    label."""
+def _image_feed(leg, batch):
+    """bench.py's draws (bench.py:530-536): RandomState(0), img randn,
+    then label."""
+    cfg = IMAGE_LEGS[leg]
     rng = np.random.RandomState(0)
-    return {"img": rng.randn(batch, 3, R_HW, R_HW).astype(np.float32),
-            "label": rng.randint(0, R_CLASSES, (batch, 1)).astype(np.int64)}
+    return {"img": rng.randn(batch, *cfg.image).astype(np.float32),
+            "label": rng.randint(0, cfg.classes, (batch, 1)).astype(
+                np.int64)}
 
 
-def _g_f32_check(device):
-    """The float32 `clone(for_test=True)` forward loss at batch 8 on the
-    card and on the port's CPU path, from the same weights."""
+def _image_f32_check(leg):
+    """The float32 `clone(for_test=True)` forward at the leg's check batch
+    on the card and on the port's CPU path, from the same weights: the
+    loss, and the logits (the softmax's input: a saturated softmax leaves
+    the loss at cross_entropy's clip) within IMG_RTOL of their largest
+    magnitude.  -> (card loss, CPU loss, the logits' error)."""
     from paddle_tpu_torch import CPUPlace, CUDAPlace, Executor, Scope
 
-    main, startup, loss = build_googlenet(False)
+    main, startup, loss, prediction = build_image(leg, False)
     test = main.clone(for_test=True)
+    fetch = [loss.name, _softmax_input(test, prediction)]
     scope = Scope()
     Executor(CUDAPlace(0)).run(startup, scope=scope)
-    feed = _googlenet_feed(G_CHECK_BATCH)
-    (on_card,) = Executor(CUDAPlace(0)).run(test, feed=feed,
-                                            fetch_list=[loss], scope=scope)
+    feed = _image_feed(leg, IMAGE_LEGS[leg].check_batch)
+    on_card = Executor(CUDAPlace(0)).run(test, feed=feed, fetch_list=fetch,
+                                         scope=scope)
     cpu_scope = Scope()
     for name, value in _persistables(scope, test).items():
         cpu_scope.set_var(name, value.cpu())
-    (on_cpu,) = Executor(CPUPlace()).run(test, feed=feed, fetch_list=[loss],
-                                         scope=cpu_scope)
-    on_card, on_cpu = float(on_card.ravel()[0]), float(on_cpu.ravel()[0])
-    if not (np.isfinite(on_card) and abs(on_card - on_cpu)
-            <= G_LOSS_RTOL * abs(on_cpu)):
-        raise AssertionError(f"G: float32 test loss on the card {on_card} vs "
-                             f"the CPU's {on_cpu}")
-    return on_card, on_cpu
+    on_cpu = Executor(CPUPlace()).run(test, feed=feed, fetch_list=fetch,
+                                      scope=cpu_scope)
+    logits_err = _rel_err(on_card[1], on_cpu[1])
+    card_loss, cpu_loss = float(on_card[0].ravel()[0]), float(
+        on_cpu[0].ravel()[0])
+    if not (np.isfinite(card_loss) and abs(card_loss - cpu_loss)
+            <= IMG_RTOL * abs(cpu_loss) and logits_err <= IMG_RTOL):
+        raise AssertionError(f"{leg}: float32 test loss on the card "
+                             f"{card_loss} vs the CPU's {cpu_loss}, logits "
+                             f"{logits_err:.2e} apart")
+    return card_loss, cpu_loss, logits_err
 
 
-def phase_g(card, device):
-    """bench.py's googlenet leg: batch 128, bf16 AMP, Momentum(0.01, 0.9,
-    multi_precision=True), captured; no kernel of the port runs in it.
-    Then the float32 test forward, card vs CPU."""
+def phase_image(leg, card, device):
+    """One of bench.py's image legs (IMAGE_LEGS), bf16 AMP, captured; no
+    kernel of the port runs in it.  Then the float32 test forward, card
+    vs CPU."""
     from paddle_tpu_torch import CUDAPlace, Executor, Scope
     from paddle_tpu_torch.framework.core_types import dtype_to_torch
 
-    main, startup, loss = build_googlenet(True)
-    n_drop = sum(op.type == "dropout" for op in main.global_block().ops)
+    cfg = IMAGE_LEGS[leg]
+    batch = cfg.batch
+    main, startup, loss, _ = build_image(leg, True)
+    ops = [op.type for op in main.global_block().ops]
     scope, exe = Scope(), Executor(CUDAPlace(0))
     exe.run(startup, scope=scope)
     block = main.global_block()
@@ -3423,45 +3505,119 @@ def phase_g(card, device):
     # AMP, as bench.py casts it)
     feed = {k: torch.as_tensor(v, device=device).to(
                 dtype_to_torch(block.var(k).dtype))
-            for k, v in _googlenet_feed(G_BATCH).items()}
+            for k, v in _image_feed(leg, batch).items()}
 
     torch.cuda.synchronize()
     _zero_counts()
     before = graph_stats()
     reset_peak_memory()
-    warm, _ = run_steps(exe, main, scope, feed, loss, G_WARMUP)
+    warm, _ = run_steps(exe, main, scope, feed, loss, IMG_WARMUP)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    timed, _ = run_steps(exe, main, scope, feed, loss, G_STEPS)
+    timed, _ = run_steps(exe, main, scope, feed, loss, IMG_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     prof = profile_calls(
-        lambda: run_steps(exe, main, scope, feed, loss, 1), G_PROFILED,
-        top=10)
+        lambda: run_steps(exe, main, scope, feed, loss, 1), IMG_PROFILED,
+        top=10, classes=KERNEL_CLASSES)
     counts = _port_kernel_counts()
     if any(counts.values()):
-        raise AssertionError(f"G: the GoogLeNet step launched port kernels "
+        raise AssertionError(f"{leg}: the step launched port kernels "
                              f"{counts}")
     losses = warm + timed
     if not np.all(np.isfinite(losses)):
-        raise AssertionError(f"G: losses {losses}")
-    graphs, bound = captured_graphs("G", exe, feed)
-    res = {"phase": "G", "dtype": "bfloat16 AMP", "batch": G_BATCH,
-           "warmup": G_WARMUP, "steps": G_STEPS, "dropouts": n_drop,
-           "losses": losses, "images_per_s": G_BATCH * G_STEPS / wall,
-           "ms_per_step": wall / G_STEPS * 1e3, "graphs": graphs,
+        raise AssertionError(f"{leg}: losses {losses}")
+    graphs, bound = captured_graphs(leg, exe, feed)
+    res = {"phase": leg, "model": cfg.module, "dtype": "bfloat16 AMP",
+           "batch": batch, "image": list(cfg.image), "warmup": IMG_WARMUP,
+           "steps": IMG_STEPS,
+           "convs": {t: ops.count(t) for t in ("conv2d", "depthwise_conv2d")},
+           "dropouts": ops.count("dropout"), "losses": losses,
+           "images_per_s": batch * IMG_STEPS / wall,
+           "ms_per_step": wall / IMG_STEPS * 1e3,
+           "reference_images_per_s": cfg.reference, "graphs": graphs,
            "bound_args": bound, "profile": prof, "card": card}
     res.update(capture_fields(before, prof, res["ms_per_step"]))
     del scope, exe, feed
     torch.cuda.empty_cache()
-    res["f32_test_loss"], res["f32_test_loss_cpu"] = _g_f32_check(device)
-    log(f"  G bf16 AMP batch {G_BATCH}: {res['images_per_s']:.1f} img/s, "
-        f"{res['ms_per_step']:.2f} ms/step; losses {losses}; float32 test "
-        f"forward at batch {G_CHECK_BATCH}: card {res['f32_test_loss']}, "
-        f"CPU {res['f32_test_loss_cpu']}  [{card}]")
-    log_capture("G", res)
+    (res["f32_test_loss"], res["f32_test_loss_cpu"],
+     res["f32_test_logits_rel_err"]) = _image_f32_check(leg)
+    ref = (f"; the reference's published {cfg.reference:.1f} img/s (K40m) "
+           f"beside" if cfg.reference else "")
+    log(f"  {leg} ({res['model']}) bf16 AMP batch {batch}: "
+        f"{res['images_per_s']:.1f} img/s, {res['ms_per_step']:.2f} ms/step"
+        f"{ref}; losses {losses}; float32 test forward at batch "
+        f"{cfg.check_batch}: card {res['f32_test_loss']}, CPU "
+        f"{res['f32_test_loss_cpu']}, logits "
+        f"{res['f32_test_logits_rel_err']:.2e} apart; {graphs} graphs, "
+        f"{bound} arguments "
+        f"bound  [{card}]")
+    log_capture(leg, res)
     log_profile(prof)
     return res
+
+
+def phase_book(card, device):
+    """B/book: the book's main programs as the JAX package dumped them
+    (explicit grad and optimizer ops), from the port's own startup on the
+    card: BOOK_STEPS steps on the card (jit: warm-up, capture, replay)
+    and the same steps on the port's CPU path from the same weights,
+    losses within BOOK_RTOL; no port kernel."""
+    import pathlib
+
+    from paddle_tpu_torch import (CPUPlace, CUDAPlace, Executor, Program,
+                                  Scope)
+
+    book = pathlib.Path(__file__).resolve().parent / "tests" / "book" / \
+        "_programs"
+    res = {"phase": "B/book", "batch": BOOK_BATCH, "steps": BOOK_STEPS,
+           "programs": {}, "card": card}
+    _zero_counts()
+    for name, (loss, make_feed) in BOOK_PROGRAMS.items():
+        main = Program.from_dict(json.loads(
+            (book / f"{name}.main.json").read_text()))
+        startup = Program.from_dict(json.loads(
+            (book / f"{name}.startup.json").read_text()))
+        scope, exe = Scope(), Executor(CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        cpu_scope = Scope()
+        for n, value in _persistables(scope, main).items():
+            cpu_scope.set_var(n, value.cpu())
+        feed = make_feed(np.random.RandomState(SEED), BOOK_BATCH)
+        before = graph_stats()
+        losses, _ = run_steps(exe, main, scope, feed, loss, BOOK_STEPS)
+        gs = graph_stats(before)
+        cpu_losses, _ = run_steps(Executor(CPUPlace()), main, cpu_scope,
+                                  feed, loss, BOOK_STEPS)
+        if not (np.all(np.isfinite(losses)) and np.allclose(
+                losses, cpu_losses, rtol=BOOK_RTOL, atol=0)):
+            raise AssertionError(f"B/book {name}: card losses {losses} vs "
+                                 f"CPU {cpu_losses}")
+        graphs, bound = captured_graphs(f"B/book {name}", exe, feed)
+        res["programs"][name] = {
+            "ops": len(main.global_block().ops), "losses": losses,
+            "cpu_losses": cpu_losses, "graphs": graphs, "bound_args": bound,
+            "captures": gs["captures"], "replays": gs["replays"]}
+        log(f"  B/book {name}: {len(main.global_block().ops)} ops, card "
+            f"losses {losses}, CPU {cpu_losses}; {gs['captures']} captured, "
+            f"{gs['replays']} replayed, {bound} arguments bound  [{card}]")
+    counts = _port_kernel_counts()
+    if any(counts.values()):
+        raise AssertionError(f"B/book: launched port kernels {counts}")
+    return res
+
+
+def drive_images(card, device, lap=lambda phase: None):
+    """Phase 9: bench.py's five image legs, then the book's main
+    programs; `lap(phase)` after each."""
+    results = []
+    for leg in IMAGE_LEGS:
+        results.append(phase_image(leg, card, device))
+        torch.cuda.empty_cache()
+        lap(f"[9] {leg}")
+    results.append(phase_book(card, device))
+    lap("[9] B/book")
+    return results
 
 
 # ----------------------------------------- the recurrent family (SL, MT)
@@ -5239,10 +5395,10 @@ def main():
     training += resnet_runs
     lap("[8]")
 
-    log(f"[9] training: GoogLeNet through Executor.run [{card}]")
-    training.append(phase_g(card, device))
-    torch.cuda.empty_cache()
-    lap("[9] G")
+    log(f"[9] training: bench.py's image legs through Executor.run "
+        f"({', '.join(IMAGE_LEGS)}), then the book's main programs "
+        f"(B/book) [{card}]")
+    training += drive_images(card, device, lap)
 
     log(f"[10] the recurrent family: the stacked LSTM (SL1, SL2) and the "
         f"GRU translator (MT1, MT2, MT/decode) [{card}]")

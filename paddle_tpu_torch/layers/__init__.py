@@ -1,12 +1,24 @@
 """Layer function namespace (counterpart of paddle_tpu/layers/): what
 transformer.build_decode, transformer.build, bert.build, resnet.build,
 googlenet.build, stacked_lstm.build, machine_translation's build and
-build_decode, vgg.build, alexnet.build and nets call.
-Importing it patches Variable's arithmetic and comparison operators
-(math_op_patch), as the JAX package's does."""
+build_decode, vgg.build, alexnet.build, mnist's builders,
+se_resnext.build and nets call, with the generated unary, compare and
+logical wrappers of `ops`.  The compares are control_flow's, which
+override `ops`' as in the JAX namespace.  Importing it patches
+Variable's arithmetic and comparison operators (math_op_patch), as the
+JAX package's does."""
 
-from . import control_flow, io, nn, sequence, tensor
-from .control_flow import increment
+from . import control_flow, io, nn, ops, sequence, tensor
+from .ops import *  # noqa: F401,F403
+from .control_flow import (
+    equal,
+    greater_equal,
+    greater_than,
+    increment,
+    less_equal,
+    less_than,
+    not_equal,
+)
 from .io import data
 from .nn import (
     accuracy,
@@ -27,6 +39,7 @@ from .nn import (
     gru,
     kv_cache_append,
     layer_norm,
+    log_softmax,
     lrn,
     lstm,
     matmul,
@@ -34,6 +47,7 @@ from .nn import (
     multi_head_attention,
     one_hot,
     pool2d,
+    prelu,
     reduce_max,
     reduce_mean,
     reduce_min,
@@ -45,6 +59,7 @@ from .nn import (
     slice,
     softmax,
     softmax_with_cross_entropy,
+    square_error_cost,
     topk,
 )
 from .sequence import sequence_last_step, sequence_pool

@@ -79,7 +79,7 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
     """NCHW conv2d: Normal(0, sqrt(2 / fan_in)) OIHW filters, a
     per-channel bias over dim 1, then the activation.  With groups equal
     to the input channels it emits depthwise_conv2d, as the JAX package
-    does; that op is not ported yet (ROADMAP A)."""
+    does."""
     from ..initializer import NormalInitializer
 
     helper = LayerHelper("conv2d", **locals())
@@ -365,6 +365,27 @@ def relu(x, name=None):
     return out
 
 
+def prelu(x, mode, param_attr=None, name=None):
+    """Alpha, initialised to 0.25, has shape [1] ("all"), [1, C, 1, 1]
+    ("channel") or [1] + x.shape[1:] ("element")."""
+    helper = LayerHelper("prelu", **locals())
+    from ..initializer import ConstantInitializer
+
+    if mode == "all":
+        alpha_shape = [1]
+    elif mode == "channel":
+        alpha_shape = [1, x.shape[1], 1, 1]
+    else:
+        alpha_shape = [1] + list(x.shape[1:])
+    alpha = helper.create_parameter(
+        attr=param_attr, shape=alpha_shape, dtype=x.dtype,
+        default_initializer=ConstantInitializer(0.25))
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="prelu", inputs={"X": [x], "Alpha": [alpha]},
+                     outputs={"Out": [out]}, attrs={"mode": mode})
+    return out
+
+
 def softmax_with_cross_entropy(logits, label, soft_label=False,
                                ignore_index=-100, numeric_stable_mode=True,
                                return_softmax=False, label_smooth_eps=0.0):
@@ -393,6 +414,24 @@ def softmax(input, use_cudnn=True, name=None):
     helper = LayerHelper("softmax", **locals())
     out = helper.create_variable_for_type_inference(input.dtype)
     helper.append_op(type="softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def log_softmax(input, axis=-1, name=None):
+    helper = LayerHelper("log_softmax", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="log_softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def square_error_cost(input, label):
+    """(input - label)^2, elementwise."""
+    helper = LayerHelper("square_error_cost", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="square_error_cost",
+                     inputs={"X": [input], "Y": [label]},
                      outputs={"Out": [out]})
     return out
 

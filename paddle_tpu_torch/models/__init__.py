@@ -1,1 +1,2 @@
-from . import alexnet, machine_translation, stacked_lstm, transformer, vgg
+from . import (alexnet, machine_translation, mnist, se_resnext, stacked_lstm,
+               transformer, vgg)

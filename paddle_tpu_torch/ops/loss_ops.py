@@ -1,5 +1,6 @@
-"""Loss and metric ops: cross_entropy, softmax_with_cross_entropy and
-accuracy (paddle_tpu/ops/loss_ops.py:26, :45, :191).
+"""Loss and metric ops: cross_entropy, softmax_with_cross_entropy,
+square_error_cost and accuracy (paddle_tpu/ops/loss_ops.py:26, :45, :98,
+:191).
 
 softmax_with_cross_entropy is fused and numerically stable, computed in
 float32 whatever the logits' dtype; its Loss output stays float32
@@ -62,6 +63,12 @@ def softmax_with_cross_entropy(ctx):
         loss = -_picked(logp, label)
         loss = loss * (label != ignore).to(loss.dtype)
     ctx.set_output("Loss", loss)
+
+
+@register_op("square_error_cost")
+def square_error_cost(ctx):
+    """Out = (X - Y)^2, elementwise."""
+    ctx.set_output("Out", torch.square(ctx.input("X") - ctx.input("Y")))
 
 
 @register_op("accuracy", no_grad=True)

@@ -1,15 +1,16 @@
-"""Dense math ops: the elementwise family and comparisons, mul, matmul,
-scale, sum, mean, and the reduce family (sum, mean, max, min, prod).
+"""Dense math ops: the elementwise family, comparisons and logical ops,
+mul, matmul, scale, sum, mean, and the reduce family (sum, mean, max,
+min, prod).
 
 Counterparts of paddle_tpu/ops/math_ops.py (elementwise :36-51, mul :55,
 matmul :69, scale :86, sum :98, mean :105, the reduce family :116-139,
-comparisons :192-205).  Their gradients are the registry's generic ones:
-autograd over these lowerings reduces a broadcast Y back to its own
-shape, as `jax.vjp` does.  `mul` and `matmul` stay `torch.matmul`: the
-JAX package left them to XLA, outside any Pallas kernel.  A float32
-matmul on the card runs in full float32 only while
-`torch.backends.cuda.matmul.allow_tf32` is False (the PyTorch default);
-the port relies on that and never turns it on.
+comparisons and logical ops :190-222).  Their gradients are the
+registry's generic ones: autograd over these lowerings reduces a
+broadcast Y back to its own shape, as `jax.vjp` does.  `mul` and
+`matmul` stay `torch.matmul`: the JAX package left them to XLA, outside
+any Pallas kernel.  A float32 matmul on the card runs in full float32
+only while `torch.backends.cuda.matmul.allow_tf32` is False (the PyTorch
+default); the port relies on that and never turns it on.
 
 Mixed operand dtypes follow the JAX package's runtime dtypes, not the
 VarDescs': `jnp.matmul(x, y, preferred_element_type=x.dtype)` promotes
@@ -55,8 +56,25 @@ _make_elementwise("elementwise_pow", torch.pow)
 _make_elementwise("elementwise_mod", torch.remainder)   # jnp.mod's sign rule
 
 for _name, _fn in [("less_than", torch.lt), ("less_equal", torch.le),
-                   ("greater_than", torch.gt), ("greater_equal", torch.ge)]:
+                   ("greater_than", torch.gt), ("greater_equal", torch.ge),
+                   ("equal", torch.eq), ("not_equal", torch.ne)]:
     _make_elementwise(_name, _fn, no_grad=True)
+
+
+def _logical(fn, ctx):
+    """X and Y of one shape: no axis broadcast, as the JAX lowerings."""
+    ctx.set_output("Out", fn(ctx.input("X"), ctx.input("Y")))
+
+
+for _name, _fn in [("logical_and", torch.logical_and),
+                   ("logical_or", torch.logical_or),
+                   ("logical_xor", torch.logical_xor)]:
+    register_op(_name, no_grad=True)(functools.partial(_logical, _fn))
+
+
+@register_op("logical_not", no_grad=True)
+def logical_not(ctx):
+    ctx.set_output("Out", torch.logical_not(ctx.input("X")))
 
 
 def _matmul(x, y):

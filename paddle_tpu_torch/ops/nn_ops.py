@@ -1,9 +1,9 @@
-"""NN ops: conv2d with a grad that does not replay the forward, pool2d,
-batch_norm with its hand-written grad, layer_norm and its recomputing
-grad, lrn.
+"""NN ops: conv2d and depthwise_conv2d with a grad that does not replay
+the forward, pool2d, batch_norm with its hand-written grad, layer_norm
+and its recomputing grad, lrn.
 
 Counterparts of paddle_tpu/ops/nn_ops.py (conv2d :49-75 with the
-conv1x1_as_dot branch :33-46, pool2d :153-193,
+conv1x1_as_dot branch :33-46, depthwise_conv2d :78-96, pool2d :153-193,
 batch_norm :219-267, its grad maker :270 and batch_norm_grad :298-358,
 layer_norm :361, lrn :413-429).  Layouts are the JAX package's: NCHW
 inputs, OIHW filters.  A convolution is a library call (`F.conv2d`, cuDNN on the
@@ -50,11 +50,15 @@ def cudnn_fp32_exact():
         torch.backends.cudnn.allow_tf32 = prev
 
 
-def _conv_attrs(ctx):
+def _conv_attrs(ctx, x):
+    """(strides, paddings, dilations, groups).  A groups attr of 0 or None
+    means 1 for conv2d and X's channels for depthwise_conv2d."""
+    groups = ctx.attr("groups", 1) or (
+        x.shape[1] if ctx.op_type.startswith("depthwise_conv2d") else 1)
     return (_pair(ctx.attr("strides", [1, 1])),
             _pair(ctx.attr("paddings", [0, 0])),
             _pair(ctx.attr("dilations", [1, 1])),
-            ctx.attr("groups", 1) or 1)
+            groups)
 
 
 def _conv1x1_as_dot(x, w, strides):
@@ -74,7 +78,7 @@ def _conv1x1_as_dot(x, w, strides):
 def conv2d(ctx):
     """Input NCHW, Filter OIHW, strides/paddings/dilations/groups."""
     x, w = ctx.input("Input"), ctx.input("Filter")
-    strides, pads, dilations, groups = _conv_attrs(ctx)
+    strides, pads, dilations, groups = _conv_attrs(ctx, x)
     if (w.shape[2] == 1 and w.shape[3] == 1 and pads == [0, 0]
             and groups == 1 and flags.get("conv1x1_as_dot")):
         out = _conv1x1_as_dot(x, w, strides)
@@ -86,18 +90,30 @@ def conv2d(ctx):
     ctx.set_output("Output", out)
 
 
+@register_op("depthwise_conv2d")
+def depthwise_conv2d(ctx):
+    """conv2d with groups defaulting to the input channels; always
+    cuDNN's grouped convolution (the 1x1 dot form holds for groups 1
+    only)."""
+    x, w = ctx.input("Input"), ctx.input("Filter")
+    strides, pads, dilations, groups = _conv_attrs(ctx, x)
+    with cudnn_fp32_exact():
+        out = F.conv2d(x, w, None, strides, pads, dilations, groups)
+    ctx.set_output("Output", out)
+
+
 @register_grad("conv2d")
 def conv2d_grad(ctx):
     """The default grad desc (Input, Filter, Output, Output@GRAD), lowered
     by one convolution backward: dInput and dFilter are computed directly
     from Input and Filter, only those the desc asks for; the forward is
     not run again.  fuse_relu masks the output grad where the relu'd
-    Output is 0."""
+    Output is 0.  depthwise_conv2d's grad is the same lowering."""
     x, w = ctx.input("Input"), ctx.input("Filter")
     gy = ctx.input("Output@GRAD").to(x.dtype)
     if ctx.attr("fuse_relu", False):
         gy = gy * (ctx.input("Output") > 0).to(gy.dtype)
-    strides, pads, dilations, groups = _conv_attrs(ctx)
+    strides, pads, dilations, groups = _conv_attrs(ctx, x)
     mask = [ctx.wants("Input@GRAD"), ctx.wants("Filter@GRAD"), False]
     with cudnn_fp32_exact():
         gx, gw, _ = torch.ops.aten.convolution_backward(
@@ -107,6 +123,9 @@ def conv2d_grad(ctx):
         ctx.set_output("Input@GRAD", gx)
     if mask[1]:
         ctx.set_output("Filter@GRAD", gw)
+
+
+register_grad("depthwise_conv2d")(conv2d_grad)
 
 
 def _pool_window(ctx, x):

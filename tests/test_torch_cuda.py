@@ -1552,3 +1552,224 @@ def test_transpile_after_a_captured_run_replays_the_folded_weights(card):
         np.testing.assert_allclose(a, before[0], rtol=1e-4,
                                    atol=1e-4 * np.abs(before[0]).max())
         np.testing.assert_allclose(a, eager, rtol=1e-6, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# the image tail: activations, grouped and depthwise convs, SE's gate,
+# sequence_pool, on the card against the CPU
+# ---------------------------------------------------------------------------
+
+# op type -> (attrs, kinks kept 0.1 away, (low, high) of the draw)
+_ACTS = {
+    "sigmoid": ({}, (), (-3, 3)), "logsigmoid": ({}, (), (-3, 3)),
+    "exp": ({}, (), (-3, 3)), "relu": ({}, (0,), (-3, 3)),
+    "tanh": ({}, (), (-3, 3)), "tanh_shrink": ({}, (), (-3, 3)),
+    "sqrt": ({}, (), (0.5, 3)), "rsqrt": ({}, (), (0.5, 3)),
+    "abs": ({}, (0,), (-3, 3)), "ceil": ({}, (), (-3, 3)),
+    "floor": ({}, (), (-3, 3)), "round": ({}, (), (-3, 3)),
+    "cos": ({}, (), (-3, 3)), "sin": ({}, (), (-3, 3)),
+    "reciprocal": ({}, (), (0.5, 3)), "log": ({}, (), (0.5, 3)),
+    "square": ({}, (), (-3, 3)), "softplus": ({}, (), (-30, 30)),
+    "softsign": ({}, (), (-3, 3)), "gelu": ({}, (), (-3, 3)),
+    "relu6": ({}, (0, 6), (-3, 8)), "leaky_relu": ({}, (0,), (-3, 3)),
+    "elu": ({"alpha": 0.7}, (0,), (-3, 3)),
+    "brelu": ({"t_min": -1.0, "t_max": 2.0}, (-1, 2), (-3, 3)),
+    "soft_relu": ({"threshold": 2.0}, (-2, 2), (-3, 3)),
+    "stanh": ({}, (), (-3, 3)), "hard_sigmoid": ({}, (-2.5, 2.5), (-4, 4)),
+    "thresholded_relu": ({}, (1,), (-3, 3)),
+    "hard_shrink": ({}, (-0.5, 0.5), (-3, 3)),
+    "softshrink": ({"lambda": 0.8}, (-0.8, 0.8), (-3, 3)),
+    "swish": ({"beta": 1.5}, (), (-3, 3)), "softmax": ({}, (), (-3, 3)),
+    "log_softmax": ({"axis": 1}, (), (-3, 3)),
+    "maxout": ({"groups": 2}, (), (-3, 3)),
+    "prelu": ({"mode": "channel"}, (0,), (-3, 3)),
+}
+
+
+def _act_input(op_type, shape=(8, 64, 14, 14)):
+    _, kinks, (lo, hi) = _ACTS[op_type]
+    x = np.random.RandomState(len(op_type)).uniform(lo, hi, shape)
+    for k in kinks:
+        x = np.where(np.abs(x - k) < 0.1, x + np.where(x >= k, 0.1, -0.1), x)
+    return x.astype(np.float32)
+
+
+def _act_program(op_type):
+    """X (taking a gradient) -> the op -> sum of out * cot, with its
+    append_backward; -> (main, startup, out)."""
+    import paddle_tpu_torch as pt
+
+    attrs = _ACTS[op_type][0]
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        x = pt.layers.data(name="x", shape=[64, 14, 14], dtype="float32")
+        x.stop_gradient = False
+        if op_type in ("prelu", "log_softmax"):
+            out = getattr(pt.layers, op_type)(x, **attrs)
+        elif op_type in ("relu", "softmax"):
+            out = getattr(pt.layers, op_type)(x)
+        else:
+            out = getattr(pt.layers, op_type)(x, **attrs)
+        cot = pt.layers.data(name="cot", shape=list(out.shape[1:]),
+                             dtype="float32")
+        pt.append_backward(pt.layers.reduce_sum(
+            pt.layers.elementwise_mul(out, cot)))
+    return main, startup, out
+
+
+@pytest.mark.parametrize("op_type", sorted(_ACTS))
+def test_activation_and_its_grad_on_the_card_equal_the_cpu(card, op_type):
+    """Each of the 35 activation op types in float32 at a conv
+    activation's shape: Out and X's grad through the Executor on the card
+    and on the CPU within 1e-5 of their largest magnitude; then a
+    bfloat16 forward within 2e-2."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import registry
+
+    main, startup, out = _act_program(op_type)
+    x = _act_input(op_type)
+    feed = {"x": x, "cot": np.random.RandomState(9).standard_normal(
+        (8,) + tuple(out.shape[1:])).astype(np.float32)}
+    res = []
+    for place in (pt.CPUPlace(), card):
+        scope = pt.Scope()
+        exe = pt.Executor(place, mode="interpret")
+        exe.run(startup, scope=scope)
+        res.append(exe.run(main, feed=feed, fetch_list=[out, "x@GRAD"],
+                           scope=scope))
+    for want, got in zip(*res):
+        np.testing.assert_allclose(got, want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max())
+    ins = {"X": [torch.as_tensor(x)]}
+    if op_type == "prelu":
+        ins["Alpha"] = [torch.full((1, 64, 1, 1), 0.25)]
+    outs = []
+    for dev in (torch.device("cpu"), card):
+        t = {p: [v.to(dev, torch.bfloat16) for v in vs]
+             for p, vs in ins.items()}
+        outs.append(registry.run_forward(
+            registry.get_runtime_info(op_type), t, dict(_ACTS[op_type][0]),
+            out_names={"Out": ["o"]}, device=dev)["Out"][0].float().cpu())
+    assert outs[1].dtype == torch.float32
+    assert (outs[1] - outs[0]).abs().max().item() <= \
+        2e-2 * outs[0].abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [
+    # (op, batch, channels, filters, hw, size, stride, groups)
+    ("conv2d", 8, 128, 128, 56, 3, 1, 32),   # SE's first grouped 3x3
+    ("conv2d", 8, 256, 256, 56, 3, 2, 32),   # a strided one
+    ("conv2d", 8, 1024, 1024, 7, 3, 1, 32),  # the last stage's
+    ("depthwise_conv2d", 8, 64, 64, 28, 3, 1, 64),
+    ("depthwise_conv2d", 8, 32, 64, 28, 5, 2, 32),
+], ids=["se_128", "se_256_strided", "se_1024", "depthwise_3x3",
+        "depthwise_x2_5x5_strided"])
+def test_grouped_convs_and_grads_on_the_card_equal_the_cpu(card, case,
+                                                           dtype):
+    """Output, Input and Filter grads of the grouped conv lowerings
+    (conv2d with groups, depthwise_conv2d) on the card against the CPU:
+    float32 within 1e-5 of their largest magnitude (TF32 off), bfloat16
+    within 2e-2."""
+    from paddle_tpu_torch.ops import registry
+
+    op, b, c, k, hw, size, stride, groups = case
+    rng = np.random.RandomState(hw + size)
+    x = rng.standard_normal((b, c, hw, hw)).astype(np.float32)
+    w = (rng.standard_normal((k, c // groups, size, size))
+         / (c // groups * size * size) ** 0.5).astype(np.float32)
+    attrs = {"strides": [stride] * 2, "paddings": [(size - 1) // 2] * 2,
+             "dilations": [1, 1], "groups": groups}
+    res = {}
+    gy = None
+    for dev in (torch.device("cpu"), card):
+        tx, tw = (torch.as_tensor(a).to(dev, dtype) for a in (x, w))
+        fwd = registry.run_forward(
+            registry.get_runtime_info(op), {"Input": [tx], "Filter": [tw]},
+            attrs, out_names={"Output": ["o"]}, device=dev)["Output"][0]
+        if gy is None:
+            gy = rng.standard_normal(tuple(fwd.shape)).astype(np.float32)
+        grads = registry.run_forward(
+            registry.get_runtime_info(op + "_grad"),
+            {"Input": [tx], "Filter": [tw], "Output": [fwd],
+             "Output@GRAD": [torch.as_tensor(gy).to(dev, dtype)]}, attrs,
+            out_names={"Input@GRAD": ["gx"], "Filter@GRAD": ["gw"]},
+            device=dev)
+        res[dev.type] = [fwd, grads["Input@GRAD"][0],
+                         grads["Filter@GRAD"][0]]
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for a, b_ in zip(res["cuda"], res["cpu"]):
+        assert a.dtype == dtype
+        scale = b_.float().abs().max().item()
+        assert (a.float().cpu() - b_.float()).abs().max().item() <= \
+            tol * scale
+
+
+def test_se_gate_on_the_card_equals_the_cpu(card):
+    """elementwise_mul(x=[N, C, H, W], y=[N, C], axis=0) and its grad at
+    SE's last stage: Y's grad sums over H and W back to [N, C]."""
+    from paddle_tpu_torch.ops import registry
+
+    rng = np.random.RandomState(12)
+    x = rng.standard_normal((16, 2048, 7, 7)).astype(np.float32)
+    y = rng.uniform(0, 1, (16, 2048)).astype(np.float32)
+    gy = rng.standard_normal((16, 2048, 7, 7)).astype(np.float32)
+    res = {}
+    for dev in (torch.device("cpu"), card):
+        t = [torch.as_tensor(a, device=dev) for a in (x, y, gy)]
+        fwd = registry.run_forward(
+            registry.get_runtime_info("elementwise_mul"),
+            {"X": t[:1], "Y": t[1:2]}, {"axis": 0},
+            out_names={"Out": ["o"]}, device=dev)["Out"][0]
+        grads = registry.run_forward(
+            registry.get_runtime_info("elementwise_mul_grad"),
+            {"X": t[:1], "Y": t[1:2], "Out": [fwd], "Out@GRAD": t[2:]},
+            {"axis": 0}, out_names={"X@GRAD": ["gx"], "Y@GRAD": ["gy"]},
+            device=dev)
+        res[dev.type] = [fwd, grads["X@GRAD"][0], grads["Y@GRAD"][0]]
+    assert tuple(res["cuda"][2].shape) == (16, 2048)
+    for a, b in zip(res["cuda"], res["cpu"]):
+        scale = b.abs().max().item()
+        assert (a.cpu() - b).abs().max().item() <= 1e-5 * scale
+
+
+def test_depthwise_layer_and_default_sequence_pool_run_on_the_card(card):
+    """layers.conv2d(groups=C) (a depthwise_conv2d) and
+    layers.sequence_pool() at its default pool type over the conv's rows,
+    with an empty row, then every other pool type: the Executor on the
+    card (captured at the second run) equals the CPU's within 1e-5."""
+    import paddle_tpu_torch as pt
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        img = pt.layers.data(name="img", shape=[8, 6, 6], dtype="float32")
+        lens = pt.layers.data(name="lens", shape=[], dtype="int64")
+        conv = pt.layers.conv2d(img, num_filters=8, filter_size=3,
+                                padding=1, groups=8, act="relu")
+        rows = pt.layers.reshape(conv, [-1, 8, 36])
+        pools = [pt.layers.sequence_pool(rows, seq_len=lens)] + [
+            pt.layers.sequence_pool(rows, t, seq_len=lens)
+            for t in ("sum", "sqrt", "last", "first", "max")]
+    assert main.global_block().ops[0].type == "depthwise_conv2d"
+    rng = np.random.RandomState(13)
+    feed = {"img": rng.standard_normal((4, 8, 6, 6)).astype(np.float32),
+            "lens": np.array([8, 0, 3, 1], np.int64)}
+    res = []
+    for place in (pt.CPUPlace(), card):
+        scope = pt.Scope()
+        exe = pt.Executor(place)
+        exe.run(startup, scope=scope)
+        if res:
+            for v in main.list_vars():
+                if v.persistable:
+                    scope.set_var(v.name, torch.as_tensor(
+                        res[0][1][v.name], device=card))
+        outs = [exe.run(main, feed=feed, fetch_list=pools, scope=scope)
+                for _ in range(3)]
+        res.append((outs, {v.name: scope.find_var(v.name).cpu().numpy()
+                           for v in main.list_vars() if v.persistable}))
+    for want, got in zip(res[0][0][0], res[1][0][-1]):
+        np.testing.assert_allclose(got, want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max())
+        assert not got[1].any()

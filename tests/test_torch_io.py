@@ -323,6 +323,53 @@ def test_book_mlp_inference_program_matches_jax():
         np.testing.assert_allclose(g, np.asarray(w), rtol=1e-5, atol=1e-7)
 
 
+def _book_feed(name, batch=8, seed=5):
+    rng = np.random.RandomState(seed)
+    if name == "fit_a_line":
+        return {"x": rng.standard_normal((batch, 13)).astype(np.float32),
+                "y": rng.standard_normal((batch, 1)).astype(np.float32)}
+    if name == "recognize_digits_mlp":
+        return {"img": rng.rand(batch, 784).astype(np.float32),
+                "label": rng.randint(0, 10, (batch, 1)).astype(np.int64)}
+    return {n: rng.randint(0, 1000, (batch, 1)).astype(np.int64)
+            for n in ("word_0", "word_1", "word_2", "word_3", "target")}
+
+
+BOOK_LOSS = {"fit_a_line": "mean_0.tmp_0",
+             "recognize_digits_mlp": "mean_1.tmp_0",
+             "word2vec": "mean_2.tmp_0"}
+
+
+@pytest.mark.parametrize("name", sorted(BOOK_LOSS))
+def test_book_main_programs_train_as_jax(name):
+    """The book's main programs as the JAX package dumped them (explicit
+    grad ops: square_error_cost_grad, softmax_grad, sigmoid_grad,
+    concat_grad, a sum of renamed shared_w@GRADs; sgd, adam and its scale
+    ops), from the JAX startup's weights: 3 steps through both Executors,
+    losses within rtol 1e-5."""
+    main = json.loads((BOOK / f"{name}.main.json").read_text())
+    startup = json.loads((BOOK / f"{name}.startup.json").read_text())
+    jscope = JScope()
+    jexe = fluid.Executor(fluid.CPUPlace())
+    jexe.run(fluid.Program.from_dict(startup), scope=jscope)
+    jprog, pprog = fluid.Program.from_dict(main), pt.Program.from_dict(main)
+    pscope = pt.Scope()
+    for v in pprog.list_vars():
+        if v.persistable:
+            pscope.set_var(v.name, torch.as_tensor(
+                np.asarray(jscope.find_var(v.name))))
+    pexe = pt.Executor(pt.CPUPlace())
+    feed, loss = _book_feed(name), BOOK_LOSS[name]
+    want, got = [], []
+    for _ in range(3):
+        want.append(float(np.asarray(jexe.run(
+            jprog, feed=feed, fetch_list=[loss], scope=jscope)[0])[0]))
+        got.append(float(pexe.run(pprog, feed=feed, fetch_list=[loss],
+                                  scope=pscope)[0][0]))
+    assert np.all(np.isfinite(got)) and got[-1] < got[0]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
 def test_load_places_tensors_on_the_executors_device(tmp_path):
     """`load` and `load_combine` put the tensor where the Executor runs
     (the CPU here; the card test checks a bf16 file onto the card)."""

@@ -223,9 +223,11 @@ def test_the_slice_registers_exactly_the_decode_op_types():
     (with its hand-written grad), metric, loss, momentum and gaussian
     ops, the verify/chunk windows' concat, beam search's step op,
     dropout with its grad, the recurrent slice's fused LSTM and GRU
-    with the rest of the reduce family, and the saved-model slice's fc
+    with the rest of the reduce family, the saved-model slice's fc
     (the inference transpiler's), lrn (AlexNet's) and io.py's four save
-    and load ops: 67 op types."""
+    and load ops, and the image tail's 31 more activations, the equal,
+    not_equal and logical ops, depthwise_conv2d and square_error_cost:
+    106 op types."""
     assert sorted(preg.OPS) == sorted([
         "assign_value", "elementwise_add", "fill_constant", "fused_attention",
         "gather", "increment", "kv_cache_append", "layer_norm",
@@ -245,5 +247,14 @@ def test_the_slice_registers_exactly_the_decode_op_types():
         "dropout", "dropout_grad",
         "fused_lstm", "fused_gru", "reduce_mean", "reduce_max",
         "reduce_min", "reduce_prod",
-        "fc", "lrn", "save", "load", "save_combine", "load_combine"])
-    assert len(preg.OPS) == 67
+        "fc", "lrn", "save", "load", "save_combine", "load_combine",
+        "sigmoid", "logsigmoid", "exp", "tanh_shrink", "sqrt", "rsqrt",
+        "abs", "ceil", "floor", "round", "cos", "sin", "reciprocal", "log",
+        "square", "softplus", "softsign", "relu6", "leaky_relu", "elu",
+        "brelu", "soft_relu", "stanh", "hard_sigmoid", "thresholded_relu",
+        "hard_shrink", "softshrink", "swish", "log_softmax", "maxout",
+        "prelu",
+        "equal", "not_equal", "logical_and", "logical_or", "logical_xor",
+        "logical_not",
+        "depthwise_conv2d", "square_error_cost"])
+    assert len(preg.OPS) == 106
