@@ -283,7 +283,46 @@ catches its own failure:
      launches are zeroed before it, read after it and held against the
      prediction from its scheduler's decode steps, and [3] holds both
      kernels at these shapes;
- 13. one {"kernels": [...]} line, the card's name and power limit, and
+ 13. the serving fleet (fleet.FleetRouter, the ChaosProxy, replica
+     processes, RollingDeploy) on transformer-base, float32, captured,
+     every replica's weights from its own startup on the card, at
+     fleet/replica.py's shapes (8-token sources, 3-token prompts, a
+     28-slot cache, 4 slots, 40 blocks of 4, the host pool).
+     F/fleet/inproc: three in-process replicas (a Scheduler and a
+     ServingServer each, private scopes, every bucket warmed) behind a
+     router, tests/test_fleet.py's traffic (4 prompt groups x 4 rounds, 8
+     new tokens): the prefix hit rate pooled across them at least 0.9 x a
+     single replica's on the same traffic; a replica whose loop is stopped
+     with 3 requests queued, behind a ChaosProxy delaying every chunk 0.1
+     s, spills an affine request to the idle one; a stream the proxy drops
+     after 2 tokens is resubmitted under its request id, bitwise, each
+     token delivered once; #6 counted as in [12] from the four
+     schedulers' decode steps.  F/fleet: bench.py's fleet leg
+     (bench.py:1946-2228) over `python -m paddle_tpu_torch.fleet.replica`
+     processes ({"model": "base"}), each pinned to one of
+     partition_cpus(4)'s cpusets and warmed over the wire before a router
+     sees it: weak scaling at 1, 2 and 4 replicas (closed loop, 2 clients
+     a replica, FL_PER_CLIENT requests each, 10 new tokens off an
+     8-prompt pool; QPS, p50, p99, QPS at an SLO of 4 x the 1-replica
+     p99; each replica's loadavg from PING and card MiB from nvidia-smi),
+     a rolling v1 -> v2 deploy under load (zero requests dropped, MTTR,
+     forced moves, each cutover split into process start, warm-up over
+     the wire and readmission), and a kill -9 of replica 0 after the 2nd
+     token of a stream affine to it (recovered_in_s, ejections,
+     resubmits); every child is killed in a finally block.  F/disagg:
+     bench.py's disagg A/B (bench.py:2231-2490) at transformer-base
+     width on the device pool (16-token sources, prompts of 24 or 4 in a
+     24-token window, 12 new tokens, a 48-slot cache, 6 slots, blocks of
+     16): one Poisson schedule at 60% of the monolithic capacity through
+     monolithic prefill, chunked prefill at 4, 8 and 16, and a prefill-
+     only Scheduler handing KV to a decode one: the decode pass p99 and
+     long-prompt TTFT p99 of each; then the two-tier fleet over the wire
+     (a prefill replica behind a ChaosProxy, two decode replicas with
+     blocks of 32, prefill_min_tokens the window): the prefill replica
+     killed halfway raises prefill_fallbacks.  #6 and #7 counted from the
+     schedulers' decode steps.  Every token of every leg equals the
+     sequential Generator's;
+ 14. one {"kernels": [...]} line, the card's name and power limit, and
      last the {"ok": true, "device": ...} line.
 
 Exits non-zero, printing no result, when there is no CUDA device or when
@@ -4826,25 +4865,27 @@ def _front_expect(steps, n_layer, paged):
 
 class _Counted:
     """One leg's launch counts: zeroed on entry, read on exit and held
-    against _front_expect for the scheduler's decode steps in between."""
+    against _front_expect for the decode steps (replay steps included)
+    the leg's schedulers ran in between."""
 
-    def __init__(self, phase, sched, n_layer):
-        self.phase, self.sched, self.n_layer = phase, sched, n_layer
+    def __init__(self, phase, scheds, n_layer):
+        self.phase, self.scheds, self.n_layer = phase, list(scheds), n_layer
 
     def __enter__(self):
         torch.cuda.synchronize()
         _zero_counts()
-        self.steps0 = self.sched.counters["steps"]
+        self.steps0 = [s.counters["steps"] for s in self.scheds]
         return self
 
     def __exit__(self, *exc):
         torch.cuda.synchronize()
         self.counts = launch_counts()
-        self.steps = self.sched.counters["steps"] - self.steps0
+        self.steps = sum(s.counters["steps"] - n
+                         for s, n in zip(self.scheds, self.steps0))
         if exc[0] is not None:
             return False
         expect = _front_expect(self.steps, self.n_layer,
-                               self.sched.paged_kv)
+                               self.scheds[0].paged_kv)
         if self.counts != expect or not self.steps:
             raise AssertionError(f"phase {self.phase}: launches "
                                  f"{self.counts}, the gate predicts "
@@ -4988,7 +5029,7 @@ def phase_f_tax_sweep(card):
 
     cb_round(20_000)   # settle caches and the allocator
     dark, lit, rounds = [], [], []
-    with _Counted("F/tax", sched, n_layer) as tax_counted:
+    with _Counted("F/tax", [sched], n_layer) as tax_counted:
         for k in range(TAX_PAIRS):
             for on, times, seed0 in ((False, dark, 21_000),
                                      (True, lit, 22_000)):
@@ -5047,7 +5088,7 @@ def phase_f_tax_sweep(card):
         telemetry.reset_metrics()
         telemetry.reset_spans()
         telemetry.enable()
-        with _Counted(label, sc, n_layer) as counted:
+        with _Counted(label, [sc], n_layer) as counted:
             sc.start()
             try:
                 sweep, qps_at_slo, p99_at_slo, served = _poisson_sweep(
@@ -5232,7 +5273,7 @@ def phase_f_overload(card):
                 "accepted_equal_to_sequential": equal}
 
     sweep = {"on": {}, "off": {}}
-    with _Counted("F/overload ON", sched_on, n_layer) as on_counted:
+    with _Counted("F/overload ON", [sched_on], n_layer) as on_counted:
         sched_on.start()
         try:
             for mult in OV_MULTS:
@@ -5244,7 +5285,7 @@ def phase_f_overload(card):
         finally:
             sched_on.close()
     sched_off, _ = mk_sched(False)
-    with _Counted("F/overload OFF", sched_off, n_layer) as off_counted:
+    with _Counted("F/overload OFF", [sched_off], n_layer) as off_counted:
         sched_off.start()
         try:
             for mult in OV_MULTS:
@@ -5315,6 +5356,958 @@ def drive_front_end(card, s_step_ms, lap=lambda phase: None):
     counts = _add(counts, more_counts)
     torch.cuda.empty_cache()
     lap("[12] F/overload")
+    return results, counts
+
+
+# ------------------------------------------------- [13] the serving fleet
+
+
+# F/fleet/inproc and F/fleet: fleet/replica.py's shapes (its DEFAULT_CONFIG,
+# bench.py's fleet leg: 8-token sources, 3-token prompts, a 28-slot cache, 4
+# slots, 40 blocks of 4, the host pool) with {"model": "base"}.
+# F/fleet/inproc: tests/test_fleet.py's traffic, 4 prompt groups x 4 rounds
+# of 8 new tokens; F/fleet: bench.py's 8-prompt pool and 10 new tokens,
+# FL_PER_CLIENT requests a client (bench.py: max(4, steps // 4))
+FL_GROUPS, FL_ROUNDS, FL_INPROC_TOKENS = 4, 4, 8
+FL_TOKENS, FL_POOL, FL_PER_CLIENT = 10, 8, 8
+FL_SIZES = (1, 2, 4)          # replicas of the weak-scaling sweep
+FL_TIMEOUT_S = 120.0          # a fleet client's read deadline (never reached)
+FL_SPAWN_S = 300.0            # a replica process's deadline for READY
+# F/disagg: bench.py's disagg A/B (bench.py:2231-2490) at transformer-base
+# width: 16-token sources, 24-token prompt windows (prompts of 24 or 4), 12
+# new tokens, a 48-slot cache, 6 slots, 32 prompts (every 4th long).  Blocks
+# of 16 (bench.py: 256 of 8): #7 takes blocks of a multiple of 16
+DG_SRC, DG_PREFIX, DG_TOKENS, DG_MAX_LEN = 16, 24, 12, 48
+DG_LONG, DG_SHORT, DG_STREAMS, DG_PROMPTS = 24, 4, 6, 32
+DG_CHUNK, DG_SWEEP = 8, (4, 8, 16)
+DG_BLOCK, DG_BLOCKS, DG_DECODE_BLOCK = 16, 128, 32
+DG_WIRE_REQUESTS = 8          # the two-tier fleet over the wire, per half
+
+
+def _fleet_model():
+    """fleet/replica.py's {"model": "base"} replica config, its spec and
+    the sequential Generator over a scope whose startup ran on the card
+    (the replicas' weights, drawn in each replica's own process)."""
+    from paddle_tpu_torch import CUDAPlace, decode
+    from paddle_tpu_torch.fleet import replica
+
+    cfg = dict(replica.DEFAULT_CONFIG, model="base")
+    spec, scope = replica.build_spec_scope(cfg)
+    gen = decode.Generator(spec, scope=scope, place=CUDAPlace(0))
+    vocab = spec.prefill_program.global_block().var("src_word_emb").shape[0]
+    n_layer = sum(1 for s in spec.states if s.feed.startswith("cache_k_"))
+    return cfg, spec, gen, vocab, n_layer
+
+
+def _test_feed(vocab, seed, src, prefix):
+    """tests/test_fleet.py's feeds (ragged source and prompt lengths from
+    default_rng(seed)), ids over the model's vocabulary."""
+    r = np.random.default_rng(seed)
+    return {
+        "src_ids": r.integers(2, vocab, size=(1, src)).astype(np.int64),
+        "src_lens": np.array([int(r.integers(src // 2, src + 1))], np.int64),
+        "trg_ids": r.integers(2, vocab, size=(1, prefix)).astype(np.int64),
+        "prefix_lens": np.array([int(r.integers(1, prefix + 1))], np.int64),
+    }
+
+
+def _fleet_client(endpoint, **kw):
+    from paddle_tpu_torch.resilience import RpcPolicy
+    from paddle_tpu_torch.serving import ServingClient
+
+    kw.setdefault("call_timeout", FL_TIMEOUT_S)
+    return ServingClient(endpoint, RpcPolicy(**kw))
+
+
+def _affine_feed(router, index, feed, lo):
+    for seed in range(lo, lo + 512):
+        f = feed(seed)
+        if router.affine_index(f, 1, None) == index:
+            return f
+    raise AssertionError(f"no feed in range maps to replica {index}")
+
+
+def _pool_rate(sched):
+    p = sched.stats()["pool"]
+    seen = p["prefix_hits"] + p["prefix_misses"]
+    return p["prefix_hits"] / max(1, seen), seen
+
+
+def _wait_for(cond, timeout=60.0):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError("timed out waiting")
+        time.sleep(0.02)
+
+
+def phase_fleet_inproc(card):
+    """F/fleet/inproc: three in-process replicas (a Scheduler and a
+    ServingServer each, PRIVATE scopes whose startups ran on the card) at
+    transformer-base width behind a FleetRouter; tests/test_fleet.py's
+    traffic.  The prefix hit rate pooled across them against one replica's
+    on the same traffic, a spill away from a stalled replica, and a stream
+    the ChaosProxy drops, resubmitted under its request id."""
+    from paddle_tpu_torch import CUDAPlace, Scope, fleet, serving
+    from paddle_tpu_torch.resilience import ChaosProxy
+
+    cfg, spec, gen, vocab, n_layer = _fleet_model()
+    place = CUDAPlace(0)
+
+    def feed(seed):
+        return _test_feed(vocab, seed, cfg["src_len"], cfg["prefix_len"])
+
+    def ref(f):
+        return gen.generate(f, FL_INPROC_TOKENS, eos_id=1)[0].tolist()
+
+    def replica():
+        sched = serving.Scheduler(spec, scope=Scope(), place=place,
+                                  max_batch=cfg["max_batch"],
+                                  block_size=cfg["block_size"],
+                                  num_blocks=cfg["num_blocks"])
+        _warm_buckets(sched, feed)
+        _reset_served(sched)
+        sched.start()
+        return serving.ServingServer(sched).start(), sched
+
+    def workload(endpoint):
+        cli = _fleet_client(endpoint)
+        bad = 0
+        try:
+            for _ in range(FL_ROUNDS):
+                for g, f in enumerate(groups):
+                    toks, status = cli.generate(f, FL_INPROC_TOKENS,
+                                                eos_id=1)
+                    if status != "done":
+                        raise AssertionError(f"F/fleet/inproc: {status}")
+                    bad += _diverged("F/fleet/inproc", g, toks.tolist(),
+                                     refs[g])
+        finally:
+            cli.close()
+        return FL_ROUNDS * len(groups) - bad
+
+    groups = [feed(500 + g) for g in range(FL_GROUPS)]
+    refs = [ref(f) for f in groups]
+    # the spill's request (affine to replica 0 of two) and the dropped
+    # stream, and their references, outside the counted window
+    target = _affine_feed(fleet.FleetRouter(["127.0.0.1:1", "127.0.0.1:2"]),
+                          0, feed, 3000)
+    dropped = feed(41)
+    want_target, want_dropped = ref(target), ref(dropped)
+    pairs, router, chaos = [], None, None
+    try:
+        t0 = time.perf_counter()
+        pairs = [replica() for _ in range(4)]   # one alone, then three
+        warm_s = time.perf_counter() - t0
+        single, reps = pairs[0], pairs[1:]
+        with _Counted("F/fleet/inproc", [s for _, s in pairs],
+                      n_layer) as counted:
+            equal = workload(single[0].endpoint)
+            single_rate, _ = _pool_rate(single[1])
+            router = fleet.FleetRouter([s.endpoint for s, _ in reps]).start()
+            t0 = time.perf_counter()
+            equal += workload(router.endpoint)
+            fleet_s = time.perf_counter() - t0
+            rates = [_pool_rate(s) for _, s in reps]
+            hits = sum(s.stats()["pool"]["prefix_hits"] for _, s in reps)
+            seen = sum(n for _, n in rates)
+            pooled = hits / max(1, seen)
+            routed = [s.counters["submitted"] for _, s in reps]
+            spilled_affinity = router.counters["spilled"]
+            router.shutdown()
+            router = None
+            if single_rate < 0.5 or pooled < 0.9 * single_rate or any(
+                    n and r < 0.9 * single_rate for r, n in rates) \
+                    or spilled_affinity:
+                raise AssertionError(
+                    f"F/fleet/inproc: prefix hit rate pooled {pooled}, per "
+                    f"replica {rates}, one replica {single_rate}, spilled "
+                    f"{spilled_affinity}")
+
+            # spill: replica 0's loop stopped, so the three requests queued
+            # on it cannot drain before the scrape; every chunk it sends
+            # is delayed 0.1 s by the proxy
+            srv0, sched0 = reps[0]
+            sched0.close()
+            chaos = ChaosProxy(srv0.endpoint, delay_rate=1.0,
+                               delay_s=0.1).start()
+            router = fleet.FleetRouter([chaos.endpoint, reps[1][0].endpoint],
+                                       spill_threshold=1).start()
+            holders = [sched0.submit(feed(700 + i),
+                                     cfg["max_len"] - cfg["prefix_len"] - 1,
+                                     eos_id=-1) for i in range(3)]
+            router.scrape_all()
+            depth = router.replicas[0].queue_depth
+            before = reps[1][1].counters["submitted"]
+            admitted = sched0.counters["admitted"]
+            cli = _fleet_client(router.endpoint)
+            try:
+                toks, status = cli.generate(target, FL_INPROC_TOKENS,
+                                            eos_id=1)
+            finally:
+                cli.close()
+            spilled = router.counters["spilled"]
+            if depth != 3 or not spilled or status != "done" \
+                    or reps[1][1].counters["submitted"] != before + 1 \
+                    or sched0.counters["admitted"] != admitted:
+                raise AssertionError(
+                    f"F/fleet/inproc: no spill (depth {depth}, spilled "
+                    f"{spilled}, {status})")
+            equal += 1 - _diverged("F/fleet/inproc spill", 0, toks.tolist(),
+                                   want_target)
+            for h in holders:
+                h.cancel()
+            sched0.start()
+            for h in holders:
+                h.result(timeout=FL_TIMEOUT_S)
+            router.shutdown()
+            router = None
+            chaos.stop()
+
+            # a stream dropped after its 2nd token, resubmitted by the
+            # client under the same request id
+            chaos = ChaosProxy(reps[1][0].endpoint).start()
+            cli = _fleet_client(chaos.endpoint, call_timeout=10.0,
+                                backoff_base=0.02, seed=0)
+            seen_toks = []
+
+            def on_tok(t):
+                seen_toks.append(int(t))
+                if len(seen_toks) == 2:
+                    chaos.drop_next(1)
+
+            sub0 = reps[1][1].counters["submitted"]
+            dedup0 = reps[1][1].counters["dedup_hits"]
+            try:
+                toks, status = cli.generate(dropped, FL_INPROC_TOKENS,
+                                            eos_id=1, on_token=on_tok)
+            finally:
+                cli.close()
+            if status != "done" or seen_toks != toks.tolist() \
+                    or not chaos.counters["dropped_conns"]:
+                raise AssertionError(
+                    f"F/fleet/inproc: dropped stream {status}, on_token "
+                    f"{seen_toks}, tokens {toks.tolist()}")
+            resubmits = (reps[1][1].counters["dedup_hits"] - dedup0,
+                         reps[1][1].counters["submitted"] - sub0)
+            equal += 1 - _diverged("F/fleet/inproc drop", 0, toks.tolist(),
+                                   want_dropped)
+            _wait_for(lambda: all(s.idle() for _, s in pairs))
+    finally:
+        if router is not None:
+            router.shutdown()
+        if chaos is not None:
+            chaos.stop()
+        for srv, sched in pairs:
+            srv.shutdown()
+            sched.close()
+    requests = 2 * FL_ROUNDS * FL_GROUPS + 2
+    res = {"phase": "F/fleet/inproc", "replicas": 3,
+           "warm_s": warm_s, "fleet_s": fleet_s,
+           "prefix_hit_rate_single": single_rate,
+           "prefix_hit_rate_pooled": pooled,
+           "prefix_hit_rate_per_replica": [r for r, _ in rates],
+           "routed_per_replica": routed,
+           "spill_queue_depth": depth, "spilled": spilled,
+           "drop_dedup_hits_and_submits": resubmits,
+           "dropped_conns": chaos.counters["dropped_conns"],
+           "launches": counted.counts, "steps": counted.steps,
+           "requests": requests, "requests_equal_to_sequential": equal,
+           "card": card}
+    log(f"  F/fleet/inproc: 3 replicas (private scopes, startups on the "
+        f"card) at transformer-base width, {FL_GROUPS} prompt groups x "
+        f"{FL_ROUNDS} rounds of {FL_INPROC_TOKENS} tokens: prefix hit rate "
+        f"pooled {pooled:.4f} vs one replica {single_rate:.4f} (per "
+        f"replica {[round(r, 4) for r, _ in rates]}, requests {routed}); "
+        f"the fleet's 16 requests {fleet_s:.3f} s; a stalled replica with "
+        f"queue depth {depth} spilled {spilled}; a stream dropped after 2 "
+        f"tokens resubmitted (dedup hits, submits {resubmits}); "
+        f"{equal}/{requests} requests equal the sequential Generator  "
+        f"[{card}]")
+    log(f"    {counted.steps} decode steps, launches {counted.counts}; "
+        f"warm-up of 4 replicas {warm_s:.1f} s")
+    return res, counted.counts
+
+
+def _diverged(phase, request, got, want):
+    """1 and a DIVERGED entry if `got` differs from `want`, else 0."""
+    if got == want:
+        return 0
+    t = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+             min(len(got), len(want)))
+    DIVERGED.append({"phase": phase, "request": request, "step": t,
+                     "got": got[t] if t < len(got) else None,
+                     "want": want[t] if t < len(want) else None})
+    log(f"    DIVERGED {DIVERGED[-1]}")
+    return 1
+
+
+def _warm_over_wire(endpoint, feed, buckets, seed0, rounds=3):
+    """Every bucket of a replica process warmed through its own clients
+    before a router sees it: for each bucket b, `rounds` rounds of b
+    client threads submitting at once (2 tokens each), so that the
+    prefill groups and decode steps reach each bucket's signatures twice
+    (an eager run, then a capture).  Returns the seconds taken."""
+    t0 = time.perf_counter()
+    seed = seed0
+    for _ in range(rounds):
+        for b in buckets:
+            errs = []
+
+            def one(s):
+                cli = _fleet_client(endpoint)
+                try:
+                    cli.generate(feed(s), 2, eos_id=-1)
+                except Exception as e:  # noqa: BLE001 — raised below
+                    errs.append(repr(e))
+                finally:
+                    cli.close()
+
+            ts = [threading.Thread(target=one, args=(seed + i,))
+                  for i in range(b)]
+            seed += b
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join()
+            if errs:
+                raise AssertionError(f"warm-up over the wire: {errs}")
+    return time.perf_counter() - t0
+
+
+def _card_used_mib():
+    """The whole card's used memory in MiB (nvidia-smi memory.used): every
+    process's contexts, allocators and graph pools together."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True).stdout.split()[0])
+
+
+def _compute_apps_mib():
+    """{pid: MiB} of the card's compute processes, from nvidia-smi (the
+    parent cannot read a child's allocator); {} where it lists none."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True).stdout
+    apps = {}
+    for line in out.splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            try:
+                apps[int(parts[0])] = float(parts[1])
+            except ValueError:
+                pass
+    return apps
+
+
+def phase_fleet(card):
+    """F/fleet: bench.py's fleet leg (bench.py:1946-2228) over replica
+    processes on the card (`spawn_replica({"model": "base"})`, each pinned
+    to one of partition_cpus(4)'s cpusets and warmed over the wire before
+    a router sees it): weak scaling at 1, 2 and 4 replicas (closed loop,
+    2 clients a replica; the explicit warm-up stands in for bench.py's
+    warm leg), a rolling v1 -> v2 deploy under load (its swap hook kills
+    the drained process, spawns and warms the new one; the load runs until
+    the deploy ends), and a `kill -9` of replica 0 after the 2nd token of
+    a stream affine to it.  Every token of every leg against the parent's
+    sequential Generator, whose startup also ran on the card."""
+    from paddle_tpu_torch import fleet
+    from paddle_tpu_torch.fleet import replica
+    from paddle_tpu_torch.parallel import partition_cpus
+
+    cfg, spec, gen, vocab, n_layer = _fleet_model()
+    buckets = [1]
+    while buckets[-1] < cfg["max_batch"]:
+        buckets.append(min(2 * buckets[-1], cfg["max_batch"]))
+
+    def feed(seed):
+        return _bench_feed(vocab, cfg["src_len"], cfg["prefix_len"], seed)
+
+    pool = [feed(100 + i) for i in range(FL_POOL)]
+    refs = [gen.generate(f, FL_TOKENS, eos_id=1)[0].tolist() for f in pool]
+    cpusets = partition_cpus(4)
+    procs, eps, timing = {}, {}, {}
+    lock = threading.Lock()
+
+    def launch(index, version="v1"):
+        """Spawn replica `index` and warm it over the wire; its endpoint."""
+        t0 = time.perf_counter()
+        proc, ep = replica.spawn_replica(
+            dict(cfg, version=version), timeout_s=FL_SPAWN_S,
+            cpus=cpusets[index % len(cpusets)])
+        with lock:
+            procs[index], eps[index] = proc, ep
+        t1 = time.perf_counter()
+        warm_s = _warm_over_wire(ep, feed, buckets, 9000 + 100 * index)
+        with lock:
+            timing[(index, version)] = {"start_s": t1 - t0,
+                                        "warm_s": warm_s}
+        return ep
+
+    def loadavgs(router):
+        out = {}
+        for rep in router.replicas:
+            if rep.state == "down":
+                continue
+            try:
+                out[rep.index] = fleet.probe(rep.endpoint,
+                                             timeout=5.0).get("loadavg")
+            except (OSError, ConnectionError):
+                out[rep.index] = None
+        return out
+
+    def card_mib():
+        apps = _compute_apps_mib()
+        return {i: apps.get(p.pid) for i, p in procs.items()
+                if p.poll() is None}
+
+    served = {"n": 0, "equal": 0}
+    slock = threading.Lock()
+
+    def check(gi, toks, status, label):
+        if status != "done":
+            raise AssertionError(f"{label}: a request {status}")
+        with slock:
+            served["n"] += 1
+            served["equal"] += 1 - _diverged(label, gi, toks.tolist(),
+                                             refs[gi])
+
+    def leg(router, n_clients, label, seed0, stop=None):
+        """Closed loop: n_clients threads, FL_PER_CLIENT requests each
+        off the shared pool (and on until `stop` is set, if given).
+        Starts the threads; finish() joins them -> (qps, p50, p99, n)."""
+        lats, errs = [], []
+
+        def worker(tid):
+            r = np.random.RandomState(seed0 + tid)
+            cli = _fleet_client(router.endpoint)
+            try:
+                n = 0
+                while n < FL_PER_CLIENT or (stop is not None
+                                            and not stop.is_set()):
+                    gi = int(r.randint(0, len(pool)))
+                    t0 = time.perf_counter()
+                    toks, status = cli.generate(pool[gi], FL_TOKENS,
+                                                eos_id=1)
+                    with slock:
+                        lats.append(time.perf_counter() - t0)
+                    check(gi, toks, status, label)
+                    n += 1
+            except Exception as e:  # noqa: BLE001 — fails the leg
+                with slock:
+                    errs.append(repr(e))
+            finally:
+                cli.close()
+
+        threads = [threading.Thread(target=worker, args=(t,))
+                   for t in range(n_clients)]
+        t_start = time.perf_counter()
+        for t in threads:
+            t.start()
+
+        def finish():
+            for t in threads:
+                t.join(timeout=600)
+                if t.is_alive():
+                    raise AssertionError(f"{label}: a client is stuck")
+            wall = time.perf_counter() - t_start
+            if errs:
+                raise AssertionError(f"{label}: client errors {errs[:3]}")
+            ms = 1e3 * np.asarray(lats)
+            return (len(lats) / wall, float(np.percentile(ms, 50)),
+                    float(np.percentile(ms, 99)), len(lats))
+        return finish
+
+    sweep, router = {}, None
+    used0 = _card_used_mib()
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=launch, args=(i,))
+                   for i in range(max(FL_SIZES))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if len(timing) != max(FL_SIZES):
+            raise AssertionError(f"F/fleet: {len(timing)} of "
+                                 f"{max(FL_SIZES)} replicas started")
+        start_wall = time.perf_counter() - t0
+        used4 = _card_used_mib()
+        endpoints = [eps[i] for i in range(max(FL_SIZES))]
+
+        # weak scaling: 1 -> 2 -> 4 replicas, 2 clients a replica
+        slo_ms, qps_at_slo = None, 0.0
+        for k in FL_SIZES:
+            router = fleet.FleetRouter(endpoints[:k]).start()
+            qps, p50, p99, n = leg(router, 2 * k, f"F/fleet {k}r",
+                                   1000 + 10 * k)()
+            if slo_ms is None:   # the 1-replica tier sets the SLO
+                slo_ms = 4.0 * p99
+            sweep[f"{k}r"] = {
+                "replicas": k, "clients": 2 * k, "requests": n, "qps": qps,
+                "p50_ms": p50, "p99_ms": p99, "met_slo": p99 <= slo_ms,
+                "routed": router.counters["routed"],
+                "spilled": router.counters["spilled"],
+                "loadavg_per_replica": loadavgs(router),
+                "card_mib_per_replica": card_mib()}
+            if p99 <= slo_ms and qps > qps_at_slo:
+                qps_at_slo = qps
+            router.shutdown()
+            router = None
+
+        # a rolling v1 -> v2 deploy under load: zero requests dropped
+        router = fleet.FleetRouter(endpoints[:2]).start()
+        swaps = {}
+
+        def swap(index, old_ep):
+            t0 = time.perf_counter()
+            procs[index].kill()   # drained: nothing left in flight
+            procs[index].wait()
+            ep = launch(index, version="v2")
+            swaps[index] = {"swap_s": time.perf_counter() - t0,
+                            **timing[(index, "v2")]}
+            return ep
+
+        stop = threading.Event()
+        before = served["n"]
+        finish = leg(router, 2, "F/fleet deploy", 2000, stop=stop)
+        try:
+            rec = fleet.RollingDeploy(router, swap, drain_grace_s=5.0,
+                                      expect_version="v2").run()
+        finally:
+            stop.set()
+        _, _, _, n_deploy = finish()
+        if served["n"] - before != n_deploy \
+                or any(r.version != "v2" for r in router.replicas):
+            raise AssertionError(f"F/fleet deploy: {n_deploy} requests, "
+                                 f"{served['n'] - before} served")
+        for r in rec["replicas"]:
+            s = swaps[r["index"]]
+            r["start_ms"] = 1e3 * s["start_s"]
+            r["warm_ms"] = 1e3 * s["warm_s"]
+            r["readmit_ms"] = r["cutover_ms"] - 1e3 * s["swap_s"]
+        deploy = {"total_ms": rec["total_ms"],
+                  "max_mttr_ms": rec["max_mttr_ms"],
+                  "requests": n_deploy, "dropped_requests": 0,
+                  "forced_moves": sum(r["forced_moves"]
+                                      for r in rec["replicas"]),
+                  "replicas": rec["replicas"],
+                  "epoch": router.table.epoch}
+
+        # kill -9 of replica 0 after the 2nd token of a stream affine to it
+        target = None
+        for seed in range(3000, 3512):
+            if router.affine_index(feed(seed), 1, None) == 0:
+                target = feed(seed)
+                break
+        want = gen.generate(target, FL_TOKENS, eos_id=1)[0].tolist()
+        seen, killed = [], []
+
+        def on_tok(tok):
+            seen.append(int(tok))
+            if len(seen) == 2:
+                procs[0].kill()
+                killed.append(time.perf_counter())
+
+        e0, r0 = router.counters["ejections"], router.counters["resubmitted"]
+        cli = _fleet_client(router.endpoint)
+        try:
+            t0 = time.perf_counter()
+            toks, status = cli.generate(target, FL_TOKENS, eos_id=1,
+                                        on_token=on_tok)
+            t1 = time.perf_counter()
+        finally:
+            cli.close()
+        if status != "done" or seen != toks.tolist() or not killed:
+            raise AssertionError(f"F/fleet kill: {status}, on_token {seen}, "
+                                 f"tokens {toks.tolist()}")
+        equal_kill = 1 - _diverged("F/fleet kill", 0, toks.tolist(), want)
+        kill = {"recovered_in_s": t1 - t0,
+                "after_kill_s": t1 - killed[0],
+                "ejections": router.counters["ejections"] - e0,
+                "resubmitted": router.counters["resubmitted"] - r0,
+                "replica0": router.replicas[0].state,
+                "bitwise_after_failover": bool(equal_kill)}
+        if kill["ejections"] < 1 or kill["resubmitted"] < 1 \
+                or procs[0].wait(timeout=30) != -9:
+            raise AssertionError(f"F/fleet kill: {kill}")
+        router.shutdown()
+        router = None
+    finally:
+        if router is not None:
+            router.shutdown()
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    left = [p.pid for p in procs.values() if p.poll() is None]
+    if left:
+        raise AssertionError(f"F/fleet: replica processes {left} outlive "
+                             f"the phase")
+    first, last = f"{FL_SIZES[0]}r", f"{FL_SIZES[-1]}r"
+    scaling = sweep[last]["qps"] / sweep[first]["qps"]
+    res = {"phase": "F/fleet", "new_tokens": FL_TOKENS,
+           "requests_per_client": FL_PER_CLIENT, "prompt_pool": FL_POOL,
+           "replica_cpusets": cpusets, "start_wall_s": start_wall,
+           "card_used_mib_before_and_with_replicas": [used0, used4],
+           "card_mib_per_replica_mean": (used4 - used0) / max(FL_SIZES),
+           "replica_start_and_warm_s": {f"{i}{v}": t
+                                        for (i, v), t in timing.items()},
+           "weak_scaling": sweep, "scaling_x": scaling, "slo_ms": slo_ms,
+           "qps_at_slo": qps_at_slo, "deploy": deploy, "kill": kill,
+           "requests": served["n"] + 1,
+           "requests_equal_to_sequential": served["equal"] + equal_kill,
+           "card": card}
+    log(f"  F/fleet: {max(FL_SIZES)} replica processes (transformer-base, "
+        f"startups on the card, cpusets {cpusets}) started and warmed over "
+        f"the wire in {start_wall:.1f} s wall, the card's used memory "
+        f"{used0:.0f} -> {used4:.0f} MiB "
+        f"({res['card_mib_per_replica_mean']:.0f} MiB a replica); weak "
+        f"scaling "
+        f"{first} -> {last} {scaling:.3f}x, QPS at SLO {slo_ms:.1f} ms "
+        f"(4 x the 1-replica p99): {qps_at_slo:.2f}  [{card}]")
+    for k, v in sweep.items():
+        log(f"    {k}: {v['clients']} clients, {v['requests']} requests, "
+            f"{v['qps']:.2f} req/s, p50 {v['p50_ms']:.1f} ms, p99 "
+            f"{v['p99_ms']:.1f} ms, met SLO {v['met_slo']}, spilled "
+            f"{v['spilled']}; loadavg {v['loadavg_per_replica']}; card MiB "
+            f"{v['card_mib_per_replica']}")
+    log(f"    deploy v1 -> v2 under load: {deploy['requests']} requests, "
+        f"0 dropped, total {deploy['total_ms']:.1f} ms, max MTTR "
+        f"{deploy['max_mttr_ms']:.1f} ms, forced moves "
+        f"{deploy['forced_moves']}; per replica cutover = process start + "
+        f"warm-up + readmission: "
+        + "; ".join(f"{r['index']}: {r['cutover_ms']:.1f} = "
+                    f"{r['start_ms']:.1f} + {r['warm_ms']:.1f} + "
+                    f"{r['readmit_ms']:.1f} ms (drain {r['drain_ms']:.1f})"
+                    for r in deploy["replicas"]))
+    log(f"    kill -9 of replica 0 after the 2nd token: recovered in "
+        f"{kill['recovered_in_s']:.3f} s ({kill['after_kill_s']:.3f} s "
+        f"after the kill), ejections {kill['ejections']}, resubmits "
+        f"{kill['resubmitted']}, bitwise {kill['bitwise_after_failover']}; "
+        f"{res['requests_equal_to_sequential']}/{res['requests']} requests "
+        f"equal the sequential Generator")
+    return res
+
+
+def phase_disagg(card):
+    """F/disagg: bench.py's disagg A/B (bench.py:2231-2490) at
+    transformer-base width on the device pool, in process: one open-loop
+    Poisson arrival schedule (60% of the monolithic Scheduler's closed-loop
+    capacity, every 4th prompt long) through (A) monolithic prefill, (B)
+    chunked prefill at DG_CHUNK with the sweep, and (C) a prefill-only
+    Scheduler handing each long prompt's KV to a decode Scheduler; then
+    the two-tier fleet over the wire (tests/test_disagg.py:387 at full
+    width): a prefill replica behind a ChaosProxy and two decode replicas
+    (blocks of DG_DECODE_BLOCK) behind a FleetRouter with
+    prefill_min_tokens = the prompt window, the prefill replica killed
+    halfway.  Every request's tokens against the sequential Generator."""
+    from paddle_tpu_torch import CUDAPlace, Scope, decode, fleet, serving
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.resilience import ChaosProxy
+
+    place = CUDAPlace(0)
+    specs = {c: decode_spec(transformer.base(), DG_PREFIX, DG_MAX_LEN,
+                            src_len=DG_SRC, chunk_len=c) for c in DG_SWEEP}
+    spec = specs[DG_CHUNK]
+    n_layer = sum(1 for s in spec.states if s.feed.startswith("cache_k_"))
+    vocab = spec.prefill_program.global_block().var("src_word_emb").shape[0]
+    scope = Scope()
+    gen = decode.Generator(spec, scope=scope, place=place)
+
+    def plen_of(p):
+        return DG_LONG if p % 4 == 0 else DG_SHORT
+
+    def mk_feed(p):
+        f = _bench_feed(vocab, DG_SRC, DG_PREFIX, 33_000 + int(p))
+        f["prefix_lens"] = np.full(1, plen_of(p), np.int64)
+        return f
+
+    feeds = [mk_feed(p) for p in range(DG_PROMPTS)]
+    refs = [gen.generate(f, DG_TOKENS, eos_id=-1)[0].tolist() for f in feeds]
+
+    def mk_sched(prefill_chunk=None, leg_spec=None, sc=None,
+                 block_size=DG_BLOCK, prefix_cache=False):
+        # prefix cache off for the A/B: repeated prompts would skip the
+        # prefill work the legs compare
+        sched = serving.Scheduler(leg_spec or spec, scope if sc is None
+                                  else sc, place=place,
+                                  max_batch=DG_STREAMS, block_size=block_size,
+                                  num_blocks=DG_BLOCKS * DG_BLOCK
+                                  // block_size, paged_kv=True,
+                                  prefix_cache=prefix_cache,
+                                  prefill_chunk=prefill_chunk)
+        _warm_buckets(sched, lambda s: feeds[s % DG_PROMPTS])
+        _reset_served(sched)
+        return sched
+
+    def ttft_ms(h):
+        return (h.first_token_t - h.submit_t) * 1e3
+
+    equal = [0, 0]   # equal, served
+
+    def check(label, handles):
+        for p, h in handles:
+            if h.status != "done":
+                raise AssertionError(f"{label}: prompt {p} {h.status} "
+                                     f"{h.error}")
+            equal[0] += 1 - _diverged(label, p, list(h.tokens), refs[p])
+            equal[1] += 1
+
+    counts = {}
+
+    def counted(label, scheds):
+        return _Counted(label, scheds, n_layer)
+
+    # capacity and the arrival schedule (bench.py: 60% of the monolithic
+    # Scheduler's closed-loop capacity over 24 requests)
+    cap = mk_sched()
+    with counted("F/disagg capacity", [cap]) as c:
+        t0 = time.perf_counter()
+        hs = [(i % DG_PROMPTS, cap.submit(feeds[i % DG_PROMPTS], DG_TOKENS,
+                                          eos_id=-1)) for i in range(24)]
+        cap.run_until_idle(max_steps=100000)
+        capacity = 24 / (time.perf_counter() - t0)
+    counts = _add(counts, c.counts)
+    check("F/disagg capacity", hs)
+    rate = 0.6 * capacity
+    n_req = min(150, max(40, int(6.0 * rate)))
+    r = np.random.RandomState(77)
+    arrivals = np.cumsum(r.exponential(1.0 / rate, size=n_req))
+    prompts = r.randint(0, DG_PROMPTS, size=n_req)
+
+    def run_single(sched, label):
+        gaps, handles = [], []
+        i = 0
+        t_start = time.perf_counter()
+        while i < n_req or not sched.idle():
+            now = time.perf_counter() - t_start
+            while i < n_req and arrivals[i] <= now:
+                p = int(prompts[i])
+                handles.append((p, sched.submit(feeds[p], DG_TOKENS,
+                                                eos_id=-1)))
+                i += 1
+            decoding = len(sched._active) > 0
+            ts = time.perf_counter()
+            progressed = sched.step()
+            if decoding:   # a stall every active decoder paid
+                gaps.append((time.perf_counter() - ts) * 1e3)
+            if not progressed and i < n_req:
+                time.sleep(min(0.001, max(
+                    0.0, arrivals[i] - (time.perf_counter() - t_start))))
+        wall = time.perf_counter() - t_start
+        check(label, handles)
+        return gaps, handles, wall
+
+    def leg_stats(gaps, handles, wall, first=lambda h: h):
+        longs = [ttft_ms(first(h)) for p, h in handles
+                 if plen_of(p) == DG_LONG]
+        shorts = [ttft_ms(first(h)) for p, h in handles
+                  if plen_of(p) == DG_SHORT]
+        return {"decode_pass_p99_ms": float(np.percentile(gaps, 99))
+                if gaps else None,
+                "decode_pass_max_ms": max(gaps) if gaps else None,
+                "ttft_long_p99_ms": float(np.percentile(longs, 99)),
+                "ttft_short_p99_ms": float(np.percentile(shorts, 99)),
+                "goodput_qps": len(handles) / wall}
+
+    with counted("F/disagg A", [cap]) as c:
+        stats_a = leg_stats(*run_single(cap, "F/disagg A"))
+    counts = _add(counts, c.counts)
+    cap.close()
+    sweep = {}
+    for chunk in DG_SWEEP:
+        sched = mk_sched(prefill_chunk=chunk, leg_spec=specs[chunk])
+        with counted(f"F/disagg B chunk {chunk}", [sched]) as c:
+            sweep[chunk] = leg_stats(*run_single(sched,
+                                                 f"F/disagg B{chunk}"))
+            sweep[chunk]["chunk_passes"] = sched.counters["chunk_passes"]
+        counts = _add(counts, c.counts)
+        if not sched.counters["chunked"]:
+            raise AssertionError(f"F/disagg B{chunk}: nothing chunked")
+        sched.close()
+
+    # (C) two-tier in process: long prompts prefill on `pre` (chunked) and
+    # hand their KV to `dec`
+    pre, dec = mk_sched(prefill_chunk=DG_CHUNK), mk_sched()
+    with counted("F/disagg C", [pre, dec]) as c:
+        pending, handles = [], []
+        i = 0
+        t_start = time.perf_counter()
+        while i < n_req or pending or not (pre.idle() and dec.idle()):
+            now = time.perf_counter() - t_start
+            while i < n_req and arrivals[i] <= now:
+                p = int(prompts[i])
+                if plen_of(p) == DG_LONG:   # the router's length detour
+                    pending.append((p, pre.submit(feeds[p], DG_TOKENS,
+                                                  eos_id=-1,
+                                                  prefill_only=True)))
+                else:
+                    handles.append((p, (None, dec.submit(
+                        feeds[p], DG_TOKENS, eos_id=-1))))
+                i += 1
+            progressed = pre.step() | dec.step()
+            still = []
+            for p, h in pending:
+                if h.status == "prefilled":
+                    rec = h.handoff
+                    h2 = dec.submit(
+                        serving.decode_feed(rec["feed"]),
+                        rec["max_new_tokens"], eos_id=rec["eos_id"],
+                        bos_id=rec["bos_id"], recorded_tokens=rec["tokens"],
+                        kv_payload={"cursor": rec["cursor"],
+                                    "rows": rec["kv"],
+                                    "states": rec["states"],
+                                    "last_tok": rec["last_tok"],
+                                    "n_tokens": rec["n_tokens"]})
+                    handles.append((p, (h, h2)))  # TTFT on pre, tokens dec
+                elif h.done:
+                    raise AssertionError(f"F/disagg C: prompt {p} "
+                                         f"{h.status}")
+                else:
+                    still.append((p, h))
+            pending = still
+            if not progressed and i < n_req:
+                time.sleep(min(0.001, max(
+                    0.0, arrivals[i] - (time.perf_counter() - t_start))))
+        wall_c = time.perf_counter() - t_start
+    counts = _add(counts, c.counts)
+    check("F/disagg C", [(p, h2) for p, (_, h2) in handles])
+    stats_c = leg_stats([], handles, wall_c,
+                        first=lambda pair: pair[0] or pair[1])
+    stats_c.update(handoffs=pre.counters["handoffs"],
+                   adopted=dec.counters["adopted"])
+    if not pre.counters["handoffs"] == dec.counters["adopted"] > 0:
+        raise AssertionError(f"F/disagg C: {stats_c}")
+    pre.close()
+    dec.close()
+
+    # the two-tier fleet over the wire: private scopes (startups on the
+    # card), the prefill replica behind a ChaosProxy, killed halfway
+    pairs, router, chaos, cli = [], None, None, None
+    try:
+        def server(sched):
+            sched.start()
+            pairs.append((serving.ServingServer(sched).start(), sched))
+            return pairs[-1][0].endpoint
+
+        pre_ep = server(mk_sched(prefill_chunk=DG_CHUNK, sc=Scope(),
+                                 prefix_cache=True))
+        dec_eps = [server(mk_sched(sc=Scope(), block_size=DG_DECODE_BLOCK,
+                                   prefix_cache=True)) for _ in range(2)]
+        chaos = ChaosProxy(pre_ep).start()
+        router = fleet.FleetRouter(dec_eps, prefill_endpoints=[chaos.endpoint],
+                                   prefill_min_tokens=DG_PREFIX).start()
+        cli = _fleet_client(router.endpoint)
+        wire_ttft = {"up": [], "down": []}
+        with counted("F/disagg wire", [s for _, s in pairs]) as c:
+            for half in ("up", "down"):
+                if half == "down":   # the prefill replica dies
+                    pre_sched = pairs[0][1]
+                    # every prefill-only request the tier did not hand off
+                    not_handed = [
+                        (r.status, len(r.tokens), (r.error or "")[-2000:])
+                        for r in list(pre_sched._by_rid.values())
+                        if r.status != "prefilled"]
+                    pre_counters = dict(pre_sched.counters)
+                    chaos.set_fault(refuse=True)
+                    chaos.kill_connections()
+                    pairs[0][0].shutdown()
+                    pairs[0][1].close()
+                for k in range(DG_WIRE_REQUESTS):
+                    p = k if half == "up" else DG_PROMPTS - 1 - k
+                    first = []
+                    t0 = time.perf_counter()
+                    toks, status = cli.generate(
+                        feeds[p], DG_TOKENS, eos_id=-1,
+                        on_token=lambda t: first or first.append(
+                            time.perf_counter()))
+                    if status != "done":
+                        raise AssertionError(f"F/disagg wire: {status}")
+                    wire_ttft[half].append(1e3 * (first[0] - t0))
+                    equal[0] += 1 - _diverged(f"F/disagg wire {half}", p,
+                                              toks.tolist(), refs[p])
+                    equal[1] += 1
+            _wait_for(lambda: all(s.idle() for _, s in pairs[1:]))
+        counts = _add(counts, c.counts)
+        fv = router.fleet_view()
+    finally:
+        if cli is not None:
+            cli.close()
+        if router is not None:
+            router.shutdown()
+        if chaos is not None:
+            chaos.stop()
+        for srv, sched in pairs:
+            srv.shutdown()
+            sched.close()
+    wc = fv["counters"]
+    # every request of the first half handed off (none fell back to a
+    # replay on the decode tier), every one of the second fell back
+    if wc["prefill_routed"] != DG_WIRE_REQUESTS + 1 \
+            or wc["handoffs"] != DG_WIRE_REQUESTS \
+            or wc["prefill_fallbacks"] != DG_WIRE_REQUESTS \
+            or pre_counters["errors"] or not_handed \
+            or fv["prefill_replicas"][0]["state"] != "down":
+        raise AssertionError(f"F/disagg wire: {wc}, the prefill tier's "
+                             f"counters {pre_counters}, not handed off "
+                             f"{not_handed}")
+    wire = {k: wc[k] for k in ("prefill_routed", "handoffs",
+                               "prefill_fallbacks", "prefill_failovers",
+                               "routed", "resubmitted")}
+    wire.update(ttft_ms=wire_ttft, dropped_requests=0,
+                prefill_tier_counters=pre_counters,
+                prefill_tier_not_handed_off=not_handed)
+    res = {"phase": "F/disagg", "src_len": DG_SRC, "prefix": DG_PREFIX,
+           "long_plen": DG_LONG, "short_plen": DG_SHORT,
+           "new_tokens": DG_TOKENS, "max_len": DG_MAX_LEN,
+           "streams": DG_STREAMS, "block_size": DG_BLOCK,
+           "capacity_qps": capacity, "offered_qps": rate, "n_requests": n_req,
+           "single_tier_unchunked": stats_a,
+           "single_tier_chunked": sweep[DG_CHUNK],
+           "chunk_sweep": {f"chunk={k}": v for k, v in sweep.items()},
+           "two_tier": stats_c, "wire": wire, "launches": counts,
+           "requests": equal[1], "requests_equal_to_sequential": equal[0],
+           "card": card}
+    log(f"  F/disagg: capacity {capacity:.2f} req/s (monolithic, closed "
+        f"loop), {n_req} Poisson arrivals at {rate:.2f} req/s, every 4th "
+        f"prompt {DG_LONG} tokens; decode pass p99 (max) monolithic "
+        f"{stats_a['decode_pass_p99_ms']:.3f} "
+        f"({stats_a['decode_pass_max_ms']:.3f}) ms, chunked "
+        f"{DG_CHUNK} {sweep[DG_CHUNK]['decode_pass_p99_ms']:.3f} "
+        f"({sweep[DG_CHUNK]['decode_pass_max_ms']:.3f}) ms; long-prompt "
+        f"TTFT p99 monolithic {stats_a['ttft_long_p99_ms']:.2f}, chunked "
+        f"{sweep[DG_CHUNK]['ttft_long_p99_ms']:.2f}, two-tier "
+        f"{stats_c['ttft_long_p99_ms']:.2f} ms  [{card}]")
+    for name, v in [("A monolithic", stats_a)] + [
+            (f"B chunk {k}", v) for k, v in sweep.items()] + [
+            ("C two-tier", stats_c)]:
+        log(f"    {name}: {json.dumps(v)}")
+    log(f"    two-tier fleet over the wire: {wire}; "
+        f"{equal[0]}/{equal[1]} requests equal the sequential Generator; "
+        f"launches {counts}")
+    return res, counts
+
+
+def drive_fleet(card, lap=lambda phase: None):
+    """Phase 13: F/fleet/inproc, F/fleet, F/disagg; `lap(phase)` after
+    each.  Returns the results and the launches of the counted legs
+    (F/fleet's run in the replica processes, where this process cannot
+    count them)."""
+    res, counts = phase_fleet_inproc(card)
+    results = [res]
+    torch.cuda.empty_cache()
+    lap("[13] F/fleet/inproc")
+    results.append(phase_fleet(card))
+    torch.cuda.empty_cache()
+    lap("[13] F/fleet")
+    res, more = phase_disagg(card)
+    results.append(res)
+    counts = _add(counts, more)
+    torch.cuda.empty_cache()
+    lap("[13] F/disagg")
     return results, counts
 
 
@@ -5418,8 +6411,17 @@ def main():
                      if p.get("phase") == "S")["decode_step_ms"]
     front_runs, front_launches = drive_front_end(card, s_step_ms, lap)
     phases += front_runs
+
+    log(f"[13] the serving fleet: transformer-base replicas behind a "
+        f"FleetRouter, in process (F/fleet/inproc) and as replica processes "
+        f"(F/fleet: weak scaling, a rolling deploy, kill -9), and the "
+        f"disaggregated prefill/decode A/B with the two-tier fleet "
+        f"(F/disagg) [{card}]")
+    fleet_runs, fleet_launches = drive_fleet(card, lap)
+    phases += fleet_runs
     for more in (counts, train_launches, bert_launches, resnet_launches,
-                 rnn_launches, saved_launches, front_launches):
+                 rnn_launches, saved_launches, front_launches,
+                 fleet_launches):
         for k, n in more.items():
             launches[k] = launches.get(k, 0) + n
     never = [k for k in KERNELS if not launches.get(k)]
@@ -5427,7 +6429,7 @@ def main():
         raise AssertionError(f"kernels {never} never launched on a path")
 
     log(f"  all phases took {laps[-1] - laps[0]:.1f} s wall")
-    log("[13] results")
+    log("[14] results")
     log(json.dumps({"phases": phases}))
     log(json.dumps({"training": training}))
     if DIVERGED:

@@ -8,9 +8,15 @@ Env override: PADDLE_TPU_<NAME-UPPERCASED>, the JAX package's spelling, so
 one environment steers both packages the same way.
 
 Only the flags the port's slices read are defined: the Executor's, the
-attention gate's, the serving Scheduler's and its front end's (telemetry,
-the RPC channel, overload control), each with the JAX package's default (decode.Generator and serving.Scheduler take the jit
-path whatever `executor_mode` says).  The attention-gate
+attention gate's, the serving Scheduler's, its front end's (telemetry,
+the RPC channel, overload control) and the serving fleet's (the router,
+its circuit breakers, the supervisor, the routing table's slot count),
+each with the JAX package's default (decode.Generator and
+serving.Scheduler take the jit path whatever `executor_mode` says), and
+the JAX package's four other trace-affecting flags (`ir_passes`,
+`op_remat`, `spec_draft`, `zero_stage`), which no port code reads yet, so
+that `trace_signature()` and with it `serving.prompt_key` are the JAX
+package's.  The attention-gate
 defaults are the JAX package's (sized for TPU v5e VMEM), kept so that the
 same shapes take the same tier in both packages; an H100-derived gate is
 later work (ROADMAP A5).
@@ -299,3 +305,88 @@ DEFINE_int("brownout_slo_tighten_pct", 50,
            "feasibility estimate in (100 - pct)% of the caller's "
            "deadline — headroom reserved for requests already in "
            "flight.  Scheduling-only policy knob")
+
+# the serving fleet's flags (router, supervisor, the routing table), with
+# the JAX package's defaults and help
+DEFINE_int("sparse_route_slots", 840,
+           "sparse.RoutingTable default hash-slot count.  840 = lcm(1..8) "
+           "makes the canonical N-shard table reproduce the historical "
+           "`id % N` placement bitwise for every N <= 8, so epoch-0 "
+           "tables are drop-in for existing checkpoints and tests")
+DEFINE_int("fleet_ping_interval_ms", 200,
+           "fleet.FleetSupervisor probe period in ms: each cycle PINGs "
+           "every replica on a side connection AND scrapes its queue "
+           "depth (the router's spill signal).  Tighter than the sparse "
+           "tier's default because serving MTTR is user-visible latency")
+DEFINE_int("fleet_spill_queue_depth", 4,
+           "fleet.FleetRouter imbalance threshold: a request spills off "
+           "its prefix-affine replica when that replica's scraped queue "
+           "depth exceeds the least-loaded UP replica's by this many "
+           "requests.  Low enough to dodge a stalled replica fast, high "
+           "enough that normal jitter keeps prefix affinity (and the "
+           "cross-replica prefix hit rate) intact")
+DEFINE_int("breaker_open_after", 3,
+           "fleet.FleetRouter per-replica circuit breaker: consecutive "
+           "relay failures (transport faults or admission rejects) "
+           "before the breaker trips OPEN and the replica stops "
+           "receiving traffic — faster isolation than the supervisor's "
+           "fleet_down_after PING debounce for sick-but-alive replicas. "
+           "Router-side only; nowhere near a traced root")
+DEFINE_int("fleet_prefill_min_tokens", 256,
+           "fleet.FleetRouter two-tier routing threshold: a SUBMIT "
+           "whose widest feed row (max axis-1 of any 2-D int feed) "
+           "reaches this many tokens routes through the prefill tier "
+           "first — a prefill replica runs the prompt to completion "
+           "and hands off the KV block payload; the decode tier "
+           "imports and continues.  Below it (and whenever the "
+           "prefill tier is empty or dead) the request goes straight "
+           "to the prefix-affine decode replica.  Routing-only; "
+           "nowhere near a traced root")
+DEFINE_int("breaker_cooldown_ms", 1000,
+           "Circuit-breaker OPEN dwell in ms: after this long OPEN, one "
+           "probe request flows (HALF_OPEN); success closes the "
+           "breaker, failure re-opens it for another cooldown.  "
+           "Router-side only; nowhere near a traced root")
+
+# the JAX package's other trace-affecting flags, with its defaults and help.
+# No port code reads them yet (the IR pass pipeline is ROADMAP A item 8,
+# rematerialization item 4, ZeRO item 7, the int8 draft tier item 3); they
+# are defined so that the port's plan identity, `trace_signature()`, is the
+# JAX package's, and with it `serving.prompt_key` and the fleet router's
+# affine index: one feed picks the same replica in both packages
+DEFINE_bool("ir_passes", False,
+            "Run framework/ir.py's PassManager pipeline (constant_fold, "
+            "cse, dead_op_elim, memory_reuse) over a clone of the program "
+            "before execution.  Every pass output is re-verified by the "
+            "static gate's verify_program and results are bitwise-equal "
+            "to the unoptimized program; trace-affecting because the "
+            "optimized desc lowers to different XLA segments",
+            trace_affecting=True)
+DEFINE_bool("op_remat", False,
+            "barrier'd grad replays (fused_attention/layer_norm): recompute "
+            "op internals in the backward instead of storing them fwd->bwd. "
+            "~2% step time for much less live memory — enable when the "
+            "model doesn't fit (PERF.md round 3)",
+            trace_affecting=True)
+DEFINE_string("spec_draft", "trunc",
+              "Speculative-decode draft tier: 'trunc' rebuilds the "
+              "target with half the decoder layers against the SAME "
+              "scope (free — shares weights), 'int8' additionally "
+              "freezes the draft programs to quantized_matmul via "
+              "contrib.quantize.freeze_int8 against a cloned scope.  "
+              "Trace-affecting: the tiers trace different draft "
+              "executables (layer count / quantized ops)",
+              trace_affecting=True)
+DEFINE_int("zero_stage", 0,
+           "parallel.apply_zero: ZeRO optimizer-state sharding over the "
+           "dp mesh axis (0 = off, replicated moments).  Stage 1 shards "
+           "every param-shaped optimizer accumulator 1/dp — each "
+           "replica keeps only its moment slice, runs a partitioned "
+           "update, and the updated params are all-gathered inside the "
+           "step computation (XLA overlaps the gather).  Stage 2 "
+           "additionally stamps the @GRAD vars so boundary gradients "
+           "reduce-scatter instead of all-reduce.  Applied by "
+           "ParallelExecutor when BuildStrategy.zero_stage is None.  "
+           "Trace-affecting: moment shardings change every compiled "
+           "optimizer segment",
+           trace_affecting=True)

@@ -10,9 +10,14 @@ A call's signature is each argument's shape and dtype (and strides).
 The first call of a signature runs the ops eagerly, on a side stream as
 torch requires of a warm-up: it builds the kernels (`ops/cuda/_build.py`
 runs nvcc and dlopen, which no capture may contain) and sets up cuBLAS's
-workspaces.  A signature seen once is never captured (a prefill of a new
-length).  The second call captures the graph, then replays it; later
-calls replay.  Each argument of the capture is either
+handle and workspaces.  A signature seen once is never captured (a
+prefill of a new length).  The second call captures the graph, then
+replays it; later calls replay.  cuBLAS keeps a handle a thread, created
+at the thread's first product, and `cublasCreate` fails inside a
+capture: so a capture only follows a warm-up of the same signature in the
+same thread, and a second call from another thread (a Scheduler warmed
+up by its caller, then run by its loop thread) warms up again there.
+Each argument of the capture is either
   - "bound": a tensor on the card that lies where the warm-up found it
     (the scope's parameters, a serving pool's streams, a Generator's
     caches, a Scheduler's slot stacks), read and written where it lies.
@@ -46,7 +51,10 @@ of every kernel launch counter (`launches`, `*_launches` of the modules in
 a replayed call counts what an eager one would.
 
 There is no fallback: a capture that fails raises, naming the op that
-was running, and nothing is retried eagerly.
+was running, and nothing is retried eagerly.  Torch refuses any later
+capture into the graph pool a failed capture recorded into, so that pool
+is retired: the later captures of every segment that shared it go to a
+fresh pool, and the graphs already in it replay as before.
 
 Threads.  Several threads may each drive their own segments (one
 Executor a thread, as `inference.Predictor.clone()` gives them).  Every
@@ -128,6 +136,31 @@ def _add_counters(delta):
             setattr(owner, name, getattr(owner, name) + d)
 
 
+# a graph pool a failed capture recorded into -> the pool that replaces it
+_RETIRED_POOLS = {}
+
+
+def _live_pool(pool):
+    while pool in _RETIRED_POOLS:
+        pool = _RETIRED_POOLS[pool]
+    return pool
+
+
+def _abandon_capture(pool, device, caller):
+    """Undo what a failed capture leaves behind: torch.cuda.graph's exit
+    stops at the failing `capture_end`, before it ends the allocator's
+    recording into the pool and restores the caller's stream; and torch
+    refuses every later capture into that pool ("already recording to
+    mempool_id", even after the recording is ended), so it is retired."""
+    torch.cuda.set_stream(caller)
+    try:
+        torch._C._cuda_endAllocateToPool(
+            torch.cuda._get_device_index(device, optional=True), pool)
+    except RuntimeError:
+        pass   # the capture had ended its recording itself
+    _RETIRED_POOLS[pool] = torch.cuda.graph_pool_handle()
+
+
 def _arg_sig(a):
     if a.device.type == "cuda":
         return ("d", a.data_ptr(), tuple(a.shape), a.stride(), a.dtype)
@@ -186,15 +219,16 @@ class CapturedSegment:
         graph = self._graphs.get(shape_key)
         if graph is not None and graph.matches(sig):
             return self._replay(graph, args)
+        thread = threading.get_ident()
         with _LOCK:
             seen = self._seen.pop(shape_key, None)
-            if seen is None:
-                self._seen[shape_key] = sig
+            if seen is None or seen[1] != thread:
+                self._seen[shape_key] = (sig, thread)
                 return self._warm_up(args, rng)
             # a tensor on the card found where the warm-up found it is
             # bound; one that moved since (a new tensor every call) is
             # copied
-            bound = [i for i, (a, b) in enumerate(zip(sig, seen))
+            bound = [i for i, (a, b) in enumerate(zip(sig, seen[0]))
                      if a[0] == "d" and a[1] == b[1]]
             graph = self._graphs[shape_key] = self._capture(args, bound,
                                                             rng)
@@ -249,11 +283,17 @@ class CapturedSegment:
                 staged[i] = buf
         self._stage(g, args)
         before = _counters()
+        caller = torch.cuda.current_stream(self.device)
+        # a private pool is named here too, so that a failed capture can
+        # release it
+        pool = (_live_pool(self.pool) if self.pool is not None
+                else torch.cuda.graph_pool_handle())
         try:
-            with torch.cuda.graph(g.graph, pool=self.pool,
+            with torch.cuda.graph(g.graph, pool=pool,
                                   capture_error_mode="thread_local"):
                 outs = self._run(staged, rng)
         except Exception as e:
+            _abandon_capture(pool, self.device, caller)
             op = self.where.get("op")
             raise RuntimeError(
                 f"CUDA graph capture of segment {self.label} failed"

@@ -6,9 +6,12 @@ paddle_tpu/resilience).
     RemoteOpError never retries), invalidate-socket-on-timeout so a late
     reply can never desync the stream, and the process-wide RetryBudget.
     serving.ServingClient rides on it.
+  * chaos — ChaosProxy: deterministic TCP fault injection (stalls, drops,
+    resets, blackhole, refuse, and a seeded random schedule) in front of
+    any endpoint; the fleet's failure drills run through it.
 
-The JAX package's `ShardSupervisor` (supervisor.py) and `ChaosProxy`
-(chaos.py) are not ported yet (ROADMAP.md A8).
+The JAX package's `ShardSupervisor` (supervisor.py), which watches the
+sparse shard servers, is not ported yet (ROADMAP.md A item 8).
 """
 
 from .channel import (
@@ -21,8 +24,10 @@ from .channel import (
     reset_retry_budget,
     retry_budget,
 )
+from .chaos import ChaosProxy
 
 __all__ = [
+    "ChaosProxy",
     "RpcPolicy",
     "ResilientChannel",
     "ChannelError",

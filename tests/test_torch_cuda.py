@@ -27,6 +27,8 @@ forward's float32 lse to 1e-4; #8's bfloat16 output to 2e-2 of its
 largest magnitude.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -1333,6 +1335,66 @@ def test_capture_without_a_registered_generator_raises(card):
         seg(None, x)                 # capture
 
 
+def test_a_thread_captures_only_after_its_own_warm_up(card):
+    """cuBLAS creates a thread's handle at its first product, which no
+    capture may contain: a segment warmed up in this thread and called
+    next from a new thread (a Scheduler warmed up by its caller, then run
+    by its loop thread) warms up again there, then captures and replays,
+    each call equal to the eager product."""
+    from paddle_tpu_torch.framework import cuda_graph
+    from paddle_tpu_torch.framework.cuda_graph import CapturedSegment
+
+    x = torch.randn(64, 96, device=card)
+    w = torch.randn(96, 32, device=card)
+    want = torch.relu(x @ w)
+    seg = CapturedSegment(lambda rng, a, b: (torch.relu(a @ b),),
+                          ["x", "w"], ["y"], card, label="product")
+    cuda_graph.reset_stats()
+    got = [seg(None, x, w)[0]]        # warm-up in this thread
+    errors = []
+
+    def loop():
+        try:
+            for _ in range(3):        # warm-up, capture, replay
+                got.append(seg(None, x, w)[0])
+        except Exception as e:  # noqa: BLE001 — asserted below
+            errors.append(e)
+
+    t = threading.Thread(target=loop, name="capturing-thread")
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive() and not errors, errors
+    assert dict(cuda_graph.THREADS) == {
+        ("warmups", threading.current_thread().name): 1,
+        ("warmups", "capturing-thread"): 1,
+        ("captures", "capturing-thread"): 1}
+    assert cuda_graph.STATS["replays"] == 1
+    for y in got:
+        torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5)
+
+
+def test_a_failed_capture_leaves_its_pool_usable(card):
+    """A capture that fails (a host read inside it) raises naming its
+    segment; the graph pool it recorded into and the caller's stream are
+    released, so the next segment captures into the same pool."""
+    from paddle_tpu_torch.framework.cuda_graph import CapturedSegment
+
+    pool = torch.cuda.graph_pool_handle()
+    x = torch.ones(64, device=card)
+    stream = torch.cuda.current_stream(card)
+    bad = CapturedSegment(lambda rng, a: (a * float(a.sum().item()),),
+                          ["x"], ["y"], card, pool=pool, label="host_read")
+    bad(None, x)                      # warm-up, eager
+    with pytest.raises(RuntimeError, match="segment host_read"):
+        bad(None, x)                  # capture
+    assert torch.cuda.current_stream(card) == stream
+    good = CapturedSegment(lambda rng, a: (a * 3.0,), ["x"], ["y"], card,
+                           pool=pool, label="good")
+    outs = [good(None, x)[0] for _ in range(3)]
+    for y in outs:
+        assert torch.equal(y, torch.full_like(x, 3.0))
+
+
 @pytest.mark.parametrize("batch", [8, 32], ids=["b8", "beam4x8"])
 @pytest.mark.parametrize("kv", [None, "short"], ids=["all_live", "short"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -1773,3 +1835,34 @@ def test_depthwise_layer_and_default_sequence_pool_run_on_the_card(card):
         np.testing.assert_allclose(got, want, rtol=1e-5,
                                    atol=1e-5 * np.abs(want).max())
         assert not got[1].any()
+
+
+def test_base_replica_process_serves_the_parents_generator_tokens(card):
+    """One `{"model": "base"}` replica subprocess on the card: its tokens
+    for 2 feeds equal this process's sequential Generator's over the spec
+    `build_spec_scope` makes, its startup also drawn on the card (the
+    weights agree across processes within one device type)."""
+    from paddle_tpu_torch import CUDAPlace, decode, fleet, serving
+    from paddle_tpu_torch.fleet import replica
+
+    cfg = {"model": "base", "max_batch": 2}
+    proc, ep = replica.spawn_replica(cfg, timeout_s=300)
+    cli = serving.ServingClient(ep)
+    try:
+        assert fleet.probe(ep)["pid"] == proc.pid
+        spec, scope = replica.build_spec_scope(
+            dict(replica.DEFAULT_CONFIG, **cfg))
+        gen = decode.Generator(spec, scope=scope, place=CUDAPlace(0))
+        rng = np.random.RandomState(5)
+        for _ in range(2):
+            feed = {"src_ids": rng.randint(2, 32000, (1, 8)).astype(np.int64),
+                    "src_lens": np.full(1, 8, np.int64),
+                    "trg_ids": rng.randint(2, 32000, (1, 3)).astype(np.int64),
+                    "prefix_lens": np.full(1, 3, np.int64)}
+            want = gen.generate(feed, 10, eos_id=-1)[0].tolist()
+            toks, status = cli.generate(feed, 10, eos_id=-1)
+            assert status == "done" and toks.tolist() == want
+    finally:
+        cli.close()
+        proc.kill()
+        proc.wait(timeout=30)
