@@ -322,7 +322,44 @@ catches its own failure:
      killed halfway raises prefill_fallbacks.  #6 and #7 counted from the
      schedulers' decode steps.  Every token of every leg equals the
      sequential Generator's;
- 14. one {"kernels": [...]} line, the card's name and power limit, and
+ 14. the int8 tier and the optimizer tail.  Q/ops: quantized_matmul at
+     transformer-base's decode shapes (8 rows x 512->512, ->2048,
+     2048->512, 512->32000) and a 2048-row prefill, quantized_conv2d at
+     batch 16 on ResNet-50's conv1, a 3x3 64->64 at 56, a 1x1 1024->256 at
+     14 and VGG-19's 3x3 64->64 at 224, each op on the card (its int8
+     product through torch._int_mm, cuBLASLt's int8 tensor-core path)
+     against the same op with the product in float64: the int32
+     accumulators equal and the outputs bitwise; timed with CUDA events,
+     L2 flushed, beside the plain version, the float32 library call on
+     the dequantized values and the bound (2MNK over 1979 TOP/s, or the
+     bytes over 3.35 TB/s).  I/int8: bench.py's int8 infer rows
+     (bench.py:608-667) for ResNet-50 and VGG-19 at [11]'s batch and 20
+     batches: the float predictions first, then QuantizeTranspiler ->
+     freeze_int8(as_int8=True) -> convert_to_int8, img/s, the speedup,
+     top-1 agreement, card ms, persistable bytes, the _int_mm calls
+     counted against the program's; the int8 model saved and served by a
+     Predictor on the card (bitwise the in-process program) and on the
+     CPU at batch 2 (the same top-1, logits within 1e-2 of the largest).
+     S/int8: bench.py's serving_int8 leg (bench.py:1611-1725) at
+     transformer-base width and its traffic (8 streams, 32-token sources,
+     8-token prompts, 24 new tokens, a 96-slot cache, the host pool):
+     float and int8 tokens/s, agreement with the float tier,
+     self-agreement with a sequential int8 Generator (at least 0.5), card
+     ms a decode step of each, #6 and the _int_mm calls counted against
+     the prediction.  V/int8: phase V with build_draft(tier="int8") as
+     the draft on a freshly seeded scope: every token the sequential
+     float Generator's, #1, #3 and #7 as the gate predicts, acceptance and
+     the draft's card ms beside V/trunc's.  Q/qat: MNIST's conv net
+     through training_transpile(range_abs_max), 3 captured steps on the
+     card against the port's CPU path (rtol 1e-3; the range state's Iter
+     3 and scale moved on both), jit = interpret, then freeze_int8 +
+     convert_to_int8, saved and served by a Predictor on the card: top-1
+     agreement with the float test program.  O/tail: each optimizer of
+     the tail (LarsMomentum, Adagrad, Adamax, DecayedAdagrad, Adadelta,
+     RMSProp, Ftrl, ProximalGD, ProximalAdagrad, ModelAverage) on that
+     net, card vs CPU and jit vs interpret; ModelAverage's apply and
+     restore give the live parameters back bitwise;
+ 15. one {"kernels": [...]} line, the card's name and power limit, and
      last the {"ok": true, "device": ...} line.
 
 Exits non-zero, printing no result, when there is no CUDA device or when
@@ -338,6 +375,7 @@ import collections
 import functools
 import gc
 import json
+import math
 import os
 import shutil
 import socket
@@ -2082,22 +2120,25 @@ def phase_v(card, scope, leg):
     4), spec_k 4, 8 requests of 32 tokens with prompts of 1024-2048.
     leg "trunc": build_draft(tier="trunc"), 3 decoder layers on the
     target's scope; leg "self": the draft is a second build_decode of the
-    target's configuration, so every proposal is accepted.
+    target's configuration, so every proposal is accepted; leg "int8"
+    ([14]): build_draft(tier="int8"), the full-depth target frozen to
+    quantized_matmul on a clone of the scope (the target stays float).
 
     Traffic: prompts 0-6; prompt 0 again after the 1st round (a prefix
     hit); after the 2nd round request 3 is evicted and replays (target and
     draft teacher-forced in lockstep)."""
     from paddle_tpu_torch import CUDAPlace, decode, serving
     from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import int8_ops
 
     name = f"V/{leg}"
     cfg = transformer.base()
     spec = decode_spec(cfg, S_WINDOW, S_MAX_LEN, verify_len=SPEC_K)
-    if leg == "trunc":
-        draft, _ = transformer.build_draft(cfg, src_len=SRC_LEN,
-                                           prefix_len=S_WINDOW,
-                                           max_len=S_MAX_LEN, tier="trunc",
-                                           scope=scope)
+    draft_scope = None
+    if leg in ("trunc", "int8"):
+        draft, draft_scope = transformer.build_draft(
+            cfg, src_len=SRC_LEN, prefix_len=S_WINDOW, max_len=S_MAX_LEN,
+            tier=leg, scope=scope)
     else:
         draft = decode_spec(cfg, S_WINDOW, S_MAX_LEN)
     n_layer = sum(1 for s in spec.states if s.feed.startswith("cache_k_"))
@@ -2109,7 +2150,7 @@ def phase_v(card, scope, leg):
     sched = serving.Scheduler(spec, scope=scope, place=place,
                               max_batch=S_SLOTS, block_size=S_BLOCK,
                               paged_kv=True, spec_decode=True, spec_k=SPEC_K,
-                              draft_spec=draft)
+                              draft_spec=draft, draft_scope=draft_scope)
     reqs, order = [], []
     tick = Recorder(sched, reqs)
 
@@ -2121,6 +2162,7 @@ def phase_v(card, scope, leg):
     torch.cuda.synchronize()
     reset_peak_memory()
     _zero_counts()
+    int8_ops.launches = 0
     g0 = graph_stats()
     t0 = time.perf_counter()
     for i in range(7):
@@ -2136,10 +2178,13 @@ def phase_v(card, scope, leg):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
+    int_mm = int8_ops.launches
     graphs = graph_stats(g0)
     peak = torch.cuda.max_memory_allocated()
     st = sched.stats()
     expect = _v_expect(st, n_layer, d_layer)
+    if (int_mm > 0) != (leg == "int8"):
+        raise AssertionError(f"phase {name}: {int_mm} int8 products")
     if counts != expect:
         raise AssertionError(f"phase {name}: launches {counts}, the gate "
                              f"predicts {expect} for {st['steps']} steps, "
@@ -2184,6 +2229,7 @@ def phase_v(card, scope, leg):
            "new_tokens": NEW_TOKENS, "window": S_WINDOW,
            "prompt_lens": list(S_PROMPTS), "max_len": S_MAX_LEN,
            "block_size": S_BLOCK, "max_batch": S_SLOTS, "launches": counts,
+           "int8_products": int_mm,
            "steps": st["steps"], "spec_rounds": st["spec_rounds"],
            "draft_steps": st["draft_steps"],
            "prefill_batches": st["prefill_batches"],
@@ -2214,7 +2260,7 @@ def phase_v(card, scope, leg):
     log(f"    {st['steps']} target launches, {st['draft_steps']} draft steps, "
         f"{st['prefill_batches']} prefill batches, prefix hits "
         f"{st['pool']['prefix_hits']}, replays {st['replays']}; launches "
-        f"{counts}; CUDA graphs {graphs}; {equal}/{len(reqs)} requests "
+        f"{counts}, int8 products {int_mm}; CUDA graphs {graphs}; {equal}/{len(reqs)} requests "
         f"equal the sequential Generator")
     log_profile(plain)
     if prof is not None:
@@ -6311,6 +6357,676 @@ def drive_fleet(card, lap=lambda phase: None):
     return results, counts
 
 
+# ---------------------------- [14] the int8 tier and the optimizer tail
+
+# Q/ops: quantized_matmul at transformer-base's decode shapes (8 rows) and a
+# 2048-row prefill window; quantized_conv2d at batch 16 on ResNet-50's conv1,
+# a 3x3 64->64 at 56, a 1x1 1024->256 at 14 and VGG-19's 3x3 64->64 at 224
+Q_MATMULS = (("decode 8x512->512", 8, 512, 512),
+             ("decode 8x512->2048", 8, 512, 2048),
+             ("decode 8x2048->512", 8, 2048, 512),
+             ("decode 8x512->32000", 8, 512, 32000),
+             ("prefill 2048x512->512", 2048, 512, 512))
+Q_CONVS = (  # (name, input, filter, stride, padding)
+    ("ResNet-50 conv1 7x7/2 3->64 at 224", (16, 3, 224, 224), (64, 3, 7, 7),
+     2, 3),
+    ("3x3 64->64 at 56", (16, 64, 56, 56), (64, 64, 3, 3), 1, 1),
+    ("1x1 1024->256 at 14", (16, 1024, 14, 14), (256, 1024, 1, 1), 1, 0),
+    ("VGG-19 3x3 64->64 at 224", (16, 64, 224, 224), (64, 64, 3, 3), 1, 1))
+PEAK_INT8_OPS = 1979e12       # H100 SXM int8 tensor cores, dense
+Q_REPS = 10                   # timed calls a Q/ops case
+# I/int8: bench.py's _bench_infer_int8 (bench.py:608-667) at [11]'s batch
+# and window; the saved int8 model on the CPU at I_CPU_BATCH: the same
+# top-1, logits within Q_CPU_TOL of their largest (a grid value rounds the
+# other way where the float path before it differs by an ulp)
+INT8_INFER = ("resnet50", "vgg19")
+Q_CPU_TOL = 1e-2
+# S/int8: bench.py's bench_serving_int8 (bench.py:1611-1725) at
+# transformer-base width (bench.py: 128 wide, 2 layers, vocab 4000) and
+# bench.py's traffic, TAX_* above; self-agreement floor bench.py's 0.5
+S_INT8_SELF_FLOOR = 0.5
+S_INT8_PROFILED = 8           # decode steps profiled a tier
+# Q/qat and O/tail: MNIST's conv net (models/mnist.py), float32, batch 64
+QAT_BATCH, QAT_STEPS, QAT_EVAL = 64, 3, 256
+QAT_LR = 1e-3                 # MN at 0.01 diverges on random images
+QAT_RTOL = 1e-3               # card vs the port's CPU path
+# O/tail's rates: decayed_adagrad, rmsprop and adadelta normalise their
+# first step to ~sqrt(1 / (1 - decay)) x lr a weight (adadelta: its
+# epsilon sets the step), which at QAT_LR doubles the loss within 2 steps
+# on random images; their rates (adadelta's epsilon) go down 10x (100x)
+OPT_TAIL = (  # (class, kwargs): the ten update op types of the tail
+    ("LarsMomentum", {"learning_rate": QAT_LR, "momentum": 0.9}),
+    ("Adagrad", {"learning_rate": QAT_LR}),
+    ("Adamax", {"learning_rate": QAT_LR}),
+    ("DecayedAdagrad", {"learning_rate": QAT_LR / 10}),
+    ("Adadelta", {"learning_rate": QAT_LR, "epsilon": 1e-8}),
+    ("RMSProp", {"learning_rate": QAT_LR / 10}),
+    ("Ftrl", {"learning_rate": QAT_LR}),
+    ("ProximalGD", {"learning_rate": QAT_LR, "l2": 0.01}),
+    ("ProximalAdagrad", {"learning_rate": QAT_LR, "l1": 1e-4}),
+    ("ModelAverage", {"learning_rate": QAT_LR, "momentum": 0.9}))
+
+
+def _int8_counts(program):
+    """_int_mm calls one run of `program` makes: one a quantized_matmul
+    over a 2-D Y, one a group of a quantized_conv2d."""
+    n = 0
+    for op in program.global_block().ops:
+        if op.type == "quantized_matmul":
+            n += 1
+        elif op.type == "quantized_conv2d":
+            n += op.attr("groups", 1) or 1
+    return n
+
+
+def _busy_ms(fn, tries=3):
+    """The card's busy ms a call of fn over Q_REPS profiled calls; a trace
+    that holds no operation of the card (the profiler sees nothing now and
+    then, as device_ops_of_one_call notes) is taken again, up to `tries`
+    times."""
+    for _ in range(tries):
+        prof = profile_calls(fn, Q_REPS)
+        if prof is not None:
+            return prof["busy_ms_per_step"]
+    return None
+
+
+def _q_case(timer, name, op_type, inputs, attrs, operands, flop, nbytes,
+            library, card):
+    """One Q/ops case: the op on the card (its int8 product through
+    `_int_mm`) against the same op with the product swapped for its plain
+    version (float64, rounded to int32): the int32 accumulators of
+    `operands` equal and the outputs bitwise; then the CUDA-event times of
+    the op, its plain version and the float32 library call on the
+    dequantized values."""
+    from paddle_tpu_torch.ops import int8_ops, registry
+
+    info = registry.get_op_info(op_type)
+    hook = "int8_matmul" if op_type == "quantized_matmul" else "int8_conv2d"
+    real = getattr(int8_ops, hook)
+    reference = getattr(int8_ops, hook + "_reference")
+
+    def op():
+        return registry.run_forward(info, inputs, attrs,
+                                    device=torch.device("cuda", 0))
+
+    def plain():
+        setattr(int8_ops, hook, reference)
+        try:
+            return op()
+        finally:
+            setattr(int8_ops, hook, real)
+
+    int8_ops.launches = 0
+    out = next(iter(op().values()))[0]
+    launches = int8_ops.launches
+    ref_out = next(iter(plain().values()))[0]
+    acc, acc_ref = real(*operands), reference(*operands)
+    if not torch.equal(acc, acc_ref) or launches < 1:
+        raise AssertionError(f"Q/ops {name}: the int32 accumulators differ "
+                             f"(max {(acc - acc_ref).abs().max().item()}), "
+                             f"{launches} _int_mm calls")
+    err = (out - ref_out).abs().max().item()
+    if err != 0.0:
+        raise AssertionError(f"Q/ops {name}: output {err} off its plain "
+                             "version")
+    del acc, acc_ref, out, ref_out
+    ms, plain_ms = timer.ms(op), timer.ms(plain)
+    library_ms = timer.ms(library)
+    # the card's busy time a call, every kernel of it, L2 warm (what a
+    # replayed graph pays; the events above also hold the host's eager
+    # launches)
+    device_ms, library_device_ms = _busy_ms(op), _busy_ms(library)
+    bound_ms = max(flop / PEAK_INT8_OPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+    row = {"case": name, "op": op_type, "launches": launches,
+           "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_device_ms": library_device_ms, "bound_ms": bound_ms,
+           "bound_by": ("operations" if flop / PEAK_INT8_OPS
+                        > nbytes / PEAK_BYTES_PER_S else "bytes"),
+           "tops": flop / (ms * 1e-3) / 1e12, "flop": flop, "bytes": nbytes,
+           "card": card}
+    log(f"  Q/ops {name}: int32 equal, max abs err {err}; {ms * 1e3:.1f} us "
+        f"by events, card {_us(device_ms)} L2 warm ({row['tops']:.1f} "
+        f"TOP/s, "
+        f"{launches} _int_mm), plain {plain_ms * 1e3:.1f} us, float32 "
+        f"library {library_ms * 1e3:.1f} us (card "
+        f"{_us(library_device_ms)}), bound {bound_ms * 1e3:.1f} us "
+        f"({row['bound_by']})  [{card}]")
+    return row
+
+
+def phase_q_ops(card, device):
+    """Q/ops: each int8 op at its main paths' shapes against its plain
+    version on the card, timed with CUDA events, L2 flushed."""
+    from paddle_tpu_torch.ops.nn_ops import cudnn_fp32_exact
+
+    timer = Timer(device, reps=Q_REPS)
+    rng = np.random.RandomState(SEED + 14)
+
+    def grid(shape, dtype=torch.int8):
+        return torch.as_tensor(rng.randint(-127, 128, size=shape),
+                               device=device).to(dtype)
+
+    scales = {"Scale": [torch.tensor([0.83], device=device)],
+              "WScale": [torch.tensor([0.041], device=device)]}
+    q = {"wq_range": 127.0, "aq_range": 127.0}
+    rows = []
+    for name, m, k, n in Q_MATMULS:
+        # X as the program hands it over (float storage of the grid from
+        # fake_quantize_abs_max), Y int8 (convert_to_int8's storage)
+        x, w = grid((m, k), torch.float32), grid((k, n))
+        xi = x.to(torch.int8)
+        xf, wf = x * 0.0065, w.float() * 0.0003
+        rows.append(_q_case(
+            timer, name, "quantized_matmul",
+            dict({"X": [x], "Y": [w]}, **scales), dict(q, orig_type="mul"),
+            (xi, w), 2 * m * k * n, 4 * m * k + k * n + 4 * m * n,
+            lambda xf=xf, wf=wf: torch.matmul(xf, wf), card))
+    for name, xs, ws, stride, pad in Q_CONVS:
+        x, w = grid(xs, torch.float32), grid(ws)
+        xi = x.to(torch.int8)
+        geo = ([stride, stride], [pad, pad], [1, 1], 1)
+        out_hw = (xs[2] + 2 * pad - ws[2]) // stride + 1
+        flop = 2 * xs[0] * ws[0] * out_hw * out_hw * ws[1] * ws[2] * ws[3]
+        nbytes = 4 * math.prod(xs) + math.prod(ws) + 4 * xs[0] * ws[0] \
+            * out_hw * out_hw
+        xf, wf = x * 0.0065, w.float() * 0.0003
+
+        def library(xf=xf, wf=wf, stride=stride, pad=pad):
+            with cudnn_fp32_exact():
+                return torch.nn.functional.conv2d(xf, wf, None, stride, pad)
+
+        rows.append(_q_case(
+            timer, name, "quantized_conv2d",
+            dict({"Input": [x], "Filter": [w]}, **scales),
+            dict(q, orig_type="conv2d", strides=geo[0], paddings=geo[1]),
+            (xi, w) + geo, flop, nbytes, library, card))
+        del x, w, xi, xf, wf
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_infer_int8(name, card):
+    """I/int8: bench.py's _bench_infer_int8 on the card.  The model of
+    [11] (the same seeded startup, the InferenceTranspiler, _prune), its
+    float predictions over I_STEPS batches of I_BATCH taken first (freezing
+    bakes the scope), then QuantizeTranspiler -> freeze_int8(as_int8=True)
+    -> convert_to_int8 on a clone, timed over the same window on the
+    captured jit path; then the int8 program saved and served by a
+    Predictor on the card (bitwise the in-process program) and on the CPU
+    at I_CPU_BATCH (the same top-1, logits within Q_CPU_TOL)."""
+    from paddle_tpu_torch import (CPUPlace, CUDAPlace, Executor, Program,
+                                  Scope, io, scope_guard)
+    from paddle_tpu_torch.contrib import QuantizeTranspiler, memory_usage
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.ops import int8_ops
+    from paddle_tpu_torch.transpiler import InferenceTranspiler
+
+    place = CUDAPlace(0)
+    main, startup, prediction = build_infer_model(name)
+    infer = main.clone(for_test=True)
+    scope = Scope()
+    Executor(place).run(startup, scope=scope)
+    InferenceTranspiler().transpile(infer, scope=scope)
+    infer = infer._prune([prediction])
+    logits = _softmax_input(infer, prediction)
+    rng = np.random.RandomState(0)
+    images = torch.as_tensor(rng.randn(I_STEPS, I_BATCH, 3, R_HW, R_HW)
+                             .astype(np.float32), device=place.device)
+
+    def runner(program):
+        exe = Executor(place)
+
+        def fwd(x=images[0]):
+            return exe.run(program, feed={"img": x},
+                           fetch_list=[logits, prediction.name], scope=scope,
+                           return_numpy=False)
+        return fwd
+
+    def window(fwd):
+        """Warm-up (eager, capture), then the timed window: (ms a batch,
+        top-1 of every image, card profile of one forward)."""
+        for _ in range(I_WARMUP):
+            fwd()
+        torch.cuda.synchronize()
+        top1 = []
+        t0 = time.perf_counter()
+        for x in images:
+            top1.append(fwd(x)[1].argmax(-1))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / I_STEPS * 1e3
+        return ms, torch.cat(top1).cpu().numpy(), profile_calls(fwd, 1)
+
+    f_ms, f_top1, f_prof = window(runner(infer))
+    f_bytes = memory_usage(infer, I_BATCH)[1]["persistable_bytes"]
+
+    qt = QuantizeTranspiler()
+    prog8 = infer.clone(for_test=True)
+    qt.training_transpile(prog8, startup_program=Program())
+    qt.freeze_int8(prog8, scope, as_int8=True)
+    converted = qt.convert_to_int8(prog8, scope)
+    per_fwd = _int8_counts(prog8)
+    q_bytes = memory_usage(prog8, I_BATCH)[1]["persistable_bytes"]
+    fwd8 = runner(prog8)
+    int8_ops.launches = 0
+    q_ms, q_top1, q_prof = window(fwd8)
+    launches = int8_ops.launches
+    # the warm-up calls, the window and the profiled call
+    if launches != per_fwd * (I_WARMUP + I_STEPS + 1) or not per_fwd:
+        raise AssertionError(f"I/int8 {name}: {launches} _int_mm calls, "
+                             f"{per_fwd} a forward predicted")
+    agree = float(np.mean(q_top1 == f_top1))
+
+    saved = _saved_dir(f"{name}_int8")
+    with scope_guard(scope):
+        io.save_inference_model(
+            saved, ["img"], [prog8.global_block().var(logits),
+                             prog8.global_block().var(prediction.name)],
+            Executor(place), main_program=prog8)
+    pred = create_predictor(Config(saved, place=place))
+    in_process = [t.cpu().numpy() for t in fwd8()]
+    got = pred.run({"img": images[0]})
+    if not pred.quantized or not all(np.array_equal(a, b) for a, b in
+                                     zip(got, in_process)):
+        raise AssertionError(f"I/int8 {name}: the saved model's Predictor "
+                             f"(quantized {pred.quantized}) differs from the "
+                             "in-process int8 program")
+    small = {"img": images[0][:I_CPU_BATCH].cpu().numpy()}
+    on_cpu = create_predictor(Config(saved, place=CPUPlace())).run(small)
+    on_card = pred.run(small)
+    cpu_err = _rel_err(on_card[0], on_cpu[0])
+    same_top1 = bool(np.array_equal(on_card[1].argmax(-1),
+                                    on_cpu[1].argmax(-1)))
+    if not (same_top1 and cpu_err <= Q_CPU_TOL):
+        raise AssertionError(f"I/int8 {name}: card vs CPU Predictor: top-1 "
+                             f"equal {same_top1}, logits {cpu_err:.2e} of "
+                             "the largest")
+    res = {"phase": "I/int8", "model": name, "batch": I_BATCH,
+           "images": I_STEPS * I_BATCH, "float_ms_per_batch": f_ms,
+           "int8_ms_per_batch": q_ms, "img_per_s": I_BATCH / q_ms * 1e3,
+           "float_img_per_s": I_BATCH / f_ms * 1e3,
+           "speedup_vs_float": f_ms / q_ms,
+           "top1_agreement_vs_float": agree,
+           "float_card_ms": f_prof["busy_ms_per_step"] if f_prof else None,
+           "int8_card_ms": q_prof["busy_ms_per_step"] if q_prof else None,
+           "int8_top_kernels_ms": (q_prof["top_kernels_ms_per_step"]
+                                   if q_prof else None),
+           "persistable_bytes_float": f_bytes,
+           "persistable_bytes_int8": q_bytes, "weights_int8": len(converted),
+           "int_mm_per_forward": per_fwd, "int_mm_launches": launches,
+           "cpu_max_rel_err": cpu_err, "card": card}
+    log(f"  I/int8 {name} batch {I_BATCH}: {res['img_per_s']:.1f} img/s "
+        f"({q_ms:.3f} ms/batch, card {res['int8_card_ms']} ms) vs float "
+        f"{res['float_img_per_s']:.1f} ({f_ms:.3f} ms/batch, card "
+        f"{res['float_card_ms']} ms): x{res['speedup_vs_float']:.3f}; top-1 "
+        f"agreement {agree:.4f} over {res['images']} images; persistables "
+        f"{f_bytes} -> {q_bytes} bytes ({len(converted)} int8 weights); "
+        f"{per_fwd} _int_mm a forward ({launches} counted); saved Predictor "
+        f"= in-process bitwise, CPU at batch {I_CPU_BATCH}: same top-1, "
+        f"logits {cpu_err:.2e} of the largest  [{card}]")
+    log(f"    int8 top kernels (ms): {res['int8_top_kernels_ms']}")
+    del pred, scope
+    shutil.rmtree(saved, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def _rate(got, ref):
+    n = min(len(got), len(ref))
+    return float(np.mean(np.asarray(got[:n]) == np.asarray(ref[:n])))
+
+
+def phase_serving_int8(card):
+    """S/int8: bench.py's bench_serving_int8 at transformer-base width.
+    The float tier (a Scheduler on the seeded weights) and the int8 tier
+    (build_draft(tier="int8") as the Scheduler's target), each warmed,
+    then one timed continuous round of TAX_STREAMS requests; agreement
+    with the float sequential Generator, self-agreement with an int8 one;
+    #6 and the int8 products counted from the schedulers' steps; card ms a
+    decode step of each tier from a profiled window."""
+    from paddle_tpu_torch import CUDAPlace, Scope, decode, serving
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import int8_ops
+
+    place = CUDAPlace(0)
+    cfg = transformer.base()
+    spec = decode_spec(cfg, TAX_PREFIX, TAX_MAX_LEN, src_len=TAX_SRC)
+    n_layer = sum(1 for s in spec.states if s.feed.startswith("cache_k_"))
+    vocab = spec.prefill_program.global_block().var("src_word_emb").shape[0]
+    scope = Scope()
+    gen = decode.Generator(spec, scope=scope, place=place)
+
+    def feed(seed):
+        return _bench_feed(vocab, TAX_SRC, TAX_PREFIX, seed)
+
+    feeds = [feed(100 + i) for i in range(TAX_STREAMS)]
+    refs = [gen.generate(f, TAX_TOKENS, eos_id=-1)[0].tolist()
+            for f in feeds]
+    spec8, scope8 = transformer.build_draft(
+        cfg, src_len=TAX_SRC, prefix_len=TAX_PREFIX, max_len=TAX_MAX_LEN,
+        tier="int8", scope=scope)
+    n_q = {k: _int8_counts(getattr(spec8, k + "_program"))
+           for k in ("prefill", "step")}
+
+    def tier(label, sp, sc):
+        sched = serving.Scheduler(sp, sc, place=place, max_batch=TAX_STREAMS)
+        _warm_buckets(sched, feed, buckets=[TAX_STREAMS])
+        int8_ops.launches = 0
+        c0 = dict(sched.counters)
+        with _Counted(label, [sched], n_layer) as counted:
+            t0 = time.perf_counter()
+            rs = [sched.submit(f, TAX_TOKENS, eos_id=-1) for f in feeds]
+            sched.run_until_idle(max_steps=100000)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        int_mm = int8_ops.launches
+        steps = sched.counters["steps"] - c0["steps"]
+        batches = sched.counters["prefill_batches"] - c0["prefill_batches"]
+        if not all(r.status == "done" and len(r.tokens) == TAX_TOKENS
+                   for r in rs):
+            raise AssertionError(f"{label}: a request not done")
+        want = (n_q["step"] * steps + n_q["prefill"] * batches
+                if sp is spec8 else 0)
+        if int_mm != want:
+            raise AssertionError(f"{label}: {int_mm} _int_mm calls, "
+                                 f"{want} predicted")
+        for f in feeds:   # a profiled window of decode steps
+            sched.submit(f, S_INT8_PROFILED + 2, eos_id=-1)
+        sched.step()
+        prof = profile_calls(sched.step, S_INT8_PROFILED)
+        sched.run_until_idle(max_steps=100000)
+        sched.pool.assert_quiesced()
+        sched.close()
+        return {"s": dt, "tokens": [list(r.tokens) for r in rs],
+                "launches": counted.counts, "steps": counted.steps,
+                "int_mm": int_mm, "prof": prof}
+
+    fl = tier("S/int8 float", spec, scope)
+    equal_float = _check_prefixes("S/int8 float", [
+        (types.SimpleNamespace(tokens=t), r)
+        for t, r in zip(fl["tokens"], refs)])
+    q8 = tier("S/int8", spec8, scope8)
+    gen8 = decode.Generator(spec8, scope=scope8, place=place)
+    refs8 = [gen8.generate(f, TAX_TOKENS, eos_id=-1)[0].tolist()
+             for f in feeds]
+    agree = float(np.mean([_rate(t, r) for t, r in zip(q8["tokens"], refs)]))
+    self_agree = [_rate(t, r) for t, r in zip(q8["tokens"], refs8)]
+    if self_agree[0] < S_INT8_SELF_FLOOR:
+        raise AssertionError(f"S/int8: the int8 Scheduler diverged from the "
+                             f"int8 sequential Generator {self_agree}")
+    n_tok = TAX_STREAMS * TAX_TOKENS
+    busy = {k: (v["prof"]["busy_ms_per_step"] if v["prof"] else None)
+            for k, v in (("float", fl), ("int8", q8))}
+    res = {"phase": "S/int8", "d_model": cfg.d_model, "n_layer": n_layer,
+           "vocab": vocab, "src_len": TAX_SRC, "prefix": TAX_PREFIX,
+           "max_len": TAX_MAX_LEN, "new_tokens": TAX_TOKENS,
+           "streams": TAX_STREAMS, "paged_kv": False,
+           "float_tokens_per_s": n_tok / fl["s"],
+           "int8_tokens_per_s": n_tok / q8["s"],
+           "speedup_vs_float": fl["s"] / q8["s"],
+           "agreement_vs_float": agree,
+           "self_agreement_vs_sequential": self_agree[0],
+           "self_agreement_all": float(np.mean(self_agree)),
+           "float_equal_to_sequential": equal_float,
+           "card_ms_per_decode_step": busy,
+           "int8_top_kernels_ms": (q8["prof"]["top_kernels_ms_per_step"]
+                                   if q8["prof"] else None),
+           "launches_float": fl["launches"], "launches_int8": q8["launches"],
+           "steps_float": fl["steps"], "steps_int8": q8["steps"],
+           "int_mm": q8["int_mm"], "int_mm_per_step": n_q["step"],
+           "card": card}
+    log(f"  S/int8 at d_model {cfg.d_model}, {n_layer}+{n_layer} layers, "
+        f"vocab {vocab}, {TAX_STREAMS}x{TAX_TOKENS} tokens: int8 "
+        f"{res['int8_tokens_per_s']:.1f} tokens/s vs float "
+        f"{res['float_tokens_per_s']:.1f} (x{res['speedup_vs_float']:.3f});"
+        f" agreement with float {agree:.4f}, self-agreement with a "
+        f"sequential int8 Generator {self_agree[0]:.4f} (all "
+        f"{res['self_agreement_all']:.4f}); float tier {equal_float}/"
+        f"{TAX_STREAMS} equal the sequential Generator; card ms a decode "
+        f"step {busy}  [{card}]")
+    log(f"    launches float {fl['launches']} ({fl['steps']} steps), int8 "
+        f"{q8['launches']} ({q8['steps']} steps), {q8['int_mm']} _int_mm "
+        f"({n_q['step']} a step); int8 top kernels "
+        f"{res['int8_top_kernels_ms']}")
+    counts = _add(fl["launches"], q8["launches"])
+    del gen, gen8, scope, scope8
+    torch.cuda.empty_cache()
+    return res, counts
+
+
+def phase_v_int8(card, v_trunc):
+    """V/int8: phase V with build_draft(tier="int8") as the draft, on a
+    freshly seeded transformer-base scope ([5]'s weights); the draft's
+    card ms a round beside V/trunc's from [5]."""
+    from paddle_tpu_torch import CUDAPlace, Scope, decode
+    from paddle_tpu_torch.models import transformer
+
+    scope = Scope()
+    decode.Generator(decode_spec(transformer.base(), S_WINDOW, S_MAX_LEN),
+                     scope=scope, place=CUDAPlace(0))
+    res, counts = phase_v(card, scope, "int8")
+    mine = ((res["round_profile"] or {}).get("labels") or {}).get("draft")
+    theirs = (((v_trunc or {}).get("round_profile") or {}).get("labels")
+              or {}).get("draft")
+    res["draft_card_ms_per_round"] = mine and mine["busy_ms_per_call"]
+    res["trunc_draft_card_ms_per_round"] = (theirs
+                                            and theirs["busy_ms_per_call"])
+    log(f"    V/int8 draft card ms a round {res['draft_card_ms_per_round']} "
+        f"(6 int8 layers) vs V/trunc's {res['trunc_draft_card_ms_per_round']}"
+        f" (3 float layers); acceptance {res['acceptance']:.3f} vs V/trunc's "
+        f"{(v_trunc or {}).get('acceptance')}  [{card}]")
+    del scope
+    torch.cuda.empty_cache()
+    return res, counts
+
+
+def _mnist(opt=None, qat=False):
+    """MNIST's conv net (mnist.build_conv), random_seed 1: (main, startup,
+    loss, prediction, float test clone, QAT test clone or None, the
+    optimizer or ModelAverage)."""
+    from paddle_tpu_torch import (Program, optimizer, program_guard,
+                                  unique_name)
+    from paddle_tpu_torch.contrib import QuantizeTranspiler
+    from paddle_tpu_torch.models import mnist
+
+    main, startup = Program(), Program()
+    main.random_seed = startup.random_seed = 1
+    cls, kw = opt or ("Momentum", {"learning_rate": QAT_LR,
+                                   "momentum": 0.9})
+    with program_guard(main, startup), unique_name.guard():
+        loss, prediction, _ = mnist.build_conv()
+        float_test = main.clone(for_test=True)
+        qat_test = None
+        if qat:
+            QuantizeTranspiler(
+                activation_quantize_type="range_abs_max").training_transpile(
+                main, startup)
+            qat_test = main.clone(for_test=True)
+        if cls == "ModelAverage":
+            optimizer.Momentum(**kw).minimize(loss)
+            made = optimizer.ModelAverage(0.15, min_average_window=2,
+                                          max_average_window=4, program=main)
+        else:
+            made = getattr(optimizer, cls)(**kw)
+            made.minimize(loss)
+    return main, startup, loss, prediction, float_test, qat_test, made
+
+
+def _mnist_feed(batch, seed):
+    rng = np.random.RandomState(seed)
+    return {"img": rng.randn(batch, 1, 28, 28).astype(np.float32),
+            "label": rng.randint(0, 10, (batch, 1)).astype(np.int64)}
+
+
+def _card_vs_cpu(phase, main, startup, loss, seed, check=None):
+    """QAT_STEPS captured steps on the card and the same steps on the
+    port's CPU path from the same weights, losses within QAT_RTOL, and
+    `check(card scope, CPU scope)` -> its result; then as many more steps,
+    each run by the interpreter and by the graph from the same state
+    (JIT_RTOL).  -> (card scope, executor, card losses, CPU losses, the
+    check's result, jit losses, interpret losses)."""
+    from paddle_tpu_torch import CPUPlace, CUDAPlace, Executor, Scope
+
+    scope, exe = Scope(), Executor(CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    start = _persistables(scope, main)
+    feed = _mnist_feed(QAT_BATCH, seed)
+    losses, _ = run_steps(exe, main, scope, feed, loss, QAT_STEPS)
+    cpu_scope = Scope()
+    for name, value in start.items():
+        cpu_scope.set_var(name, value.cpu())
+    cpu_losses, _ = run_steps(Executor(CPUPlace()), main, cpu_scope, feed,
+                              loss, QAT_STEPS)
+    if not (np.all(np.isfinite(losses)) and np.allclose(
+            losses, cpu_losses, rtol=QAT_RTOL, atol=0)):
+        raise AssertionError(f"{phase}: card losses {losses} vs CPU "
+                             f"{cpu_losses}")
+    checked = check(scope, cpu_scope) if check else None
+    jit, ref = jit_vs_interpret(phase, exe, main, scope, feed, loss,
+                                QAT_STEPS)
+    captured_graphs(phase, exe, feed)
+    return scope, exe, losses, cpu_losses, checked, jit, ref
+
+
+def phase_qat(card):
+    """Q/qat: MNIST's conv net through training_transpile(range_abs_max),
+    QAT_STEPS captured steps card vs CPU (the range state advancing inside
+    the graph: Iter QAT_STEPS and the scale moved off its 1e-3 on both),
+    then freeze_int8(as_int8=True) + convert_to_int8, saved, served by a
+    Predictor on the card; top-1 agreement with the float test program on
+    the trained weights."""
+    from paddle_tpu_torch import CUDAPlace, Executor, io, scope_guard
+    from paddle_tpu_torch.contrib import QuantizeTranspiler
+    from paddle_tpu_torch.inference import Config, create_predictor
+
+    main, startup, loss, prediction, float_test, qat_test, _ = _mnist(
+        qat=True)
+
+    def range_state(scope, cpu_scope):
+        """Every activation's range_abs_max state after QAT_STEPS steps on
+        each side: Iter QAT_STEPS, the scale moved off its 1e-3."""
+        state = {}
+        for name in [v.name for v in main.list_vars()
+                     if v.name.endswith(".iter@state")]:
+            act = name[:-len(".iter@state")]
+            its = [int(sc.find_var(name).item()) for sc in (scope, cpu_scope)]
+            scales = [float(sc.find_var(f"{act}.scale@state").item())
+                      for sc in (scope, cpu_scope)]
+            if its != [QAT_STEPS] * 2 or any(s == np.float32(1e-3)
+                                             for s in scales):
+                raise AssertionError(f"Q/qat {act}: Iter {its}, scales "
+                                     f"{scales} (card, CPU)")
+            state[act] = {"iter": its, "scale": scales}
+        if not state:
+            raise AssertionError("Q/qat: no range_abs_max state")
+        return state
+
+    scope, _, losses, cpu_losses, state, jit, ref = _card_vs_cpu(
+        "Q/qat", main, startup, loss, SEED + 15, range_state)
+    place = CUDAPlace(0)
+    evals = _mnist_feed(QAT_EVAL, SEED + 16)
+    float_test = float_test._prune([prediction])
+    (f_pred,) = Executor(place).run(float_test, feed={"img": evals["img"]},
+                                    fetch_list=[prediction.name],
+                                    scope=scope)
+    qt = QuantizeTranspiler(activation_quantize_type="range_abs_max")
+    qt.freeze_int8(qat_test, scope, as_int8=True)
+    converted = qt.convert_to_int8(qat_test, scope)
+    saved = _saved_dir("mnist_int8")
+    with scope_guard(scope):
+        io.save_inference_model(
+            saved, ["img"], [qat_test.global_block().var(prediction.name)],
+            Executor(place), main_program=qat_test)
+    pred = create_predictor(Config(saved, place=place))
+    (q_pred,) = pred.run({"img": evals["img"]})
+    agree = float(np.mean(q_pred.argmax(-1) == f_pred.argmax(-1)))
+    if not pred.quantized:
+        raise AssertionError("Q/qat: the saved model is not quantized")
+    res = {"phase": "Q/qat", "batch": QAT_BATCH, "steps": QAT_STEPS,
+           "lr": QAT_LR, "losses": losses, "cpu_losses": cpu_losses,
+           "jit_losses": jit, "interpret_losses": ref, "range_state": state,
+           "int8_weights": converted, "eval_images": QAT_EVAL,
+           "top1_agreement_vs_float": agree, "card": card}
+    log(f"  Q/qat MNIST conv, range_abs_max, batch {QAT_BATCH}: card losses "
+        f"{losses}, CPU {cpu_losses}; jit {jit} = interpret {ref}; range "
+        f"state {state}; frozen int8 ({len(converted)} int8 weights) served "
+        f"by a Predictor on the card: top-1 agreement with the float test "
+        f"program {agree:.4f} over {QAT_EVAL} images  [{card}]")
+    shutil.rmtree(saved, ignore_errors=True)
+    return res
+
+
+def phase_opt_tail(card):
+    """O/tail: each optimizer of the tail on MNIST's conv net, card vs CPU
+    and jit vs interpret (_card_vs_cpu); ModelAverage's apply() binds the
+    window averages and its exit (and restore() after need_restore=False)
+    binds back the live tensors, bitwise."""
+    rows = []
+    for i, (cls, kw) in enumerate(OPT_TAIL):
+        main, startup, loss, _, _, _, made = _mnist((cls, kw))
+        types = {op.type for op in main.global_block().ops}
+        scope, exe, losses, cpu_losses, _, jit, ref = _card_vs_cpu(
+            f"O/tail {cls}", main, startup, loss, SEED + 20 + i)
+        row = {"optimizer": cls, "losses": losses, "cpu_losses": cpu_losses,
+               "jit_losses": jit, "interpret_losses": ref,
+               "update_ops": sorted(types & {
+                   "lars_momentum", "adagrad", "adamax", "decayed_adagrad",
+                   "adadelta", "rmsprop", "ftrl", "proximal_gd",
+                   "proximal_adagrad", "average_accumulates"})}
+        if cls == "ModelAverage":
+            params = [p.name for p in made._params]
+            live = {n: scope.find_var(n) for n in params}
+            snap = {n: t.clone() for n, t in live.items()}
+            with made.apply(exe, scope=scope):
+                moved = sum(not torch.equal(scope.find_var(n), snap[n])
+                            for n in params)
+            with made.apply(exe, need_restore=False, scope=scope):
+                pass
+            made.restore(exe)
+            if not moved or any(scope.find_var(n) is not live[n]
+                                or not torch.equal(live[n], snap[n])
+                                for n in params):
+                raise AssertionError("O/tail ModelAverage: apply/restore "
+                                     "did not give the live parameters back")
+            row["averaged_params_moved"] = moved
+        if len(row["update_ops"]) != 1:
+            raise AssertionError(f"O/tail {cls}: update ops "
+                                 f"{row['update_ops']}")
+        rows.append(row)
+        log(f"  O/tail {cls} ({row['update_ops'][0]}): card {losses}, CPU "
+            f"{cpu_losses}; jit {jit} = interpret {ref}"
+            + (f"; {row['averaged_params_moved']} averaged params bound and "
+               f"restored bitwise" if cls == "ModelAverage" else "")
+            + f"  [{card}]")
+        del scope, exe
+    return {"phase": "O/tail", "batch": QAT_BATCH, "steps": QAT_STEPS,
+            "optimizers": rows, "card": card}
+
+
+def drive_int8(card, device, v_trunc, lap=lambda phase: None):
+    """Phase 14: Q/ops, I/int8, S/int8, V/int8, Q/qat, O/tail; `lap(phase)`
+    after each.  -> (results, the eight kernels' launches)."""
+    results = [{"phase": "Q/ops", "cases": phase_q_ops(card, device),
+                "card": card}]
+    lap("[14] Q/ops")
+    for name in INT8_INFER:
+        results.append(phase_infer_int8(name, card))
+        lap(f"[14] I/int8 {name}")
+    res, counts = phase_serving_int8(card)
+    results.append(res)
+    lap("[14] S/int8")
+    res, more = phase_v_int8(card, v_trunc)
+    results.append(res)
+    counts = _add(counts, more)
+    lap("[14] V/int8")
+    results.append(phase_qat(card))
+    lap("[14] Q/qat")
+    results.append(phase_opt_tail(card))
+    lap("[14] O/tail")
+    return results, counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -6419,9 +7135,18 @@ def main():
         f"(F/disagg) [{card}]")
     fleet_runs, fleet_launches = drive_fleet(card, lap)
     phases += fleet_runs
+
+    log(f"[14] the int8 tier and the optimizer tail: the int8 ops against "
+        f"their plain versions (Q/ops), bench.py's int8 infer rows (I/int8: "
+        f"{', '.join(INT8_INFER)}), its serving_int8 leg (S/int8), the int8 "
+        f"draft (V/int8), quantization-aware training (Q/qat) and the "
+        f"optimizer tail (O/tail) [{card}]")
+    v_trunc = next((p for p in phases if p.get("phase") == "V/trunc"), None)
+    int8_runs, int8_launches = drive_int8(card, device, v_trunc, lap)
+    phases += int8_runs
     for more in (counts, train_launches, bert_launches, resnet_launches,
                  rnn_launches, saved_launches, front_launches,
-                 fleet_launches):
+                 fleet_launches, int8_launches):
         for k, n in more.items():
             launches[k] = launches.get(k, 0) + n
     never = [k for k in KERNELS if not launches.get(k)]
@@ -6429,7 +7154,7 @@ def main():
         raise AssertionError(f"kernels {never} never launched on a path")
 
     log(f"  all phases took {laps[-1] - laps[0]:.1f} s wall")
-    log("[14] results")
+    log("[15] results")
     log(json.dumps({"phases": phases}))
     log(json.dumps({"training": training}))
     if DIVERGED:

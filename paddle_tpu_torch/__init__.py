@@ -23,7 +23,11 @@ the batch-norm + relu + 1x1 conv kernel of the conv1x1 probe
 as CUDA graphs, train GoogLeNet and the recurrent models, and save, load
 and serve a saved model: `io` (the JAX package's file formats),
 `transpiler.InferenceTranspiler` and `inference.Predictor`, with VGG and
-AlexNet (`nets`, `models.vgg`, `models.alexnet`).
+AlexNet (`nets`, `models.vgg`, `models.alexnet`).  The int8 tier
+(`contrib.QuantizeTranspiler`: quantization-aware training, freeze_int8,
+convert_to_int8; the quantized_matmul and quantized_conv2d ops on the
+card's int8 tensor cores) serves int8 models through the Predictor, the
+Scheduler and as a speculative-decoding draft.
 """
 
 from .framework import (
@@ -60,12 +64,15 @@ from . import backward
 from . import clip
 from . import regularizer
 from . import optimizer
+from . import average
 from . import amp
 from . import serving
 from . import io
 from . import nets
 from . import transpiler
 from . import inference
+# a program loaded from disk with fake-quant ops finds their lowerings
+from . import contrib
 from .backward import append_backward
 
 __version__ = "0.5.0"

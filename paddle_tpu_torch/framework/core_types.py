@@ -93,6 +93,15 @@ def is_float_dtype(dtype) -> bool:
     return convert_dtype(dtype) in FLOAT_DTYPES
 
 
+def dtype_itemsize(dtype, default=4) -> int:
+    """Bytes per element of a framework dtype; `default` when the dtype
+    does not resolve (core_types.py:92 of the JAX package)."""
+    try:
+        return dtype_to_torch(dtype).itemsize
+    except (TypeError, KeyError):
+        return default
+
+
 class Place:
     """Names one `torch.device`."""
 

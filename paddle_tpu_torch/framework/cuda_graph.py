@@ -47,7 +47,8 @@ capture (torch asserts), and that failure names the segment.
 
 Python does not run during a replay, so the capture records the change
 of every kernel launch counter (`launches`, `*_launches` of the modules in
-`ops/cuda/`) and of `attention_ops.TIER_CALLS`, and every replay adds it:
+`ops/cuda/`, and `ops/int8_ops.launches`, its `_int_mm` calls) and of
+`attention_ops.TIER_CALLS`, and every replay adds it:
 a replayed call counts what an eager one would.
 
 There is no fallback: a capture that fails raises, naming the op that
@@ -109,12 +110,12 @@ def _side_stream(device):
 
 
 def _counter_modules():
-    from ..ops import attention_ops
+    from ..ops import attention_ops, int8_ops
     from ..ops.cuda import (bn_relu_conv1x1, flash_attention, flash_decode,
                             flash_decode_paged, mha_block)
 
     mods = (bn_relu_conv1x1, flash_attention, flash_decode,
-            flash_decode_paged, mha_block)
+            flash_decode_paged, mha_block, int8_ops)
     return mods, attention_ops.TIER_CALLS
 
 

@@ -159,6 +159,13 @@ class Operator:
     def output_arg_names(self):
         return [n for ns in self.outputs.values() for n in ns]
 
+    def attr(self, name, default=None):
+        return self.attrs.get(name, default)
+
+    def rename_input(self, old, new):
+        for param, names in self.inputs.items():
+            self.inputs[param] = [new if n == old else n for n in names]
+
     def to_dict(self):
         return {
             "type": self.type,

@@ -7,10 +7,12 @@ generate() through a decode spec over the loaded weights, and clone() for
 threads.  A Predictor owns its Scope and a jit-mode Executor on its
 place: on the card every run is a replay of CUDA graphs
 (framework/cuda_graph.py).  A program holding a batch_norm is transpiled
-on load (transpiler.InferenceTranspiler: the conv+bn fold and the fuses).
+on load (transpiler.InferenceTranspiler: the conv+bn fold and the fuses),
+unless it is the int8 deployed form (`quantized_matmul` /
+`quantized_conv2d` ops, contrib.quantize.freeze_int8): its ops already
+carry their dequant, and the fold does not apply to a frozen graph.
 
-The int8 deployed form (`quantized_matmul` / `quantized_conv2d` ops) and
-the JAX module's StableHLO exports (`export_stablehlo`,
+The JAX module's StableHLO exports (`export_stablehlo`,
 `export_train_step`) are not ported.
 """
 
@@ -48,14 +50,9 @@ class Predictor:
         with scope_guard(self._scope):
             prog, feeds, fetches = fluid_io.load_inference_model(
                 config.model_dir, self._exe)
-        quantized = sorted({op.type for op in prog.global_block().ops
-                            if op.type in _QUANTIZED_OPS})
-        if quantized:
-            raise NotImplementedError(
-                f"the model holds {quantized}: the int8 inference tier "
-                "(int8_ops, contrib/quantize.py) is not ported yet "
-                "(ROADMAP A4)")
-        if config.use_transpiler and any(
+        self._quantized = any(op.type in _QUANTIZED_OPS
+                              for op in prog.global_block().ops)
+        if config.use_transpiler and not self._quantized and any(
                 op.type == "batch_norm" for op in prog.global_block().ops):
             from ..transpiler import InferenceTranspiler
 
@@ -71,9 +68,9 @@ class Predictor:
 
     @property
     def quantized(self):
-        """Whether the loaded model is the int8 deployed form: always
-        False here, since such a model raises on load."""
-        return False
+        """Whether the loaded model is the int8 deployed form (holds
+        quantized_matmul or quantized_conv2d ops)."""
+        return self._quantized
 
     def run(self, feed: dict):
         return self._exe.run(self._program, feed=feed,
@@ -117,6 +114,7 @@ class Predictor:
         p._program = self._program
         p._feeds = self._feeds
         p._fetches = self._fetches
+        p._quantized = self._quantized
         p._generators = {}
         p._exe = Executor(self._device, mode="jit")
         return p

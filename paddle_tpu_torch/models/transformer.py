@@ -5,13 +5,13 @@ Counterpart of paddle_tpu/models/transformer.py: the configs, `build` (the
 training graph and its loss), `encoder`/`decoder`, `feed_shapes`,
 `synthetic_batch`, the decode programs of `build_decode` (prefill, step,
 the Sq = k verify and Sq = chunk windows, the encoder-only pass), and
-`build_draft`'s truncated draft for speculative decoding.  Every
-parameter name is the JAX package's, and the training graph places its
-dropouts where the JAX package's does (the embeddings, the FFN hidden,
-every residual branch), so the two Program dicts are equal op for op and
-weights carried across with `convert.load_params` land where these
-programs read them.  The fused loss head (`fused_head`), MoE FFNs and the
-int8 draft tier are later slices (ROADMAP.md A).
+`build_draft`'s drafts for speculative decoding (truncated, or int8).
+Every parameter name is the JAX package's, and the training graph places
+its dropouts where the JAX package's does (the embeddings, the FFN
+hidden, every residual branch), so the two Program dicts are equal op for
+op and weights carried across with `convert.load_params` land where these
+programs read them.  The fused loss head (`fused_head`) and MoE FFNs
+are later slices (ROADMAP.md A).
 """
 
 from __future__ import annotations
@@ -574,6 +574,21 @@ def clone_scope(scope):
     return out
 
 
+def _int8_touched(program):
+    """The var names freeze_int8(as_int8=True) rebound in the scope for
+    this program: the baked weight grids and their @int8_scale sidecars
+    (transformer.py:712)."""
+    names = set()
+    for block in program.blocks:
+        for op in block.ops:
+            if op.type not in ("quantized_matmul", "quantized_conv2d"):
+                continue
+            wname = op.inputs[op.attr("weight_param")][0]
+            names.add(wname)
+            names.add(f"{wname}@int8_scale")
+    return names
+
+
 def build_draft(cfg: TransformerConfig = None, src_len=None, prefix_len=1,
                 max_len=None, tier="trunc", scope=None):
     """A cheap draft GenerationSpec for speculative decoding and the scope
@@ -582,18 +597,39 @@ def build_draft(cfg: TransformerConfig = None, src_len=None, prefix_len=1,
     tier='trunc': the target with the bottom half of its decoder layers
     (dec0..dec{L//2-1} with dec_ln, logits_proj and the embeddings); every
     parameter name is the target's, so the draft runs on the target's own
-    scope (the returned scope is `scope`).  tier='int8' (the full-depth
-    target quantized to int8) waits for the int8 ops and
-    contrib/quantize.py (ROADMAP.md A4) and raises NotImplementedError."""
+    scope (the returned scope is `scope`).
+
+    tier='int8': the full-depth target with both decode programs through
+    QuantizeTranspiler and freeze_int8(as_int8=True): weights baked onto
+    the int8 grid, each `mul` one quantized_matmul.  Freezing rebinds
+    weights in the scope, so the draft gets a clone of `scope`: each
+    program freezes on a clone of its own and only the names it touched
+    merge into the draft's (equal floats and a deterministic abs-max give
+    equal grids, so the merge cannot disagree); `scope` stays float.  It
+    must already hold the target's weights."""
     cfg = cfg or base()
     if tier == "trunc":
         dcfg = copy.copy(cfg)
         dcfg.n_layer = max(1, cfg.n_layer // 2)
         return build_decode(dcfg, src_len=src_len, prefix_len=prefix_len,
                             max_len=max_len), scope
-    if tier == "int8":
-        raise NotImplementedError(
-            "the int8 draft tier needs int8_ops and contrib/quantize.py, "
-            "which are not ported yet (ROADMAP.md A4)")
-    raise ValueError(f"unknown draft tier {tier!r} "
-                     "(expected 'trunc' or 'int8')")
+    if tier != "int8":
+        raise ValueError(f"unknown draft tier {tier!r} "
+                         "(expected 'trunc' or 'int8')")
+    if scope is None:
+        raise ValueError("int8 draft tier needs the target's scope "
+                         "(freeze_int8 bakes its weights)")
+    from ..contrib.quantize import QuantizeTranspiler
+
+    spec = build_decode(cfg, src_len=src_len, prefix_len=prefix_len,
+                        max_len=max_len)
+    qt = QuantizeTranspiler()
+    qt.training_transpile(spec.prefill_program, spec.prefill_startup)
+    qt.training_transpile(spec.step_program, spec.step_startup)
+    draft_scope = clone_scope(scope)
+    for prog in (spec.prefill_program, spec.step_program):
+        scratch = clone_scope(scope)
+        qt.freeze_int8(prog, scratch, as_int8=True)
+        for name in _int8_touched(prog):
+            draft_scope.set_var(name, scratch.find_var(name))
+    return spec, draft_scope

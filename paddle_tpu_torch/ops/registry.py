@@ -118,7 +118,7 @@ class OpContext:
 
 
 def register_op(op_type, *, stateful=False, no_grad=False, no_jit=False,
-                infer_shape=None):
+                grad_error=None, infer_shape=None):
     """Register the forward lowering for `op_type`."""
 
     def deco(fn):
@@ -126,6 +126,7 @@ def register_op(op_type, *, stateful=False, no_grad=False, no_jit=False,
             raise ValueError(f"op {op_type} registered twice")
         OPS[op_type] = OpInfo(type=op_type, forward=fn, stateful=stateful,
                               no_grad=no_grad, no_jit=no_jit,
+                              grad_error=grad_error,
                               infer_shape=infer_shape)
         return fn
 

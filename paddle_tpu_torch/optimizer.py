@@ -3,11 +3,12 @@
 Counterpart of paddle_tpu/optimizer.py: the Optimizer base (minimize =
 append_backward, gradient clipping, regularization, then the optimization
 pass appending the global learning rate, the accumulators and one update
-op per parameter, stamped OpRole.Optimize), SGDOptimizer,
-MomentumOptimizer and AdamOptimizer with its beta-power `scale` ops.  The
-update ops are ordinary IR ops (ops/optimizer_ops.py) that write over
-their inputs in the scope.  The other optimizers (Lars, Adagrad, Adamax,
-...) and RecomputeOptimizer/ModelAverage are later work (ROADMAP.md A).
+op per parameter, stamped OpRole.Optimize), SGD, Momentum, LarsMomentum,
+Adagrad, ProximalGD, ProximalAdagrad, Adam and Adamax (with their
+beta-power `scale` ops), DecayedAdagrad, Adadelta, RMSProp, Ftrl, and
+ModelAverage.  The update ops are ordinary IR ops (ops/optimizer_ops.py)
+that write over their inputs in the scope.  RecomputeOptimizer is later
+work (ROADMAP.md A item 4).
 
 `multi_precision=True` keeps an f32 master copy of every bf16 parameter
 (made by a `cast` op in the startup program) and f32 moments: the update
@@ -16,7 +17,11 @@ runs in f32 on the master, and the bf16 parameter is its rounding.
 
 from __future__ import annotations
 
+import contextlib
 from collections import defaultdict
+
+import numpy as np
+import torch
 
 from .backward import append_backward
 from .clip import append_gradient_clip_ops, error_clip_callback
@@ -34,8 +39,22 @@ from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper
 from . import regularizer as regularizer_mod
 
-__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
-           "MomentumOptimizer", "Adam", "AdamOptimizer"]
+__all__ = [
+    "Optimizer",
+    "SGD", "SGDOptimizer",
+    "Momentum", "MomentumOptimizer",
+    "LarsMomentum", "LarsMomentumOptimizer",
+    "Adagrad", "AdagradOptimizer",
+    "Adam", "AdamOptimizer",
+    "Adamax", "AdamaxOptimizer",
+    "DecayedAdagrad", "DecayedAdagradOptimizer",
+    "Adadelta", "AdadeltaOptimizer",
+    "RMSProp", "RMSPropOptimizer",
+    "Ftrl", "FtrlOptimizer",
+    "ProximalGD", "ProximalGDOptimizer",
+    "ProximalAdagrad", "ProximalAdagradOptimizer",
+    "ModelAverage",
+]
 
 
 class Optimizer:
@@ -182,6 +201,20 @@ class Optimizer:
         return optimize_ops, params_grads
 
 
+def _beta_pow_scales(opt, block, parameters_and_grads, accs):
+    """One `scale` op per (parameter, beta power): the power times beta."""
+    for p, g in parameters_and_grads:
+        if g is None or not p.trainable:
+            continue
+        for acc, beta in accs:
+            b = opt._get_accumulator(acc, p)
+            block.append_op(type="scale", inputs={"X": [b]},
+                            outputs={"Out": [b]},
+                            attrs={"scale": beta,
+                                   OpRole.ATTR_NAME: OpRole.Optimize},
+                            infer_shape=False)
+
+
 class SGDOptimizer(Optimizer):
     def __init__(self, learning_rate, **kwargs):
         super().__init__(learning_rate, **kwargs)
@@ -290,20 +323,372 @@ class AdamOptimizer(Optimizer):
             infer_shape=False)
 
     def _finish_update(self, block, parameters_and_grads):
-        """Per-param beta-power updates: one `scale` op each."""
-        for p, g in parameters_and_grads:
-            if g is None or not p.trainable:
-                continue
-            for acc, beta in ((self._beta1_pow_acc_str, self._beta1),
-                              (self._beta2_pow_acc_str, self._beta2)):
-                b = self._get_accumulator(acc, p)
-                block.append_op(type="scale", inputs={"X": [b]},
-                                outputs={"Out": [b]},
-                                attrs={"scale": beta,
-                                       OpRole.ATTR_NAME: OpRole.Optimize},
-                                infer_shape=False)
+        _beta_pow_scales(self, block, parameters_and_grads,
+                         ((self._beta1_pow_acc_str, self._beta1),
+                          (self._beta2_pow_acc_str, self._beta2)))
+
+
+
+
+class LarsMomentumOptimizer(Optimizer):
+    _velocity_acc_str = "velocity"
+
+    def __init__(self, learning_rate, momentum, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "lars_momentum"
+        self._momentum = momentum
+        self._lars_coeff = lars_coeff
+        self._lars_weight_decay = lars_weight_decay
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._velocity_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        velocity = self._get_accumulator(self._velocity_acc_str,
+                                         param_and_grad[0])
+        return block.append_op(
+            type="lars_momentum",
+            inputs={"Param": [param_and_grad[0]],
+                    "Grad": [param_and_grad[1]], "Velocity": [velocity],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param_and_grad[0]],
+                     "VelocityOut": [velocity]},
+            attrs={"mu": self._momentum, "lars_coeff": self._lars_coeff,
+                   "lars_weight_decay": self._lars_weight_decay},
+            infer_shape=False)
+
+
+class _MomentOptimizer(Optimizer):
+    """An update with one `moment` accumulator and the learning rate:
+    adagrad, decayed_adagrad, proximal_adagrad."""
+
+    _moment_acc_str = "moment"
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+
+    def _attrs(self):
+        raise NotImplementedError
+
+    def _append_optimize_op(self, block, param_and_grad):
+        moment = self._get_accumulator(self._moment_acc_str,
+                                       param_and_grad[0])
+        return block.append_op(
+            type=self.type,
+            inputs={"Param": [param_and_grad[0]],
+                    "Grad": [param_and_grad[1]], "Moment": [moment],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param_and_grad[0]], "MomentOut": [moment]},
+            attrs=self._attrs(), infer_shape=False)
+
+
+class AdagradOptimizer(_MomentOptimizer):
+    def __init__(self, learning_rate, epsilon=1e-6, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "adagrad"
+        self._epsilon = epsilon
+
+    def _attrs(self):
+        return {"epsilon": self._epsilon}
+
+
+class DecayedAdagradOptimizer(_MomentOptimizer):
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "decayed_adagrad"
+        self._decay = decay
+        self._epsilon = epsilon
+
+    def _attrs(self):
+        return {"decay": self._decay, "epsilon": self._epsilon}
+
+
+class ProximalAdagradOptimizer(_MomentOptimizer):
+    """An adagrad-scaled step, then the l1/l2 proximal shrink."""
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "proximal_adagrad"
+        self._l1 = float(l1)
+        self._l2 = float(l2)
+
+    def _attrs(self):
+        return {"l1": self._l1, "l2": self._l2}
+
+
+class ProximalGDOptimizer(Optimizer):
+    """A plain gradient step, then the l1/l2 proximal shrink (FOBOS)."""
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "proximal_gd"
+        self._l1 = float(l1)
+        self._l2 = float(l2)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        return block.append_op(
+            type="proximal_gd",
+            inputs={"Param": [param_and_grad[0]],
+                    "Grad": [param_and_grad[1]],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param_and_grad[0]]},
+            attrs={"l1": self._l1, "l2": self._l2}, infer_shape=False)
+
+
+class AdamaxOptimizer(Optimizer):
+    _moment_acc_str = "moment"
+    _inf_norm_acc_str = "inf_norm"
+    _beta1_pow_acc_str = "beta1_pow_acc"
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "adamax"
+        self._beta1 = beta1
+        self._beta2 = beta2
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+            self._add_accumulator(self._inf_norm_acc_str, p)
+            self._add_accumulator(self._beta1_pow_acc_str, p,
+                                  fill_value=self._beta1, shape=[1])
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p = param_and_grad[0]
+        moment = self._get_accumulator(self._moment_acc_str, p)
+        inf_norm = self._get_accumulator(self._inf_norm_acc_str, p)
+        return block.append_op(
+            type="adamax",
+            inputs={"Param": [p], "Grad": [param_and_grad[1]],
+                    "Moment": [moment], "InfNorm": [inf_norm],
+                    "Beta1Pow": [self._get_accumulator(
+                        self._beta1_pow_acc_str, p)],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [p], "MomentOut": [moment],
+                     "InfNormOut": [inf_norm]},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon},
+            infer_shape=False)
+
+    def _finish_update(self, block, parameters_and_grads):
+        _beta_pow_scales(self, block, parameters_and_grads,
+                         ((self._beta1_pow_acc_str, self._beta1),))
+
+
+class AdadeltaOptimizer(Optimizer):
+    _avg_squared_grad_acc_str = "_avg_squared_grad"
+    _avg_squared_update_acc_str = "_avg_squared_update"
+
+    def __init__(self, learning_rate, epsilon=1e-6, rho=0.95, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "adadelta"
+        self._epsilon = epsilon
+        self._rho = rho
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._avg_squared_grad_acc_str, p)
+            self._add_accumulator(self._avg_squared_update_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p = param_and_grad[0]
+        g_acc = self._get_accumulator(self._avg_squared_grad_acc_str, p)
+        u_acc = self._get_accumulator(self._avg_squared_update_acc_str, p)
+        return block.append_op(
+            type="adadelta",
+            inputs={"Param": [p], "Grad": [param_and_grad[1]],
+                    "AvgSquaredGrad": [g_acc], "AvgSquaredUpdate": [u_acc]},
+            outputs={"ParamOut": [p], "AvgSquaredGradOut": [g_acc],
+                     "AvgSquaredUpdateOut": [u_acc]},
+            attrs={"epsilon": self._epsilon, "rho": self._rho},
+            infer_shape=False)
+
+
+class RMSPropOptimizer(Optimizer):
+    _momentum_acc_str = "momentum"
+    _mean_square_acc_str = "mean_square"
+    _mean_grad_acc_str = "mean_grad"
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "rmsprop"
+        self._rho = rho
+        self._epsilon = epsilon
+        self._momentum = momentum
+        self._centered = centered
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._momentum_acc_str, p)
+            self._add_accumulator(self._mean_square_acc_str, p)
+            self._add_accumulator(self._mean_grad_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p = param_and_grad[0]
+        momentum_acc = self._get_accumulator(self._momentum_acc_str, p)
+        mean_square_acc = self._get_accumulator(self._mean_square_acc_str, p)
+        mean_grad_acc = self._get_accumulator(self._mean_grad_acc_str, p)
+        return block.append_op(
+            type="rmsprop",
+            inputs={"Param": [p], "Grad": [param_and_grad[1]],
+                    "Moment": [momentum_acc], "MeanSquare": [mean_square_acc],
+                    "MeanGrad": [mean_grad_acc],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [p], "MomentOut": [momentum_acc],
+                     "MeanSquareOut": [mean_square_acc],
+                     "MeanGradOut": [mean_grad_acc]},
+            attrs={"epsilon": self._epsilon, "decay": self._rho,
+                   "momentum": self._momentum, "centered": self._centered},
+            infer_shape=False)
+
+
+class FtrlOptimizer(Optimizer):
+    _squared_acc_str = "squared"
+    _linear_acc_str = "linear"
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5,
+                 **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "ftrl"
+        self._l1 = l1
+        self._l2 = l2
+        self._lr_power = lr_power
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._squared_acc_str, p)
+            self._add_accumulator(self._linear_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p = param_and_grad[0]
+        sq = self._get_accumulator(self._squared_acc_str, p)
+        lin = self._get_accumulator(self._linear_acc_str, p)
+        return block.append_op(
+            type="ftrl",
+            inputs={"Param": [p], "Grad": [param_and_grad[1]],
+                    "SquaredAccumulator": [sq], "LinearAccumulator": [lin],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [p], "SquaredAccumOut": [sq],
+                     "LinearAccumOut": [lin]},
+            attrs={"l1": self._l1, "l2": self._l2,
+                   "lr_power": self._lr_power},
+            infer_shape=False)
 
 
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
+LarsMomentum = LarsMomentumOptimizer
+Adagrad = AdagradOptimizer
 Adam = AdamOptimizer
+Adamax = AdamaxOptimizer
+DecayedAdagrad = DecayedAdagradOptimizer
+Adadelta = AdadeltaOptimizer
+RMSProp = RMSPropOptimizer
+Ftrl = FtrlOptimizer
+ProximalGD = ProximalGDOptimizer
+ProximalAdagrad = ProximalAdagradOptimizer
+
+
+class ModelAverage(Optimizer):
+    """Sliding-window parameter averaging (optimizer.py:786 of the JAX
+    package).  Construct it after optimizer.minimize(): it appends one
+    `average_accumulates` op per parameter to the main program, so every
+    training step also advances the window's sums.  `with ma.apply():`
+    binds each parameter to its window average in the scope (evaluation
+    weights) and binds the live tensors back on exit; with
+    need_restore=False they stay stashed until restore()."""
+
+    def __init__(self, average_window_rate, min_average_window=10000,
+                 max_average_window=10000, program=None, **kwargs):
+        super().__init__(0.0, **kwargs)
+        self.average_window = average_window_rate
+        self.min_average_window = min_average_window
+        self.max_average_window = max_average_window
+        program = program or default_main_program()
+        self._program = program
+        self.helper = LayerHelper("model_average")
+        block = program.global_block()
+        self._params = [p for p in block.all_parameters()
+                        if getattr(p, "do_model_average", None) is not False]
+        self._accs = {}
+        self._saved = {}
+        with op_role_guard(OpRole.Optimize):
+            for p in self._params:
+                self._append_average_op(block, p)
+
+    def _append_average_op(self, block, p):
+        sums = [self._add_accumulator(f"ma_sum_{i}", p, dtype="float32")
+                for i in (1, 2, 3)]
+        counters = [self._add_accumulator(f"ma_{c}", p, dtype="int64",
+                                          shape=(1,))
+                    for c in ("num_acc", "old_num_acc", "num_upd")]
+        self._accs[p.name] = (sums, counters)
+        block.append_op(
+            type="average_accumulates",
+            inputs={"Param": [p], "InSum1": [sums[0]], "InSum2": [sums[1]],
+                    "InSum3": [sums[2]], "InNumAccumulates": [counters[0]],
+                    "InOldNumAccumulates": [counters[1]],
+                    "InNumUpdates": [counters[2]]},
+            outputs={"OutSum1": [sums[0]], "OutSum2": [sums[1]],
+                     "OutSum3": [sums[2]],
+                     "OutNumAccumulates": [counters[0]],
+                     "OutOldNumAccumulates": [counters[1]],
+                     "OutNumUpdates": [counters[2]]},
+            attrs={"average_window": float(self.average_window),
+                   "min_average_window": int(self.min_average_window),
+                   "max_average_window": int(self.max_average_window),
+                   OpRole.ATTR_NAME: OpRole.Optimize},
+            infer_shape=False)
+
+    @contextlib.contextmanager
+    def apply(self, executor=None, need_restore=True, scope=None):
+        """Bind each parameter to (sum_1 + sum_2 + sum_3) / (num_acc +
+        old_num_acc), summed in float64 on the host and put back on the
+        parameter's device in its dtype."""
+        from .framework.scope import global_scope
+
+        scope = scope if scope is not None else global_scope()
+        saved = {}
+        for p in self._params:
+            sums, counters = self._accs[p.name]
+            vals = [scope.find_var(v.name) for v in sums + counters]
+            if any(v is None for v in vals):
+                raise RuntimeError(
+                    f"ModelAverage accumulators for {p.name!r} have no "
+                    "values in this scope — run the startup program (after "
+                    "constructing ModelAverage) and train at least one step")
+            host = [torch.as_tensor(v).detach().cpu().numpy() for v in vals]
+            s = sum(h.astype(np.float64) for h in host[:3])
+            n = int(host[3].reshape(-1)[0]) + int(host[4].reshape(-1)[0])
+            if n == 0:
+                continue
+            live = scope.find_var(p.name)
+            saved[p.name] = live
+            avg = torch.from_numpy(s / n)
+            if isinstance(live, torch.Tensor):
+                avg = avg.to(device=live.device, dtype=live.dtype)
+            scope.set_var(p.name, avg)
+        try:
+            yield
+        finally:
+            if need_restore:
+                for name, v in saved.items():
+                    scope.set_var(name, v)
+            else:
+                self._saved = dict(saved)
+                self._saved_scope = scope
+
+    def restore(self, executor=None):
+        """Bind back the live parameters that apply(need_restore=False)
+        stashed."""
+        if not self._saved:
+            return
+        for name, v in self._saved.items():
+            self._saved_scope.set_var(name, v)
+        self._saved = {}

@@ -1866,3 +1866,64 @@ def test_base_replica_process_serves_the_parents_generator_tokens(card):
         cli.close()
         proc.kill()
         proc.wait(timeout=30)
+
+
+# ---------------------------------------------------------------------------
+# the int8 tier: torch._int_mm behind the zero padding and the im2col
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 512, 512), (8, 512, 32000),
+                                   (17, 30, 13), (2048, 512, 512),
+                                   (1, 7, 1)])
+def test_int8_matmul_on_the_card_equals_the_plain_version(card, m, k, n):
+    """_int_mm's int32 products (M, K, N off its grid padded with zeros)
+    equal the float64 plain version's, bit for bit, 2-D and batched."""
+    from paddle_tpu_torch.ops import int8_ops
+
+    rng = np.random.RandomState(m + k + n)
+    a = torch.as_tensor(rng.randint(-127, 128, (m, k)), device=card).to(
+        torch.int8)
+    b = torch.as_tensor(rng.randint(-127, 128, (k, n)), device=card).to(
+        torch.int8)
+    before = int8_ops.launches
+    got = int8_ops.int8_matmul(a, b)
+    assert int8_ops.launches == before + 1
+    assert torch.equal(got, int8_ops.int8_matmul_reference(a, b))
+    a3 = torch.stack([a, a.flip(0)])
+    b3 = torch.stack([b, b.flip(1)])
+    assert torch.equal(int8_ops.int8_matmul(a3, b3),
+                       int8_ops.int8_matmul_reference(a3, b3))
+
+
+@pytest.mark.parametrize("case", [
+    ((2, 3, 30, 30), (8, 3, 7, 7), [2, 2], [3, 3], [1, 1], 1),
+    ((2, 16, 9, 9), (8, 16, 3, 3), [1, 1], [1, 1], [2, 2], 1),
+    ((2, 8, 7, 7), (8, 2, 3, 3), [1, 1], [1, 1], [1, 1], 4),
+    ((3, 32, 5, 5), (16, 32, 1, 1), [1, 1], [0, 0], [1, 1], 1)])
+def test_int8_conv2d_on_the_card_equals_the_plain_version(card, case):
+    """The im2col + _int_mm conv (strides, padding, dilation, groups)
+    equals the float64 conv over the same grids, bit for bit, and the
+    quantized_conv2d op's output its plain version's."""
+    from paddle_tpu_torch.ops import int8_ops, registry
+
+    xs, ws, stride, pad, dil, groups = case
+    rng = np.random.RandomState(sum(xs))
+    x = torch.as_tensor(rng.randint(-127, 128, xs), device=card).to(
+        torch.int8)
+    w = torch.as_tensor(rng.randint(-127, 128, ws), device=card).to(
+        torch.int8)
+    geo = (stride, pad, dil, groups)
+    assert torch.equal(int8_ops.int8_conv2d(x, w, *geo),
+                       int8_ops.int8_conv2d_reference(x, w, *geo))
+    inputs = {"Input": [x.float()], "Filter": [w],
+              "Scale": [torch.tensor([1.3], device=card)],
+              "WScale": [torch.tensor([0.02], device=card)]}
+    attrs = {"strides": stride, "paddings": pad, "dilations": dil,
+             "groups": groups, "orig_type": "conv2d", "fuse_relu": True}
+    info = registry.get_op_info("quantized_conv2d")
+    got = registry.run_forward(info, inputs, attrs, device=card)["Output"][0]
+    cpu = registry.run_forward(info, {k: [v[0].cpu()]
+                                      for k, v in inputs.items()}, attrs,
+                               device=torch.device("cpu"))["Output"][0]
+    assert torch.equal(got.cpu(), cpu)

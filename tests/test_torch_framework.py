@@ -213,8 +213,9 @@ def test_later_slices_raise(kw):
     """The verify and chunk windows are ported: a window of 2 or more
     builds, and a width of 1 raises ValueError in both packages (a 1-wide
     window is the step program).  What is still a later slice raises
-    NotImplementedError naming ROADMAP: MoE FFNs, and the int8 draft tier
-    of build_draft (it waits for int8_ops, ROADMAP A4)."""
+    NotImplementedError naming ROADMAP: MoE FFNs.  The int8 draft tier of
+    build_draft is ported: without the target's scope it raises
+    ValueError in both packages."""
     kw1 = {k: 1 for k in kw}
     for T, cfg in ((PT, PT.TransformerConfig(**SMALL)),
                    (JT, JT.TransformerConfig(**SMALL))):
@@ -230,7 +231,8 @@ def test_later_slices_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PT.build_decode(PT.TransformerConfig(moe_experts=4, **SMALL),
                         src_len=128, prefix_len=8, max_len=256)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PT.build_draft(PT.TransformerConfig(**SMALL), src_len=128,
-                       prefix_len=8, max_len=256, tier="int8",
-                       scope=pt.Scope())
+    for T, cfg in ((PT, PT.TransformerConfig(**SMALL)),
+                   (JT, JT.TransformerConfig(**SMALL))):
+        with pytest.raises(ValueError, match="scope"):
+            T.build_draft(cfg, src_len=128, prefix_len=8, max_len=256,
+                          tier="int8")

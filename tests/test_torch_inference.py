@@ -309,7 +309,11 @@ def test_clones_in_threads_match_the_sequential_run(tmp_path):
 
 def test_quantized_model_raises_naming_the_int8_tier(tmp_path):
     """An int8 model saved by the JAX package (the JAX test's
-    QuantizeTranspiler flow) is refused on load."""
+    QuantizeTranspiler flow) is served: the port's Predictor loads it as
+    quantized, with its int8 weights and float32 sidecars, skips the
+    transpiler, and gives the JAX Predictor's outputs (rtol 1e-6; XLA's
+    jit rounds the fused dequant an ulp away).  (The name is from when
+    the int8 tier was a later slice and the load raised.)"""
     from paddle_tpu.contrib import QuantizeTranspiler
 
     main, startup = fluid.Program(), fluid.Program()
@@ -333,8 +337,19 @@ def test_quantized_model_raises_naming_the_int8_tier(tmp_path):
         fluid.io.save_inference_model(
             d, ["x"], [frozen.global_block().var(out.name)], exe,
             main_program=frozen)
-    with pytest.raises(NotImplementedError, match="int8 inference tier"):
-        inference.create_predictor(inference.Config(d, place=pt.CPUPlace()))
+    pred = inference.create_predictor(inference.Config(d,
+                                                       place=pt.CPUPlace()))
+    jpred = jinference.create_predictor(jinference.Config(d))
+    assert pred.quantized and jpred.quantized
+    assert pred._scope.find_var("qw0").dtype == torch.int8
+    assert pred._scope.find_var("qw0@int8_scale").dtype == torch.float32
+    assert {op.type for op in pred._program.global_block().ops} >= {
+        "quantized_matmul", "fake_quantize_abs_max"}
+    feed = {"x": np.random.RandomState(6).randn(5, 6).astype(np.float32)}
+    got = pred.run(feed)[0]
+    np.testing.assert_allclose(got, np.asarray(jpred.run(feed)[0]),
+                               rtol=1e-6, atol=1e-7)
+    assert pred.clone().quantized
 
 
 def test_predictor_generate_matches_jax_and_the_saving_scope(tmp_path):

@@ -226,8 +226,9 @@ def test_the_slice_registers_exactly_the_decode_op_types():
     with the rest of the reduce family, the saved-model slice's fc
     (the inference transpiler's), lrn (AlexNet's) and io.py's four save
     and load ops, and the image tail's 31 more activations, the equal,
-    not_equal and logical ops, depthwise_conv2d and square_error_cost:
-    106 op types."""
+    not_equal and logical ops, depthwise_conv2d and square_error_cost,
+    the int8 tier's four fake-quant ops and two quantized ops, and the
+    optimizer tail's ten update ops: 122 op types."""
     assert sorted(preg.OPS) == sorted([
         "assign_value", "elementwise_add", "fill_constant", "fused_attention",
         "gather", "increment", "kv_cache_append", "layer_norm",
@@ -256,5 +257,11 @@ def test_the_slice_registers_exactly_the_decode_op_types():
         "prelu",
         "equal", "not_equal", "logical_and", "logical_or", "logical_xor",
         "logical_not",
-        "depthwise_conv2d", "square_error_cost"])
-    assert len(preg.OPS) == 106
+        "depthwise_conv2d", "square_error_cost",
+        "fake_quantize_dequantize_abs_max", "fake_quantize_abs_max",
+        "fake_quantize_range_abs_max", "fake_dequantize_max_abs",
+        "quantized_matmul", "quantized_conv2d",
+        "lars_momentum", "adamax", "adagrad", "decayed_adagrad", "adadelta",
+        "rmsprop", "ftrl", "proximal_gd", "proximal_adagrad",
+        "average_accumulates"])
+    assert len(preg.OPS) == 122

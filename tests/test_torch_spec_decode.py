@@ -402,8 +402,14 @@ def test_spec_requires_paged_and_matching_k(world):
 
 def test_int8_draft_tier_raises_and_trunc_shares_the_scope(world):
     """The trunc tier is the bottom half of the decoder on the target's
-    own scope and parameter names (the JAX package's spec, op for op);
-    the int8 tier waits for int8_ops (ROADMAP A4)."""
+    own scope and parameter names (the JAX package's spec, op for op).
+    The int8 tier (the name is from when it raised) is the full-depth
+    target frozen to quantized_matmul on a clone of the scope: its
+    programs, baked grids and @int8_scale sidecars equal the JAX
+    package's, the target's scope stays float (no sidecar there, weights
+    and tokens unchanged: JAX tests/test_spec_decode.py:292), and
+    speculative decoding with it as the draft emits the sequential
+    Generator's tokens and the JAX Scheduler's (:137, the int8 case)."""
     dspec, dscope = PT.build_draft(_cfg(PT), src_len=S, prefix_len=P,
                                    max_len=MAXLEN, tier="trunc",
                                    scope=world.scope)
@@ -416,9 +422,34 @@ def test_int8_draft_tier_raises_and_trunc_shares_the_scope(world):
         assert getattr(dspec, which).to_dict() == \
             getattr(jd, which).to_dict()
     assert sum(s.feed.startswith("cache_k_") for s in dspec.states) == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PT.build_draft(_cfg(PT), src_len=S, prefix_len=P, max_len=MAXLEN,
-                       tier="int8", scope=world.scope)
+
+    feeds = [_mk_feed(100 + i) for i in range(6)]
+    refs = world.refs(feeds)
+    w_before = {n: world.scope.find_var(n).clone()
+                for n in world.scope.local_var_names() if n.endswith(".w_0")}
+    d8, ds8 = PT.build_draft(_cfg(PT), src_len=S, prefix_len=P,
+                             max_len=MAXLEN, tier="int8", scope=world.scope)
+    with junique.guard():
+        jd8, jds8 = JT.build_draft(_cfg(JT), src_len=S, prefix_len=P,
+                                   max_len=MAXLEN, tier="int8",
+                                   scope=world.jscope)
+    for which in ("prefill_program", "step_program"):
+        assert getattr(d8, which).to_dict() == getattr(jd8, which).to_dict()
+    sidecars = [n for n in ds8.local_var_names()
+                if n.endswith("@int8_scale")]
+    assert sidecars and ds8 is not world.scope
+    assert all(world.scope.find_var(n) is None for n in sidecars)
+    for n in sidecars + [n[:-len("@int8_scale")] for n in sidecars]:
+        np.testing.assert_array_equal(ds8.find_var(n).numpy(),
+                                      np.asarray(jds8.find_var(n)), n)
+    for n, w in w_before.items():
+        assert torch.equal(world.scope.find_var(n), w), n
+    reqs = _drive(world.sched(draft=d8, draft_scope=ds8), feeds)
+    jreqs = _drive(jserving.Scheduler(
+        world.jspec, world.jscope, paged_kv=True, spec_decode=True,
+        spec_k=K, draft_spec=jd8, draft_scope=jds8, **_sched_kw({})), feeds)
+    _check(reqs, refs, jreqs)
+    assert world.refs(feeds[:2]) == refs[:2]
     with pytest.raises(ValueError, match="tier"):
         PT.build_draft(_cfg(PT), tier="fp4", scope=world.scope)
     clone = PT.clone_scope(world.scope)
