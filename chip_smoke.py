@@ -29,7 +29,10 @@ catches its own failure:
      phase S's real lengths (1024-2080) in both dtypes and #6 in
      bfloat16, and #6 at the GRU translator's decode step (one head of
      256 over 24 keys, all live: batch 8, and 32 for beam 4, in both
-     dtypes); one call of #6 or #7 must be exactly one launch of its
+     dtypes), and [15]'s BERT-base legs in bfloat16 (#1 and #2 at 512 x
+     batch 64 and 1024 x batch 32, masked and unmasked; #3-#5 unmasked at
+     1024 x batch 32 and 4096 x batch 8, #3 at 2048 x batch 16); one
+     call of #6 or #7 must be exactly one launch of its
      kernel in a profiler trace (no merge, cast or scratch kernel);
      then timed with CUDA events, L2 flushed before every launch: kernel,
      plain version, and the library yardstick the port never calls
@@ -359,7 +362,34 @@ catches its own failure:
      RMSProp, Ftrl, ProximalGD, ProximalAdagrad, ModelAverage) on that
      net, card vs CPU and jit vs interpret; ModelAverage's apply and
      restore give the live parameters back bitwise;
- 15. one {"kernels": [...]} line, the card's name and power limit, and
+ 15. BERT-base pretraining as bench.py runs it (bench.py:293-447), bf16
+     AMP with Adam(1e-4, multi_precision), dropout 0, on the jit path.
+     B/head: its seven legs, the headline (S 512, batch 64), masked (the
+     same with ragged input masks), long_seq (1024, 32), long_seq_flash
+     (the same with the flash_attention flag "flash", restored after),
+     long_2048 (16), long_4096 and long_4096_masked (8): 2 warm-up and 3
+     timed steps each, tokens/s, ms a step, MFU (bench.py's
+     _bert_flops_per_token, copied), peak memory and graph pool, the
+     tier the gate picks and launch counts equal to its prediction
+     (mha_block: #1 and #2 once an attention a step; flash: #3 twice, #4
+     and #5 once), the first loss within 2e-2 of a forward-only
+     composite pass of the program's for_test clone (a composite
+     training step at 4096 would keep 12 layers of [8, 12, 4096, 4096]
+     float32 scores), and the first step's attention outputs of the
+     first and the last layer within 2e-2 of the composite pass's
+     largest.  B/mem: T2's step and the BERT headline's run plain, with
+     fused_head=True and with RecomputeOptimizer over the model's
+     checkpoints, from the plain run's weights: rate, peak memory and
+     what each option saves, the last loss (after 4 updates) within 1e-3
+     of plain's; then transformer-base at T1's batch and the BERT
+     headline at batch 8 in float32, 3 steps each: remat = plain within
+     1e-5, fused = unfused within 1e-4.  O/clip: MNIST's
+     conv net at batch 64 with GradientClipByGlobalNorm(1.0), L1Decay and
+     Adam over noam_decay and over piecewise_decay: 3 captured steps card
+     vs CPU within 1e-5, the rate fetched after each replay the
+     schedule's at that step, then 3 more steps jit = interpret exactly,
+     the step counter 6;
+ 16. one {"kernels": [...]} line, the card's name and power limit, and
      last the {"ok": true, "device": ...} line.
 
 Exits non-zero, printing no result, when there is no CUDA device or when
@@ -1214,6 +1244,19 @@ def check_kernels(device):
             cases.append(decode_case(
                 f"MT decode 1x{MT_SRC} d{MT_HIDDEN} b{b} {tag}", b, MT_SRC,
                 1, MT_HIDDEN, None, device, rng, dtype))
+    # added last: #1 and #2 at [15]'s BERT legs on the mha_block tier,
+    # BERT-base's 12 heads of 64 in bf16: S 512 at batch 64 (head chunk
+    # 4) and S 1024 at batch 32 (chunk 1), unmasked and with ragged
+    # key_len masks of S/2 to S
+    for s_len, b in ((512, 64), (1024, 32)):
+        for lens in (None, (s_len // 2, s_len)):
+            tag = f"bert {s_len} b{b}{'' if lens is None else ' masked'} bf16"
+            cases += [
+                mha_case(tag, b, s_len, s_len, bert_h, d, False, lens,
+                         device, rng, torch.bfloat16),
+                bwd_case(tag, b, s_len, s_len, bert_h, d, False, lens,
+                         device, rng, torch.bfloat16),
+            ]
     # added last: phase [12]'s bench.py legs.  Their prefill windows (32
     # and 16 keys) pass neither kernel gate and take the composite, and
     # mha_decode takes key counts that are multiples of 128 only: the host
@@ -1236,6 +1279,17 @@ def check_kernels(device):
         TAX_MAX_LEN // S_BLOCK * (TAX_STREAMS + 2), S_BLOCK,
         (TAX_PREFIX + 1, TAX_PREFIX + TAX_TOKENS), h, d, device, rng,
         torch.float32, max_len=TAX_MAX_LEN))
+    # added last: #3-#5 at [15]'s unmasked flash legs, BERT-base's 12
+    # heads of 64 in bf16: long_seq_flash (1024 at batch 32, forced) and
+    # long_4096 (batch 8) forward and backward, and long_2048's forward
+    # (its backward is "bert b16 bf16" above)
+    for s_len, b in ((1024, 32), (2 * L_SEQ, 8), (L_SEQ, 16)):
+        tag = f"bert {s_len} b{b} bf16"
+        cases.append(flash_case(tag, b, s_len, s_len, bert_h, d, False,
+                                None, device, rng, torch.bfloat16))
+        if s_len != L_SEQ:
+            cases += flash_bwd_cases(tag, b, s_len, s_len, bert_h, d, False,
+                                     None, device, rng, torch.bfloat16)
     timer = Timer(device)
     for c in cases:
         fns = c.pop("fns")
@@ -2589,27 +2643,36 @@ def flops_per_token(cfg):
     return 6.0 * (n_matmul + logits) + 3.0 * 2.0 * attn
 
 
-def build_training(cfg, use_amp, use_src_lens):
-    """transformer.build + Adam(1e-4), as bench.py builds it."""
+def build_training(cfg, use_amp, use_src_lens, variant="plain"):
+    """transformer.build + Adam(1e-4), as bench.py builds it; `variant`
+    is bench.py's PADDLE_TPU_BENCH_FUSED_HEAD ("fused") or _REMAT
+    ("remat": RecomputeOptimizer over the model's checkpoints)."""
     from paddle_tpu_torch import (Program, amp, optimizer, program_guard,
                                   unique_name)
     from paddle_tpu_torch.models import transformer
 
     main, startup = Program(), Program()
     main.random_seed = startup.random_seed = SEED
+    ckpts = []
     with program_guard(main, startup), unique_name.guard():
-        loss, _ = transformer.build(cfg, seq_len=SEQ,
+        loss, _ = transformer.build(cfg, seq_len=SEQ, checkpoints=ckpts,
+                                    fused_head=variant == "fused",
                                     use_src_lens=use_src_lens)
         if use_amp:
             amp.cast_model_to_bf16(main, startup)
-        _, params_grads = optimizer.Adam(
-            learning_rate=1e-4, multi_precision=use_amp).minimize(loss)
+        opt = optimizer.Adam(learning_rate=1e-4, multi_precision=use_amp)
+        if variant == "remat":
+            opt = optimizer.RecomputeOptimizer(opt, checkpoints=ckpts)
+        _, params_grads = opt.minimize(loss)
     return main, startup, loss, params_grads
 
 
 def _persistables(scope, program):
+    """Copies of the program's persistables the scope holds (a schedule's
+    rate is persistable but exists only once a step has run)."""
     return {v.name: scope.find_var(v.name).clone()
-            for v in program.list_vars() if v.persistable}
+            for v in program.list_vars()
+            if v.persistable and scope.find_var(v.name) is not None}
 
 
 def _restore(scope, snapshot):
@@ -2720,11 +2783,13 @@ def _train_feed(cfg, batch, seed, ragged, device):
     return {k: torch.as_tensor(v, device=device) for k, v in feed.items()}
 
 
-def run_steps(exe, main, scope, feed, loss, n, fetch_grads=()):
-    """n training steps; returns the losses and the first step's grads."""
+def run_steps(exe, main, scope, feed, loss, n, fetch_grads=(), probe=()):
+    """n training steps; returns the losses and the first step's `probe`
+    values and grads.  `probe` is fetched at every step, so that every
+    step runs the one plan."""
     losses, grads = [], None
     for i in range(n):
-        fetch = [loss] + (list(fetch_grads) if i == 0 else [])
+        fetch = [loss] + list(probe) + (list(fetch_grads) if i == 0 else [])
         outs = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
                        return_numpy=False)
         losses.append(float(outs[0].float().reshape(-1)[0]))
@@ -3026,21 +3091,27 @@ def bert_flops_per_token(cfg, seq):
     return 3.0 * (L * per_layer + mlm + pooler)
 
 
-def build_bert(cfg, use_amp):
-    """bert.build(use_input_mask=True) + Adam(1e-4), as bench.py builds
-    its long_2048_masked leg."""
+def build_bert(cfg, use_amp, masked=True, variant="plain"):
+    """bert.build + Adam(1e-4), as bench.py's _bench_bert_at builds its
+    legs (masked: use_input_mask); `variant` "fused" (fused_head) or
+    "remat" (RecomputeOptimizer over the encoder layers' outputs)."""
     from paddle_tpu_torch import (Program, amp, optimizer, program_guard,
                                   unique_name)
     from paddle_tpu_torch.models import bert
 
     main, startup = Program(), Program()
     main.random_seed = startup.random_seed = SEED
+    ckpts = []
     with program_guard(main, startup), unique_name.guard():
-        loss = bert.build(cfg, use_input_mask=True)[0]
+        loss = bert.build(cfg, checkpoints=ckpts,
+                          fused_head=variant == "fused",
+                          use_input_mask=masked)[0]
         if use_amp:
             amp.cast_model_to_bf16(main, startup)
-        optimizer.Adam(learning_rate=1e-4,
-                       multi_precision=use_amp).minimize(loss)
+        opt = optimizer.Adam(learning_rate=1e-4, multi_precision=use_amp)
+        if variant == "remat":
+            opt = optimizer.RecomputeOptimizer(opt, checkpoints=ckpts)
+        opt.minimize(loss)
     return main, startup, loss
 
 
@@ -7027,6 +7098,475 @@ def drive_int8(card, device, v_trunc, lap=lambda phase: None):
     return results, counts
 
 
+# ------------------------------------------- [15] BERT-base as bench.py runs it
+
+# B/head: bench.py's bench_bert legs (bench.py:293-447): BERT-base at
+# dropout 0, bf16 AMP, Adam(1e-4, multi_precision); the headline at seq 512
+# batch 64 and its legs at batch max(64 // (S // 512), 4); long_seq_flash
+# forces the streaming tier with the flash_attention flag, as bench.py does
+BertLeg = collections.namedtuple("BertLeg", ["seq", "batch", "masked",
+                                             "flag"])
+BERT_LEGS = {
+    "headline": BertLeg(512, 64, False, None),
+    "masked": BertLeg(512, 64, True, None),
+    "long_seq": BertLeg(1024, 32, False, None),
+    "long_seq_flash": BertLeg(1024, 32, False, "flash"),
+    "long_2048": BertLeg(2048, 16, False, None),
+    "long_4096": BertLeg(4096, 8, False, None),
+    "long_4096_masked": BertLeg(4096, 8, True, None),
+}
+BH_WARMUP, BH_STEPS = 2, 3
+# every B/head step also fetches the first and the last layer's attention
+# output; the first step's must agree with the composite forward's within
+# ATTN_TOL of the latter's largest value (bf16: one rounding of the
+# output, and the drift of the layers before)
+ATTN_TOL = 2e-2
+# B/mem: T2's step and the BERT headline's, plain, fused_head=True and
+# RecomputeOptimizer over the model's checkpoints, from the same weights;
+# the last of their losses (after BH_WARMUP + BH_STEPS - 1 updates) within
+# MEM_RTOL_BF16 of the plain run's, which a wrong head or recompute grad
+# would pass only by chance.  Then transformer-base at T1's batch and the
+# BERT headline at MEM_F32_BERT_BATCH in float32, 3 steps each: remat =
+# plain within JIT_RTOL (the same kernels on the same inputs), fused =
+# unfused within FUSED_RTOL
+MEM_VARIANTS = ("plain", "fused", "remat")
+MEM_RTOL_BF16 = 1e-3
+MEM_F32_STEPS = 3
+MEM_F32_BERT_BATCH = 8
+FUSED_RTOL = 1e-4
+# O/clip: MNIST's conv net at QAT_BATCH, GradientClipByGlobalNorm(1.0),
+# L1Decay(1e-4), Adam over noam_decay(64, 50) or piecewise_decay, 3
+# captured steps card vs CPU, then 3 more jit vs interpret
+CLIP_NORM, L1_COEFF, CLIP_STEPS = 1.0, 1e-4, 3
+CLIP_RTOL = 1e-5
+NOAM = (64, 50)
+PIECEWISE = ([2, 4], [1e-3, 5e-4, 2e-4])
+
+
+def _schedule_lr(kind, step):
+    """The schedule's rate at `step`, in float64 on the host."""
+    if kind == "noam":
+        d, w = NOAM
+        return d ** -0.5 * min(step ** -0.5, step * w ** -1.5)
+    bounds, values = PIECEWISE
+    return values[sum(step >= b for b in bounds)]
+
+
+def _leg_tier(leg, cfg, device):
+    """The tier the gate sends the leg's attentions to."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.ops import attention_ops
+
+    q = torch.empty((leg.batch, leg.seq, cfg.hidden), dtype=torch.bfloat16,
+                    device=device)
+    prev = flags.get("flash_attention")
+    flags.set("flash_attention", leg.flag or prev)
+    try:
+        return attention_ops._backend_choice(q, q, cfg.heads, False, False,
+                                             leg.masked)[0]
+    finally:
+        flags.set("flash_attention", prev)
+
+
+def _tier_expect(tier, n_attn, steps):
+    """#1 and #2 once an attention and step on the mha_block tier; on the
+    flash tier #3 twice (the grad recomputes out and lse), #4 and #5
+    once."""
+    if tier == "flash":
+        return _bert_expect(n_attn, steps)
+    if tier != "mha_block":
+        raise AssertionError(f"BERT attention on the {tier} tier")
+    return {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0, "mha_block": n_attn * steps,
+            "mha_block_bwd": n_attn * steps}
+
+
+def _composite_forward(main, loss, scope, feed, probe=()):
+    """The loss of the program's for_test clone (its forward) on the
+    composite tier, run by the interpreter, and the `probe` vars' values:
+    each attention's scores die before the next, which a composite
+    training step at 4096 tokens (12 layers of [8, 12, 4096, 4096]
+    float32 scores kept for the backward) could not hold."""
+    from paddle_tpu_torch import CUDAPlace, Executor, flags
+
+    flags.set("flash_attention", "0")
+    try:
+        v, *values = Executor(CUDAPlace(0), mode="interpret").run(
+            main.clone(for_test=True), feed=feed,
+            fetch_list=[loss.name] + list(probe), scope=scope,
+            return_numpy=False)
+    finally:
+        flags.reset("flash_attention")
+    torch.cuda.empty_cache()
+    return float(v.float().reshape(-1)[0]), values
+
+
+def _seeded_scope(main, startup, start=None):
+    """A scope with `startup` run on the card and, with `start`, every
+    persistable `start` also holds copied over in place (the same
+    weights)."""
+    from paddle_tpu_torch import CUDAPlace, Executor, Scope
+
+    scope, exe = Scope(), Executor(CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    if start is not None:
+        mine = {v.name for v in main.list_vars() if v.persistable}
+        _restore(scope, {n: v for n, v in start.items() if n in mine})
+    return scope, exe
+
+
+def timed_training(phase, main, loss, scope, exe, feed, tokens_per_step,
+                   fpt, card, warmup=BH_WARMUP, steps=BH_STEPS, probe=()):
+    """warmup + steps training steps on the jit path (the first eager, the
+    second captured, later ones replayed), the counters zeroed and the
+    peak-memory window opened before, `probe` fetched at every step;
+    -> (the phase's record, the first step's `probe` values)."""
+    from paddle_tpu_torch.ops import attention_ops
+
+    torch.cuda.synchronize()
+    _zero_counts()
+    attention_ops.TIER_CALLS.clear()
+    before = graph_stats()
+    reset_peak_memory()
+    warm, first = run_steps(exe, main, scope, feed, loss, warmup,
+                            probe=probe)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed, _ = run_steps(exe, main, scope, feed, loss, steps, probe=probe)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = warm + timed
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{phase}: losses {losses}")
+    graphs, bound = captured_graphs(phase, exe, feed)
+    rate = tokens_per_step * steps / wall
+    res = {"phase": phase, "warmup": warmup, "steps": steps,
+           "losses": losses, "launches": _bert_counts(),
+           "tiers": dict(attention_ops.TIER_CALLS),
+           "tokens_per_s": rate, "ms_per_step": wall / steps * 1e3,
+           "mfu": rate * fpt / PEAK_FLOP_PER_S[torch.bfloat16],
+           "flops_per_token": fpt, "graphs": graphs, "bound_args": bound,
+           "card": card}
+    res.update(capture_fields(before, None, res["ms_per_step"]))
+    return res, first
+
+
+def _attn_err(got, want):
+    """Max abs difference over the largest abs value of `want`."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def phase_bert_leg(name, card, device):
+    """One of bench.py's BERT legs: the gate's tier and its launches, the
+    first loss and the first and last layer's attention outputs against
+    the composite's forward, tokens/s, MFU, memory."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.models import bert
+
+    leg = BERT_LEGS[name]
+    cfg = bert.BertConfig(max_positions=leg.seq, dropout=0.0)
+    main, startup, loss = build_bert(cfg, True, leg.masked)
+    attn = [op.output("Out")[0] for op in main.global_block().ops
+            if op.type == "fused_attention"]
+    n_attn, probe = len(attn), [attn[0], attn[-1]]
+    tier = _leg_tier(leg, cfg, device)
+    scope, exe = _seeded_scope(main, startup)
+    feed = bert.synthetic_batch(leg.batch, cfg, seed=SEED + 30,
+                                use_input_mask=leg.masked)
+    feed = {k: torch.as_tensor(v, device=device) for k, v in feed.items()}
+    comp_first, comp_attn = _composite_forward(main, loss, scope, feed,
+                                               probe)
+    prev = flags.get("flash_attention")
+    if leg.flag:
+        flags.set("flash_attention", leg.flag)
+    try:
+        res, got_attn = timed_training(
+            f"B/head {name}", main, loss, scope, exe, feed,
+            leg.batch * leg.seq,    # bench.py:331
+            bert_flops_per_token(cfg, leg.seq), card, probe=probe)
+    finally:
+        flags.set("flash_attention", prev)
+    steps = BH_WARMUP + BH_STEPS
+    expect = _tier_expect(tier, n_attn, steps)
+    if res["launches"] != expect or res["tiers"] != {tier: n_attn * steps}:
+        raise AssertionError(f"B/head {name}: launches {res['launches']}, "
+                             f"tiers {res['tiers']}; the gate predicts "
+                             f"{expect} on {tier}")
+    first = res["losses"][0]
+    if abs(first - comp_first) > LOSS_RTOL_BF16 * abs(comp_first):
+        raise AssertionError(f"B/head {name}: first loss {first} vs the "
+                             f"composite forward {comp_first}")
+    attn_err = [_attn_err(g, w) for g, w in zip(got_attn, comp_attn)]
+    del got_attn, comp_attn
+    if not max(attn_err) <= ATTN_TOL:
+        raise AssertionError(f"B/head {name}: the first and last layer's "
+                             f"attention outputs differ from the composite "
+                             f"forward's by {attn_err} of their largest")
+    res.update(seq=leg.seq, batch=leg.batch, masked=leg.masked,
+               flag=leg.flag, attention_tier=tier,
+               composite_first_loss=comp_first,
+               attn_err_first_last=attn_err, dtype="bfloat16 AMP")
+    if leg.masked:
+        res["real_tokens"] = _real_tokens(feed)
+    log(f"  B/head {name} S {leg.seq} b{leg.batch}"
+        f"{' masked' if leg.masked else ''}: {tier}, "
+        f"{res['tokens_per_s']:.1f} tokens/s, {res['ms_per_step']:.2f} "
+        f"ms/step, MFU {res['mfu']:.4f}; losses {res['losses']}, composite "
+        f"forward {comp_first}; attention outputs, first and last layer, "
+        f"vs the composite's {attn_err} of their largest; launches "
+        f"{res['launches']}  [{card}]")
+    log_capture(f"B/head {name}", res)
+    del scope, exe
+    torch.cuda.empty_cache()
+    return res, res["launches"]
+
+
+def _mem_variants(model, card, device):
+    """B/mem on one model: the plain step, then fused_head and remat from
+    the plain run's starting weights; each variant's rate and memory, and
+    its last loss within MEM_RTOL_BF16 of the plain run's."""
+    from paddle_tpu_torch.models import bert, transformer
+
+    rows, launches = [], {}
+    start = feed = None
+    for variant in MEM_VARIANTS:
+        if model == "T2":
+            cfg = transformer.TransformerConfig(max_length=SEQ, dropout=0.0)
+            main, startup, loss, _ = build_training(cfg, True, False,
+                                                    variant)
+            if feed is None:
+                feed = _train_feed(cfg, T2_BATCH, SEED + 2, False, device)
+            tokens, fpt = 2 * T2_BATCH * SEQ, flops_per_token(cfg)
+        else:
+            leg = BERT_LEGS["headline"]
+            cfg = bert.BertConfig(max_positions=leg.seq, dropout=0.0)
+            main, startup, loss = build_bert(cfg, True, False, variant)
+            if feed is None:
+                feed = {k: torch.as_tensor(v, device=device)
+                        for k, v in bert.synthetic_batch(
+                            leg.batch, cfg, seed=SEED + 30).items()}
+            tokens = leg.batch * leg.seq
+            fpt = bert_flops_per_token(cfg, leg.seq)
+        scope, exe = _seeded_scope(main, startup, start)
+        if start is None:
+            start = _persistables(scope, main)
+        res, _ = timed_training(f"B/mem {model} {variant}", main, loss,
+                                scope, exe, feed, tokens, fpt, card)
+        types = [op.type for op in main.global_block().ops]
+        res.update(model=model, variant=variant,
+                   recompute_clones=sum("@RECOMPUTE@" in n
+                                        for op in main.global_block().ops
+                                        for n in op.output_arg_names[:1]),
+                   rc_barriers=types.count("rc_barrier"),
+                   fused_heads=types.count("linear_softmax_ce"))
+        if rows:
+            plain = rows[0]
+            res["peak_mem_saved_mib"] = (plain["peak_mem_mib"]
+                                         - res["peak_mem_mib"])
+            res["peak_reserved_saved_mib"] = (plain["peak_reserved_mib"]
+                                              - res["peak_reserved_mib"])
+            res["rate_vs_plain"] = res["tokens_per_s"] / plain["tokens_per_s"]
+            res["last_loss_rel"] = (abs(res["losses"][-1]
+                                        - plain["losses"][-1])
+                                    / abs(plain["losses"][-1]))
+            if not res["last_loss_rel"] <= MEM_RTOL_BF16:
+                raise AssertionError(f"B/mem {model} {variant}: last loss "
+                                     f"{res['losses'][-1]} vs plain "
+                                     f"{plain['losses'][-1]}")
+        rows.append(res)
+        launches = _add(launches, res["launches"])
+        log(f"  B/mem {model} {variant}: {res['tokens_per_s']:.1f} tokens/s, "
+            f"{res['ms_per_step']:.2f} ms/step; peak "
+            f"{res['peak_mem_mib']:.0f} MiB allocated, "
+            f"{res['peak_reserved_mib']:.0f} reserved, graph pool "
+            f"{res['graph_pool_mib']:.0f}"
+            + (f"; saves {res['peak_mem_saved_mib']:.0f} MiB allocated, "
+               f"{res['peak_reserved_saved_mib']:.0f} reserved, rate x"
+               f"{res['rate_vs_plain']:.3f}, last loss vs plain "
+               f"{res['last_loss_rel']:.2e}" if len(rows) > 1 else "")
+            + f"; losses {res['losses']}  [{card}]")
+        del scope, exe
+        torch.cuda.empty_cache()
+    return rows, launches
+
+
+def _mem_f32(model, card, device):
+    """transformer-base at T1's batch ("T1") or the BERT headline at
+    MEM_F32_BERT_BATCH ("BERT") in float32, 3 jit steps each from the same
+    weights: remat equals plain within JIT_RTOL, fused within FUSED_RTOL."""
+    from paddle_tpu_torch.models import bert, transformer
+
+    if model == "T1":
+        cfg = transformer.TransformerConfig(max_length=SEQ, dropout=0.0)
+        feed = _train_feed(cfg, T1_BATCH, SEED + 31, False, device)
+        batch, seq = T1_BATCH, SEQ
+    else:
+        leg = BERT_LEGS["headline"]
+        cfg = bert.BertConfig(max_positions=leg.seq, dropout=0.0)
+        feed = {k: torch.as_tensor(v, device=device)
+                for k, v in bert.synthetic_batch(
+                    MEM_F32_BERT_BATCH, cfg, seed=SEED + 32).items()}
+        batch, seq = MEM_F32_BERT_BATCH, leg.seq
+    losses, start = {}, None
+    for variant in MEM_VARIANTS:
+        if model == "T1":
+            main, startup, loss, _ = build_training(cfg, False, False,
+                                                    variant)
+        else:
+            main, startup, loss = build_bert(cfg, False, False, variant)
+        scope, exe = _seeded_scope(main, startup, start)
+        if start is None:
+            start = _persistables(scope, main)
+        losses[variant], _ = run_steps(exe, main, scope, feed, loss,
+                                       MEM_F32_STEPS)
+        del scope, exe
+        torch.cuda.empty_cache()
+    plain = losses["plain"]
+    if not (np.all(np.isfinite(plain))
+            and np.allclose(losses["remat"], plain, rtol=JIT_RTOL, atol=0)
+            and np.allclose(losses["fused"], plain, rtol=FUSED_RTOL,
+                            atol=0)):
+        raise AssertionError(f"B/mem float32 {model}: losses {losses}")
+    res = {"phase": f"B/mem f32 {model}", "batch": batch, "seq": seq,
+           "steps": MEM_F32_STEPS, "losses": losses,
+           "remat_max_rel": max(abs(a - b) / abs(b) for a, b in
+                                zip(losses["remat"], plain)),
+           "fused_max_rel": max(abs(a - b) / abs(b) for a, b in
+                                zip(losses["fused"], plain)),
+           "card": card}
+    log(f"  B/mem float32 {model} batch {batch} seq {seq}: losses {losses}; "
+        f"remat vs plain {res['remat_max_rel']:.2e}, fused vs unfused "
+        f"{res['fused_max_rel']:.2e}  [{card}]")
+    return res
+
+
+def _mnist_clip(kind):
+    """MNIST's conv net with a global-norm clip, L1 decay and Adam over a
+    learning-rate schedule: (main, startup, loss, the rate var)."""
+    from paddle_tpu_torch import (Program, clip, layers, optimizer,
+                                  program_guard, regularizer, unique_name)
+    from paddle_tpu_torch.models import mnist
+
+    main, startup = Program(), Program()
+    main.random_seed = startup.random_seed = 1
+    with program_guard(main, startup), unique_name.guard():
+        loss, _, _ = mnist.build_conv()
+        clip.set_gradient_clip(clip.GradientClipByGlobalNorm(CLIP_NORM))
+        lr = (layers.noam_decay(*NOAM) if kind == "noam"
+              else layers.piecewise_decay(*PIECEWISE))
+        optimizer.Adam(lr, regularization=regularizer.L1Decay(
+            L1_COEFF)).minimize(loss)
+    return main, startup, loss, lr
+
+
+def _steps_with_lr(exe, main, scope, feed, loss, lr, n):
+    """n steps: [(loss, rate)] and the counter after."""
+    from paddle_tpu_torch.layers.learning_rate_scheduler import \
+        LR_COUNTER_NAME
+
+    out = []
+    for _ in range(n):
+        lv, rv = exe.run(main, feed=feed, fetch_list=[loss, lr], scope=scope,
+                         return_numpy=False)
+        out.append((float(lv.float().reshape(-1)[0]),
+                    float(rv.float().reshape(-1)[0])))
+    return out, int(scope.find_var(LR_COUNTER_NAME).reshape(-1)[0])
+
+
+def phase_o_clip(card):
+    """O/clip: CLIP_STEPS captured steps on the card against the port's CPU
+    path from the same weights (losses within CLIP_RTOL, the rates
+    equal), the rate fetched after each replay the schedule's at that
+    step; then CLIP_STEPS more, each run by the interpreter and by the
+    graph from the same state, equal exactly; the counter follows."""
+    from paddle_tpu_torch import CPUPlace, CUDAPlace, Executor, Scope
+    from paddle_tpu_torch.framework.executor import _RNG_COUNTER_NAME
+
+    rows = []
+    for i, kind in enumerate(("noam", "piecewise")):
+        main, startup, loss, lr = _mnist_clip(kind)
+        types = [op.type for op in main.global_block().ops]
+        scope, exe = Scope(), Executor(CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        start = _persistables(scope, main)
+        feed = _mnist_feed(QAT_BATCH, SEED + 40 + i)
+        card_run, counter = _steps_with_lr(exe, main, scope, feed, loss, lr,
+                                           CLIP_STEPS)
+        cpu_scope = Scope()
+        for name, value in start.items():
+            cpu_scope.set_var(name, value.cpu())
+        cpu_run, _ = _steps_with_lr(Executor(CPUPlace()), main, cpu_scope,
+                                    feed, loss, lr, CLIP_STEPS)
+        losses = [l for l, _ in card_run]
+        cpu_losses = [l for l, _ in cpu_run]
+        rates = [r for _, r in card_run]
+        want = [_schedule_lr(kind, s) for s in range(1, CLIP_STEPS + 1)]
+        if not (np.all(np.isfinite(losses))
+                and np.allclose(losses, cpu_losses, rtol=CLIP_RTOL, atol=0)
+                and rates == [r for _, r in cpu_run]
+                and np.allclose(rates, want, rtol=1e-6, atol=0)
+                and counter == CLIP_STEPS):
+            raise AssertionError(
+                f"O/clip {kind}: card {card_run} vs CPU {cpu_run}; rates "
+                f"{rates} vs the schedule {want}; counter {counter}")
+        eager = Executor(CUDAPlace(0), mode="interpret")
+        jit, ref = [], []
+        for _ in range(CLIP_STEPS):
+            scratch = Scope()
+            for name, value in _persistables(scope, main).items():
+                scratch.set_var(name, value)
+            scratch.set_var(_RNG_COUNTER_NAME,
+                            scope.find_var(_RNG_COUNTER_NAME))
+            ref += _steps_with_lr(eager, main, scratch, feed, loss, lr,
+                                  1)[0]
+            step, counter = _steps_with_lr(exe, main, scope, feed, loss, lr,
+                                           1)
+            jit += step
+        if jit != ref or counter != 2 * CLIP_STEPS:
+            raise AssertionError(f"O/clip {kind}: jit {jit} vs interpret "
+                                 f"{ref}; counter {counter}")
+        captured_graphs(f"O/clip {kind}", exe, feed)
+        rows.append({"schedule": kind, "losses": losses,
+                     "cpu_losses": cpu_losses, "rates": rates,
+                     "schedule_rates": want, "jit": jit, "interpret": ref,
+                     "counter": counter,
+                     "ops": {t: types.count(t) for t in (
+                         "increment", "lr_schedule", "squared_l2_norm",
+                         "sqrt", "elementwise_max", "elementwise_div",
+                         "sign", "adam")}})
+        log(f"  O/clip {kind}: card {losses}, CPU {cpu_losses}; rates "
+            f"{rates} (schedule {want}); jit {jit} = interpret {ref}; "
+            f"counter {counter}  [{card}]")
+        del scope, exe, cpu_scope
+    return {"phase": "O/clip", "batch": QAT_BATCH, "clip_norm": CLIP_NORM,
+            "l1": L1_COEFF, "runs": rows, "card": card}
+
+
+def drive_bert_tail(card, device, lap=lambda phase: None):
+    """Phase 15: B/head (bench.py's seven BERT legs), B/mem (T2's and the
+    BERT headline's step plain, fused and remat, and the float32 checks),
+    O/clip; `lap(phase)` after each.  -> (results, the eight kernels'
+    launches)."""
+    results, launches = [], {}
+    for name in BERT_LEGS:
+        res, counts = phase_bert_leg(name, card, device)
+        results.append(res)
+        launches = _add(launches, counts)
+        lap(f"[15] B/head {name}")
+    for model in ("T2", "BERT"):
+        rows, counts = _mem_variants(model, card, device)
+        results += rows
+        launches = _add(launches, counts)
+        lap(f"[15] B/mem {model}")
+    for model in ("T1", "BERT"):
+        results.append(_mem_f32(model, card, device))
+        lap(f"[15] B/mem f32 {model}")
+    results.append(phase_o_clip(card))
+    lap("[15] O/clip")
+    return results, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -7144,9 +7684,17 @@ def main():
     v_trunc = next((p for p in phases if p.get("phase") == "V/trunc"), None)
     int8_runs, int8_launches = drive_int8(card, device, v_trunc, lap)
     phases += int8_runs
+
+    log(f"[15] BERT-base pretraining as bench.py runs it: its seven legs "
+        f"({', '.join(BERT_LEGS)}: B/head), the memory options on T2's and "
+        f"the BERT headline's step (fused_head, RecomputeOptimizer: B/mem), "
+        f"and clipping, L1 decay and learning-rate schedules (O/clip) "
+        f"[{card}]")
+    tail_runs, tail_launches = drive_bert_tail(card, device, lap)
+    training += tail_runs
     for more in (counts, train_launches, bert_launches, resnet_launches,
                  rnn_launches, saved_launches, front_launches,
-                 fleet_launches, int8_launches):
+                 fleet_launches, int8_launches, tail_launches):
         for k, n in more.items():
             launches[k] = launches.get(k, 0) + n
     never = [k for k in KERNELS if not launches.get(k)]
@@ -7154,7 +7702,7 @@ def main():
         raise AssertionError(f"kernels {never} never launched on a path")
 
     log(f"  all phases took {laps[-1] - laps[0]:.1f} s wall")
-    log("[15] results")
+    log("[16] results")
     log(json.dumps({"phases": phases}))
     log(json.dumps({"training": training}))
     if DIVERGED:

@@ -18,8 +18,9 @@ the JAX package's four other trace-affecting flags (`ir_passes`,
 that `trace_signature()` and with it `serving.prompt_key` are the JAX
 package's.  The attention-gate
 defaults are the JAX package's (sized for TPU v5e VMEM), kept so that the
-same shapes take the same tier in both packages; an H100-derived gate is
-later work (ROADMAP A5).
+same shapes take the same tier in both packages.  H100 values would change
+`trace_signature()` and so the fleet's routing (ROADMAP.md A item 4, C16);
+`tools/attn_sweep.py` measures the card's crossover.
 """
 
 from __future__ import annotations

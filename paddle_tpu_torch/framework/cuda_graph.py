@@ -36,14 +36,15 @@ pool stream comes back as the caller's own tensor).  A donated input (a
 persistable the segment overwrites) gets its new value copied into its
 own storage inside the graph, so a parameter keeps its address.
 
-A segment that holds a stateful op (dropout) is called with the run's
-`torch.Generator`, which its graph registers
-(`CUDAGraph.register_generator_state`).  At every replay torch copies the
-generator's current seed and offset into the graph and advances the
-offset by what the graph draws, so the caller reseeds the generator
-before a call and the replay draws what an eager run from that seed
-would.  A draw from a generator the graph did not register fails the
-capture (torch asserts), and that failure names the segment.
+A segment that holds an op that draws (dropout) is called with the
+generators of its drawing ops, `{op position: torch.Generator}`, which
+its graph registers (`CUDAGraph.register_generator_state`).  At every
+replay torch copies each generator's current seed and offset into the
+graph and advances the offset by what the graph draws, so the caller
+reseeds the generators before a call and the replay draws what an eager
+run from those seeds would.  A draw from a generator the graph did not
+register fails the capture (torch asserts), and that failure names the
+segment.
 
 Python does not run during a replay, so the capture records the change
 of every kernel launch counter (`launches`, `*_launches` of the modules in
@@ -189,14 +190,14 @@ class _Graph:
 
 
 class CapturedSegment:
-    """fn(rng, *args) -> tuple of outputs, run on the card as described in
-    the module docstring.  `donate` holds 1-based argument positions (the
-    JAX package's donate_argnums, after the rng); `pool` is a
+    """fn(rngs, *args) -> tuple of outputs, run on the card as described
+    in the module docstring.  `donate` holds 1-based argument positions
+    (the JAX package's donate_argnums, after the rngs); `pool` is a
     `torch.cuda.graph_pool_handle()` shared with the owner's other graphs
     (None: a private pool a graph); `where` is the dict the segment
     function writes its running op into; `label` names the segment in
-    errors.  `rng`, the generator a stateful segment draws from, is None
-    for one that draws nothing."""
+    errors.  `rngs`, the generators of the segment's drawing ops by op
+    position, is None for one that draws nothing."""
 
     def __init__(self, fn, in_names, out_names, device, donate=(), pool=None,
                  where=None, label=""):
@@ -214,7 +215,7 @@ class CapturedSegment:
         self._graphs = {}
         self._seen = {}
 
-    def __call__(self, rng, *args):
+    def __call__(self, rngs, *args):
         sig = tuple(_arg_sig(a) for a in args)
         shape_key = tuple(s if s[0] == "h" else s[2:] for s in sig)
         graph = self._graphs.get(shape_key)
@@ -225,27 +226,27 @@ class CapturedSegment:
             seen = self._seen.pop(shape_key, None)
             if seen is None or seen[1] != thread:
                 self._seen[shape_key] = (sig, thread)
-                return self._warm_up(args, rng)
+                return self._warm_up(args, rngs)
             # a tensor on the card found where the warm-up found it is
             # bound; one that moved since (a new tensor every call) is
             # copied
             bound = [i for i, (a, b) in enumerate(zip(sig, seen[0]))
                      if a[0] == "d" and a[1] == b[1]]
             graph = self._graphs[shape_key] = self._capture(args, bound,
-                                                            rng)
+                                                            rngs)
         return self._outputs(graph, args)
 
     # -- the three kinds of call ------------------------------------------
 
-    def _run(self, args, rng):
-        outs = list(self.fn(rng, *args))
+    def _run(self, args, rngs):
+        outs = list(self.fn(rngs, *args))
         for i, o in self.donate:
             if outs[o] is not args[i]:
                 args[i].copy_(outs[o])
                 outs[o] = args[i]
         return outs
 
-    def _warm_up(self, args, rng):
+    def _warm_up(self, args, rngs):
         STATS["warmups"] += 1
         THREADS["warmups", threading.current_thread().name] += 1
         cur = torch.cuda.current_stream(self.device)
@@ -254,14 +255,14 @@ class CapturedSegment:
         with torch.cuda.stream(side):
             args = [a if a.device.type == "cuda" else a.to(self.device)
                     for a in args]
-            outs = self._run(args, rng)
+            outs = self._run(args, rngs)
         cur.wait_stream(side)
         for o in outs:
             if isinstance(o, torch.Tensor) and o.device.type == "cuda":
                 o.record_stream(cur)
         return tuple(outs)
 
-    def _capture(self, args, bound, rng):
+    def _capture(self, args, bound, rngs):
         t0 = time.perf_counter()
         # torch.cuda.graph releases the allocator's cache before it
         # records; release it first, so that the growth of the reserved
@@ -271,8 +272,8 @@ class CapturedSegment:
         reserved = torch.cuda.memory_stats(self.device).get(
             "reserved_bytes.all.current", 0)
         g = _Graph()
-        if rng is not None:
-            g.graph.register_generator_state(rng)
+        for gen in (rngs or {}).values():
+            g.graph.register_generator_state(gen)
         g.bound = tuple((i, args[i].data_ptr()) for i in bound)
         staged = list(args)
         for i, a in enumerate(args):
@@ -292,7 +293,7 @@ class CapturedSegment:
         try:
             with torch.cuda.graph(g.graph, pool=pool,
                                   capture_error_mode="thread_local"):
-                outs = self._run(staged, rng)
+                outs = self._run(staged, rngs)
         except Exception as e:
             _abandon_capture(pool, self.device, caller)
             op = self.where.get("op")

@@ -18,7 +18,7 @@ Counterpart of paddle_tpu/framework/executor.py, with its two paths:
     replayed after, which is what `jax.jit` of a segment is to XLA
     (`_compile_segment`, :451).  A training step is one segment, and is
     captured whole, its stateful ops (dropout) included: the graph draws
-    from the run's generator (below), registered with it.  A startup
+    from the drawing ops' generators (below), registered with it.  A startup
     program is run once, so its segment only ever runs eagerly.
 
 The default is "jit", as in the JAX package (flags.py's `executor_mode`);
@@ -33,16 +33,21 @@ under `torch.no_grad()`: tensors a startup creates are ordinary tensors
 that the grad lowerings may replay under autograd (tensors born under
 `torch.inference_mode()` could not be saved for backward).
 
-Stateful ops (uniform_random, dropout) draw, in op order, from one
-`torch.Generator` per Executor (and per `program_as_function`), on its
-place.  Before each run it is reseeded from Program.random_seed and the
-scope's run counter, `(random_seed << 20) + counter`, which resets its
-offset: one program run twice in one scope draws differently, a rerun in
-a fresh scope draws the same, and the jit path draws what the interpreter
-draws for the same seed and counter (the JAX package folds the same two
-numbers into its key, `_next_rng_key` :795-803).  A captured graph reads
-the generator's seed and offset at every replay, so reseeding is enough
-for a replay to draw anew.
+Stateful ops (uniform_random, dropout) draw from a `torch.Generator` of
+their own, one per op position, on the place (`_Streams`).  Before each
+run every drawing op's generator is seeded from Program.random_seed, the
+scope's run counter and the op's rng index: its `__rng_idx` attr, else
+its position.  The JAX package folds the same three numbers into the
+op's key (`_next_rng_key` :795-803, `fold_in(key, __rng_idx or op_idx)`
+:243, :349, :513-515).  So one program run twice in one scope draws
+differently, a rerun in a fresh scope draws the same, the jit path draws
+what the interpreter draws for the same seed and counter, and an op that
+carries another op's index draws what that op drew in the same run: a
+grad op replaying a stateful forward (backward.py) and a dropout cloned
+into the backward by `recompute.apply_recompute` recompute the forward's
+mask.  A captured graph registers the generators of its segment and reads
+their seeds at every replay, so reseeding them is enough for a replay to
+draw anew.  A dropout with `is_test` draws nothing and gets none.
 """
 
 from __future__ import annotations
@@ -85,17 +90,54 @@ def stage_feed(value, device, program, name, captured=False):
     return torch.as_tensor(np.asarray(value), dtype=dtype, device=device)
 
 
-def _reseed(gen, program, counter):
-    gen.manual_seed((int(program.random_seed or 0) << 20) + counter)
-    return gen
+# larger than any block's op count, so that no two (run, rng index) pairs
+# share a seed
+_SEED_STRIDE = 1_000_003
 
 
-def _next_generator(gen, program, scope):
-    """Reseed `gen` for this run from the scope's run counter, and count
-    the run."""
+def _run_base(program, counter):
+    return (int(program.random_seed or 0) << 20) + counter
+
+
+def _next_base(program, scope):
+    """This run's base seed, from the scope's run counter; counts the
+    run."""
     counter = scope.find_var(_RNG_COUNTER_NAME) or 0
     scope.set_var(_RNG_COUNTER_NAME, counter + 1)
-    return _reseed(gen, program, counter)
+    return _run_base(program, counter)
+
+
+def _draws(indexed_ops):
+    """(op position, rng index) of every op that draws: a stateful op
+    (dropout in training mode, uniform_random, gaussian_random, the
+    generic grad of a stateful op), its rng index the `__rng_idx` attr or
+    else its position."""
+    from ..ops import registry
+
+    return [(i, int(op.attrs.get("__rng_idx", i))) for i, op in indexed_ops
+            if registry.get_runtime_info(op.type).stateful
+            and not op.attrs.get("is_test", False)]
+
+
+class _Streams:
+    """One torch.Generator per drawing op position, on `device`, kept for
+    the owner's life: a captured graph registers these very objects."""
+
+    def __init__(self, device):
+        self.device = device
+        self._gens = {}
+
+    def seeded(self, draws, base):
+        """{op position: its generator, seeded for the run with base
+        seed `base`}."""
+        out = {}
+        for pos, idx in draws:
+            g = self._gens.get(pos)
+            if g is None:
+                g = self._gens[pos] = torch.Generator(device=self.device)
+            g.manual_seed((base * _SEED_STRIDE + idx) % (1 << 64))
+            out[pos] = g
+        return out
 
 
 def _last_reads(ops):
@@ -108,14 +150,15 @@ def _last_reads(ops):
 
 
 def _run_op(op, read, rng, device):
+    """Run `op` on the values `read` gives; `rng` is its generator (None
+    for an op that draws nothing)."""
     from ..ops import registry
 
     info = registry.get_runtime_info(op.type)
     inputs = {param: [None if n == EMPTY_VAR_NAME else read(n)
                       for n in names]
               for param, names in op.inputs.items()}
-    return registry.run_forward(info, inputs, op.attrs,
-                                rng=rng if info.stateful else None,
+    return registry.run_forward(info, inputs, op.attrs, rng=rng,
                                 out_names=op.outputs, device=device)
 
 
@@ -128,11 +171,15 @@ def _outputs(op, outs):
                 yield n, vals[j]
 
 
-def run_block(program, scope, device, rng=None, keep=(), write=None):
-    """Run block 0's ops over `scope`.  Outputs that are persistable or in
-    `keep` are stored with `write(name, value)` (default: scope.set_var);
-    other outputs live in a local table until their last reader has run."""
+def run_block(program, scope, device, rngs=None, keep=(), write=None):
+    """Run block 0's ops over `scope`; `rngs` maps a drawing op's position
+    to its generator.  Outputs that are persistable or in `keep` are
+    stored with `write(name, value)` (default: scope.set_var); other
+    outputs live in a local table until their last reader has run.  An
+    op's outputs may alias its inputs (`rc_barrier`): a value is dropped
+    from the table, never freed, so an alias keeps it alive."""
     write = write or scope.set_var
+    rngs = rngs or {}
     block = program.global_block()
     ops = block.ops
     last = _last_reads(ops)
@@ -143,7 +190,7 @@ def run_block(program, scope, device, rng=None, keep=(), write=None):
         return local[n] if n in local else scope.find_var(n)
 
     for i, op in enumerate(ops):
-        outs = _run_op(op, read, rng, device)
+        outs = _run_op(op, read, rngs.get(i), device)
         for n in op.input_arg_names:
             if last.get(n) == i:
                 local.pop(n, None)
@@ -168,7 +215,7 @@ class _Segment:
     storage inside the graph, so a parameter keeps its address."""
 
     __slots__ = ("ops", "op_indices", "in_names", "out_names", "donate",
-                 "fn", "stateful")
+                 "fn", "stateful", "draws")
 
     def __init__(self, ops, op_indices):
         self.ops = ops
@@ -178,6 +225,7 @@ class _Segment:
         self.donate = ()
         self.fn = None
         self.stateful = False
+        self.draws = []     # (op position, rng index), see _draws
 
 
 def build_plan(program, fetch_names, block_idx=0):
@@ -232,6 +280,7 @@ def build_plan(program, fetch_names, block_idx=0):
         seg.out_names = out_names
         seg.stateful = any(registry.get_runtime_info(op.type).stateful
                            for op in seg.ops)
+        seg.draws = _draws(zip(seg.op_indices, seg.ops))
         overwritten = set(out_names) & set(in_names) & persistable
         seg.donate = tuple(i + 1 for i, n in enumerate(in_names)
                            if n in overwritten)
@@ -239,11 +288,12 @@ def build_plan(program, fetch_names, block_idx=0):
 
 
 def make_segment_fn(seg, device, where=None):
-    """fn(rng, *args) -> outputs: the segment's ops run eagerly over its
-    inputs (the JAX package's `make_segment_fn`, :496).  A value lives
-    until its last reader in the segment unless it is an output.  `where`,
-    a dict, is told which op runs (`where["op"]`), so that a failure
-    inside a capture can name it."""
+    """fn(rngs, *args) -> outputs: the segment's ops run eagerly over its
+    inputs (the JAX package's `make_segment_fn`, :496); `rngs` maps each
+    drawing op's position to its generator (None when nothing draws).  A
+    value lives until its last reader in the segment unless it is an
+    output.  `where`, a dict, is told which op runs (`where["op"]`), so
+    that a failure inside a capture can name it."""
     op_list = list(zip(seg.op_indices, seg.ops))
     in_names = list(seg.in_names)
     out_names = list(seg.out_names)
@@ -254,11 +304,12 @@ def make_segment_fn(seg, device, where=None):
             last[n] = j
     where = {} if where is None else where
 
-    def segment_fn(rng, *args):
+    def segment_fn(rngs, *args):
+        rngs = rngs or {}
         env = dict(zip(in_names, args))
         for j, (op_idx, op) in enumerate(op_list):
             where["op"] = (op_idx, op.type)
-            outs = _run_op(op, env.get, rng, device)
+            outs = _run_op(op, env.get, rngs.get(op_idx), device)
             for n in op.input_arg_names:
                 if last.get(n) == j and n not in keep:
                     env.pop(n, None)
@@ -304,7 +355,7 @@ class Executor:
                              "'jit'")
         self._cache = {}
         self._graph_pool = None
-        self._rng = torch.Generator(device=self.device)
+        self._streams = _Streams(self.device)
 
     def run(self, program: Program = None, feed: dict = None,
             fetch_list=None, scope: Scope = None, return_numpy: bool = True):
@@ -316,13 +367,16 @@ class Executor:
                   for name, value in (feed or {}).items()}
         for name, value in staged.items():
             scope.set_var(name, value)
-        rng = _next_generator(self._rng, program, scope)
+        base = _next_base(program, scope)
         fetch_names = [_as_fetch_name(f) for f in fetch_list or []]
         with torch.no_grad():
             if self.mode == "interpret":
-                run_block(program, scope, self.device, rng, keep=fetch_names)
+                rngs = self._streams.seeded(
+                    _draws(enumerate(program.global_block().ops)), base)
+                run_block(program, scope, self.device, rngs,
+                          keep=fetch_names)
             else:
-                self._run_jit(program, scope, staged, fetch_names, rng)
+                self._run_jit(program, scope, staged, fetch_names, base)
         outs = []
         for name in fetch_names:
             v = scope.find_var(name)
@@ -362,7 +416,7 @@ class Executor:
             self._cache[key] = plan
         return plan
 
-    def _run_jit(self, program, scope, feed, fetch_names, rng):
+    def _run_jit(self, program, scope, feed, fetch_names, base):
         block = program.global_block()
         for item in self._plan(program, feed, fetch_names):
             if isinstance(item, _Segment):
@@ -374,11 +428,14 @@ class Executor:
                             f"var {n!r} has no value in scope (did you run "
                             "the startup program?)")
                     args.append(v)
-                gen = rng if item.stateful else None
-                for n, v in zip(item.out_names, item.fn(gen, *args)):
+                rngs = (self._streams.seeded(item.draws, base)
+                        if item.draws else None)
+                for n, v in zip(item.out_names, item.fn(rngs, *args)):
                     scope.set_var(n, v)
             else:   # a no_jit op, on the host between segments
                 op = block.ops[item]
+                rng = self._streams.seeded(_draws([(item, op)]), base).get(
+                    item)
                 for n, v in _outputs(op, _run_op(op, scope.find_var, rng,
                                                  self.device)):
                     scope.set_var(n, v)
@@ -398,9 +455,9 @@ def program_as_function(program, scope, fetch_names, place=None,
     `torch.cuda.graph_pool_handle()`) is the memory pool its graphs share
     with the caller's other graphs; `mode="interpret"` runs the ops
     eagerly there instead.  Stateful ops draw from the function's own
-    generator, reseeded from `program.random_seed` and a count of the
-    function's calls before each one.  Raises when a `no_jit` op lies on
-    the fetch path."""
+    generators (`_Streams`), reseeded from `program.random_seed` and a
+    count of the function's calls before each one.  Raises when a
+    `no_jit` op lies on the fetch path."""
     device = as_device(place)
     fetch_names = list(fetch_names)
     plan = build_plan(program, fetch_names)
@@ -416,7 +473,7 @@ def program_as_function(program, scope, fetch_names, place=None,
     seg = plan[0]
     captured = device.type == "cuda" and mode == "jit"
     seg.fn = _compile_segment(seg, device, graph_pool, captured)
-    gen = torch.Generator(device=device)
+    streams = _Streams(device)
     calls = [0]
     in_names = list(seg.in_names)
     unknown = [n for n in fetch_names
@@ -437,9 +494,10 @@ def program_as_function(program, scope, fetch_names, place=None,
                 raise RuntimeError(f"var {n!r} has no value: feed it or run "
                                    "the startup program first")
             args.append(v)
-        rng = _reseed(gen, program, calls[0]) if seg.stateful else None
+        rngs = (streams.seeded(seg.draws, _run_base(program, calls[0]))
+                if seg.draws else None)
         calls[0] += 1
-        outs = seg.fn(rng, *args)
+        outs = seg.fn(rngs, *args)
         return tuple(outs[out_index[n]] if n in out_index
                      else args[in_names.index(n)] for n in fetch_names)
 

@@ -286,6 +286,15 @@ class Block:
             registry.infer_shape(op, self)
         return op
 
+    def _prepend_op(self, type, inputs=None, outputs=None, attrs=None):
+        op = Operator(self, type, inputs, outputs, attrs)
+        self.ops.insert(0, op)
+        self.program._bump_version()
+        from ..ops import registry
+
+        registry.infer_shape(op, self)
+        return op
+
     def to_dict(self):
         return {
             "idx": self.idx,

@@ -119,6 +119,13 @@ class LayerHelper:
         return self.main_program.global_block().create_var(
             persistable=persistable, **kwargs)
 
+    def create_or_get_global_variable(self, name, **kwargs):
+        """(the persistable global var `name`, whether it was created)."""
+        gb = self.main_program.global_block()
+        if gb.has_var(name):
+            return gb.var(name), False
+        return gb.create_var(name=name, persistable=True, **kwargs), True
+
     def set_variable_initializer(self, var, initializer):
         """Registers the var and its init op in the startup program."""
         sb = self.startup_program.global_block()

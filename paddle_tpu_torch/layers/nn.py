@@ -15,25 +15,32 @@ from ..layer_helper import LayerHelper, ParamAttr
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
        act=None, name=None):
-    """Fully connected: mul + bias add + activation."""
+    """Fully connected: one mul a input (each with its own weight), their
+    `sum` when there are several, then bias add and activation."""
     helper = LayerHelper("fc", **locals())
     dtype = helper.input_dtype()
     inputs = helper.multiple_input()
-    if len(inputs) != 1:
-        raise NotImplementedError(
-            "fc over several inputs needs the `sum` op, which is not on the "
-            "serving slice (ROADMAP A)")
-    (x,) = inputs
-    in_features = int(np.prod(x.shape[num_flatten_dims:]))
-    w = helper.create_parameter(attr=param_attr, shape=[in_features, size],
-                                dtype=dtype, is_bias=False)
-    pre_bias = helper.create_variable_for_type_inference(dtype)
-    helper.append_op(
-        type="mul",
-        inputs={"X": [x], "Y": [w]},
-        outputs={"Out": [pre_bias]},
-        attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1},
-    )
+    param_attrs = (param_attr if isinstance(param_attr, (list, tuple))
+                   else [param_attr] * len(inputs))
+    mul_results = []
+    for x, pa in zip(inputs, param_attrs):
+        in_features = int(np.prod(x.shape[num_flatten_dims:]))
+        w = helper.create_parameter(attr=pa, shape=[in_features, size],
+                                    dtype=dtype, is_bias=False)
+        tmp = helper.create_variable_for_type_inference(dtype)
+        helper.append_op(
+            type="mul",
+            inputs={"X": [x], "Y": [w]},
+            outputs={"Out": [tmp]},
+            attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1},
+        )
+        mul_results.append(tmp)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(dtype)
+        helper.append_op(type="sum", inputs={"X": mul_results},
+                         outputs={"Out": [pre_bias]})
     pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
 
@@ -277,8 +284,33 @@ def elementwise_div(x, y, axis=-1, act=None, name=None):
     return elementwise_op("elementwise_div", x, y, axis, act, name)
 
 
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_max", x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_min", x, y, axis, act, name)
+
+
 def elementwise_pow(x, y, axis=-1, act=None, name=None):
     return elementwise_op("elementwise_pow", x, y, axis, act, name)
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="clip", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"min": float(min), "max": float(max)})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="clip_by_norm", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"max_norm": float(max_norm)})
+    return out
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
@@ -407,6 +439,49 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     )
     if return_softmax:
         return loss, softmax_out
+    return loss
+
+
+def fused_linear_cross_entropy(input, label, size, label_smooth_eps=0.0,
+                               ignore_index=-100, chunks=8, param_attr=None,
+                               weight=None, transpose_w=False, name=None):
+    """The vocabulary projection fused with softmax cross entropy
+    (ops/loss_ops.py linear_softmax_ce): input [..., d] flattened to [N, d],
+    the [N, size] logits computed tile by tile.  The math of fc(bias_attr=
+    False) + softmax_with_cross_entropy(label_smooth_eps=...).  `weight`
+    projects with an existing parameter instead of a new [d, size] one,
+    e.g. a tied [size, d] word embedding with transpose_w=True.  Returns
+    the per-row Loss [N, 1]."""
+    helper = LayerHelper("linear_softmax_ce", **locals())
+    dtype = helper.input_dtype()
+    in_features = int(input.shape[-1])
+    if weight is None:
+        w = helper.create_parameter(attr=param_attr,
+                                    shape=[in_features, size], dtype=dtype,
+                                    is_bias=False)
+    else:
+        if param_attr is not None:
+            raise ValueError(
+                "fused_linear_cross_entropy: param_attr has no effect when "
+                "an existing `weight` is passed — set attrs on that "
+                "parameter instead")
+        w = weight
+        want = [size, in_features] if transpose_w else [in_features, size]
+        if list(w.shape) != want:
+            raise ValueError(
+                f"fused_linear_cross_entropy: weight shape {list(w.shape)} "
+                f"!= {want} (transpose_w={transpose_w})")
+    x2d = reshape(input, shape=[-1, in_features])
+    lbl2d = reshape(label, shape=[-1, 1])
+    loss = helper.create_variable_for_type_inference("float32")
+    helper.append_op(
+        type="linear_softmax_ce",
+        inputs={"X": [x2d], "W": [w], "Label": [lbl2d]},
+        outputs={"Loss": [loss]},
+        attrs={"label_smooth_eps": label_smooth_eps,
+               "ignore_index": ignore_index, "chunks": chunks,
+               "transpose_w": bool(transpose_w)},
+    )
     return loss
 
 

@@ -11,8 +11,11 @@ word embedding over the masked positions (gathered by a one-hot matmul)
 and a next-sentence head on [CLS].  At 2048 tokens and BERT-base widths
 every attention takes the streaming flash tier (kernels #3, #4, #5).
 Dropout sits where the JAX package puts it (the embeddings, each
-attention and FFN branch).  The fused loss head (`fused_head`) and MoE
-FFNs are later slices (ROADMAP.md A): build raises for them.
+attention and FFN branch).  `fused_head` computes the masked-LM loss with
+`fused_linear_cross_entropy` over the tied word embedding (transpose_w,
+no [B, M, V] logits); `checkpoints` collects each encoder layer's output
+for `optimizer.RecomputeOptimizer`.  MoE FFNs are a later slice
+(ROADMAP.md A): build raises for them.
 """
 
 from __future__ import annotations
@@ -68,14 +71,10 @@ def tiny(vocab=128, seq=16):
                       dropout=0.0)
 
 
-def _check_trainable(cfg: BertConfig, fused_head):
+def _check_trainable(cfg: BertConfig):
     if cfg.moe_experts:
         raise NotImplementedError(
             "MoE FFNs land with the moe op family (ROADMAP.md A)")
-    if fused_head:
-        raise NotImplementedError(
-            "fused_head (the fused_linear_cross_entropy loss head) is not "
-            "ported yet (ROADMAP.md A)")
 
 
 def _encoder_layer(x, cfg, name, attn_seq_len=None):
@@ -109,7 +108,7 @@ def build(cfg: BertConfig = None, seq_len=None, checkpoints=None,
     check_prefix_mask op raises on a row with a hole.
     """
     cfg = cfg or base()
-    _check_trainable(cfg, fused_head)
+    _check_trainable(cfg)
     s = seq_len or cfg.max_positions
     ids = layers.data("input_ids", shape=[s], dtype="int64")
     seg = layers.data("segment_ids", shape=[s], dtype="int64")
@@ -153,10 +152,15 @@ def build(cfg: BertConfig = None, seq_len=None, checkpoints=None,
     h = layers.layer_norm(h, begin_norm_axis=2, name="mlm_ln")
     w = layers.create_parameter(shape=[cfg.vocab_size, cfg.hidden],
                                 dtype="float32", name="word_emb")
-    logits = layers.matmul(h, w, transpose_y=True)          # [B, M, V]
-    logits2d = layers.reshape(logits, shape=[-1, cfg.vocab_size])
-    lab2d = layers.reshape(mlab, shape=[-1, 1])
-    per_tok = layers.softmax_with_cross_entropy(logits=logits2d, label=lab2d)
+    if fused_head:
+        per_tok = layers.fused_linear_cross_entropy(
+            h, mlab, size=cfg.vocab_size, weight=w, transpose_w=True)
+    else:
+        logits = layers.matmul(h, w, transpose_y=True)      # [B, M, V]
+        logits2d = layers.reshape(logits, shape=[-1, cfg.vocab_size])
+        lab2d = layers.reshape(mlab, shape=[-1, 1])
+        per_tok = layers.softmax_with_cross_entropy(logits=logits2d,
+                                                    label=lab2d)
     w2d = layers.reshape(mw, shape=[-1, 1])
     mlm_loss = layers.reduce_sum(layers.elementwise_mul(per_tok, w2d)) \
         / (layers.reduce_sum(w2d) + 1e-6)

@@ -10,8 +10,10 @@ Every parameter name is the JAX package's, and the training graph places
 its dropouts where the JAX package's does (the embeddings, the FFN
 hidden, every residual branch), so the two Program dicts are equal op for
 op and weights carried across with `convert.load_params` land where these
-programs read them.  The fused loss head (`fused_head`) and MoE FFNs
-are later slices (ROADMAP.md A).
+programs read them.  `fused_head` computes the loss with
+`fused_linear_cross_entropy` (no [B*S, V] logits); `checkpoints` collects
+the residual stream for `optimizer.RecomputeOptimizer`.  MoE FFNs are a
+later slice (ROADMAP.md A).
 """
 
 from __future__ import annotations
@@ -176,7 +178,7 @@ def build(cfg: TransformerConfig = None, seq_len=None, checkpoints=None,
           fused_head=False, use_src_lens=False):
     """Training graph: (src_ids, trg_ids, lbl_ids) -> mean token loss, with
     label smoothing fused into softmax_with_cross_entropy.  Returns
-    (loss, logits).
+    (loss, logits), or (loss, the decoder output) with `fused_head`.
 
     use_src_lens: feed src_lens [B] (real source lengths); encoder
     self-attention and decoder cross-attention mask keys past each row's
@@ -184,13 +186,9 @@ def build(cfg: TransformerConfig = None, seq_len=None, checkpoints=None,
 
     `checkpoints` (optional list) is filled with the residual stream after
     every sub-block plus the embedding and encoder/decoder outputs, the
-    remat boundaries a RecomputeOptimizer would use."""
+    remat boundaries of a RecomputeOptimizer."""
     cfg = cfg or base()
     _check_trainable(cfg)
-    if fused_head:
-        raise NotImplementedError(
-            "fused_head (the chunked linear_softmax_ce loss head) is not "
-            "ported yet (ROADMAP.md A)")
     seq_len = seq_len or cfg.max_length
     src_ids = layers.data(name="src_ids", shape=[seq_len], dtype="int64")
     trg_ids = layers.data(name="trg_ids", shape=[seq_len], dtype="int64")
@@ -215,6 +213,16 @@ def build(cfg: TransformerConfig = None, seq_len=None, checkpoints=None,
     dec_out = decoder(dec_in, enc_out, cfg, checkpoints, src_lens=src_lens)
     if checkpoints is not None:
         checkpoints.append(dec_out)
+
+    if fused_head:
+        # the projection fused with the loss, chunk by chunk: the
+        # [B*S, V] logits never exist whole; returns dec_out in place of
+        # the logits, as the JAX package does
+        loss_vec = layers.fused_linear_cross_entropy(
+            input=dec_out, label=lbl_ids, size=cfg.trg_vocab_size,
+            label_smooth_eps=cfg.label_smooth_eps or 0.0,
+            param_attr=ParamAttr(name="logits_proj.w_0"))
+        return layers.mean(loss_vec), dec_out
 
     logits = layers.fc(input=dec_out, size=cfg.trg_vocab_size,
                        num_flatten_dims=2, bias_attr=False,

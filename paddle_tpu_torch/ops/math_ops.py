@@ -1,12 +1,15 @@
 """Dense math ops: the elementwise family, comparisons and logical ops,
-mul, matmul, scale, sum, mean, and the reduce family (sum, mean, max,
-min, prod).
+mul, matmul, scale, sum, mean, the reduce family (sum, mean, max, min,
+prod), the clip family (clip, clip_by_norm, squared_l2_norm), sign and
+the learning-rate schedules (lr_schedule).
 
 Counterparts of paddle_tpu/ops/math_ops.py (elementwise :36-51, mul :55,
 matmul :69, scale :86, sum :98, mean :105, the reduce family :116-139,
-comparisons and logical ops :190-222).  Their gradients are the
-registry's generic ones: autograd over these lowerings reduces a
-broadcast Y back to its own shape, as `jax.vjp` does.  `mul` and
+clip :142, clip_by_norm :151, squared_l2_norm :160, sign :185,
+comparisons and logical ops :190-222, lr_schedule :243).  Their
+gradients are the registry's generic ones: autograd over these lowerings
+reduces a broadcast Y back to its own shape, as `jax.vjp` does, and
+splits a tie of elementwise_max/min evenly, as jnp.maximum's does.  `mul` and
 `matmul` stay `torch.matmul`: the JAX package left them to XLA, outside
 any Pallas kernel.  A float32 matmul on the card runs in full float32
 only while `torch.backends.cuda.matmul.allow_tf32` is False (the PyTorch
@@ -52,6 +55,8 @@ _make_elementwise("elementwise_add", torch.add)
 _make_elementwise("elementwise_sub", torch.sub)
 _make_elementwise("elementwise_mul", torch.mul)
 _make_elementwise("elementwise_div", torch.div)
+_make_elementwise("elementwise_max", torch.maximum)
+_make_elementwise("elementwise_min", torch.minimum)
 _make_elementwise("elementwise_pow", torch.pow)
 _make_elementwise("elementwise_mod", torch.remainder)   # jnp.mod's sign rule
 
@@ -195,3 +200,92 @@ for _name, _fn in [
     ("reduce_prod", _prod),
 ]:
     register_op(_name)(functools.partial(_reduce, _fn))
+
+
+@register_op("clip")
+def clip(ctx):
+    """min(max(X, min), max), the bounds rounded to X's dtype."""
+    x = ctx.input("X")
+    ctx.set_output("Out", torch.clamp(x, _in_dtype(ctx.attr("min"), x.dtype),
+                                      _in_dtype(ctx.attr("max"), x.dtype)))
+
+
+@register_op("clip_by_norm")
+def clip_by_norm(ctx):
+    """Out = X * max_norm / max(||X||_2, max_norm) (reference
+    clip_by_norm_op.cc); the norm stays a tensor on X's device."""
+    x = ctx.input("X")
+    max_norm = _in_dtype(ctx.attr("max_norm"), x.dtype)
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    ctx.set_output("Out", x * (max_norm / torch.clamp(norm, min=max_norm)))
+
+
+@register_op("squared_l2_norm")
+def squared_l2_norm(ctx):
+    """sum(X^2) as shape [1]."""
+    ctx.set_output("Out", torch.sum(torch.square(ctx.input("X"))).reshape(1))
+
+
+@register_op("sign", no_grad=True)
+def sign(ctx):
+    ctx.set_output("Out", torch.sign(ctx.input("X")))
+
+
+def _piecewise(step, bounds, values):
+    """values[the count of bounds <= step], selected on the step's device
+    (no host read, no host-to-card copy: a captured step replays it)."""
+    n = torch.zeros_like(step, dtype=torch.int32)
+    for b in bounds:
+        n = n + (step >= b).to(torch.int32)
+    lr = torch.zeros_like(step)
+    for k, v in enumerate(values):
+        lr = torch.where(n == k, v, lr)
+    return lr
+
+
+@register_op("lr_schedule", no_grad=True)
+def lr_schedule(ctx):
+    """A learning-rate schedule as one op over the step counter Step
+    (layers/learning_rate_scheduler.py).  Pure tensor arithmetic on the
+    counter's device, so a captured training step replays it with the
+    counter its `increment` advanced: nothing is read back to the host.
+    noam at step 0 is min(inf, 0) = 0, as in the JAX lowering."""
+    step = ctx.input("Step").reshape(()).float()
+    kind = ctx.attr("kind")
+    if kind == "noam":
+        d_model = ctx.attr("d_model")
+        warmup = ctx.attr("warmup_steps")
+        lr = d_model ** -0.5 * torch.minimum(step ** -0.5,
+                                             step * warmup ** -1.5)
+    elif kind in ("exponential", "natural_exp", "inverse_time"):
+        base = ctx.attr("learning_rate")
+        rate = ctx.attr("decay_rate")
+        div = step / ctx.attr("decay_steps")
+        if ctx.attr("staircase", False):
+            div = torch.floor(div)
+        if kind == "exponential":
+            lr = base * torch.pow(rate, div)
+        elif kind == "natural_exp":
+            lr = base * torch.exp(-rate * div)
+        else:
+            lr = base / (1.0 + rate * div)
+    elif kind == "polynomial":
+        base = ctx.attr("learning_rate")
+        dsteps = ctx.attr("decay_steps")
+        end = ctx.attr("end_learning_rate")
+        if ctx.attr("cycle", False):
+            dsteps = dsteps * torch.ceil(torch.clamp(step, min=1.0) / dsteps)
+            capped = torch.minimum(step, dsteps)
+        else:
+            capped = torch.clamp(step, max=dsteps)
+        lr = ((base - end) * torch.pow(1.0 - capped / dsteps,
+                                       ctx.attr("power")) + end)
+    elif kind == "piecewise":
+        lr = _piecewise(step, ctx.attr("boundaries"), ctx.attr("values"))
+    elif kind == "cosine":
+        cur_epoch = torch.floor(step / ctx.attr("step_each_epoch"))
+        lr = ctx.attr("learning_rate") * 0.5 * (
+            torch.cos(cur_epoch * math.pi / ctx.attr("epochs")) + 1.0)
+    else:
+        raise ValueError(f"unknown lr schedule kind {kind!r}")
+    ctx.set_output("Out", lr.reshape(1).float())

@@ -1,12 +1,12 @@
 """Tensor ops: fill_constant, fill_constant_batch_size_like, assign,
 assign_value, cast, reshape, concat, slice, gather, one_hot, top_k,
-lookup_table (with its hand-written grad), increment.
+lookup_table (with its hand-written grad), increment, rc_barrier.
 
 Counterparts of paddle_tpu/ops/tensor_ops.py (fill_constant :25,
 fill_constant_batch_size_like :42, assign :60, assign_value :65, cast
 :78, reshape :83, concat :118, slice :138, gather :229, one_hot :242,
 top_k :254, lookup_table :286, lookup_table_grad :311-342, increment
-:395).  Shape inference and grads are the registry's generic ones (a
+:395, rc_barrier :410).  Shape inference and grads are the registry's generic ones (a
 meta-tensor run; an autograd replay).  Integer
 feeds keep int64 here, where the JAX package (x64 off) narrows them to
 int32: values agree, dtypes do not.
@@ -193,3 +193,15 @@ def increment(ctx):
     x = ctx.input("X")
     step = torch.tensor(ctx.attr("step", 1.0), dtype=x.dtype).item()
     ctx.set_output("Out", x + step)
+
+
+@register_op("rc_barrier", no_grad=True)
+def rc_barrier(ctx):
+    """The recompute pass's barrier (recompute.py): Out is X, the same
+    tensors.  In the JAX package an optimization barrier keeps XLA's CSE
+    from folding the recomputed clones back into the forward's values, and
+    Trigger (an incoming gradient) orders the recompute after the backward
+    reaches the segment.  Eager torch merges nothing and runs ops in
+    program order, so Trigger is read for ordering only; the op exists so
+    that the port runs the JAX package's rewritten program as it is."""
+    ctx.set_outputs("Out", [v for v in ctx.inputs("X") if v is not None])

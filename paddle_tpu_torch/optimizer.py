@@ -7,8 +7,8 @@ op per parameter, stamped OpRole.Optimize), SGD, Momentum, LarsMomentum,
 Adagrad, ProximalGD, ProximalAdagrad, Adam and Adamax (with their
 beta-power `scale` ops), DecayedAdagrad, Adadelta, RMSProp, Ftrl, and
 ModelAverage.  The update ops are ordinary IR ops (ops/optimizer_ops.py)
-that write over their inputs in the scope.  RecomputeOptimizer is later
-work (ROADMAP.md A item 4).
+that write over their inputs in the scope.  RecomputeOptimizer wraps any
+of them and rewrites the minimized program with recompute.apply_recompute.
 
 `multi_precision=True` keeps an f32 master copy of every bf16 parameter
 (made by a `cast` op in the startup program) and f32 moments: the update
@@ -54,6 +54,7 @@ __all__ = [
     "ProximalGD", "ProximalGDOptimizer",
     "ProximalAdagrad", "ProximalAdagradOptimizer",
     "ModelAverage",
+    "RecomputeOptimizer",
 ]
 
 
@@ -579,6 +580,36 @@ class FtrlOptimizer(Optimizer):
             attrs={"l1": self._l1, "l2": self._l2,
                    "lr_power": self._lr_power},
             infer_shape=False)
+
+
+class RecomputeOptimizer(Optimizer):
+    """An optimizer with activation recompute over checkpoint vars
+    (optimizer.py:739-770 of the JAX package; recompute.py):
+
+        opt = optimizer.RecomputeOptimizer(optimizer.Adam(1e-4), ckpts)
+        opt.minimize(loss)
+
+    Every other attribute is the inner optimizer's."""
+
+    def __init__(self, inner_optimizer, checkpoints=None):
+        self._inner = inner_optimizer
+        self._checkpoints = list(checkpoints or [])
+
+    def _set_checkpoints(self, checkpoints):
+        self._checkpoints = list(checkpoints)
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        from .recompute import apply_recompute
+
+        optimize_ops, params_grads = self._inner.minimize(
+            loss, startup_program, parameter_list, no_grad_set)
+        if self._checkpoints:
+            apply_recompute(loss.block.program, self._checkpoints)
+        return optimize_ops, params_grads
 
 
 SGD = SGDOptimizer

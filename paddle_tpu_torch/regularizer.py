@@ -2,8 +2,9 @@
 
 Counterpart of paddle_tpu/regularizer.py: between backward and the
 optimizer update, each parameter's regularization term is added to its
-gradient by a `sum` op.  With no regularizer the pairs pass through.
-L1DecayRegularizer needs the `sign` op and lands with it (ROADMAP.md A).
+gradient by a `sum` op: coeff * param (L2Decay, a `scale`) or coeff *
+sign(param) (L1Decay, a `sign` then a `scale`).  With no regularizer the
+pairs pass through.
 """
 
 from __future__ import annotations
@@ -37,6 +38,33 @@ class L2DecayRegularizer(WeightDecayRegularizer):
         return decay
 
 
+class L1DecayRegularizer(WeightDecayRegularizer):
+    """grad += coeff * sign(param)."""
+
+    def __init__(self, regularization_coeff=0.0):
+        self._regularization_coeff = regularization_coeff
+
+    def __call__(self, param, grad, block):
+        sign = block.create_var(
+            name=grad.name + "@L1SIGN", shape=param.shape, dtype=param.dtype,
+            stop_gradient=True,
+        )
+        decay = block.create_var(
+            name=grad.name + "@L1DECAY", shape=param.shape, dtype=param.dtype,
+            stop_gradient=True,
+        )
+        block.append_op(type="sign", inputs={"X": [param]},
+                        outputs={"Out": [sign]}, infer_shape=False)
+        block.append_op(
+            type="scale",
+            inputs={"X": [sign]},
+            outputs={"Out": [decay]},
+            attrs={"scale": self._regularization_coeff},
+            infer_shape=False,
+        )
+        return decay
+
+
 def append_regularization_ops(parameters_and_grads, regularization=None):
     """A parameter's own regularizer overrides the global one."""
     params_and_grads = []
@@ -62,3 +90,4 @@ def append_regularization_ops(parameters_and_grads, regularization=None):
 
 
 L2Decay = L2DecayRegularizer
+L1Decay = L1DecayRegularizer

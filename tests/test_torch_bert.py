@@ -401,8 +401,9 @@ def test_bert_programs_are_identical(use_amp, mask, dropout):
 def test_bert_base_op_census_and_unported_options():
     """BERT-base at 2048 tokens: 12 fused_attention ops and their grads;
     at its published dropout 0.1, 25 dropout ops (the embeddings, then the
-    attention and FFN branches of 12 layers) and their grads; fused_head
-    and MoE raise naming ROADMAP."""
+    attention and FFN branches of 12 layers) and their grads; MoE raises
+    naming ROADMAP; fused_head builds one linear_softmax_ce over the tied
+    word embedding in place of the logits matmul."""
     main, startup = pt.Program(), pt.Program()
     with pt.program_guard(main, startup), pt.unique_name.guard():
         loss = PB.build(PB.BertConfig(max_positions=2048, dropout=0.0),
@@ -419,12 +420,16 @@ def test_bert_base_op_census_and_unported_options():
         pt.optimizer.Adam(1e-4).minimize(loss)
     types = [op.type for op in main.global_block().ops]
     assert types.count("dropout") == types.count("dropout_grad") == 25
-    for cfg, kw in ((PB.BertConfig(dropout=0.0, moe_experts=4), {}),
-                    (PB.BertConfig(dropout=0.0), {"fused_head": True})):
-        with pt.program_guard(pt.Program(), pt.Program()), \
-                pt.unique_name.guard():
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                PB.build(cfg, **kw)
+    with pt.program_guard(pt.Program(), pt.Program()), \
+            pt.unique_name.guard():
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            PB.build(PB.BertConfig(dropout=0.0, moe_experts=4))
+    main = pt.Program()
+    with pt.program_guard(main, pt.Program()), pt.unique_name.guard():
+        PB.build(PB.BertConfig(dropout=0.0), fused_head=True)
+    (head,) = [op for op in main.global_block().ops
+               if op.type == "linear_softmax_ce"]
+    assert head.input("W") == ["word_emb"] and head.attr("transpose_w")
 
 
 def test_synthetic_batch_matches():

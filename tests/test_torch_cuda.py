@@ -1278,8 +1278,9 @@ def test_jit_executor_trains_as_the_interpreter_on_the_card(card):
 
 def test_jit_executor_captures_dropout_training_as_the_interpreter(card):
     """A tiny transformer at dropout 0.1 (float32, Adam): under
-    Executor(mode="jit") its step is captured with the run's generator
-    registered (a CUDA graph at the second run, replayed at the third);
+    Executor(mode="jit") its step is captured with its dropouts'
+    generators registered (a CUDA graph at the second run, replayed at
+    the third);
     from the same state and run counter its 3 losses and masks equal
     mode="interpret"'s (losses rtol 1e-5, masks exactly), and a mask
     differs from step to step."""
@@ -1927,3 +1928,140 @@ def test_int8_conv2d_on_the_card_equals_the_plain_version(card, case):
                                       for k, v in inputs.items()}, attrs,
                                device=torch.device("cpu"))["Output"][0]
     assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("transpose_w", [False, True], ids=["dV", "tied"])
+def test_linear_softmax_ce_on_the_card(card, transpose_w, dtype):
+    """The fused loss head on the card (a bfloat16 pair through cuBLAS's
+    bfloat16 -> float32 product) against the same lowering on the CPU
+    (float32 products of the same values): Loss, dX, dW within rtol 1e-4
+    of their largest magnitude."""
+    from paddle_tpu_torch.ops import registry
+
+    rng = np.random.RandomState(7)
+    n, d, v = 256, 64, 1000
+    x = torch.as_tensor(rng.standard_normal((n, d)).astype(np.float32))
+    w = torch.as_tensor(0.1 * rng.standard_normal(
+        (v, d) if transpose_w else (d, v)).astype(np.float32))
+    lab = torch.as_tensor(rng.randint(0, v, (n, 1)))
+    lab[::5] = 0
+    dloss = torch.as_tensor(rng.random_sample((n, 1)).astype(np.float32))
+    attrs = {"label_smooth_eps": 0.1, "ignore_index": 0, "chunks": 4,
+             "transpose_w": transpose_w}
+    x, w = x.to(dtype), w.to(dtype)
+    outs = {}
+    for dev in (card, torch.device("cpu")):
+        ins = {"X": [x.to(dev)], "W": [w.to(dev)], "Label": [lab.to(dev)]}
+        fwd = registry.run_forward(registry.get_runtime_info(
+            "linear_softmax_ce"), ins, attrs, device=dev)
+        ins["Loss@GRAD"] = [dloss.to(dev)]
+        bwd = registry.run_forward(
+            registry.get_runtime_info("linear_softmax_ce_grad"), ins, attrs,
+            out_names={"X@GRAD": ["dx"], "W@GRAD": ["dw"]}, device=dev)
+        outs[dev.type] = [fwd["Loss"][0], bwd["X@GRAD"][0],
+                          bwd["W@GRAD"][0]]
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert got.dtype == want.dtype
+        want = want.float()
+        err = (got.cpu().float() - want).abs().max().item()
+        assert err <= 1e-4 * max(want.abs().max().item(), 1.0) + (
+            0 if dtype == torch.float32 else 2e-2 * want.abs().max().item())
+
+
+def _tiny_remat_transformer(pt, remat, dropout):
+    from paddle_tpu_torch.models import transformer
+
+    cfg = transformer.TransformerConfig(
+        src_vocab_size=64, trg_vocab_size=64, n_layer=1, n_head=2,
+        d_model=128, d_inner=256, dropout=dropout, max_length=64)
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 5
+    ckpts = []
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        loss, _ = transformer.build(cfg, checkpoints=ckpts,
+                                    use_src_lens=True)
+        opt = pt.optimizer.Adam(1e-3)
+        if remat:
+            opt = pt.optimizer.RecomputeOptimizer(opt, checkpoints=ckpts)
+        opt.minimize(loss)
+    feed = dict(transformer.synthetic_batch(4, cfg, seed=1),
+                src_lens=np.asarray([64, 50, 33, 9], np.int64))
+    return main, startup, loss, feed
+
+
+def test_recompute_with_dropout_on_the_card(card):
+    """RecomputeOptimizer at dropout 0.1 on the card: each cloned dropout
+    draws its original's mask inside the captured step (the clone's
+    generator seeded from its `__rng_idx`), so 3 steps of the remat
+    program equal the plain program's (rtol 1e-5) on the jit path and
+    the interpreter's, and every clone's Mask equals its original's."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import cuda_graph
+
+    runs = {}
+    for remat in (False, True):
+        main, startup, loss, feed = _tiny_remat_transformer(pt, remat, 0.1)
+        ops = main.global_block().ops
+        pairs = [(ops[op.attrs["__rng_idx"]].output("Mask")[0],
+                  op.output("Mask")[0]) for op in ops
+                 if op.type == "dropout" and "__rng_idx" in op.attrs]
+        assert bool(pairs) == remat
+        fetch = [loss] + [n for pair in pairs for n in pair]
+        for mode in ("interpret", "jit"):
+            scope = pt.Scope()
+            pt.Executor(card, mode="interpret").run(startup, scope=scope)
+            exe = pt.Executor(card, mode=mode)
+            cuda_graph.reset_stats()
+            steps = [exe.run(main, feed=feed, scope=scope, fetch_list=fetch)
+                     for _ in range(3)]
+            if mode == "jit":
+                assert cuda_graph.STATS["captures"] >= 1
+            for step in steps:
+                for a, b in zip(step[1::2], step[2::2]):
+                    np.testing.assert_array_equal(b, a)
+            runs[remat, mode] = [float(s[0].ravel()[0]) for s in steps]
+    for key, losses in runs.items():
+        np.testing.assert_allclose(losses, runs[False, "interpret"],
+                                   rtol=1e-5, err_msg=str(key))
+
+
+def test_lr_schedule_advances_in_a_captured_step(card):
+    """Adam over noam_decay with a global-norm clip on the card: the step
+    counter is written in place by every replay (4 after 4 runs: an eager
+    warm-up, the capture, two replays), the rate fetched after each run
+    is the schedule's at that step, and the losses equal the
+    interpreter's."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import clip
+    from paddle_tpu_torch.framework import cuda_graph
+
+    rng = np.random.RandomState(3)
+    feed = {"x": rng.standard_normal((16, 32)).astype(np.float32),
+            "y": rng.randint(0, 4, (16, 1)).astype(np.int64)}
+    runs = {}
+    for mode in ("interpret", "jit"):
+        main, startup = pt.Program(), pt.Program()
+        main.random_seed = startup.random_seed = 3
+        with pt.program_guard(main, startup), pt.unique_name.guard():
+            L = pt.layers
+            x = L.data("x", shape=[32], dtype="float32")
+            y = L.data("y", shape=[1], dtype="int64")
+            h = L.fc(x, size=64, act="tanh")
+            loss = L.mean(L.softmax_with_cross_entropy(L.fc(h, size=4), y))
+            clip.set_gradient_clip(clip.GradientClipByGlobalNorm(0.5))
+            lr = L.noam_decay(16, 2)
+            pt.optimizer.Adam(lr).minimize(loss)
+        scope, exe = pt.Scope(), pt.Executor(card, mode=mode)
+        exe.run(startup, scope=scope)
+        cuda_graph.reset_stats()
+        runs[mode] = [[float(np.asarray(o).ravel()[0]) for o in exe.run(
+            main, feed=feed, fetch_list=[loss, lr], scope=scope)]
+            for _ in range(4)]
+        assert int(scope.find_var("@LR_DECAY_COUNTER@").item()) == 4
+        if mode == "jit":
+            assert cuda_graph.STATS["captures"] == 1
+            assert cuda_graph.STATS["replays"] == 2
+    want = [16 ** -0.5 * min(s ** -0.5, s * 2 ** -1.5) for s in range(1, 5)]
+    np.testing.assert_allclose([r[1] for r in runs["jit"]], want, rtol=1e-6)
+    np.testing.assert_allclose(runs["jit"], runs["interpret"], rtol=1e-5)

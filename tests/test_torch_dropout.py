@@ -141,9 +141,9 @@ def test_upscale_edges(p, want):
 
 def test_jit_path_draws_what_the_interpreter_draws():
     """Three dropouts in one segment, three runs in one scope: the jit
-    path's masks equal the interpreter's run for run (one generator,
-    reseeded from the program's seed and the run counter, drawn in op
-    order), and differ from run to run."""
+    path's masks equal the interpreter's run for run (a generator a
+    dropout, seeded from the program's seed, the run counter and the
+    op's rng index), and differ from run to run and from op to op."""
     main, _, masks = _dropout_program(0.3, "upscale_in_train", n_drop=3)
     x = _x(16)
     runs = {}
@@ -159,8 +159,8 @@ def test_jit_path_draws_what_the_interpreter_draws():
 
 
 def test_program_as_function_reseeds_per_call():
-    """program_as_function's own generator: each call draws anew, and a new
-    function over the same program draws the same sequence."""
+    """program_as_function's own generators: each call draws anew, and a
+    new function over the same program draws the same sequence."""
     from paddle_tpu_torch.framework.executor import program_as_function
 
     main, _, (mask,) = _dropout_program(0.5, "downgrade_in_infer")

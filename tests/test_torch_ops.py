@@ -227,8 +227,10 @@ def test_the_slice_registers_exactly_the_decode_op_types():
     (the inference transpiler's), lrn (AlexNet's) and io.py's four save
     and load ops, and the image tail's 31 more activations, the equal,
     not_equal and logical ops, depthwise_conv2d and square_error_cost,
-    the int8 tier's four fake-quant ops and two quantized ops, and the
-    optimizer tail's ten update ops: 122 op types."""
+    the int8 tier's four fake-quant ops and two quantized ops, the
+    optimizer tail's ten update ops, and the BERT pretraining slice's
+    fused loss head, recompute barrier, clip family, sign, learning-rate
+    schedule and elementwise max/min: 131 op types."""
     assert sorted(preg.OPS) == sorted([
         "assign_value", "elementwise_add", "fill_constant", "fused_attention",
         "gather", "increment", "kv_cache_append", "layer_norm",
@@ -263,5 +265,8 @@ def test_the_slice_registers_exactly_the_decode_op_types():
         "quantized_matmul", "quantized_conv2d",
         "lars_momentum", "adamax", "adagrad", "decayed_adagrad", "adadelta",
         "rmsprop", "ftrl", "proximal_gd", "proximal_adagrad",
-        "average_accumulates"])
-    assert len(preg.OPS) == 122
+        "average_accumulates",
+        "linear_softmax_ce", "rc_barrier", "clip", "clip_by_norm",
+        "squared_l2_norm", "sign", "lr_schedule", "elementwise_max",
+        "elementwise_min"])
+    assert len(preg.OPS) == 131

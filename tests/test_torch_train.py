@@ -489,16 +489,21 @@ def test_calc_gradient_matches_jax():
 
 
 def test_untrainable_configs_raise():
-    """MoE FFNs and the fused loss head raise; dropout builds (its op is
-    ported): 2 embeddings, 2 x 3 encoder and 2 x 4 decoder sites."""
+    """MoE FFNs raise; dropout builds (its op is ported): 2 embeddings,
+    2 x 3 encoder and 2 x 4 decoder sites; the fused loss head builds one
+    linear_softmax_ce in place of the logits fc and its loss."""
     with pytest.raises(NotImplementedError, match="MoE"):
         PT.build(PT.TransformerConfig(**dict(SMALL, moe_experts=4)))
     main = pt.Program()
     with pt.program_guard(main, pt.Program()), pt.unique_name.guard():
         PT.build(PT.TransformerConfig(**dict(SMALL, dropout=0.1)))
     assert [op.type for op in main.global_block().ops].count("dropout") == 16
-    with pytest.raises(NotImplementedError, match="fused_head"):
+    main = pt.Program()
+    with pt.program_guard(main, pt.Program()), pt.unique_name.guard():
         PT.build(PT.TransformerConfig(**SMALL), fused_head=True)
+    types = [op.type for op in main.global_block().ops]
+    assert types.count("linear_softmax_ce") == 1
+    assert "softmax_with_cross_entropy" not in types
 
 
 # ---------------------------------------------------------- end to end
