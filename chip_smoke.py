@@ -389,7 +389,37 @@ catches its own failure:
      vs CPU within 1e-5, the rate fetched after each replay the
      schedule's at that step, then 3 more steps jit = interpret exactly,
      the step counter 6;
- 16. one {"kernels": [...]} line, the card's name and power limit, and
+ 16. the sparse tier and the checkpoint manager, no kernel launched
+     (host-side tables by the reference's design, the dense tower on the
+     card).  CTR: bench.py's ctr_deepfm leg (bench.py:2493-2569; batch
+     4096, 26 fields over 10^5 ids, embedding 10, MLP 400-400-400,
+     Adam(1e-3), two services of 2 adagrad shards) through
+     SparseTrainStep on the jit path: 3 steps against the port's CPU path
+     from the same persistables and fresh services (losses rtol 1e-4; the
+     touched rows within 1e-5, but for those of an example whose ReLU
+     pattern differs between the two, at most 4 a step), one step by the
+     interpreter and the graph (equal), then 20 timed steps with `run`
+     and 20 with `run_pipelined` (examples/s, the host split of a step
+     into prefetch, Executor.run and push; every push applied at the
+     barrier, 2 x 20 counted), 2 profiled (card busy, idle share), one
+     graph.  CTR/resume: 6 steps with a CheckpointManager save after
+     step 3, steps 4-6 again after a restore into a fresh scope and fresh
+     services: losses and tables bitwise.  CTR/remote: the embeddings
+     over 2 `python -m paddle_tpu_torch.sparse.server` processes under a
+     ShardSupervisor (bench.py's recovery protocol, bench.py:2572), a
+     shard checkpoint before step 5 and kill -9 of shard 1 before step 7,
+     12 steps: no exception, losses and tables bitwise an uninterrupted
+     in-process run on the card; the MTTRs and a server's start seconds;
+     the servers hold no CUDA context (nvidia-smi lists no more compute
+     processes, the card's used memory grows < 64 MiB).  SP/reshard:
+     bench.py's reshard leg (bench.py:2837) on the port's servers,
+     prefetch/push examples/s at 1, 2, 4 and 8 servers and a live 2 -> 4
+     reshard under load (worst step stall), the table after it bitwise
+     its in-process mirror's.  CK/resnet: bench.py's ckpt leg
+     (bench.py:2987), ResNet-50 float32 batch 8: sync save, async submit
+     and total, restore ms, state bytes; the pruned forward's loss after
+     the restore equal to the loss before;
+ 17. one {"kernels": [...]} line, the card's name and power limit, and
      last the {"ok": true, "device": ...} line.
 
 Exits non-zero, printing no result, when there is no CUDA device or when
@@ -408,6 +438,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import socket
 import statistics
 import subprocess
@@ -4197,8 +4228,8 @@ I_CLONE_RTOL, I_CLONE_ATOL = 1e-6, 1e-7   # (d), tests/test_inference.py's
 
 
 def _saved_dir(name):
-    """A fresh directory for a saved model, inside the checkout's ignored
-    build/ tree."""
+    """A fresh directory inside the checkout's ignored build/ tree, for a
+    saved model, a checkpoint or shard servers' ready files."""
     d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                      "chip_smoke_saved", name)
     shutil.rmtree(d, ignore_errors=True)
@@ -7567,6 +7598,819 @@ def drive_bert_tail(card, device, lap=lambda phase: None):
     return results, launches
 
 
+# ------------------------- [16] the sparse tier and the checkpoint manager
+
+# CTR: bench.py's ctr_deepfm leg (bench.py:2493-2569): DeepFM at batch
+# 4096, 26 fields over 10^5 ids, embedding 10, 13 dense features, MLP
+# 400-400-400 under Adam(1e-3), random seed 1; its two services (the
+# embeddings and the first-order weights) hold 2 adagrad shards each in
+# host memory.  The first CTR_CHECK_STEPS steps (eager, captured, replayed)
+# are checked against the port's CPU path and warm the step up; one more
+# is run by the interpreter and the graph; then CTR_STEPS timed steps
+# with `run` and CTR_STEPS with `run_pipelined`, CTR_PROFILED profiled
+CTR_BATCH, CTR_FIELDS, CTR_IDS = 4096, 26, int(1e5)
+CTR_EMB, CTR_DENSE, CTR_MLP = 10, 13, (400, 400, 400)
+CTR_CHECK_STEPS, CTR_STEPS, CTR_PROFILED = 3, 20, 2
+CTR_RTOL, CTR_ROW_ATOL = 1e-4, 1e-5     # card vs CPU: losses, touched rows
+# A hidden unit whose pre-activation lies within float32 rounding of 0
+# can take the other side of the ReLU on the card than on the CPU: that
+# example's row grads then move by the unit's share (a few % of them),
+# and adagrad's first update, lr g / |g|, passes that on to its 26 rows
+# whole (up to ~5e-4 at lr 0.01).  An example whose row grads differ by
+# more than CTR_KINK of its largest is flagged; at most CTR_KINK_MAX a
+# step may be (0.1% of the batch).  A flagged example's rows are held to
+# CTR_KINK_ROW_ATOL (a wrong direction moves a row by ~lr = 1e-2) only
+# where the witness shows the flip: the step is run again on both sides,
+# its ReLUs' pre-activations fetched, and the first layer where the
+# example's signs differ must differ only by a rounding gap (no larger
+# than the card-vs-CPU spread of that layer over the unflagged
+# examples).  Every other row is held to CTR_ROW_ATOL
+CTR_KINK, CTR_KINK_MAX, CTR_KINK_ROW_ATOL = 1e-3, 4, 1e-3
+# a shard server must add less than this to the card's used memory (a
+# CUDA context takes hundreds of MiB)
+SERVER_CARD_MIB = 64
+# CTR/resume: RESUME_STEPS sync steps with a CheckpointManager save after
+# step RESUME_AT; the later steps again from it, in a fresh scope with
+# fresh services
+RESUME_STEPS, RESUME_AT = 6, 3
+# CTR/remote: bench.py's recovery protocol (bench.py:2572-2689) on the
+# model, its embeddings over 2 shard-server processes under a
+# ShardSupervisor; a shard checkpoint before step REMOTE_CKPT_AT, kill -9
+# of shard 1 before step REMOTE_KILL_AT (steps counted from 0)
+REMOTE_STEPS, REMOTE_CKPT_AT, REMOTE_KILL_AT = 12, 4, 6
+# SP/reshard: bench.py's reshard leg (bench.py:2837-2986): prefetch and
+# push of 512 x 26 ids at dim 10 over 1, 2, 4 and 8 shard servers (sgd,
+# lr 0.05), then a live 2 -> 4 reshard under load
+RS_DIM, RS_FIELDS, RS_BATCH, RS_STEPS = 10, 26, 512, 20
+RS_SHARDS = (1, 2, 4, 8)
+# the live reshard's loop steps until 5 steps after the reshard ended
+# (bench.py stops at 500 steps, which at ~13 ms a step on the card's host
+# ends before the cutover), within RS_LOOP_S seconds
+RS_LOOP_S = 180.0
+# CK/resnet: bench.py's ckpt leg (bench.py:2987-3094): ResNet-50 with
+# fused_loss, Momentum(0.1, 0.9), float32, batch 8, 5 saves of each kind
+CK_BATCH, CK_REPS = 8, 5
+
+
+def build_ctr(service=None):
+    """bench.py's ctr_deepfm program -> (main, startup, loss, embeddings);
+    `service` replaces the embeddings' in-process service."""
+    from paddle_tpu_torch import Program, optimizer, program_guard, unique_name
+    from paddle_tpu_torch.models import ctr_deepfm
+
+    main, startup = Program(), Program()
+    main.random_seed = startup.random_seed = 1
+    with program_guard(main, startup), unique_name.guard():
+        loss, _prob, embs, _svc = ctr_deepfm.build(
+            num_fields=CTR_FIELDS, sparse_feature_dim=CTR_IDS,
+            embedding_size=CTR_EMB, dense_feature_dim=CTR_DENSE,
+            mlp_dims=CTR_MLP, service=service)
+        optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return main, startup, loss, embs
+
+
+def ctr_feed(i):
+    """bench.py's make_feed(i)."""
+    r = np.random.RandomState(i)
+    return {"sparse_emb@ids": r.randint(0, CTR_IDS, (CTR_BATCH, CTR_FIELDS)),
+            "sparse_w1@ids": r.randint(0, CTR_IDS, (CTR_BATCH, CTR_FIELDS)),
+            "dense_x": r.rand(CTR_BATCH, CTR_DENSE).astype("float32"),
+            "label": r.randint(0, 2, (CTR_BATCH, 1)).astype("float32")}
+
+
+def _ctr_loss(out):
+    return float(np.asarray(out[0]).reshape(-1)[0])
+
+
+def _touched_rows(embs, feeds):
+    """Each service's rows at every id `feeds` touched (ids already
+    resident: reading them changes nothing)."""
+    return [e.service.prefetch(np.unique(np.concatenate(
+        [f[e.ids_feed_name].reshape(-1) for f in feeds]))) for e in embs]
+
+
+def _recording(step):
+    """Make `step` keep, for each Executor.run, the feed it was given, a
+    copy of the scope's persistables before it, and what it returned ->
+    (that list of SimpleNamespace(feed, state, out), a function that
+    stops the recording)."""
+    seen, run = [], step.exe.run
+
+    def recorded(program, feed=None, fetch_list=None, scope=None):
+        rec = types.SimpleNamespace(feed=dict(feed),
+                                    state=_persistables(scope, program))
+        rec.out = run(program, feed=feed, fetch_list=fetch_list,
+                      scope=scope)
+        seen.append(rec)
+        return rec.out
+
+    step.exe = types.SimpleNamespace(run=recorded)
+
+    def stop():
+        step.exe = run.__self__
+    return seen, stop
+
+
+def _relu_inputs(program):
+    """The pre-activations of the program's ReLUs, in forward order."""
+    return [op.inputs["X"][0] for op in program.global_block().ops
+            if op.type == "relu"]
+
+
+def _rerun(exe, main, rec, fetch_list):
+    """Run a recorded step again by `exe` in a scratch scope holding a
+    copy of the persistables it started from -> the fetches."""
+    from paddle_tpu_torch import Scope
+
+    scratch = Scope()
+    for name, value in rec.state.items():
+        scratch.set_var(name, value.clone())
+    return exe.run(main, feed=rec.feed, fetch_list=fetch_list,
+                   scope=scratch)
+
+
+def _kink_witness(device, programs, grad_names, mine, ref, flagged):
+    """For each flagged example of one check step (`mine` the card's
+    record, `ref` the CPU's; `programs` the card's and the CPU's main
+    program), the witness of a ReLU flip: the step is run
+    again on both sides (the card by the interpreter, which must give the
+    card step's grads bitwise), fetching every ReLU's pre-activation; at
+    the first layer where the example's signs differ, the flipped units'
+    card-minus-CPU gap must be no larger than that layer's spread over
+    the unflagged examples.  -> [record per flagged example]."""
+    from paddle_tpu_torch import CPUPlace, Executor
+
+    main, cmain = programs
+    fetch = grad_names + _relu_inputs(main)
+    card = _rerun(Executor(device, mode="interpret"), main, mine, fetch)
+    cpu = _rerun(Executor(CPUPlace()), cmain, ref, fetch)
+    n = len(grad_names)
+    same_card = all(np.array_equal(a, b) for a, b in zip(card[:n],
+                                                        mine.out[1:]))
+    same_cpu = all(np.array_equal(a, b) for a, b in zip(cpu[:n],
+                                                       ref.out[1:]))
+    batch = len(card[n])
+    others = np.setdiff1d(np.arange(batch), flagged)
+    out = []
+    for b in flagged.tolist():
+        rec = {"example": b, "reruns_equal_steps": [same_card, same_cpu],
+               "layer": None, "within_rounding": False}
+        for layer, (a, c) in enumerate(zip(card[n:], cpu[n:])):
+            flip = (a[b] > 0) != (c[b] > 0)
+            if not flip.any():
+                continue
+            spread = float(np.abs(a[others] - c[others]).max())
+            gap = float(np.abs(a[b][flip] - c[b][flip]).max())
+            rec.update(layer=layer, units=int(flip.sum()), gap=gap,
+                       spread=spread,
+                       card=a[b][flip][:4].tolist(),
+                       cpu=c[b][flip][:4].tolist(),
+                       within_rounding=bool(same_card and same_cpu
+                                            and gap <= spread))
+            break
+        out.append(rec)
+    return out
+
+
+def _kink_examples(card_grads, cpu_grads):
+    """Indices of the examples whose row grads on the card differ from
+    the CPU's by more than CTR_KINK of their largest (ReLU kink flips)."""
+    g, c = (np.asarray(x).reshape(len(x), -1) for x in (card_grads,
+                                                         cpu_grads))
+    dev = np.abs(g - c).max(axis=1)
+    return np.flatnonzero(dev > CTR_KINK * np.abs(c).max(axis=1))
+
+
+def _services(embs):
+    return {"emb": embs[0].service, "w1": embs[1].service}
+
+
+def _same_tables(a, b):
+    """Two services' shard states are equal bitwise (ids, rows and
+    adagrad accumulators)."""
+    sa, sb = a.state_dict()["shards"], b.state_dict()["shards"]
+    return sorted(sa) == sorted(sb) and all(
+        np.array_equal(sa[i][k], sb[i][k])
+        for i in sa for k in ("ids", "vals", "accum"))
+
+
+class _HostSplit:
+    """Host seconds a step spends in SparseTrainStep's three parts: the
+    prefetch, Executor.run (the device step, its fetches copied to the
+    host) and the push, on whichever thread each runs (run_pipelined runs
+    the prefetch and the push on its workers)."""
+
+    PARTS = ("prefetch", "exe_run", "push")
+
+    def __init__(self, step):
+        self._lock = threading.Lock()
+        self._secs = dict.fromkeys(self.PARTS, 0.0)
+        step._prefetch = self._timed("prefetch", step._prefetch)
+        step._push_grads = self._timed("push", step._push_grads)
+        step.exe = types.SimpleNamespace(
+            run=self._timed("exe_run", step.exe.run))
+
+    def _timed(self, part, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                with self._lock:
+                    self._secs[part] += time.perf_counter() - t0
+        return timed
+
+    def take(self, steps):
+        """ms a step of each part since the last take."""
+        with self._lock:
+            out = {k: v / steps * 1e3 for k, v in self._secs.items()}
+            self._secs = dict.fromkeys(self.PARTS, 0.0)
+        return out
+
+
+def _count_pushes(embs):
+    """Count the push_sparse_grad calls that returned, from now on."""
+    count, lock = [0], threading.Lock()
+    for e in embs:
+        def counted(grad, orig=e.service.push_sparse_grad):
+            orig(grad)
+            with lock:
+                count[0] += 1
+        e.service.push_sparse_grad = counted
+    return count
+
+
+def phase_ctr(card):
+    """CTR: bench.py's ctr_deepfm leg through SparseTrainStep on the jit
+    path; -> (record, the startup's persistables on the card)."""
+    from paddle_tpu_torch import CPUPlace, Executor, Scope
+    from paddle_tpu_torch.framework.executor import _RNG_COUNTER_NAME
+    from paddle_tpu_torch.framework.framework import grad_var_name
+    from paddle_tpu_torch.sparse.api import SparseTrainStep
+
+    reset_peak_memory()
+    before = graph_stats()
+    main, startup, loss, embs = build_ctr()
+    scope, exe = _seeded_scope(main, startup)
+    start = _persistables(scope, main)
+    step = SparseTrainStep(exe, main, embs, loss)
+
+    # the port's CPU path from the same persistables, fresh services
+    check = [ctr_feed(i) for i in range(CTR_CHECK_STEPS)]
+    cmain, _, closs, cembs = build_ctr()
+    cscope = Scope()
+    for name, value in start.items():
+        cscope.set_var(name, value.cpu())
+    cstep = SparseTrainStep(Executor(CPUPlace()), cmain, cembs, closs)
+    cpu_seen, stop_cpu = _recording(cstep)
+    cpu_losses = [_ctr_loss(cstep.run(f, scope=cscope)) for f in check]
+    card_seen, stop_card = _recording(step)
+    losses = [_ctr_loss(step.run(f, scope=scope)) for f in check]
+    stop_card()
+    stop_cpu()
+    grad_names = [grad_var_name(e.var.name) for e in embs]
+    # the flagged examples a step, by service; the rows of the witnessed
+    # ones, by service
+    kinks = [[] for _ in embs]
+    loose = [set() for _ in embs]
+    witnesses = []
+    for i, (feed, mine, ref) in enumerate(zip(check, card_seen, cpu_seen)):
+        bad = [_kink_examples(mine.out[1 + j], ref.out[1 + j])
+               for j in range(len(embs))]
+        for j in range(len(embs)):
+            kinks[j].append(len(bad[j]))
+        flagged = np.unique(np.concatenate(bad))
+        if not flagged.size:
+            continue
+        seen = _kink_witness(exe.device, (main, cmain), grad_names, mine,
+                             ref, flagged)
+        witnesses += [dict(w, step=i) for w in seen]
+        shown = [w["example"] for w in seen if w["within_rounding"]]
+        for j, e in enumerate(embs):
+            ex = np.intersect1d(bad[j], shown)
+            loose[j].update(feed[e.ids_feed_name][ex].reshape(-1).tolist())
+    row_err = all_rows_err = 0.0
+    for e, ce, skip in zip(embs, cembs, loose):
+        ids = np.unique(np.concatenate(
+            [f[e.ids_feed_name].reshape(-1) for f in check]))
+        err = np.abs(e.service.prefetch(ids)
+                     - ce.service.prefetch(ids)).max(axis=1)
+        all_rows_err = max(all_rows_err, float(err.max()))
+        held = ~np.isin(ids, np.fromiter(skip, np.int64, len(skip)))
+        row_err = max(row_err, float(err[held].max()))
+    if not (np.all(np.isfinite(losses)) and np.allclose(
+            losses, cpu_losses, rtol=CTR_RTOL, atol=0)
+            and row_err <= CTR_ROW_ATOL
+            and all_rows_err <= CTR_KINK_ROW_ATOL
+            and max(max(k) for k in kinks) <= CTR_KINK_MAX):
+        raise AssertionError(f"CTR: card losses {losses} vs CPU "
+                             f"{cpu_losses}, touched rows {row_err}, all "
+                             f"{all_rows_err} (flagged examples a step "
+                             f"{kinks}, witnesses {witnesses})")
+    del cscope, cstep, card_seen, cpu_seen
+
+    # one step by the interpreter (scratch scope) and by the graph, from
+    # the same state and rows; the graph's grads are pushed as run() does
+    model_feed, ids = step._prefetch(ctr_feed(CTR_CHECK_STEPS))
+    scratch = Scope()
+    for name, value in _persistables(scope, main).items():
+        scratch.set_var(name, value)
+    scratch.set_var(_RNG_COUNTER_NAME, scope.find_var(_RNG_COUNTER_NAME))
+    ref = Executor(exe.device, mode="interpret").run(
+        main, feed=model_feed, fetch_list=[loss] + grad_names, scope=scratch)
+    del scratch
+    got = exe.run(main, feed=model_feed, fetch_list=[loss] + grad_names,
+                  scope=scope)
+    step._push_grads(ids, got[1:])
+    jit_err = [float(np.abs(a - b).max()) for a, b in zip(got, ref)]
+    if not (np.allclose(got[0], ref[0], rtol=JIT_RTOL, atol=0)
+            and all(e <= JIT_RTOL * float(np.abs(r).max())
+                    for e, r in zip(jit_err[1:], ref[1:]))):
+        raise AssertionError(f"CTR: jit vs interpret max abs {jit_err}")
+
+    split = _HostSplit(step)
+    split.take(1)
+    feeds = [ctr_feed(10 + i) for i in range(CTR_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sync = [_ctr_loss(step.run(f, scope=scope)) for f in feeds]
+    sync_s = time.perf_counter() - t0
+    sync_split = split.take(CTR_STEPS)
+
+    pushes = _count_pushes(embs)
+    feeds = [ctr_feed(30 + i) for i in range(CTR_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    piped = [_ctr_loss(out)
+             for out in step.run_pipelined(iter(feeds), scope=scope)]
+    pipe_s = time.perf_counter() - t0
+    pipe_split = split.take(CTR_STEPS)
+    barrier_pushes = pushes[0]
+    if barrier_pushes != len(embs) * CTR_STEPS:
+        raise AssertionError(f"CTR: {barrier_pushes} pushes applied after "
+                             f"the pipelined barrier, not "
+                             f"{len(embs) * CTR_STEPS}")
+    if not np.all(np.isfinite(sync + piped)):
+        raise AssertionError(f"CTR: losses {sync} {piped}")
+
+    profiled = iter([ctr_feed(50 + i) for i in range(CTR_PROFILED)])
+    prof = profile_calls(lambda: step.run(next(profiled), scope=scope),
+                         CTR_PROFILED)
+    graphs, bound = captured_graphs("CTR", exe, model_feed)
+    if graphs != 1:
+        raise AssertionError(f"CTR: {graphs} graphs captured, not 1")
+    res = {"phase": "CTR", "batch": CTR_BATCH, "fields": CTR_FIELDS,
+           "ids": CTR_IDS, "mlp": list(CTR_MLP), "steps": CTR_STEPS,
+           "sync_examples_per_s": CTR_BATCH * CTR_STEPS / sync_s,
+           "pipelined_examples_per_s": CTR_BATCH * CTR_STEPS / pipe_s,
+           "sync_ms_per_step": sync_s / CTR_STEPS * 1e3,
+           "pipelined_ms_per_step": pipe_s / CTR_STEPS * 1e3,
+           "host_split_ms_sync": sync_split,
+           "host_split_ms_pipelined": pipe_split,
+           "losses_check": losses, "losses_cpu": cpu_losses,
+           "touched_rows_max_abs_err": row_err,
+           "kink_examples_a_step": kinks,
+           "kink_witnesses": witnesses,
+           "rows_of_kink_examples": [len(x) for x in loose],
+           "all_touched_rows_max_abs_err": all_rows_err,
+           "jit_vs_interpret_max_abs": jit_err,
+           "losses_sync": [sync[0], sync[-1]],
+           "losses_pipelined": [piped[0], piped[-1]],
+           "pushes_after_barrier": barrier_pushes,
+           "graphs": graphs, "bound_args": bound,
+           "rows_resident": [sum(len(s._ids) for s in e.service.shards)
+                             for e in embs],
+           "profile": prof, "card": card}
+    res.update(capture_fields(before, prof, res["sync_ms_per_step"]))
+    log(f"    CTR: sync {res['sync_examples_per_s']:.0f} examples/s "
+        f"({res['sync_ms_per_step']:.2f} ms/step: prefetch "
+        f"{sync_split['prefetch']:.2f}, exe.run {sync_split['exe_run']:.2f},"
+        f" push {sync_split['push']:.2f}), pipelined "
+        f"{res['pipelined_examples_per_s']:.0f} examples/s "
+        f"({res['pipelined_ms_per_step']:.2f} ms/step: prefetch "
+        f"{pipe_split['prefetch']:.2f}, exe.run {pipe_split['exe_run']:.2f},"
+        f" push {pipe_split['push']:.2f} on their threads); card vs CPU "
+        f"losses {losses} vs {cpu_losses}, rows {row_err:.3g} (kink "
+        f"examples a step {kinks}, their rows {all_rows_err:.3g}; "
+        f"witnesses {witnesses}); jit vs "
+        f"interpret {jit_err}; {barrier_pushes} pushes after the barrier "
+        f"[{card}]")
+    log_capture("CTR", res)
+    return res, start
+
+
+def phase_ctr_resume(card, start):
+    """CTR/resume: RESUME_STEPS sync steps with a checkpoint (dense state
+    and both services) after step RESUME_AT, then the later steps again
+    from it in a fresh scope with fresh services: losses and tables
+    bitwise the uninterrupted run's."""
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.sparse.api import SparseTrainStep
+
+    root = _saved_dir("sparse_resume")
+    feeds = [ctr_feed(100 + i) for i in range(RESUME_STEPS)]
+    main, startup, loss, embs = build_ctr()
+    scope, exe = _seeded_scope(main, startup, start)
+    step = SparseTrainStep(exe, main, embs, loss)
+    mgr = CheckpointManager(root)
+    losses = []
+    for i, feed in enumerate(feeds):
+        losses.append(_ctr_loss(step.run(feed, scope=scope)))
+        if i + 1 == RESUME_AT:
+            t0 = time.perf_counter()
+            mgr.save(RESUME_AT, scope=scope, main_program=main,
+                     services=_services(embs))
+            submit_s = time.perf_counter() - t0
+    mgr.wait()
+    rmain, rstartup, rloss, rembs = build_ctr()
+    rscope, rexe = _seeded_scope(rmain, rstartup)
+    t0 = time.perf_counter()
+    state = mgr.restore(scope=rscope, main_program=rmain,
+                        services=_services(rembs))
+    restore_s = time.perf_counter() - t0
+    rstep = SparseTrainStep(rexe, rmain, rembs, rloss)
+    resumed = [_ctr_loss(rstep.run(f, scope=rscope))
+               for f in feeds[RESUME_AT:]]
+    tables = [_same_tables(a.service, b.service)
+              for a, b in zip(embs, rembs)]
+    if resumed != losses[RESUME_AT:] or not all(tables) or \
+            state["step"] != RESUME_AT:
+        raise AssertionError(f"CTR/resume: resumed losses {resumed} vs "
+                             f"{losses[RESUME_AT:]}, tables equal {tables}")
+    shutil.rmtree(root, ignore_errors=True)
+    res = {"phase": "CTR/resume", "losses": losses, "resumed": resumed,
+           "tables_equal": tables, "save_submit_ms": submit_s * 1e3,
+           "restore_ms": restore_s * 1e3,
+           "restored_vars": len(state["restored_vars"]), "card": card}
+    log(f"    CTR/resume: steps {RESUME_AT + 1}-{RESUME_STEPS} after the "
+        f"restore equal the uninterrupted run's bitwise ({resumed}), both "
+        f"tables equal; save submit {res['save_submit_ms']:.1f} ms, restore "
+        f"{res['restore_ms']:.1f} ms ({res['restored_vars']} vars) [{card}]")
+    return res
+
+
+def _start_shard_server(index, num_shards, dim, tmp, tag, optimizer,
+                        learning_rate):
+    """Start `python -m paddle_tpu_torch.sparse.server`; -> (process,
+    ready file, start time)."""
+    ready = os.path.join(tmp, f"ep{index}{tag}.{time.time_ns()}")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.sparse.server",
+         "--shard-index", str(index), "--num-shards", str(num_shards),
+         "--dim", str(dim), "--port", "0", "--ready-file", ready,
+         "--optimizer", optimizer, "--learning-rate", str(learning_rate)],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    return proc, ready, time.perf_counter()
+
+
+def _shard_endpoint(proc, ready, timeout=60.0):
+    """Wait for a started server's ready file -> its endpoint."""
+    deadline = time.time() + timeout
+    while not os.path.exists(ready):
+        if proc.poll() is not None or time.time() > deadline:
+            proc.kill()
+            raise RuntimeError(f"shard server {ready} failed to start")
+        time.sleep(0.02)
+    with open(ready) as f:
+        return f.read().strip()
+
+
+def _card_processes():
+    """(the compute processes nvidia-smi lists, the card's used MiB)."""
+    return len(_compute_apps_mib()), _card_used_mib()
+
+
+def _servers_off_the_card(before, label, pids, mib=True):
+    """Check that the live shard servers `pids` hold no CUDA context: with
+    them running, nvidia-smi lists no more compute processes than
+    `before` (a _card_processes() taken before they started, while this
+    process held its own context) and, with `mib`, the card's used memory
+    grew by less than SERVER_CARD_MIB (a context takes hundreds)."""
+    apps, used = _card_processes()
+    grew = used - before[1]
+    if before[0] < 1 or apps != before[0] or (mib and grew >= SERVER_CARD_MIB):
+        raise AssertionError(
+            f"{label}: {len(pids)} shard servers alive, nvidia-smi lists "
+            f"{apps} compute processes ({before[0]} before), the card's "
+            f"used memory grew {grew} MiB")
+    return {"servers": len(pids), "compute_processes": apps,
+            "card_mib_grown": grew if mib else None}
+
+
+def phase_ctr_remote(card, start):
+    """CTR/remote: the model's embeddings over 2 shard-server processes
+    under a ShardSupervisor (bench.py's recovery protocol), kill -9 of
+    shard 1 mid-run: the loop sees no exception, and losses and tables
+    equal an uninterrupted in-process run's on the card bitwise."""
+    from paddle_tpu_torch.resilience import RpcPolicy, ShardSupervisor
+    from paddle_tpu_torch.sparse import RemoteEmbeddingService
+    from paddle_tpu_torch.sparse.api import SparseTrainStep
+
+    tmp = _saved_dir("sparse_remote")
+    procs, all_procs, start_s = {}, [], []
+
+    def spawn(index, tag):
+        proc, ready, t0 = _start_shard_server(index, 2, CTR_EMB, tmp, tag,
+                                              "adagrad", 0.01)
+        procs[index] = proc
+        all_procs.append(proc)
+        ep = _shard_endpoint(proc, ready)
+        start_s.append(time.perf_counter() - t0)
+        return ep
+
+    sup = svc = None
+    torch.cuda.synchronize()
+    before = _card_processes()
+    try:
+        started = [_start_shard_server(i, 2, CTR_EMB, tmp, "", "adagrad",
+                                       0.01) for i in range(2)]
+        endpoints = []
+        for i, (proc, ready, t0) in enumerate(started):
+            procs[i] = proc
+            all_procs.append(proc)
+            endpoints.append(_shard_endpoint(proc, ready))
+            start_s.append(time.perf_counter() - t0)
+        smi = [_servers_off_the_card(before, "CTR/remote", endpoints)]
+        svc = RemoteEmbeddingService(
+            endpoints, CTR_IDS, CTR_EMB,
+            policy=RpcPolicy(connect_timeout=1.0, call_timeout=2.0,
+                             max_attempts=2, backoff_base=0.05))
+        sup = ShardSupervisor(
+            svc, checkpoint_root=os.path.join(tmp, "ckpts"),
+            spawn=lambda i: spawn(i, ".r"), ping_interval=0.1,
+            recovery_timeout=60.0).start()
+        main, startup, loss, embs = build_ctr(service=svc)
+        scope, exe = _seeded_scope(main, startup, start)
+        step = SparseTrainStep(exe, main, embs, loss)
+        feeds = [ctr_feed(200 + i) for i in range(REMOTE_STEPS)]
+        losses, step_ms = [], []
+        for i, feed in enumerate(feeds):
+            if i == REMOTE_CKPT_AT:
+                sup.checkpoint()
+            if i == REMOTE_KILL_AT:
+                t_kill = time.perf_counter()
+                os.kill(procs[1].pid, signal.SIGKILL)
+                procs[1].wait()
+            t0 = time.perf_counter()
+            losses.append(_ctr_loss(step.run(feed, scope=scope)))
+            t1 = time.perf_counter()
+            step_ms.append((t1 - t0) * 1e3)
+            if i == REMOTE_KILL_AT:
+                mttr_step = t1 - t_kill
+        kinds = [k for _, k, _i, _d in sup.events]
+        for kind in ("shard_down", "shard_respawned", "checkpoint_restored",
+                     "journal_replayed", "shard_recovered"):
+            if kind not in kinds:
+                raise AssertionError(f"CTR/remote: no {kind} in {kinds}")
+        mttr_sup = next(float(d[5:-1]) for _, k, _i, d in sup.events
+                        if k == "shard_recovered" and d.startswith("mttr="))
+        smi.append(_servers_off_the_card(
+            before, "CTR/remote after the respawn",
+            [p.pid for p in procs.values() if p.poll() is None], mib=False))
+
+        # the uninterrupted run: in-process services, same card and start
+        imain, istartup, iloss, iembs = build_ctr()
+        iscope, iexe = _seeded_scope(imain, istartup, start)
+        istep = SparseTrainStep(iexe, imain, iembs, iloss)
+        want = [_ctr_loss(istep.run(f, scope=iscope)) for f in feeds]
+        rows = [np.array_equal(a, b) for a, b in zip(
+            _touched_rows(embs, feeds), _touched_rows(iembs, feeds))]
+        if losses != want or not all(rows):
+            raise AssertionError(f"CTR/remote: losses {losses} vs "
+                                 f"uninterrupted {want}, tables equal {rows}")
+    finally:
+        if sup is not None:
+            sup.stop()
+        if svc is not None:
+            svc.close()
+        for proc in all_procs:
+            proc.kill()
+            proc.wait()
+    shutil.rmtree(tmp, ignore_errors=True)
+    healthy = statistics.median(step_ms[:REMOTE_KILL_AT]
+                                + step_ms[REMOTE_KILL_AT + 1:])
+    res = {"phase": "CTR/remote", "steps": REMOTE_STEPS, "losses": losses,
+           "tables_equal": rows, "mttr_step_s": mttr_step,
+           "mttr_supervisor_s": mttr_sup, "healthy_step_ms": healthy,
+           "server_start_s": start_s, "servers_off_the_card": smi,
+           "card": card}
+    log(f"    CTR/remote: kill -9 of shard 1 before step "
+        f"{REMOTE_KILL_AT + 1}: step-observed MTTR {mttr_step:.3f} s, "
+        f"supervisor {mttr_sup:.3f} s, healthy step {healthy:.1f} ms; "
+        f"server start {[round(s, 2) for s in start_s]} s; losses and "
+        f"tables equal the uninterrupted run's bitwise; servers off the "
+        f"card: {smi} [{card}]")
+    return res
+
+
+def phase_reshard(card):
+    """SP/reshard: bench.py's reshard leg (bench.py:2837-2986) on the
+    port's shard servers: prefetch/push examples/s at 1, 2, 4 and 8
+    servers, then a live 2 -> 4 reshard under load (the worst step stall
+    while it runs), the table after it bitwise its in-process mirror's."""
+    from paddle_tpu_torch.resilience import RpcPolicy, ShardSupervisor
+    from paddle_tpu_torch.sparse import (EmbeddingService,
+                                         RemoteEmbeddingService, SelectedRows)
+
+    tmp = _saved_dir("sparse_reshard")
+    all_procs = []
+
+    def spawn_all(n, tag, indices):
+        started = [_start_shard_server(i, n, RS_DIM, tmp, tag, "sgd", 0.05)
+                   for i in indices]
+        all_procs.extend(p for p, _, _ in started)
+        return [_shard_endpoint(p, ready) for p, ready, _ in started]
+
+    def one_step(svc, rng):
+        ids = rng.randint(0, CTR_IDS, RS_BATCH * RS_FIELDS).astype(np.int64)
+        grads = rng.uniform(-1, 1, (len(ids), RS_DIM)).astype(np.float32)
+        svc.prefetch(ids)
+        svc.push_sparse_grad(SelectedRows(ids, grads, CTR_IDS))
+        return ids, grads
+
+    policy = RpcPolicy(connect_timeout=1.0, call_timeout=5.0,
+                       max_attempts=2, backoff_base=0.05)
+    sup = svc = None
+    torch.cuda.synchronize()
+    before = _card_processes()
+    try:
+        sweep = {}
+        for n in RS_SHARDS:
+            svc = RemoteEmbeddingService(spawn_all(n, f".t{n}", range(n)),
+                                         CTR_IDS, RS_DIM, policy=policy)
+            if n == max(RS_SHARDS):
+                smi = _servers_off_the_card(before, "SP/reshard",
+                                            svc.shards)
+            rng = np.random.RandomState(n)
+            for _ in range(2):
+                one_step(svc, rng)
+            t0 = time.perf_counter()
+            for _ in range(RS_STEPS):
+                one_step(svc, rng)
+            sweep[n] = RS_BATCH * RS_STEPS / (time.perf_counter() - t0)
+            svc.close(shutdown_servers=True)
+            svc = None
+
+        svc = RemoteEmbeddingService(spawn_all(2, ".m", range(2)), CTR_IDS,
+                                     RS_DIM, policy=policy)
+        mirror = EmbeddingService(CTR_IDS, RS_DIM, num_shards=1,
+                                  optimizer="sgd", learning_rate=0.05)
+        sup = ShardSupervisor(
+            svc, checkpoint_root=os.path.join(tmp, "ckpts"),
+            spawn=lambda i: spawn_all(4, ".m", [i])[0], ping_interval=0.2,
+            recovery_timeout=60.0).start()
+        done = {}
+
+        def drive():
+            t0 = time.perf_counter()
+            sup.reshard(4)
+            done["reshard_s"] = time.perf_counter() - t0
+
+        rng = np.random.RandomState(99)
+        windows, touched = [], []
+        thr = t_rs0 = t_rs1 = None
+        tail_after = 0
+        t_loop = time.perf_counter()
+        while time.perf_counter() - t_loop < RS_LOOP_S:
+            if len(windows) == 5:
+                t_rs0 = time.perf_counter()
+                thr = threading.Thread(target=drive, daemon=True)
+                thr.start()
+            t0 = time.perf_counter()
+            ids, grads = one_step(svc, rng)
+            windows.append((t0, time.perf_counter()))
+            mirror.push_sparse_grad(SelectedRows(ids, grads, CTR_IDS))
+            touched.append(ids)
+            if thr is not None and not thr.is_alive():
+                t_rs1 = t_rs1 or time.perf_counter()
+                tail_after += 1
+                if tail_after >= 5:
+                    break
+        thr.join(timeout=120.0)
+        if "reshard_s" not in done or t_rs1 is None:
+            raise AssertionError("SP/reshard: the live reshard did not end "
+                                 "while the loop stepped")
+        during = [b - a for a, b in windows
+                  if b >= t_rs0 and (t_rs1 is None or a <= t_rs1)]
+        healthy = statistics.median(
+            [b - a for a, b in windows
+             if b < t_rs0 or (t_rs1 is not None and a > t_rs1)])
+        audit = np.unique(np.concatenate(touched))
+        exact = np.array_equal(svc.prefetch(audit), mirror.prefetch(audit))
+        if not exact or svc.num_shards != 4:
+            raise AssertionError(f"SP/reshard: {svc.num_shards} shards, "
+                                 f"table equal to its mirror: {exact}")
+        epoch = svc.routing.epoch
+    finally:
+        if sup is not None:
+            sup.stop()
+        if svc is not None:
+            svc.close()
+        for proc in all_procs:
+            proc.kill()
+            proc.wait()
+    shutil.rmtree(tmp, ignore_errors=True)
+    res = {"phase": "SP/reshard", "batch": RS_BATCH, "fields": RS_FIELDS,
+           "dim": RS_DIM, "steps": RS_STEPS,
+           "examples_per_s_by_shards": {str(k): v for k, v in sweep.items()},
+           "reshard_s": done["reshard_s"], "worst_stall_s": max(during),
+           "healthy_step_s": healthy, "steps_during_reshard": len(during),
+           "routing_epoch": epoch, "audited_ids": len(audit),
+           "table_equal_mirror": exact, "servers_off_the_card": smi,
+           "card": card}
+    log(f"    SP/reshard: examples/s by shards "
+        f"{ {k: round(v) for k, v in sweep.items()} }; live 2 -> 4 in "
+        f"{done['reshard_s']:.2f} s, worst stall {max(during):.3f} s over "
+        f"{len(during)} steps (healthy {healthy * 1e3:.1f} ms), epoch "
+        f"{epoch}; {len(audit)} ids equal the mirror bitwise [{card}]")
+    return res
+
+
+def phase_ckpt(card):
+    """CK/resnet: bench.py's ckpt leg: sync and async saves of ResNet-50's
+    state through CheckpointManager, a restore into a fresh scope, and the
+    loss through the pruned forward equal before and after."""
+    from paddle_tpu_torch import CUDAPlace, Executor, Scope
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+
+    main, startup, loss, _ = build_resnet(use_amp=False, lr=0.1)
+    feed = _resnet_feed(CK_BATCH, 0)
+    eval_prog = main._prune([loss.name])
+    root = _saved_dir("ckpt_resnet")
+    scope, exe = Scope(), Executor(CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    (before,) = exe.run(eval_prog, feed=feed, fetch_list=[loss], scope=scope)
+    sync_mgr = CheckpointManager(os.path.join(root, "sync"), keep_last_k=2,
+                                 async_save=False)
+    sync_s = []
+    for i in range(CK_REPS):
+        t0 = time.perf_counter()
+        path = sync_mgr.save(i + 1, scope=scope, main_program=main)
+        sync_s.append(time.perf_counter() - t0)
+    state_bytes = sum(os.path.getsize(os.path.join(base, f))
+                      for base, _d, files in os.walk(path) for f in files)
+    async_mgr = CheckpointManager(os.path.join(root, "async"),
+                                  keep_last_k=2, async_save=True)
+    submit_s, total_s = [], []
+    for i in range(CK_REPS):
+        t0 = time.perf_counter()
+        async_mgr.save(i + 1, scope=scope, main_program=main)
+        submit_s.append(time.perf_counter() - t0)
+        async_mgr.wait()
+        total_s.append(time.perf_counter() - t0)
+    scope2, exe2 = Scope(), Executor(CUDAPlace(0))
+    exe2.run(startup, scope=scope2)
+    t0 = time.perf_counter()
+    state = sync_mgr.restore(scope=scope2, main_program=main)
+    restore_s = time.perf_counter() - t0
+    (after,) = exe2.run(eval_prog, feed=feed, fetch_list=[loss],
+                        scope=scope2)
+    before, after = float(before.reshape(-1)[0]), float(after.reshape(-1)[0])
+    if after != before:
+        raise AssertionError(f"CK/resnet: loss {after} after the restore, "
+                             f"{before} before")
+    shutil.rmtree(root, ignore_errors=True)
+    res = {"phase": "CK/resnet", "batch": CK_BATCH, "reps": CK_REPS,
+           "sync_save_ms": min(sync_s) * 1e3,
+           "async_submit_ms": min(submit_s) * 1e3,
+           "async_total_ms": min(total_s) * 1e3,
+           "restore_ms": restore_s * 1e3, "state_bytes": state_bytes,
+           "n_vars": len(state["restored_vars"]),
+           "loss_before": before, "loss_after": after, "card": card}
+    log(f"    CK/resnet: sync save {res['sync_save_ms']:.1f} ms, async "
+        f"submit {res['async_submit_ms']:.1f} ms (total "
+        f"{res['async_total_ms']:.1f}), restore {res['restore_ms']:.1f} ms; "
+        f"{state_bytes} bytes in {res['n_vars']} vars; loss {before} before "
+        f"and after [{card}]")
+    return res
+
+
+def drive_sparse(card, lap=lambda phase: None):
+    """[16]: CTR, CTR/resume, CTR/remote, SP/reshard, CK/resnet; none of
+    the eight kernels launches."""
+    _zero_counts()
+    results = []
+    res, start = phase_ctr(card)
+    results.append(res)
+    lap("[16] CTR")
+    results.append(phase_ctr_resume(card, start))
+    lap("[16] CTR/resume")
+    results.append(phase_ctr_remote(card, start))
+    lap("[16] CTR/remote")
+    del start
+    torch.cuda.empty_cache()
+    results.append(phase_reshard(card))
+    lap("[16] SP/reshard")
+    results.append(phase_ckpt(card))
+    lap("[16] CK/resnet")
+    launched = {k: n for k, n in _port_kernel_counts().items() if n}
+    if launched:
+        raise AssertionError(f"[16] launched port kernels: {launched}")
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -7692,6 +8536,14 @@ def main():
         f"[{card}]")
     tail_runs, tail_launches = drive_bert_tail(card, device, lap)
     training += tail_runs
+
+    log(f"[16] the sparse tier and the checkpoint manager: CTR DeepFM at "
+        f"bench.py's ctr_deepfm config through SparseTrainStep, sync and "
+        f"pipelined (CTR), resumed from a CheckpointManager save "
+        f"(CTR/resume), over shard-server processes with a kill -9 "
+        f"(CTR/remote), bench.py's reshard leg (SP/reshard) and ckpt leg "
+        f"(CK/resnet) [{card}]")
+    training += drive_sparse(card, lap)
     for more in (counts, train_launches, bert_launches, resnet_launches,
                  rnn_launches, saved_launches, front_launches,
                  fleet_launches, int8_launches, tail_launches):
@@ -7702,7 +8554,7 @@ def main():
         raise AssertionError(f"kernels {never} never launched on a path")
 
     log(f"  all phases took {laps[-1] - laps[0]:.1f} s wall")
-    log("[16] results")
+    log("[17] results")
     log(json.dumps({"phases": phases}))
     log(json.dumps({"training": training}))
     if DIVERGED:

@@ -27,7 +27,11 @@ AlexNet (`nets`, `models.vgg`, `models.alexnet`).  The int8 tier
 (`contrib.QuantizeTranspiler`: quantization-aware training, freeze_int8,
 convert_to_int8; the quantized_matmul and quantized_conv2d ops on the
 card's int8 tensor cores) serves int8 models through the Predictor, the
-Scheduler and as a speculative-decoding draft.
+Scheduler and as a speculative-decoding draft.  The sparse tier
+(`sparse`: the host-side embedding service, its shard servers and the
+SparseTrainStep that trains CTR DeepFM, `models.ctr_deepfm`),
+`resilience.ShardSupervisor` and `checkpoint.CheckpointManager` are
+host-side Python like the JAX package's; the dense model runs on the card.
 """
 
 from .framework import (
@@ -68,6 +72,7 @@ from . import average
 from . import amp
 from . import serving
 from . import io
+from . import checkpoint
 from . import nets
 from . import transpiler
 from . import inference

@@ -9,9 +9,9 @@ one environment steers both packages the same way.
 
 Only the flags the port's slices read are defined: the Executor's, the
 attention gate's, the serving Scheduler's, its front end's (telemetry,
-the RPC channel, overload control) and the serving fleet's (the router,
-its circuit breakers, the supervisor, the routing table's slot count),
-each with the JAX package's default (decode.Generator and
+the RPC channel, overload control), the serving fleet's (the router,
+its circuit breakers, the supervisor, the routing table's slot count) and
+the sparse tier's and the checkpoint manager's, each with the JAX package's default (decode.Generator and
 serving.Scheduler take the jit path whatever `executor_mode` says), and
 the JAX package's four other trace-affecting flags (`ir_passes`,
 `op_remat`, `spec_draft`, `zero_stage`), which no port code reads yet, so
@@ -306,6 +306,34 @@ DEFINE_int("brownout_slo_tighten_pct", 50,
            "feasibility estimate in (100 - pct)% of the caller's "
            "deadline — headroom reserved for requests already in "
            "flight.  Scheduling-only policy knob")
+
+# the sparse tier's and the checkpoint manager's flags, with the JAX
+# package's defaults and help; none is trace-affecting
+DEFINE_bool("ckpt_async", True,
+            "checkpoint.CheckpointManager default mode: snapshot device "
+            "state to host on the caller thread, then serialize + commit "
+            "on a background writer so the train step never blocks on "
+            "disk (save() returns immediately; wait() barriers; writer "
+            "errors surface on wait()/the next save)")
+DEFINE_int("ckpt_keep", 3,
+           "checkpoint.CheckpointManager retention default: keep the "
+           "newest k COMMITTED checkpoints (keep_every_n survivors are "
+           "exempt); 0 disables garbage collection")
+DEFINE_int("shard_ping_interval_ms", 500,
+           "resilience.ShardSupervisor health-probe period in ms (side "
+           "connection PINGs against every shard server)")
+DEFINE_bool("sparse_degraded_lookup", False,
+            "ShardSupervisor degradation mode (async-pserver semantics): "
+            "while a shard is down, lookups serve deterministic "
+            "hash_init_rows virgin rows and pushes buffer for replay, "
+            "instead of blocking until recovery.  Keeps training stepping "
+            "through an outage at the cost of temporarily stale rows")
+DEFINE_int("sparse_autoscale_hot_rows", 0,
+           "ShardSupervisor.autoscale_check threshold: mean pushed rows "
+           "per shard between checks above which the supervisor doubles "
+           "the shard count via its spawn hook (live reshard).  0 "
+           "disables load-triggered scaling; explicit reshard() always "
+           "works")
 
 # the serving fleet's flags (router, supervisor, the routing table), with
 # the JAX package's defaults and help

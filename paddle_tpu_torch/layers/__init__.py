@@ -72,6 +72,7 @@ from .nn import (
     relu,
     reshape,
     scale,
+    sigmoid_cross_entropy_with_logits,
     slice,
     softmax,
     softmax_with_cross_entropy,

@@ -501,6 +501,19 @@ def log_softmax(input, axis=-1, name=None):
     return out
 
 
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
+                                      name=None):
+    """The logistic loss of logits `x` against 0/1 `label`, elementwise;
+    0 where label == ignore_index."""
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="sigmoid_cross_entropy_with_logits",
+                     inputs={"X": [x], "Label": [label]},
+                     outputs={"Out": [out]},
+                     attrs={"ignore_index": ignore_index})
+    return out
+
+
 def square_error_cost(input, label):
     """(input - label)^2, elementwise."""
     helper = LayerHelper("square_error_cost", **locals())

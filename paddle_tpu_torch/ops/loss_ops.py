@@ -1,6 +1,7 @@
 """Loss and metric ops: cross_entropy, softmax_with_cross_entropy,
-square_error_cost, accuracy and linear_softmax_ce with its grad
-(paddle_tpu/ops/loss_ops.py:26, :45, :98, :191, :435-550).
+sigmoid_cross_entropy_with_logits, square_error_cost, accuracy and
+linear_softmax_ce with its grad (paddle_tpu/ops/loss_ops.py:26, :45, :89,
+:98, :191, :435-550).
 
 softmax_with_cross_entropy is fused and numerically stable, computed in
 float32 whatever the logits' dtype; its Loss output stays float32
@@ -72,6 +73,18 @@ def softmax_with_cross_entropy(ctx):
         loss = -_picked(logp, label)
         loss = loss * (label != ignore).to(loss.dtype)
     ctx.set_output("Loss", loss)
+
+
+@register_op("sigmoid_cross_entropy_with_logits")
+def sigmoid_cross_entropy_with_logits(ctx):
+    """Out = max(x, 0) - x * label + log1p(exp(-|x|)), elementwise (the
+    stable form of the logistic loss), zero where label == ignore_index."""
+    x, label = ctx.input("X"), ctx.input("Label")
+    loss = (torch.clamp_min(x, 0.0) - x * label
+            + torch.log1p(torch.exp(-torch.abs(x))))
+    ignore = ctx.attr("ignore_index", -100)
+    ctx.set_output("Out", torch.where(label == ignore,
+                                      torch.zeros_like(loss), loss))
 
 
 @register_op("square_error_cost")

@@ -2065,3 +2065,128 @@ def test_lr_schedule_advances_in_a_captured_step(card):
     want = [16 ** -0.5 * min(s ** -0.5, s * 2 ** -1.5) for s in range(1, 5)]
     np.testing.assert_allclose([r[1] for r in runs["jit"]], want, rtol=1e-6)
     np.testing.assert_allclose(runs["jit"], runs["interpret"], rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the sparse tier: CTR DeepFM's dense step on the card, shard servers off it
+# ---------------------------------------------------------------------------
+
+
+def _deepfm():
+    """A small DeepFM (26 fields, 10^4 ids, mlp 64-64) under Adam ->
+    (main, startup, loss, embeddings with fresh services)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import ctr_deepfm
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        loss, _prob, embs, _svc = ctr_deepfm.build(
+            num_fields=26, sparse_feature_dim=10000, embedding_size=10,
+            dense_feature_dim=13, mlp_dims=(64, 64))
+        pt.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return main, startup, loss, embs
+
+
+def _deepfm_steps(place, start, feeds, mode="jit"):
+    """Sync SparseTrainStep steps on `place` from the persistables
+    `start` -> (losses, rows of both services at every id the feeds
+    touched)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.sparse.api import SparseTrainStep
+
+    main, _startup, loss, embs = _deepfm()
+    scope = pt.Scope()
+    convert.load_params(scope, start, place, [main])
+    step = SparseTrainStep(pt.Executor(place, mode=mode), main, embs, loss)
+    losses = [float(step.run(f, scope=scope)[0].ravel()[0]) for f in feeds]
+    rows = []
+    for e in embs:
+        ids = np.unique(np.concatenate([f[e.ids_feed_name].ravel()
+                                        for f in feeds]))
+        rows.append(e.service.prefetch(ids))
+    return losses, rows
+
+
+def test_deepfm_sync_steps_on_the_card_equal_the_cpu(card):
+    """The dense step runs on the card (captured from its second run on),
+    the rows and their grads cross as host arrays: 3 steps equal the CPU
+    path's from the same persistables, losses within rtol 1e-4 and the
+    touched rows within 1e-5, and jit equals interpret on the card."""
+    import paddle_tpu_torch as pt
+
+    rng = np.random.RandomState(0)
+    feeds = [{"sparse_emb@ids": rng.randint(0, 10000, (256, 26)),
+              "sparse_w1@ids": rng.randint(0, 10000, (256, 26)),
+              "dense_x": rng.rand(256, 13).astype(np.float32),
+              "label": rng.randint(0, 2, (256, 1)).astype(np.float32)}
+             for _ in range(3)]
+    main, startup, _, _ = _deepfm()
+    scope = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=scope)
+    start = {v.name: scope.find_var(v.name).numpy()
+             for v in main.list_vars() if v.persistable
+             and scope.find_var(v.name) is not None}
+    got = _deepfm_steps(card, start, feeds)
+    want = _deepfm_steps(pt.CPUPlace(), start, feeds)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4)
+    for a, b in zip(got[1], want[1]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+    eager = _deepfm_steps(card, start, feeds, mode="interpret")
+    assert eager[0] == got[0]
+
+
+def _card_processes():
+    """(compute processes nvidia-smi lists, the card's used MiB)."""
+    import subprocess
+
+    def query(what):
+        return subprocess.run(["nvidia-smi", what, "--format=csv,noheader,"
+                               "nounits"], check=True, capture_output=True,
+                              text=True).stdout.splitlines()
+
+    apps = [line for line in query("--query-compute-apps=pid,used_memory")
+            if line.strip()]
+    return len(apps), float(query("--query-gpu=memory.used")[0])
+
+
+def test_a_shard_server_process_holds_no_card_memory(card, tmp_path):
+    """`python -m paddle_tpu_torch.sparse.server` serves lookups and
+    pushes without creating a CUDA context: while it runs, nvidia-smi
+    lists no more compute processes than before it started (this process
+    holds one context) and the card's used memory grows by less than 64
+    MiB (a context takes hundreds)."""
+    import os
+    import subprocess
+    import sys
+    import time
+
+    from paddle_tpu_torch.sparse import RemoteEmbeddingService, SelectedRows
+
+    torch.zeros(1, device=card)      # this process has a context
+    torch.cuda.synchronize()
+    before = _card_processes()
+    assert before[0] >= 1
+    ready = str(tmp_path / "ep")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.sparse.server",
+         "--shard-index", "0", "--num-shards", "1", "--dim", "10",
+         "--port", "0", "--ready-file", ready], cwd=repo)
+    try:
+        deadline = time.time() + 60
+        while not os.path.exists(ready):
+            assert proc.poll() is None and time.time() < deadline
+            time.sleep(0.05)
+        svc = RemoteEmbeddingService([open(ready).read().strip()], 1000, 10)
+        ids = np.arange(64, dtype=np.int64)
+        svc.prefetch(ids)
+        svc.push_sparse_grad(SelectedRows(ids, np.ones((64, 10),
+                                                       np.float32), 1000))
+        apps, used = _card_processes()
+        assert apps == before[0] and used - before[1] < 64, (before, apps,
+                                                             used)
+        svc.close(shutdown_servers=True)
+    finally:
+        proc.kill()
+        proc.wait(timeout=30)

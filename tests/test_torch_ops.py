@@ -230,7 +230,8 @@ def test_the_slice_registers_exactly_the_decode_op_types():
     the int8 tier's four fake-quant ops and two quantized ops, the
     optimizer tail's ten update ops, and the BERT pretraining slice's
     fused loss head, recompute barrier, clip family, sign, learning-rate
-    schedule and elementwise max/min: 131 op types."""
+    schedule and elementwise max/min, and the CTR slice's
+    sigmoid_cross_entropy_with_logits: 132 op types."""
     assert sorted(preg.OPS) == sorted([
         "assign_value", "elementwise_add", "fill_constant", "fused_attention",
         "gather", "increment", "kv_cache_append", "layer_norm",
@@ -268,5 +269,6 @@ def test_the_slice_registers_exactly_the_decode_op_types():
         "average_accumulates",
         "linear_softmax_ce", "rc_barrier", "clip", "clip_by_norm",
         "squared_l2_norm", "sign", "lr_schedule", "elementwise_max",
-        "elementwise_min"])
-    assert len(preg.OPS) == 131
+        "elementwise_min",
+        "sigmoid_cross_entropy_with_logits"])
+    assert len(preg.OPS) == 132
