@@ -419,7 +419,26 @@ catches its own failure:
      (bench.py:2987), ResNet-50 float32 batch 8: sync save, async submit
      and total, restore ms, state bytes; the pruned forward's loss after
      the restore equal to the loss before;
- 17. one {"kernels": [...]} line, the card's name and power limit, and
+ 17. the dense op tails, no kernel launched.  X/ops: every op type of
+     the slice (tensor, math, loss, misc, nn and 3-D groups, each one
+     program with its backward) at a ResNet stage's image shape (batch 32,
+     64 channels, 56x56: conv2d_transpose stride 2 to 112x112, group_norm
+     with 32 groups, bilinear_interp up and down), 16^3 volumes and
+     [256, 1024] rows: the card's captured replay against the port's CPU
+     path (max abs error <= 1e-4 of max(1, the largest value); integer
+     and bool outputs equal) and against the card's interpreter (equal),
+     ms a replay per group; the random ops by their moments (jit =
+     interpret); range, linspace and where on the host between captured
+     segments.  X/attn: models/fluid_encoder.base() (6 layers at
+     transformer-base width from nets.scaled_dot_product_attention and
+     nets.glu, sequence 256, float32, Adam): 3 steps at batch 8 card vs
+     CPU (losses rtol 1e-4, argmax equal), 3 steps jit = interpret, then
+     10 captured steps at batch 64 (tokens/s, ms a step, idle share, peak
+     memory).  X/metrics: layers.auc over 20 batches of 4096 (int64 stats
+     = the CPU path's, AUC = metrics.Auc within 1e-6), chunk_eval under
+     IOB and IOBES and precision_recall against the CPU path and
+     metrics.py;
+ 18. one {"kernels": [...]} line, the card's name and power limit, and
      last the {"ok": true, "device": ...} line.
 
 Exits non-zero, printing no result, when there is no CUDA device or when
@@ -8411,6 +8430,796 @@ def drive_sparse(card, lap=lambda phase: None):
     return results
 
 
+# ------------------------------------------------- [17] the dense op tails
+
+# X/ops: every op type of the dense tails, grouped; the image ops at a
+# ResNet stage's shape, the 3-D ops on 16^3 volumes, the tensor and loss
+# ops at [256, 1024]
+X_IMG = (32, 64, 56, 56)
+X_VOL = (4, 16, 16, 16, 16)
+X_ROWS = (256, 1024)
+X_TOL = 1e-4        # card vs CPU: max abs error / max(1, the largest |CPU|)
+# the random group's draws: moments within about 5 standard errors
+XR_ROWS = (256, 1024)
+X_REPS = 10         # timed replays of a group's captured segment
+# X/attn: the primitive-level encoder at transformer-base width
+XA_PARITY_BATCH, XA_PARITY_STEPS = 8, 3
+XA_BATCH, XA_WARMUP, XA_STEPS, XA_PROFILED = 64, 2, 10, 2
+XA_LR = 1e-4
+XA_RTOL = 1e-4      # card vs CPU losses
+# X/metrics
+XM_AUC_BATCH, XM_AUC_BATCHES, XM_AUC_THRESHOLDS = 4096, 20, 4095
+XM_CHUNK_SHAPE, XM_CHUNK_BATCHES = (64, 128), 10
+XM_PR_BATCH, XM_PR_BATCHES = 4096, 10
+XM_AUC_TOL = 1e-6
+
+
+def _xo(rng, *shape, lo=None, hi=None):
+    if lo is None:
+        return rng.standard_normal(shape).astype(np.float32)
+    return rng.uniform(lo, hi, shape).astype(np.float32)
+
+
+def _x_groups(rng):
+    """{group: [(op type, inputs, attrs, differentiable inputs, outputs
+    {param: count}, outputs the loss reads)]} at the card shapes; the
+    pools' windows do not overlap (an overlapped max or 3-D average pool
+    backward adds with atomics, whose order a replay need not keep)."""
+    r, c = X_ROWS
+    x = _xo(rng, r, c)
+    y = _xo(rng, r, c)
+    img = _xo(rng, *X_IMG)
+    vol = _xo(rng, *X_VOL)
+    n, ch, h, w = X_IMG
+    vc = X_VOL[1]
+    ids = rng.permutation(r)[: r // 4].astype(np.int64)
+    lab01 = rng.randint(0, 2, (r, 1)).astype(np.float32)
+    prob = _xo(rng, r, 1, lo=0.02, hi=0.98)
+    target = np.where(rng.rand(r, c) < 0.3, 0.0, rng.rand(r, c)).astype(
+        np.float32)
+    tags = rng.randint(0, 9, (64, 128)).astype(np.int64)
+    out1 = {"Out": 1}
+    tensor = [
+        ("reshape2", {"X": [x]}, {"shape": [r * 4, -1]}, ["X"],
+         {"Out": 1, "XShape": 1}, ["Out"]),
+        ("transpose", {"X": [x]}, {"axis": [1, 0]}, ["X"], out1, ["Out"]),
+        ("transpose2", {"X": [x.reshape(r, c // 32, 32)]},
+         {"axis": [2, 0, 1]},
+         ["X"], {"Out": 1, "XShape": 1}, ["Out"]),
+        ("split", {"X": [x]}, {"axis": 1, "num": 0,
+                               "sections": [c // 4, c // 2, c // 4]}, ["X"],
+         {"Out": 3}, ["Out"]),
+        ("squeeze2", {"X": [x.reshape(r, 1, c)]}, {"axes": [1]}, ["X"],
+         {"Out": 1, "XShape": 1}, ["Out"]),
+        ("unsqueeze2", {"X": [x]}, {"axes": [1]}, ["X"],
+         {"Out": 1, "XShape": 1}, ["Out"]),
+        ("squeeze", {"X": [y.reshape(r, c, 1)]}, {"axes": []}, ["X"], out1,
+         ["Out"]),
+        ("unsqueeze", {"X": [y]}, {"axes": [0, 3]}, ["X"], out1, ["Out"]),
+        ("stack", {"X": [x, y]}, {"axis": 1}, ["X"], {"Y": 1}, ["Y"]),
+        ("unstack", {"X": [x[:4]]}, {"axis": 0}, ["X"], {"Y": 4}, ["Y"]),
+        ("expand", {"X": [x[:, :c // 4]]}, {"expand_times": [2, 4]}, ["X"],
+         out1, ["Out"]),
+        ("pad", {"X": [x]}, {"paddings": [1, 2, 3, 0], "pad_value": 0.5},
+         ["X"], out1, ["Out"]),
+        ("pad2d", {"X": [img]}, {"paddings": [1, 2, 3, 1],
+                                 "mode": "reflect"}, ["X"], out1, ["Out"]),
+        ("scatter", {"X": [x], "Ids": [ids], "Updates": [y[: r // 4]]}, {},
+         ["X", "Updates"], out1, ["Out"]),
+        ("arg_max", {"X": [x]}, {"axis": 1}, [], out1, []),
+        ("arg_min", {"X": [x]}, {"axis": 0}, [], out1, []),
+        ("argsort", {"X": [x]}, {"axis": -1}, [],
+         {"Out": 1, "Indices": 1}, []),
+        ("shape", {"Input": [img]}, {}, [], out1, []),
+        ("fill", {}, {"shape": [2, 3], "dtype": "float32",
+                      "value": [0.5, -1.0, 2.0, 3.0, 4.0, 5.5]}, [], out1,
+         []),
+        ("fill_zeros_like", {"X": [x]}, {}, ["X"], out1, ["Out"]),
+        ("select", {"Condition": [rng.randint(0, 2, (r,)).astype(np.int32)],
+                    "X": [x], "Y": [y]}, {}, ["X", "Y"], out1, ["Out"]),
+        ("diag", {"Diagonal": [x[0]]}, {}, [], out1, []),
+        ("reverse", {"X": [x]}, {"axis": [0, 1]}, ["X"], out1, ["Out"]),
+    ]
+    math_ops = [
+        ("elementwise_floordiv", {"X": [x * 8.0], "Y": [np.abs(y) + 0.5]},
+         {"axis": -1}, ["X", "Y"], out1, ["Out"]),
+        ("elementwise_floordiv",
+         {"X": [rng.randint(-99, 99, (r, c)).astype(np.int32)],
+          "Y": [rng.randint(1, 9, (c,)).astype(np.int32)]}, {"axis": -1}, [],
+         out1, []),
+        ("cumsum", {"X": [x]}, {"axis": 1}, ["X"], out1, ["Out"]),
+        ("cumsum", {"X": [y]}, {"axis": 0, "exclusive": True,
+                                "reverse": True}, ["X"], out1, ["Out"]),
+        ("pow", {"X": [np.abs(x) + 0.1]}, {"factor": 2.5}, ["X"], out1,
+         ["Out"]),
+        ("isfinite", {"X": [x]}, {}, [], out1, []),
+        ("isinf", {"X": [x]}, {}, [], out1, []),
+        ("isnan", {"X": [np.where(rng.rand(r, c) < 1e-4, np.nan, x).astype(
+            np.float32)]}, {}, [], out1, []),
+    ]
+    loss = [
+        ("smooth_l1_loss", {"X": [x], "Y": [y], "InsideWeight": [
+            _xo(rng, r, c, lo=0.0, hi=1.0)]}, {"sigma": 1.5}, ["X", "Y"],
+         {"Diff": 1, "Out": 1}, ["Out"]),
+        ("huber_loss", {"X": [x], "Y": [y]}, {"delta": 0.7}, ["X", "Y"],
+         {"Residual": 1, "Out": 1}, ["Out"]),
+        ("log_loss", {"Predicted": [prob], "Labels": [lab01]},
+         {"epsilon": 1e-4}, ["Predicted"], {"Loss": 1}, ["Loss"]),
+        ("hinge_loss", {"Logits": [x[:, :1]], "Labels": [lab01]}, {},
+         ["Logits"], {"Loss": 1}, ["Loss"]),
+        ("rank_loss", {"Label": [lab01], "Left": [x[:, :1]],
+                       "Right": [y[:, :1]]}, {}, ["Left", "Right"], out1,
+         ["Out"]),
+        ("margin_rank_loss", {"Label": [2.0 * lab01 - 1.0], "X1": [x[:, :1]],
+                              "X2": [y[:, :1]]}, {"margin": 0.1},
+         ["X1", "X2"], {"Activated": 1, "Out": 1}, ["Out"]),
+        ("mse_loss", {"X": [x], "Y": [y]}, {}, ["X", "Y"], out1, ["Out"]),
+        ("kldiv_loss", {"X": [x], "Target": [target]},
+         {"reduction": "batchmean"}, ["X"], {"Loss": 1}, ["Loss"]),
+        ("auc", {"Predict": [np.concatenate([1.0 - prob, prob], 1)],
+                 "Label": [lab01.astype(np.int64)],
+                 "StatPos": [np.zeros(4096, np.int64)],
+                 "StatNeg": [np.zeros(4096, np.int64)]},
+         {"num_thresholds": 4095}, [],
+         {"AUC": 1, "StatPosOut": 1, "StatNegOut": 1}, []),
+        ("chunk_eval", {"Inference": [tags], "Label": [
+            rng.randint(0, 9, (64, 128)).astype(np.int64)],
+                        "SeqLen": [rng.randint(1, 129, (64,)).astype(
+                            np.int64)]},
+         {"chunk_scheme": "IOBES", "num_chunk_types": 2}, [],
+         {"Precision": 1, "Recall": 1, "F1-Score": 1, "NumInferChunks": 1,
+          "NumLabelChunks": 1, "NumCorrectChunks": 1}, []),
+        ("precision_recall", {"Indices": [rng.randint(0, 10, (r, 1))],
+                              "Labels": [rng.randint(0, 10, (r, 1))],
+                              "Weights": [_xo(rng, r, 1, lo=0.0, hi=1.0)]},
+         {"class_number": 10}, [], {"BatchMetrics": 1, "AccumMetrics": 1,
+                                    "AccumStatesInfo": 1}, []),
+        ("positive_negative_pair", {"Score": [x[:, :3]], "Label": [
+            rng.randint(0, 3, (r, 1)).astype(np.float32)],
+                                    "QueryID": [rng.randint(0, 16, (r, 1))]},
+         {"column": -1}, [], {"PositivePair": 1, "NegativePair": 1,
+                              "NeutralPair": 1}, []),
+    ]
+    misc = [
+        ("flatten", {"X": [img]}, {"axis": 2}, ["X"], out1, ["Out"]),
+        ("flatten2", {"X": [img]}, {"axis": 1}, ["X"],
+         {"Out": 1, "XShape": 1}, ["Out"]),
+        ("crop", {"X": [img], "Offsets": [np.array([1, 3, 5, 7], np.int32)]},
+         {"shape": [n // 2, ch // 2, h - 8, w - 16]}, ["X"], out1, ["Out"]),
+        ("multiplex", {"Ids": [rng.randint(0, 2, (r, 1)).astype(np.int32)],
+                       "X": [x, y]}, {}, ["X"], out1, ["Out"]),
+        ("pad_constant_like", {"X": [x], "Y": [y[:r - r // 8, :c - c // 8]]},
+         {"pad_value": 0.25}, ["Y"], out1, ["Out"]),
+        ("is_empty", {"X": [x]}, {}, [], out1, []),
+        ("minus", {"X": [x], "Y": [y]}, {}, ["X", "Y"], out1, ["Out"]),
+        ("l1_norm", {"X": [x]}, {}, ["X"], out1, ["Out"]),
+        ("squared_l2_distance", {"X": [x], "Y": [y[:1]]}, {}, ["X", "Y"],
+         {"sub_result": 1, "Out": 1}, ["Out"]),
+        ("modified_huber_loss", {"X": [x[:, :1]], "Y": [lab01]}, {}, ["X"],
+         {"IntermediateVal": 1, "Out": 1}, ["Out"]),
+        ("mean_iou", {"Predictions": [rng.randint(0, 21, (r * 16,))],
+                      "Labels": [rng.randint(0, 21, (r * 16,))]},
+         {"num_classes": 21}, [], {"OutMeanIou": 1, "OutWrong": 1,
+                                   "OutCorrect": 1}, []),
+        ("affine_channel", {"X": [img], "Scale": [_xo(rng, ch)],
+                            "Bias": [_xo(rng, ch)]}, {},
+         ["X", "Scale", "Bias"], out1, ["Out"]),
+        ("bilinear_tensor_product", {"X": [x[:, :64]], "Y": [y[:, :32]],
+                                     "Weight": [_xo(rng, 16, 64, 32)],
+                                     "Bias": [_xo(rng, 1, 16)]}, {},
+         ["X", "Y", "Weight", "Bias"], out1, ["Out"]),
+        ("row_conv", {"X": [x.reshape(16, r // 16, c)],
+                      "Filter": [_xo(rng, 4, c)],
+                      "SeqLen": [rng.randint(1, r // 16 + 1, (16,)).astype(
+                          np.int64)]},
+         {}, ["X", "Filter"], out1, ["Out"]),
+        ("ctc_align", {"Input": [rng.randint(0, 5, (r, 64)).astype(
+            np.int64)]}, {"blank": 0, "merge_repeated": True}, [],
+         {"Output": 1, "OutLength": 1}, []),
+        ("conv_shift", {"X": [x], "Y": [y[:, :5]]}, {}, ["X", "Y"], out1,
+         ["Out"]),
+        ("polygon_box_transform", {"Input": [img[:, :8]]}, {}, [],
+         {"Output": 1}, []),
+        ("fused_elemwise_activation", {"X": [x], "Y": [y]},
+         {"functor_list": ["relu", "elementwise_add"]}, ["X", "Y"],
+         {"Out": 1, "IntermediateOut": 1}, ["Out"]),
+    ]
+    nn = [
+        ("conv2d_transpose", {"Input": [img], "Filter": [
+            _xo(rng, ch, ch, 4, 4) * 0.05]},
+         {"strides": [2, 2], "paddings": [1, 1], "groups": 1}, ["Input",
+                                                               "Filter"],
+         {"Output": 1}, ["Output"]),
+        ("depthwise_conv2d_transpose", {"Input": [img], "Filter": [
+            _xo(rng, ch, 1, 3, 3)]}, {"strides": [1, 1], "paddings": [1, 1],
+                                      "groups": ch}, ["Input", "Filter"],
+         {"Output": 1}, ["Output"]),
+        ("group_norm", {"X": [img], "Scale": [_xo(rng, ch)],
+                        "Bias": [_xo(rng, ch)]}, {"groups": ch // 2,
+                                                  "epsilon": 1e-5},
+         ["X", "Scale", "Bias"], {"Y": 1, "Mean": 1, "Variance": 1}, ["Y"]),
+        ("bilinear_interp", {"X": [img]}, {"out_h": 2 * h, "out_w": 2 * w},
+         ["X"], out1, ["Out"]),
+        ("bilinear_interp", {"X": [img]}, {"out_h": h // 2, "out_w": w // 2},
+         ["X"], out1, ["Out"]),
+        ("nearest_interp", {"X": [img]}, {"out_h": 2 * h, "out_w": w // 2},
+         ["X"], out1, ["Out"]),
+        ("max_pool2d_with_index", {"X": [img]}, {"ksize": [2, 2],
+                                                 "strides": [2, 2]}, ["X"],
+         {"Out": 1, "Mask": 1}, ["Out"]),
+        ("unpool", {"X": [img[:, :, ::2, ::2]], "Indices": [
+            (np.arange(h // 2)[:, None] * 2 * w + np.arange(w // 2) * 2)
+            .astype(np.int32) * np.ones((n, ch, 1, 1), np.int32)]},
+         {"ksize": [2, 2], "strides": [2, 2], "unpooled_size": [h, w]},
+         ["X"], out1, ["Out"]),
+        ("spp", {"X": [img]}, {"pyramid_height": 3, "pooling_type": "max"},
+         ["X"], out1, ["Out"]),
+        ("im2sequence", {"X": [img[:2]]}, {"kernels": [3, 3],
+                                            "strides": [2, 2],
+                                            "paddings": [1, 1, 1, 1]},
+         ["X"], out1, ["Out"]),
+        ("norm", {"X": [img]}, {"axis": 1, "epsilon": 1e-10}, ["X"],
+         {"Out": 1, "Norm": 1}, ["Out"]),
+        ("label_smooth", {"X": [x]}, {"epsilon": 0.1}, ["X"], out1, ["Out"]),
+        ("cos_sim", {"X": [x], "Y": [y]}, {}, ["X", "Y"],
+         {"Out": 1, "XNorm": 1, "YNorm": 1}, ["Out"]),
+    ]
+    nn3d = [
+        ("conv3d", {"Input": [vol], "Filter": [_xo(rng, 2 * vc, vc, 3, 3, 3)]},
+         {"strides": [1, 1, 1], "paddings": [1, 1, 1], "groups": 1},
+         ["Input", "Filter"], {"Output": 1}, ["Output"]),
+        ("conv3d_transpose", {"Input": [vol], "Filter": [
+            _xo(rng, vc, vc // 2, 2, 2, 2)]}, {"strides": [2, 2, 2],
+                                        "paddings": [0, 0, 0], "groups": 1},
+         ["Input", "Filter"], {"Output": 1}, ["Output"]),
+        ("pool3d", {"X": [vol]}, {"pooling_type": "max", "ksize": [2, 2, 2],
+                                  "strides": [2, 2, 2]}, ["X"], out1,
+         ["Out"]),
+        ("pool3d", {"X": [vol]}, {"pooling_type": "avg", "ksize": [4, 4, 4],
+                                  "strides": [4, 4, 4]}, ["X"], out1,
+         ["Out"]),
+        ("max_pool3d_with_index", {"X": [vol]}, {"ksize": [2, 2, 2],
+                                                 "strides": [2, 2, 2]},
+         ["X"], {"Out": 1, "Mask": 1}, ["Out"]),
+    ]
+    return {"tensor": tensor, "math": math_ops, "loss": loss, "misc": misc,
+            "nn": nn, "nn3d": nn3d}
+
+
+def op_group_program(specs, seed):
+    """One program holding every op of `specs`, the loss the sum of
+    reduce_sum(out * cot) over the outputs each op's spec names, and its
+    backward -> (main, feed, fetch names: every output, then the grads of
+    the differentiable inputs)."""
+    from paddle_tpu_torch import (Program, append_backward, layers,
+                                  program_guard, unique_name)
+
+    rng = np.random.RandomState(seed)
+    main, startup = Program(), Program()
+    feed, outs, grads, terms = {}, [], [], []
+    with program_guard(main, startup), unique_name.guard():
+        block = main.global_block()
+        for k, (op_type, inputs, attrs, diff, out_params, read) in enumerate(
+                specs):
+            ivars = {}
+            for p, arrs in inputs.items():
+                ivars[p] = []
+                for i, a in enumerate(arrs):
+                    name = f"x{k}_{p}_{i}"
+                    ivars[p].append(block.create_var(
+                        name=name, shape=list(a.shape), dtype=str(a.dtype),
+                        stop_gradient=p not in diff))
+                    feed[name] = a
+                    if p in diff:
+                        grads.append(name + "@GRAD")
+            ovars = {p: [block.create_var(name=f"y{k}_{p}_{i}",
+                                          dtype="float32")
+                         for i in range(cnt)]
+                     for p, cnt in out_params.items()}
+            block.append_op(type=op_type, inputs=ivars, outputs=ovars,
+                            attrs=dict(attrs))
+            for p, vs in ovars.items():
+                for v in vs:
+                    outs.append(v.name)
+                    if p in read:
+                        cot = block.create_var(name="cot_" + v.name,
+                                               shape=list(v.shape),
+                                               dtype="float32",
+                                               stop_gradient=True)
+                        feed[cot.name] = rng.standard_normal(
+                            tuple(v.shape)).astype(np.float32)
+                        terms.append(layers.reduce_sum(
+                            layers.elementwise_mul(v, cot)))
+        if terms:
+            append_backward(layers.sums(terms) if len(terms) > 1
+                            else terms[0])
+    return main, feed, outs + grads
+
+
+def _x_err(got, want):
+    """Max abs difference over max(1, the largest |want|); an integer or
+    bool output must be equal (err 0 or inf)."""
+    if want.dtype.kind in "biu":
+        return 0.0 if np.array_equal(got, want) else math.inf
+    if want.size == 0:
+        return 0.0
+    w = want.astype(np.float64)
+    return float(np.max(np.abs(got.astype(np.float64) - w))
+                 / max(1.0, np.max(np.abs(w))))
+
+
+def _run_group(exe, main, feed, fetch, runs):
+    from paddle_tpu_torch import Scope
+
+    scope = Scope()
+    for _ in range(runs):
+        outs = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    return outs
+
+
+def phase_x_ops(card, device):
+    """X/ops: each group of the dense tails' op types in one program, its
+    backward included: the CPU path, the card's jit path (the first run
+    eager, the second captured, the third a replay: compared with the CPU
+    at X_TOL) and the card's interpreter (equal to the replay exactly),
+    then X_REPS replays timed; the random group by its moments and jit =
+    interpret, the host trio between segments."""
+    from paddle_tpu_torch import CPUPlace, CUDAPlace, Executor, Scope
+    from paddle_tpu_torch.ops import registry
+
+    rng = np.random.RandomState(SEED + 170)
+    groups = _x_groups(rng)
+    rows, seen = [], set()
+    prev = torch.backends.cudnn.deterministic
+    # the same convolution algorithm for the graph and the interpreter
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, specs in groups.items():
+            seen |= {s[0] for s in specs}
+            main, feed, fetch = op_group_program(specs, SEED + len(name))
+            dev_feed = {k: torch.as_tensor(v, device=device)
+                        for k, v in feed.items()}
+            want = _run_group(Executor(CPUPlace()), main, feed, fetch, 1)
+            exe = Executor(CUDAPlace(0))
+            torch.cuda.synchronize()
+            before = graph_stats()
+            got = _run_group(exe, main, dev_feed, fetch, 3)
+            ref = _run_group(Executor(CUDAPlace(0), mode="interpret"), main,
+                             dev_feed, fetch, 3)
+            errs = {n: _x_err(g, w) for n, g, w in zip(fetch, got, want)}
+            worst = max(errs, key=errs.get)
+            if errs[worst] > X_TOL:
+                raise AssertionError(f"X/ops {name}: {worst} card vs CPU "
+                                     f"{errs[worst]}")
+            differ = [n for n, g, r in zip(fetch, got, ref)
+                      if not np.array_equal(g, r, equal_nan=True)]
+            if differ:
+                raise AssertionError(f"X/ops {name}: jit != interpret for "
+                                     f"{differ}")
+            gs = graph_stats(before)
+            if gs["captures"] < 1 or gs["replays"] < 1:
+                raise AssertionError(f"X/ops {name}: graphs {gs}")
+            scope = Scope()     # its first two runs warm up and capture
+            for _ in range(2):
+                exe.run(main, feed=dev_feed, fetch_list=fetch, scope=scope,
+                        return_numpy=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(X_REPS):
+                exe.run(main, feed=dev_feed, fetch_list=fetch, scope=scope,
+                        return_numpy=False)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / X_REPS * 1e3
+            rows.append({"group": name, "op_types": sorted({s[0]
+                                                            for s in specs}),
+                         "outputs": len(fetch), "max_err": errs[worst],
+                         "worst": worst, "ms": ms, "graphs": gs["captures"]})
+            log(f"  X/ops {name}: {len(specs)} ops, {len(fetch)} outputs and "
+                f"grads; card vs CPU max err {errs[worst]:.2e} ({worst}); "
+                f"jit = interpret; {ms:.3f} ms a replay  [{card}]")
+            del exe, got, ref, want, dev_feed
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    rows.append(phase_x_random(card, device))
+    rows.append(phase_x_host(card, device))
+    seen |= set(rows[-2]["op_types"]) | set(rows[-1]["op_types"])
+    missing = sorted(set(X_NEW_OPS) - seen)
+    if missing or not all(registry.is_registered(t) for t in X_NEW_OPS):
+        raise AssertionError(f"X/ops: op types not driven: {missing}")
+    return {"phase": "X/ops", "groups": rows, "op_types": len(seen),
+            "card": card}
+
+
+X_NEW_OPS = (
+    "reshape2", "transpose", "transpose2", "split", "squeeze", "squeeze2",
+    "unsqueeze", "unsqueeze2", "stack", "unstack", "expand", "pad", "pad2d",
+    "scatter", "arg_max", "arg_min", "argsort", "shape", "fill",
+    "fill_zeros_like", "range", "linspace", "where", "select", "diag",
+    "reverse", "elementwise_floordiv", "cumsum", "pow", "isfinite", "isinf",
+    "isnan", "uniform_random_batch_size_like",
+    "gaussian_random_batch_size_like", "truncated_gaussian_random",
+    "sampling_id", "smooth_l1_loss", "huber_loss", "log_loss", "hinge_loss",
+    "rank_loss", "margin_rank_loss", "mse_loss", "kldiv_loss", "auc",
+    "chunk_eval", "precision_recall", "positive_negative_pair", "flatten",
+    "flatten2", "crop", "multiplex", "random_crop", "pad_constant_like",
+    "is_empty", "minus", "l1_norm", "squared_l2_distance",
+    "modified_huber_loss", "mean_iou", "affine_channel",
+    "bilinear_tensor_product", "row_conv", "ctc_align", "conv_shift",
+    "polygon_box_transform", "fused_elemwise_activation", "conv3d",
+    "conv2d_transpose", "conv3d_transpose", "depthwise_conv2d_transpose",
+    "pool3d", "max_pool2d_with_index", "max_pool3d_with_index", "unpool",
+    "spp", "group_norm", "bilinear_interp", "nearest_interp", "im2sequence",
+    "norm", "label_smooth", "cos_sim")
+
+
+def phase_x_random(card, device):
+    """The random group on the card: each draw's shape, range and moments,
+    truncated_gaussian_random inside mean +- 2 std, sampling_id's
+    frequencies, random_crop a window of its input; a replay draws anew,
+    and the interpreter draws what the graph draws for the same run."""
+    from paddle_tpu_torch import CUDAPlace, Executor
+
+    r, c = XR_ROWS
+    probs = np.tile(np.array([[0.1, 0.0, 0.6, 0.3]], np.float32), (r * 256, 1))
+    crop_src = np.arange(8 * 64 * 64, dtype=np.float32).reshape(8, 64, 64)
+    specs = [
+        ("uniform_random_batch_size_like", {"Input": [np.zeros((r, 4),
+                                                               np.float32)]},
+         {"shape": [-1, c], "min": -2.0, "max": 3.0, "dtype": "float32"}, [],
+         {"Out": 1}, []),
+        ("gaussian_random_batch_size_like", {"Input": [np.zeros((r, 4),
+                                                                np.float32)]},
+         {"shape": [-1, c], "mean": 1.5, "std": 0.5, "dtype": "float32"}, [],
+         {"Out": 1}, []),
+        ("truncated_gaussian_random", {}, {"shape": [r, c], "mean": -1.0,
+                                           "std": 2.0, "dtype": "float32"},
+         [], {"Out": 1}, []),
+        ("sampling_id", {"X": [probs]}, {}, [], {"Out": 1}, []),
+        ("random_crop", {"X": [crop_src]}, {"shape": [40, 40]}, [],
+         {"Out": 1}, []),
+    ]
+    main, feed, fetch = op_group_program(specs, SEED + 171)
+    main.random_seed = SEED
+    dev_feed = {k: torch.as_tensor(v, device=device) for k, v in feed.items()}
+    exe = Executor(CUDAPlace(0))
+    runs = [_run_group(exe, main, dev_feed, fetch, n) for n in (2, 3)]
+    ref = _run_group(Executor(CUDAPlace(0), mode="interpret"), main,
+                     dev_feed, fetch, 3)
+    u, g, t, ids, crop = runs[1]
+    checks = {k: bool(v) for k, v in {
+        "uniform": u.shape == (r, c) and u.min() >= -2.0 and u.max() < 3.0
+        and abs(u.mean() - 0.5) < 0.02 and abs(u.var() - 25 / 12) < 0.02,
+        "gaussian": g.shape == (r, c) and abs(g.mean() - 1.5) < 0.005
+        and abs(g.std() - 0.5) < 0.005,
+        # a standard normal truncated to [-2, 2] has variance 0.77372
+        "truncated": t.min() >= -5.0 and t.max() <= 3.0
+        and abs(t.mean() + 1.0) < 0.02
+        and abs(t.std() / 2.0 - math.sqrt(0.77372)) < 0.005,
+        "sampling_id": np.allclose(np.bincount(ids, minlength=4) / ids.size,
+                                   [0.1, 0.0, 0.6, 0.3], atol=0.01),
+        "random_crop": crop.shape == (8, 40, 40) and np.array_equal(
+            crop, crop_src[:, int(crop[0, 0, 0]) // 64:][:, :40,
+                           int(crop[0, 0, 0]) % 64:][:, :, :40]),
+        "replay_draws_anew": not np.array_equal(runs[0][0], u),
+        "jit_equals_interpret": all(np.array_equal(a, b)
+                                    for a, b in zip(runs[1], ref)),
+    }.items()}
+    if not all(checks.values()):
+        raise AssertionError(f"X/ops random: {checks}")
+    log(f"  X/ops random: {len(specs)} ops; uniform mean {u.mean():.4f} var "
+        f"{u.var():.4f}, gaussian {g.mean():.4f} +- {g.std():.4f}, truncated "
+        f"[{t.min():.3f}, {t.max():.3f}] std/2 {t.std() / 2:.4f}, sampling "
+        f"{np.bincount(ids, minlength=4) / ids.size}; jit = interpret  "
+        f"[{card}]")
+    return {"group": "random", "op_types": [s[0] for s in specs],
+            "checks": checks, "card": card}
+
+
+def phase_x_host(card, device):
+    """range, linspace and where on the card: the jit plan runs them on
+    the host between two captured segments; equal to the CPU path."""
+    from paddle_tpu_torch import (CPUPlace, CUDAPlace, Executor, Program,
+                                  Scope, layers, program_guard)
+    from paddle_tpu_torch.framework import executor as pexec
+
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        x = layers.data(name="x", shape=[X_ROWS[1]], dtype="float32",
+                        append_batch_size=False)
+        y = layers.scale(x, scale=2.0)
+        r = layers.tensor.range(0.0, float(X_ROWS[1]), 1.0, "float32")
+        z = layers.elementwise_add(y, r)
+        block = main.global_block()
+        lin = block.create_var(name="lin", dtype="float32")
+        block.append_op(type="linspace", inputs={
+            "Start": [layers.fill_constant([1], "float32", -1.0)],
+            "Stop": [layers.fill_constant([1], "float32", 1.0)],
+            "Num": [layers.fill_constant([1], "int32", 257)]},
+            outputs={"Out": [lin]})
+        cond = layers.greater_than(z, layers.fill_constant([1], "float32",
+                                                           600.0))
+        pos = block.create_var(name="pos", dtype="int64")
+        block.append_op(type="where", inputs={"Condition": [cond]},
+                        outputs={"Out": [pos]})
+    fetch = [z.name, "lin", "pos"]
+    plan = pexec.build_plan(main, fetch)
+    hosts = [main.global_block().ops[i].type for i in plan
+             if not isinstance(i, pexec._Segment)]
+    feed = {"x": np.random.RandomState(SEED + 172).standard_normal(
+        X_ROWS[1]).astype(np.float32)}
+    want = Executor(CPUPlace()).run(main, feed=feed, fetch_list=fetch,
+                                    scope=Scope())
+    got = _run_group(Executor(CUDAPlace(0)), main, feed, fetch, 3)
+    if sorted(hosts) != ["linspace", "range", "where"] or any(
+            _x_err(g, w) > X_TOL for g, w in zip(got, want)):
+        raise AssertionError(f"X/ops host: plan {hosts}, errors "
+                             f"{[_x_err(g, w) for g, w in zip(got, want)]}")
+    log(f"  X/ops host: {hosts} on the host between "
+        f"{sum(isinstance(i, pexec._Segment) for i in plan)} segments; "
+        f"card = CPU ({len(got[2])} positions)  [{card}]")
+    return {"group": "host", "op_types": ["range", "linspace", "where"],
+            "plan_host_ops": hosts, "card": card}
+
+
+def _encoder_program(cfg):
+    from paddle_tpu_torch import Program, optimizer, program_guard, unique_name
+    from paddle_tpu_torch.models import fluid_encoder
+
+    main, startup = Program(), Program()
+    with program_guard(main, startup), unique_name.guard():
+        loss, outs = fluid_encoder.build(cfg)
+        optimizer.Adam(learning_rate=XA_LR).minimize(loss)
+    return main, startup, loss, outs
+
+
+def phase_x_attn(card, device):
+    """X/attn: the primitive-level encoder at transformer-base width
+    (models/fluid_encoder.base(): 6 layers, d_model 512, 8 heads of 64,
+    the GLU 512 -> 4096 -> 2048 -> 512, sequence 256, float32, Adam,
+    dropout 0): 3 steps at batch 8 on the card (captured from the second)
+    against the port's CPU path from the same weights, then 3 steps jit
+    against interpret (equal), then XA_STEPS captured steps at batch 64
+    timed and XA_PROFILED profiled."""
+    from paddle_tpu_torch import CPUPlace, CUDAPlace, Executor, Scope
+    from paddle_tpu_torch.models import fluid_encoder
+
+    cfg = fluid_encoder.base()
+    main, startup, loss, outs = _encoder_program(cfg)
+    types = {op.type for op in main.global_block().ops}
+    need = {"transpose", "reshape", "matmul", "softmax", "split", "arg_max",
+            "layer_norm", "softmax_with_cross_entropy", "accuracy"}
+    if not need <= types:
+        raise AssertionError(f"X/attn: missing ops {sorted(need - types)}")
+    scope, exe = Scope(), Executor(CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    start = _persistables(scope, main)
+    feed = fluid_encoder.synthetic_batch(XA_PARITY_BATCH, cfg, seed=SEED)
+    probe = [outs["pred"], outs["acc"]]
+    losses, first = run_steps(exe, main, scope, feed, loss, XA_PARITY_STEPS,
+                              probe=probe)
+    cpu_scope = Scope()
+    for name, value in start.items():
+        cpu_scope.set_var(name, value.cpu())
+    t0 = time.perf_counter()
+    cpu_losses, cpu_first = run_steps(Executor(CPUPlace()), main, cpu_scope,
+                                      feed, loss, XA_PARITY_STEPS,
+                                      probe=probe)
+    cpu_s = time.perf_counter() - t0
+    if not (np.all(np.isfinite(losses)) and np.allclose(
+            losses, cpu_losses, rtol=XA_RTOL, atol=0)):
+        raise AssertionError(f"X/attn: card losses {losses} vs CPU "
+                             f"{cpu_losses}")
+    if not np.array_equal(first[0].cpu().numpy(), cpu_first[0].numpy()):
+        raise AssertionError("X/attn: argmax predictions differ")
+    jit, ref = [], []
+    eager = Executor(exe.device, mode="interpret")
+    for _ in range(XA_PARITY_STEPS):
+        ref += _interpret_step(eager, main, scope, feed, loss)
+        jit += run_steps(exe, main, scope, feed, loss, 1)[0]
+    if jit != ref:
+        raise AssertionError(f"X/attn: jit losses {jit} vs interpret {ref}")
+    del scope, cpu_scope, exe, eager
+    torch.cuda.empty_cache()
+
+    scope, exe = Scope(), Executor(CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    feed = {k: torch.as_tensor(v, device=device) for k, v in
+            fluid_encoder.synthetic_batch(XA_BATCH, cfg, seed=SEED + 1).items()}
+    torch.cuda.synchronize()
+    _zero_counts()
+    before = graph_stats()
+    reset_peak_memory()
+    warm, _ = run_steps(exe, main, scope, feed, loss, XA_WARMUP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed, _ = run_steps(exe, main, scope, feed, loss, XA_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof = profile_calls(lambda: run_steps(exe, main, scope, feed, loss, 1),
+                         XA_PROFILED, top=8)
+    if not np.all(np.isfinite(warm + timed)):
+        raise AssertionError(f"X/attn: losses {warm + timed}")
+    graphs, bound = captured_graphs("X/attn", exe, feed)
+    tokens = XA_BATCH * cfg.seq_len
+    rate = tokens * XA_STEPS / wall
+    fpt = fluid_encoder.flops_per_token(cfg)
+    res = {"phase": "X/attn", "batch": XA_BATCH, "seq": cfg.seq_len,
+           "layers": cfg.n_layer, "d_model": cfg.d_model,
+           "heads": cfg.n_head, "parity_losses": losses,
+           "parity_cpu_losses": cpu_losses, "cpu_s": cpu_s,
+           "jit_losses": jit, "interpret_losses": ref,
+           "losses": warm + timed, "tokens_per_s": rate,
+           "ms_per_step": wall / XA_STEPS * 1e3, "flops_per_token": fpt,
+           "mfu_f32": rate * fpt / PEAK_FLOP_PER_S[torch.float32],
+           "launches": _port_kernel_counts(), "graphs": graphs,
+           "bound_args": bound, "profile": prof, "card": card}
+    res.update(capture_fields(before, prof, res["ms_per_step"]))
+    log(f"  X/attn batch {XA_PARITY_BATCH}: card {losses} vs CPU "
+        f"{cpu_losses} ({cpu_s:.1f} s on the CPU); jit {jit} = interpret")
+    log(f"  X/attn batch {XA_BATCH}: {rate:.1f} tokens/s, "
+        f"{res['ms_per_step']:.2f} ms/step, float32 MFU "
+        f"{res['mfu_f32']:.4f}  [{card}]")
+    log_capture("X/attn", res)
+    log_profile(prof)
+    return res
+
+
+def _metric_run(build, feeds, fetch_of, place):
+    """The metric program built by `build()` run over `feeds` on `place`
+    (jit path; on the card captured from the second batch) -> the fetched
+    values a batch."""
+    from paddle_tpu_torch import Executor, Program, Scope, program_guard
+
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        fetch = fetch_of(build())
+    scope, exe = Scope(), Executor(place)
+    exe.run(startup, scope=scope)
+    return [exe.run(main, feed=f, fetch_list=fetch, scope=scope)
+            for f in feeds]
+
+
+def phase_x_metrics(card, device):
+    """X/metrics: layers.auc over XM_AUC_BATCHES batches of XM_AUC_BATCH
+    seeded predictions, its int64 stat vars equal the CPU path's at every
+    batch and its AUC equal metrics.Auc fed the same batches (1e-6);
+    chunk_eval under IOB and IOBES, its counts equal the CPU path's and
+    metrics.ChunkEvaluator over them the op's own precision, recall and
+    F1 (1e-6); precision_recall streamed through its states, equal to the
+    CPU path's and to metrics.Precision / Recall on class 1 (1e-6)."""
+    from paddle_tpu_torch import CPUPlace, CUDAPlace, layers, metrics
+
+    cuda = CUDAPlace(0)
+    rng = np.random.RandomState(SEED + 173)
+    feeds = []
+    for _ in range(XM_AUC_BATCHES):
+        p1 = rng.rand(XM_AUC_BATCH).astype(np.float32)
+        feeds.append({"pred": np.stack([1.0 - p1, p1], 1),
+                      "label": (rng.rand(XM_AUC_BATCH, 1)
+                                < p1[:, None]).astype(np.int64)})
+
+    def auc_net():
+        pred = layers.data(name="pred", shape=[2], dtype="float32")
+        label = layers.data(name="label", shape=[1], dtype="int64")
+        return layers.auc(pred, label, num_thresholds=XM_AUC_THRESHOLDS)
+
+    def auc_fetch(built):
+        return [built[0]] + built[1]
+
+    got = _metric_run(auc_net, feeds, auc_fetch, cuda)
+    want = _metric_run(auc_net, feeds, auc_fetch, CPUPlace())
+    host = metrics.Auc(num_thresholds=XM_AUC_THRESHOLDS)
+    worst = 0.0
+    for f, g, w in zip(feeds, got, want):
+        host.update(f["pred"], f["label"])
+        if not (np.array_equal(g[1], w[1]) and np.array_equal(g[2], w[2])
+                and g[1].dtype == np.int64):
+            raise AssertionError("X/metrics: auc stats differ from the CPU")
+        worst = max(worst, abs(float(g[0][0]) - host.eval()))
+    if worst > XM_AUC_TOL:
+        raise AssertionError(f"X/metrics: auc vs metrics.Auc {worst}")
+    res = {"phase": "X/metrics", "auc": float(got[-1][0][0]),
+           "auc_vs_metrics_max_err": worst,
+           "auc_samples": int(got[-1][1].sum() + got[-1][2].sum()),
+           "card": card}
+    log(f"  X/metrics auc: {XM_AUC_BATCHES} x {XM_AUC_BATCH} on the card, "
+        f"stats = CPU exactly, AUC {res['auc']:.6f}, |AUC - metrics.Auc| "
+        f"<= {worst:.2e}  [{card}]")
+
+    for scheme in ("IOB", "IOBES"):
+        b, t = XM_CHUNK_SHAPE
+        ntag = {"IOB": 2, "IOBES": 4}[scheme]
+        cfeeds = [{"inf": rng.randint(0, 3 * ntag + 1, (b, t)),
+                   "lab": rng.randint(0, 3 * ntag + 1, (b, t)),
+                   "lens": rng.randint(1, t + 1, (b,))}
+                  for _ in range(XM_CHUNK_BATCHES)]
+
+        def chunk_net(scheme=scheme):
+            inf = layers.data(name="inf", shape=[t], dtype="int64")
+            lab = layers.data(name="lab", shape=[t], dtype="int64")
+            lens = layers.data(name="lens", shape=[], dtype="int64")
+            return layers.chunk_eval(inf, lab, scheme, 3, seq_len=lens)
+
+        got = _metric_run(chunk_net, cfeeds, list, cuda)
+        want = _metric_run(chunk_net, cfeeds, list, CPUPlace())
+        stream = metrics.ChunkEvaluator()
+        for g, w in zip(got, want):
+            if not all(np.array_equal(a, c) for a, c in zip(g[3:], w[3:])):
+                raise AssertionError(f"X/metrics chunk_eval {scheme}: "
+                                     "counts differ from the CPU")
+            one = metrics.ChunkEvaluator()
+            one.update(*g[3:])
+            stream.update(*g[3:])
+            err = max(abs(float(a[0]) - e)
+                      for a, e in zip(g[:3], one.eval()))
+            if err > XM_AUC_TOL:
+                raise AssertionError(f"X/metrics chunk_eval {scheme}: op vs "
+                                     f"metrics.ChunkEvaluator {err}")
+        res[f"chunk_{scheme}"] = list(stream.eval())
+        log(f"  X/metrics chunk_eval {scheme}: {XM_CHUNK_BATCHES} batches of "
+            f"{b} x {t}, counts = CPU, the op's P/R/F1 = "
+            f"metrics.ChunkEvaluator's; streamed {stream.eval()}")
+
+    prec, rec = metrics.Precision(), metrics.Recall()
+    states = {"cuda": np.zeros((2, 4), np.float32),
+              "cpu": np.zeros((2, 4), np.float32)}
+    from paddle_tpu_torch import Executor, Program, Scope, program_guard
+
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        block = main.global_block()
+        ins = {p: [block.create_var(name=p, shape=s, dtype=d)]
+               for p, s, d in (("Indices", [XM_PR_BATCH, 1], "int64"),
+                               ("Labels", [XM_PR_BATCH, 1], "int64"),
+                               ("StatesInfo", [2, 4], "float32"))}
+        outs = {p: [block.create_var(name=p.lower(), dtype="float32")]
+                for p in ("BatchMetrics", "AccumMetrics", "AccumStatesInfo")}
+        block.append_op(type="precision_recall", inputs=ins, outputs=outs,
+                        attrs={"class_number": 2})
+    exes = {"cuda": Executor(cuda), "cpu": Executor(CPUPlace())}
+    scopes = {"cuda": Scope(), "cpu": Scope()}
+    for _ in range(XM_PR_BATCHES):
+        pred = rng.randint(0, 2, (XM_PR_BATCH, 1)).astype(np.int64)
+        lab = rng.randint(0, 2, (XM_PR_BATCH, 1)).astype(np.int64)
+        prec.update(pred, lab)
+        rec.update(pred, lab)
+        for k in exes:
+            states[k] = exes[k].run(main, feed={
+                "Indices": pred, "Labels": lab, "StatesInfo": states[k]},
+                fetch_list=["accumstatesinfo"], scope=scopes[k])[0]
+        if not np.array_equal(states["cuda"], states["cpu"]):
+            raise AssertionError("X/metrics precision_recall: states differ")
+    tp, fp, fn = (float(states["cuda"][1, i]) for i in (0, 1, 3))
+    err = max(abs(tp / (tp + fp) - prec.eval()),
+              abs(tp / (tp + fn) - rec.eval()))
+    if err > XM_AUC_TOL:
+        raise AssertionError(f"X/metrics precision_recall vs metrics {err}")
+    res["precision_recall_class1"] = [tp / (tp + fp), tp / (tp + fn)]
+    log(f"  X/metrics precision_recall: {XM_PR_BATCHES} x {XM_PR_BATCH}, "
+        f"states = CPU, class 1 P/R {res['precision_recall_class1']} = "
+        f"metrics.Precision/Recall  [{card}]")
+    return res
+
+
+def drive_op_tails(card, device, lap=lambda phase: None):
+    """[17]: X/ops, X/attn, X/metrics; none of the eight kernels
+    launches."""
+    _zero_counts()
+    results = [phase_x_ops(card, device)]
+    lap("[17] X/ops")
+    torch.cuda.empty_cache()
+    results.append(phase_x_attn(card, device))
+    lap("[17] X/attn")
+    torch.cuda.empty_cache()
+    results.append(phase_x_metrics(card, device))
+    lap("[17] X/metrics")
+    launched = {k: n for k, n in _port_kernel_counts().items() if n}
+    if launched:
+        raise AssertionError(f"[17] launched port kernels: {launched}")
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -8544,6 +9353,13 @@ def main():
         f"(CTR/remote), bench.py's reshard leg (SP/reshard) and ckpt leg "
         f"(CK/resnet) [{card}]")
     training += drive_sparse(card, lap)
+
+    log(f"[17] the dense op tails: every new op type of the slice on the "
+        f"card against the port's CPU path, jit against interpret (X/ops), "
+        f"a primitive-level transformer-base encoder trained from layers "
+        f"and nets (X/attn), and the metric ops against metrics.py "
+        f"(X/metrics) [{card}]")
+    training += drive_op_tails(card, device, lap)
     for more in (counts, train_launches, bert_launches, resnet_launches,
                  rnn_launches, saved_launches, front_launches,
                  fleet_launches, int8_launches, tail_launches):
@@ -8554,7 +9370,7 @@ def main():
         raise AssertionError(f"kernels {never} never launched on a path")
 
     log(f"  all phases took {laps[-1] - laps[0]:.1f} s wall")
-    log("[17] results")
+    log("[18] results")
     log(json.dumps({"phases": phases}))
     log(json.dumps({"training": training}))
     if DIVERGED:

@@ -32,6 +32,11 @@ Scheduler and as a speculative-decoding draft.  The sparse tier
 SparseTrainStep that trains CTR DeepFM, `models.ctr_deepfm`),
 `resilience.ShardSupervisor` and `checkpoint.CheckpointManager` are
 host-side Python like the JAX package's; the dense model runs on the card.
+The dense op tails (the tensor, math, random, loss, misc and nn ops, with
+their `layers` builders, the TruncatedNormal, MSRA and Bilinear
+initializers, `nets.glu` and `nets.scaled_dot_product_attention`) and
+the host-side `metrics` and `evaluator` complete the JAX package's
+dense surface.
 """
 
 from .framework import (
@@ -74,6 +79,8 @@ from . import serving
 from . import io
 from . import checkpoint
 from . import nets
+from . import metrics
+from . import evaluator
 from . import transpiler
 from . import inference
 # a program loaded from disk with fake-quant ops finds their lowerings

@@ -115,6 +115,9 @@ class LayerHelper:
             stop_gradient=stop_gradient,
         )
 
+    def create_variable(self, **kwargs):
+        return self.block.create_var(**kwargs)
+
     def create_global_variable(self, persistable=False, **kwargs):
         return self.main_program.global_block().create_var(
             persistable=persistable, **kwargs)

@@ -114,6 +114,41 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
     return helper.append_activation(pre_act)
 
 
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    """NCHW transposed conv: an IOHW filter [C, num_filters / groups, kh,
+    kw] (its size from output_size when filter_size is not given), a
+    per-channel bias, then the activation."""
+    helper = LayerHelper("conv2d_transpose", **locals())
+    dtype = input.dtype
+    num_channels = input.shape[1]
+    groups = groups or 1
+    stride, padding, dilation = _pair(stride), _pair(padding), _pair(dilation)
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("either filter_size or output_size required")
+        output_size = _pair(output_size)
+        filter_size = [
+            (output_size[i] - (input.shape[2 + i] - 1) * stride[i]
+             + 2 * padding[i] - 1) // dilation[i] + 1 for i in range(2)]
+    else:
+        filter_size = _pair(filter_size)
+    filter_shape = [num_channels, num_filters // groups] + filter_size
+    w = helper.create_parameter(attr=param_attr, shape=filter_shape,
+                                dtype=dtype)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv2d_transpose",
+        inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [pre_bias]},
+        attrs={"strides": stride, "paddings": padding,
+               "dilations": dilation, "groups": groups})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
 def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
            pool_padding=0, global_pooling=False, use_cudnn=True,
            ceil_mode=False, exclusive=True, name=None):
@@ -321,6 +356,16 @@ def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
         attrs={"transpose_X": transpose_x, "transpose_Y": transpose_y,
                "alpha": float(alpha)},
     )
+    return out
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="mul", inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]},
+        attrs={"x_num_col_dims": x_num_col_dims,
+               "y_num_col_dims": y_num_col_dims})
     return out
 
 
@@ -693,3 +738,263 @@ def gru(input, hidden_size, *, param_attr=None, bias_attr=None,
                      outputs={"Out": [out], "LastH": [last_h]},
                      attrs={"is_reverse": is_reverse})
     return out, last_h
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper("smooth_l1_loss", **locals())
+    diff = helper.create_variable_for_type_inference(x.dtype)
+    loss = helper.create_variable_for_type_inference(x.dtype)
+    inputs = {"X": [x], "Y": [y]}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = [inside_weight]
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = [outside_weight]
+    helper.append_op(type="smooth_l1_loss", inputs=inputs,
+                     outputs={"Diff": [diff], "Out": [loss]},
+                     attrs={"sigma": sigma if sigma is not None else 1.0})
+    return loss
+
+
+def auc(input, label, curve="ROC", num_thresholds=4095, topk=1,
+        slide_steps=1):
+    """Streaming AUC (reference layers/metric_op.py auc): the bucket
+    counts are two int64 persistables of the program, zeroed by the
+    startup; -> (the float64 AUC, [stat_pos, stat_neg])."""
+    from ..initializer import ConstantInitializer
+
+    helper = LayerHelper("auc", **locals())
+    stat_pos, _ = helper.create_or_get_global_variable(
+        helper.name + "_stat_pos", shape=[num_thresholds + 1], dtype="int64")
+    stat_neg, _ = helper.create_or_get_global_variable(
+        helper.name + "_stat_neg", shape=[num_thresholds + 1], dtype="int64")
+    for v in (stat_pos, stat_neg):
+        v.stop_gradient = True
+        helper.set_variable_initializer(v, ConstantInitializer(0))
+    auc_out = helper.create_variable_for_type_inference("float64",
+                                                        stop_gradient=True)
+    helper.append_op(
+        type="auc",
+        inputs={"Predict": [input], "Label": [label], "StatPos": [stat_pos],
+                "StatNeg": [stat_neg]},
+        outputs={"AUC": [auc_out], "StatPosOut": [stat_pos],
+                 "StatNegOut": [stat_neg]},
+        attrs={"curve": curve, "num_thresholds": num_thresholds})
+    return auc_out, [stat_pos, stat_neg]
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None, seq_len=None):
+    """Precision, recall and F1 of chunk detection over dense [B, T]
+    labels and an optional seq_len; -> (precision, recall, f1,
+    num_infer, num_label, num_correct), the counts int32 as the JAX
+    package's."""
+    helper = LayerHelper("chunk_eval", **locals())
+    outs = {
+        name: helper.create_variable_for_type_inference(dtype,
+                                                        stop_gradient=True)
+        for name, dtype in [
+            ("Precision", "float32"), ("Recall", "float32"),
+            ("F1-Score", "float32"), ("NumInferChunks", "int32"),
+            ("NumLabelChunks", "int32"), ("NumCorrectChunks", "int32")]
+    }
+    inputs = {"Inference": [input], "Label": [label]}
+    if seq_len is not None:
+        inputs["SeqLen"] = [seq_len]
+    helper.append_op(
+        type="chunk_eval", inputs=inputs,
+        outputs={k: [v] for k, v in outs.items()},
+        attrs={"chunk_scheme": chunk_scheme,
+               "num_chunk_types": num_chunk_types,
+               "excluded_chunk_types": list(excluded_chunk_types or [])})
+    return (outs["Precision"], outs["Recall"], outs["F1-Score"],
+            outs["NumInferChunks"], outs["NumLabelChunks"],
+            outs["NumCorrectChunks"])
+
+
+def squeeze(input, axes, name=None):
+    helper = LayerHelper("squeeze", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="squeeze", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axes": axes})
+    return out
+
+
+def unsqueeze(input, axes, name=None):
+    helper = LayerHelper("unsqueeze", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="unsqueeze", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axes": axes})
+    return out
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="transpose", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": perm})
+    return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    """num_or_sections: a count of equal parts, or the part sizes; ->
+    the list of parts."""
+    helper = LayerHelper("split", **locals())
+    dim = dim if dim >= 0 else dim + len(input.shape)
+    if isinstance(num_or_sections, int):
+        n = num_or_sections
+        attrs = {"num": n, "sections": [], "axis": dim}
+    else:
+        n = len(num_or_sections)
+        attrs = {"num": 0, "sections": list(num_or_sections), "axis": dim}
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in range(n)]
+    helper.append_op(type="split", inputs={"X": [input]},
+                     outputs={"Out": outs}, attrs=attrs)
+    return outs
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    x = x if isinstance(x, (list, tuple)) else [x]
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op(type="stack", inputs={"X": x}, outputs={"Y": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper("unstack")
+    num = num if num is not None else x.shape[axis]
+    outs = [helper.create_variable_for_type_inference(x.dtype)
+            for _ in range(num)]
+    helper.append_op(type="unstack", inputs={"X": [x]}, outputs={"Y": outs},
+                     attrs={"axis": axis})
+    return outs
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="expand", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"expand_times": list(expand_times)})
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="pad", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"paddings": list(paddings),
+                            "pad_value": float(pad_value)})
+    return out
+
+
+def pad2d(input, paddings=(0, 0, 0, 0), mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    helper = LayerHelper("pad2d", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="pad2d", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"paddings": list(paddings), "mode": mode,
+                            "pad_value": float(pad_value)})
+    return out
+
+
+def shape(input):
+    helper = LayerHelper("shape")
+    out = helper.create_variable_for_type_inference("int32",
+                                                    stop_gradient=True)
+    helper.append_op(type="shape", inputs={"Input": [input]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def scatter(input, index, updates, name=None):
+    helper = LayerHelper("scatter", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="scatter",
+                     inputs={"X": [input], "Ids": [index],
+                             "Updates": [updates]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    """x / ||x|| along `axis` (the `norm` op)."""
+    helper = LayerHelper("l2_normalize", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    norm = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="norm", inputs={"X": [x]},
+                     outputs={"Out": [out], "Norm": [norm]},
+                     attrs={"axis": 1 if axis is None else axis,
+                            "epsilon": epsilon})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    helper = LayerHelper("label_smooth", **locals())
+    out = helper.create_variable_for_type_inference(dtype)
+    inputs = {"X": [label]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist]
+    helper.append_op(type="label_smooth", inputs=inputs,
+                     outputs={"Out": [out]},
+                     attrs={"epsilon": float(epsilon)})
+    return out
+
+
+def cos_sim(X, Y):
+    helper = LayerHelper("cos_sim")
+    out = helper.create_variable_for_type_inference(X.dtype)
+    xnorm = helper.create_variable_for_type_inference(X.dtype)
+    ynorm = helper.create_variable_for_type_inference(X.dtype)
+    helper.append_op(type="cos_sim", inputs={"X": [X], "Y": [Y]},
+                     outputs={"Out": [out], "XNorm": [xnorm],
+                              "YNorm": [ynorm]})
+    return out
+
+
+def dot_product_attention(querys, keys, values):
+    """softmax(Q K^T / sqrt(d)) V from matmul and softmax ops."""
+    product = matmul(querys, keys, transpose_y=True,
+                     alpha=float(keys.shape[-1]) ** -0.5)
+    return matmul(softmax(product), values)
+
+
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample="BILINEAR"):
+    """-> bilinear_interp or nearest_interp to out_shape (or the input's
+    size times scale)."""
+    helper = LayerHelper("image_resize", **locals())
+    op_type = "bilinear_interp" if resample == "BILINEAR" else (
+        "nearest_interp")
+    if out_shape is None:
+        out_shape = [int(input.shape[2] * scale),
+                     int(input.shape[3] * scale)]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type=op_type, inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"out_h": int(out_shape[0]),
+                            "out_w": int(out_shape[1])})
+    return out
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None):
+    return image_resize(input, out_shape, scale, name, "BILINEAR")
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None):
+    return image_resize(input, out_shape, scale, name, "NEAREST")
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, name=None):
+    helper = LayerHelper("im2sequence", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="im2sequence", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"kernels": _pair(filter_size),
+                            "strides": _pair(stride),
+                            "paddings": _pair(padding) + _pair(padding)})
+    return out

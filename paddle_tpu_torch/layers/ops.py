@@ -1,7 +1,7 @@
 """Generated layer functions (counterpart of paddle_tpu/layers/ops.py:
-12-86): one wrapper a unary op of `_UNARY_OPS` (attrs pass through as
-keywords), and the compare and logical binaries.  `cumsum` and
-`sampling_id` wait for their ops (ROADMAP A)."""
+12-131): one wrapper a unary op of `_UNARY_OPS` (attrs pass through as
+keywords), the compare and logical binaries, and cumsum, uniform_random,
+gaussian_random and sampling_id."""
 
 from __future__ import annotations
 
@@ -82,4 +82,43 @@ for _op in _COMPARE_OPS + _LOGICAL_OPS:
     globals()[_op] = _make_binary(_op)
 
 
-__all__ = _UNARY_OPS + list(_COMPARE_OPS + _LOGICAL_OPS)
+def cumsum(x, axis=-1, exclusive=False, reverse=False, name=None):
+    helper = LayerHelper("cumsum", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="cumsum", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"axis": axis, "exclusive": exclusive,
+                            "reverse": reverse})
+    return out
+
+
+def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, seed=0):
+    helper = LayerHelper("uniform_random")
+    out = helper.create_variable_for_type_inference(dtype=dtype,
+                                                    stop_gradient=True)
+    helper.append_op(type="uniform_random", outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "dtype": dtype, "min": min,
+                            "max": max, "seed": seed})
+    return out
+
+
+def gaussian_random(shape, dtype="float32", mean=0.0, std=1.0, seed=0):
+    helper = LayerHelper("gaussian_random")
+    out = helper.create_variable_for_type_inference(dtype=dtype,
+                                                    stop_gradient=True)
+    helper.append_op(type="gaussian_random", outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "dtype": dtype,
+                            "mean": mean, "std": std, "seed": seed})
+    return out
+
+
+def sampling_id(x, min=0.0, max=1.0, seed=0, dtype="int64"):
+    helper = LayerHelper("sampling_id")
+    out = helper.create_variable_for_type_inference(dtype=dtype,
+                                                    stop_gradient=True)
+    helper.append_op(type="sampling_id", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out
+
+
+__all__ = _UNARY_OPS + list(_COMPARE_OPS + _LOGICAL_OPS) + [
+    "cumsum", "uniform_random", "gaussian_random", "sampling_id"]

@@ -1,6 +1,8 @@
-"""Tensor layer functions: create_parameter, create_global_var, cast,
-concat, sums, assign, fill_constant, fill_constant_batch_size_like
-(paddle_tpu/layers/tensor.py:22-135)."""
+"""Tensor layer functions: create_tensor, create_parameter,
+create_global_var, cast, concat, sums, assign, fill_constant,
+fill_constant_batch_size_like, ones, zeros, zeros_like, argmax, argmin,
+argsort, reverse, has_inf, has_nan, isfinite and range
+(paddle_tpu/layers/tensor.py:15-234)."""
 
 from __future__ import annotations
 
@@ -10,6 +12,12 @@ from ..framework.core_types import convert_dtype
 from ..framework.framework import Variable
 from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper, ParamAttr
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    helper = LayerHelper("create_tensor", name=name)
+    return helper.create_variable(name=helper.name, dtype=dtype,
+                                  persistable=persistable)
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -106,4 +114,96 @@ def fill_constant_batch_size_like(input, shape, dtype, value, input_dim_idx=0,
                "input_dim_idx": input_dim_idx,
                "output_dim_idx": output_dim_idx})
     out.stop_gradient = True
+    return out
+
+
+def ones(shape, dtype, force_cpu=False):
+    return fill_constant(shape, dtype, 1.0)
+
+
+def zeros(shape, dtype, force_cpu=False):
+    return fill_constant(shape, dtype, 0.0)
+
+
+def zeros_like(x, out=None):
+    helper = LayerHelper("zeros_like")
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="fill_zeros_like", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def _arg(op_type, x, axis):
+    helper = LayerHelper(op_type)
+    out = helper.create_variable_for_type_inference(dtype="int64",
+                                                    stop_gradient=True)
+    helper.append_op(type=op_type, inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def argmax(x, axis=0):
+    return _arg("arg_max", x, axis)
+
+
+def argmin(x, axis=0):
+    return _arg("arg_min", x, axis)
+
+
+def argsort(x, axis=-1, name=None):
+    """-> (the sorted values, their int64 indices)."""
+    helper = LayerHelper("argsort", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    ids = helper.create_variable_for_type_inference(dtype="int64",
+                                                    stop_gradient=True)
+    helper.append_op(type="argsort", inputs={"X": [x]},
+                     outputs={"Out": [out], "Indices": [ids]},
+                     attrs={"axis": axis})
+    return out, ids
+
+
+def reverse(x, axis):
+    helper = LayerHelper("reverse")
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="reverse", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def _overflow_check(x, op_type):
+    helper = LayerHelper(op_type)
+    out = helper.create_variable_for_type_inference(dtype="bool",
+                                                    stop_gradient=True)
+    helper.append_op(type=op_type, inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def has_inf(x):
+    """True if any element of x is +/-inf."""
+    return _overflow_check(x, "isinf")
+
+
+def has_nan(x):
+    """True if any element of x is NaN."""
+    return _overflow_check(x, "isnan")
+
+
+def isfinite(x):
+    """True if every element of x is finite."""
+    return _overflow_check(x, "isfinite")
+
+
+def range(start, end, step, dtype):
+    """[start, end) by step, a host op (its length depends on the
+    values); each bound a Variable or a number (a fill_constant)."""
+    helper = LayerHelper("range")
+    start, end, step = (
+        v if isinstance(v, Variable) else fill_constant([1], dtype, v)
+        for v in (start, end, step))
+    out = helper.create_variable_for_type_inference(
+        dtype=convert_dtype(dtype))
+    helper.append_op(type="range",
+                     inputs={"Start": [start], "End": [end], "Step": [step]},
+                     outputs={"Out": [out]})
     return out

@@ -1,2 +1,2 @@
-from . import (alexnet, ctr_deepfm, machine_translation, mnist, se_resnext,
-               stacked_lstm, transformer, vgg)
+from . import (alexnet, ctr_deepfm, fluid_encoder, machine_translation,
+               mnist, se_resnext, stacked_lstm, transformer, vgg)

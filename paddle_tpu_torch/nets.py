@@ -1,6 +1,9 @@
 """Composite networks built from layers (counterpart of
-paddle_tpu/nets.py:12-100; reference python/paddle/fluid/nets.py):
-`simple_img_conv_pool` and `img_conv_group`, the VGG block."""
+paddle_tpu/nets.py:12-164; reference python/paddle/fluid/nets.py):
+`simple_img_conv_pool`, `img_conv_group` (the VGG block), `glu` and
+`scaled_dot_product_attention`, the reference's multi-head attention
+from primitive ops.  `sequence_conv_pool` waits for the sequence family
+(ROADMAP A item 6)."""
 
 from __future__ import annotations
 
@@ -60,3 +63,45 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
                 tmp = layers.dropout(x=tmp, dropout_prob=drop_rate)
     return layers.pool2d(input=tmp, pool_size=pool_size, pool_type=pool_type,
                          pool_stride=pool_stride)
+
+
+def glu(input, dim=-1):
+    """Gated linear unit: input split in half on `dim`, a * sigmoid(b)."""
+    a, b = layers.split(input, num_or_sections=2, dim=dim)
+    return layers.elementwise_mul(a, layers.sigmoid(b))
+
+
+def scaled_dot_product_attention(queries, keys, values, num_heads=1,
+                                 dropout_rate=0.0):
+    """Multi-head scaled dot-product attention from primitive ops: the
+    heads split by reshape [0, 0, H, D / H] and transpose [0, 2, 1, 3],
+    Q scaled by 1 / sqrt(D / H), softmax(Q K^T) V (with dropout on the
+    weights), the heads merged back by transpose and reshape."""
+    if queries.shape[-1] != keys.shape[-1]:
+        raise ValueError("queries and keys must have the same hidden size")
+    if keys.shape[-2] != values.shape[-2]:
+        raise ValueError("keys and values must have the same seq length")
+
+    def split_heads(x):
+        if num_heads == 1:
+            return x
+        hidden = x.shape[-1]
+        reshaped = layers.reshape(
+            x, shape=[0, 0, num_heads, hidden // num_heads])
+        return layers.transpose(reshaped, perm=[0, 2, 1, 3])
+
+    def combine_heads(x):
+        if len(x.shape) == 3:
+            return x
+        trans = layers.transpose(x, perm=[0, 2, 1, 3])
+        return layers.reshape(
+            trans, shape=[0, trans.shape[1], trans.shape[2] * trans.shape[3]])
+
+    q, k, v = split_heads(queries), split_heads(keys), split_heads(values)
+    scaled_q = layers.scale(x=q, scale=float(k.shape[-1]) ** -0.5)
+    product = layers.matmul(x=scaled_q, y=k, transpose_y=True)
+    weights = layers.softmax(product)
+    if dropout_rate:
+        weights = layers.dropout(weights, dropout_prob=dropout_rate,
+                                 is_test=False)
+    return combine_heads(layers.matmul(weights, v))

@@ -1,12 +1,14 @@
 """Dense math ops: the elementwise family, comparisons and logical ops,
 mul, matmul, scale, sum, mean, the reduce family (sum, mean, max, min,
-prod), the clip family (clip, clip_by_norm, squared_l2_norm), sign and
-the learning-rate schedules (lr_schedule).
+prod), the clip family (clip, clip_by_norm, squared_l2_norm), cumsum,
+pow, sign, isfinite/isinf/isnan and the learning-rate schedules
+(lr_schedule).
 
-Counterparts of paddle_tpu/ops/math_ops.py (elementwise :36-51, mul :55,
+Counterparts of paddle_tpu/ops/math_ops.py (elementwise :36-52, mul :55,
 matmul :69, scale :86, sum :98, mean :105, the reduce family :116-139,
-clip :142, clip_by_norm :151, squared_l2_norm :160, sign :185,
-comparisons and logical ops :190-222, lr_schedule :243).  Their
+clip :142, clip_by_norm :151, squared_l2_norm :160, cumsum :165, pow
+:179, sign :185, comparisons and logical ops :190-222, isfinite/isinf/
+isnan :225-240, lr_schedule :243).  Their
 gradients are the registry's generic ones: autograd over these lowerings
 reduces a broadcast Y back to its own shape, as `jax.vjp` does, and
 splits a tie of elementwise_max/min evenly, as jnp.maximum's does.  `mul` and
@@ -59,6 +61,10 @@ _make_elementwise("elementwise_max", torch.maximum)
 _make_elementwise("elementwise_min", torch.minimum)
 _make_elementwise("elementwise_pow", torch.pow)
 _make_elementwise("elementwise_mod", torch.remainder)   # jnp.mod's sign rule
+# rounds toward -inf for negative operands, as jnp.floor_divide (not
+# truncation); its gradient is zero
+_make_elementwise("elementwise_floordiv",
+                  functools.partial(torch.div, rounding_mode="floor"))
 
 for _name, _fn in [("less_than", torch.lt), ("less_equal", torch.le),
                    ("greater_than", torch.gt), ("greater_equal", torch.ge),
@@ -224,6 +230,45 @@ def clip_by_norm(ctx):
 def squared_l2_norm(ctx):
     """sum(X^2) as shape [1]."""
     ctx.set_output("Out", torch.sum(torch.square(ctx.input("X"))).reshape(1))
+
+
+@register_op("cumsum")
+def cumsum(ctx):
+    """Running sum along `axis`; `exclusive` leaves each entry out of its
+    own sum, `reverse` sums from the end (the JAX lowering's arithmetic:
+    the exclusive form subtracts X from the inclusive sum)."""
+    x = ctx.input("X")
+    axis = ctx.attr("axis", -1)
+    exclusive = ctx.attr("exclusive", False)
+    if ctx.attr("reverse", False):
+        out = torch.flip(torch.cumsum(torch.flip(x, [axis]), dim=axis),
+                         [axis])
+    else:
+        out = torch.cumsum(x, dim=axis)
+    if exclusive:
+        out = out - x
+    ctx.set_output("Out", out.to(x.dtype))
+
+
+@register_op("pow")
+def pow_op(ctx):
+    """X ** factor, the factor rounded to X's dtype."""
+    x = ctx.input("X")
+    ctx.set_output("Out", torch.pow(x, _in_dtype(ctx.attr("factor", 1.0),
+                                                 x.dtype)))
+
+
+def _overflow(reduce, test, ctx):
+    """One bool of shape [1] over the whole tensor (reference
+    isfinite_op.cc)."""
+    ctx.set_output("Out", reduce(test(ctx.input("X"))).reshape(1))
+
+
+for _name, _reduce_fn, _test in [("isfinite", torch.all, torch.isfinite),
+                                 ("isinf", torch.any, torch.isinf),
+                                 ("isnan", torch.any, torch.isnan)]:
+    register_op(_name, no_grad=True)(
+        functools.partial(_overflow, _reduce_fn, _test))
 
 
 @register_op("sign", no_grad=True)

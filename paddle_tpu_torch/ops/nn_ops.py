@@ -1,18 +1,40 @@
-"""NN ops: conv2d and depthwise_conv2d with a grad that does not replay
-the forward, pool2d, batch_norm with its hand-written grad, layer_norm
-and its recomputing grad, lrn.
+"""NN ops: the convolutions (conv2d, depthwise_conv2d, conv3d and the
+transposed conv2d_transpose, depthwise_conv2d_transpose,
+conv3d_transpose), each with a grad that does not replay the forward,
+the pools (pool2d, pool3d, max_pool2d_with_index, max_pool3d_with_index,
+unpool, spp), batch_norm with its hand-written grad, layer_norm and its
+recomputing grad, group_norm, lrn, norm, the resizes (bilinear_interp,
+nearest_interp), im2sequence, label_smooth and cos_sim.
 
 Counterparts of paddle_tpu/ops/nn_ops.py (conv2d :49-75 with the
-conv1x1_as_dot branch :33-46, depthwise_conv2d :78-96, pool2d :153-193,
-batch_norm :219-267, its grad maker :270 and batch_norm_grad :298-358,
-layer_norm :361, lrn :413-429).  Layouts are the JAX package's: NCHW
-inputs, OIHW filters.  A convolution is a library call (`F.conv2d`, cuDNN on the
-card), as the JAX package leaves it to XLA outside any Pallas kernel.
+conv1x1_as_dot branch :33-46, depthwise_conv2d :78-96, conv3d :99,
+conv2d_transpose :118-150, pool2d :153-193, pool3d :196, batch_norm
+:219-267, its grad maker :270 and batch_norm_grad :298-358, layer_norm
+:361, group_norm :390, lrn :413-429, bilinear_interp/nearest_interp
+:432-457, im2sequence :459, norm :489, label_smooth :500, cos_sim :511,
+conv3d_transpose :524, depthwise_conv2d_transpose :555,
+max_pool2d_with_index :567, max_pool3d_with_index :601, unpool :640,
+spp :664).  Layouts are the JAX package's: NCHW/NCDHW inputs, OIHW
+filters, IOHW for the transposed convolutions.  A convolution is a
+library call (cuDNN on the card), as the JAX package leaves it to XLA
+outside any Pallas kernel; a transposed one is `aten.convolution` with
+`transposed`, which computes what the JAX package's lhs-dilated
+convolution with the flipped, regrouped filter computes.
 
 cuDNN rounds float32 convolutions through TF32 unless
 `torch.backends.cudnn.allow_tf32` is off (its default is on, unlike
-matmul's), so every conv lowering turns it off around its call: a float32
-conv runs in full float32.
+matmul's), so every conv lowering turns it off around its call, and the
+grads are hand-written `convolution_backward` calls under the same
+guard (an autograd replay would run the backward convolutions outside
+it): a float32 conv runs in full float32.
+
+The resizes follow `jax.image.resize`, the JAX lowering, not Fluid 1.0's
+align-corners op: half-pixel centres, and a bilinear downscale is
+antialiased (the triangle kernel widened by the inverse scale, each
+output's weights renormalised); nearest takes input floor((i + 0.5) *
+in / out).  `F.interpolate` differs on a bilinear downscale, so the
+weights are built here, as JAX builds them, and applied as two
+products.
 """
 
 from __future__ import annotations
@@ -346,3 +368,334 @@ def lrn(ctx):
     mid = ctx.attr("k", 1.0) + ctx.attr("alpha", 1e-4) * acc
     ctx.set_output("MidOut", mid)
     ctx.set_output("Out", x / torch.pow(mid, ctx.attr("beta", 0.75)))
+
+
+# ----------------------------------------------- 3-D and transposed convs
+
+# op type -> (spatial dims, transposed)
+_CONV_ND = {
+    "conv3d": (3, False),
+    "conv2d_transpose": (2, True),
+    "conv3d_transpose": (3, True),
+    "depthwise_conv2d_transpose": (2, True),
+}
+
+
+def _conv_nd_args(ctx):
+    """(spatial dims, transposed, strides, paddings, dilations, groups)
+    of the conv op behind `ctx` (its grad's included); a groups attr of 0
+    or None means 1, as the JAX lowerings read it."""
+    op_type = ctx.op_type[:-len("_grad")] if ctx.op_type.endswith(
+        "_grad") else ctx.op_type
+    nd, transposed = _CONV_ND[op_type]
+    return (nd, transposed, _pair(ctx.attr("strides", [1] * nd), nd),
+            _pair(ctx.attr("paddings", [0] * nd), nd),
+            _pair(ctx.attr("dilations", [1] * nd), nd),
+            ctx.attr("groups", 1) or 1)
+
+
+def conv_nd(ctx):
+    """Input NC(D)HW; Filter OI(D)HW, or I(O/g)(D)HW when transposed (the
+    output size (in - 1) * stride - 2 * pad + dilation * (k - 1) + 1)."""
+    x, w = ctx.input("Input"), ctx.input("Filter")
+    nd, transposed, strides, pads, dilations, groups = _conv_nd_args(ctx)
+    with cudnn_fp32_exact():
+        out = torch.ops.aten.convolution(x, w, None, strides, pads,
+                                         dilations, transposed, [0] * nd,
+                                         groups)
+    ctx.set_output("Output", out)
+
+
+def conv_nd_grad(ctx):
+    """dInput and dFilter of `conv_nd` by one convolution backward, only
+    those the desc asks for; the forward is not run again."""
+    x, w = ctx.input("Input"), ctx.input("Filter")
+    gy = ctx.input("Output@GRAD").to(x.dtype)
+    nd, transposed, strides, pads, dilations, groups = _conv_nd_args(ctx)
+    mask = [ctx.wants("Input@GRAD"), ctx.wants("Filter@GRAD"), False]
+    with cudnn_fp32_exact():
+        gx, gw, _ = torch.ops.aten.convolution_backward(
+            gy, x, w, None, strides, pads, dilations, transposed, [0] * nd,
+            groups, mask)
+    if mask[0]:
+        ctx.set_output("Input@GRAD", gx)
+    if mask[1]:
+        ctx.set_output("Filter@GRAD", gw)
+
+
+for _op in _CONV_ND:
+    register_op(_op)(conv_nd)
+    register_grad(_op)(conv_nd_grad)
+
+
+# ------------------------------------------------------------------ pools
+
+
+def _window(ctx, x, nd):
+    """(ksize, strides, pads) with global pooling resolved."""
+    ksize = _pair(ctx.attr("ksize", [1] * nd), nd)
+    strides = _pair(ctx.attr("strides", [1] * nd), nd)
+    pads = _pair(ctx.attr("paddings", [0] * nd), nd)
+    if ctx.attr("global_pooling", False):
+        return list(x.shape[2:]), [1] * nd, [0] * nd
+    return ksize, strides, pads
+
+
+def _sym_pad(pads):
+    """Symmetric pads, first spatial dim first -> F.pad's list."""
+    flat = []
+    for p in reversed(pads):
+        flat += [p, p]
+    return flat
+
+
+_MAX_POOL = {2: F.max_pool2d, 3: F.max_pool3d}
+
+
+@register_op("pool3d")
+def pool3d(ctx):
+    """NCDHW max pooling (padding reads as -inf) or average pooling
+    (padding reads as 0, always divided by the whole window)."""
+    x = ctx.input("X")
+    ksize, strides, pads = _window(ctx, x, 3)
+    if ctx.attr("pooling_type", "max") == "max":
+        out = F.max_pool3d(F.pad(x, _sym_pad(pads), value=-math.inf), ksize,
+                           strides)
+    else:
+        out = F.avg_pool3d(F.pad(x, _sym_pad(pads)), ksize, strides)
+    ctx.set_output("Out", out)
+
+
+def _max_pool_with_index(ctx, nd):
+    """Max pooling and, as int32 Mask, each maximum's flat index within
+    its input plane (volume) of the unpadded X (reference
+    pool_with_index_op.cc)."""
+    x = ctx.input("X")
+    ksize, strides, pads = _window(ctx, x, nd)
+    xp = F.pad(x, _sym_pad(pads), value=-math.inf)
+    out, idx = _MAX_POOL[nd](xp, ksize, strides, return_indices=True)
+    # a flat index of the padded plane -> the unpadded plane's
+    coords, rest = [], idx
+    for d in reversed(range(nd)):
+        size = xp.shape[2 + d]
+        coords.append(rest % size - pads[d])
+        rest = torch.div(rest, size, rounding_mode="floor")
+    flat = torch.zeros_like(idx)
+    for d, c in zip(range(nd), reversed(coords)):
+        flat = flat * x.shape[2 + d] + c
+    ctx.set_output("Out", out)
+    ctx.set_output("Mask", flat.to(torch.int32))
+
+
+@register_op("max_pool2d_with_index")
+def max_pool2d_with_index(ctx):
+    _max_pool_with_index(ctx, 2)
+
+
+@register_op("max_pool3d_with_index")
+def max_pool3d_with_index(ctx):
+    _max_pool_with_index(ctx, 3)
+
+
+@register_op("unpool")
+def unpool(ctx):
+    """Max unpooling: each pooled value written at the flat position its
+    Indices entry names in the [H_out, W_out] plane (unpooled_size, or
+    the pool's inverse size), zeros elsewhere; an index outside the
+    plane writes nothing (reference unpool_op.cc)."""
+    x, mask = ctx.input("X"), ctx.input("Indices")
+    out_hw = list(ctx.attr("unpooled_size", []) or [])
+    if not out_hw:
+        ksize = _pair(ctx.attr("ksize", [1, 1]))
+        strides = _pair(ctx.attr("strides", [1, 1]))
+        pads = _pair(ctx.attr("paddings", [0, 0]))
+        out_hw = [(x.shape[2 + i] - 1) * strides[i] - 2 * pads[i] + ksize[i]
+                  for i in range(2)]
+    n, c = x.shape[0], x.shape[1]
+    size = out_hw[0] * out_hw[1]
+    idx = mask.reshape(n, c, -1).long()
+    idx = torch.where((idx >= 0) & (idx < size), idx,
+                      torch.full_like(idx, size))     # a spare slot
+    flat = torch.zeros((n, c, size + 1), dtype=x.dtype, device=x.device)
+    flat = flat.scatter(2, idx, x.reshape(n, c, -1))
+    ctx.set_output("Out", flat[:, :, :size].reshape(n, c, *out_hw))
+
+
+@register_op("spp")
+def spp(ctx):
+    """Spatial pyramid pooling: level l pools X into 2^l x 2^l bins (the
+    window ceil(H / 2^l), the padding split around the map), each level
+    flattened, all joined along the features (reference spp_op.cc); the
+    average counts only the map's own elements."""
+    x = ctx.input("X")
+    height = int(ctx.attr("pyramid_height"))
+    ptype = str(ctx.attr("pooling_type", "max"))
+    n, _, h, w = x.shape
+    outs = []
+    for level in range(height):
+        bins = 2 ** level
+        kh, kw = -(-h // bins), -(-w // bins)
+        ph, pw = (kh * bins - h + 1) // 2, (kw * bins - w + 1) // 2
+        pad4 = (pw, kw * bins - w - pw, ph, kh * bins - h - ph)
+        if ptype == "max":
+            o = F.max_pool2d(F.pad(x, pad4, value=-math.inf), (kh, kw))
+        else:
+            s = F.avg_pool2d(F.pad(x, pad4), (kh, kw), divisor_override=1)
+            ones = F.pad(torch.ones((1, 1, h, w), dtype=x.dtype,
+                                    device=x.device), pad4)
+            o = s / F.avg_pool2d(ones, (kh, kw), divisor_override=1)
+        outs.append(o.reshape(n, -1))
+    ctx.set_output("Out", torch.cat(outs, dim=1))
+
+
+# ---------------------------------------------------------- normalisation
+
+
+@register_op("group_norm")
+def group_norm(ctx):
+    """NCHW normalised over each group of channels and the spatial dims,
+    in X's dtype, then Scale and Bias per channel; Mean and Variance
+    [N, groups]."""
+    x = ctx.input("X")
+    scale, bias = ctx.input("Scale"), ctx.input("Bias")
+    g = ctx.attr("groups")
+    eps = ctx.attr("epsilon", 1e-5)
+    n, c = x.shape[0], x.shape[1]
+    xg = x.reshape((n, g, c // g) + tuple(x.shape[2:]))
+    axes = tuple(range(2, xg.dim()))
+    mean = xg.mean(dim=axes, keepdim=True)
+    var = torch.square(xg - mean).mean(dim=axes, keepdim=True)
+    y = ((xg - mean) / torch.sqrt(var + eps)).reshape(x.shape)
+    cshape = (1, c) + (1,) * (x.dim() - 2)
+    if scale is not None:
+        y = y * scale.reshape(cshape)
+    if bias is not None:
+        y = y + bias.reshape(cshape)
+    ctx.set_output("Y", y)
+    ctx.set_output("Mean", mean.reshape(n, g))
+    ctx.set_output("Variance", var.reshape(n, g))
+
+
+@register_op("norm")
+def norm(ctx):
+    """X / sqrt(sum(X^2 along axis) + epsilon); Norm is the divisor."""
+    x = ctx.input("X")
+    n = torch.sqrt(torch.sum(torch.square(x), dim=ctx.attr("axis", 1),
+                             keepdim=True) + ctx.attr("epsilon", 1e-10))
+    ctx.set_output("Norm", n)
+    ctx.set_output("Out", x / n)
+
+
+# ---------------------------------------------------------------- resizes
+
+
+def _out_hw(ctx):
+    """OutSize (read on the host: not for a captured segment; the layers
+    never emit it) or the out_h / out_w attrs."""
+    if ctx.has_input("OutSize"):
+        return [int(s) for s in ctx.input("OutSize").reshape(-1).tolist()]
+    return [int(ctx.attr("out_h")), int(ctx.attr("out_w"))]
+
+
+def _bilinear_weights(m, n, device):
+    """jax.image's weight matrix [m, n] (compute_weight_mat with the
+    triangle kernel, antialiased, translation 0) in float32."""
+    inv_scale = 1.0 / (n / m)
+    kernel_scale = max(inv_scale, 1.0)
+    sample = ((torch.arange(n, dtype=torch.float32, device=device) + 0.5)
+              * inv_scale - 0.5)
+    dist = torch.abs(sample[None, :] - torch.arange(
+        m, dtype=torch.float32, device=device)[:, None]) / kernel_scale
+    weights = torch.clamp(1.0 - torch.abs(dist), min=0.0)
+    total = torch.sum(weights, dim=0, keepdim=True)
+    weights = torch.where(
+        torch.abs(total) > 1000.0 * torch.finfo(torch.float32).eps,
+        weights / torch.where(total != 0, total, torch.ones_like(total)),
+        torch.zeros_like(weights))
+    inside = (sample >= -0.5) & (sample <= m - 0.5)
+    return torch.where(inside[None, :], weights, torch.zeros_like(weights))
+
+
+@register_op("bilinear_interp")
+def bilinear_interp(ctx):
+    """NCHW resized to (out_h, out_w) as jax.image.resize(method=
+    "bilinear") resizes it; a dim whose size does not change is left
+    alone; computed in float32 for an integer X, returned in X's
+    dtype."""
+    x = ctx.input("X")
+    size = _out_hw(ctx)
+    y = x if x.is_floating_point() else x.float()
+    for d, n in zip((2, 3), size):
+        m = y.shape[d]
+        if m == n:
+            continue
+        w = _bilinear_weights(m, n, y.device).to(y.dtype)
+        y = torch.movedim(torch.matmul(torch.movedim(y, d, -1), w), -1, d)
+    ctx.set_output("Out", y.to(x.dtype))
+
+
+@register_op("nearest_interp")
+def nearest_interp(ctx):
+    """NCHW resized by nearest neighbour as jax.image.resize(method=
+    "nearest"): output i reads input floor((i + 0.5) * in / out), in
+    float32."""
+    x = ctx.input("X")
+    out = x
+    for d, n in zip((2, 3), _out_hw(ctx)):
+        m = out.shape[d]
+        if m == n:
+            continue
+        src = torch.floor((torch.arange(n, dtype=torch.float32,
+                                        device=x.device) + 0.5) * m / n)
+        # an index, not index_select: its backward accumulates repeated
+        # sources by a sort, in a fixed order (index_select's by atomics)
+        idx = [slice(None)] * out.dim()
+        idx[d] = src.to(torch.int64)
+        out = out[tuple(idx)]
+    ctx.set_output("Out", out)
+
+
+@register_op("im2sequence")
+def im2sequence(ctx):
+    """Every kernels-sized patch of the padded NCHW map (paddings [top,
+    left, bottom, right]) as one row of C * kh * kw, rows ordered by
+    image, then patch row and column (reference im2sequence_op.cc)."""
+    x = ctx.input("X")
+    kh, kw = ctx.attr("kernels")
+    sh, sw = ctx.attr("strides", [1, 1])
+    p = ctx.attr("paddings", [0, 0, 0, 0])
+    n, c = x.shape[0], x.shape[1]
+    xp = F.pad(x, (p[1], p[3], p[0], p[2]))
+    hh = (xp.shape[2] - kh) // sh + 1
+    ww = (xp.shape[3] - kw) // sw + 1
+    patches = [xp[:, :, i:i + hh * sh:sh, j:j + ww * sw:sw]
+               for i in range(kh) for j in range(kw)]
+    stacked = torch.stack(patches, dim=2).reshape(n, c * kh * kw, hh, ww)
+    ctx.set_output("Out", stacked.permute(0, 2, 3, 1).reshape(n * hh * ww,
+                                                              -1))
+
+
+@register_op("label_smooth")
+def label_smooth(ctx):
+    """(1 - epsilon) X + epsilon * PriorDist, the prior uniform over the
+    last dim by default."""
+    x = ctx.input("X")
+    eps = ctx.attr("epsilon", 0.1)
+    prior = ctx.input("PriorDist")
+    k = x.shape[-1]
+    smooth = prior if prior is not None else torch.full(
+        (k,), 1.0 / k, dtype=x.dtype, device=x.device)
+    ctx.set_output("Out", (1.0 - eps) * x + eps * smooth)
+
+
+@register_op("cos_sim")
+def cos_sim(ctx):
+    """Row-wise cosine similarity; Y may be one row against all of X's;
+    XNorm and YNorm are the rows' norms."""
+    x, y = ctx.input("X"), ctx.input("Y")
+    xn = torch.sqrt(torch.sum(torch.square(x), dim=-1, keepdim=True))
+    yn = torch.sqrt(torch.sum(torch.square(y), dim=-1, keepdim=True))
+    prod = torch.sum(x * y, dim=-1, keepdim=True)
+    ctx.set_output("XNorm", xn)
+    ctx.set_output("YNorm", yn)
+    ctx.set_output("Out", prod / (xn * yn))

@@ -203,6 +203,8 @@ def infer_shape(op, block):
     if info.infer_shape is not None:
         info.infer_shape(op, block)
         return
+    if info.no_jit:     # host ops: shapes may depend on values
+        return
 
     meta_inputs = {}
     for param, names in op.inputs.items():

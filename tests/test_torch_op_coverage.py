@@ -1,0 +1,75 @@
+"""The port's op coverage against the JAX package's registry: each of the
+JAX package's op types is registered in the port or named below with the
+ROADMAP A item that will port it, and the list goes stale loudly: an op
+the port registers may not stay on it, and the port registers no op
+type the JAX package lacks.
+"""
+
+import pytest
+
+from paddle_tpu.ops import registry as jreg
+from paddle_tpu_torch.ops import registry as preg
+
+_ITEM_6 = "ROADMAP A item 6: control flow, LoD and the sequence family"
+_ITEM_7 = "ROADMAP A item 7: multi-device and MoE"
+_ITEM_8 = "ROADMAP A item 8: the host-side tiers (detection, io, the " \
+    "distributed ops)"
+
+STILL_TO_PORT = {
+    # control flow, beam search's decode, LoD
+    "while": _ITEM_6, "conditional_block": _ITEM_6, "static_rnn": _ITEM_6,
+    "beam_search_decode": _ITEM_6, "lod_reset": _ITEM_6,
+    # the sequence family
+    "sequence_concat": _ITEM_6, "sequence_conv": _ITEM_6,
+    "sequence_enumerate": _ITEM_6, "sequence_erase": _ITEM_6,
+    "sequence_expand": _ITEM_6, "sequence_expand_as": _ITEM_6,
+    "sequence_mask": _ITEM_6, "sequence_pad": _ITEM_6,
+    "sequence_reshape": _ITEM_6, "sequence_reverse": _ITEM_6,
+    "sequence_scatter": _ITEM_6, "sequence_slice": _ITEM_6,
+    "sequence_softmax": _ITEM_6, "sequence_unpad": _ITEM_6,
+    # the recurrent tail
+    "gru": _ITEM_6, "gru_unit": _ITEM_6, "lstm": _ITEM_6,
+    "lstm_unit": _ITEM_6, "lstmp": _ITEM_6, "fusion_lstm": _ITEM_6,
+    "fusion_gru": _ITEM_6, "attention_lstm": _ITEM_6,
+    "fused_embedding_fc_lstm": _ITEM_6,
+    "fusion_seqconv_eltadd_relu": _ITEM_6,
+    "fusion_seqexpand_concat_fc": _ITEM_6,
+    # the sequence losses
+    "linear_chain_crf": _ITEM_6, "crf_decoding": _ITEM_6,
+    "warpctc": _ITEM_6, "edit_distance": _ITEM_6, "nce": _ITEM_6,
+    "hierarchical_sigmoid": _ITEM_6,
+    # MoE
+    "top_k_gating": _ITEM_7, "moe_expert_ffn": _ITEM_7,
+    # detection
+    "anchor_generator": _ITEM_8, "bipartite_match": _ITEM_8,
+    "box_coder": _ITEM_8, "detection_map": _ITEM_8,
+    "generate_proposal_labels": _ITEM_8, "generate_proposals": _ITEM_8,
+    "iou_similarity": _ITEM_8, "mine_hard_examples": _ITEM_8,
+    "multiclass_nms": _ITEM_8, "prior_box": _ITEM_8, "roi_align": _ITEM_8,
+    "roi_perspective_transform": _ITEM_8, "roi_pool": _ITEM_8,
+    "rpn_target_assign": _ITEM_8, "ssd_loss": _ITEM_8,
+    "target_assign": _ITEM_8,
+    # io and the distributed ops
+    "feed": _ITEM_8, "fetch": _ITEM_8, "print": _ITEM_8,
+    "listen_and_serv": _ITEM_8, "checkpoint_notify": _ITEM_8,
+}
+
+
+def test_the_port_registers_no_op_the_jax_package_lacks():
+    assert sorted(set(preg.OPS) - set(jreg.OPS)) == []
+
+
+@pytest.mark.parametrize("op_type", sorted(jreg.OPS))
+def test_each_jax_op_type_is_ported_or_named(op_type):
+    registered = op_type in preg.OPS
+    named = op_type in STILL_TO_PORT
+    assert registered != named, (
+        f"{op_type}: registered in the port and still named as to port"
+        if registered else f"{op_type}: neither ported nor named")
+
+
+def test_the_counts():
+    assert len(jreg.OPS) == 274
+    assert len(STILL_TO_PORT) == 59
+    assert len(preg.OPS) == 215
+    assert set(STILL_TO_PORT) <= set(jreg.OPS)

@@ -230,8 +230,10 @@ def test_the_slice_registers_exactly_the_decode_op_types():
     the int8 tier's four fake-quant ops and two quantized ops, the
     optimizer tail's ten update ops, and the BERT pretraining slice's
     fused loss head, recompute barrier, clip family, sign, learning-rate
-    schedule and elementwise max/min, and the CTR slice's
-    sigmoid_cross_entropy_with_logits: 132 op types."""
+    schedule and elementwise max/min, the CTR slice's
+    sigmoid_cross_entropy_with_logits, and the dense op tails' 83
+    (tensor 26, math 6, random 4, loss 12, misc 19, nn 16): 215 op
+    types."""
     assert sorted(preg.OPS) == sorted([
         "assign_value", "elementwise_add", "fill_constant", "fused_attention",
         "gather", "increment", "kv_cache_append", "layer_norm",
@@ -270,5 +272,34 @@ def test_the_slice_registers_exactly_the_decode_op_types():
         "linear_softmax_ce", "rc_barrier", "clip", "clip_by_norm",
         "squared_l2_norm", "sign", "lr_schedule", "elementwise_max",
         "elementwise_min",
-        "sigmoid_cross_entropy_with_logits"])
-    assert len(preg.OPS) == 132
+        "sigmoid_cross_entropy_with_logits",
+        # tensor
+        "reshape2", "transpose", "transpose2", "split", "squeeze",
+        "squeeze2", "unsqueeze", "unsqueeze2", "stack", "unstack", "expand",
+        "pad", "pad2d", "scatter", "arg_max", "arg_min", "argsort", "shape",
+        "fill", "fill_zeros_like", "range", "linspace", "where", "select",
+        "diag", "reverse",
+        # math
+        "elementwise_floordiv", "cumsum", "pow", "isfinite", "isinf",
+        "isnan",
+        # random
+        "uniform_random_batch_size_like", "gaussian_random_batch_size_like",
+        "truncated_gaussian_random", "sampling_id",
+        # loss
+        "smooth_l1_loss", "huber_loss", "log_loss", "hinge_loss",
+        "rank_loss", "margin_rank_loss", "mse_loss", "kldiv_loss", "auc",
+        "chunk_eval", "precision_recall", "positive_negative_pair",
+        # misc
+        "flatten", "flatten2", "crop", "multiplex", "random_crop",
+        "pad_constant_like", "is_empty", "minus", "l1_norm",
+        "squared_l2_distance", "modified_huber_loss", "mean_iou",
+        "affine_channel", "bilinear_tensor_product", "row_conv",
+        "ctc_align", "conv_shift", "polygon_box_transform",
+        "fused_elemwise_activation",
+        # nn
+        "conv3d", "conv2d_transpose", "conv3d_transpose",
+        "depthwise_conv2d_transpose", "pool3d", "max_pool2d_with_index",
+        "max_pool3d_with_index", "unpool", "spp", "group_norm",
+        "bilinear_interp", "nearest_interp", "im2sequence", "norm",
+        "label_smooth", "cos_sim"])
+    assert len(preg.OPS) == 215
