@@ -33,7 +33,8 @@ catches its own failure:
      batch 64 and 1024 x batch 32, masked and unmasked; #3-#5 unmasked at
      1024 x batch 32 and 4096 x batch 8, #3 at 2048 x batch 16); one
      call of #6 or #7 must be exactly one launch of its
-     kernel in a profiler trace (no merge, cast or scratch kernel);
+     kernel in a CUDA graph of that call (no merge, cast or scratch
+     kernel, no copy);
      then timed with CUDA events, L2 flushed before every launch: kernel,
      plain version, and the library yardstick the port never calls
      (F.scaled_dot_product_attention with an equivalent mask, over a
@@ -438,7 +439,32 @@ catches its own failure:
      = the CPU path's, AUC = metrics.Auc within 1e-6), chunk_eval under
      IOB and IOBES and precision_recall against the CPU path and
      metrics.py;
- 18. one {"kernels": [...]} line, the card's name and power limit, and
+ 18. control flow and the sequence family.  CF/mt: the book's machine
+     translation chapter (an LSTM encoder, a DynamicRNN decoder: one
+     static_rnn in the captured step; Adagrad with L2 decay) at bench.py's
+     machine_translation widths (dict 10,000, word dim and hidden 256, T
+     24, batch 128, float32): 3 steps card vs CPU (losses rtol 1e-3), 3
+     steps jit = interpret bitwise, 5 timed steps (examples/s) and 2
+     profiled (card busy, idle share); save_persistables, then the
+     chapter's BeamSearchDecoder program loads them and decodes batch 16
+     at beam 4 over 24 steps, captured (beam tokens/s): every beam
+     re-scored by a float64 forward within 1e-4 of max(1, |score|), ids
+     equal to the port's CPU decode on every row whose step margins all
+     exceed 1e-4.  CF/beam_lm: tests/test_decode.py's cached-attention LM
+     (kv_cache_append + fused_attention in the decoder block) at d 512, 8
+     heads of 64, vocab 32,000, batch 8, beam 4, 32 steps: the gate picks
+     flash_decode (#6), one launch a step inside the captured beam body;
+     captured = interpret, beams re-scored.  CF/while: a While-with-
+     parameter training step (16 trips of tanh(acc @ w) at [1024, 512] x
+     [512, 512] and its grad), bounded (captured, its 16 trips unrolled) and
+     unbounded (an eager segment, counted), card = CPU within 1e-5, jit =
+     interpret bitwise, ms a trip; the book's while_loop program; IfElse
+     over a NaN branch; a conditional_block by hand, on and off (off:
+     its gather out of range and its sqrt of a negative).
+     SEQ/ops: the 15 sequence ops of the slice at [64, 128, 256], forward
+     and grad, card vs CPU within 1e-4 of max(1, the largest), integers
+     equal, jit = interpret;
+ 19. one {"kernels": [...]} line, the card's name and power limit, and
      last the {"ok": true, "device": ...} line.
 
 Exits non-zero, printing no result, when there is no CUDA device or when
@@ -734,24 +760,67 @@ class Timer:
         return sum(b - a for _, a, b in mine) / reps / 1e3
 
 
-def device_ops_of_one_call(fn, tries=3):
-    """The names of the operations the card ran for one call of fn (after
-    a warm-up call), from a torch.profiler trace.  A trace that holds no
-    operation of the card at all (the profiler saw nothing, which happens
-    now and then) is taken again, up to `tries` times."""
-    from torch.profiler import ProfilerActivity, profile
+# CUgraphNodeType: the node types the card runs, by their cuda.h names
+_GRAPH_NODE_TYPES = {1: "memcpy", 2: "memset", 3: "host", 4: "child graph",
+                     6: "wait event", 7: "record event",
+                     8: "signal semaphore", 9: "wait semaphore",
+                     10: "mem alloc", 11: "mem free", 12: "batch mem op",
+                     13: "conditional"}
+
+
+def device_ops_of_one_call(fn):
+    """The names of the operations one call of fn (after a warm-up call)
+    puts on the card, read from a CUDA graph of that call: every node of
+    the captured graph, a kernel by its (mangled) name, any other node by
+    its type.  Unlike a torch.profiler trace, which now and then holds no
+    operation of the card at all, the graph always holds the call whole;
+    a call that cannot be captured fails here."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    ptr, size = ctypes.c_void_p, ctypes.c_size_t
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} failed: CUresult {rc}")
 
     fn()
     torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    raw = ptr(graph.raw_cuda_graph())
+    n = size(0)
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ptr * n.value)()
+    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
     names = []
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [name for name, _, _ in device_spans(prof)]
-        if names:
-            break
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ptr(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        if kind.value == 5:          # an empty node runs nothing
+            continue
+        if kind.value != 0:
+            names.append(_GRAPH_NODE_TYPES.get(kind.value,
+                                               f"node type {kind.value}"))
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: func at 0, kern at 56
+        params = (ctypes.c_byte * 256)()
+        check(cu.cuGraphKernelNodeGetParams_v2(ptr(node), params),
+              "cuGraphKernelNodeGetParams_v2")
+        func = ptr.from_buffer(params, 0).value
+        kern = ptr.from_buffer(params, 56).value
+        name = ctypes.c_char_p()
+        if func:
+            check(cu.cuFuncGetName(ctypes.byref(name), ptr(func)),
+                  "cuFuncGetName")
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name), ptr(kern)),
+                  "cuKernelGetName")
+        names.append(name.value.decode())
+    graph.reset()
     return names
 
 
@@ -1340,6 +1409,12 @@ def check_kernels(device):
         if s_len != L_SEQ:
             cases += flash_bwd_cases(tag, b, s_len, s_len, bert_h, d, False,
                                      None, device, rng, torch.bfloat16)
+    # added last: #6 inside [18]'s beam body (CF/beam_lm): 8 heads of 64
+    # over the 32-slot cache of 8 x 4 beams, kv_len the step (1-32)
+    cases.append(decode_case(
+        f"CF/beam_lm 1x{CL_MAX_LEN} b{CL_BATCH * CL_BEAM} f32",
+        CL_BATCH * CL_BEAM, CL_MAX_LEN, CL_HEADS, CL_D // CL_HEADS,
+        (1, CL_MAX_LEN), device, rng))
     timer = Timer(device)
     for c in cases:
         fns = c.pop("fns")
@@ -6543,7 +6618,7 @@ def _int8_counts(program):
 def _busy_ms(fn, tries=3):
     """The card's busy ms a call of fn over Q_REPS profiled calls; a trace
     that holds no operation of the card (the profiler sees nothing now and
-    then, as device_ops_of_one_call notes) is taken again, up to `tries`
+    then) is taken again, up to `tries`
     times."""
     for _ in range(tries):
         prof = profile_calls(fn, Q_REPS)
@@ -9220,6 +9295,854 @@ def drive_op_tails(card, device, lap=lambda phase: None):
     return results
 
 
+# ------------------------------------- [18] control flow and the sequence family
+
+# CF/mt: the book's machine translation chapter (tests/book/
+# test_machine_translation.py) at bench.py's machine_translation widths
+# (bench.py:825-831): dict 10,000, T 24, batch 128; word dim and hidden 256
+CM_DICT, CM_DIM, CM_HIDDEN, CM_T, CM_BATCH = 10000, 256, 256, 24, 128
+CM_PARITY_STEPS, CM_STEPS, CM_PROFILED = 3, 5, 2
+CM_RTOL = 1e-3            # card vs CPU losses
+# the chapter's Adagrad, at a rate for these widths: at its 0.5 every
+# weight moves by ~0.5 on the first step (Adagrad's g / |g|) and the
+# loss climbs 9.2 -> 24 -> 34 in 3 steps, card and CPU 6% apart by the
+# third (NVIDIA H100 80GB HBM3, 700 W); the JAX package's chapter climbs
+# the same way on the CPU (tests/torch_mt_lr_witness.py)
+CM_LR = 1e-3
+CM_DECODE_BATCH, CM_BEAM, CM_MAX_LEN = 16, 4, 24
+CM_BOS, CM_EOS = 0, 1
+CM_DECODE_REPS = 3        # timed decodes (replays)
+CF_RESCORE_TOL = 1e-4     # a beam's score vs its plain re-scoring, of
+                          # max(1, |score|): a float32 sum of 24-32 steps
+CF_MARGIN = 1e-4          # a step margin below which card and CPU may part
+# CF/beam_lm: tests/test_decode.py:273-326's cached-attention LM at
+# transformer-base width
+CL_D, CL_HEADS, CL_VOCAB, CL_BATCH, CL_BEAM, CL_MAX_LEN = 512, 8, 32000, 8, 4, 32
+CL_REPS = 3
+# CF/while: tests/test_control_flow.py's While-with-parameter training,
+# widened; card vs CPU within CF_TOL
+CW_ROWS, CW_WIDTH, CW_TRIPS, CW_STEPS = 1024, 512, 16, 3
+CF_TOL = 1e-5
+# SEQ/ops: every sequence op of the slice on the card
+SQ_B, SQ_T, SQ_D = 64, 128, 256
+
+
+def _mt_encoder(L, pt):
+    src = L.data(name="src_word_id", shape=[CM_T], dtype="int64")
+    src_len = L.data(name="src_len", shape=[], dtype="int64")
+    emb = L.embedding(input=src, size=[CM_DICT, CM_DIM],
+                      param_attr=pt.ParamAttr(name="vemb"))
+    seq, _, _ = L.lstm(emb, CM_HIDDEN,
+                       param_attr=pt.ParamAttr(name="enc_lstm"))
+    return L.sequence_last_step(seq, seq_len=src_len)
+
+
+def _mt_step(L, pt, word, prev):
+    state = L.fc(input=[word, prev], size=CM_HIDDEN, act="tanh",
+                 param_attr=[pt.ParamAttr(name="dec_state_w"),
+                             pt.ParamAttr(name="dec_state_u")],
+                 bias_attr=pt.ParamAttr(name="dec_state_b"))
+    score = L.fc(input=state, size=CM_DICT, act="softmax",
+                 param_attr=pt.ParamAttr(name="dec_out_w"),
+                 bias_attr=pt.ParamAttr(name="dec_out_b"))
+    return state, score
+
+
+def mt_train_program():
+    """The chapter's `_build_train` (a DynamicRNN decoder over the LSTM
+    encoder's last step) with its Adagrad (at CM_LR) and L2 decay 1e-4
+    -> (main, startup, loss)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import layers as L
+
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 17
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        context = _mt_encoder(L, pt)
+        trg = L.data(name="trg_word_id", shape=[CM_T], dtype="int64")
+        trg_len = L.data(name="trg_len", shape=[], dtype="int64")
+        emb = L.embedding(input=trg, size=[CM_DICT, CM_DIM],
+                          param_attr=pt.ParamAttr(name="trg_emb"))
+        drnn = L.DynamicRNN()
+        with drnn.block():
+            word = drnn.step_input(emb, seq_len=trg_len)
+            prev = drnn.memory(init=context)
+            state, score = _mt_step(L, pt, word, prev)
+            drnn.update_memory(prev, state)
+            drnn.output(score)
+        label = L.data(name="trg_next_word", shape=[CM_T], dtype="int64")
+        ce = L.cross_entropy(input=L.reshape(drnn(), shape=[-1, CM_DICT]),
+                             label=L.reshape(label, shape=[-1, 1]))
+        mask = L.reshape(L.cast(L.sequence_mask(trg_len, CM_T), "float32"),
+                         shape=[-1, 1])
+        loss = L.elementwise_div(L.reduce_sum(L.elementwise_mul(ce, mask)),
+                                 L.reduce_sum(mask))
+        pt.optimizer.Adagrad(
+            learning_rate=CM_LR,
+            regularization=pt.regularizer.L2DecayRegularizer(1e-4),
+        ).minimize(loss)
+    return main, startup, loss
+
+
+def mt_decode_program():
+    """The chapter's `_build_infer` at batch CM_DECODE_BATCH, beam CM_BEAM
+    and CM_MAX_LEN steps: the context tiled to B*K and decoded by a
+    BeamSearchDecoder carrying the decoder state -> (main, startup, ids,
+    scores, the tiled context)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import layers as L
+
+    batch, beam, max_len = CM_DECODE_BATCH, CM_BEAM, CM_MAX_LEN
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 17
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        context = _mt_encoder(L, pt)
+        tiled = L.reshape(L.expand(L.reshape(context,
+                                             shape=[-1, 1, CM_HIDDEN]),
+                                   expand_times=[1, beam, 1]),
+                          shape=[-1, CM_HIDDEN])
+        dec = L.BeamSearchDecoder(beam_size=beam, max_len=max_len,
+                                  bos_id=CM_BOS, eos_id=CM_EOS,
+                                  batch_size=batch)
+        with dec.block():
+            prev_ids = dec.prev_ids()
+            prev_state = dec.memory(init=tiled)
+            word = L.embedding(input=prev_ids, size=[CM_DICT, CM_DIM],
+                               param_attr=pt.ParamAttr(name="trg_emb"))
+            state, score = _mt_step(L, pt, word, prev_state)
+            dec.update_memory(prev_state, state)
+            dec.set_logits(L.log(score))
+        ids, scores = dec()
+    return main, startup, ids, scores, tiled
+
+
+def mt_batch(seed, batch):
+    """The chapter's copy task: the target is the source shifted by one."""
+    rng = np.random.RandomState(seed)
+    src = rng.randint(2, CM_DICT, size=(batch, CM_T)).astype("int64")
+    src_len = rng.randint(2, CM_T + 1, size=(batch,)).astype("int64")
+    trg = np.roll(src, 1, axis=1)
+    trg[:, 0] = CM_BOS
+    return {"src_word_id": src, "src_len": src_len, "trg_word_id": trg,
+            "trg_len": src_len, "trg_next_word": src.copy()}
+
+
+def _steps_bitwise(phase, exe, main, scope, feed, loss, n):
+    """n steps, each run first by the interpreter in a scratch scope from
+    the same persistables, then by the graph: the losses bitwise equal."""
+    from paddle_tpu_torch import Executor
+
+    eager = Executor(exe.device, mode="interpret")
+    jit, ref = [], []
+    for _ in range(n):
+        ref += _interpret_step(eager, main, scope, feed, loss)
+        jit += run_steps(exe, main, scope, feed, loss, 1)[0]
+    if jit != ref:
+        raise AssertionError(f"{phase}: jit losses {jit} vs interpret {ref}")
+    return jit
+
+
+def _beam_margins(scores_fn, batch, beam, max_len, bos, eos, vocab, dev):
+    """A float64 beam search on `dev` over `scores_fn(prev tokens [B*K],
+    step) -> log-probs [B*K, V]` as beam_search_decode runs it -> (ids
+    [B, K, T], scores [B, K], each row's smallest step margin: the least
+    gap between neighbours among the K + 1 best totals)."""
+    tokens = torch.full((batch, beam, max_len + 1), bos, dtype=torch.int64,
+                        device=dev)
+    scores = torch.full((batch, beam), -1e30, dtype=torch.float64,
+                        device=dev)
+    scores[:, 0] = 0.0
+    alive = torch.ones((batch, beam), dtype=torch.bool, device=dev)
+    margin = torch.full((batch,), math.inf, dtype=torch.float64, device=dev)
+    eos_only = torch.full((vocab,), -math.inf, dtype=torch.float64,
+                          device=dev)
+    eos_only[eos] = 0.0
+    for t in range(max_len):
+        logp = scores_fn(tokens[:, :, t].reshape(-1), t).reshape(
+            batch, beam, vocab)
+        logp = torch.where(alive[..., None], logp, eos_only)
+        total = (scores[..., None] + logp).reshape(batch, -1)
+        top, idx = torch.sort(total, dim=-1, descending=True, stable=True)
+        gaps = (top[:, :beam] - top[:, 1:beam + 1])
+        live = top[:, 1:beam + 1] > -1e29
+        gaps = torch.where(live, gaps, torch.full_like(gaps, math.inf))
+        margin = torch.minimum(margin, gaps.min(dim=1).values)
+        scores, idx = top[:, :beam], idx[:, :beam]
+        src = torch.div(idx, vocab, rounding_mode="floor")
+        tok = idx % vocab
+        tokens = torch.gather(tokens, 1,
+                              src[..., None].expand(-1, -1, max_len + 1))
+        tokens[:, :, t + 1] = tok
+        alive = torch.gather(alive, 1, src) & (tok != eos)
+        scores_fn.reorder(src)
+    return tokens[..., 1:], scores, margin
+
+
+def _rescore_err(rescored, scores):
+    """max |rescored - score| / max(1, |rescored|) over the beams."""
+    return ((rescored - scores.double()).abs()
+            / rescored.abs().clamp_min(1.0)).max().item()
+
+
+def _rescore(step_logp, ids, bos, eos):
+    """Each beam's total log-prob under `step_logp(prev [N], t) -> [N, V]`
+    (float64), eos ending a beam: [B, K]."""
+    b, k, n = ids.shape
+    flat = ids.reshape(b * k, n)
+    prev = torch.full((b * k,), bos, dtype=torch.int64, device=ids.device)
+    total = torch.zeros(b * k, dtype=torch.float64, device=ids.device)
+    done = torch.zeros(b * k, dtype=torch.bool, device=ids.device)
+    for t in range(n):
+        lp = step_logp(prev, t).gather(1, flat[:, t:t + 1])[:, 0]
+        total = total + torch.where(done, torch.zeros_like(lp), lp)
+        done = done | (flat[:, t] == eos)
+        prev = flat[:, t]
+    return total.reshape(b, k)
+
+
+class _MtScorer:
+    """The chapter's decoder step in float64 on the card, from the
+    scope's weights, over a state of B*K rows."""
+
+    def __init__(self, scope, context):
+        w = {n: scope.find_var(n).double() for n in (
+            "trg_emb", "dec_state_w", "dec_state_u", "dec_state_b",
+            "dec_out_w", "dec_out_b")}
+        self.w, self.h0 = w, context.double()
+        self.h = self.h0.clone()
+
+    def start(self):
+        self.h = self.h0.clone()
+        return self
+
+    def __call__(self, prev, t):
+        w = self.w
+        self.h = torch.tanh(w["trg_emb"][prev] @ w["dec_state_w"]
+                            + self.h @ w["dec_state_u"] + w["dec_state_b"])
+        logits = self.h @ w["dec_out_w"] + w["dec_out_b"]
+        return torch.log_softmax(torch.log_softmax(logits, -1), -1)
+
+    def reorder(self, src):
+        b, k = src.shape
+        idx = (torch.arange(b, device=src.device)[:, None] * k
+               + src).reshape(-1)
+        self.h = self.h[idx]
+
+
+def phase_cf_mt(card, device):
+    """CF/mt: the book's machine-translation chapter at bench.py's widths:
+    CM_PARITY_STEPS captured steps on the card against the port's CPU
+    path from the same weights (losses within CM_RTOL), as many steps jit
+    against interpret (bitwise), CM_STEPS timed steps (examples/s) and
+    CM_PROFILED profiled; then save_persistables, load_persistables into
+    the decode program, and the beam decode at batch 16, beam 4, max_len
+    24 (captured; tokens/s): each beam re-scored by a plain float64
+    forward within CF_RESCORE_TOL, and the ids equal to the port's CPU
+    decode and to a float64 search on every row whose step margins all
+    exceed CF_MARGIN."""
+    from paddle_tpu_torch import CPUPlace, CUDAPlace, Executor, Scope, io
+    from paddle_tpu_torch.framework.scope import scope_guard
+
+    main, startup, loss = mt_train_program()
+    feed_np = mt_batch(SEED + 180, CM_BATCH)
+    feed = {k: torch.as_tensor(v, device=device) for k, v in feed_np.items()}
+    scope, exe = Scope(), Executor(CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    start = _persistables(scope, main)
+    cpu_scope = Scope()
+    for name, value in start.items():
+        cpu_scope.set_var(name, value.cpu())
+    before = graph_stats()
+    losses, _ = run_steps(exe, main, scope, feed, loss, CM_PARITY_STEPS)
+    cpu_losses, _ = run_steps(Executor(CPUPlace()), main, cpu_scope,
+                              feed_np, loss, CM_PARITY_STEPS)
+    if not np.allclose(losses, cpu_losses, rtol=CM_RTOL, atol=0):
+        raise AssertionError(f"CF/mt: card losses {losses} vs CPU "
+                             f"{cpu_losses}")
+    jit = _steps_bitwise("CF/mt", exe, main, scope, feed, loss,
+                         CM_PARITY_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed, _ = run_steps(exe, main, scope, feed, loss, CM_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof = profile_calls(lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                         scope=scope, return_numpy=False),
+                         CM_PROFILED)
+    graphs, _ = captured_graphs("CF/mt", exe, feed)
+    gs = graph_stats(before)
+    if gs["eager_segments"]:
+        raise AssertionError(f"CF/mt: eager segments {gs}")
+    train = {"losses": losses + jit + timed, "cpu_losses": cpu_losses,
+             "examples_per_s": CM_BATCH * CM_STEPS / wall,
+             "ms_per_step": wall / CM_STEPS * 1e3,
+             "card_busy_ms_per_step": prof["busy_ms_per_step"] if prof
+             else None,
+             "idle_share": prof["idle_share"] if prof else None,
+             "graphs": graphs}
+    log(f"  CF/mt train: batch {CM_BATCH}, T {CM_T}, dict {CM_DICT}: "
+        f"{train['examples_per_s']:.1f} examples/s "
+        f"({train['ms_per_step']:.2f} ms/step), card busy "
+        f"{train['card_busy_ms_per_step']} ms/step, idle share "
+        f"{train['idle_share']}; losses card {losses} vs CPU {cpu_losses}; "
+        f"jit = interpret bitwise over {CM_PARITY_STEPS} steps  [{card}]")
+
+    path = _saved_dir("cf_mt_params")
+    with scope_guard(scope):
+        io.save_persistables(exe, path, main_program=main)
+    del scope, cpu_scope, start
+    torch.cuda.empty_cache()
+    dmain, dstart, ids, scores, tiled = mt_decode_program()
+    dfeed_np = {k: v for k, v in mt_batch(SEED + 181,
+                                          CM_DECODE_BATCH).items()
+                if k in ("src_word_id", "src_len")}
+    dfeed = {k: torch.as_tensor(v, device=device)
+             for k, v in dfeed_np.items()}
+    results = {}
+    for label, place in (("card", CUDAPlace(0)), ("cpu", CPUPlace())):
+        dscope, dexe = Scope(), Executor(place)
+        dexe.run(dstart, scope=dscope)
+        with scope_guard(dscope):
+            io.load_persistables(dexe, path, main_program=dmain)
+        f = dfeed if label == "card" else dfeed_np
+        results[label] = dexe.run(dmain, feed=f,
+                                  fetch_list=[ids, scores, tiled],
+                                  scope=dscope, return_numpy=False)
+        if label == "card":
+            card_scope, card_exe = dscope, dexe
+    fetch = [ids, scores, tiled]
+    before = graph_stats()
+    for _ in range(2):      # capture, replay
+        got = card_exe.run(dmain, feed=dfeed, fetch_list=fetch,
+                           scope=card_scope, return_numpy=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(CM_DECODE_REPS):
+        got = card_exe.run(dmain, feed=dfeed, fetch_list=fetch,
+                           scope=card_scope, return_numpy=False)
+    torch.cuda.synchronize()
+    dwall = (time.perf_counter() - t0) / CM_DECODE_REPS
+    gs = graph_stats(before)
+    if gs["captures"] < 1 or gs["replays"] < CM_DECODE_REPS:
+        raise AssertionError(f"CF/mt decode: graphs {gs}")
+    eager_ids, eager_scores, context = results["card"]
+    if not (torch.equal(got[0], eager_ids)
+            and torch.equal(got[1], eager_scores)):
+        raise AssertionError("CF/mt decode: captured != the first (eager) "
+                             "decode")
+    scorer = _MtScorer(card_scope, context)
+    rescored = _rescore(scorer.start(), got[0], CM_BOS, CM_EOS)
+    err = _rescore_err(rescored, got[1])
+    if err > CF_RESCORE_TOL:
+        raise AssertionError(f"CF/mt decode: re-scored beams off by {err}")
+    ref_ids, _, margin = _beam_margins(scorer.start(), CM_DECODE_BATCH,
+                                       CM_BEAM, CM_MAX_LEN, CM_BOS, CM_EOS,
+                                       CM_DICT, device)
+    clear = (margin > CF_MARGIN).cpu()
+    differ = ((got[0].cpu() != results["cpu"][0])
+              | (got[0] != ref_ids).cpu()).flatten(1).any(1)
+    if (differ & clear).any():
+        raise AssertionError(
+            f"CF/mt decode: rows {torch.nonzero(differ & clear).tolist()} "
+            "differ from the CPU decode or the float64 search with every "
+            f"step margin above {CF_MARGIN}")
+    toks = CM_DECODE_BATCH * CM_BEAM * CM_MAX_LEN
+    decode = {"batch": CM_DECODE_BATCH, "beam": CM_BEAM,
+              "max_len": CM_MAX_LEN, "ms": dwall * 1e3,
+              "beam_tokens_per_s": toks / dwall,
+              "rescore_max_err": err, "rows_clear": int(clear.sum()),
+              "rows_differ": int(differ.sum()),
+              "graphs": gs["captures"], "replays": gs["replays"]}
+    log(f"  CF/mt decode: batch {CM_DECODE_BATCH} x beam {CM_BEAM} x "
+        f"{CM_MAX_LEN} steps in {decode['ms']:.2f} ms "
+        f"({decode['beam_tokens_per_s']:.0f} beam tokens/s), captured = "
+        f"eager; re-scored within {err:.2e}; {decode['rows_clear']} of "
+        f"{CM_DECODE_BATCH} rows clear of a {CF_MARGIN} margin, "
+        f"{decode['rows_differ']} differ from the CPU decode or the "
+        f"float64 search  [{card}]")
+    shutil.rmtree(path, ignore_errors=True)
+    return {"phase": "CF/mt", "train": train, "decode": decode,
+            "card": card}
+
+
+def beam_lm_program():
+    """tests/test_decode.py:_build_beam_lm at transformer-base width: one
+    attention layer of CL_HEADS heads over a KV cache carried (and
+    reordered by source beam) as decoder state."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import layers as L
+
+    d, v, k, b, n = CL_D, CL_VOCAB, CL_BEAM, CL_BATCH, CL_MAX_LEN
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = SEED + 182
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        # N(0, 1) rows, as the test's randn table, drawn by the startup
+        L.create_parameter(
+            shape=[v, d], dtype="float32", name="lm_emb",
+            default_initializer=pt.initializer.Normal(0.0, 1.0))
+        cache0 = L.fill_constant(shape=[b * k, n, d], value=0.0,
+                                 dtype="float32")
+        len0 = L.fill_constant(shape=[b * k], value=0, dtype="int64")
+        dec = L.BeamSearchDecoder(beam_size=k, max_len=n, bos_id=0,
+                                  eos_id=v + 5, batch_size=b)
+        with dec.block():
+            prev = dec.prev_ids()
+            ck, cv, ln = dec.memory(cache0), dec.memory(cache0), \
+                dec.memory(len0)
+            x = L.reshape(L.embedding(prev, size=[v, d],
+                                      param_attr=pt.ParamAttr(
+                                          name="lm_emb")),
+                          shape=[-1, 1, d])
+            q, kk, vv = (L.fc(input=x, size=d, num_flatten_dims=2,
+                              bias_attr=False, name=nm)
+                         for nm in ("lm_q", "lm_k", "lm_v"))
+            ok, ov = L.kv_cache_append(ck, cv, kk, vv, ln)
+            nl = L.increment(ln, value=1, in_place=False)
+            att = L.fused_attention(q, ok, ov, CL_HEADS, causal=False,
+                                    seq_len=nl)
+            lg = L.fc(input=L.reshape(att, shape=[-1, d]), size=v,
+                      bias_attr=False, name="lm_out")
+            dec.set_logits(lg)
+            dec.update_memory(ck, ok)
+            dec.update_memory(cv, ov)
+            dec.update_memory(ln, nl)
+        ids, scores = dec()
+    return main, startup, ids, scores
+
+
+def _lm_rescore(w, ids):
+    """tests/test_decode.py:_np_rescore in float64 on the card, over every
+    beam at once, with CL_HEADS heads: [B, K]."""
+    b, k, n = ids.shape
+    flat = ids.reshape(b * k, n)
+    d, h = CL_D, CL_HEADS
+    dh = d // h
+    prev = torch.zeros(b * k, dtype=torch.int64, device=ids.device)
+    ks, vs = [], []
+    total = torch.zeros(b * k, dtype=torch.float64, device=ids.device)
+    for t in range(n):
+        x = w["lm_emb"][prev]
+        q = (x @ w["lm_q.w_0"]).reshape(-1, h, dh)
+        ks.append((x @ w["lm_k.w_0"]).reshape(-1, h, dh))
+        vs.append((x @ w["lm_v.w_0"]).reshape(-1, h, dh))
+        kk, vv = torch.stack(ks, 1), torch.stack(vs, 1)
+        s = torch.einsum("nhd,nthd->nht", q, kk) / math.sqrt(dh)
+        att = torch.einsum("nht,nthd->nhd", torch.softmax(s, -1), vv)
+        lg = att.reshape(-1, d) @ w["lm_out.w_0"]
+        lp = torch.log_softmax(lg, -1)
+        total = total + lp.gather(1, flat[:, t:t + 1])[:, 0]
+        prev = flat[:, t]
+    return total.reshape(b, k)
+
+
+def phase_cf_beam_lm(card, device):
+    """CF/beam_lm: the cached-attention LM decoded by beam_search_decode
+    at transformer-base width.  The gate picks flash_decode (#6) at Sq 1
+    over a CL_MAX_LEN-slot cache (Sk not a multiple of 128, so the
+    single-block kernel refuses it): one launch a step, CL_MAX_LEN a
+    decode, inside the captured beam body.  Each beam re-scored by a
+    float64 forward within CF_RESCORE_TOL; captured = interpret."""
+    from paddle_tpu_torch import CUDAPlace, Executor, Scope
+    from paddle_tpu_torch.ops import attention_ops
+    from paddle_tpu_torch.ops.cuda import flash_decode, mha_block
+
+    main, startup, ids, scores = beam_lm_program()
+    scope, exe = Scope(), Executor(CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    # the gate reads shapes, dtype and device: one row of each on the card
+    qd = torch.empty((1, 1, CL_D), device=device)
+    kd = torch.empty((1, CL_MAX_LEN, CL_D), device=device)
+    tier = attention_ops.backend_choice(qd, kd, CL_HEADS)
+    if tier != "flash_decode":
+        raise AssertionError(f"CF/beam_lm: the gate picks {tier}, "
+                             "predicted flash_decode")
+    ref = Executor(CUDAPlace(0), mode="interpret").run(
+        main, fetch_list=[ids, scores], scope=scope, return_numpy=False)
+    _zero_counts()
+    before = graph_stats()
+    calls = 2 + CL_REPS          # warm-up, capture, replays
+    torch.cuda.synchronize()
+    for i in range(calls):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        got = exe.run(main, fetch_list=[ids, scores], scope=scope,
+                      return_numpy=False)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / CL_REPS * 1e3
+    launches = {"flash_decode": flash_decode.launches,
+                "mha_block": mha_block.launches}
+    gs = graph_stats(before)
+    if launches["flash_decode"] != calls * CL_MAX_LEN \
+            or launches["mha_block"]:
+        raise AssertionError(f"CF/beam_lm: launches {launches}, expected "
+                             f"{calls} x {CL_MAX_LEN} flash_decode")
+    if gs["captures"] < 1 or gs["replays"] < CL_REPS:
+        raise AssertionError(f"CF/beam_lm: graphs {gs}")
+    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+        raise AssertionError("CF/beam_lm: captured != interpret")
+    w = {n: scope.find_var(n).double() for n in (
+        "lm_emb", "lm_q.w_0", "lm_k.w_0", "lm_v.w_0", "lm_out.w_0")}
+    err = _rescore_err(_lm_rescore(w, got[0]), got[1])
+    if err > CF_RESCORE_TOL:
+        raise AssertionError(f"CF/beam_lm: re-scored beams off by {err}")
+    if not (got[1][:, :-1] >= got[1][:, 1:]).all():
+        raise AssertionError("CF/beam_lm: beams not best first")
+    toks = CL_BATCH * CL_BEAM * CL_MAX_LEN
+    log(f"  CF/beam_lm: d {CL_D}, {CL_HEADS} heads, vocab {CL_VOCAB}, "
+        f"batch {CL_BATCH} x beam {CL_BEAM} x {CL_MAX_LEN} steps: "
+        f"{ms:.2f} ms a decode ({toks / ms * 1e3:.0f} beam tokens/s); "
+        f"tier {tier}, {launches['flash_decode']} launches over {calls} "
+        f"decodes; captured = interpret; re-scored within {err:.2e}  "
+        f"[{card}]")
+    return ({"phase": "CF/beam_lm", "tier": tier, "launches": launches,
+             "decodes": calls, "ms": ms, "beam_tokens_per_s": toks / ms * 1e3,
+             "rescore_max_err": err, "graphs": gs["captures"],
+             "card": card},
+            {"flash_decode": launches["flash_decode"]})
+
+
+def while_train_program(bounded):
+    """tests/test_control_flow.py's While-with-parameter training,
+    widened: acc = x @ w, then CW_TRIPS trips of acc = tanh(acc @ w), the
+    mean's SGD step.  `bounded`: the i < const pattern (max_steps
+    inferred); else the limit passes through an add and the loop has no
+    bound."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import layers as L
+
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = SEED + 183
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        x = L.data(name="wgx", shape=[CW_WIDTH], dtype="float32")
+        w = L.create_parameter(shape=[CW_WIDTH, CW_WIDTH], dtype="float32",
+                               name="wg_w")
+        acc = L.mul(x, w)
+        i = L.fill_constant(shape=[1], dtype="int64", value=0)
+        limit = L.fill_constant(shape=[1], dtype="int64", value=CW_TRIPS)
+        if not bounded:
+            limit = L.elementwise_add(
+                limit, L.fill_constant(shape=[1], dtype="int64", value=0))
+        cond = L.less_than(x=i, y=limit)
+        wh = L.While(cond=cond)
+        with wh.block():
+            L.assign(L.tanh(L.mul(acc, w)), acc)
+            L.increment(i, in_place=True)
+            L.less_than(x=i, y=limit, cond=cond)
+        loss = L.mean(acc)
+        pt.optimizer.SGD(learning_rate=0.05).minimize(loss)
+    (wop,) = [op for op in main.global_block().ops if op.type == "while"]
+    if bool(wop.attrs["max_steps"]) != bounded:
+        raise AssertionError(f"CF/while: max_steps {wop.attrs['max_steps']}")
+    return main, startup, loss
+
+
+def _program_card_cpu(phase, main, startup, feed_np, fetch, runs=3,
+                      tol=CF_TOL):
+    """`fetch` after `runs` runs on the card's jit path, the card's
+    interpreter and the port's CPU path, each from the card startup's
+    weights: card = CPU within `tol` of max(1, |CPU|), jit = interpret
+    bitwise.  -> (card values, graph stats of the jit runs)."""
+    from paddle_tpu_torch import CPUPlace, CUDAPlace, Executor, Scope
+
+    scope0, exe0 = Scope(), Executor(CUDAPlace(0))
+    exe0.run(startup, scope=scope0)
+    start = _persistables(scope0, main)
+    outs = {}
+    for label, place, mode in (("jit", CUDAPlace(0), "jit"),
+                               ("interpret", CUDAPlace(0), "interpret"),
+                               ("cpu", CPUPlace(), None)):
+        scope = Scope()
+        for name, value in start.items():
+            scope.set_var(name, value.clone() if label != "cpu"
+                          else value.cpu())
+        exe = Executor(place, mode=mode)
+        before = graph_stats()
+        for _ in range(runs):       # host feeds, as a user passes them
+            got = exe.run(main, feed=feed_np, fetch_list=fetch, scope=scope)
+        outs[label] = got
+        if label == "jit":
+            gs = graph_stats(before)
+    for n, a, b, c in zip(fetch, outs["jit"], outs["interpret"],
+                          outs["cpu"]):
+        if not np.array_equal(a, b, equal_nan=True):
+            raise AssertionError(f"{phase}: {n} jit != interpret")
+        if _x_err(a, c) > tol:
+            raise AssertionError(f"{phase}: {n} card vs CPU {_x_err(a, c)}")
+    return outs["jit"], gs
+
+
+def phase_cf_while(card, device):
+    """CF/while: While-with-parameter training bounded (a captured
+    segment, predicated trips) and unbounded (an eager segment, counted
+    in cuda_graph.STATS), card = CPU within CF_TOL and jit = interpret
+    bitwise, ms a trip each way; the book's while_loop program; IfElse
+    with a NaN in its untaken branch; a conditional_block built by hand,
+    its flag on and off."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import CUDAPlace, Executor, Scope
+    from paddle_tpu_torch import layers as L
+
+    rng = np.random.RandomState(SEED + 184)
+    feed = {"wgx": (rng.rand(CW_ROWS, CW_WIDTH) / CW_WIDTH).astype(
+        np.float32)}
+    rows = []
+    for bounded in (True, False):
+        label = "bounded" if bounded else "unbounded"
+        main, startup, loss = while_train_program(bounded)
+        got, gs = _program_card_cpu(f"CF/while {label}", main, startup, feed,
+                                    [loss.name, "wg_w"], runs=CW_STEPS)
+        if bounded and (gs["captures"] < 1 or gs["eager_segments"]):
+            raise AssertionError(f"CF/while bounded: graphs {gs}")
+        if not bounded and (gs["captures"] or gs["eager_segments"]
+                            != CW_STEPS):
+            raise AssertionError(f"CF/while unbounded: graphs {gs}, expected "
+                                 f"{CW_STEPS} eager segments")
+        scope, exe = Scope(), Executor(CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        dfeed = {k: torch.as_tensor(v, device=device)
+                 for k, v in feed.items()}
+        for _ in range(2):
+            exe.run(main, feed=dfeed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CW_STEPS):
+            exe.run(main, feed=dfeed, fetch_list=[loss], scope=scope,
+                    return_numpy=False)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / CW_STEPS * 1e3
+        rows.append({"loop": label, "ms_per_step": ms,
+                     "ms_per_trip": ms / CW_TRIPS, "graphs": gs["captures"],
+                     "eager_segments": gs["eager_segments"],
+                     "loss": float(got[0].reshape(-1)[0])})
+        log(f"  CF/while {label}: {CW_TRIPS} trips of a [{CW_ROWS}, "
+            f"{CW_WIDTH}] x [{CW_WIDTH}, {CW_WIDTH}] body and its grad, "
+            f"{ms:.3f} ms a step, {ms / CW_TRIPS:.3f} ms a trip "
+            f"({'captured' if bounded else 'eager segment'}: graphs "
+            f"{gs['captures']}, eager segments {gs['eager_segments']}); "
+            f"card = CPU, jit = interpret  [{card}]")
+
+    book = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "book", "_programs")
+    with open(os.path.join(book, "while_loop.main.json")) as f:
+        d = json.load(f)
+    with open(os.path.join(book, "while_loop.startup.json")) as f:
+        ds = json.load(f)
+    s_name = d["blocks"][0]["ops"][2]["outputs"]["Out"][0]
+    (s,), _ = _program_card_cpu("CF/while book", pt.Program.from_dict(d),
+                                pt.Program.from_dict(ds), {}, [s_name])
+    if float(s[0]) != 45.0:
+        raise AssertionError(f"CF/while book: s = {s}")
+
+    def if_else():
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup), pt.unique_name.guard():
+            x = L.data("x", shape=[1], dtype="float32")
+            cond = L.greater_than(x, L.fill_constant([CW_ROWS, 1],
+                                                     "float32", 0.0))
+            ie = L.IfElse(cond)
+            with ie.true_block():
+                ie.output(L.log(ie.input(x)))
+            with ie.false_block():
+                ie.output(L.scale(ie.input(x), scale=-1.0))
+            (out,) = ie()
+        return main, startup, out
+
+    main, startup, out = if_else()
+    xs = rng.randn(CW_ROWS, 1).astype(np.float32)
+    (got,), _ = _program_card_cpu("CF/while IfElse", main, startup,
+                                  {"x": xs}, [out.name])
+    if not np.isfinite(got).all():
+        raise AssertionError("CF/while IfElse: the untaken branch's NaN "
+                             "leaked")
+
+    # a block safe only where the flag holds: it gathers rows of x by idx
+    # and scales by sqrt(s), fed out of range and negative with the flag
+    # off (the gather is of a feed: its grad would add with atomics, and
+    # jit = interpret is held bitwise)
+    for flag in (True, False):
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup), pt.unique_name.guard():
+            x = L.data("x", shape=[CW_ROWS, CW_WIDTH], dtype="float32",
+                       append_batch_size=False)
+            idx = L.data("idx", shape=[CW_ROWS], dtype="int64",
+                         append_batch_size=False)
+            sv = L.data("s", shape=[CW_ROWS, 1], dtype="float32",
+                        append_batch_size=False)
+            fl = L.data("flag", shape=[1], dtype="bool",
+                        append_batch_size=False)
+            w = L.create_parameter(shape=[CW_WIDTH, CW_WIDTH],
+                                   dtype="float32", name="cb_w")
+            parent = main.current_block()
+            sub = main.create_block()
+            y = L.elementwise_add(
+                L.elementwise_mul(L.scale(L.tanh(L.mul(x, w)), scale=3.0),
+                                  L.sqrt(sv)),
+                L.gather(x, idx))
+            main.rollback()
+            res = parent.create_var(name="cb_out", shape=y.shape,
+                                    dtype="float32")
+            names = [x.name, idx.name, sv.name, w.name]
+            parent.append_op(type="conditional_block",
+                             inputs={"X": [x, idx, sv, w], "Cond": [fl]},
+                             outputs={"Out": [res]},
+                             attrs={"sub_block": sub, "x_names": names,
+                                    "out_names": [y.name]},
+                             infer_shape=False)
+            closs = L.reduce_sum(L.elementwise_mul(res, res))
+            pt.append_backward(closs)
+        sign = 1 if flag else -1
+        (o, g), gs = _program_card_cpu(
+            f"CF/while conditional_block {flag}", main, startup,
+            {"x": rng.randn(CW_ROWS, CW_WIDTH).astype(np.float32),
+             "idx": (rng.randint(0, CW_ROWS, CW_ROWS) if flag else
+                     CW_ROWS + rng.randint(0, 1 << 20, CW_ROWS)),
+             "s": sign * (rng.rand(CW_ROWS, 1) + 0.5).astype(np.float32),
+             "flag": np.array([flag])}, ["cb_out", "cb_w@GRAD"])
+        if bool(np.abs(o).sum() > 0) != flag or gs["captures"] < 1 \
+                or not np.isfinite(g).all():
+            raise AssertionError(f"CF/while conditional_block {flag}: "
+                                 f"graphs {gs}, grad finite "
+                                 f"{np.isfinite(g).all()}")
+    log(f"  CF/while book while_loop s = 45, IfElse finite over a NaN "
+        f"branch, conditional_block on and off (off: its gather out of "
+        f"range, its sqrt of a negative; grads finite): card = CPU, jit = "
+        f"interpret, captured  [{card}]")
+    return {"phase": "CF/while", "loops": rows, "card": card}
+
+
+SEQ_NEW_OPS = (
+    "sequence_conv", "sequence_softmax", "sequence_expand",
+    "sequence_expand_as", "sequence_reverse", "sequence_slice",
+    "sequence_mask", "sequence_pad", "sequence_unpad", "sequence_concat",
+    "sequence_enumerate", "sequence_erase", "sequence_reshape",
+    "sequence_scatter", "lod_reset")
+
+
+def _seq_specs(rng):
+    """Every sequence op of the slice at [SQ_B, SQ_T, SQ_D], ragged
+    lengths, as op_group_program specs."""
+    b, t, d = SQ_B, SQ_T, SQ_D
+    x = _xo(rng, b, t, d)
+    lens = rng.randint(1, t + 1, b).astype(np.int64)
+    ids = rng.randint(0, 16, (b, t)).astype(np.int64)
+    out1 = {"Out": 1}
+    return [
+        ("sequence_conv", {"X": [x], "SeqLen": [lens],
+                           "Filter": [_xo(rng, 3 * d, d) / d]},
+         {"contextLength": 3, "contextStart": -1, "contextStride": 1},
+         ["X", "Filter"], out1, ["Out"]),
+        ("sequence_softmax", {"X": [_xo(rng, b, t)], "SeqLen": [lens]}, {},
+         ["X"], out1, ["Out"]),
+        ("sequence_expand", {"X": [_xo(rng, b, d)], "Y": [x],
+                             "SeqLen": [lens]}, {}, ["X"], out1, ["Out"]),
+        ("sequence_expand_as", {"X": [_xo(rng, b, d)], "Y": [x],
+                                "SeqLen": [lens]}, {}, ["X"], out1, ["Out"]),
+        ("sequence_reverse", {"X": [x], "SeqLen": [lens]}, {}, ["X"],
+         {"Y": 1}, ["Y"]),
+        ("sequence_slice", {"X": [x],
+                            "Offset": [rng.randint(0, t // 2, b)],
+                            "Length": [rng.randint(1, t // 2, b)]}, {},
+         ["X"], out1, ["Out"]),
+        ("sequence_mask", {"X": [lens]}, {"maxlen": t,
+                                          "out_dtype": "float32"}, [],
+         {"Y": 1}, []),
+        ("sequence_pad", {"X": [x], "SeqLen": [lens],
+                          "PadValue": [np.asarray([0.5], np.float32)]},
+         {"padded_length": t + 16}, ["X"], {"Out": 1, "Length": 1},
+         ["Out"]),
+        ("sequence_unpad", {"X": [x], "Length": [lens]}, {}, ["X"], out1,
+         ["Out"]),
+        ("sequence_concat", {"X": [x, _xo(rng, b, t // 2, d)],
+                             "SeqLen": [lens, lens // 2]}, {}, ["X"],
+         {"Out": 1, "OutLen": 1}, ["Out"]),
+        ("sequence_enumerate", {"X": [ids], "SeqLen": [lens]},
+         {"win_size": 4, "pad_value": -1}, [], out1, []),
+        ("sequence_erase", {"X": [ids], "SeqLen": [lens]},
+         {"tokens": [3, 7]}, [], {"Out": 1, "OutLen": 1}, []),
+        ("sequence_reshape", {"X": [x], "SeqLen": [lens]},
+         {"new_dim": d // 4}, ["X"], {"Out": 1, "OutLen": 1}, ["Out"]),
+        ("sequence_scatter", {"X": [_xo(rng, b, t)],
+                              # distinct ids a row: a repeated id adds
+                              # with atomics, in no fixed order
+                              "Ids": [np.stack([rng.permutation(t)[:32]
+                                                for _ in range(b)])],
+                              "Updates": [_xo(rng, b, 32)],
+                              "SeqLen": [rng.randint(1, 33, b)]}, {}, [],
+         out1, []),
+        ("lod_reset", {"X": [x], "Y": [lens]}, {}, ["X"],
+         {"Out": 1, "OutLen": 1}, ["Out"]),
+    ]
+
+
+def phase_seq_ops(card, device):
+    """SEQ/ops: every sequence op of the slice, forward and grad, in one
+    program: the card's jit path (warm-up, capture, replay) against the
+    port's CPU path within X_TOL of max(1, the largest), integer outputs
+    equal, and the card's interpreter equal to the replay bitwise."""
+    from paddle_tpu_torch import CPUPlace, CUDAPlace, Executor
+
+    specs = _seq_specs(np.random.RandomState(SEED + 185))
+    if sorted({s[0] for s in specs}) != sorted(SEQ_NEW_OPS):
+        raise AssertionError("SEQ/ops: op types not driven")
+    main, feed, fetch = op_group_program(specs, SEED + 186)
+    dev_feed = {k: torch.as_tensor(v, device=device) for k, v in feed.items()}
+    want = _run_group(Executor(CPUPlace()), main, feed, fetch, 1)
+    before = graph_stats()
+    got = _run_group(Executor(CUDAPlace(0)), main, dev_feed, fetch, 3)
+    ref = _run_group(Executor(CUDAPlace(0), mode="interpret"), main,
+                     dev_feed, fetch, 3)
+    gs = graph_stats(before)
+    errs = {n: _x_err(g, w) for n, g, w in zip(fetch, got, want)}
+    worst = max(errs, key=errs.get)
+    if errs[worst] > X_TOL:
+        raise AssertionError(f"SEQ/ops: {worst} card vs CPU {errs[worst]}")
+    differ = [n for n, g, r in zip(fetch, got, ref)
+              if not np.array_equal(g, r, equal_nan=True)]
+    if differ or gs["captures"] < 1:
+        raise AssertionError(f"SEQ/ops: jit != interpret for {differ}, "
+                             f"graphs {gs}")
+    log(f"  SEQ/ops: {len(specs)} op types, {len(fetch)} outputs and grads "
+        f"at [{SQ_B}, {SQ_T}, {SQ_D}]: card vs CPU max err "
+        f"{errs[worst]:.2e} ({worst}); jit = interpret  [{card}]")
+    return {"phase": "SEQ/ops", "op_types": len(specs),
+            "outputs": len(fetch), "max_err": errs[worst], "worst": worst,
+            "card": card}
+
+
+def drive_control_flow(card, device, lap=lambda phase: None):
+    """[18]: CF/mt, CF/beam_lm, CF/while, SEQ/ops -> (records, launches).
+    Only CF/beam_lm's beam body launches a port kernel (#6)."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _zero_counts()
+        runs = [phase_cf_mt(card, device)]
+        lap("[18] CF/mt")
+        _no_launches("CF/mt")
+        torch.cuda.empty_cache()
+        res, launches = phase_cf_beam_lm(card, device)
+        runs.append(res)
+        lap("[18] CF/beam_lm")
+        _zero_counts()
+        torch.cuda.empty_cache()
+        runs.append(phase_cf_while(card, device))
+        lap("[18] CF/while")
+        runs.append(phase_seq_ops(card, device))
+        lap("[18] SEQ/ops")
+        _no_launches("CF/while, SEQ/ops")
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    return runs, launches
+
+
+def _no_launches(phases):
+    launched = {k: n for k, n in _port_kernel_counts().items() if n}
+    if launched:
+        raise AssertionError(f"[18] {phases} launched port kernels: "
+                             f"{launched}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -9360,9 +10283,17 @@ def main():
         f"and nets (X/attn), and the metric ops against metrics.py "
         f"(X/metrics) [{card}]")
     training += drive_op_tails(card, device, lap)
+
+    log(f"[18] control flow and the sequence family: the book's machine "
+        f"translation chapter trained and beam-decoded (CF/mt), a "
+        f"cached-attention LM in a BeamSearchDecoder (CF/beam_lm), while, "
+        f"IfElse and conditional_block (CF/while), the sequence ops "
+        f"(SEQ/ops) [{card}]")
+    cf_runs, cf_launches = drive_control_flow(card, device, lap)
+    training += cf_runs
     for more in (counts, train_launches, bert_launches, resnet_launches,
                  rnn_launches, saved_launches, front_launches,
-                 fleet_launches, int8_launches, tail_launches):
+                 fleet_launches, int8_launches, tail_launches, cf_launches):
         for k, n in more.items():
             launches[k] = launches.get(k, 0) + n
     never = [k for k in KERNELS if not launches.get(k)]
@@ -9370,7 +10301,7 @@ def main():
         raise AssertionError(f"kernels {never} never launched on a path")
 
     log(f"  all phases took {laps[-1] - laps[0]:.1f} s wall")
-    log("[18] results")
+    log("[19] results")
     log(json.dumps({"phases": phases}))
     log(json.dumps({"training": training}))
     if DIVERGED:

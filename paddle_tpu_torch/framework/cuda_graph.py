@@ -58,6 +58,16 @@ capture into the graph pool a failed capture recorded into, so that pool
 is retired: the later captures of every segment that shared it go to a
 fresh pool, and the graphs already in it replay as before.
 
+Control flow.  A segment's sub-block ops are captured without a host
+read (ops/control_flow_ops.py): a `while` whose trip count the program
+fixes, `static_rnn` and `beam_search_decode` unrolled over their static
+lengths, `conditional_block` as a select of its block against zeros.  A
+segment holding any other `while` (or a `while_grad` without a trip
+bound) must read its condition every trip: the plan marks it not
+capturable and it runs as an `EagerSegment`, counted in
+STATS["eager_segments"], decided when the plan is built and never after
+a failed capture.
+
 Threads.  Several threads may each drive their own segments (one
 Executor a thread, as `inference.Predictor.clone()` gives them).  Every
 eager warm-up and every capture of the process runs under one lock
@@ -83,10 +93,11 @@ import torch
 
 # captures, the seconds spent in them and the bytes the caching allocator
 # reserved during them (the graph pools' growth), replays and eager
-# warm-ups, over every CapturedSegment of the process (chip_smoke.py reads
-# and resets it)
+# warm-ups, over every CapturedSegment of the process, and the runs of
+# segments the plan marked not capturable (EagerSegment: a while whose
+# trip count the program does not fix); chip_smoke.py reads and resets it
 STATS = {"captures": 0, "capture_s": 0.0, "pool_bytes": 0, "replays": 0,
-         "warmups": 0}
+         "warmups": 0, "eager_segments": 0}
 # eager warm-ups and captures by the thread that ran them, keyed ("warmups"
 # or "captures", thread name): a server keeps them all on its Scheduler's
 # loop thread, never on a connection's handler thread
@@ -99,7 +110,7 @@ _LOCK = threading.RLock()
 
 def reset_stats():
     STATS.update(captures=0, capture_s=0.0, pool_bytes=0, replays=0,
-                 warmups=0)
+                 warmups=0, eager_segments=0)
     THREADS.clear()
 
 
@@ -347,3 +358,25 @@ class CapturedSegment:
     def _outputs(self, g, args):
         return tuple(args[a] if a is not None else o.clone()
                      for o, a in zip(g.outs, g.alias))
+
+
+class EagerSegment:
+    """A segment the plan marked not capturable (an op in it reads a
+    value on the host every trip: a `while` whose trip count the program
+    does not fix), run
+    eagerly on the card's current stream at every call; a host value (a
+    feed the jit path staged for a graph's buffer) is moved to the card
+    first.  Nothing is retried: a segment is either this or a
+    CapturedSegment, decided when the plan is built."""
+
+    def __init__(self, fn, device):
+        self.fn = fn
+        self.device = device
+
+    def __call__(self, rngs, *args):
+        with _LOCK:
+            STATS["eager_segments"] += 1
+        args = [a if a.device.type == "cuda" else a.to(self.device)
+                for a in args]
+        return self.fn(rngs, *args)
+

@@ -121,7 +121,15 @@ def _draws(indexed_ops):
 
 class _Streams:
     """One torch.Generator per drawing op position, on `device`, kept for
-    the owner's life: a captured graph registers these very objects."""
+    the owner's life: a captured graph registers these very objects.
+
+    A sub-block op (while, conditional_block, static_rnn,
+    beam_search_decode) is a drawing op of its block: it gets a generator
+    here like any other, and the drawing ops inside its sub-block draw
+    from that one generator in the order the sub-block runs
+    (ops/control_flow_ops.replay_ops).  A sub-block's ops get no
+    generator of their own, so a capture registers every generator its
+    draws use."""
 
     def __init__(self, device):
         self.device = device
@@ -215,7 +223,7 @@ class _Segment:
     storage inside the graph, so a parameter keeps its address."""
 
     __slots__ = ("ops", "op_indices", "in_names", "out_names", "donate",
-                 "fn", "stateful", "draws")
+                 "fn", "stateful", "draws", "capturable")
 
     def __init__(self, ops, op_indices):
         self.ops = ops
@@ -226,14 +234,22 @@ class _Segment:
         self.fn = None
         self.stateful = False
         self.draws = []     # (op position, rng index), see _draws
+        # False when an op of the segment must read a value on the host
+        # (a while whose trip count the program does not fix): the segment
+        # runs eagerly on the card, never captured
+        self.capturable = True
 
 
 def build_plan(program, fetch_names, block_idx=0):
     """Partition the block's ops into segments and `no_jit` op indices,
     with each segment's inputs (first-read order), outputs (read by a later
     item, persistable or fetched; first-production order) and donations:
-    the JAX package's `_build_plan` (:374-449) without the compile."""
-    from ..ops import registry
+    the JAX package's `_build_plan` (:374-449) without the compile.  A
+    segment holding a `while` whose trip count the program does not fix,
+    or a `while_grad` without a trip bound, is marked not `capturable`
+    (control_flow_ops.needs_host); the plan's items are the JAX package's
+    all the same."""
+    from ..ops import control_flow_ops, registry
 
     block = program.block(block_idx)
     ops = block.ops
@@ -280,6 +296,8 @@ def build_plan(program, fetch_names, block_idx=0):
         seg.out_names = out_names
         seg.stateful = any(registry.get_runtime_info(op.type).stateful
                            for op in seg.ops)
+        seg.capturable = not any(control_flow_ops.needs_host(op)
+                                 for op in seg.ops)
         seg.draws = _draws(zip(seg.op_indices, seg.ops))
         overwritten = set(out_names) & set(in_names) & persistable
         seg.donate = tuple(i + 1 for i, n in enumerate(in_names)
@@ -324,12 +342,17 @@ def make_segment_fn(seg, device, where=None):
 
 def _compile_segment(seg, device, graph_pool=None, capture=True):
     """The segment's callable on `device`: its ops run eagerly on the CPU
-    and without `capture`; captured as a CUDA graph otherwise."""
+    and without `capture`; captured as a CUDA graph otherwise, unless the
+    plan marked it not `capturable`: then it runs eagerly on the card,
+    each run counted in `cuda_graph.STATS["eager_segments"]`."""
     where = {}
     fn = make_segment_fn(seg, device, where)
     if device.type != "cuda" or not capture:
         return fn
-    from .cuda_graph import CapturedSegment
+    from .cuda_graph import CapturedSegment, EagerSegment
+
+    if not seg.capturable:
+        return EagerSegment(fn, device)
 
     return CapturedSegment(
         fn, seg.in_names, seg.out_names, device, donate=seg.donate,

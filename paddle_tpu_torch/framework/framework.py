@@ -330,7 +330,9 @@ class Program:
         is an evaluation program: ops whose role is Backward or Optimize
         are dropped, `is_test` is set on every op that carries it and on
         dropout and batch_norm, and the `_`-prefixed runtime scratch attrs
-        are stripped."""
+        are stripped, in every block.  A BLOCK attr (a `while`'s
+        sub_block) names the copy's own block: one deepcopy maps each
+        block once."""
         p = copy.deepcopy(self)
         if not for_test:
             return p
@@ -380,6 +382,26 @@ class Program:
 
     def block(self, idx) -> Block:
         return self.blocks[idx]
+
+    @property
+    def num_blocks(self):
+        return len(self.blocks)
+
+    def create_block(self, parent_idx=None) -> Block:
+        """A new sub-block of the current block (or of `parent_idx`),
+        made the current block: the ops that layers append until
+        `rollback` go into it (framework.py:426-435 of the JAX
+        package)."""
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        blk = Block(self, len(self.blocks), parent_idx=parent)
+        self.blocks.append(blk)
+        self.current_block_idx = blk.idx
+        self._bump_version()
+        return blk
+
+    def rollback(self):
+        """Make the current block's parent current again."""
+        self.current_block_idx = self.current_block().parent_idx
 
     def list_vars(self):
         for blk in self.blocks:

@@ -10,6 +10,7 @@ import copy
 
 import numpy as np
 
+from ..framework.framework import Variable
 from ..layer_helper import LayerHelper, ParamAttr
 
 
@@ -998,3 +999,44 @@ def im2sequence(input, filter_size=1, stride=1, padding=0, name=None):
                             "strides": _pair(stride),
                             "paddings": _pair(padding) + _pair(padding)})
     return out
+
+
+def beam_search(pre_ids, pre_scores, ids, scores, beam_size, end_id,
+                level=0, is_first_step=None, return_parent_idx=False,
+                name=None):
+    """reference layers/nn.py:3080 — one beam-search step for user-built
+    While decoders.  Dense [B, beam] form (the LoD `level` grouping is the
+    explicit batch dim here; the arg is kept for signature parity and
+    ignored).  `is_first_step` may be a bool (static) or a bool Variable
+    (flipped inside a While body).  Returns (selected_ids,
+    selected_scores[, parent_idx if return_parent_idx]) — parent_idx is
+    the source-beam gather index for reordering decoder state."""
+    helper = LayerHelper("beam_search", name=name)
+    sel_ids = helper.create_variable_for_type_inference("int64",
+                                                        stop_gradient=True)
+    sel_scores = helper.create_variable_for_type_inference(
+        pre_scores.dtype, stop_gradient=True)
+    parent = helper.create_variable_for_type_inference("int32",
+                                                       stop_gradient=True)
+    inputs = {"pre_ids": [pre_ids], "pre_scores": [pre_scores],
+              "ids": [ids], "scores": [scores]}
+    attrs = {"beam_size": int(beam_size), "end_id": int(end_id)}
+    if isinstance(is_first_step, (bool, np.bool_)):
+        attrs["is_first_step"] = bool(is_first_step)
+    elif is_first_step is not None:
+        if not isinstance(is_first_step, Variable):
+            raise TypeError(
+                "is_first_step must be a bool or a bool Variable, got "
+                f"{type(is_first_step).__name__}")
+        inputs["IsFirstStep"] = [is_first_step]
+    helper.append_op(
+        type="beam_search",
+        inputs=inputs,
+        outputs={"selected_ids": [sel_ids],
+                 "selected_scores": [sel_scores],
+                 "parent_idx": [parent]},
+        attrs=attrs,
+    )
+    if return_parent_idx:
+        return sel_ids, sel_scores, parent
+    return sel_ids, sel_scores

@@ -1,9 +1,8 @@
 """Composite networks built from layers (counterpart of
 paddle_tpu/nets.py:12-164; reference python/paddle/fluid/nets.py):
-`simple_img_conv_pool`, `img_conv_group` (the VGG block), `glu` and
-`scaled_dot_product_attention`, the reference's multi-head attention
-from primitive ops.  `sequence_conv_pool` waits for the sequence family
-(ROADMAP A item 6)."""
+`simple_img_conv_pool`, `img_conv_group` (the VGG block),
+`sequence_conv_pool`, `glu` and `scaled_dot_product_attention`, the
+reference's multi-head attention from primitive ops."""
 
 from __future__ import annotations
 
@@ -63,6 +62,21 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
                 tmp = layers.dropout(x=tmp, dropout_prob=drop_rate)
     return layers.pool2d(input=tmp, pool_size=pool_size, pool_type=pool_type,
                          pool_stride=pool_stride)
+
+
+def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
+                       act="sigmoid", pool_type="max", seq_len=None):
+    """A context conv over time, then a pool over time (the text-conv
+    block of understand_sentiment); `seq_len` carries the lengths."""
+    conv_out = layers.sequence_conv(
+        input=input,
+        num_filters=num_filters,
+        filter_size=filter_size,
+        seq_len=seq_len,
+        param_attr=param_attr,
+        act=act,
+    )
+    return layers.sequence_pool(conv_out, pool_type, seq_len=seq_len)
 
 
 def glu(input, dim=-1):

@@ -18,6 +18,7 @@ from . import attention_ops
 from . import loss_ops
 from . import optimizer_ops
 from . import misc_ops
+from . import control_flow_ops
 from . import beam_search_ops
 from . import rnn_ops
 from . import io_ops

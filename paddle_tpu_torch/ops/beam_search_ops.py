@@ -1,24 +1,34 @@
-"""One step of beam search (paddle_tpu/ops/beam_search_ops.py:107-191).
+"""Beam search: the fused decode over a decoder sub-block
+(`beam_search_decode`, paddle_tpu/ops/beam_search_ops.py:24-104) and one
+step of it (`beam_search`, :107-191).
 
-The dense form of the reference's LoD op: the source sentence is a batch
-dim.  pre_ids [B, beam], pre_scores [B, beam], candidate ids [B, beam, K]
-and their accumulated scores [B, beam, K] -> selected_ids,
-selected_scores and parent_idx [B, beam] (the source beam of each
-selection, which reorders the decode states).  A finished beam (pre_id ==
-end_id) offers exactly one candidate, (end_id, pre_score); the top
-beam_size of the pooled candidates survive per row, ties going to the
-lower pooled index as `jax.lax.top_k` breaks them; a row whose beams all
-finished stays as it was.  The first step pools beam 0 alone, by attr
-`is_first_step` or by the bool input IsFirstStep.
+`beam_search_decode` runs the whole decode as one op: a loop over
+max_len steps (the JAX package's lax.scan), unrolled, with a fixed
+[B, K, max_len + 1] token buffer, so that a captured segment replays it
+without a host read.  Each step replays the decoder sub-block
+(control_flow_ops.replay_ops) on the previous tokens [B*K] and the
+recurrent states, takes the log-softmax of its logits, lets a dead beam
+extend only with eos at no cost, keeps the top K of the K*V totals a row
+(`top_k`: ties to the lower index, as lax.top_k), and reorders the
+states by each survivor's source beam.
 
-`beam_search_decode`, the JAX package's fused stateful op over a decoder
-sub-block, is not ported yet (ROADMAP A1).
+`beam_search` is the dense form of the reference's LoD op: the source
+sentence is a batch dim.  pre_ids [B, beam], pre_scores [B, beam],
+candidate ids [B, beam, K] and their accumulated scores [B, beam, K] ->
+selected_ids, selected_scores and parent_idx [B, beam] (the source beam
+of each selection, which reorders the decode states).  A finished beam
+(pre_id == end_id) offers exactly one candidate, (end_id, pre_score); the
+top beam_size of the pooled candidates survive per row, ties going to
+the lower pooled index as `jax.lax.top_k` breaks them; a row whose beams
+all finished stays as it was.  The first step pools beam 0 alone, by
+attr `is_first_step` or by the bool input IsFirstStep.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .control_flow_ops import private, replay_ops
 from .registry import register_op
 
 _NEG = -1e30
@@ -29,6 +39,72 @@ def top_k(x, k):
     lower index first."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+@register_op("beam_search_decode", no_grad=True, stateful=True)
+def beam_search_decode(ctx):
+    """attrs: sub_block, ids_name (the sub-block's previous ids [B*K]),
+    logits_name (its logits [B*K, V]), cap_names, state_names and
+    state_update_names (the recurrent states before and after a step),
+    beam_size K, max_len, bos_id, eos_id, batch_size B.  inputs: Init
+    (the states, tiled to [B*K, ...]), Cap (the outer vars the block
+    reads).  outputs: Out [B, K, max_len] token ids, Scores [B, K]."""
+    block = ctx.attr("sub_block")
+    ids_name = ctx.attr("ids_name")
+    logits_name = ctx.attr("logits_name")
+    state_names = list(ctx.attr("state_names", []) or [])
+    upd_names = list(ctx.attr("state_update_names", []) or [])
+    k = int(ctx.attr("beam_size"))
+    max_len = int(ctx.attr("max_len"))
+    bos = int(ctx.attr("bos_id", 0))
+    eos = int(ctx.attr("eos_id", 1))
+    b = int(ctx.attr("batch_size", 1))
+    cap_env = dict(zip(ctx.attr("cap_names", []) or [], ctx.inputs("Cap")))
+    states = private(block, ctx.inputs("Init"))
+    dev = next((t.device for t in list(cap_env.values()) + states
+                if t is not None), ctx.device)
+
+    def reorder(state, src):
+        s = state.reshape((b, k) + tuple(state.shape[1:]))
+        idx = src.reshape((b, k) + (1,) * (s.dim() - 2)).expand(s.shape)
+        return torch.gather(s, 1, idx).reshape(state.shape)
+
+    tokens = torch.full((b, k, max_len + 1), bos, dtype=torch.int64,
+                        device=dev)
+    # beam 0 starts live, the others at -1e30 so that step 1 fans out
+    scores = torch.cat([torch.zeros((b, 1), device=dev),
+                        torch.full((b, k - 1), _NEG, device=dev)], dim=1)
+    alive = torch.ones((b, k), dtype=torch.bool, device=dev)
+    pos = torch.arange(max_len + 1, device=dev)
+    eos_only = None
+    for t in range(max_len):
+        env = dict(cap_env)
+        env[ids_name] = tokens[:, :, t].reshape(b * k)
+        env.update(zip(state_names, states))
+        env = replay_ops(block.ops, env, ctx._rng, dev)
+        logp = torch.log_softmax(env[logits_name].float(), dim=-1)
+        logp = logp.reshape(b, k, -1)
+        v = logp.shape[-1]
+        if eos_only is None:
+            # a dead beam extends with eos alone, at no cost (with every
+            # token -inf when eos lies outside the vocabulary); built on
+            # the device, as a capture allows no copy from the host
+            eos_only = torch.where(
+                torch.arange(v, device=dev) == eos,
+                torch.zeros((), device=dev),
+                torch.full((), float("-inf"), device=dev))
+        logp = torch.where(alive[..., None], logp, eos_only)
+        total = scores[..., None] + logp
+        scores, top_idx = top_k(total.reshape(b, k * v), k)
+        src = torch.div(top_idx, v, rounding_mode="floor")
+        new_tok = top_idx % v
+        gathered = torch.gather(
+            tokens, 1, src[..., None].expand(b, k, max_len + 1))
+        tokens = torch.where(pos == t + 1, new_tok[..., None], gathered)
+        alive = torch.gather(alive, 1, src) & (new_tok != eos)
+        states = [reorder(env[n], src) for n in upd_names]
+    ctx.set_output("Out", tokens[..., 1:])
+    ctx.set_output("Scores", scores)
 
 
 @register_op("beam_search", no_grad=True)

@@ -69,7 +69,7 @@ def gather_beams(cache, parent, batch, beam):
     return cache.index_select(0, idx.reshape(-1))
 
 
-@register_op("kv_cache_append")
+@register_op("kv_cache_append", in_place=True)
 def kv_cache_append(ctx):
     """CacheK/CacheV [B, L, ...] + K/V [B, T, ...] + Lengths [B] ->
     OutK/OutV: both caches with the new rows written at each row's
@@ -143,7 +143,7 @@ def append_paged(blocks, new, table, lengths):
     return blocks
 
 
-@register_op("kv_cache_append_paged", no_grad=True)
+@register_op("kv_cache_append_paged", no_grad=True, in_place=True)
 def kv_cache_append_paged(ctx):
     """KBlocks/VBlocks [N, block_size, ...] + K/V [B, T, ...] +
     BlockTable [B, M] + Lengths [B] -> OutK/OutV: both pools with the new

@@ -50,6 +50,10 @@ class OpInfo:
     # runs on the host between the jit path's segments (feed/fetch, I/O,
     # print, host-shaped ops), never inside a captured segment
     no_jit: bool = False
+    # writes an input tensor in place and returns it as its output (the
+    # KV cache appends); a sub-block op copies the states it hands such a
+    # block (control_flow_ops.private)
+    in_place: bool = False
     # raised when backward has to differentiate through a no_grad op
     # (None: the op silently contributes nothing)
     grad_error: Optional[str] = None
@@ -118,7 +122,7 @@ class OpContext:
 
 
 def register_op(op_type, *, stateful=False, no_grad=False, no_jit=False,
-                grad_error=None, infer_shape=None):
+                in_place=False, grad_error=None, infer_shape=None):
     """Register the forward lowering for `op_type`."""
 
     def deco(fn):
@@ -126,7 +130,7 @@ def register_op(op_type, *, stateful=False, no_grad=False, no_jit=False,
             raise ValueError(f"op {op_type} registered twice")
         OPS[op_type] = OpInfo(type=op_type, forward=fn, stateful=stateful,
                               no_grad=no_grad, no_jit=no_jit,
-                              grad_error=grad_error,
+                              in_place=in_place, grad_error=grad_error,
                               infer_shape=infer_shape)
         return fn
 

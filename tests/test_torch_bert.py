@@ -465,9 +465,10 @@ def _jax_train(s, mask, use_amp, steps, dropout=0.0):
         grads = [g.name for _, g in pg]
         losses, first = [], None
         for step in range(steps):
+            # every step fetches the grads: one fetch list is one compiled
+            # plan, where a shorter list after step 1 compiled the step again
             outs = exe.run(main, feed=_feed(s, mask), scope=scope,
-                           fetch_list=[loss.name] + (grads if not step
-                                                     else []))
+                           fetch_list=[loss.name] + grads)
             losses.append(float(np.asarray(outs[0], np.float32).ravel()[0]))
             if not step:
                 first = {n: np.asarray(o, np.float32)

@@ -15,7 +15,10 @@ their eager runs (bound and copied arguments, a moved pool, the launch
 counts a replay adds) and a captured training step against the
 interpreter's; then the recurrent slice: #6 at the GRU translator's
 decode step (one head of 256 over 24 keys, batch 8 and 32) and a
-captured stacked-LSTM training step against the interpreter's.
+captured stacked-LSTM training step against the interpreter's; last,
+control flow: a `while` training step captured (a trip bound) or run as
+an eager segment (none), and a beam decode whose captured body launches
+#6 once a step.
 Tolerances: max abs error 1e-4 in float32 (the kernels sum in
 another order than cuBLAS) and 2e-2 in bfloat16 (one bfloat16 step of an
 output in [2, 4); the forwards round P to bfloat16 before P V as the
@@ -2235,3 +2238,117 @@ def test_primitive_encoder_on_the_card_equals_the_cpu(card):
     eager = _encoder_losses(card, start, cfg, feeds, mode="interpret")
     for (gl, _), (el, _) in zip(got, eager):
         np.testing.assert_array_equal(gl, el)
+
+
+# ------------------------------------ control flow inside captured segments
+
+
+def _while_step(bounded):
+    """A training step through a `while`: acc = tanh(acc @ w) 6 times;
+    `bounded`: max_steps inferred from the i < const pattern."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import layers as L
+
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 5
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        x = L.data(name="x", shape=[64], dtype="float32")
+        w = L.create_parameter(shape=[64, 64], dtype="float32", name="w")
+        acc = L.mul(x, w)
+        i = L.fill_constant(shape=[1], dtype="int64", value=0)
+        limit = L.fill_constant(shape=[1], dtype="int64", value=6)
+        if not bounded:
+            limit = L.elementwise_add(
+                limit, L.fill_constant(shape=[1], dtype="int64", value=0))
+        cond = L.less_than(x=i, y=limit)
+        with L.While(cond=cond).block():
+            L.assign(L.tanh(L.mul(acc, w)), acc)
+            L.increment(i, in_place=True)
+            L.less_than(x=i, y=limit, cond=cond)
+        loss = L.mean(acc)
+        pt.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    return main, startup, loss
+
+
+@pytest.mark.parametrize("bounded", [True, False])
+def test_while_step_on_the_card(card, bounded):
+    """A bounded loop's step is captured (its trips unrolled) and equals the
+    interpreter's bitwise; an unbounded loop's segment runs eagerly, one
+    `eager_segments` a run, never captured; both equal the CPU path's
+    within 1e-5."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import cuda_graph
+
+    main, startup, loss = _while_step(bounded)
+    scope = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=scope)
+    start = {v.name: scope.find_var(v.name).numpy()
+             for v in main.list_vars() if v.persistable}
+    feed = {"x": np.random.RandomState(2).rand(16, 64).astype(np.float32)
+            / 64}
+    runs = {}
+    for label, place, mode in (("jit", card, "jit"),
+                               ("interpret", card, "interpret"),
+                               ("cpu", torch.device("cpu"), "jit")):
+        s = pt.Scope()
+        for name, value in start.items():
+            s.set_var(name, torch.as_tensor(value, device=place))
+        exe = pt.Executor(place, mode=mode)
+        cuda_graph.reset_stats()
+        runs[label] = [exe.run(main, feed=feed, fetch_list=[loss, "w"],
+                               scope=s) for _ in range(3)]
+        if label == "jit":
+            stats = dict(cuda_graph.STATS)
+    if bounded:
+        assert stats["captures"] == 1 and stats["eager_segments"] == 0
+    else:
+        assert stats["captures"] == 0 and stats["eager_segments"] == 3
+    for g, e, c in zip(runs["jit"], runs["interpret"], runs["cpu"]):
+        for a, b, ref in zip(g, e, c):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_allclose(a, ref, rtol=0, atol=1e-5)
+
+
+def test_beam_decode_captured_launches_flash_decode_each_step(card):
+    """beam_search_decode over a one-layer cached-attention LM (2 heads of
+    64, 16 cache slots, batch 2 x beam 3, 8 steps) on the jit path: the
+    gate's flash_decode once a step, on warm-up, capture and replay
+    alike; the replay's ids and scores equal the interpreter's."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import layers as L
+
+    d, v, k, b, n = 128, 100, 3, 2, 8
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 7
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        cache0 = L.fill_constant(shape=[b * k, 16, d], value=0.0,
+                                 dtype="float32")
+        len0 = L.fill_constant(shape=[b * k], value=0, dtype="int64")
+        dec = L.BeamSearchDecoder(beam_size=k, max_len=n, bos_id=0,
+                                  eos_id=1, batch_size=b)
+        with dec.block():
+            x = L.reshape(L.embedding(dec.prev_ids(), size=[v, d]),
+                          shape=[-1, 1, d])
+            ck, cv, ln = (dec.memory(cache0), dec.memory(cache0),
+                          dec.memory(len0))
+            q, kk, vv = (L.fc(input=x, size=d, num_flatten_dims=2,
+                              bias_attr=False) for _ in range(3))
+            ok, ov = L.kv_cache_append(ck, cv, kk, vv, ln)
+            nl = L.increment(ln, value=1, in_place=False)
+            att = L.fused_attention(q, ok, ov, 2, causal=False, seq_len=nl)
+            dec.set_logits(L.fc(input=L.reshape(att, shape=[-1, d]),
+                                size=v, bias_attr=False))
+            for m, new in ((ck, ok), (cv, ov), (ln, nl)):
+                dec.update_memory(m, new)
+        ids, scores = dec()
+    scope = pt.Scope()
+    exe = pt.Executor(card)
+    exe.run(startup, scope=scope)
+    ref = pt.Executor(card, mode="interpret").run(
+        main, fetch_list=[ids, scores], scope=scope)
+    fd.launches = 0
+    for _ in range(3):      # warm-up, capture, replay
+        got = exe.run(main, fetch_list=[ids, scores], scope=scope)
+    assert fd.launches == 3 * n
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[1], ref[1])

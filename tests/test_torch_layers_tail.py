@@ -167,16 +167,11 @@ def test_bilinear_initializer_values_are_the_jax_packages():
 
 
 # the JAX package's public builders of the families still to port
-# (ROADMAP A items 6-8): control flow and LoD, the sequence family and
-# the recurrent and CRF/CTC tail, detection, MoE, the reader
+# (ROADMAP A items 6-8): Print, the CRF/CTC tail, detection, MoE, the
+# reader
 STILL_TO_PORT = {
-    "BeamSearchDecoder", "DynamicRNN", "IfElse", "Print", "StaticRNN",
-    "While", "beam_search", "crf_decoding", "edit_distance", "hsigmoid",
-    "linear_chain_crf", "nce", "warpctc", "sequence_concat",
-    "sequence_conv", "sequence_enumerate", "sequence_erase",
-    "sequence_expand", "sequence_expand_as", "sequence_first_step",
-    "sequence_mask", "sequence_pad", "sequence_reverse", "sequence_slice",
-    "sequence_softmax", "sequence_unpad", "anchor_generator",
+    "Print", "crf_decoding", "edit_distance", "hsigmoid",
+    "linear_chain_crf", "nce", "warpctc", "anchor_generator",
     "bipartite_match", "box_coder", "detection", "detection_map",
     "detection_output", "generate_proposal_labels", "generate_proposals",
     "iou_similarity", "mine_hard_examples", "multiclass_nms", "prior_box",
@@ -203,7 +198,7 @@ def test_the_layers_namespace_is_the_jax_packages_but_items_6_to_8():
 
 
 def test_the_nets_are_the_jax_packages_but_sequence_conv_pool():
-    assert _public(jnets) - _public(pt.nets) == {"sequence_conv_pool"}
+    assert _public(jnets) - _public(pt.nets) == set()
 
 
 # ------------------------------------------------- the primitive encoder

@@ -10,23 +10,12 @@ import pytest
 from paddle_tpu.ops import registry as jreg
 from paddle_tpu_torch.ops import registry as preg
 
-_ITEM_6 = "ROADMAP A item 6: control flow, LoD and the sequence family"
+_ITEM_6 = "ROADMAP A item 6b: the recurrent tail and the sequence losses"
 _ITEM_7 = "ROADMAP A item 7: multi-device and MoE"
 _ITEM_8 = "ROADMAP A item 8: the host-side tiers (detection, io, the " \
     "distributed ops)"
 
 STILL_TO_PORT = {
-    # control flow, beam search's decode, LoD
-    "while": _ITEM_6, "conditional_block": _ITEM_6, "static_rnn": _ITEM_6,
-    "beam_search_decode": _ITEM_6, "lod_reset": _ITEM_6,
-    # the sequence family
-    "sequence_concat": _ITEM_6, "sequence_conv": _ITEM_6,
-    "sequence_enumerate": _ITEM_6, "sequence_erase": _ITEM_6,
-    "sequence_expand": _ITEM_6, "sequence_expand_as": _ITEM_6,
-    "sequence_mask": _ITEM_6, "sequence_pad": _ITEM_6,
-    "sequence_reshape": _ITEM_6, "sequence_reverse": _ITEM_6,
-    "sequence_scatter": _ITEM_6, "sequence_slice": _ITEM_6,
-    "sequence_softmax": _ITEM_6, "sequence_unpad": _ITEM_6,
     # the recurrent tail
     "gru": _ITEM_6, "gru_unit": _ITEM_6, "lstm": _ITEM_6,
     "lstm_unit": _ITEM_6, "lstmp": _ITEM_6, "fusion_lstm": _ITEM_6,
@@ -70,6 +59,6 @@ def test_each_jax_op_type_is_ported_or_named(op_type):
 
 def test_the_counts():
     assert len(jreg.OPS) == 274
-    assert len(STILL_TO_PORT) == 59
-    assert len(preg.OPS) == 215
+    assert len(STILL_TO_PORT) == 40
+    assert len(preg.OPS) == 234
     assert set(STILL_TO_PORT) <= set(jreg.OPS)

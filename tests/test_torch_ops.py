@@ -231,9 +231,11 @@ def test_the_slice_registers_exactly_the_decode_op_types():
     optimizer tail's ten update ops, and the BERT pretraining slice's
     fused loss head, recompute barrier, clip family, sign, learning-rate
     schedule and elementwise max/min, the CTR slice's
-    sigmoid_cross_entropy_with_logits, and the dense op tails' 83
-    (tensor 26, math 6, random 4, loss 12, misc 19, nn 16): 215 op
-    types."""
+    sigmoid_cross_entropy_with_logits, the dense op tails' 83
+    (tensor 26, math 6, random 4, loss 12, misc 19, nn 16), and control
+    flow and the sequence family's 19 (while, conditional_block,
+    static_rnn, beam_search_decode, lod_reset and 14 sequence ops): 234
+    op types."""
     assert sorted(preg.OPS) == sorted([
         "assign_value", "elementwise_add", "fill_constant", "fused_attention",
         "gather", "increment", "kv_cache_append", "layer_norm",
@@ -301,5 +303,12 @@ def test_the_slice_registers_exactly_the_decode_op_types():
         "depthwise_conv2d_transpose", "pool3d", "max_pool2d_with_index",
         "max_pool3d_with_index", "unpool", "spp", "group_norm",
         "bilinear_interp", "nearest_interp", "im2sequence", "norm",
-        "label_smooth", "cos_sim"])
-    assert len(preg.OPS) == 215
+        "label_smooth", "cos_sim",
+        # control flow and the sequence family
+        "while", "conditional_block", "static_rnn", "beam_search_decode",
+        "lod_reset", "sequence_conv", "sequence_softmax", "sequence_expand",
+        "sequence_expand_as", "sequence_reverse", "sequence_slice",
+        "sequence_mask", "sequence_pad", "sequence_unpad",
+        "sequence_concat", "sequence_enumerate", "sequence_erase",
+        "sequence_reshape", "sequence_scatter"])
+    assert len(preg.OPS) == 234

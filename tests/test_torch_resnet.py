@@ -528,8 +528,9 @@ def _jax_train(net, use_amp, steps):
     feed = _jax_feed(main, _feed(net, _BATCH[net]))
     losses, first = [], None
     for step in range(steps):
+        # every step fetches the grads: one fetch list, one compiled plan
         outs = exe.run(main, feed=feed, scope=scope,
-                       fetch_list=[loss.name] + (grads if not step else []))
+                       fetch_list=[loss.name] + grads)
         losses.append(float(np.asarray(outs[0], np.float32).ravel()[0]))
         if not step:
             first = {n: np.asarray(o, np.float32)

@@ -93,8 +93,9 @@ def _jax_train(use_amp, steps):
     grads = [g.name for _, g in pg]
     losses, first = [], None
     for step, feed in enumerate(_feeds()[:steps]):
+        # every step fetches the grads: one fetch list, one compiled plan
         outs = exe.run(main, feed=feed, scope=scope,
-                       fetch_list=[loss.name] + (grads if not step else []))
+                       fetch_list=[loss.name] + grads)
         losses.append(float(np.asarray(outs[0], np.float32).ravel()[0]))
         if not step:
             first = {n: np.asarray(o, np.float32)

@@ -102,9 +102,10 @@ def _jax_train(use_amp, steps, small=SMALL, src_lens=SRC_LENS):
         grads = [g.name for _, g in pg]
         losses, first = [], None
         for step in range(steps):
+            # every step fetches the grads: one fetch list, one compiled
+            # plan
             outs = exe.run(main, feed=_feed(small, src_lens), scope=scope,
-                           fetch_list=[loss.name] + (grads if not step
-                                                     else []))
+                           fetch_list=[loss.name] + grads)
             losses.append(float(np.asarray(outs[0], np.float32).ravel()[0]))
             if not step:
                 first = {n: np.asarray(o, np.float32)

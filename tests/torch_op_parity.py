@@ -179,3 +179,71 @@ def assert_grads(op_type, inputs, attrs, diff, outs, seed=0,
         np.testing.assert_allclose(g, w, rtol=rtol, atol=atol,
                                    err_msg=f"{op_type}: {name}")
     return got
+
+
+# ------------------------------------------- whole programs in both packages
+
+
+def normalized_ints(prog):
+    """`_normalized`, with an attr naming an integer dtype (cast's
+    in_dtype) read as one kind too."""
+    d = _normalized(prog)
+    for blk in d["blocks"]:
+        for op in blk["ops"]:
+            for k, v in op["attrs"].items():
+                if v in ("int32", "int64"):
+                    op["attrs"][k] = "int"
+    return d
+
+
+def build_program(pkg, guard, fn, seed=13):
+    """(main, startup, fn(pkg)): `fn` builds into fresh programs."""
+    main, startup = pkg.Program(), pkg.Program()
+    main.random_seed = startup.random_seed = seed
+    with pkg.program_guard(main, startup), guard():
+        out = fn(pkg)
+    return main, startup, out
+
+
+def _var_name(v):
+    return v if isinstance(v, str) else v.name
+
+
+def run_programs_both(fn, feed, fetch_of, steps=1, seed=13, mode=None):
+    """Build `fn` in both packages, check the program dicts (sub-blocks
+    included), run the JAX startup, carry its persistables into the port
+    (`convert.load_params`) and run both `steps` times -> (JAX outputs,
+    port outputs), a list of arrays a step.  `fetch_of(fn's result)`
+    names what to fetch; `mode` is the port Executor's."""
+    from paddle_tpu_torch import convert
+
+    (jm, js, jo), (pm, ps, po) = (build_program(pkg, g, fn, seed)
+                                  for pkg, g in BOTH)
+    assert normalized_ints(pm) == normalized_ints(jm)
+    jscope, pscope = JScope(), pt.Scope()
+    jexe = fluid.Executor(fluid.CPUPlace())
+    jexe.run(js, scope=jscope)
+    params = {v.name: np.asarray(jscope.find_var(v.name))
+              for v in js.list_vars() if v.persistable
+              and jscope.find_var(v.name) is not None}
+    convert.load_params(pscope, params, pt.CPUPlace(), [pm])
+    pexe = pt.Executor(pt.CPUPlace(), mode=mode)
+    jf = [_var_name(v) for v in fetch_of(jo)]
+    pf = [_var_name(v) for v in fetch_of(po)]
+    want, got = [], []
+    for _ in range(steps):
+        want.append([np.asarray(a) for a in jexe.run(
+            jm, feed=feed, fetch_list=jf, scope=jscope)])
+        got.append(pexe.run(pm, feed=feed, fetch_list=pf, scope=pscope))
+    return want, got
+
+
+def assert_steps_close(got, want, atol=ATOL, rtol=0.0):
+    """Every step's every output: the same shape, within atol + rtol."""
+    for step_g, step_w in zip(got, want, strict=True):
+        for g, w in zip(step_g, step_w, strict=True):
+            assert g.shape == w.shape, (g.shape, w.shape)
+            np.testing.assert_allclose(g.astype(np.float64),
+                                       w.astype(np.float64), rtol=rtol,
+                                       atol=atol)
+
