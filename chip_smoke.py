@@ -464,7 +464,31 @@ catches its own failure:
      SEQ/ops: the 15 sequence ops of the slice at [64, 128, 256], forward
      and grad, card vs CPU within 1e-4 of max(1, the largest), integers
      equal, jit = interpret;
- 19. one {"kernels": [...]} line, the card's name and power limit, and
+ 19. the recurrent tail and the sequence losses, no kernel launched.
+     SRL/train: the reference label-semantic-roles chapter (eight
+     embedded feature slots, the word table `emb` fixed and seeded,
+     Fluid's dynamic_lstm as fc + the raw `lstm` op with SeqLen and
+     peepholes, depth 8 alternating, hidden_dim 512, a 59-wide emission,
+     linear_chain_crf with crfw at learning rate 1e-3, SGD 0.01) at
+     conll05's dictionaries (44,068 words, 3,162 predicates), batch 10,
+     lengths 4-29 padded to 30: one captured graph a step, no eager
+     segment; 3 steps card vs CPU (losses rtol 1e-3), 3 jit = interpret
+     bitwise, 10 timed (examples/s, live tokens/s), 2 profiled (card
+     busy, idle share), peak memory.  SRL/decode: crf_decoding with the
+     trained weights, captured, its ids equal to the CPU's and to a
+     float64 Viterbi on every row whose step margins exceed 1e-4; the
+     decode graph saved and served by a Predictor on the card, its paths
+     the in-process decode's.  RNN/fuse: the InferenceTranspiler's four
+     RNN fusions (fc -> lstm, fc -> gru, sequence_conv + bias + relu, the
+     attention-LSTM static_rnn) at those widths: output unchanged within
+     1e-5 of max(1, |x|), the op types the JAX package leaves (recorded
+     on the CPU, RF_JAX_TYPES), ms a replay before and after.  SEQ/tail:
+     the slice's 17 op types in groups, forward and grads, card vs CPU
+     within 1e-4 of max(1, the largest), integers equal, jit = interpret
+     bitwise, ms a replay; nce's negatives by their mean and class-0
+     share (5 standard errors), its cost and grads the CPU's pricing of
+     the card's samples;
+ 20. one {"kernels": [...]} line, the card's name and power limit, and
      last the {"ok": true, "device": ...} line.
 
 Exits non-zero, printing no result, when there is no CUDA device or when
@@ -10136,10 +10160,707 @@ def drive_control_flow(card, device, lap=lambda phase: None):
     return runs, launches
 
 
-def _no_launches(phases):
+# ------------------------- [19] the recurrent tail and the sequence losses
+
+# SRL/train: the reference label-semantic-roles chapter's db_lstm (Fluid's
+# dynamic_lstm: an fc, then the raw `lstm` op with SeqLen and peepholes,
+# candidate relu, gate and cell sigmoid) at the chapter's widths: word_dim
+# 32, mark_dim 5, hidden_dim 512 (the lstm's 4 x 128 gates), depth 8, a
+# 59-wide two-fc emission; conll05's dictionaries
+# (paddle_tpu/dataset/conll05.py:12-15); the chapter's batch 10, lengths
+# 4-29 as conll05 draws them, padded to T 30
+SR_WORD, SR_PRED, SR_MARK, SR_LABEL = 44068, 3162, 2, 59
+SR_WORD_DIM, SR_MARK_DIM, SR_HIDDEN, SR_DEPTH = 32, 5, 512, 8
+SR_T, SR_BATCH = 30, 10
+SR_LR, SR_CRF_LR = 0.01, 1e-3     # SGD; crfw's ParamAttr learning_rate
+SR_PARITY_STEPS, SR_STEPS, SR_PROFILED = 3, 10, 2
+SR_RTOL = 1e-3          # card vs CPU losses
+SR_MARGIN = 1e-4        # a Viterbi step margin below which paths may part
+SR_DECODE_REPS = 5
+SR_SLOTS = ("word_data", "ctx_n2_data", "ctx_n1_data", "ctx_0_data",
+            "ctx_p1_data", "ctx_p2_data", "verb_data", "mark_data")
+# RNN/fuse: the four fusions on programs at SRL/train's widths
+RF_TOL = 1e-5           # transpiled vs not, of max(1, |x|)
+# the op types the JAX package's InferenceTranspiler leaves on the same
+# programs (tests/test_torch_rnn_fuse_passes.py records them on the CPU
+# from rnn_fuse_programs and holds this table to them)
+RF_JAX_TYPES = {
+    "fc_lstm": ["fusion_lstm"],
+    "fc_gru": ["fusion_gru"],
+    "seqconv": ["fusion_seqconv_eltadd_relu"],
+    "attention_lstm": ["fill_constant_batch_size_like",
+                       "fill_constant_batch_size_like", "attention_lstm"],
+}
+# SEQ/tail: the 17 op types of the slice on the card
+ST_B, ST_T, ST_M, ST_D = 64, 32, 256, 128
+ST_TAGS, ST_CLASSES, ST_NEG = SR_LABEL, SR_WORD, 40
+SEQ_TAIL_OPS = (
+    "gru_unit", "gru", "lstm_unit", "lstm", "lstmp", "fusion_lstm",
+    "fusion_gru", "attention_lstm", "fused_embedding_fc_lstm",
+    "fusion_seqconv_eltadd_relu", "fusion_seqexpand_concat_fc",
+    "linear_chain_crf", "crf_decoding", "warpctc", "edit_distance", "nce",
+    "hierarchical_sigmoid")
+
+
+def _layer_helper(name):
+    from paddle_tpu_torch.layer_helper import LayerHelper
+
+    return LayerHelper(name)
+
+
+def srl_dynamic_lstm(x, size, seq_len, is_reverse=False):
+    """Fluid's dynamic_lstm on a projected [B, T, size] input: Weight
+    [size/4, size], Bias [1, 7 * size/4] (use_peepholes), the chapter's
+    activations."""
+    helper = _layer_helper("lstm")
+    d = size // 4
+    w = helper.create_parameter(attr=None, shape=[d, size], dtype="float32")
+    b = helper.create_parameter(attr=None, shape=[1, 7 * d],
+                                dtype="float32", is_bias=True)
+    hidden, cell = (helper.create_variable_for_type_inference("float32")
+                    for _ in range(2))
+    helper.append_op(
+        type="lstm",
+        inputs={"Input": [x], "Weight": [w], "Bias": [b],
+                "SeqLen": [seq_len]},
+        outputs={"Hidden": [hidden], "Cell": [cell]},
+        attrs={"use_peepholes": True, "is_reverse": is_reverse,
+               "gate_activation": "sigmoid", "cell_activation": "sigmoid",
+               "candidate_activation": "relu"})
+    return hidden
+
+
+def srl_program(word=SR_WORD, pred=SR_PRED, mark=SR_MARK, labels=SR_LABEL,
+                word_dim=SR_WORD_DIM, mark_dim=SR_MARK_DIM,
+                hidden=SR_HIDDEN, depth=SR_DEPTH, t=SR_T):
+    """The chapter's training program (db_lstm, linear_chain_crf, SGD) with
+    its crf_decoding -> (main, startup, loss, decoded, emission)."""
+    from paddle_tpu_torch import (ParamAttr, Program, layers, optimizer,
+                                  program_guard, unique_name)
+
+    L = layers
+    main, startup = Program(), Program()
+    main.random_seed = startup.random_seed = SEED
+    with program_guard(main, startup), unique_name.guard():
+        feats = {n: L.data(name=n, shape=[t], dtype="int64")
+                 for n in SR_SLOTS}
+        seq_len = L.data(name="seq_len", shape=[], dtype="int64")
+        embs = [L.embedding(input=feats[n], size=[word, word_dim],
+                            param_attr=ParamAttr(name="emb",
+                                                 trainable=False))
+                for n in SR_SLOTS[:6]]
+        embs.append(L.embedding(input=feats["verb_data"],
+                                size=[pred, word_dim], param_attr="vemb"))
+        embs.append(L.embedding(input=feats["mark_data"],
+                                size=[mark, mark_dim]))
+        hidden_0 = L.sums([L.fc(input=e, size=hidden, act="tanh",
+                                num_flatten_dims=2) for e in embs])
+        inputs = [hidden_0, srl_dynamic_lstm(hidden_0, hidden, seq_len)]
+        for i in range(1, depth):
+            mix = L.sums([L.fc(input=x, size=hidden, act="tanh",
+                               num_flatten_dims=2) for x in inputs])
+            inputs = [mix, srl_dynamic_lstm(mix, hidden, seq_len,
+                                            is_reverse=i % 2 == 1)]
+        emission = L.sums([L.fc(input=x, size=labels, act="tanh",
+                                num_flatten_dims=2) for x in inputs])
+        target = L.data(name="target", shape=[t], dtype="int64")
+        loss = L.mean(L.linear_chain_crf(
+            input=emission, label=target, seq_len=seq_len,
+            param_attr=ParamAttr(name="crfw", learning_rate=SR_CRF_LR)))
+        optimizer.SGD(learning_rate=SR_LR).minimize(loss)
+        decoded = L.crf_decoding(input=emission, param_attr="crfw",
+                                 seq_len=seq_len)
+    return main, startup, loss, decoded, emission
+
+
+def srl_batch(seed, batch=SR_BATCH, t=SR_T, word=SR_WORD, pred=SR_PRED,
+              labels=SR_LABEL):
+    """conll05's synthetic draw (paddle_tpu/dataset/conll05.py:32-50) of
+    `batch` sentences, padded to t: words, the five context words and the
+    predicate each repeated over the sentence, the one-hot mark, labels =
+    word % 59."""
+    rng = np.random.RandomState(seed)
+    feed = {n: np.zeros((batch, t), np.int64) for n in SR_SLOTS}
+    feed["target"] = np.zeros((batch, t), np.int64)
+    lens = np.zeros(batch, np.int64)
+    for i in range(batch):
+        n = int(rng.randint(4, min(30, t + 1)))
+        lens[i] = n
+        words = rng.randint(0, word, n)
+        feed["word_data"][i, :n] = words
+        for slot in SR_SLOTS[1:6]:
+            feed[slot][i, :n] = rng.randint(0, word)
+        feed["verb_data"][i, :n] = rng.randint(0, pred)
+        feed["mark_data"][i, int(rng.randint(0, n))] = 1
+        feed["target"][i, :n] = words % labels
+    feed["seq_len"] = lens
+    return feed
+
+
+def srl_emb(word=SR_WORD, dim=SR_WORD_DIM):
+    """The chapter's pretrained table, here a seeded uniform(-0.1, 0.1)."""
+    return np.random.RandomState(SEED + 190).uniform(
+        -0.1, 0.1, (word, dim)).astype(np.float32)
+
+
+def viterbi_margins(em, trans, lens):
+    """float64 Viterbi over em [B, T, D] -> (paths [B, T], each row's
+    smallest margin between the best and the second-best choice among
+    the choices its path took: the last tag and each backpointer read)."""
+    em, trans = em.astype(np.float64), trans.astype(np.float64)
+    b, t, d = em.shape
+    start, end, w = trans[0], trans[1], trans[2:]
+    paths = np.zeros((b, t), np.int64)
+    margins = np.full(b, np.inf)
+
+    def gaps(v, axis):
+        s = np.sort(v, axis=axis)
+        return np.take(s, -1, axis=axis) - np.take(s, -2, axis=axis)
+
+    for i in range(b):
+        n = int(lens[i])
+        if n == 0:
+            continue
+        delta, back, gap = start + em[i, 0], [], []
+        for k in range(1, n):
+            cand = delta[:, None] + w           # [from, to]
+            back.append(cand.argmax(0))
+            gap.append(gaps(cand, 0))
+            delta = cand.max(0) + em[i, k]
+        final = delta + end
+        margins[i] = gaps(final, 0)
+        tag = int(final.argmax())
+        for k in range(n - 1, -1, -1):
+            paths[i, k] = tag
+            if k:
+                margins[i] = min(margins[i], gap[k - 1][tag])
+                tag = int(back[k - 1][tag])
+    return paths, margins
+
+
+def phase_srl(card, device):
+    """SRL/train: the chapter at full width on the card's jit path, one
+    captured graph a step: SR_PARITY_STEPS steps card vs CPU from the same
+    weights (losses within SR_RTOL), as many jit vs interpret (bitwise),
+    SR_STEPS timed (examples/s, live tokens/s), SR_PROFILED profiled.
+    SRL/decode: crf_decoding with the trained weights, captured, its ids
+    equal to the CPU's and to a float64 Viterbi on every row whose step
+    margins exceed SR_MARGIN; the decode graph saved with
+    save_inference_model and served by a Predictor on the card, its
+    ViterbiPath equal to the in-process decode."""
+    from paddle_tpu_torch import CPUPlace, CUDAPlace, Executor, Scope, io
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.framework.scope import scope_guard
+
+    reset_peak_memory()
+    main, startup, loss, decoded, emission = srl_program()
+    feed_np = srl_batch(SEED + 191)
+    feed = {k: torch.as_tensor(v, device=device) for k, v in feed_np.items()}
+    scope, exe = Scope(), Executor(CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    scope.find_var("emb").copy_(torch.as_tensor(srl_emb(), device=device))
+    start = _persistables(scope, main)
+    cpu_scope = Scope()
+    for name, value in start.items():
+        cpu_scope.set_var(name, value.cpu())
+    before = graph_stats()
+    losses, _ = run_steps(exe, main, scope, feed, loss, SR_PARITY_STEPS)
+    cpu_losses, _ = run_steps(Executor(CPUPlace()), main, cpu_scope,
+                              feed_np, loss, SR_PARITY_STEPS)
+    if not np.allclose(losses, cpu_losses, rtol=SR_RTOL, atol=0):
+        raise AssertionError(f"SRL/train: card losses {losses} vs CPU "
+                             f"{cpu_losses}")
+    jit = _steps_bitwise("SRL/train", exe, main, scope, feed, loss,
+                         SR_PARITY_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed, _ = run_steps(exe, main, scope, feed, loss, SR_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof = profile_calls(lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                         scope=scope, return_numpy=False),
+                         SR_PROFILED)
+    graphs, bound = captured_graphs("SRL/train", exe, feed)
+    gs = graph_stats(before)
+    if gs["eager_segments"] or graphs != 1:
+        raise AssertionError(f"SRL/train: {graphs} graphs, {gs}")
+    ms = wall / SR_STEPS * 1e3
+    live = int(feed_np["seq_len"].sum())
+    train = {"losses": losses + jit + timed, "cpu_losses": cpu_losses,
+             "examples_per_s": SR_BATCH * SR_STEPS / wall,
+             "live_tokens_per_s": live * SR_STEPS / wall,
+             "ms_per_step": ms, "graphs": graphs, "bound": bound,
+             "captures": gs["captures"],
+             "eager_segments": gs["eager_segments"],
+             "card_busy_ms_per_step": prof["busy_ms_per_step"] if prof
+             else None,
+             "idle_share": prof["idle_share"] if prof else None,
+             "peak_mem_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+             "peak_reserved_mib":
+                 torch.cuda.max_memory_reserved() / 2 ** 20}
+    log(f"  SRL/train: batch {SR_BATCH}, T {SR_T} ({live} live tokens), "
+        f"hidden {SR_HIDDEN}, depth {SR_DEPTH}, dict {SR_WORD}: "
+        f"{train['examples_per_s']:.1f} examples/s, "
+        f"{train['live_tokens_per_s']:.0f} live tokens/s ({ms:.2f} ms/step), "
+        f"card busy {train['card_busy_ms_per_step']} ms/step, idle share "
+        f"{train['idle_share']}; peak {train['peak_mem_mib']:.0f} MiB "
+        f"allocated, {train['peak_reserved_mib']:.0f} MiB reserved; "
+        f"{gs['captures']} captures, {gs['eager_segments']} eager segments; "
+        f"losses card {losses} vs CPU {cpu_losses}; jit = interpret bitwise "
+        f"over {SR_PARITY_STEPS} steps  [{card}]")
+
+    # the test clone keeps the CRF cost, which reads `target`
+    infer = main.clone(for_test=True)
+    dfeed_np = {k: v for k, v in feed_np.items() if k != "target"}
+    cpu_scope = Scope()
+    for name, value in _persistables(scope, main).items():
+        cpu_scope.set_var(name, value.cpu())
+    cpu_path, = Executor(CPUPlace()).run(infer, feed=feed_np,
+                                         fetch_list=[decoded],
+                                         scope=cpu_scope)
+    before = graph_stats()
+    for _ in range(2):      # the eager run, the capture
+        path, em = exe.run(infer, feed=feed, fetch_list=[decoded, emission],
+                           scope=scope, return_numpy=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SR_DECODE_REPS):
+        path, em = exe.run(infer, feed=feed, fetch_list=[decoded, emission],
+                           scope=scope, return_numpy=False)
+    torch.cuda.synchronize()
+    dms = (time.perf_counter() - t0) / SR_DECODE_REPS * 1e3
+    gs = graph_stats(before)
+    path = path.cpu().numpy()
+    ref, margins = viterbi_margins(em.cpu().numpy(),
+                                   scope.find_var("crfw").cpu().numpy(),
+                                   feed_np["seq_len"])
+    clear = margins > SR_MARGIN
+    differ = ((path != cpu_path) | (path != ref)).any(axis=1)
+    if (differ & clear).any() or gs["captures"] < 1:
+        raise AssertionError(
+            f"SRL/decode: rows {np.nonzero(differ & clear)[0].tolist()} "
+            f"differ from the CPU decode or the float64 Viterbi with every "
+            f"margin above {SR_MARGIN}; graphs {gs}")
+    saved = _saved_dir("srl_decode")
+    with scope_guard(scope):
+        io.save_inference_model(saved, sorted(dfeed_np), [decoded], exe,
+                                main_program=main)
+    pred = inference.create_predictor(inference.Config(saved))
+    for _ in range(2):
+        served, = pred.run(dfeed_np)
+    if not np.array_equal(served, path):
+        raise AssertionError("SRL/decode: the Predictor's ViterbiPath != the "
+                             "in-process decode")
+    shutil.rmtree(saved, ignore_errors=True)
+    decode = {"ms": dms, "rows_clear": int(clear.sum()),
+              "rows_differ": int(differ.sum()),
+              "min_margin": float(margins.min()), "graphs": gs["captures"]}
+    log(f"  SRL/decode: crf_decoding over batch {SR_BATCH} x {SR_T} x "
+        f"{SR_LABEL} tags in {dms:.3f} ms (captured); {decode['rows_clear']}"
+        f" of {SR_BATCH} rows clear of a {SR_MARGIN} margin, "
+        f"{decode['rows_differ']} differ from the CPU decode or the float64 "
+        f"Viterbi; the Predictor on the card serves the same paths  "
+        f"[{card}]")
+    return {"phase": "SRL", "train": train, "decode": decode, "card": card}
+
+
+def _fc3(x, size, bias=True):
+    from paddle_tpu_torch import layers
+
+    return layers.fc(x, size=size, num_flatten_dims=2,
+                     bias_attr=None if bias else False)
+
+
+def _raw_rnn(kind, proj, hidden):
+    """A raw lstm (peepholes, default activations) or gru op."""
+    helper = _layer_helper(f"raw_{kind}")
+    mult = 4 if kind == "lstm" else 3
+    w = helper.create_parameter(attr=None, shape=[hidden, mult * hidden],
+                                dtype="float32")
+    width = 7 * hidden if kind == "lstm" else mult * hidden
+    b = helper.create_parameter(attr=None, shape=[width], dtype="float32",
+                                is_bias=True)
+    outs = {"Hidden": [helper.create_variable_for_type_inference("float32")]}
+    extra = ("Cell",) if kind == "lstm" else ("BatchGate",
+                                             "BatchResetHiddenPrev")
+    for k in extra:
+        outs[k] = [helper.create_variable_for_type_inference("float32")]
+    helper.append_op(type=kind, inputs={"Input": [proj], "Weight": [w],
+                                        "Bias": [b]}, outputs=outs,
+                     attrs={"use_peepholes": True} if kind == "lstm" else {})
+    return outs["Hidden"][0]
+
+
+def _attention_lstm_rnn(x, s, m, hidden):
+    """tests/test_attention_lstm_fuse.py's unfused additive-attention LSTM
+    decoder over x [B, s, m]."""
+    from paddle_tpu_torch import layers as L
+
+    helper = _layer_helper("att_lstm_unfused")
+    aw_x = helper.create_parameter(attr=None, shape=[m, 1], dtype="float32")
+    aw_c = helper.create_parameter(attr=None, shape=[hidden, 1],
+                                   dtype="float32")
+    w_lstm = helper.create_parameter(attr=None, shape=[hidden + m,
+                                                       4 * hidden],
+                                     dtype="float32")
+    b_lstm = helper.create_parameter(attr=None, shape=[4 * hidden],
+                                     dtype="float32", is_bias=True)
+    atted_x = L.reshape(L.mul(x, aw_x, x_num_col_dims=2), shape=[-1, s])
+    rnn = L.StaticRNN()
+    with rnn.step():
+        rnn.step_input(x)
+        h = rnn.memory(shape=[hidden], batch_ref=x, init_value=0.0)
+        c = rnn.memory(shape=[hidden], batch_ref=x, init_value=0.0)
+        score = L.relu(L.elementwise_add(x=atted_x, y=L.mul(c, aw_c),
+                                         axis=0))
+        pooled = L.reshape(L.matmul(L.reshape(L.softmax(score),
+                                              shape=[-1, 1, s]), x),
+                           shape=[-1, m])
+        gates = L.elementwise_add(
+            x=L.mul(L.concat([h, pooled], axis=1), w_lstm), y=b_lstm, axis=1)
+        unit = _layer_helper("lstm_unit")
+        h_new, c_new = (unit.create_variable_for_type_inference("float32")
+                        for _ in range(2))
+        unit.append_op(type="lstm_unit",
+                       inputs={"X": [gates], "C_prev": [c]},
+                       outputs={"H": [h_new], "C": [c_new]},
+                       attrs={"forget_bias": 0.0})
+        rnn.update_memory(h, h_new)
+        rnn.update_memory(c, c_new)
+        rnn.step_output(h_new)
+    return rnn()
+
+
+def rnn_fuse_programs(t=SR_T, width=SR_HIDDEN, hidden=SR_HIDDEN // 4):
+    """{name: (main, startup, out)}: the four fusible chains, each on
+    x [B, t, width]: fc -> lstm, fc -> gru, sequence_conv + bias + relu,
+    and the attention-LSTM static_rnn."""
+    from paddle_tpu_torch import Program, layers, program_guard, unique_name
+
+    chains = {
+        "fc_lstm": lambda x: _raw_rnn("lstm", _fc3(x, 4 * hidden), hidden),
+        "fc_gru": lambda x: _raw_rnn("gru", _fc3(x, 3 * hidden), hidden),
+        "seqconv": lambda x: layers.sequence_conv(
+            x, num_filters=width, filter_size=3, act="relu"),
+        "attention_lstm": lambda x: _attention_lstm_rnn(x, t, width,
+                                                        hidden),
+    }
+    out = {}
+    for name, chain in chains.items():
+        main, startup = Program(), Program()
+        main.random_seed = startup.random_seed = SEED
+        with program_guard(main, startup), unique_name.guard():
+            x = layers.data("x", shape=[t, width], dtype="float32")
+            out[name] = (main, startup, chain(x))
+    return out
+
+
+def phase_rnn_fuse(card, device):
+    """RNN/fuse: each fusion's program at SRL/train's widths on the card:
+    the test clone's output before and after InferenceTranspiler (within
+    RF_TOL of max(1, |x|)), its op types after the JAX package's
+    (RF_JAX_TYPES), ms a captured replay before and after."""
+    from paddle_tpu_torch import CUDAPlace, Executor, Scope
+    from paddle_tpu_torch.transpiler import InferenceTranspiler
+
+    x = torch.as_tensor(np.random.RandomState(SEED + 192).standard_normal(
+        (SR_BATCH, SR_T, SR_HIDDEN)).astype(np.float32), device=device)
+    rows = []
+    for name, (main, startup, out) in rnn_fuse_programs().items():
+        scope, exe = Scope(), Executor(CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        infer = main.clone(for_test=True)
+        timed = {}
+        for when in ("before", "after"):
+            if when == "after":
+                InferenceTranspiler().transpile(infer, scope=scope)
+            for _ in range(2):
+                got, = exe.run(infer, feed={"x": x}, fetch_list=[out.name],
+                               scope=scope, return_numpy=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(X_REPS):
+                got, = exe.run(infer, feed={"x": x}, fetch_list=[out.name],
+                               scope=scope, return_numpy=False)
+            torch.cuda.synchronize()
+            timed[when] = ((time.perf_counter() - t0) / X_REPS * 1e3,
+                           got.cpu().numpy())
+        types = [op.type for op in infer.global_block().ops]
+        err = _x_err(timed["after"][1], timed["before"][1])
+        if types != RF_JAX_TYPES[name] or err > RF_TOL:
+            raise AssertionError(f"RNN/fuse {name}: op types {types} (the JAX "
+                                 f"package's {RF_JAX_TYPES[name]}), "
+                                 f"transpiled vs not {err}")
+        rows.append({"chain": name, "types": types, "max_err": err,
+                     "ms_before": timed["before"][0],
+                     "ms_after": timed["after"][0]})
+        log(f"  RNN/fuse {name}: -> {types}; transpiled vs not {err:.2e}; "
+            f"{timed['before'][0]:.3f} ms a replay before, "
+            f"{timed['after'][0]:.3f} after  [{card}]")
+    return {"phase": "RNN/fuse", "chains": rows, "card": card}
+
+
+def _st_groups(rng):
+    """{group: op_group_program specs} of the slice's 17 op types."""
+    b, t, m, d = ST_B, ST_T, ST_M, ST_D
+    lens = rng.randint(1, t + 1, b).astype(np.int64)
+    lens[0] = t
+
+    def w(*shape):
+        return _xo(rng, *shape) / math.sqrt(shape[0])
+
+    x3 = _xo(rng, b, t, m)
+    rnn = [
+        ("gru_unit", {"Input": [_xo(rng, b, 3 * d)],
+                      "HiddenPrev": [_xo(rng, b, d)],
+                      "Weight": [w(d, 3 * d)], "Bias": [_xo(rng, 1, 3 * d)]},
+         {"gate_activation": 1, "activation": 2},
+         ["Input", "HiddenPrev", "Weight", "Bias"],
+         {"Gate": 1, "ResetHiddenPrev": 1, "Hidden": 1}, ["Hidden"]),
+        ("gru", {"Input": [_xo(rng, b, t, 3 * d)], "Weight": [w(d, 3 * d)],
+                 "Bias": [_xo(rng, 1, 3 * d)], "H0": [_xo(rng, b, d)],
+                 "SeqLen": [lens]}, {"is_reverse": True},
+         ["Input", "Weight", "Bias", "H0"],
+         {"Hidden": 1, "BatchGate": 1, "BatchResetHiddenPrev": 1},
+         ["Hidden"]),
+        ("lstm_unit", {"X": [_xo(rng, b, 4 * d)], "C_prev": [_xo(rng, b, d)]},
+         {"forget_bias": 1.0}, ["X", "C_prev"], {"C": 1, "H": 1},
+         ["C", "H"]),
+        ("lstm", {"Input": [_xo(rng, b, t, 4 * d)], "Weight": [w(d, 4 * d)],
+                  "Bias": [_xo(rng, 1, 7 * d)], "H0": [_xo(rng, b, d)],
+                  "C0": [_xo(rng, b, d)], "SeqLen": [lens]},
+         {"is_reverse": True, "use_peepholes": True,
+          "candidate_activation": "relu", "cell_activation": "sigmoid"},
+         ["Input", "Weight", "Bias", "H0", "C0"], {"Hidden": 1, "Cell": 1},
+         ["Hidden"]),
+        ("lstmp", {"Input": [_xo(rng, b, t, 4 * d)],
+                   "Weight": [w(d // 2, 4 * d)],
+                   "ProjWeight": [w(d, d // 2)], "Bias": [_xo(rng, 1, 4 * d)],
+                   "SeqLen": [lens]}, {},
+         ["Input", "Weight", "ProjWeight", "Bias"],
+         {"Projection": 1, "Cell": 1}, ["Projection"]),
+        ("fusion_lstm", {"X": [x3], "WeightX": [w(m, 4 * d)],
+                         "WeightH": [w(d, 4 * d)],
+                         "Bias": [_xo(rng, 1, 7 * d)]},
+         {"use_peepholes": True, "is_reverse": True},
+         ["X", "WeightX", "WeightH", "Bias"],
+         {"Hidden": 1, "Cell": 1, "XX": 1}, ["Hidden"]),
+        ("fusion_gru", {"X": [x3], "WeightX": [w(m, 3 * d)],
+                        "WeightH": [w(d, 3 * d)],
+                        "Bias": [_xo(rng, 1, 3 * d)]}, {},
+         ["X", "WeightX", "WeightH", "Bias"], {"Hidden": 1, "XX": 1},
+         ["Hidden"]),
+        ("attention_lstm", {"X": [x3], "C0": [_xo(rng, b, d)],
+                            "SeqLen": [lens],
+                            "AttentionWeight": [w(m + d, 1)],
+                            "LSTMWeight": [w(d + m, 4 * d)],
+                            "LSTMBias": [_xo(rng, 1, 4 * d)]}, {},
+         ["X", "C0", "AttentionWeight", "LSTMWeight", "LSTMBias"],
+         {"Hidden": 1, "Cell": 1}, ["Hidden"]),
+        ("fused_embedding_fc_lstm",
+         {"Ids": [rng.randint(0, 1000, (b, t)).astype(np.int64)],
+          "Embeddings": [_xo(rng, 1000, 4 * d)], "WeightH": [w(d, 4 * d)],
+          "Bias": [_xo(rng, 1, 4 * d)]}, {"gate_layout": "cifo"},
+         ["Embeddings", "WeightH"], {"Hidden": 1, "Cell": 1, "XX": 1},
+         ["Hidden"]),
+        ("fusion_seqconv_eltadd_relu",
+         {"X": [x3], "Filter": [w(3 * m, d)], "Bias": [_xo(rng, 1, d)],
+          "SeqLen": [lens]},
+         {"contextLength": 3, "contextStart": -1, "contextStride": 1},
+         ["X", "Filter", "Bias"], {"Out": 1, "ColMat": 1}, ["Out"]),
+        ("fusion_seqexpand_concat_fc",
+         {"X": [x3, _xo(rng, b, 64)], "FCWeight": [w(m + 64, d)],
+          "FCBias": [_xo(rng, 1, d)], "SeqLen": [lens]},
+         {"fc_activation": "tanh"}, ["X", "FCWeight", "FCBias"],
+         {"Out": 1, "FCOut": 1}, ["Out"]),
+    ]
+    tags = ST_TAGS
+    ctc_t, ctc_c, ctc_s = 50, 32, 10
+    loss = [
+        ("linear_chain_crf",
+         {"Emission": [_xo(rng, b, t, tags)],
+          "Transition": [_xo(rng, tags + 2, tags) * 0.1],
+          "Label": [rng.randint(0, tags, (b, t)).astype(np.int64)],
+          "SeqLen": [lens]}, {}, ["Emission", "Transition"],
+         {"LogLikelihood": 1, "Alpha": 1, "EmissionExps": 1,
+          "TransitionExps": 1}, ["LogLikelihood"]),
+        ("warpctc",
+         {"Logits": [_xo(rng, b, ctc_t, ctc_c)],
+          "Label": [rng.randint(1, ctc_c, (b, ctc_s)).astype(np.int64)],
+          "LogitsLength": [rng.randint(ctc_s * 2, ctc_t + 1, b)],
+          "LabelLength": [rng.randint(1, ctc_s + 1, b)]},
+         {"blank": 0, "norm_by_times": True}, ["Logits"], {"Loss": 1},
+         ["Loss"]),
+        ("hierarchical_sigmoid",
+         {"X": [_xo(rng, 4 * b, 512)], "W": [_xo(rng, ST_CLASSES - 1, 512)
+                                             / math.sqrt(512)],
+          "Bias": [_xo(rng, ST_CLASSES - 1)],
+          "Label": [rng.randint(0, ST_CLASSES, (4 * b, 1))]},
+         {"num_classes": ST_CLASSES}, ["X", "W", "Bias"],
+         {"Out": 1, "PreOut": 1}, ["Out"]),
+    ]
+    decode = [
+        ("crf_decoding",
+         {"Emission": [_xo(rng, b, t, tags)],
+          "Transition": [_xo(rng, tags + 2, tags) * 0.1],
+          "SeqLen": [lens]}, {}, [], {"ViterbiPath": 1}, []),
+        ("crf_decoding",
+         {"Emission": [_xo(rng, b, t, tags)],
+          "Transition": [_xo(rng, tags + 2, tags) * 0.1],
+          "Label": [rng.randint(0, tags, (b, t)).astype(np.int64)],
+          "SeqLen": [lens]}, {}, [], {"ViterbiPath": 1}, []),
+        ("edit_distance",
+         {"Hyps": [rng.randint(0, 8, (b, t)).astype(np.int64)],
+          "Refs": [rng.randint(0, 8, (b, t - 4)).astype(np.int64)],
+          "HypsLength": [lens], "RefsLength": [rng.randint(0, t - 3, b)]},
+         {"normalized": True}, [], {"Out": 1, "SequenceNum": 1}, []),
+    ]
+    return {"rnn": rnn, "loss": loss, "decode": decode}
+
+
+def _nce_specs(rng, sampler):
+    b, dim = 4 * ST_B, 512
+    return [("nce",
+             {"Input": [_xo(rng, b, dim)],
+              "Label": [rng.randint(0, ST_CLASSES, (b, 1)).astype(np.int64)],
+              "Weight": [_xo(rng, ST_CLASSES, dim) / math.sqrt(dim)],
+              "Bias": [_xo(rng, ST_CLASSES) * 0.1]},
+             {"num_total_classes": ST_CLASSES, "num_neg_samples": ST_NEG,
+              "sampler": sampler}, ["Input", "Weight", "Bias"],
+             {"Cost": 1, "SampleLogits": 1, "SampleLabels": 1}, ["Cost"])]
+
+
+def _sampler_moments(sampler, c):
+    cc = np.arange(c, dtype=np.float64)
+    q = ((np.log(cc + 2) - np.log(cc + 1)) / np.log(c + 1)
+         if sampler == "log_uniform" else np.full(c, 1.0 / c))
+    mean = float((q * cc).sum())
+    return q, mean, float((q * (cc - mean) ** 2).sum())
+
+
+def phase_seq_tail(card, device):
+    """SEQ/tail: the slice's 17 op types in four groups (the recurrent tail,
+    the three losses, the two decoders, nce), each one program with its
+    backward: the card's captured replay against the port's CPU path
+    within X_TOL of max(1, the largest value), integer outputs equal, the
+    card's interpreter equal to the replay bitwise; ms a replay.  nce:
+    its negatives' mean and the share of class 0 within 5 standard
+    errors of the sampler's, a replay draws anew, and its Cost and grads
+    equal the CPU's pricing of the card's samples
+    (testing.nce_given_samples)."""
+    from paddle_tpu_torch import CPUPlace, CUDAPlace, Executor, Scope
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.ops import registry
+
+    rng = np.random.RandomState(SEED + 193)
+    groups = _st_groups(rng)
+    for sampler in ("uniform", "log_uniform"):
+        groups["nce_" + sampler] = _nce_specs(rng, sampler)
+    seen = {s[0] for specs in groups.values() for s in specs}
+    if sorted(seen) != sorted(SEQ_TAIL_OPS):
+        raise AssertionError(f"SEQ/tail: op types {sorted(seen)}")
+    rows = []
+    for name, specs in groups.items():
+        main, feed, fetch = op_group_program(specs, SEED + 194 + len(rows))
+        main.random_seed = SEED
+        dev_feed = {k: torch.as_tensor(v, device=device)
+                    for k, v in feed.items()}
+        exe = Executor(CUDAPlace(0))
+        before = graph_stats()
+        got = _run_group(exe, main, dev_feed, fetch, 3)
+        ref = _run_group(Executor(CUDAPlace(0), mode="interpret"), main,
+                         dev_feed, fetch, 3)
+        gs = graph_stats(before)
+        differ = [n for n, g, r in zip(fetch, got, ref)
+                  if not np.array_equal(g, r, equal_nan=True)]
+        if differ or gs["captures"] < 1:
+            raise AssertionError(f"SEQ/tail {name}: jit != interpret for "
+                                 f"{differ}, graphs {gs}")
+        extra = {}
+        if name.startswith("nce_"):
+            samples = got[fetch.index("y0_SampleLabels_0")]
+            info = registry.OPS["nce"]
+            original = info.forward
+            info.forward = testing.nce_given_samples(samples)
+            try:
+                want = _run_group(Executor(CPUPlace()), main, feed, fetch, 1)
+            finally:
+                info.forward = original
+            scope = Scope()
+            draws = [exe.run(main, feed=dev_feed,
+                             fetch_list=["y0_SampleLabels_0"],
+                             scope=scope)[0] for _ in range(2)]
+            neg = samples[:, 1:].reshape(-1).astype(np.float64)
+            q, mean, var = _sampler_moments(name[4:], ST_CLASSES)
+            se_mean = math.sqrt(var / neg.size)
+            share0 = float((neg == 0).mean())
+            se0 = math.sqrt(q[0] * (1 - q[0]) / neg.size)
+            extra = {"mean": float(neg.mean()), "want_mean": mean,
+                     "share0": share0, "want_share0": float(q[0])}
+            if (abs(neg.mean() - mean) > 5 * se_mean
+                    or abs(share0 - q[0]) > 5 * se0
+                    or np.array_equal(draws[0], draws[1])
+                    or not np.array_equal(samples[:, 0],
+                                          feed["x0_Label_0"][:, 0])):
+                raise AssertionError(f"SEQ/tail {name}: draws {extra}")
+        else:
+            want = _run_group(Executor(CPUPlace()), main, feed, fetch, 1)
+        errs = {n: _x_err(g, w) for n, g, w in zip(fetch, got, want)}
+        worst = max(errs, key=errs.get)
+        if errs[worst] > X_TOL:
+            raise AssertionError(f"SEQ/tail {name}: {worst} card vs CPU "
+                                 f"{errs[worst]}")
+        scope = Scope()
+        for _ in range(2):
+            exe.run(main, feed=dev_feed, fetch_list=fetch, scope=scope,
+                    return_numpy=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(X_REPS):
+            exe.run(main, feed=dev_feed, fetch_list=fetch, scope=scope,
+                    return_numpy=False)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / X_REPS * 1e3
+        rows.append(dict({"group": name, "op_types": sorted({s[0]
+                                                             for s in specs}),
+                          "outputs": len(fetch), "max_err": errs[worst],
+                          "worst": worst, "ms": ms}, **extra))
+        log(f"  SEQ/tail {name}: {len(specs)} ops, {len(fetch)} outputs and "
+            f"grads; card vs CPU max err {errs[worst]:.2e} ({worst}); jit = "
+            f"interpret; {ms:.3f} ms a replay"
+            + (f"; negatives mean {extra['mean']:.1f} (sampler "
+               f"{extra['want_mean']:.1f}), class 0 {extra['share0']:.4f} "
+               f"({extra['want_share0']:.4f})" if extra else "")
+            + f"  [{card}]")
+        del exe, got, ref, want, dev_feed
+        torch.cuda.empty_cache()
+    return {"phase": "SEQ/tail", "groups": rows, "card": card}
+
+
+def drive_recurrent_tail(card, device, lap=lambda phase: None):
+    """[19]: SRL (train, decode), RNN/fuse, SEQ/tail; none of the eight
+    kernels launches."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _zero_counts()
+        runs = [phase_srl(card, device)]
+        lap("[19] SRL")
+        torch.cuda.empty_cache()
+        runs.append(phase_rnn_fuse(card, device))
+        lap("[19] RNN/fuse")
+        runs.append(phase_seq_tail(card, device))
+        lap("[19] SEQ/tail")
+        _no_launches("SRL, RNN/fuse, SEQ/tail", "[19]")
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    return runs
+
+
+def _no_launches(phases, tag="[18]"):
     launched = {k: n for k, n in _port_kernel_counts().items() if n}
     if launched:
-        raise AssertionError(f"[18] {phases} launched port kernels: "
+        raise AssertionError(f"{tag} {phases} launched port kernels: "
                              f"{launched}")
 
 
@@ -10291,6 +11012,13 @@ def main():
         f"(SEQ/ops) [{card}]")
     cf_runs, cf_launches = drive_control_flow(card, device, lap)
     training += cf_runs
+
+    log(f"[19] the recurrent tail and the sequence losses: the reference "
+        f"label-semantic-roles chapter trained at its widths (SRL/train) "
+        f"and decoded, in process and by a Predictor (SRL/decode), the four "
+        f"RNN fusions of the InferenceTranspiler (RNN/fuse), the slice's 17 "
+        f"op types (SEQ/tail) [{card}]")
+    training += drive_recurrent_tail(card, device, lap)
     for more in (counts, train_launches, bert_launches, resnet_launches,
                  rnn_launches, saved_launches, front_launches,
                  fleet_launches, int8_launches, tail_launches, cf_launches):
@@ -10301,7 +11029,7 @@ def main():
         raise AssertionError(f"kernels {never} never launched on a path")
 
     log(f"  all phases took {laps[-1] - laps[0]:.1f} s wall")
-    log("[19] results")
+    log("[20] results")
     log(json.dumps({"phases": phases}))
     log(json.dumps({"training": training}))
     if DIVERGED:

@@ -741,6 +741,136 @@ def gru(input, hidden_size, *, param_attr=None, bias_attr=None,
     return out, last_h
 
 
+# ------------------------------------------ structured and sampled losses
+
+
+def linear_chain_crf(input, label, param_attr=None, seq_len=None, name=None):
+    """CRF negative log likelihood [B, 1]; creates the [(D+2), D]
+    transition parameter."""
+    helper = LayerHelper("linear_chain_crf", **locals())
+    dtype = helper.input_dtype()
+    size = input.shape[-1]
+    transition = helper.create_parameter(attr=param_attr,
+                                         shape=[size + 2, size], dtype=dtype)
+    alpha, emission_exps, transition_exps, log_likelihood = (
+        helper.create_variable_for_type_inference(dtype) for _ in range(4))
+    inputs = {"Emission": [input], "Transition": [transition],
+              "Label": [label]}
+    if seq_len is not None:
+        inputs["SeqLen"] = [seq_len]
+    helper.append_op(
+        type="linear_chain_crf", inputs=inputs,
+        outputs={"Alpha": [alpha], "EmissionExps": [emission_exps],
+                 "TransitionExps": [transition_exps],
+                 "LogLikelihood": [log_likelihood]})
+    return log_likelihood
+
+
+def crf_decoding(input, param_attr, label=None, seq_len=None, name=None):
+    """Viterbi decode [B, T] with the transition parameter that
+    linear_chain_crf created, named by `param_attr` (a name or a
+    ParamAttr)."""
+    helper = LayerHelper("crf_decoding", **locals())
+    transition = helper.main_program.global_block().var(
+        param_attr if isinstance(param_attr, str) else param_attr.name)
+    path = helper.create_variable_for_type_inference("int64")
+    inputs = {"Emission": [input], "Transition": [transition]}
+    if label is not None:
+        inputs["Label"] = [label]
+    if seq_len is not None:
+        inputs["SeqLen"] = [seq_len]
+    helper.append_op(type="crf_decoding", inputs=inputs,
+                     outputs={"ViterbiPath": [path]})
+    return path
+
+
+def warpctc(input, label, blank=0, norm_by_times=False, input_length=None,
+            label_length=None, name=None):
+    """CTC loss [B, 1] over padded [B, T, C+1] logits."""
+    helper = LayerHelper("warpctc", **locals())
+    loss = helper.create_variable_for_type_inference(helper.input_dtype())
+    inputs = {"Logits": [input], "Label": [label]}
+    if input_length is not None:
+        inputs["LogitsLength"] = [input_length]
+    if label_length is not None:
+        inputs["LabelLength"] = [label_length]
+    helper.append_op(
+        type="warpctc", inputs=inputs, outputs={"Loss": [loss]},
+        attrs={"blank": int(blank), "norm_by_times": bool(norm_by_times)})
+    return loss
+
+
+def edit_distance(input, label, normalized=True, input_length=None,
+                  label_length=None, name=None):
+    """Levenshtein distance [B, 1] and the sequence count [1]."""
+    helper = LayerHelper("edit_distance", **locals())
+    out = helper.create_variable_for_type_inference("float32")
+    seq_num = helper.create_variable_for_type_inference("int64")
+    inputs = {"Hyps": [input], "Refs": [label]}
+    if input_length is not None:
+        inputs["HypsLength"] = [input_length]
+    if label_length is not None:
+        inputs["RefsLength"] = [label_length]
+    helper.append_op(
+        type="edit_distance", inputs=inputs,
+        outputs={"Out": [out], "SequenceNum": [seq_num]},
+        attrs={"normalized": bool(normalized)})
+    return out, seq_num
+
+
+def nce(input, label, num_total_classes, sample_weight=None, param_attr=None,
+        bias_attr=None, num_neg_samples=None, sampler="uniform", seed=0,
+        name=None):
+    """Noise-contrastive estimation cost [B, 1]; creates the [C, D] weight
+    and the [C] bias."""
+    helper = LayerHelper("nce", **locals())
+    dtype = helper.input_dtype()
+    dim = input.shape[-1]
+    num_neg = int(num_neg_samples) if num_neg_samples is not None else 10
+    w = helper.create_parameter(attr=param_attr,
+                                shape=[num_total_classes, dim], dtype=dtype)
+    inputs = {"Input": [input], "Label": [label], "Weight": [w]}
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(
+            attr=bias_attr, shape=[num_total_classes], dtype=dtype,
+            is_bias=True)]
+    if sample_weight is not None:
+        inputs["SampleWeight"] = [sample_weight]
+    cost, sample_logits = (helper.create_variable_for_type_inference(dtype)
+                           for _ in range(2))
+    sample_labels = helper.create_variable_for_type_inference("int64")
+    helper.append_op(
+        type="nce", inputs=inputs,
+        outputs={"Cost": [cost], "SampleLogits": [sample_logits],
+                 "SampleLabels": [sample_labels]},
+        attrs={"num_total_classes": int(num_total_classes),
+               "num_neg_samples": num_neg, "sampler": sampler,
+               "seed": int(seed)})
+    return cost
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None):
+    """Hierarchical sigmoid cost [B, 1] over a complete binary tree of the
+    classes; creates the [C-1, D] weight and bias."""
+    helper = LayerHelper("hierarchical_sigmoid", **locals())
+    dtype = helper.input_dtype()
+    dim = input.shape[-1]
+    w = helper.create_parameter(attr=param_attr, shape=[num_classes - 1, dim],
+                                dtype=dtype)
+    inputs = {"X": [input], "W": [w], "Label": [label]}
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(
+            attr=bias_attr, shape=[num_classes - 1], dtype=dtype,
+            is_bias=True)]
+    out, pre_out = (helper.create_variable_for_type_inference(dtype)
+                    for _ in range(2))
+    helper.append_op(type="hierarchical_sigmoid", inputs=inputs,
+                     outputs={"Out": [out], "PreOut": [pre_out]},
+                     attrs={"num_classes": int(num_classes)})
+    return out
+
+
 def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
     helper = LayerHelper("smooth_l1_loss", **locals())
     diff = helper.create_variable_for_type_inference(x.dtype)

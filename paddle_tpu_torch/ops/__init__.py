@@ -3,8 +3,9 @@ ported slices (transformer.build_decode's programs, and transformer.build
 with its backward, optimizer and AMP ops, bert.build's, resnet.build's,
 googlenet.build's, stacked_lstm.build's and machine_translation's,
 beam_search, vgg's and alexnet's lrn, the inference transpiler's fc,
-io.py's save and load ops, and the int8 tier's quantized_matmul and
-quantized_conv2d; the fake-quant ops register in contrib/quantize.py)."""
+io.py's save and load ops, the int8 tier's quantized_matmul and
+quantized_conv2d, the recurrent tail and the sequence losses; the
+fake-quant ops register in contrib/quantize.py)."""
 
 from . import registry
 from . import math_ops
@@ -21,5 +22,6 @@ from . import misc_ops
 from . import control_flow_ops
 from . import beam_search_ops
 from . import rnn_ops
+from . import sequence_loss_ops
 from . import io_ops
 from . import int8_ops

@@ -6,6 +6,7 @@ import contextlib
 import zlib
 
 import numpy as np
+import torch
 
 from .framework import (
     Program,
@@ -20,7 +21,15 @@ from .framework import (
 @contextlib.contextmanager
 def fresh_programs():
     """Fresh default programs, scope and name counters for the port —
-    what tests/conftest.py's autouse fixture does for paddle_tpu."""
+    what tests/conftest.py's autouse fixture does for paddle_tpu.
+
+    It also pins torch to one intra-op thread for the rest of the
+    process.  The suite runs in several worker processes on a few cores,
+    and torch's default pool (a thread a core in every worker) spins at
+    each small op's barrier: six heavy port test files took 404 s on 6
+    workers of an 8-core host with the default pool, 113 s with one
+    thread."""
+    torch.set_num_threads(1)
     old_main = switch_main_program(Program())
     old_startup = switch_startup_program(Program())
     try:
@@ -58,5 +67,25 @@ def seeded_dropout(original, as_array):
             keep = keep / (1.0 - p)
         ctx.set_output("Out", x * keep)
         ctx.set_output("Mask", keep)
+
+    return lowering
+
+
+def nce_given_samples(samples):
+    """A lowering for the port's `nce` that takes its negatives from
+    `samples`, the [B, num_true + S] SampleLabels another run drew (the
+    JAX package's), instead of the op's generator: both packages then
+    price the same samples (their generators cannot draw alike).
+    Install it with pytest's monkeypatch on `OPS["nce"].forward`, for one
+    test only."""
+    from .ops import sequence_loss_ops
+
+    def lowering(ctx):
+        label = ctx.input("Label")
+        num_true = label.shape[1] if label.dim() == 2 else 1
+        neg = np.asarray(samples)[:, num_true:]
+        sequence_loss_ops.nce_cost(
+            ctx, torch.as_tensor(neg, dtype=torch.int64,
+                                 device=ctx.input("Input").device))
 
     return lowering

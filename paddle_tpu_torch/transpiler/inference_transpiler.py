@@ -8,13 +8,15 @@ rewrite is a PatternRewritePass on framework/ir.py's registry:
     filter and one per-channel bias add (the weights change);
   - conv_relu_fuse: a relu after a conv rides the conv's fuse_relu attr;
   - fc_fuse: mul + bias add become one `fc` op;
+  - rnn_fuse_passes.RNN_FUSE_PASSES: fc + lstm -> fusion_lstm, fc + gru
+    -> fusion_gru, sequence_conv + bias add + relu ->
+    fusion_seqconv_eltadd_relu, and the attention-LSTM static_rnn ->
+    attention_lstm;
   - dropout_strip: dropout leaves the program (or becomes the scale by
     1 - p that its default downgrade_in_infer mode applies at test time).
 
-The JAX package's line-up also runs `rnn_fuse_passes`' fusions between
-fc_fuse and dropout_strip.  They anchor on op types the port does not
-register (fc + lstm/gru, sequence_conv, the attention-LSTM chain), so on
-any program the port can run they match nothing; they are not ported.
+INFERENCE_PASSES is the JAX package's line-up (its `_inference_passes()`),
+in its order.
 """
 
 from __future__ import annotations
@@ -38,12 +40,15 @@ def _is_2d(block, name):
     return var is not None and var.shape is not None and len(var.shape) == 2
 
 
-def _is_bias_param(block, name):
+def _is_bias_var(var):
     """An effectively 1-D persistable var (a bias vector)."""
-    var = block.vars.get(name)
     return (var is not None and getattr(var, "persistable", False)
             and var.shape is not None
             and len([s for s in var.shape if s not in (1,)]) <= 1)
+
+
+def _is_bias_param(block, name):
+    return _is_bias_var(block.vars.get(name))
 
 
 def _value(scope, name):
@@ -188,10 +193,14 @@ class DropoutStripPass(PatternRewritePass):
         return []
 
 
-# the reference transpiler's order: the bn fold must see the conv before
-# the relu fuse renames the conv's output
-INFERENCE_PASSES = ["conv_bn_fuse", "conv_relu_fuse", "fc_fuse",
-                    "dropout_strip"]
+def _inference_passes():
+    """The reference transpiler's order: the bn fold must see the conv
+    before the relu fuse renames the conv's output, and fc_fuse makes the
+    fc ops that the RNN fusions anchor on."""
+    from .rnn_fuse_passes import RNN_FUSE_PASSES
+
+    return (["conv_bn_fuse", "conv_relu_fuse", "fc_fuse"]
+            + list(RNN_FUSE_PASSES) + ["dropout_strip"])
 
 
 class InferenceTranspiler:
@@ -212,3 +221,6 @@ def _make_add_bias_op(block, x_name, bias_name, out_name):
         outputs={"Out": [block._var_recursive(out_name)]},
         attrs={"axis": 1},
     )
+
+
+INFERENCE_PASSES = _inference_passes()

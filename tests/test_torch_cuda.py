@@ -18,7 +18,10 @@ decode step (one head of 256 over 24 keys, batch 8 and 32) and a
 captured stacked-LSTM training step against the interpreter's; last,
 control flow: a `while` training step captured (a trip bound) or run as
 an eager segment (none), and a beam decode whose captured body launches
-#6 once a step.
+#6 once a step; then the recurrent tail and the sequence losses: each op
+type at chip_smoke.py's SEQ/tail shapes with its backward (replay =
+interpreter bitwise, = CPU within 1e-4), and the label-semantic-roles
+step captured as one graph.
 Tolerances: max abs error 1e-4 in float32 (the kernels sum in
 another order than cuBLAS) and 2e-2 in bfloat16 (one bfloat16 step of an
 output in [2, 4); the forwards round P to bfloat16 before P V as the
@@ -2352,3 +2355,78 @@ def test_beam_decode_captured_launches_flash_decode_each_step(card):
     assert fd.launches == 3 * n
     np.testing.assert_array_equal(got[0], ref[0])
     np.testing.assert_array_equal(got[1], ref[1])
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module: its SEQ/tail specs and SRL program."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_SEQ_TAIL = ("attention_lstm", "crf_decoding", "edit_distance",
+             "fused_embedding_fc_lstm", "fusion_gru", "fusion_lstm",
+             "fusion_seqconv_eltadd_relu", "fusion_seqexpand_concat_fc",
+             "gru", "gru_unit", "hierarchical_sigmoid", "linear_chain_crf",
+             "lstm", "lstm_unit", "lstmp", "warpctc")
+
+
+@pytest.mark.parametrize("op_type", _SEQ_TAIL)
+def test_seq_tail_op_and_grads_on_the_card_equal_the_cpu(card, op_type):
+    """Each op type of the recurrent tail and the sequence losses at
+    chip_smoke's SEQ/tail shapes, with its backward: the captured replay
+    equals the card's interpreter bitwise and the CPU path within 1e-4 of
+    max(1, the largest value); integer outputs equal."""
+    import paddle_tpu_torch as pt
+
+    cs = _chip_smoke()
+    specs = [s for group in cs._st_groups(np.random.RandomState(0)).values()
+             for s in group if s[0] == op_type]
+    main, feed, fetch = cs.op_group_program(specs, 1)
+    dev_feed = {k: torch.as_tensor(v, device=card) for k, v in feed.items()}
+    got = cs._run_group(pt.Executor(card), main, dev_feed, fetch, 3)
+    ref = cs._run_group(pt.Executor(card, mode="interpret"), main, dev_feed,
+                        fetch, 3)
+    want = cs._run_group(pt.Executor(pt.CPUPlace()), main, feed, fetch, 1)
+    for name, g, r, w in zip(fetch, got, ref, want):
+        np.testing.assert_array_equal(g, r, err_msg=name)
+        assert cs._x_err(g, w) <= 1e-4, name
+
+
+def test_srl_step_is_one_captured_graph(card):
+    """The label-semantic-roles chapter's step (the lstm op with SeqLen,
+    linear_chain_crf, SGD) at a narrow width: one captured graph, no
+    eager segment, jit = interpret bitwise, card = CPU within rtol 1e-5."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import cuda_graph
+
+    cs = _chip_smoke()
+    main, startup, loss, _, _ = cs.srl_program(word=500, pred=50, hidden=64,
+                                               depth=3, t=12)
+    feed = cs.srl_batch(3, batch=4, t=12, word=500, pred=50)
+    scope = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=scope)
+    start = {v.name: scope.find_var(v.name).numpy()
+             for v in main.list_vars() if v.persistable}
+    runs = {}
+    for label, place, mode in (("jit", card, "jit"),
+                               ("interpret", card, "interpret"),
+                               ("cpu", torch.device("cpu"), "jit")):
+        s = pt.Scope()
+        for name, value in start.items():
+            s.set_var(name, torch.as_tensor(value, device=place))
+        exe = pt.Executor(place, mode=mode)
+        cuda_graph.reset_stats()
+        runs[label] = [exe.run(main, feed=feed, fetch_list=[loss],
+                               scope=s)[0] for _ in range(3)]
+        if label == "jit":
+            stats = dict(cuda_graph.STATS)
+    assert stats["captures"] == 1 and stats["eager_segments"] == 0
+    np.testing.assert_array_equal(runs["jit"], runs["interpret"])
+    np.testing.assert_allclose(runs["jit"], runs["cpu"], rtol=1e-5)

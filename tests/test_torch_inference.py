@@ -6,9 +6,10 @@ dropout_strip), and the whole line-up, leaves the program dict the JAX
 pass leaves on the same built program (cifar ResNet-8, VGG-16 at 32x32,
 AlexNet at 64x64: their test clones), and the folded filters and biases
 agree with the JAX fold's (numpy, float32) at rtol 1e-6, and bit for bit
-(the same float32 operations in the same order, each correctly rounded).  The JAX line-up's RNN
-fusions rewrite nothing on any port model, which is why the port's
-line-up leaves them out.  The port's Predictor on a directory the JAX
+(the same float32 operations in the same order, each correctly rounded).  The port's
+line-up is the JAX package's, its RNN fusions included (their own
+parity tests are tests/test_torch_rnn_fuse_passes.py); those fusions
+rewrite nothing on the port's image models.  The port's Predictor on a directory the JAX
 package saved gives the JAX Predictor's outputs (rtol 1e-5 of the largest
 output; the float32 products of a CPU run), clones run from 4 threads give
 the sequential run's outputs (the JAX test's rtol 1e-6, atol 1e-7), and
@@ -184,8 +185,10 @@ def test_unknown_pass_names_raise_before_any_rewrite(image_models):
 
 
 def test_line_up_is_the_jax_line_up_without_the_rnn_fusions():
-    assert INFERENCE_PASSES == [n for n in JPASSES
-                                if n not in RNN_FUSE_PASSES]
+    """Since the RNN fusions were ported, the line-up is the JAX one
+    whole: the RNN passes sit between fc_fuse and dropout_strip."""
+    assert INFERENCE_PASSES == list(JPASSES)
+    assert INFERENCE_PASSES[3:-1] == RNN_FUSE_PASSES
 
 
 @pytest.mark.parametrize("model", sorted(BUILDERS))

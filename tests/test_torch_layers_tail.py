@@ -167,11 +167,9 @@ def test_bilinear_initializer_values_are_the_jax_packages():
 
 
 # the JAX package's public builders of the families still to port
-# (ROADMAP A items 6-8): Print, the CRF/CTC tail, detection, MoE, the
-# reader
+# (ROADMAP A items 7-8): Print, detection, MoE, the reader
 STILL_TO_PORT = {
-    "Print", "crf_decoding", "edit_distance", "hsigmoid",
-    "linear_chain_crf", "nce", "warpctc", "anchor_generator",
+    "Print", "anchor_generator",
     "bipartite_match", "box_coder", "detection", "detection_map",
     "detection_output", "generate_proposal_labels", "generate_proposals",
     "iou_similarity", "mine_hard_examples", "multiclass_nms", "prior_box",

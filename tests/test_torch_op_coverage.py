@@ -10,23 +10,11 @@ import pytest
 from paddle_tpu.ops import registry as jreg
 from paddle_tpu_torch.ops import registry as preg
 
-_ITEM_6 = "ROADMAP A item 6b: the recurrent tail and the sequence losses"
 _ITEM_7 = "ROADMAP A item 7: multi-device and MoE"
 _ITEM_8 = "ROADMAP A item 8: the host-side tiers (detection, io, the " \
     "distributed ops)"
 
 STILL_TO_PORT = {
-    # the recurrent tail
-    "gru": _ITEM_6, "gru_unit": _ITEM_6, "lstm": _ITEM_6,
-    "lstm_unit": _ITEM_6, "lstmp": _ITEM_6, "fusion_lstm": _ITEM_6,
-    "fusion_gru": _ITEM_6, "attention_lstm": _ITEM_6,
-    "fused_embedding_fc_lstm": _ITEM_6,
-    "fusion_seqconv_eltadd_relu": _ITEM_6,
-    "fusion_seqexpand_concat_fc": _ITEM_6,
-    # the sequence losses
-    "linear_chain_crf": _ITEM_6, "crf_decoding": _ITEM_6,
-    "warpctc": _ITEM_6, "edit_distance": _ITEM_6, "nce": _ITEM_6,
-    "hierarchical_sigmoid": _ITEM_6,
     # MoE
     "top_k_gating": _ITEM_7, "moe_expert_ffn": _ITEM_7,
     # detection
@@ -59,6 +47,6 @@ def test_each_jax_op_type_is_ported_or_named(op_type):
 
 def test_the_counts():
     assert len(jreg.OPS) == 274
-    assert len(STILL_TO_PORT) == 40
-    assert len(preg.OPS) == 234
+    assert len(STILL_TO_PORT) == 23
+    assert len(preg.OPS) == 251
     assert set(STILL_TO_PORT) <= set(jreg.OPS)

@@ -234,8 +234,8 @@ def test_the_slice_registers_exactly_the_decode_op_types():
     sigmoid_cross_entropy_with_logits, the dense op tails' 83
     (tensor 26, math 6, random 4, loss 12, misc 19, nn 16), and control
     flow and the sequence family's 19 (while, conditional_block,
-    static_rnn, beam_search_decode, lod_reset and 14 sequence ops): 234
-    op types."""
+    static_rnn, beam_search_decode, lod_reset and 14 sequence ops), and
+    the recurrent tail's 11 and the sequence losses' 6: 251 op types."""
     assert sorted(preg.OPS) == sorted([
         "assign_value", "elementwise_add", "fill_constant", "fused_attention",
         "gather", "increment", "kv_cache_append", "layer_norm",
@@ -310,5 +310,11 @@ def test_the_slice_registers_exactly_the_decode_op_types():
         "sequence_expand_as", "sequence_reverse", "sequence_slice",
         "sequence_mask", "sequence_pad", "sequence_unpad",
         "sequence_concat", "sequence_enumerate", "sequence_erase",
-        "sequence_reshape", "sequence_scatter"])
-    assert len(preg.OPS) == 234
+        "sequence_reshape", "sequence_scatter",
+        # the recurrent tail and the sequence losses
+        "gru_unit", "gru", "lstm_unit", "lstm", "lstmp", "fusion_lstm",
+        "fusion_gru", "attention_lstm", "fused_embedding_fc_lstm",
+        "fusion_seqconv_eltadd_relu", "fusion_seqexpand_concat_fc",
+        "linear_chain_crf", "crf_decoding", "warpctc", "edit_distance",
+        "nce", "hierarchical_sigmoid"])
+    assert len(preg.OPS) == 251

@@ -225,8 +225,13 @@ def test_drain_quiesce_status_and_one_trace(world):
             toks, status = cli.generate(feed, 6, eos_id=1)
         assert status == "done" and toks.tolist() == ref
         trace = client.context.trace_id
-        assert _wait(lambda: any(r["name"] == "serving.request"
-                                 for r in ptelem.spans()), 10.0)
+        # the handler closes "serving.submit" after it has sent the last
+        # TOKEN frame, so generate() may return before that span is in the
+        # ring: wait for every span read below before reading the ring or
+        # draining it with status()
+        read = {"rpc.serving.attempt", "serving.submit", "serving.request"}
+        assert _wait(lambda: read <= {r["name"] for r in ptelem.spans()},
+                     10.0)
         by = {r["name"]: r for r in ptelem.spans()}
         attempt, submit = by["rpc.serving.attempt"], by["serving.submit"]
         request = by["serving.request"]

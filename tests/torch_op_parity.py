@@ -120,7 +120,8 @@ def assert_same_program(jprog, pprog):
     assert pd == jd
 
 
-def _build_grad(pkg, guard, op_type, inputs, attrs, diff, outs):
+def _build_grad(pkg, guard, op_type, inputs, attrs, diff, outs,
+                more_outs=None):
     main, startup = pkg.Program(), pkg.Program()
     with pkg.program_guard(main, startup), guard():
         block = main.global_block()
@@ -130,14 +131,17 @@ def _build_grad(pkg, guard, op_type, inputs, attrs, diff, outs):
                 name=f"{param}_{i}", shape=list(a.shape),
                 dtype=str(a.dtype), stop_gradient=param not in diff)
                 for i, a in enumerate(arrs)]
+        every = dict(more_outs or {}, **outs)
         ovars = {param: [block.create_var(name=f"out_{param}_{i}",
                                           dtype="float32")
                          for i in range(n)]
-                 for param, n in outs.items()}
+                 for param, n in every.items()}
         block.append_op(type=op_type, inputs=ivars, outputs=ovars,
                         attrs=dict(attrs))
         terms = []
         for param, vs in ovars.items():
+            if param not in outs:
+                continue
             for v in vs:
                 cot = block.create_var(name=f"cot_{v.name}",
                                        shape=list(v.shape), dtype=v.dtype,
@@ -146,7 +150,7 @@ def _build_grad(pkg, guard, op_type, inputs, attrs, diff, outs):
                     pkg.layers.elementwise_mul(v, cot)))
         loss = terms[0] if len(terms) == 1 else pkg.layers.sums(terms)
         pkg.append_backward(loss)
-    return main, ovars
+    return main, {p: vs for p, vs in ovars.items() if p in outs}
 
 
 def assert_grads(op_type, inputs, attrs, diff, outs, seed=0,
@@ -154,31 +158,54 @@ def assert_grads(op_type, inputs, attrs, diff, outs, seed=0,
     """`outs`: {output param: count} of the float outputs the loss reads;
     `diff`: the input params that take a gradient.  Builds the same
     program in both packages, runs each package's Executor on the same
-    feed and compares the outputs and every input grad of `diff`."""
+    feed and compares the outputs and every input grad of `diff`, all at
+    rtol/atol."""
+    return assert_op_and_grads(op_type, inputs, attrs, diff, outs, seed=seed,
+                               rtol=rtol, atol=atol, grad_rtol=rtol,
+                               grad_atol=atol)
+
+
+def assert_op_and_grads(op_type, inputs, attrs, diff, outs, more_outs=None,
+                        seed=0, rtol=1e-5, atol=1e-6, grad_rtol=GRAD_RTOL,
+                        grad_atol=GRAD_ATOL):
+    """`assert_grads` in one program a package, every output of the op
+    fetched: the outputs in `outs` (the loss's) and `more_outs` (read by
+    nothing) within rtol/atol (integer ones equal), the input grads of
+    `diff` within grad_rtol/grad_atol.  -> {name: port value}."""
     jm, jouts = _build_grad(fluid, jun.guard, op_type, inputs, attrs, diff,
-                            outs)
+                            outs, more_outs)
     pm, _ = _build_grad(pt, pt.unique_name.guard, op_type, inputs, attrs,
-                        diff, outs)
+                        diff, outs, more_outs)
     assert_same_program(jm, pm)
     rng = np.random.RandomState(seed)
     feed = {f"{p}_{i}": a for p, arrs in inputs.items()
             for i, a in enumerate(arrs)}
-    fetch = []
     for vs in jouts.values():
         for v in vs:
             feed[f"cot_{v.name}"] = rng.standard_normal(
                 tuple(v.shape)).astype(np.float32)
-            fetch.append(v.name)
-    fetch += [f"{p}_{i}@GRAD" for p in diff for i in range(len(inputs[p]))]
+    outs_fetch = [f"out_{p}_{i}"
+                  for p, n in dict(more_outs or {}, **outs).items()
+                  for i in range(n)]
+    grads = [f"{p}_{i}@GRAD" for p in diff for i in range(len(inputs[p]))]
     want = [np.asarray(a) for a in fluid.Executor(fluid.CPUPlace()).run(
-        jm, feed=feed, fetch_list=fetch, scope=JScope())]
-    got = pt.Executor(pt.CPUPlace()).run(pm, feed=feed, fetch_list=fetch,
-                                         scope=pt.Scope())
-    for name, g, w in zip(fetch, got, want, strict=True):
+        jm, feed=feed, fetch_list=outs_fetch + grads, scope=JScope())]
+    got = pt.Executor(pt.CPUPlace()).run(
+        pm, feed=feed, fetch_list=outs_fetch + grads, scope=pt.Scope())
+    for k, (name, g, w) in enumerate(zip(outs_fetch + grads, got, want,
+                                         strict=True)):
         assert g.shape == w.shape, (name, g.shape, w.shape)
-        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol,
-                                   err_msg=f"{op_type}: {name}")
-    return got
+        what = f"{op_type}: {name}"
+        if w.dtype.kind in "biu":
+            assert g.dtype.kind == w.dtype.kind, (what, g.dtype, w.dtype)
+            np.testing.assert_array_equal(g, w, err_msg=what)
+        elif k < len(outs_fetch):
+            np.testing.assert_allclose(g, w, rtol=rtol, atol=atol,
+                                       err_msg=what)
+        else:
+            np.testing.assert_allclose(g, w, rtol=grad_rtol, atol=grad_atol,
+                                       err_msg=what)
+    return dict(zip(outs_fetch + grads, got))
 
 
 # ------------------------------------------- whole programs in both packages
