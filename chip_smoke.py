@@ -488,7 +488,44 @@ catches its own failure:
      bitwise, ms a replay; nce's negatives by their mean and class-0
      share (5 standard errors), its cost and grads the CPU's pricing of
      the card's samples;
- 20. one {"kernels": [...]} line, the card's name and power limit, and
+ 20. the mixture-of-experts tier (gating, dispatch and the combine are
+     plain PyTorch captured with the step; the expert products are
+     torch.bmm; attention keeps the gate's kernels).  MoE/bench:
+     bench.py's moe leg (bench.py:1451-1621: d_model 128, 2 layers, 8
+     heads, 4 experts, top 2, capacity factor 1.25, vocab 4,000, batch 32
+     x seq 64, float32, Adam(1e-4)): the MoE model and its dense twin at
+     the same FFN FLOPs a token, 2 warm-up and 20 timed steps each
+     (tokens/s = batch x seq x 2 x steps / wall, final losses, the gap),
+     moe_drop_rate and the load imbalance from one eager step fetching
+     every gating op's Load and Dropped; 3 steps card vs the port's CPU
+     path (losses rtol 1e-3; at step 1 the share of (token, slot)
+     assignments routed to another expert, each of the first op's
+     witnessed by a probability gap within twice that op's card-vs-CPU
+     spread), 3 steps jit = interpret bitwise; then tiny_moe(vocab=200)
+     decode (16-token sources, 4-token prompts, 48-slot cache, 16 new
+     tokens, 4 streams) through the Scheduler: tokens equal sequential
+     generate(), every step observed by the load monitor, nothing
+     dropped, load_signal().  MoE/ckpt: its training with a
+     CheckpointManager save after step 3 of 6 (moe= the 4-shard
+     placements, rebalanced to epoch 1), restored into a fresh scope:
+     steps 4-6 bitwise, the placements adopted, tools/ckpt_fsck.py run
+     by path passes.  MoE/base: transformer-base with every FFN 8
+     experts of 2048 (top 2, capacity factor 1.25, aux weight 0.01) at
+     T2's settings: 2 warm-up, 5 timed and 2 profiled steps, tokens/s and
+     ms a step beside T2's, MFU by the dense twin's FLOPs (d_inner 4096;
+     the router's 2 d E a token left out), peak memory and graph pool,
+     launches as the gate predicts, the exact drop rate from the fetched
+     Positions (Load and Dropped are bfloat16), the first loss within
+     2e-2 of a float32 forward, one step by the interpreter twice (grads
+     of the expert and router weights bitwise equal, the second under
+     labelled profiler ranges: the card's ms in attention, gating,
+     expert products and dispatch/combine) and its loss equal to the
+     captured replay's.  MoE/serve: its decode (capacity factor 0) at
+     [12] F/tax's shapes, 8 requests of 24 tokens through the Scheduler
+     on the host pool and on the device pool: tokens equal the
+     sequential Generator's, every step observed, 0 dropped, #6/#7 as
+     the gate predicts;
+ 21. one {"kernels": [...]} line, the card's name and power limit, and
      last the {"ok": true, "device": ...} line.
 
 Exits non-zero, printing no result, when there is no CUDA device or when
@@ -2832,11 +2869,10 @@ def _restore(scope, snapshot):
         scope.find_var(name).copy_(value)
 
 
-def _interpret_step(eager, main, scope, feed, loss):
-    """One step by the interpreter in a scratch scope holding a copy of
-    `scope`'s persistables and run counter: [loss].  The allocator caches
-    blocks per stream, and the jit path's warm-up runs on a side stream:
-    the cache is released on both sides of the step, so that the two
+def _scratch(main, scope):
+    """A scope holding a copy of `scope`'s persistables and run counter.
+    The allocator caches blocks per stream, and the jit path's warm-up
+    runs on a side stream: the cache is released first, so that the two
     streams' caches never sit on the card together."""
     from paddle_tpu_torch import Scope
     from paddle_tpu_torch.framework.executor import _RNG_COUNTER_NAME
@@ -2846,6 +2882,13 @@ def _interpret_step(eager, main, scope, feed, loss):
     for name, value in _persistables(scope, main).items():
         scratch.set_var(name, value)
     scratch.set_var(_RNG_COUNTER_NAME, scope.find_var(_RNG_COUNTER_NAME))
+    return scratch
+
+
+def _interpret_step(eager, main, scope, feed, loss):
+    """One step by the interpreter in a _scratch copy of `scope`: [loss].
+    The cache is released after the step too."""
+    scratch = _scratch(main, scope)
     losses, _ = run_steps(eager, main, scratch, feed, loss, 1)
     del scratch
     torch.cuda.empty_cache()
@@ -10864,6 +10907,686 @@ def _no_launches(phases, tag="[18]"):
                              f"{launched}")
 
 
+# ------------------------------------------------------------ [20] MoE
+
+# MoE/bench: bench.py's moe leg (bench.py:1451-1621): d_model 128, 2
+# layers, 8 heads, 4 experts, top 2, capacity factor 1.25, vocab 4,000,
+# batch 32 x seq 64, float32, Adam(1e-4), random_seed 1 (_setup), and the
+# dense twin at the same FFN FLOPs a token (d_inner = top_k x d_model)
+MB_BATCH, MB_SEQ, MB_DMODEL, MB_LAYERS = 32, 64, 128, 2
+MB_EXPERTS, MB_TOPK, MB_CF, MB_VOCAB = 4, 2, 1.25, 4000
+MB_WARMUP, MB_STEPS = 2, 20
+MB_CHECK_STEPS, MB_LOSS_RTOL = 3, 1e-3    # card vs the port's CPU path
+# its serving half: tiny_moe(vocab=200, max_length=16), 4 streams
+MB_SRC, MB_PREFIX, MB_MAX_LEN, MB_NEW, MB_STREAMS, MB_VOCAB_S = (
+    16, 4, 48, 16, 4, 200)
+# MoE/ckpt: a save after step 3 of 6 with 4-shard placements
+MK_STEPS, MK_AT, MK_SHARDS = 6, 3, 4
+# MoE/base: transformer-base with every FFN a mixture of 8 experts of
+# 2048 (the TransformerConfig defaults: top 2, capacity factor 1.25, aux
+# weight 0.01) at T2's settings
+MOE_EXPERTS = 8
+MOE_WARMUP, MOE_STEPS, MOE_PROFILED = T2_WARMUP, T2_STEPS, T2_PROFILED
+# a kernel of the expert products (cuBLAS's batched GEMMs) by its name
+GEMM_NAMES = ("gemm", "Gemm", "xmma", "cutlass", "nvjet")
+# the launches a call of each tier makes: training (forward and grad) and
+# inference
+TRAIN_LAUNCHES = {
+    "mha_block": {"mha_block": 1, "mha_block_bwd": 1},
+    "flash": {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 1,
+              "flash_attention_bwd_dkv": 1}}
+INFER_LAUNCHES = {
+    "mha_block": {"mha_block": 1}, "mha_decode": {"mha_block": 1},
+    "flash": {"flash_attention_fwd": 1},
+    "flash_decode": {"flash_decode": 1}}
+
+
+def _gate_tier(sq, sk, d, heads, causal, dtype, seq_len=False):
+    """The tier the gate picks for one attention of these shapes (the gate
+    reads shapes, dtype and device)."""
+    from paddle_tpu_torch.ops import attention_ops
+
+    q = torch.empty((1, sq, d), dtype=dtype, device="cuda")
+    k = q if sk == sq else torch.empty((1, sk, d), dtype=dtype,
+                                       device="cuda")
+    return attention_ops.backend_choice(q, k, heads, causal,
+                                        seq_len=seq_len)
+
+
+def _gate_expect(calls, table):
+    """[(tier, calls)] -> the launches of the eight kernels."""
+    out = dict.fromkeys(KERNELS, 0)
+    for tier, n in calls:
+        for name, m in table.get(tier, {}).items():
+            out[name] += m * n
+    return out
+
+
+def _train_tiers(cfg, seq, dtype):
+    """A training step's attentions: [(tier, calls a step)]."""
+    d, h, n = cfg.d_model, cfg.n_head, cfg.n_layer
+    return [(_gate_tier(seq, seq, d, h, False, dtype), n),   # encoder
+            (_gate_tier(seq, seq, d, h, True, dtype), n),    # decoder self
+            (_gate_tier(seq, seq, d, h, False, dtype), n)]   # cross
+
+
+def _moe_bench_cfgs():
+    from paddle_tpu_torch.models import transformer
+
+    common = dict(src_vocab_size=MB_VOCAB, trg_vocab_size=MB_VOCAB,
+                  max_length=MB_SEQ, n_layer=MB_LAYERS, n_head=8,
+                  d_model=MB_DMODEL, dropout=0.0)
+    moe_cfg = transformer.TransformerConfig(
+        d_inner=MB_DMODEL, moe_experts=MB_EXPERTS, moe_top_k=MB_TOPK,
+        moe_capacity_factor=MB_CF, **common)
+    dense_cfg = transformer.TransformerConfig(d_inner=MB_TOPK * MB_DMODEL,
+                                              **common)
+    return moe_cfg, dense_cfg
+
+
+def build_moe_bench(cfg):
+    """bench.py's _setup for the moe leg: random_seed 1, float32,
+    transformer.build + Adam(1e-4)."""
+    from paddle_tpu_torch import Program, optimizer, program_guard, unique_name
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = Program(), Program()
+    main.random_seed = startup.random_seed = 1
+    with program_guard(main, startup), unique_name.guard():
+        loss = transformer.build(cfg)[0]
+        optimizer.Adam(learning_rate=1e-4).minimize(loss)
+    return main, startup, loss
+
+
+def _gating_ops(main):
+    return [op for op in main.global_block().ops if op.type == "top_k_gating"]
+
+
+def _host(t):
+    return t.detach().float().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t, np.float64)
+
+
+def _mb_feed(cfg, seed, device=None):
+    from paddle_tpu_torch.models import transformer
+
+    feed = transformer.synthetic_batch(MB_BATCH, cfg, seed=seed)
+    if device is None:
+        return feed
+    return {k: torch.as_tensor(v, device=device) for k, v in feed.items()}
+
+
+def _mb_train_leg(name, cfg, device):
+    """One of bench.py's two training legs: 2 warm-up (eager, capture) and
+    MB_STEPS timed replays; tokens/s = batch x seq x 2 x steps / wall."""
+    main, startup, loss = build_moe_bench(cfg)
+    scope, exe = _seeded_scope(main, startup)
+    feed = _mb_feed(cfg, 0, device)
+    warm, _ = run_steps(exe, main, scope, feed, loss, MB_WARMUP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed, _ = run_steps(exe, main, scope, feed, loss, MB_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = warm + timed
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"MoE/bench {name}: losses {losses}")
+    captured_graphs(f"MoE/bench {name}", exe, feed)
+    return {"tokens_per_s": MB_BATCH * MB_SEQ * 2 * MB_STEPS / wall,
+            "ms_per_step": wall / MB_STEPS * 1e3, "first_loss": losses[0],
+            "final_loss": losses[-1]}
+
+
+def _softmax64(x):
+    x = np.asarray(x, np.float64)
+    e = np.exp(x - x.max(axis=-1, keepdims=True))
+    return e / e.sum(axis=-1, keepdims=True)
+
+
+def _routing_witness(card_probe, cpu_probe, n_gates):
+    """Step 1's routing on the card against the CPU's: the share of
+    (token, slot) assignments whose expert differs, per gating op, and at
+    the first op where any differs the witness of each: the CPU's
+    probabilities of the card's and the CPU's expert there may differ by
+    no more than twice that op's largest card-vs-CPU probability
+    difference (the two paths' float32 rounding could have ordered them
+    either way).  Later ops see that op's changed outputs."""
+    logits_c, logits_p = card_probe[:n_gates], cpu_probe[:n_gates]
+    idx_c, idx_p = card_probe[n_gates:], cpu_probe[n_gates:]
+    per_op, total, first = [], 0, None
+    for g in range(n_gates):
+        a = _host(idx_c[g]).astype(np.int64)
+        b = _host(idx_p[g]).astype(np.int64)
+        diff = a != b
+        per_op.append(int(diff.sum()))
+        total += a.size
+        if first is not None or not diff.any():
+            continue
+        pc = _softmax64(_host(logits_c[g])).reshape(-1, MB_EXPERTS)
+        pp = _softmax64(_host(logits_p[g])).reshape(-1, MB_EXPERTS)
+        spread = float(np.abs(pc - pp).max())
+        a, b = a.reshape(-1, MB_TOPK), b.reshape(-1, MB_TOPK)
+        tok, slot = np.nonzero(a != b)
+        gaps = np.abs(pp[tok, a[tok, slot]] - pp[tok, b[tok, slot]])
+        first = {"op": g, "assignments": int(len(tok)),
+                 "max_gap": float(gaps.max()), "spread": spread,
+                 "witnessed": bool(gaps.max() <= 2 * spread)}
+    return {"differ_share": sum(per_op) / total, "differ_per_op": per_op,
+            "first": first}
+
+
+def phase_moe_bench(card, device):
+    """MoE/bench: bench.py's moe leg on the card -> (record, launches,
+    the MoE program's pieces for MoE/ckpt)."""
+    from paddle_tpu_torch import CPUPlace, CUDAPlace, Executor, Scope, decode
+    from paddle_tpu_torch import moe, serving
+    from paddle_tpu_torch.models import transformer
+
+    moe_cfg, dense_cfg = _moe_bench_cfgs()
+    tiers = _train_tiers(moe_cfg, MB_SEQ, torch.float32)
+    torch.cuda.synchronize()
+    _zero_counts()
+    moe_leg = _mb_train_leg("moe", moe_cfg, device)
+    dense_leg = _mb_train_leg("dense", dense_cfg, device)
+    counts = _port_kernel_counts()
+    steps = 2 * (MB_WARMUP + MB_STEPS)
+    expect = _gate_expect([(t, n * steps) for t, n in tiers], TRAIN_LAUNCHES)
+    if counts != expect:
+        raise AssertionError(f"MoE/bench: launches {counts}, the gate "
+                             f"predicts {expect} ({tiers})")
+
+    # the drop rate at the training capacity factor: one eager step that
+    # fetches every gating op's Load and Dropped
+    main, startup, loss = build_moe_bench(moe_cfg)
+    loads_n, dropped_n = moe.gating_fetches(main)
+    scope, _ = _seeded_scope(main, startup)
+    outs = Executor(CUDAPlace(0), mode="interpret").run(
+        main, feed=_mb_feed(moe_cfg, 0, device),
+        fetch_list=loads_n + dropped_n, scope=scope, return_numpy=False)
+    loads = [_host(v) for v in outs[:len(loads_n)]]
+    dropped = float(sum(_host(v).sum() for v in outs[len(loads_n):]))
+    kept = float(sum(v.sum() for v in loads))
+    drop_rate = dropped / max(1.0, kept + dropped)
+    imbalance = max(float(v.max() / max(v.mean(), 1e-9)) for v in loads)
+
+    # card vs the port's CPU path from the same weights, routing included
+    gating = _gating_ops(main)
+    probe = ([op.input("Logits")[0] for op in gating]
+             + [op.output("Indices")[0] for op in gating])
+    start = _persistables(scope, main)
+    cpu_scope = Scope()
+    for name, value in start.items():
+        cpu_scope.set_var(name, value.cpu())
+    exe = Executor(CUDAPlace(0))
+    card_losses, card_probe = run_steps(exe, main, scope,
+                                        _mb_feed(moe_cfg, 1, device), loss,
+                                        MB_CHECK_STEPS, probe=probe)
+    cpu_losses, cpu_probe = run_steps(Executor(CPUPlace()), main, cpu_scope,
+                                      _mb_feed(moe_cfg, 1), loss,
+                                      MB_CHECK_STEPS, probe=probe)
+    del cpu_scope
+    if not np.allclose(card_losses, cpu_losses, rtol=MB_LOSS_RTOL, atol=0):
+        raise AssertionError(f"MoE/bench: card losses {card_losses} vs CPU "
+                             f"{cpu_losses}")
+    routing = _routing_witness(card_probe, cpu_probe, len(gating))
+    if routing["first"] is not None and not routing["first"]["witnessed"]:
+        raise AssertionError(f"MoE/bench: routing differs from the CPU's "
+                             f"past float32 rounding: {routing}")
+
+    # jit = interpret, bitwise, from the same weights
+    _restore(scope, start)
+    jit, ref = jit_vs_interpret("MoE/bench", Executor(CUDAPlace(0)), main,
+                                scope, _mb_feed(moe_cfg, 2, device), loss,
+                                MB_CHECK_STEPS)
+    if jit != ref:
+        raise AssertionError(f"MoE/bench: jit {jit} != interpret {ref}")
+
+    # serving: the Scheduler against sequential generate(), bitwise
+    dcfg = transformer.tiny_moe(vocab=MB_VOCAB_S, max_length=16,
+                                experts=MB_EXPERTS, top_k=MB_TOPK)
+    spec = decode_spec(dcfg, MB_PREFIX, MB_MAX_LEN, src_len=MB_SRC)
+    dscope = Scope()
+    gen = decode.Generator(spec, scope=dscope, place=CUDAPlace(0))
+    feeds = [_bench_feed(MB_VOCAB_S, MB_SRC, MB_PREFIX, 500 + i)
+             for i in range(MB_STREAMS)]
+    sched = serving.Scheduler(spec, scope=dscope, place=CUDAPlace(0),
+                              max_batch=MB_STREAMS)
+    try:
+        _warm_buckets(sched, lambda s: _bench_feed(MB_VOCAB_S, MB_SRC,
+                                                   MB_PREFIX, s),
+                      buckets=[MB_STREAMS])
+        mon = spec.monitor.monitor
+        seen = mon.steps
+        torch.cuda.synchronize()
+        _zero_counts()
+        c0 = dict(sched.counters)
+        t0 = time.perf_counter()
+        reqs = [sched.submit(f, MB_NEW, eos_id=-1) for f in feeds]
+        sched.run_until_idle(max_steps=100000)
+        torch.cuda.synchronize()
+        t_cb = time.perf_counter() - t0
+        serve_counts = _port_kernel_counts()
+        n_steps = sched.counters["steps"] - c0["steps"]
+        n_prefills = (sched.counters["prefill_batches"]
+                      - c0["prefill_batches"])
+        observed = mon.steps - seen
+        equal = check_served("MoE/bench serve", reqs, feeds, gen, MB_NEW)
+        signal_ = mon.load_signal()
+    finally:
+        sched.close()
+    d, h, n = dcfg.d_model, dcfg.n_head, dcfg.n_layer
+    f32 = torch.float32
+    serve_tiers = [
+        (_gate_tier(MB_SRC, MB_SRC, d, h, False, f32, True), n * n_prefills),
+        (_gate_tier(MB_PREFIX, MB_PREFIX, d, h, True, f32), n * n_prefills),
+        (_gate_tier(MB_PREFIX, MB_SRC, d, h, False, f32, True),
+         n * n_prefills),
+        (_gate_tier(1, MB_MAX_LEN, d, h, False, f32, True), n * n_steps),
+        (_gate_tier(1, MB_SRC, d, h, False, f32, True), n * n_steps)]
+    serve_expect = _gate_expect(serve_tiers, INFER_LAUNCHES)
+    if serve_counts != serve_expect:
+        raise AssertionError(f"MoE/bench serve: launches {serve_counts}, "
+                             f"the gate predicts {serve_expect}")
+    if observed < n_steps or mon.total_dropped:
+        raise AssertionError(f"MoE/bench serve: the monitor observed "
+                             f"{observed} of {n_steps} steps, "
+                             f"{mon.total_dropped} dropped")
+
+    res = {"phase": "MoE/bench", "d_model": MB_DMODEL, "n_layer": MB_LAYERS,
+           "experts": MB_EXPERTS, "top_k": MB_TOPK,
+           "capacity_factor": MB_CF, "batch": MB_BATCH, "seq": MB_SEQ,
+           "steps": MB_STEPS, "moe": moe_leg, "dense_equal_flops": dense_leg,
+           "moe_tokens_per_s": moe_leg["tokens_per_s"],
+           "dense_tokens_per_s": dense_leg["tokens_per_s"],
+           "loss_gap": moe_leg["final_loss"] - dense_leg["final_loss"],
+           "moe_drop_rate": drop_rate, "load_imbalance": imbalance,
+           "gating_ops": len(loads_n), "card_losses": card_losses,
+           "cpu_losses": cpu_losses, "routing": routing,
+           "jit_losses": jit, "interpret_losses": ref,
+           "serving": {"tokens_per_s": MB_STREAMS * MB_NEW / t_cb,
+                       "requests_equal_to_sequential": equal,
+                       "steps": n_steps, "prefill_batches": n_prefills,
+                       "monitor_steps": observed, "load_signal": signal_},
+           "launches": _add(counts, serve_counts), "card": card}
+    log(f"  MoE/bench: moe {moe_leg['tokens_per_s']:.1f} tokens/s "
+        f"({moe_leg['ms_per_step']:.2f} ms/step), dense twin "
+        f"{dense_leg['tokens_per_s']:.1f} ({dense_leg['ms_per_step']:.2f}); "
+        f"final losses {moe_leg['final_loss']:.6f} / "
+        f"{dense_leg['final_loss']:.6f}, gap {res['loss_gap']:.6f}; "
+        f"moe_drop_rate {drop_rate:.4f}, imbalance {imbalance:.3f} "
+        f"({len(loads_n)} gating ops)  [{card}]")
+    log(f"    card vs CPU losses {card_losses} / {cpu_losses}; routing "
+        f"differs for {routing['differ_share']:.2e} of the assignments "
+        f"{routing['differ_per_op']}, first: {routing['first']}; jit {jit} "
+        f"= interpret; launches {counts} (the gate: {tiers})")
+    log(f"    served {MB_STREAMS}x{MB_NEW}: "
+        f"{res['serving']['tokens_per_s']:.1f} tokens/s, {equal}/"
+        f"{MB_STREAMS} equal the sequential Generator, {n_steps} steps "
+        f"({observed} observed), load_signal {signal_}, launches "
+        f"{serve_counts}")
+    del scope, dscope, gen
+    torch.cuda.empty_cache()
+    return res, res["launches"], (moe_cfg, loads)
+
+
+def phase_moe_ckpt(card, device, moe_cfg, loads):
+    """MoE/ckpt: MoE/bench's training with a CheckpointManager save after
+    step MK_AT (the placements rebalanced by the drop-rate step's loads,
+    epoch 1), restored into a fresh scope: the later steps' losses
+    bitwise the uninterrupted run's, the placements' epochs adopted, and
+    tools/ckpt_fsck.py (run by path) passes on the step directory."""
+    from paddle_tpu_torch import moe
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+
+    root = _saved_dir("moe_ckpt")
+    feeds = [_mb_feed(moe_cfg, 10 + i, device) for i in range(MK_STEPS)]
+    main, startup, loss = build_moe_bench(moe_cfg)
+    scope, exe = _seeded_scope(main, startup)
+    placements = moe.placements_for_program(main, MK_SHARDS)
+    for placement, load in zip(placements.values(), loads, strict=True):
+        placement.rebalance(load)
+    mgr = CheckpointManager(root)
+    losses = []
+    for i, feed in enumerate(feeds):
+        losses += run_steps(exe, main, scope, feed, loss, 1)[0]
+        if i + 1 == MK_AT:
+            t0 = time.perf_counter()
+            path = mgr.save(MK_AT, scope=scope, main_program=main,
+                            moe=placements)
+            submit_s = time.perf_counter() - t0
+    mgr.wait()
+    fsck = subprocess.run(
+        [sys.executable, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tools", "ckpt_fsck.py"), path],
+        capture_output=True, text=True, timeout=300)
+    if fsck.returncode != 0:
+        raise AssertionError(f"MoE/ckpt: ckpt_fsck rc {fsck.returncode}: "
+                             f"{fsck.stdout[-2000:]} {fsck.stderr[-2000:]}")
+    rmain, rstartup, rloss = build_moe_bench(moe_cfg)
+    rscope, rexe = _seeded_scope(rmain, rstartup)
+    fresh = moe.placements_for_program(rmain, MK_SHARDS)
+    t0 = time.perf_counter()
+    state = mgr.restore(scope=rscope, main_program=rmain, moe=fresh)
+    restore_s = time.perf_counter() - t0
+    resumed = []
+    for feed in feeds[MK_AT:]:
+        resumed += run_steps(rexe, rmain, rscope, feed, rloss, 1)[0]
+    adopted = all(fresh[n].to_meta() == placements[n].to_meta()
+                  for n in placements)
+    epochs = sorted({p.epoch for p in fresh.values()})
+    if resumed != losses[MK_AT:] or not adopted or epochs != [1] or \
+            state["step"] != MK_AT:
+        raise AssertionError(f"MoE/ckpt: resumed {resumed} vs "
+                             f"{losses[MK_AT:]}, placements adopted "
+                             f"{adopted}, epochs {epochs}")
+    shutil.rmtree(root, ignore_errors=True)
+    res = {"phase": "MoE/ckpt", "losses": losses, "resumed": resumed,
+           "placements": len(fresh), "shards": MK_SHARDS,
+           "placement_epochs": epochs, "fsck": fsck.stdout.splitlines()[0],
+           "save_submit_ms": submit_s * 1e3, "restore_ms": restore_s * 1e3,
+           "card": card}
+    log(f"  MoE/ckpt: steps {MK_AT + 1}-{MK_STEPS} after the restore equal "
+        f"the uninterrupted run's bitwise ({resumed}); {len(fresh)} "
+        f"placements over {MK_SHARDS} shards adopted at epoch {epochs}; "
+        f"ckpt_fsck: {res['fsck']}; save submit "
+        f"{res['save_submit_ms']:.1f} ms, restore {res['restore_ms']:.1f} "
+        f"ms  [{card}]")
+    return res
+
+
+def _interpret(main, scratch, feed, fetch):
+    """One step by the interpreter -> the fetches (card tensors)."""
+    from paddle_tpu_torch import CUDAPlace, Executor
+
+    return Executor(CUDAPlace(0), mode="interpret").run(
+        main, feed=feed, fetch_list=fetch, scope=scratch, return_numpy=False)
+
+
+def moe_time_split(main, scope, feed, fetch):
+    """One step by the interpreter under torch.profiler, each attention,
+    gating and expert-FFN op (and its grad) inside a labelled range, the
+    card synchronised around it: the card's ms a step in the attention
+    ops, the gating, and the expert FFN split into its GEMMs (the expert
+    products) and the rest (dispatch, combine, bias, activation).  A
+    captured step runs no Python, so the split is taken where the ops run
+    one by one: the same kernels.  -> (split, the step's fetches)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from paddle_tpu_torch.ops import registry
+
+    groups = {"attention": ("fused_attention",), "gating": ("top_k_gating",),
+              "expert ffn": ("moe_expert_ffn",)}
+    infos = [(label, info) for label, types in groups.items()
+             for t in types
+             for info in (registry.OPS[t], registry.get_runtime_info(
+                 t + "_grad"))]
+    real = [info.forward for _, info in infos]
+
+    def labelled(fn, label):
+        def run(ctx):
+            torch.cuda.synchronize()
+            with record_function(label):
+                fn(ctx)
+                torch.cuda.synchronize()
+        return run
+
+    scratch = _scratch(main, scope)
+    for (label, info), fn in zip(infos, real):
+        info.forward = labelled(fn, label)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            outs = _interpret(main, scratch, feed, fetch)
+            torch.cuda.synchronize()
+    finally:
+        for (_, info), fn in zip(infos, real):
+            info.forward = fn
+        del scratch
+        torch.cuda.empty_cache()
+    spans = [sp for sp in device_spans(prof) if sp[0] not in groups]
+    if not spans:
+        return None, outs   # the profiler saw no device activity
+    busy = busy_us(spans)
+    split = {"step_busy_ms": busy / 1e3}
+    for label in groups:
+        ranges = [(e.time_range.start, e.time_range.end)
+                  for e in prof.events() if e.name == label]
+        mine = [sp for sp in spans if any(a <= sp[1] < b for a, b in ranges)]
+        if label == "expert ffn":
+            gemm = [sp for sp in mine if any(g in sp[0] for g in GEMM_NAMES)]
+            rest = [sp for sp in mine if sp not in gemm]
+            split["expert products_ms"] = busy_us(gemm) / 1e3
+            split["dispatch/combine_ms"] = busy_us(rest) / 1e3
+            top = {}
+            for name, a, b in rest:
+                top[name[:60]] = top.get(name[:60], 0.0) + (b - a) / 1e3
+            split["dispatch/combine_top"] = sorted(
+                ([k, round(v, 3)] for k, v in top.items()),
+                key=lambda kv: -kv[1])[:5]
+        else:
+            split[f"{label}_ms"] = busy_us(mine) / 1e3
+    split["other_ms"] = split["step_busy_ms"] - sum(
+        v for k, v in split.items()
+        if k.endswith("_ms") and k != "step_busy_ms")
+    return split, outs
+
+
+def phase_moe_base(card, device, t2):
+    """MoE/base: transformer-base with every FFN a mixture at T2's
+    settings (batch 128, seq 256, bf16 AMP, Adam multi_precision)."""
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops.moe_ops import expert_capacity
+
+    cfg = transformer.TransformerConfig(max_length=SEQ, dropout=0.0,
+                                        moe_experts=MOE_EXPERTS)
+    main, startup, loss, params_grads = build_training(cfg, True, False)
+    gating = _gating_ops(main)
+    positions = [op.output("Positions")[0] for op in gating]
+    loads_n = [op.output("Load")[0] for op in gating]
+    dropped_n = [op.output("Dropped")[0] for op in gating]
+    probe = positions + loads_n + dropped_n
+    expert_grads = [g.name for p, g in params_grads
+                    if "_moe_w" in p.name or "_gate.w_0" in p.name]
+    tiers = _train_tiers(cfg, SEQ, torch.bfloat16)
+    scope, exe = _seeded_scope(main, startup)
+    feed = _train_feed(cfg, T2_BATCH, SEED + 40, False, device)
+    ref_first = _f32_forward_loss(
+        lambda: transformer.build(cfg, seq_len=SEQ)[0], scope, feed)
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    _zero_counts()
+    before = graph_stats()
+    reset_peak_memory()
+    warm, first = run_steps(exe, main, scope, feed, loss, MOE_WARMUP,
+                            probe=probe)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed, _ = run_steps(exe, main, scope, feed, loss, MOE_STEPS,
+                         probe=probe)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof = profile_calls(
+        lambda: run_steps(exe, main, scope, feed, loss, 1, probe=probe),
+        MOE_PROFILED, top=8, kernels=("mha_block", "mha_block_bwd"))
+    counts = _port_kernel_counts()
+    n_steps = MOE_WARMUP + MOE_STEPS + MOE_PROFILED
+    expect = _gate_expect([(t, n * n_steps) for t, n in tiers],
+                          TRAIN_LAUNCHES)
+    if counts != expect:
+        raise AssertionError(f"MoE/base: launches {counts}, the gate "
+                             f"predicts {expect} ({tiers})")
+    res = capture_fields(before, prof, wall / MOE_STEPS * 1e3)
+    losses = warm + timed
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"MoE/base: losses {losses}")
+    if abs(losses[0] - ref_first) > LOSS_RTOL_BF16 * abs(ref_first):
+        raise AssertionError(f"MoE/base: first loss {losses[0]} vs the "
+                             f"float32 forward's {ref_first}")
+    graphs, bound = captured_graphs("MoE/base", exe, feed)
+
+    # the exact drop rate from the first step's Positions; Load and
+    # Dropped are bfloat16 under AMP (exact to 256 only)
+    n_tok = T2_BATCH * SEQ
+    cap = expert_capacity(n_tok, MOE_EXPERTS, cfg.moe_top_k,
+                          cfg.moe_capacity_factor)
+    g = len(gating)
+    exact = sum(int((p >= cap).sum().item()) for p in first[:g])
+    bf16_dropped = sum(float(d.float().sum().item())
+                       for d in first[2 * g:])
+    bf16_kept = sum(float(v.float().sum().item()) for v in first[g:2 * g])
+    assigned = g * n_tok * cfg.moe_top_k
+
+    # the next step captured, then twice by the interpreter from the same
+    # state (the second under the labelled profiler), once the captured
+    # graphs and their pool are freed: the loss equal to the captured
+    # replay's, the expert and router grads bitwise equal between the two
+    snap = _scratch(main, scope)
+    (jit_loss,), _ = run_steps(exe, main, scope, feed, loss, 1, probe=probe)
+    exe._cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    fetch = [loss.name] + expert_grads
+    a = [t.cpu() for t in _interpret(main, _scratch(main, snap), feed,
+                                     fetch)]
+    torch.cuda.empty_cache()
+    split, b = moe_time_split(main, snap, feed, fetch)
+    same = all(torch.equal(x, y.cpu()) for x, y in zip(a, b, strict=True))
+    interp = float(a[0].float().reshape(-1)[0])
+    del a, b, snap
+    if not same or jit_loss != interp:
+        raise AssertionError(f"MoE/base: interpreted step twice equal "
+                             f"{same}; captured loss {jit_loss} vs "
+                             f"interpreted {interp}")
+
+    dense = transformer.TransformerConfig(
+        max_length=SEQ, d_inner=cfg.moe_top_k * cfg.d_inner)
+    tokens_per_s = 2 * T2_BATCH * SEQ * MOE_STEPS / wall
+    res.update({
+        "phase": "MoE/base", "dtype": "bfloat16 AMP", "batch": T2_BATCH,
+        "seq": SEQ, "experts": MOE_EXPERTS, "top_k": cfg.moe_top_k,
+        "capacity_factor": cfg.moe_capacity_factor, "capacity": cap,
+        "warmup": MOE_WARMUP, "steps": MOE_STEPS, "losses": losses,
+        "f32_forward_first_loss": ref_first, "launches": counts,
+        "tokens_per_s": tokens_per_s, "ms_per_step": wall / MOE_STEPS * 1e3,
+        "mfu_dense_twin": tokens_per_s * flops_per_token(dense)
+        / PEAK_FLOP_PER_S[torch.bfloat16],
+        "flops_per_token_dense_twin": flops_per_token(dense),
+        "drop_rate_exact": exact / assigned, "dropped_exact": exact,
+        "assigned": assigned, "dropped_bf16_sum": bf16_dropped,
+        "kept_bf16_sum": bf16_kept, "graphs": graphs, "bound_args": bound,
+        "profile": prof, "time_split_interpreted": split,
+        "jit_loss": jit_loss, "interpret_loss": interp,
+        "t2_tokens_per_s": t2.get("tokens_per_s"),
+        "t2_ms_per_step": t2.get("ms_per_step"), "card": card})
+    log(f"  MoE/base bf16 AMP batch {T2_BATCH}: {tokens_per_s:.1f} tokens/s, "
+        f"{res['ms_per_step']:.2f} ms/step (T2 in this run: "
+        f"{t2.get('tokens_per_s', float('nan')):.1f} tokens/s, "
+        f"{t2.get('ms_per_step', float('nan')):.2f} ms/step), MFU of the "
+        f"dense twin's FLOPs {res['mfu_dense_twin']:.4f} (the router's "
+        f"2 d E a token left out); losses {losses}; float32 forward "
+        f"{ref_first}; launches {counts}  [{card}]")
+    log(f"    drop rate at cf {cfg.moe_capacity_factor} (C {cap}): exact "
+        f"{exact}/{assigned} = {exact / assigned:.6f} from Positions; "
+        f"bf16 Dropped sum {bf16_dropped}, Load sum {bf16_kept} (exact "
+        f"kept {assigned - exact})")
+    log(f"    interpreted step twice: grads of {len(expert_grads)} expert "
+        f"and router weights bitwise equal; its loss {interp} = the "
+        f"captured replay's {jit_loss}")
+    log(f"    card ms a step, interpreted, by op: {split}")
+    log_capture("MoE/base", res)
+    log_profile(prof)
+    del scope, exe
+    torch.cuda.empty_cache()
+    return res, counts
+
+
+def phase_moe_serve(card):
+    """MoE/serve: the MoE/base decode (capacity factor 0) through the
+    Scheduler at batch 8 on the host pool and on the device pool, at
+    [12] F/tax's shapes (32-token sources, 8-token prompts, 24 new
+    tokens, a 96-slot cache): tokens equal the sequential Generator's,
+    nothing dropped, every step observed by the load monitor, #6/#7
+    launched as the gate predicts."""
+    from paddle_tpu_torch import CUDAPlace, Scope, decode, serving
+    from paddle_tpu_torch.models import transformer
+
+    place = CUDAPlace(0)
+    cfg = transformer.TransformerConfig(moe_experts=MOE_EXPERTS)
+    spec = decode_spec(cfg, TAX_PREFIX, TAX_MAX_LEN, src_len=TAX_SRC)
+    n_layer = sum(1 for s in spec.states if s.feed.startswith("cache_k_"))
+    vocab = cfg.src_vocab_size
+    scope = Scope()
+    gen = decode.Generator(spec, scope=scope, place=place)
+    mon = spec.monitor.monitor
+    feeds = [_bench_feed(vocab, TAX_SRC, TAX_PREFIX, 700 + i)
+             for i in range(TAX_STREAMS)]
+    rows, counts = [], {}
+    for paged in (False, True):
+        label = "MoE/serve/paged" if paged else "MoE/serve"
+        sched = serving.Scheduler(spec, scope, place=place,
+                                  max_batch=TAX_STREAMS, block_size=S_BLOCK,
+                                  paged_kv=paged)
+        try:
+            _warm_buckets(sched, lambda s: _bench_feed(vocab, TAX_SRC,
+                                                       TAX_PREFIX, s))
+            seen = mon.steps
+            with _Counted(label, [sched], n_layer) as counted:
+                t0 = time.perf_counter()
+                reqs = [sched.submit(f, TAX_TOKENS, eos_id=-1)
+                        for f in feeds]
+                sched.run_until_idle(max_steps=100000)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            observed = mon.steps - seen
+            equal = check_served(label, reqs, feeds, gen, TAX_TOKENS)
+            sched.pool.assert_quiesced()
+        finally:
+            sched.close()
+        if observed != counted.steps or mon.total_dropped:
+            raise AssertionError(f"{label}: the monitor observed "
+                                 f"{observed} of {counted.steps} steps, "
+                                 f"{mon.total_dropped} dropped")
+        counts = _add(counts, counted.counts)
+        row = {"phase": label, "paged_kv": paged, "streams": TAX_STREAMS,
+               "new_tokens": TAX_TOKENS, "steps": counted.steps,
+               "tokens_per_s": TAX_STREAMS * TAX_TOKENS / wall,
+               "ms_per_step": wall / counted.steps * 1e3,
+               "launches": counted.counts, "monitor_steps": observed,
+               "load_signal": mon.load_signal(),
+               "requests_equal_to_sequential": equal, "card": card}
+        rows.append(row)
+        log(f"  {label}: {TAX_STREAMS}x{TAX_TOKENS} tokens, "
+            f"{row['tokens_per_s']:.1f} tokens/s, {row['ms_per_step']:.3f} "
+            f"host ms a step over {counted.steps} steps (all observed, 0 "
+            f"dropped); launches {counted.counts} = the gate's; {equal}/"
+            f"{TAX_STREAMS} equal the sequential Generator; load_signal "
+            f"{row['load_signal']}  [{card}]")
+    del scope, gen
+    torch.cuda.empty_cache()
+    return rows, counts
+
+
+def drive_moe(card, device, t2, lap=lambda phase: None):
+    """[20]: MoE/bench, MoE/ckpt, MoE/base, MoE/serve."""
+    runs = []
+    res, launches, (moe_cfg, loads) = phase_moe_bench(card, device)
+    runs.append(res)
+    lap("[20] MoE/bench")
+    runs.append(phase_moe_ckpt(card, device, moe_cfg, loads))
+    lap("[20] MoE/ckpt")
+    res, counts = phase_moe_base(card, device, t2)
+    runs.append(res)
+    launches = _add(launches, counts)
+    lap("[20] MoE/base")
+    rows, counts = phase_moe_serve(card)
+    runs += rows
+    launches = _add(launches, counts)
+    lap("[20] MoE/serve")
+    return runs, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -11019,9 +11742,19 @@ def main():
         f"RNN fusions of the InferenceTranspiler (RNN/fuse), the slice's 17 "
         f"op types (SEQ/tail) [{card}]")
     training += drive_recurrent_tail(card, device, lap)
+
+    log(f"[20] the mixture-of-experts tier: bench.py's moe leg and its "
+        f"dense twin, served (MoE/bench), a resumed MoE checkpoint "
+        f"(MoE/ckpt), transformer-base with every FFN a mixture of "
+        f"{MOE_EXPERTS} experts at T2's settings (MoE/base) and its decode "
+        f"through the Scheduler on both pools (MoE/serve) [{card}]")
+    t2 = next((r for r in training if r.get("phase") == "T2"), {})
+    moe_runs, moe_launches = drive_moe(card, device, t2, lap)
+    training += moe_runs
     for more in (counts, train_launches, bert_launches, resnet_launches,
                  rnn_launches, saved_launches, front_launches,
-                 fleet_launches, int8_launches, tail_launches, cf_launches):
+                 fleet_launches, int8_launches, tail_launches, cf_launches,
+                 moe_launches):
         for k, n in more.items():
             launches[k] = launches.get(k, 0) + n
     never = [k for k in KERNELS if not launches.get(k)]
@@ -11029,7 +11762,7 @@ def main():
         raise AssertionError(f"kernels {never} never launched on a path")
 
     log(f"  all phases took {laps[-1] - laps[0]:.1f} s wall")
-    log("[20] results")
+    log("[21] results")
     log(json.dumps({"phases": phases}))
     log(json.dumps({"training": training}))
     if DIVERGED:

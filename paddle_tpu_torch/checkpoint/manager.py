@@ -2,9 +2,10 @@
 (counterpart of paddle_tpu/checkpoint/manager.py).  A step directory is
 the JAX package's layout, so each package restores the other's and
 tools/ckpt_fsck.py checks the port's.  The dense state goes through
-io.py's sharded checkpoint in its single-process form; what needs several
-devices (`gather=True`, a `mesh`) and MoE placements (`moe=`) raise until
-they are ported (ROADMAP.md A item 7).
+io.py's sharded checkpoint in its single-process form; MoE expert
+placements (`moe=`) ride beside it as `moe_<name>.json`.  What needs
+several devices (`gather=True`, a `mesh`) raises until it is ported
+(ROADMAP.md A item 7).
 
 The durability layer the reference spread across CheckpointConfig
 (contrib/trainer.py: periodic serial snapshots + LRU cleanup) and
@@ -54,6 +55,7 @@ _QUARANTINE_SUFFIX = ".quarantine"
 _STATE_FILE = "train_state.json"
 _DENSE_DIR = "dense"
 _SPARSE_PREFIX = "sparse_"
+_MOE_PREFIX = "moe_"
 
 
 class CheckpointManager:
@@ -193,17 +195,18 @@ class CheckpointManager:
         it).  A program annotated by parallel.apply_zero would also stamp
         `zero_topology`; the port has no such program yet.
 
-        `moe` (expert placements) and `gather=True` (the multi-process
-        single-writer mode) raise until MoE and multi-device training
-        are ported (ROADMAP.md A item 7)."""
+        `moe` is {layer_name: ExpertPlacement} (moe.placements_for_program
+        builds it): each placement's expert -> shard table is written as
+        `moe_<name>.json` and stamped into the state's `moe_topology`, as
+        sparse services stamp `sparse_topology`, so a resume sees the
+        placement epoch the expert params were saved at.
+
+        `gather=True` (the multi-process single-writer mode) raises until
+        multi-device training is ported (ROADMAP.md A item 7)."""
         self.check_error()
         from .. import flags
         from ..io import snapshot_sharded
 
-        if moe:
-            raise NotImplementedError(
-                "CheckpointManager.save(moe=...): MoE is not ported yet "
-                "(ROADMAP.md A item 7)")
         step = int(step)
         arrays, index, skipped = snapshot_sharded(scope, main_program,
                                                   gather=gather)
@@ -244,11 +247,17 @@ class CheckpointManager:
         }
         zero_meta = getattr(program, "_zero_meta", None)
         state["zero_topology"] = dict(zero_meta) if zero_meta else None
-        # no MoE placement is saved yet: the stamp is the JAX package's
-        # for a save without one
-        state["moe_topology"] = {}
+        moe_metas = {name: p.to_meta() for name, p in (moe or {}).items()}
+        state["moe_topology"] = {
+            name: {
+                "num_experts": meta.get("num_experts"),
+                "num_shards": meta.get("num_shards"),
+                "placement_epoch": (meta.get("routing") or {}).get("epoch"),
+            }
+            for name, meta in moe_metas.items()
+        }
         job = {"step": step, "arrays": arrays, "index": index,
-               "sparse": sparse_states, "state": state}
+               "sparse": sparse_states, "moe": moe_metas, "state": state}
         use_async = self.async_save if sync is None else not sync
         if use_async:
             self._ensure_writer()
@@ -300,6 +309,10 @@ class CheckpointManager:
         for name, sstate in job["sparse"].items():
             EmbeddingService.write_state(
                 os.path.join(tmp, _SPARSE_PREFIX + name), sstate)
+        for name, meta in job["moe"].items():
+            with open(os.path.join(tmp, _MOE_PREFIX + name + ".json"),
+                      "w") as f:
+                json.dump(meta, f, indent=1, sort_keys=True)
         with open(os.path.join(tmp, _STATE_FILE), "w") as f:
             json.dump(job["state"], f, indent=1, sort_keys=True)
         _manifest.write_manifest(
@@ -344,17 +357,17 @@ class CheckpointManager:
         signature differs from the current one (the resumed run would
         compile different executables).
 
-        `moe` (expert placements) and `mesh` (re-staging under a device
-        mesh) raise until MoE and multi-device training are ported
-        (ROADMAP.md A item 7; io.load_sharded raises on `mesh`).
+        `moe` is {layer_name: ExpertPlacement}: each placement adopts the
+        checkpointed `moe_<name>.json` table (load_meta checks the expert
+        and shard counts), so a resumed run has the placement epoch its
+        expert params were saved at.  A placement the checkpoint lacks
+        raises IOError.  `mesh` (re-staging under a device mesh) raises
+        until multi-device training is ported (ROADMAP.md A item 7;
+        io.load_sharded raises on it).
 
         A dense var the scope already holds is overwritten in place;
         others are created on `place` (default: the card), see
         io.load_sharded."""
-        if moe:
-            raise NotImplementedError(
-                "CheckpointManager.restore(moe=...): MoE is not ported yet "
-                "(ROADMAP.md A item 7)")
         # drain our own in-flight saves first: restoring "latest" while
         # the writer is mid-commit must not race the rename
         if self._writer is not None:
@@ -407,6 +420,16 @@ class CheckpointManager:
                     f"{name!r} (saved: {state.get('sparse_services')})"
                 )
             svc.load(sdir)
+        for name, placement in (moe or {}).items():
+            mpath = os.path.join(path, _MOE_PREFIX + name + ".json")
+            if not os.path.isfile(mpath):
+                raise IOError(
+                    f"checkpoint step {chosen} has no MoE placement "
+                    f"{name!r} (saved: "
+                    f"{sorted(state.get('moe_topology') or {})})"
+                )
+            with open(mpath) as f:
+                placement.load_meta(json.load(f))
         from .. import flags
 
         now_sig = [list(kv) for kv in flags.trace_signature()]

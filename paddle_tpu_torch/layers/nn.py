@@ -1170,3 +1170,88 @@ def beam_search(pre_ids, pre_scores, ids, scores, beam_size, end_id,
     if return_parent_idx:
         return sel_ids, sel_scores, parent
     return sel_ids, sel_scores
+
+
+def top_k_gating(logits, k=2, capacity_factor=0.0, renormalize=True,
+                 name=None):
+    """MoE router over [N, E] logits (ops/moe_ops.py): softmax, the top-k
+    experts of each token, GShard capacity.  capacity_factor <= 0 or
+    infinite means nothing drops (the serving tier's mode).
+
+    Returns (gates, indices, positions, aux_loss, load, dropped): gates
+    [N, k] (capacity-masked, differentiable to the router),
+    indices/positions [N, k] int32, aux_loss [1] to fold into the
+    objective, load [E] and dropped [1], metrics the serving monitor
+    fetches (moe.gating_fetches)."""
+    helper = LayerHelper("top_k_gating", **locals())
+    dtype = logits.dtype
+    gates = helper.create_variable_for_type_inference(dtype)
+    indices = helper.create_variable_for_type_inference(
+        "int32", stop_gradient=True)
+    positions = helper.create_variable_for_type_inference(
+        "int32", stop_gradient=True)
+    aux = helper.create_variable_for_type_inference(dtype)
+    load = helper.create_variable_for_type_inference(dtype,
+                                                     stop_gradient=True)
+    dropped = helper.create_variable_for_type_inference(dtype,
+                                                        stop_gradient=True)
+    cf = float(capacity_factor)
+    if not np.isfinite(cf):
+        cf = 0.0  # "infinite" spelled as the attr's JSON-safe 0
+    helper.append_op(
+        type="top_k_gating",
+        inputs={"Logits": [logits]},
+        outputs={"Gates": [gates], "Indices": [indices],
+                 "Positions": [positions], "AuxLoss": [aux],
+                 "Load": [load], "Dropped": [dropped]},
+        attrs={"k": int(k), "capacity_factor": cf,
+               "renormalize": bool(renormalize)},
+    )
+    return gates, indices, positions, aux, load, dropped
+
+
+def moe_ffn(x, num_experts, d_inner, top_k=2, capacity_factor=0.0,
+            act="relu", renormalize=True, name=None):
+    """Mixture-of-experts FFN: a router fc (no bias) -> top_k_gating ->
+    moe_expert_ffn over expert-major weights; a drop-in for the dense
+    fc(d_inner, act) -> fc(d_model) pair at k/E of its FLOPs a token.
+    x [..., d_model] routes a token over its leading dims (the ops
+    flatten inside).  Parameters carry explicit names, so that the decode
+    programs land on the training scope's: `{name}_gate.w_0` [d, E],
+    `{name}_moe_w1` [E, d, f], `{name}_moe_b1` [E, f], `{name}_moe_w2`
+    [E, f, d], `{name}_moe_b2` [E, d].
+
+    Returns (out, aux_loss); fold aux_loss, scaled, into the objective or
+    the router collapses onto one expert."""
+    helper = LayerHelper("moe_ffn", **locals())
+    dtype = x.dtype
+    d_model = int(x.shape[-1])
+
+    def _p(suffix, shape, is_bias=False):
+        attr = ParamAttr._to_attr(None)
+        attr.name = f"{helper.name}_{suffix}"
+        return helper.create_parameter(attr=attr, shape=shape, dtype=dtype,
+                                       is_bias=is_bias)
+
+    logits = fc(x, num_experts, num_flatten_dims=len(x.shape) - 1,
+                bias_attr=False, name=f"{helper.name}_gate")
+    gates, idx, pos, aux, _load, _dropped = top_k_gating(
+        logits, k=top_k, capacity_factor=capacity_factor,
+        renormalize=renormalize, name=f"{helper.name}_gating")
+    w1 = _p("moe_w1", [num_experts, d_model, d_inner])
+    b1 = _p("moe_b1", [num_experts, d_inner], is_bias=True)
+    w2 = _p("moe_w2", [num_experts, d_inner, d_model])
+    b2 = _p("moe_b2", [num_experts, d_model], is_bias=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    cf = float(capacity_factor)
+    if not np.isfinite(cf):
+        cf = 0.0
+    helper.append_op(
+        type="moe_expert_ffn",
+        inputs={"X": [x], "Gates": [gates], "Indices": [idx],
+                "Positions": [pos], "W1": [w1], "B1": [b1],
+                "W2": [w2], "B2": [b2]},
+        outputs={"Out": [out]},
+        attrs={"k": int(top_k), "capacity_factor": cf, "act": act},
+    )
+    return out, aux

@@ -14,15 +14,16 @@ Dropout sits where the JAX package puts it (the embeddings, each
 attention and FFN branch).  `fused_head` computes the masked-LM loss with
 `fused_linear_cross_entropy` over the tied word embedding (transpose_w,
 no [B, M, V] logits); `checkpoints` collects each encoder layer's output
-for `optimizer.RecomputeOptimizer`.  MoE FFNs are a later slice
-(ROADMAP.md A): build raises for them.
+for `optimizer.RecomputeOptimizer`.  With `moe_experts` > 0 each encoder
+FFN is a mixture (`layers.moe_ffn`, gelu experts) and the gating ops'
+load-balance losses join the total at `moe_aux_weight`.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .. import layers
+from .. import layers, moe
 from ..layer_helper import LayerHelper, ParamAttr
 
 
@@ -71,10 +72,15 @@ def tiny(vocab=128, seq=16):
                       dropout=0.0)
 
 
-def _check_trainable(cfg: BertConfig):
-    if cfg.moe_experts:
-        raise NotImplementedError(
-            "MoE FFNs land with the moe op family (ROADMAP.md A)")
+def tiny_moe(vocab=128, seq=16, experts=4, top_k=2, capacity_factor=1.25):
+    """tiny() with MoE FFNs at its FLOPs a token: experts of width
+    ffn // top_k, so top_k of them spend what the dense ffn does."""
+    cfg = tiny(vocab=vocab, seq=seq)
+    cfg.ffn = max(1, cfg.ffn // top_k)
+    cfg.moe_experts = experts
+    cfg.moe_top_k = top_k
+    cfg.moe_capacity_factor = capacity_factor
+    return cfg
 
 
 def _encoder_layer(x, cfg, name, attn_seq_len=None):
@@ -86,9 +92,17 @@ def _encoder_layer(x, cfg, name, attn_seq_len=None):
         attn = layers.dropout(x=attn, dropout_prob=cfg.dropout)
     x = layers.elementwise_add(x=x, y=attn)
     h_in = layers.layer_norm(x, begin_norm_axis=2, name=f"{name}_ln2")
-    h = layers.fc(h_in, size=cfg.ffn, num_flatten_dims=2, act="gelu",
-                  name=f"{name}_fc1")
-    h = layers.fc(h, size=cfg.hidden, num_flatten_dims=2, name=f"{name}_fc2")
+    if cfg.moe_experts:
+        # the aux loss is scanned out of the program by build()
+        h, _aux = layers.moe_ffn(
+            h_in, num_experts=cfg.moe_experts, d_inner=cfg.ffn,
+            top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
+            act="gelu", name=f"{name}_ffn")
+    else:
+        h = layers.fc(h_in, size=cfg.ffn, num_flatten_dims=2, act="gelu",
+                      name=f"{name}_fc1")
+        h = layers.fc(h, size=cfg.hidden, num_flatten_dims=2,
+                      name=f"{name}_fc2")
     if cfg.dropout:
         h = layers.dropout(x=h, dropout_prob=cfg.dropout)
     return layers.elementwise_add(x=x, y=h)
@@ -108,7 +122,6 @@ def build(cfg: BertConfig = None, seq_len=None, checkpoints=None,
     check_prefix_mask op raises on a row with a hole.
     """
     cfg = cfg or base()
-    _check_trainable(cfg)
     s = seq_len or cfg.max_positions
     ids = layers.data("input_ids", shape=[s], dtype="int64")
     seg = layers.data("segment_ids", shape=[s], dtype="int64")
@@ -173,6 +186,10 @@ def build(cfg: BertConfig = None, seq_len=None, checkpoints=None,
     nsp_loss = layers.mean(
         layers.softmax_with_cross_entropy(logits=nsp_logits, label=nsp))
     total = layers.elementwise_add(x=mlm_loss, y=nsp_loss)
+    aux = (moe.scaled_aux_loss(cfg.moe_aux_weight) if cfg.moe_experts
+           else None)
+    if aux is not None:
+        total = layers.elementwise_add(x=total, y=aux)
     return total, mlm_loss, nsp_loss
 
 

@@ -12,8 +12,11 @@ hidden, every residual branch), so the two Program dicts are equal op for
 op and weights carried across with `convert.load_params` land where these
 programs read them.  `fused_head` computes the loss with
 `fused_linear_cross_entropy` (no [B*S, V] logits); `checkpoints` collects
-the residual stream for `optimizer.RecomputeOptimizer`.  MoE FFNs are a
-later slice (ROADMAP.md A).
+the residual stream for `optimizer.RecomputeOptimizer`.  With
+`moe_experts` > 0 every FFN is a mixture (`layers.moe_ffn`) and `build`
+folds the gating ops' load-balance losses into the objective at
+`moe_aux_weight`; `build_decode` serves it at infinite capacity with the
+load monitor wired into the spec.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import numpy as np
 
 from .. import layers
 from .. import decode as decode_mod
+from .. import moe as moe_mod
 from ..framework import Program, program_guard, unique_name
 from ..initializer import NumpyArrayInitializer
 from ..layer_helper import ParamAttr
@@ -43,6 +47,9 @@ class TransformerConfig:
         label_smooth_eps=0.1,
         tie_embeddings=True,
         moe_experts=0,
+        moe_top_k=2,
+        moe_capacity_factor=1.25,
+        moe_aux_weight=0.01,
     ):
         self.src_vocab_size = src_vocab_size
         self.trg_vocab_size = trg_vocab_size
@@ -54,7 +61,15 @@ class TransformerConfig:
         self.dropout = dropout
         self.label_smooth_eps = label_smooth_eps
         self.tie_embeddings = tie_embeddings
+        # moe_experts > 0 swaps every FFN for a mixture of that many
+        # experts: top-k routing at the GShard capacity factor (training
+        # drops past it; build_decode pins it to 0, infinite, for the
+        # serving tier's no-drop contract) and the load-balance loss
+        # folded into build()'s objective at moe_aux_weight
         self.moe_experts = moe_experts
+        self.moe_top_k = moe_top_k
+        self.moe_capacity_factor = moe_capacity_factor
+        self.moe_aux_weight = moe_aux_weight
 
 
 def base():
@@ -74,6 +89,19 @@ def tiny(vocab=1000, max_length=32):
     )
 
 
+def tiny_moe(vocab=1000, max_length=32, experts=4, top_k=2,
+             capacity_factor=1.25):
+    """tiny() with every FFN a mixture: d_inner shrinks to d_model, so
+    top_k = 2 experts of 64 spend the FFN FLOPs of dense tiny()'s 128 a
+    token (the equal-FLOPs pair)."""
+    cfg = tiny(vocab=vocab, max_length=max_length)
+    cfg.d_inner = cfg.d_model
+    cfg.moe_experts = experts
+    cfg.moe_top_k = top_k
+    cfg.moe_capacity_factor = capacity_factor
+    return cfg
+
+
 def _position_encoding(seq_len, d_model):
     pos = np.arange(seq_len)[:, None].astype("float64")
     dim = np.arange(0, d_model, 2)[None, :].astype("float64")
@@ -82,12 +110,6 @@ def _position_encoding(seq_len, d_model):
     enc[:, 0::2] = np.sin(angle)
     enc[:, 1::2] = np.cos(angle)
     return enc
-
-
-def _check_trainable(cfg: TransformerConfig):
-    if cfg.moe_experts:
-        raise NotImplementedError(
-            "MoE FFNs land with the moe op family (ROADMAP.md A)")
 
 
 def _embed(ids, vocab_size, cfg: TransformerConfig, param_name, seq_len):
@@ -114,6 +136,14 @@ def _pre_ln(x, name=None):
 
 
 def _ffn(x, cfg: TransformerConfig, name):
+    if cfg.moe_experts:
+        # the aux loss is not threaded back: build() collects every
+        # gating op's AuxLoss from the program (moe.collect_aux_losses)
+        out, _aux = layers.moe_ffn(
+            x, num_experts=cfg.moe_experts, d_inner=cfg.d_inner,
+            top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
+            act="relu", name=name)
+        return out
     h = layers.fc(input=x, size=cfg.d_inner, num_flatten_dims=2, act="relu",
                   name=f"{name}_fc1")
     if cfg.dropout:
@@ -188,7 +218,6 @@ def build(cfg: TransformerConfig = None, seq_len=None, checkpoints=None,
     every sub-block plus the embedding and encoder/decoder outputs, the
     remat boundaries of a RecomputeOptimizer."""
     cfg = cfg or base()
-    _check_trainable(cfg)
     seq_len = seq_len or cfg.max_length
     src_ids = layers.data(name="src_ids", shape=[seq_len], dtype="int64")
     trg_ids = layers.data(name="trg_ids", shape=[seq_len], dtype="int64")
@@ -214,6 +243,8 @@ def build(cfg: TransformerConfig = None, seq_len=None, checkpoints=None,
     if checkpoints is not None:
         checkpoints.append(dec_out)
 
+    aux = (moe_mod.scaled_aux_loss(cfg.moe_aux_weight) if cfg.moe_experts
+           else None)
     if fused_head:
         # the projection fused with the loss, chunk by chunk: the
         # [B*S, V] logits never exist whole; returns dec_out in place of
@@ -222,7 +253,10 @@ def build(cfg: TransformerConfig = None, seq_len=None, checkpoints=None,
             input=dec_out, label=lbl_ids, size=cfg.trg_vocab_size,
             label_smooth_eps=cfg.label_smooth_eps or 0.0,
             param_attr=ParamAttr(name="logits_proj.w_0"))
-        return layers.mean(loss_vec), dec_out
+        loss = layers.mean(loss_vec)
+        if aux is not None:
+            loss = layers.elementwise_add(x=loss, y=aux)
+        return loss, dec_out
 
     logits = layers.fc(input=dec_out, size=cfg.trg_vocab_size,
                        num_flatten_dims=2, bias_attr=False,
@@ -232,7 +266,10 @@ def build(cfg: TransformerConfig = None, seq_len=None, checkpoints=None,
     loss_vec = layers.softmax_with_cross_entropy(
         logits=logits2d, label=labels,
         label_smooth_eps=cfg.label_smooth_eps or 0.0)
-    return layers.mean(loss_vec), logits
+    loss = layers.mean(loss_vec)
+    if aux is not None:
+        loss = layers.elementwise_add(x=loss, y=aux)
+    return loss, logits
 
 
 def feed_shapes(batch_size, seq_len=256):
@@ -327,10 +364,11 @@ def build_decode(cfg: TransformerConfig = None, src_len=None, prefix_len=1,
     the cross-attention k/v of a chunked prompt, which never runs the
     prefill program (transformer.py:542-696 of the JAX package)."""
     cfg = copy.copy(cfg or base())
-    if cfg.moe_experts:
-        raise NotImplementedError(
-            "MoE FFNs land with the moe op family (ROADMAP.md A)")
     cfg.dropout = 0.0  # decode is inference
+    if cfg.moe_experts:
+        # serving never drops a token: capacity_factor 0 is infinite,
+        # which keeps a batched step equal to each token routed alone
+        cfg.moe_capacity_factor = 0.0
     src_len = src_len or cfg.max_length
     max_len = max_len or cfg.max_length
     hd = cfg.d_model
@@ -548,6 +586,14 @@ def build_decode(cfg: TransformerConfig = None, src_len=None, prefix_len=1,
                 states[4 * i + 2].encode_from = ek.name
                 states[4 * i + 3].encode_from = ev.name
 
+    monitor_fetches = monitor = None
+    if cfg.moe_experts:
+        # each step's gating metrics ride the step fetches into the MoE
+        # load monitor (moe.tokens_dropped / moe.expert_load)
+        load_names, dropped_names = moe_mod.gating_fetches(step)
+        monitor_fetches = load_names + dropped_names
+        _mon, monitor = moe_mod.step_monitor(load_names, dropped_names)
+
     return decode_mod.GenerationSpec(
         prefill_program=prefill, prefill_startup=prefill_startup,
         step_program=step, step_startup=step_startup,
@@ -567,6 +613,7 @@ def build_decode(cfg: TransformerConfig = None, src_len=None, prefix_len=1,
         chunk_len=None if chunk is None else int(chunk_len),
         encode_program=encode, encode_startup=encode_startup,
         prompt_ids_name="trg_ids",
+        monitor_fetches=monitor_fetches, monitor=monitor,
     )
 
 

@@ -4,8 +4,9 @@ with its backward, optimizer and AMP ops, bert.build's, resnet.build's,
 googlenet.build's, stacked_lstm.build's and machine_translation's,
 beam_search, vgg's and alexnet's lrn, the inference transpiler's fc,
 io.py's save and load ops, the int8 tier's quantized_matmul and
-quantized_conv2d, the recurrent tail and the sequence losses; the
-fake-quant ops register in contrib/quantize.py)."""
+quantized_conv2d, the recurrent tail and the sequence losses, and the
+mixture-of-experts pair; the fake-quant ops register in
+contrib/quantize.py)."""
 
 from . import registry
 from . import math_ops
@@ -25,3 +26,4 @@ from . import rnn_ops
 from . import sequence_loss_ops
 from . import io_ops
 from . import int8_ops
+from . import moe_ops

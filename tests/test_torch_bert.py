@@ -401,8 +401,8 @@ def test_bert_programs_are_identical(use_amp, mask, dropout):
 def test_bert_base_op_census_and_unported_options():
     """BERT-base at 2048 tokens: 12 fused_attention ops and their grads;
     at its published dropout 0.1, 25 dropout ops (the embeddings, then the
-    attention and FFN branches of 12 layers) and their grads; MoE raises
-    naming ROADMAP; fused_head builds one linear_softmax_ce over the tied
+    attention and FFN branches of 12 layers) and their grads; MoE FFNs
+    build a gating and an expert-FFN op a layer; fused_head builds one linear_softmax_ce over the tied
     word embedding in place of the logits matmul."""
     main, startup = pt.Program(), pt.Program()
     with pt.program_guard(main, startup), pt.unique_name.guard():
@@ -420,10 +420,12 @@ def test_bert_base_op_census_and_unported_options():
         pt.optimizer.Adam(1e-4).minimize(loss)
     types = [op.type for op in main.global_block().ops]
     assert types.count("dropout") == types.count("dropout_grad") == 25
-    with pt.program_guard(pt.Program(), pt.Program()), \
-            pt.unique_name.guard():
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PB.build(PB.BertConfig(dropout=0.0, moe_experts=4))
+    main = pt.Program()
+    with pt.program_guard(main, pt.Program()), pt.unique_name.guard():
+        PB.build(PB.BertConfig(dropout=0.0, moe_experts=4))
+    types = [op.type for op in main.global_block().ops]
+    assert types.count("top_k_gating") == types.count("moe_expert_ffn") \
+        == 12
     main = pt.Program()
     with pt.program_guard(main, pt.Program()), pt.unique_name.guard():
         PB.build(PB.BertConfig(dropout=0.0), fused_head=True)

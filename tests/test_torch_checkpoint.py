@@ -366,8 +366,6 @@ def test_what_needs_several_devices_or_bfloat16_raises(tmp_path):
     with pytest.raises(NotImplementedError, match="A item 7"):
         mgr.restore(scope=pt.Scope(), main_program=main, mesh=object(),
                     place=CPU)
-    with pytest.raises(NotImplementedError, match="A item 7"):
-        mgr.save(2, scope=scope, main_program=main, moe={"e": object()})
     scope.set_var("w", scope.find_var("w").to(torch.bfloat16))
     with pytest.raises(TypeError, match="C15"):
         io.save_sharded(str(tmp_path / "bf16"), scope, main)

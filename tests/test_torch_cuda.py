@@ -21,7 +21,10 @@ an eager segment (none), and a beam decode whose captured body launches
 #6 once a step; then the recurrent tail and the sequence losses: each op
 type at chip_smoke.py's SEQ/tail shapes with its backward (replay =
 interpreter bitwise, = CPU within 1e-4), and the label-semantic-roles
-step captured as one graph.
+step captured as one graph; last, the mixture-of-experts tier: the
+gating and the expert FFN with their grads (replay = eager bitwise, =
+CPU within 1e-4, ties to the lower expert) and a captured tiny_moe
+training step.
 Tolerances: max abs error 1e-4 in float32 (the kernels sum in
 another order than cuBLAS) and 2e-2 in bfloat16 (one bfloat16 step of an
 output in [2, 4); the forwards round P to bfloat16 before P V as the
@@ -2430,3 +2433,120 @@ def test_srl_step_is_one_captured_graph(card):
     assert stats["captures"] == 1 and stats["eager_segments"] == 0
     np.testing.assert_array_equal(runs["jit"], runs["interpret"])
     np.testing.assert_allclose(runs["jit"], runs["cpu"], rtol=1e-5)
+
+
+def _moe_program(cf, act, n_in=6, experts=4, d_inner=16, top_k=2):
+    """x -> moe_ffn -> square error + 0.01 aux, with its backward ->
+    (main, startup, fetch: the loss, the output, the gating's outputs and
+    the grads of x, the router and the expert weights)."""
+    import paddle_tpu_torch as pt
+
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 5
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        L = pt.layers
+        x = L.data("x", shape=[n_in], dtype="float32")
+        x.stop_gradient = False
+        y = L.data("y", shape=[n_in], dtype="float32")
+        out, aux = L.moe_ffn(x, num_experts=experts, d_inner=d_inner,
+                             top_k=top_k, capacity_factor=cf, act=act,
+                             name="m")
+        loss = L.elementwise_add(
+            x=L.mean(L.square_error_cost(out, y)),
+            y=L.scale(aux, scale=0.01))
+        pt.append_backward(loss)
+    (gating,) = [op for op in main.global_block().ops
+                 if op.type == "top_k_gating"]
+    fetch = ([loss.name, out.name]
+             + [gating.output(p)[0] for p in ("Gates", "Indices",
+                                              "Positions", "AuxLoss",
+                                              "Load", "Dropped")]
+             + ["x@GRAD", "m_gate.w_0@GRAD", "m_moe_w1@GRAD",
+                "m_moe_b1@GRAD", "m_moe_w2@GRAD", "m_moe_b2@GRAD"])
+    return main, startup, fetch
+
+
+@pytest.mark.parametrize("cf,act,ties", [(0.5, "relu", False),
+                                         (0.0, "gelu", False),
+                                         (1.25, "relu", True)])
+def test_moe_ops_and_grads_on_the_card_equal_the_cpu(card, cf, act, ties):
+    """top_k_gating and moe_expert_ffn with their grads at 512 tokens (a
+    capacity factor that drops, and infinite capacity): the captured
+    replay equals the eager run on the card bitwise, and the CPU path
+    within 1e-4 of max(1, the largest value); indices, positions and the
+    counts equal.  With `ties` the router weights are 0, so every token's
+    probabilities tie and the lower experts must win on the card too."""
+    import paddle_tpu_torch as pt
+
+    main, startup, fetch = _moe_program(cf, act)
+    scope = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=scope)
+    start = {v.name: scope.find_var(v.name).numpy()
+             for v in main.list_vars() if v.persistable}
+    if ties:
+        start["m_gate.w_0"] = np.zeros_like(start["m_gate.w_0"])
+    rng = np.random.RandomState(3)
+    feed = {"x": rng.standard_normal((512, 6)).astype(np.float32),
+            "y": rng.standard_normal((512, 6)).astype(np.float32)}
+    runs = {}
+    for label, place, mode in (("jit", card, "jit"),
+                               ("interpret", card, "interpret"),
+                               ("cpu", torch.device("cpu"), "jit")):
+        s = pt.Scope()
+        for name, value in start.items():
+            s.set_var(name, torch.as_tensor(value, device=place))
+        exe = pt.Executor(place, mode=mode)
+        runs[label] = [exe.run(main, feed=feed, fetch_list=fetch, scope=s)
+                       for _ in range(3)]
+    for name, first, replay, eager, want in zip(
+            fetch, runs["jit"][0], runs["jit"][2], runs["interpret"][0],
+            runs["cpu"][0]):
+        np.testing.assert_array_equal(replay, first, err_msg=name)
+        np.testing.assert_array_equal(replay, eager, err_msg=name)
+        if want.dtype.kind in "iu":
+            np.testing.assert_array_equal(replay, want, err_msg=name)
+        else:
+            err = np.abs(replay - want).max() / max(1.0, np.abs(want).max())
+            assert err <= 1e-4, (name, err)
+    idx, dropped = runs["jit"][2][3], runs["jit"][2][7]
+    if ties:
+        assert (idx == [0, 1]).all()
+    assert (dropped[0] > 0) == (cf > 0)
+
+
+def test_moe_transformer_training_step_is_captured(card):
+    """transformer.tiny_moe + Adam: 3 steps on the jit path (the second
+    captured, the third replayed; no eager segment) equal the card's
+    interpreter bitwise and the CPU path within rtol 1e-4."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import cuda_graph
+    from paddle_tpu_torch.models import transformer
+
+    cfg = transformer.tiny_moe(vocab=64, max_length=12)
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        loss, _ = transformer.build(cfg)
+        pt.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    scope = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=scope)
+    start = {v.name: scope.find_var(v.name).numpy()
+             for v in main.list_vars() if v.persistable}
+    feed = transformer.synthetic_batch(8, cfg, seed=4)
+    runs = {}
+    for label, place, mode in (("jit", card, "jit"),
+                               ("interpret", card, "interpret"),
+                               ("cpu", torch.device("cpu"), "jit")):
+        s = pt.Scope()
+        for name, value in start.items():
+            s.set_var(name, torch.as_tensor(value, device=place))
+        exe = pt.Executor(place, mode=mode)
+        cuda_graph.reset_stats()
+        runs[label] = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                     scope=s)[0].ravel()[0])
+                       for _ in range(3)]
+        if label == "jit":
+            stats = dict(cuda_graph.STATS)
+    assert stats["captures"] >= 1 and stats["replays"] >= 1
+    assert stats["eager_segments"] == 0
+    assert runs["jit"] == runs["interpret"]
+    np.testing.assert_allclose(runs["jit"], runs["cpu"], rtol=1e-4)

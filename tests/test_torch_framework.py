@@ -212,10 +212,10 @@ def test_load_params_checks_names_and_shapes():
 def test_later_slices_raise(kw):
     """The verify and chunk windows are ported: a window of 2 or more
     builds, and a width of 1 raises ValueError in both packages (a 1-wide
-    window is the step program).  What is still a later slice raises
-    NotImplementedError naming ROADMAP: MoE FFNs.  The int8 draft tier of
-    build_draft is ported: without the target's scope it raises
-    ValueError in both packages."""
+    window is the step program).  An MoE config builds its decode
+    programs at capacity factor 0 with the load monitor wired.  The int8
+    draft tier of build_draft is ported: without the target's scope it
+    raises ValueError in both packages."""
     kw1 = {k: 1 for k in kw}
     for T, cfg in ((PT, PT.TransformerConfig(**SMALL)),
                    (JT, JT.TransformerConfig(**SMALL))):
@@ -228,9 +228,12 @@ def test_later_slices_raise(kw):
         with pytest.raises(ValueError, match=which):
             T.build_decode(cfg, src_len=128, prefix_len=8, max_len=256,
                            **kw1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PT.build_decode(PT.TransformerConfig(moe_experts=4, **SMALL),
-                        src_len=128, prefix_len=8, max_len=256)
+    moe_spec = PT.build_decode(PT.TransformerConfig(moe_experts=4, **SMALL),
+                               src_len=128, prefix_len=8, max_len=256)
+    assert moe_spec.monitor is not None
+    assert {op.attr("capacity_factor")
+            for op in moe_spec.step_program.global_block().ops
+            if op.type == "top_k_gating"} == {0.0}
     for T, cfg in ((PT, PT.TransformerConfig(**SMALL)),
                    (JT, JT.TransformerConfig(**SMALL))):
         with pytest.raises(ValueError, match="scope"):

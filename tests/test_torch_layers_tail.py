@@ -167,14 +167,14 @@ def test_bilinear_initializer_values_are_the_jax_packages():
 
 
 # the JAX package's public builders of the families still to port
-# (ROADMAP A items 7-8): Print, detection, MoE, the reader
+# (ROADMAP A items 7-8): Print, detection, the reader
 STILL_TO_PORT = {
     "Print", "anchor_generator",
     "bipartite_match", "box_coder", "detection", "detection_map",
     "detection_output", "generate_proposal_labels", "generate_proposals",
     "iou_similarity", "mine_hard_examples", "multiclass_nms", "prior_box",
     "roi_align", "roi_pool", "rpn_target_assign", "ssd_loss",
-    "target_assign", "moe_ffn", "top_k_gating", "py_reader", "read_file",
+    "target_assign", "py_reader", "read_file",
 }
 
 

@@ -10,13 +10,10 @@ import pytest
 from paddle_tpu.ops import registry as jreg
 from paddle_tpu_torch.ops import registry as preg
 
-_ITEM_7 = "ROADMAP A item 7: multi-device and MoE"
 _ITEM_8 = "ROADMAP A item 8: the host-side tiers (detection, io, the " \
     "distributed ops)"
 
 STILL_TO_PORT = {
-    # MoE
-    "top_k_gating": _ITEM_7, "moe_expert_ffn": _ITEM_7,
     # detection
     "anchor_generator": _ITEM_8, "bipartite_match": _ITEM_8,
     "box_coder": _ITEM_8, "detection_map": _ITEM_8,
@@ -47,6 +44,6 @@ def test_each_jax_op_type_is_ported_or_named(op_type):
 
 def test_the_counts():
     assert len(jreg.OPS) == 274
-    assert len(STILL_TO_PORT) == 23
-    assert len(preg.OPS) == 251
+    assert len(STILL_TO_PORT) == 21
+    assert len(preg.OPS) == 253
     assert set(STILL_TO_PORT) <= set(jreg.OPS)

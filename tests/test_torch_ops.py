@@ -235,7 +235,8 @@ def test_the_slice_registers_exactly_the_decode_op_types():
     (tensor 26, math 6, random 4, loss 12, misc 19, nn 16), and control
     flow and the sequence family's 19 (while, conditional_block,
     static_rnn, beam_search_decode, lod_reset and 14 sequence ops), and
-    the recurrent tail's 11 and the sequence losses' 6: 251 op types."""
+    the recurrent tail's 11 and the sequence losses' 6, and the
+    mixture-of-experts pair: 253 op types."""
     assert sorted(preg.OPS) == sorted([
         "assign_value", "elementwise_add", "fill_constant", "fused_attention",
         "gather", "increment", "kv_cache_append", "layer_norm",
@@ -316,5 +317,7 @@ def test_the_slice_registers_exactly_the_decode_op_types():
         "fusion_gru", "attention_lstm", "fused_embedding_fc_lstm",
         "fusion_seqconv_eltadd_relu", "fusion_seqexpand_concat_fc",
         "linear_chain_crf", "crf_decoding", "warpctc", "edit_distance",
-        "nce", "hierarchical_sigmoid"])
-    assert len(preg.OPS) == 251
+        "nce", "hierarchical_sigmoid",
+        # the mixture-of-experts pair
+        "top_k_gating", "moe_expert_ffn"])
+    assert len(preg.OPS) == 253

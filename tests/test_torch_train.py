@@ -490,11 +490,20 @@ def test_calc_gradient_matches_jax():
 
 
 def test_untrainable_configs_raise():
-    """MoE FFNs raise; dropout builds (its op is ported): 2 embeddings,
-    2 x 3 encoder and 2 x 4 decoder sites; the fused loss head builds one
-    linear_softmax_ce in place of the logits fc and its loss."""
-    with pytest.raises(NotImplementedError, match="MoE"):
-        PT.build(PT.TransformerConfig(**dict(SMALL, moe_experts=4)))
+    """Every config builds now: MoE FFNs (a gating op each, their aux
+    losses folded into the loss, the JAX package's program); dropout (its
+    op is ported): 2 embeddings, 2 x 3 encoder and 2 x 4 decoder sites;
+    the fused loss head builds one linear_softmax_ce in place of the
+    logits fc and its loss."""
+    progs = []
+    for pkg, T, guard in ((pt, PT, pt.unique_name.guard),
+                          (fluid, JT, jun.guard)):
+        main = pkg.Program()
+        with pkg.program_guard(main, pkg.Program()), guard():
+            T.build(T.TransformerConfig(**dict(SMALL, moe_experts=4)))
+        progs.append([op.type for op in main.global_block().ops])
+    assert progs[0] == progs[1]
+    assert progs[0].count("top_k_gating") == 4
     main = pt.Program()
     with pt.program_guard(main, pt.Program()), pt.unique_name.guard():
         PT.build(PT.TransformerConfig(**dict(SMALL, dropout=0.1)))
