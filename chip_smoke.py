@@ -525,7 +525,26 @@ catches its own failure:
      on the host pool and on the device pool: tokens equal the
      sequential Generator's, every step observed, 0 dropped, #6/#7 as
      the gate predicts;
- 21. one {"kernels": [...]} line, the card's name and power limit, and
+ 21. multi-device training (parallel/: DeviceMesh, the sharding and ZeRO
+     passes, the ParallelExecutor's mesh mode on DTensor, ring
+     attention): a 4-rank world (one process a rank, gloo: NCCL refuses
+     two ranks on one card) trains transformer-base at the dryrun's
+     config (__graft_entry__.py:43-45: vocab 8,000, 6 layers, 8 heads of
+     64, d_inner 2048), 3 float32 Adam steps a leg, TF32 off, each rank
+     feeding its own rows, against the port's single-process run on the
+     card from the same weights (a checksum over every parameter) and
+     batches: M/dp_tp (dp 2 x tp 2, ReduceStrategy.Reduce, tp_rules(),
+     16 x 256 tokens, rtol 2e-4; #1/#2 on each rank's 4 local heads),
+     M/ring (sp 4, 4 x 1024 tokens, rtol 3e-4; #3 on every ring rotation,
+     #4/#5 in its backward), M/zero1 (dp 2 x tp 2, tp_rules(), ZeRO-1:
+     a rank's optimizer-state bytes at most 0.55x the single process's);
+     M/ring/check: ring_attention at sp 4 (2 x 1024, 8 heads of 64,
+     causal, key lengths 700 and 1024) against #3's forward and #4/#5's
+     grads over the whole sequence on one device (1e-4 of max(1, |ref|)).
+     Printed: each leg's trajectories, #1-#5's launches per rank, the
+     executor mode and why, the collectives' staged bytes, each process's
+     peak memory, seconds a step;
+ 22. one {"kernels": [...]} line, the card's name and power limit, and
      last the {"ok": true, "device": ...} line.
 
 Exits non-zero, printing no result, when there is no CUDA device or when
@@ -735,6 +754,16 @@ def log(*args):
     print(*args, flush=True)
 
 
+def cuda_sync():
+    """Wait for the card once no CUDA graph capture of this process runs
+    (paddle_tpu_torch/framework/cuda_graph.synchronize): a device-wide
+    synchronisation from this thread would invalidate a capture that a
+    server's loop thread has in progress."""
+    from paddle_tpu_torch.framework import cuda_graph
+
+    cuda_graph.synchronize()
+
+
 def reset_peak_memory():
     """Open a phase's peak-memory window.  Garbage cycles of earlier
     phases (an Executor's plans, a Generator's functions) can still hold
@@ -790,7 +819,7 @@ class Timer:
     def ms(self, fn, reps=None):
         for _ in range(self.warmup):
             fn()
-        torch.cuda.synchronize()
+        cuda_sync()
         pairs = []
         for _ in range(reps or self.reps):
             self.flush.zero_()
@@ -800,20 +829,20 @@ class Timer:
             fn()
             end.record()
             pairs.append((start, end))
-        torch.cuda.synchronize()
+        cuda_sync()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
     def device_ms(self, fn, names, reps=None):
         from torch.profiler import ProfilerActivity, profile
 
         reps = reps or self.reps
-        torch.cuda.synchronize()
+        cuda_sync()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 self.flush.zero_()
                 fn()
-            torch.cuda.synchronize()
+            cuda_sync()
         mine = [s for s in device_spans(prof)
                 if any(n in s[0] for n in names)]
         if not mine:
@@ -846,11 +875,11 @@ def device_ops_of_one_call(fn):
             raise RuntimeError(f"{what} failed: CUresult {rc}")
 
     fn()
-    torch.cuda.synchronize()
+    cuda_sync()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         fn()
-    torch.cuda.synchronize()
+    cuda_sync()
     raw = ptr(graph.raw_cuda_graph())
     n = size(0)
     check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
@@ -1482,7 +1511,7 @@ def check_kernels(device):
         kernel, plain, library = fns() if callable(fns) else fns
         reps = c.pop("reps", None)
         out, ref = kernel(), plain()
-        torch.cuda.synchronize()
+        cuda_sync()
         if "err" in c:
             err = c.pop("err")(out, ref, c["dtype"], c.pop("zero_row"))
         else:
@@ -1576,13 +1605,13 @@ def profile_calls(fn, n, top=5, kernels=(), classes=None):
     whose substring its name holds, else in "other")."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
+    cuda_sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
-        torch.cuda.synchronize()
+        cuda_sync()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = device_spans(prof)
     if not spans:
@@ -1642,14 +1671,14 @@ def run_phase(name, spec, scope, card):
     gen.generate(feed, 2)
 
     # the main path, counted
-    torch.cuda.synchronize()
+    cuda_sync()
     reset_peak_memory()
     mha_block.launches = 0
     flash_decode.launches = 0
     g0 = graph_stats()
     t0 = time.perf_counter()
     tokens = gen.generate(feed, NEW_TOKENS)
-    torch.cuda.synchronize()
+    cuda_sync()
     gen_s = time.perf_counter() - t0
     counts = {"mha_block": mha_block.launches,
               "flash_decode": flash_decode.launches}
@@ -1675,20 +1704,20 @@ def run_phase(name, spec, scope, card):
     # timed breakdown (uncounted): prefill, then greedy steps from it
     prefill_ms = []
     for _ in range(3):
-        torch.cuda.synchronize()
+        cuda_sync()
         t0 = time.perf_counter()
         _, states, lengths, logits = gen._prefill(feed)
-        torch.cuda.synchronize()
+        cuda_sync()
         prefill_ms.append((time.perf_counter() - t0) * 1e3)
     tok = torch.argmax(logits, -1).cpu().numpy()
     n_steps = min(16, max_len - int(lengths.max()))
-    torch.cuda.synchronize()
+    cuda_sync()
     t0 = time.perf_counter()
     for _ in range(n_steps):
         logits, states = gen._step(tok, lengths, states, feed)
         lengths = lengths + 1
         tok = torch.argmax(logits, -1).cpu().numpy()
-    torch.cuda.synchronize()
+    cuda_sync()
     step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
     profile_steps = profile_decode_steps(
         gen, feed, tok, lengths, states, min(8, max_len - int(lengths.max())),
@@ -1800,14 +1829,14 @@ def phase_beam(card, scope):
     gen.generate(feed, 2, method="beam", beam_size=BEAM_K, eos_id=-1)
 
     # the main path, counted
-    torch.cuda.synchronize()
+    cuda_sync()
     reset_peak_memory()
     _zero_counts()
     g0 = graph_stats()
     t0 = time.perf_counter()
     tokens, scores = gen.generate(feed, NEW_TOKENS, method="beam",
                                   beam_size=BEAM_K, eos_id=-1)
-    torch.cuda.synchronize()
+    cuda_sync()
     wall = time.perf_counter() - t0
     counts = launch_counts()
     graphs = graph_stats(g0)
@@ -1827,7 +1856,7 @@ def phase_beam(card, scope):
     t0 = time.perf_counter()
     e_tokens, e_scores = eager.generate(feed, NEW_TOKENS, method="beam",
                                         beam_size=BEAM_K, eos_id=-1)
-    torch.cuda.synchronize()
+    cuda_sync()
     eager_wall = time.perf_counter() - t0
     err = float(np.abs(scores - e_scores).max())
     if not (np.array_equal(tokens, e_tokens) and err <= BEAM_TOL):
@@ -1946,14 +1975,14 @@ def serve_dense(spec, scope, feed, card):
     feeds = [{k: v[i:i + 1] for k, v in feed.items()} for i in range(BATCH)]
     sched = serving.Scheduler(spec, scope=scope, place=place,
                               max_batch=BATCH)
-    torch.cuda.synchronize()
+    cuda_sync()
     reset_peak_memory()
     _zero_counts()
     g0 = graph_stats()
     t0 = time.perf_counter()
     reqs = [sched.submit(f, NEW_TOKENS, eos_id=-1) for f in feeds]
     sched.run_until_idle()
-    torch.cuda.synchronize()
+    cuda_sync()
     wall = time.perf_counter() - t0
     counts = launch_counts()
     graphs = graph_stats(g0)
@@ -2064,7 +2093,7 @@ def warm_up(sched, groups, new_tokens=3):
         for f in group:
             sched.submit(f, new_tokens, eos_id=-1)
         sched.run_until_idle()
-    torch.cuda.synchronize()
+    cuda_sync()
     _reset_served(sched)
     out = graph_stats(g0)
     out["wall_s"] = round(time.perf_counter() - t0, 3)
@@ -2111,7 +2140,7 @@ def phase_s(card, scope):
                              warm[17:]])
 
     # the main path, counted
-    torch.cuda.synchronize()
+    cuda_sync()
     reset_peak_memory()
     _zero_counts()
     g0 = graph_stats()
@@ -2127,7 +2156,7 @@ def phase_s(card, scope):
     sched.preempt(reqs[3], evict=True)
     while tick():
         pass
-    torch.cuda.synchronize()
+    cuda_sync()
     wall = time.perf_counter() - t0
     counts = launch_counts()
     graphs = graph_stats(g0)
@@ -2234,7 +2263,7 @@ def capture_parity(sched, feeds):
         before = launch_counts()
         with torch.inference_mode():
             outs = run()
-        torch.cuda.synchronize()
+        cuda_sync()
         after = launch_counts()
         return outs, {k: after[k] - before[k] for k in after}
 
@@ -2276,10 +2305,10 @@ def _labelled(label, fn):
     from torch.profiler import record_function
 
     def run(*args, **kwargs):
-        torch.cuda.synchronize()
+        cuda_sync()
         with record_function(label):
             out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
+            cuda_sync()
         return out
 
     return run
@@ -2298,13 +2327,13 @@ def profile_labelled(drive, n, patches):
     for (obj, attr, label), (_, _, fn) in zip(patches, saved):
         setattr(obj, attr, _labelled(label, fn))
     try:
-        torch.cuda.synchronize()
+        cuda_sync()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
                 drive()
-            torch.cuda.synchronize()
+            cuda_sync()
             wall_us = (time.perf_counter() - t0) * 1e6
     finally:
         for obj, attr, fn in saved:
@@ -2399,7 +2428,7 @@ def phase_v(card, scope, leg):
         reqs.append(sched.submit(feeds[i], NEW_TOKENS, eos_id=-1))
 
     # the main path, counted
-    torch.cuda.synchronize()
+    cuda_sync()
     reset_peak_memory()
     _zero_counts()
     int8_ops.launches = 0
@@ -2415,7 +2444,7 @@ def phase_v(card, scope, leg):
     sched.preempt(reqs[3], evict=True)
     while tick():
         pass
-    torch.cuda.synchronize()
+    cuda_sync()
     wall = time.perf_counter() - t0
     counts = launch_counts()
     int_mm = int8_ops.launches
@@ -2570,7 +2599,7 @@ def phase_c(card, scope, spec):
     tick = Recorder(a, reqs)
 
     # the main path, counted
-    torch.cuda.synchronize()
+    cuda_sync()
     reset_peak_memory()
     _zero_counts()
     g0 = graph_stats()
@@ -2592,7 +2621,7 @@ def phase_c(card, scope, spec):
     b = scheduler()
     (moved,) = b.import_requests([record])
     b.run_until_idle()
-    torch.cuda.synchronize()
+    cuda_sync()
     wall = time.perf_counter() - t0
     counts = launch_counts()
     graphs = graph_stats(g0)
@@ -2702,10 +2731,10 @@ def phase_h(card, scope, spec):
 
     def timed(key, fn):
         def run(*args, **kwargs):
-            torch.cuda.synchronize()
+            cuda_sync()
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
+            cuda_sync()
             spans[key].append((time.perf_counter() - t0) * 1e3)
             return out
         return run
@@ -2714,7 +2743,7 @@ def phase_h(card, scope, spec):
     dec.pool.adopt_rows = timed("adopt", dec.pool.adopt_rows)
 
     # the main path, counted
-    torch.cuda.synchronize()
+    cuda_sync()
     reset_peak_memory()
     _zero_counts()
     g0 = graph_stats()
@@ -2738,7 +2767,7 @@ def phase_h(card, scope, spec):
                         "last_tok": rec["last_tok"],
                         "n_tokens": rec["n_tokens"]}))
     dec.run_until_idle()
-    torch.cuda.synchronize()
+    cuda_sync()
     wall = time.perf_counter() - t0
     counts = launch_counts()
     graphs = graph_stats(g0)
@@ -3037,12 +3066,12 @@ def phase_t1(card, device):
     feed = _train_feed(cfg, T1_BATCH, SEED + 1, True, device)
     grads = [g.name for _, g in params_grads]
 
-    torch.cuda.synchronize()
+    cuda_sync()
     _zero_counts()
     t0 = time.perf_counter()
     losses, g_kernel = run_steps(exe, main, scope, feed, loss, T1_STEPS,
                                  grads)
-    torch.cuda.synchronize()
+    cuda_sync()
     wall = time.perf_counter() - t0
     counts = _counts()
     expect = {"mha_block": n_attn * T1_STEPS,
@@ -3110,16 +3139,16 @@ def phase_t2(card, device):
     del start
     torch.cuda.empty_cache()
 
-    torch.cuda.synchronize()
+    cuda_sync()
     _zero_counts()
     before = graph_stats()
     reset_peak_memory()
     # the first step runs eagerly, the second is captured, later ones replay
     warm, _ = run_steps(exe, main, scope, feed, loss, T2_WARMUP)
-    torch.cuda.synchronize()
+    cuda_sync()
     t0 = time.perf_counter()
     timed, _ = run_steps(exe, main, scope, feed, loss, T2_STEPS)
-    torch.cuda.synchronize()
+    cuda_sync()
     wall = time.perf_counter() - t0
     prof = profile_calls(
         lambda: run_steps(exe, main, scope, feed, loss, 1), T2_PROFILED,
@@ -3193,7 +3222,7 @@ def phase_t2drop(card, device):
         masks[:] = masks[-1:] + [m]
         return float(out.float().reshape(-1)[0])
 
-    torch.cuda.synchronize()
+    cuda_sync()
     _zero_counts()
     before = graph_stats()
     reset_peak_memory()
@@ -3205,10 +3234,10 @@ def phase_t2drop(card, device):
         warm.append(step())
     if not np.allclose(warm, ref, rtol=JIT_RTOL, atol=0):
         raise AssertionError(f"T2/drop: jit losses {warm} vs interpret {ref}")
-    torch.cuda.synchronize()
+    cuda_sync()
     t0 = time.perf_counter()
     timed = [step() for _ in range(T2_STEPS)]
-    torch.cuda.synchronize()
+    cuda_sync()
     wall = time.perf_counter() - t0
     prof = profile_calls(step, T2_PROFILED, top=8,
                          kernels=("mha_block", "mha_block_bwd"))
@@ -3354,11 +3383,11 @@ def phase_l1(card, device):
     cfg, main, loss, n_attn, scope, exe, feed = _bert_setup(
         L1_BATCH, False, SEED + 3, device)
     start = _persistables(scope, main)
-    torch.cuda.synchronize()
+    cuda_sync()
     _zero_counts()
     t0 = time.perf_counter()
     losses, _ = run_steps(exe, main, scope, feed, loss, L1_STEPS)
-    torch.cuda.synchronize()
+    cuda_sync()
     wall = time.perf_counter() - t0
     counts = _bert_counts()
     expect = _bert_expect(n_attn, L1_STEPS)
@@ -3406,15 +3435,15 @@ def phase_l2(card, device):
     del start
     torch.cuda.empty_cache()
 
-    torch.cuda.synchronize()
+    cuda_sync()
     _zero_counts()
     before = graph_stats()
     reset_peak_memory()
     warm, _ = run_steps(exe, main, scope, feed, loss, L2_WARMUP)
-    torch.cuda.synchronize()
+    cuda_sync()
     t0 = time.perf_counter()
     timed, _ = run_steps(exe, main, scope, feed, loss, L2_STEPS)
-    torch.cuda.synchronize()
+    cuda_sync()
     wall = time.perf_counter() - t0
     prof = profile_calls(
         lambda: run_steps(exe, main, scope, feed, loss, 1), L2_PROFILED,
@@ -3523,11 +3552,11 @@ def phase_r1(card, device):
     torch.nn.functional.conv2d = spy
     before = graph_stats()
     try:
-        torch.cuda.synchronize()
+        cuda_sync()
         t0 = time.perf_counter()
         losses, g_card = run_steps(exe, main, scope, feed, loss, R1_STEPS,
                                    grads)
-        torch.cuda.synchronize()
+        cuda_sync()
         wall = time.perf_counter() - t0
     finally:
         torch.nn.functional.conv2d = real_conv
@@ -3609,15 +3638,15 @@ def phase_r2(card, device):
     ref_first = _f32_forward_loss(_resnet_model, scope, feed)
     torch.cuda.empty_cache()
 
-    torch.cuda.synchronize()
+    cuda_sync()
     _zero_counts()
     before = graph_stats()
     reset_peak_memory()
     warm, _ = run_steps(exe, main, scope, feed, loss, R2_WARMUP)
-    torch.cuda.synchronize()
+    cuda_sync()
     t0 = time.perf_counter()
     timed, _ = run_steps(exe, main, scope, feed, loss, R2_STEPS)
-    torch.cuda.synchronize()
+    cuda_sync()
     wall = time.perf_counter() - t0
     prof = profile_calls(
         lambda: run_steps(exe, main, scope, feed, loss, 1), R2_PROFILED,
@@ -3709,7 +3738,7 @@ def phase_rprobe(card, device, main, scope, exe, feed, loss):
                   bn.output("SavedVariance")[0]]
     outs = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
                    return_numpy=False)
-    torch.cuda.synchronize()
+    cuda_sync()
     _zero_counts()
     errs, shapes = [], []
     for i, (bn, relu, conv) in enumerate(sites):
@@ -3722,7 +3751,7 @@ def phase_rprobe(card, device, main, scope, exe, feed, loss):
         w = filt.reshape(filt.shape[0], filt.shape[1]).t().contiguous()
         z = brc.bn_relu_conv1x1(y.contiguous(), s_, b_, w)
         ref = _bn_relu_conv(bn, relu, conv, scope, y, device)
-        torch.cuda.synchronize()
+        cuda_sync()
         errs.append(_conv1x1_err(z, ref, torch.bfloat16, False))
         shapes.append(f"{tuple(y.shape)}->{filt.shape[0]}")
         del z, ref
@@ -3855,15 +3884,15 @@ def phase_image(leg, card, device):
                 dtype_to_torch(block.var(k).dtype))
             for k, v in _image_feed(leg, batch).items()}
 
-    torch.cuda.synchronize()
+    cuda_sync()
     _zero_counts()
     before = graph_stats()
     reset_peak_memory()
     warm, _ = run_steps(exe, main, scope, feed, loss, IMG_WARMUP)
-    torch.cuda.synchronize()
+    cuda_sync()
     t0 = time.perf_counter()
     timed, _ = run_steps(exe, main, scope, feed, loss, IMG_STEPS)
-    torch.cuda.synchronize()
+    cuda_sync()
     wall = time.perf_counter() - t0
     prof = profile_calls(
         lambda: run_steps(exe, main, scope, feed, loss, 1), IMG_PROFILED,
@@ -4053,10 +4082,10 @@ def phase_rnn1(model, card, device):
                   for f in feeds]
     attention_ops.TIER_CALLS.clear()
     _zero_counts()
-    torch.cuda.synchronize()
+    cuda_sync()
     t0 = time.perf_counter()
     losses = run_feeds(exe, main, scope, card_feeds, loss, RNN1_STEPS)
-    torch.cuda.synchronize()
+    cuda_sync()
     wall = time.perf_counter() - t0
     tiers = dict(attention_ops.TIER_CALLS)
     counts = _port_kernel_counts()
@@ -4110,10 +4139,10 @@ def lstm_time_split(main, scope, feed, loss):
 
     def labelled(fn, label):
         def run(ctx):
-            torch.cuda.synchronize()
+            cuda_sync()
             with record_function(label(ctx)):
                 fn(ctx)
-                torch.cuda.synchronize()
+                cuda_sync()
         return run
 
     fwd.forward = labelled(real_fwd, lambda ctx: "lstm replay"
@@ -4125,11 +4154,11 @@ def lstm_time_split(main, scope, feed, loss):
     eager = Executor(CUDAPlace(0), mode="interpret")
     try:
         run_steps(eager, main, scratch, feed, loss, 1)   # warm-up
-        torch.cuda.synchronize()
+        cuda_sync()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             run_steps(eager, main, scratch, feed, loss, 1)
-            torch.cuda.synchronize()
+            cuda_sync()
     finally:
         fwd.forward, grad.forward = real_fwd, real_grad
         del scratch
@@ -4174,16 +4203,16 @@ def phase_rnn2(model, card, device):
     ref_first = _f32_forward_loss(RNN_MODELS[model], scope, feeds[0])
     torch.cuda.empty_cache()
 
-    torch.cuda.synchronize()
+    cuda_sync()
     _zero_counts()
     before = graph_stats()
     reset_peak_memory()
     warm = run_feeds(exe, main, scope, feeds, loss, RNN2_WARMUP)
-    torch.cuda.synchronize()
+    cuda_sync()
     t0 = time.perf_counter()
     timed = run_feeds(exe, main, scope, feeds, loss, RNN2_STEPS,
                       start=RNN2_WARMUP)
-    torch.cuda.synchronize()
+    cuda_sync()
     wall = time.perf_counter() - t0
     nxt = feeds[(RNN2_WARMUP + RNN2_STEPS) % len(feeds)]
     prof = profile_calls(
@@ -4273,13 +4302,13 @@ def phase_mt_decode(card, device, train_scope):
     gen.generate(src, 2, method="beam", beam_size=BEAM_K, eos_id=-1)
     expect = dict.fromkeys(SERVING_KERNELS, 0)
     expect["flash_decode"] = NEW_TOKENS
-    torch.cuda.synchronize()
+    cuda_sync()
     reset_peak_memory()
     _zero_counts()
     g0 = graph_stats()
     t0 = time.perf_counter()
     greedy = gen.generate(src, NEW_TOKENS, eos_id=-1)
-    torch.cuda.synchronize()
+    cuda_sync()
     wall = time.perf_counter() - t0
     counts = launch_counts()
     if counts != expect or greedy.shape != (MT_DEC_BATCH, NEW_TOKENS):
@@ -4289,7 +4318,7 @@ def phase_mt_decode(card, device, train_scope):
     t0 = time.perf_counter()
     tokens, scores = gen.generate(src, NEW_TOKENS, method="beam",
                                   beam_size=BEAM_K, eos_id=-1)
-    torch.cuda.synchronize()
+    cuda_sync()
     beam_wall = time.perf_counter() - t0
     beam_counts = launch_counts()
     if beam_counts != expect:
@@ -4435,11 +4464,11 @@ def time_forwards(fn, warmup, steps, profiled):
     then `profiled` under torch.profiler: (host ms per call, profile)."""
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
+    cuda_sync()
     t0 = time.perf_counter()
     for _ in range(steps):
         fn()
-    torch.cuda.synchronize()
+    cuda_sync()
     host_ms = (time.perf_counter() - t0) / steps * 1e3
     return host_ms, profile_calls(fn, profiled, top=5)
 
@@ -4460,7 +4489,7 @@ def _clone_runs(clones, feeds, runs):
 
     threads = [threading.Thread(target=worker, args=(t, p))
                for t, p in enumerate(clones)]
-    torch.cuda.synchronize()
+    cuda_sync()
     t0 = time.perf_counter()
     for th in threads:
         th.start()
@@ -4559,7 +4588,7 @@ def phase_infer_model(name, card):
         return t_exe.run(infer, feed=feed, fetch_list=fetch, scope=scope,
                          return_numpy=False)
 
-    torch.cuda.synchronize()
+    cuda_sync()
     _zero_counts()
     reset_peak_memory()
     g0 = graph_stats()
@@ -4677,13 +4706,13 @@ def phase_gen(card):
     pred.generate(spec, feed, 2)      # uncounted warm-up
     gen = pred._generators[id(spec)][1]
 
-    torch.cuda.synchronize()
+    cuda_sync()
     reset_peak_memory()
     _zero_counts()
     g0 = graph_stats()
     t0 = time.perf_counter()
     tokens = pred.generate(spec, feed, NEW_TOKENS)
-    torch.cuda.synchronize()
+    cuda_sync()
     wall = time.perf_counter() - t0
     counts = {"mha_block": mha_block.launches,
               "flash_decode": flash_decode.launches}
@@ -4704,7 +4733,7 @@ def phase_gen(card):
     g1 = graph_stats()
     t0 = time.perf_counter()
     again = pred.generate(spec, feed, NEW_TOKENS)
-    torch.cuda.synchronize()
+    cuda_sync()
     wall2 = time.perf_counter() - t0
     graphs2 = graph_stats(g1)
     if not (np.array_equal(again, tokens) and len(pred._generators) == 1
@@ -4717,10 +4746,10 @@ def phase_gen(card):
     prefill_ms = []
     with torch.inference_mode():
         for _ in range(3):
-            torch.cuda.synchronize()
+            cuda_sync()
             t0 = time.perf_counter()
             gen._prefill(feed)
-            torch.cuda.synchronize()
+            cuda_sync()
             prefill_ms.append((time.perf_counter() - t0) * 1e3)
     prefill = statistics.median(prefill_ms)
     res = {"phase": "I/gen", "batch": BATCH, "src_len": SRC_LEN,
@@ -4926,7 +4955,7 @@ def phase_f_rpc(card, s_step_ms):
                     if c is not None:
                         c.close()
 
-            torch.cuda.synchronize()
+            cuda_sync()
             reset_peak_memory()
             _zero_counts()
             c0 = dict(sched.counters)
@@ -4939,7 +4968,7 @@ def phase_f_rpc(card, s_step_ms):
                 w.start()
             for w in workers:
                 w.join(timeout=FE_TIMEOUT_S)
-            torch.cuda.synchronize()
+            cuda_sync()
             wall = time.perf_counter() - t0
             del sched.step
             counts = launch_counts()
@@ -5181,13 +5210,13 @@ class _Counted:
         self.phase, self.scheds, self.n_layer = phase, list(scheds), n_layer
 
     def __enter__(self):
-        torch.cuda.synchronize()
+        cuda_sync()
         _zero_counts()
         self.steps0 = [s.counters["steps"] for s in self.scheds]
         return self
 
     def __exit__(self, *exc):
-        torch.cuda.synchronize()
+        cuda_sync()
         self.counts = launch_counts()
         self.steps = sum(s.counters["steps"] - n
                          for s, n in zip(self.scheds, self.steps0))
@@ -5312,7 +5341,7 @@ def phase_f_tax_sweep(card):
     streams = [100 + i for i in range(TAX_STREAMS)]
     for _ in range(2):
         gen.generate(feed(streams[0]), 2, eos_id=-1)
-    torch.cuda.synchronize()
+    cuda_sync()
     t0 = time.perf_counter()
     for seed in streams:
         ref(seed)
@@ -5330,7 +5359,7 @@ def phase_f_tax_sweep(card):
         rs = [sched.submit(feed(seed0 + i), TAX_TOKENS, eos_id=-1)
               for i in range(TAX_STREAMS)]
         sched.run_until_idle(max_steps=100000)
-        torch.cuda.synchronize()
+        cuda_sync()
         if not all(r.status == "done" and len(r.tokens) == TAX_TOKENS
                    for r in rs):
             raise AssertionError("F/tax: a request not done")
@@ -6852,12 +6881,12 @@ def phase_infer_int8(name, card):
         top-1 of every image, card profile of one forward)."""
         for _ in range(I_WARMUP):
             fwd()
-        torch.cuda.synchronize()
+        cuda_sync()
         top1 = []
         t0 = time.perf_counter()
         for x in images:
             top1.append(fwd(x)[1].argmax(-1))
-        torch.cuda.synchronize()
+        cuda_sync()
         ms = (time.perf_counter() - t0) / I_STEPS * 1e3
         return ms, torch.cat(top1).cpu().numpy(), profile_calls(fwd, 1)
 
@@ -6981,7 +7010,7 @@ def phase_serving_int8(card):
             t0 = time.perf_counter()
             rs = [sched.submit(f, TAX_TOKENS, eos_id=-1) for f in feeds]
             sched.run_until_idle(max_steps=100000)
-            torch.cuda.synchronize()
+            cuda_sync()
             dt = time.perf_counter() - t0
         int_mm = int8_ops.launches
         steps = sched.counters["steps"] - c0["steps"]
@@ -7415,17 +7444,17 @@ def timed_training(phase, main, loss, scope, exe, feed, tokens_per_step,
     -> (the phase's record, the first step's `probe` values)."""
     from paddle_tpu_torch.ops import attention_ops
 
-    torch.cuda.synchronize()
+    cuda_sync()
     _zero_counts()
     attention_ops.TIER_CALLS.clear()
     before = graph_stats()
     reset_peak_memory()
     warm, first = run_steps(exe, main, scope, feed, loss, warmup,
                             probe=probe)
-    torch.cuda.synchronize()
+    cuda_sync()
     t0 = time.perf_counter()
     timed, _ = run_steps(exe, main, scope, feed, loss, steps, probe=probe)
-    torch.cuda.synchronize()
+    cuda_sync()
     wall = time.perf_counter() - t0
     losses = warm + timed
     if not np.all(np.isfinite(losses)):
@@ -8092,7 +8121,7 @@ def phase_ctr(card):
     split = _HostSplit(step)
     split.take(1)
     feeds = [ctr_feed(10 + i) for i in range(CTR_STEPS)]
-    torch.cuda.synchronize()
+    cuda_sync()
     t0 = time.perf_counter()
     sync = [_ctr_loss(step.run(f, scope=scope)) for f in feeds]
     sync_s = time.perf_counter() - t0
@@ -8100,7 +8129,7 @@ def phase_ctr(card):
 
     pushes = _count_pushes(embs)
     feeds = [ctr_feed(30 + i) for i in range(CTR_STEPS)]
-    torch.cuda.synchronize()
+    cuda_sync()
     t0 = time.perf_counter()
     piped = [_ctr_loss(out)
              for out in step.run_pipelined(iter(feeds), scope=scope)]
@@ -8281,7 +8310,7 @@ def phase_ctr_remote(card, start):
         return ep
 
     sup = svc = None
-    torch.cuda.synchronize()
+    cuda_sync()
     before = _card_processes()
     try:
         started = [_start_shard_server(i, 2, CTR_EMB, tmp, "", "adagrad",
@@ -8393,7 +8422,7 @@ def phase_reshard(card):
     policy = RpcPolicy(connect_timeout=1.0, call_timeout=5.0,
                        max_attempts=2, backoff_base=0.05)
     sup = svc = None
-    torch.cuda.synchronize()
+    cuda_sync()
     before = _card_processes()
     try:
         sweep = {}
@@ -8923,7 +8952,7 @@ def phase_x_ops(card, device):
                         for k, v in feed.items()}
             want = _run_group(Executor(CPUPlace()), main, feed, fetch, 1)
             exe = Executor(CUDAPlace(0))
-            torch.cuda.synchronize()
+            cuda_sync()
             before = graph_stats()
             got = _run_group(exe, main, dev_feed, fetch, 3)
             ref = _run_group(Executor(CUDAPlace(0), mode="interpret"), main,
@@ -8945,12 +8974,12 @@ def phase_x_ops(card, device):
             for _ in range(2):
                 exe.run(main, feed=dev_feed, fetch_list=fetch, scope=scope,
                         return_numpy=False)
-            torch.cuda.synchronize()
+            cuda_sync()
             t0 = time.perf_counter()
             for _ in range(X_REPS):
                 exe.run(main, feed=dev_feed, fetch_list=fetch, scope=scope,
                         return_numpy=False)
-            torch.cuda.synchronize()
+            cuda_sync()
             ms = (time.perf_counter() - t0) / X_REPS * 1e3
             rows.append({"group": name, "op_types": sorted({s[0]
                                                             for s in specs}),
@@ -9168,15 +9197,15 @@ def phase_x_attn(card, device):
     exe.run(startup, scope=scope)
     feed = {k: torch.as_tensor(v, device=device) for k, v in
             fluid_encoder.synthetic_batch(XA_BATCH, cfg, seed=SEED + 1).items()}
-    torch.cuda.synchronize()
+    cuda_sync()
     _zero_counts()
     before = graph_stats()
     reset_peak_memory()
     warm, _ = run_steps(exe, main, scope, feed, loss, XA_WARMUP)
-    torch.cuda.synchronize()
+    cuda_sync()
     t0 = time.perf_counter()
     timed, _ = run_steps(exe, main, scope, feed, loss, XA_STEPS)
-    torch.cuda.synchronize()
+    cuda_sync()
     wall = time.perf_counter() - t0
     prof = profile_calls(lambda: run_steps(exe, main, scope, feed, loss, 1),
                          XA_PROFILED, top=8)
@@ -9628,10 +9657,10 @@ def phase_cf_mt(card, device):
                              f"{cpu_losses}")
     jit = _steps_bitwise("CF/mt", exe, main, scope, feed, loss,
                          CM_PARITY_STEPS)
-    torch.cuda.synchronize()
+    cuda_sync()
     t0 = time.perf_counter()
     timed, _ = run_steps(exe, main, scope, feed, loss, CM_STEPS)
-    torch.cuda.synchronize()
+    cuda_sync()
     wall = time.perf_counter() - t0
     prof = profile_calls(lambda: exe.run(main, feed=feed, fetch_list=[loss],
                                          scope=scope, return_numpy=False),
@@ -9682,12 +9711,12 @@ def phase_cf_mt(card, device):
     for _ in range(2):      # capture, replay
         got = card_exe.run(dmain, feed=dfeed, fetch_list=fetch,
                            scope=card_scope, return_numpy=False)
-    torch.cuda.synchronize()
+    cuda_sync()
     t0 = time.perf_counter()
     for _ in range(CM_DECODE_REPS):
         got = card_exe.run(dmain, feed=dfeed, fetch_list=fetch,
                            scope=card_scope, return_numpy=False)
-    torch.cuda.synchronize()
+    cuda_sync()
     dwall = (time.perf_counter() - t0) / CM_DECODE_REPS
     gs = graph_stats(before)
     if gs["captures"] < 1 or gs["replays"] < CM_DECODE_REPS:
@@ -9828,14 +9857,14 @@ def phase_cf_beam_lm(card, device):
     _zero_counts()
     before = graph_stats()
     calls = 2 + CL_REPS          # warm-up, capture, replays
-    torch.cuda.synchronize()
+    cuda_sync()
     for i in range(calls):
         if i == 2:
-            torch.cuda.synchronize()
+            cuda_sync()
             t0 = time.perf_counter()
         got = exe.run(main, fetch_list=[ids, scores], scope=scope,
                       return_numpy=False)
-    torch.cuda.synchronize()
+    cuda_sync()
     ms = (time.perf_counter() - t0) / CL_REPS * 1e3
     launches = {"flash_decode": flash_decode.launches,
                 "mha_block": mha_block.launches}
@@ -9971,12 +10000,12 @@ def phase_cf_while(card, device):
                  for k, v in feed.items()}
         for _ in range(2):
             exe.run(main, feed=dfeed, fetch_list=[loss], scope=scope)
-        torch.cuda.synchronize()
+        cuda_sync()
         t0 = time.perf_counter()
         for _ in range(CW_STEPS):
             exe.run(main, feed=dfeed, fetch_list=[loss], scope=scope,
                     return_numpy=False)
-        torch.cuda.synchronize()
+        cuda_sync()
         ms = (time.perf_counter() - t0) / CW_STEPS * 1e3
         rows.append({"loop": label, "ms_per_step": ms,
                      "ms_per_trip": ms / CW_TRIPS, "graphs": gs["captures"],
@@ -10415,10 +10444,10 @@ def phase_srl(card, device):
                              f"{cpu_losses}")
     jit = _steps_bitwise("SRL/train", exe, main, scope, feed, loss,
                          SR_PARITY_STEPS)
-    torch.cuda.synchronize()
+    cuda_sync()
     t0 = time.perf_counter()
     timed, _ = run_steps(exe, main, scope, feed, loss, SR_STEPS)
-    torch.cuda.synchronize()
+    cuda_sync()
     wall = time.perf_counter() - t0
     prof = profile_calls(lambda: exe.run(main, feed=feed, fetch_list=[loss],
                                          scope=scope, return_numpy=False),
@@ -10465,12 +10494,12 @@ def phase_srl(card, device):
     for _ in range(2):      # the eager run, the capture
         path, em = exe.run(infer, feed=feed, fetch_list=[decoded, emission],
                            scope=scope, return_numpy=False)
-    torch.cuda.synchronize()
+    cuda_sync()
     t0 = time.perf_counter()
     for _ in range(SR_DECODE_REPS):
         path, em = exe.run(infer, feed=feed, fetch_list=[decoded, emission],
                            scope=scope, return_numpy=False)
-    torch.cuda.synchronize()
+    cuda_sync()
     dms = (time.perf_counter() - t0) / SR_DECODE_REPS * 1e3
     gs = graph_stats(before)
     path = path.cpu().numpy()
@@ -10620,12 +10649,12 @@ def phase_rnn_fuse(card, device):
             for _ in range(2):
                 got, = exe.run(infer, feed={"x": x}, fetch_list=[out.name],
                                scope=scope, return_numpy=False)
-            torch.cuda.synchronize()
+            cuda_sync()
             t0 = time.perf_counter()
             for _ in range(X_REPS):
                 got, = exe.run(infer, feed={"x": x}, fetch_list=[out.name],
                                scope=scope, return_numpy=False)
-            torch.cuda.synchronize()
+            cuda_sync()
             timed[when] = ((time.perf_counter() - t0) / X_REPS * 1e3,
                            got.cpu().numpy())
         types = [op.type for op in infer.global_block().ops]
@@ -10857,12 +10886,12 @@ def phase_seq_tail(card, device):
         for _ in range(2):
             exe.run(main, feed=dev_feed, fetch_list=fetch, scope=scope,
                     return_numpy=False)
-        torch.cuda.synchronize()
+        cuda_sync()
         t0 = time.perf_counter()
         for _ in range(X_REPS):
             exe.run(main, feed=dev_feed, fetch_list=fetch, scope=scope,
                     return_numpy=False)
-        torch.cuda.synchronize()
+        cuda_sync()
         ms = (time.perf_counter() - t0) / X_REPS * 1e3
         rows.append(dict({"group": name, "op_types": sorted({s[0]
                                                              for s in specs}),
@@ -11023,10 +11052,10 @@ def _mb_train_leg(name, cfg, device):
     scope, exe = _seeded_scope(main, startup)
     feed = _mb_feed(cfg, 0, device)
     warm, _ = run_steps(exe, main, scope, feed, loss, MB_WARMUP)
-    torch.cuda.synchronize()
+    cuda_sync()
     t0 = time.perf_counter()
     timed, _ = run_steps(exe, main, scope, feed, loss, MB_STEPS)
-    torch.cuda.synchronize()
+    cuda_sync()
     wall = time.perf_counter() - t0
     losses = warm + timed
     if not np.all(np.isfinite(losses)):
@@ -11084,7 +11113,7 @@ def phase_moe_bench(card, device):
 
     moe_cfg, dense_cfg = _moe_bench_cfgs()
     tiers = _train_tiers(moe_cfg, MB_SEQ, torch.float32)
-    torch.cuda.synchronize()
+    cuda_sync()
     _zero_counts()
     moe_leg = _mb_train_leg("moe", moe_cfg, device)
     dense_leg = _mb_train_leg("dense", dense_cfg, device)
@@ -11157,13 +11186,13 @@ def phase_moe_bench(card, device):
                       buckets=[MB_STREAMS])
         mon = spec.monitor.monitor
         seen = mon.steps
-        torch.cuda.synchronize()
+        cuda_sync()
         _zero_counts()
         c0 = dict(sched.counters)
         t0 = time.perf_counter()
         reqs = [sched.submit(f, MB_NEW, eos_id=-1) for f in feeds]
         sched.run_until_idle(max_steps=100000)
-        torch.cuda.synchronize()
+        cuda_sync()
         t_cb = time.perf_counter() - t0
         serve_counts = _port_kernel_counts()
         n_steps = sched.counters["steps"] - c0["steps"]
@@ -11324,21 +11353,21 @@ def moe_time_split(main, scope, feed, fetch):
 
     def labelled(fn, label):
         def run(ctx):
-            torch.cuda.synchronize()
+            cuda_sync()
             with record_function(label):
                 fn(ctx)
-                torch.cuda.synchronize()
+                cuda_sync()
         return run
 
     scratch = _scratch(main, scope)
     for (label, info), fn in zip(infos, real):
         info.forward = labelled(fn, label)
     try:
-        torch.cuda.synchronize()
+        cuda_sync()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             outs = _interpret(main, scratch, feed, fetch)
-            torch.cuda.synchronize()
+            cuda_sync()
     finally:
         for (_, info), fn in zip(infos, real):
             info.forward = fn
@@ -11395,17 +11424,17 @@ def phase_moe_base(card, device, t2):
         lambda: transformer.build(cfg, seq_len=SEQ)[0], scope, feed)
     torch.cuda.empty_cache()
 
-    torch.cuda.synchronize()
+    cuda_sync()
     _zero_counts()
     before = graph_stats()
     reset_peak_memory()
     warm, first = run_steps(exe, main, scope, feed, loss, MOE_WARMUP,
                             probe=probe)
-    torch.cuda.synchronize()
+    cuda_sync()
     t0 = time.perf_counter()
     timed, _ = run_steps(exe, main, scope, feed, loss, MOE_STEPS,
                          probe=probe)
-    torch.cuda.synchronize()
+    cuda_sync()
     wall = time.perf_counter() - t0
     prof = profile_calls(
         lambda: run_steps(exe, main, scope, feed, loss, 1, probe=probe),
@@ -11537,7 +11566,7 @@ def phase_moe_serve(card):
                 reqs = [sched.submit(f, TAX_TOKENS, eos_id=-1)
                         for f in feeds]
                 sched.run_until_idle(max_steps=100000)
-                torch.cuda.synchronize()
+                cuda_sync()
                 wall = time.perf_counter() - t0
             observed = mon.steps - seen
             equal = check_served(label, reqs, feeds, gen, TAX_TOKENS)
@@ -11584,6 +11613,322 @@ def drive_moe(card, device, t2, lap=lambda phase: None):
     runs += rows
     launches = _add(launches, counts)
     lap("[20] MoE/serve")
+    return runs, launches
+
+
+# ------------------------------------------------------- [21] the mesh legs
+#
+# Three of __graft_entry__.py:69's dryrun_multichip legs at transformer-base
+# width (its config, :43-45), each 3 float32 Adam steps on a 4-rank gloo
+# world on this one card (NCCL refuses two ranks on one device), held to
+# the port's single-process run on the card from the same weights and
+# batches.  The rank-side functions run in the World's processes (they
+# import this module by name).
+
+MESH_RANKS, MESH_STEPS = 4, 3
+MESH_LEGS = {
+    # leg: (mesh axes, max_length = seq, global batch, build strategy,
+    #       loss rtol: the dryrun's)
+    "M/dp_tp": ({"dp": 2, "tp": 2}, 256, 16,
+                {"reduce_strategy": 1, "tp": True}, 2e-4),
+    "M/ring": ({"sp": 4}, 1024, 4, {}, 3e-4),
+    "M/zero1": ({"dp": 2, "tp": 2}, 256, 16,
+                {"zero_stage": 1, "tp": True}, 2e-4),
+}
+MESH_ZERO_RATIO = 0.55       # M/zero1: optimizer bytes a rank / one card's
+RING_CHECK = (2, 1024, 8, 64)  # direct ring call: batch, seq, heads, head_dim
+RING_LENS = (700, 1024)      # its key lengths (cross rank boundaries)
+
+
+def mesh_cfg(seq, small=False):
+    """transformer-base at the dryrun's vocab (__graft_entry__.py:43-45);
+    `small` is a CPU rehearsal's width."""
+    from paddle_tpu_torch.models import transformer as T
+
+    if small:
+        return T.TransformerConfig(
+            src_vocab_size=64, trg_vocab_size=64, max_length=seq, n_layer=1,
+            n_head=2, d_model=128, d_inner=256, dropout=0.0)
+    return T.TransformerConfig(
+        src_vocab_size=8000, trg_vocab_size=8000, max_length=seq,
+        n_layer=6, n_head=8, d_model=512, d_inner=2048, dropout=0.0)
+
+
+def _mesh_program(cfg):
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.models import transformer as T
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 5
+    with fluid.program_guard(main, startup):
+        with unique_name.guard():
+            loss, _ = T.build(cfg)
+            fluid.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return main, startup, loss
+
+
+def _param_checksum(scope, program):
+    """float64 sum of |p| over the parameters: equal weights on every
+    process."""
+    from paddle_tpu_torch.framework.framework import Parameter
+
+    total = 0.0
+    for name, var in program.global_block().vars.items():
+        if isinstance(var, Parameter):
+            total += float(scope.find_var(name).double().abs().sum())
+    return total
+
+
+def _sync():
+    if torch.cuda.is_available():
+        cuda_sync()
+
+
+def _attn_counts():
+    from paddle_tpu_torch.ops.cuda import flash_attention, mha_block
+
+    return {"mha_block": mha_block.launches,
+            "mha_block_bwd": mha_block.bwd_launches,
+            "flash_attention_fwd": flash_attention.launches,
+            "flash_attention_bwd_dq": flash_attention.bwd_dq_launches,
+            "flash_attention_bwd_dkv": flash_attention.bwd_dkv_launches}
+
+
+def mesh_single(leg, device_type="cuda", small=False):
+    """The port's single-process run of a leg's program on one device
+    (its default jit path): the loss trajectory, seconds a step, the
+    param checksum, optimizer-state bytes, peak memory."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.framework import Scope, scope_guard
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.parallel import memory
+
+    axes, seq, batch, _, _ = MESH_LEGS[leg]
+    cfg = mesh_cfg(seq, small)
+    main, startup, loss = _mesh_program(cfg)
+    place = fluid.CUDAPlace(0) if device_type == "cuda" else fluid.CPUPlace()
+    scope = Scope()
+    with scope_guard(scope):
+        exe = fluid.Executor(place)
+        exe.run(startup)
+        checksum = _param_checksum(scope, main)
+        memory.reset_peak()
+        losses, secs = [], []
+        for step in range(MESH_STEPS):
+            feed = T.synthetic_batch(batch, cfg, seed=step)
+            t0 = time.perf_counter()
+            (lv,) = exe.run(main, feed=feed, fetch_list=[loss])
+            _sync()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(np.asarray(lv).reshape(-1)[0]))
+        return {"losses": losses, "s_per_step": secs, "checksum": checksum,
+                "opt_bytes": memory.optimizer_state_bytes(scope, main),
+                "peak_mib": memory.peak_bytes() / 2**20}
+
+
+def mesh_rank_leg(leg, device_type="cuda", small=False):
+    """One rank of a leg: the same program, startup and batches as
+    mesh_single, through ParallelExecutor on the leg's mesh, each rank
+    feeding its own rows."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.framework import Scope, scope_guard
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.ops import attention_ops
+    from paddle_tpu_torch.parallel import (BuildStrategy, ParallelExecutor,
+                                           comm, make_mesh, memory)
+    import torch.distributed as dist
+
+    axes, seq, batch, strategy, _ = MESH_LEGS[leg]
+    cfg = mesh_cfg(seq, small)
+    main, startup, loss = _mesh_program(cfg)
+    place = fluid.CUDAPlace(0) if device_type == "cuda" else fluid.CPUPlace()
+    bs = BuildStrategy()
+    if strategy.get("tp"):
+        bs.tensor_parallel_rules = T.tp_rules()
+    if strategy.get("reduce_strategy"):
+        bs.reduce_strategy = BuildStrategy.ReduceStrategy.Reduce
+    bs.zero_stage = strategy.get("zero_stage", 0)
+    scope = Scope()
+    with scope_guard(scope):
+        fluid.Executor(place).run(startup)
+        checksum = _param_checksum(scope, main)
+        pe = ParallelExecutor(loss_name=loss.name, main_program=main,
+                              build_strategy=bs, scope=scope,
+                              mesh=make_mesh(place=place, **axes))
+        comm.reset_stats()
+        memory.reset_peak()
+        attention_ops.TIER_CALLS.clear()
+        before = _attn_counts()
+        losses, secs = [], []
+        for step in range(MESH_STEPS):
+            feed = {k: pe.local_batch(v) for k, v in
+                    T.synthetic_batch(batch, cfg, seed=step).items()}
+            t0 = time.perf_counter()
+            (lv,) = pe.run(feed=feed, fetch_list=[loss.name])
+            _sync()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(np.asarray(lv).reshape(-1)[0]))
+        after = _attn_counts()
+        return {"rank": dist.get_rank(), "losses": losses,
+                "s_per_step": secs, "checksum": checksum,
+                "launches": {k: after[k] - before[k] for k in after},
+                "tiers": dict(attention_ops.TIER_CALLS),
+                "executor_mode": pe.executor_mode,
+                "executor_mode_reason": pe.executor_mode_reason,
+                "backend": str(dist.get_backend()),
+                "comm": dict(comm.STATS),
+                "opt_bytes": memory.optimizer_state_bytes(scope, main),
+                "peak_mib": memory.peak_bytes() / 2**20}
+
+
+def mesh_rank_ring_check(device_type="cuda", small=False):
+    """A direct ring_attention call on an sp=4 mesh (causal, with global
+    key lengths) against the single-device flash kernels on the same
+    inputs: the forward against #3, the grads (the ring's #4/#5 per
+    rotation) against #4/#5 over the whole sequence.  Returns the max abs
+    errors of max(1, the largest reference value) (every rank computes
+    the reference)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.parallel import make_mesh
+    from paddle_tpu_torch.parallel.ring_attention import (ring_attention,
+                                                          ring_attention_grad)
+
+    b, s, h, d = (1, 512, 1, 64) if small else RING_CHECK
+    dev = torch.device(device_type, 0) if device_type == "cuda" \
+        else torch.device("cpu")
+    place = fluid.CUDAPlace(0) if device_type == "cuda" else fluid.CPUPlace()
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    q, k, v, dout = (torch.randn((b, s, h * d), generator=g).to(dev)
+                     for _ in range(4))
+    lens = torch.tensor([min(x, s) for x in RING_LENS[:b]],
+                        dtype=torch.int64, device=dev)
+    mesh = make_mesh(place=place, sp=MESH_RANKS)
+    before = _attn_counts()
+    out = ring_attention(q, k, v, mesh, num_heads=h, causal=True,
+                         seq_len=lens).full_tensor()
+    grads = [x.full_tensor() for x in ring_attention_grad(
+        q, k, v, dout, mesh, num_heads=h, causal=True, seq_len=lens)]
+    after = _attn_counts()
+    ref, lse = fa.flash_attention_lse(q, k, v, h, True, 0.0,
+                                      kv_len=lens.float())
+    want = fa.flash_attention_bwd(q, k, v, ref, lse, dout, h, True, 0.0,
+                                  kv_len=lens.float())
+    errs = {}
+    for name, got, w in zip(("out", "dq", "dk", "dv"), [out] + grads,
+                            [ref] + list(want)):
+        errs[name] = float((got - w).abs().max()) / max(
+            1.0, float(w.abs().max()))
+    return {"errors": errs, "launches": {k: after[k] - before[k]
+                                         for k in after}}
+
+
+def phase_mesh(card, device, small=False):
+    """[21]: the single-process references, then the 4-rank world: the
+    direct ring check and the three legs."""
+    import tempfile
+
+    from paddle_tpu_torch.parallel import memory
+    from paddle_tpu_torch.parallel.world import World
+
+    device_type = device.type
+    runs, launches = [], {}
+    t0 = time.perf_counter()
+    refs = {"M/dp_tp": mesh_single("M/dp_tp", device_type, small),
+            "M/ring": mesh_single("M/ring", device_type, small)}
+    refs["M/zero1"] = refs["M/dp_tp"]   # the same program and batches
+    for name in ("M/dp_tp", "M/ring"):
+        r = refs[name]
+        log(f"  {name} single process: losses {r['losses']}, "
+            f"{[round(x, 3) for x in r['s_per_step']]} s a step, peak "
+            f"{r['peak_mib']:.0f} MiB, optimizer state {r['opt_bytes']} B")
+    gc.collect()
+    if device_type == "cuda":
+        torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="mesh_")
+    t1 = time.perf_counter()
+    with World(MESH_RANKS, os.path.join(tmp, "rendezvous"),
+               device_type=device_type, timeout=600) as world:
+        spawn_s = time.perf_counter() - t1
+        ring = world.run("chip_smoke:mesh_rank_ring_check", device_type,
+                         small)
+        errs = {k: max(r["errors"][k] for r in ring)
+                for k in ring[0]["errors"]}
+        log(f"  M/ring/check: ring_attention sp={MESH_RANKS}, causal, key "
+            f"lengths {RING_LENS}, vs #3 forward / #4,#5 grads on one "
+            f"device: max abs of max(1, |ref|) {errs}; launches per rank "
+            f"{[r['launches'] for r in ring]}")
+        if max(errs.values()) > TOL:
+            raise AssertionError(f"M/ring/check: ring vs single-device "
+                                 f"kernels {errs} > {TOL}")
+        for name, (axes, seq, batch, strategy, rtol) in MESH_LEGS.items():
+            t2 = time.perf_counter()
+            ranks = world.run("chip_smoke:mesh_rank_leg", name, device_type,
+                              small)
+            leg_s = time.perf_counter() - t2
+            ref = refs[name]
+            for r in ranks:
+                if abs(r["checksum"] - ref["checksum"]) > 1e-9 * abs(
+                        ref["checksum"]):
+                    raise AssertionError(
+                        f"{name}: rank {r['rank']} started from other "
+                        f"weights ({r['checksum']} vs {ref['checksum']})")
+                np.testing.assert_allclose(
+                    r["losses"], ref["losses"], rtol=rtol, atol=0,
+                    err_msg=f"{name} rank {r['rank']} vs single process")
+            worst = max(max(abs(a - b) / abs(b) for a, b in
+                            zip(r["losses"], ref["losses"])) for r in ranks)
+            res = {"phase": name, "mesh": axes, "seq": seq, "batch": batch,
+                   "strategy": strategy, "losses": ranks[0]["losses"],
+                   "single_losses": ref["losses"], "max_rel": worst,
+                   "rtol": rtol,
+                   "s_per_step": [r["s_per_step"] for r in ranks],
+                   "single_s_per_step": ref["s_per_step"],
+                   "launches": [r["launches"] for r in ranks],
+                   "tiers": [r["tiers"] for r in ranks],
+                   "executor_mode": ranks[0]["executor_mode"],
+                   "executor_mode_reason": ranks[0]["executor_mode_reason"],
+                   "backend": ranks[0]["backend"],
+                   "comm": [r["comm"] for r in ranks],
+                   "peak_mib": [r["peak_mib"] for r in ranks],
+                   "single_peak_mib": ref["peak_mib"],
+                   "opt_bytes": [r["opt_bytes"] for r in ranks],
+                   "single_opt_bytes": ref["opt_bytes"],
+                   "leg_s": leg_s, "card": card}
+            res["opt_ratio"] = max(res["opt_bytes"]) / ref["opt_bytes"]
+            log(f"  {name} {axes} seq {seq} batch {batch}: losses "
+                f"{res['losses']} vs single {ref['losses']} (max rel "
+                f"{worst:.2e} <= {rtol}); s a step per rank "
+                f"{[[round(x, 3) for x in s] for s in res['s_per_step']]} "
+                f"vs single {[round(x, 3) for x in ref['s_per_step']]}; "
+                f"executor {res['executor_mode']} ({res['backend']}: "
+                f"{res['executor_mode_reason']})")
+            log(f"    launches per rank {res['launches']}; tiers "
+                f"{res['tiers'][0]}; comm {res['comm']}; peak MiB per rank "
+                f"{[round(x) for x in res['peak_mib']]} (single "
+                f"{ref['peak_mib']:.0f}); optimizer bytes per rank "
+                f"{res['opt_bytes']} vs single {ref['opt_bytes']} (ratio "
+                f"{res['opt_ratio']:.3f}) [{card}]")
+            want = (("flash_attention_fwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv") if name == "M/ring"
+                    else ("mha_block", "mha_block_bwd"))
+            if device_type == "cuda":
+                dead = [(r["rank"], k) for r in ranks for k in want
+                        if not r["launches"][k]]
+                if dead:
+                    raise AssertionError(f"{name}: kernels not launched on "
+                                         f"every rank: {dead}")
+            if name == "M/zero1" and res["opt_ratio"] > MESH_ZERO_RATIO:
+                raise AssertionError(
+                    f"M/zero1: optimizer bytes a rank {res['opt_ratio']:.3f}"
+                    f" of one card's > {MESH_ZERO_RATIO}")
+            for r in ranks:
+                launches = _add(launches, r["launches"])
+            runs.append(res)
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  [21] references {ref_s:.1f} s, world start {spawn_s:.1f} s")
     return runs, launches
 
 
@@ -11751,10 +12096,18 @@ def main():
     t2 = next((r for r in training if r.get("phase") == "T2"), {})
     moe_runs, moe_launches = drive_moe(card, device, t2, lap)
     training += moe_runs
+
+    log(f"[21] multi-device training: transformer-base on a "
+        f"{MESH_RANKS}-rank gloo world on this card, 3 of dryrun_multichip's "
+        f"legs (M/dp_tp, M/ring, M/zero1) against the single-process run, "
+        f"and a direct ring_attention call (M/ring/check) [{card}]")
+    mesh_runs, mesh_launches = phase_mesh(card, device)
+    training += mesh_runs
+    lap("[21]")
     for more in (counts, train_launches, bert_launches, resnet_launches,
                  rnn_launches, saved_launches, front_launches,
                  fleet_launches, int8_launches, tail_launches, cf_launches,
-                 moe_launches):
+                 moe_launches, mesh_launches):
         for k, n in more.items():
             launches[k] = launches.get(k, 0) + n
     never = [k for k in KERNELS if not launches.get(k)]
@@ -11762,7 +12115,7 @@ def main():
         raise AssertionError(f"kernels {never} never launched on a path")
 
     log(f"  all phases took {laps[-1] - laps[0]:.1f} s wall")
-    log("[21] results")
+    log("results")
     log(json.dumps({"phases": phases}))
     log(json.dumps({"training": training}))
     if DIVERGED:

@@ -14,9 +14,9 @@ its circuit breakers, the supervisor, the routing table's slot count) and
 the sparse tier's and the checkpoint manager's, each with the JAX package's default (decode.Generator and
 serving.Scheduler take the jit path whatever `executor_mode` says), and
 the JAX package's four other trace-affecting flags (`ir_passes`,
-`op_remat`, `spec_draft`, `zero_stage`), which no port code reads yet, so
-that `trace_signature()` and with it `serving.prompt_key` are the JAX
-package's.  The attention-gate
+`op_remat`, `spec_draft`, `zero_stage`; only the ParallelExecutor reads
+one, `zero_stage`), so that `trace_signature()` and with it
+`serving.prompt_key` are the JAX package's.  The attention-gate
 defaults are the JAX package's (sized for TPU v5e VMEM), kept so that the
 same shapes take the same tier in both packages.  H100 values would change
 `trace_signature()` and so the fleet's routing (ROADMAP.md A item 4, C16);
@@ -378,11 +378,12 @@ DEFINE_int("breaker_cooldown_ms", 1000,
            "Router-side only; nowhere near a traced root")
 
 # the JAX package's other trace-affecting flags, with its defaults and help.
-# No port code reads them yet (the IR pass pipeline is ROADMAP A item 8,
-# rematerialization item 4, ZeRO item 7, the int8 draft tier item 3); they
-# are defined so that the port's plan identity, `trace_signature()`, is the
-# JAX package's, and with it `serving.prompt_key` and the fleet router's
-# affine index: one feed picks the same replica in both packages
+# They are defined so that the port's plan identity, `trace_signature()`,
+# is the JAX package's, and with it `serving.prompt_key` and the fleet
+# router's affine index: one feed picks the same replica in both packages.
+# `zero_stage` is read by parallel.ParallelExecutor (when
+# BuildStrategy.zero_stage is None); no port code reads `ir_passes` (the
+# IR pass pipeline, ROADMAP A item 8), `op_remat` or `spec_draft`
 DEFINE_bool("ir_passes", False,
             "Run framework/ir.py's PassManager pipeline (constant_fold, "
             "cse, dead_op_elim, memory_reuse) over a clone of the program "

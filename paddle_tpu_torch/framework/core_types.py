@@ -136,13 +136,15 @@ class CUDAPlace(Place):
 
 
 def default_place() -> Place:
-    """The card.  Raises when there is none: the port's entry points run
-    on the CPU only when the caller passes `CPUPlace()`."""
+    """The card: the current CUDA device (0 unless a rank process of a
+    multi-card mesh set its own, parallel.init_distributed).  Raises when
+    there is none: the port's entry points run on the CPU only when the
+    caller passes `CPUPlace()`."""
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass place=CPUPlace() to run on "
             "the CPU")
-    return CUDAPlace(0)
+    return CUDAPlace(torch.cuda.current_device())
 
 
 def as_device(place) -> torch.device:

@@ -75,7 +75,15 @@ eager warm-up and every capture of the process runs under one lock
 at a time, and no capture's counter delta can take in another thread's
 counts.  A capture runs in the thread-local capture mode, so a CUDA call
 that another thread makes meanwhile (a replay, an allocation, a copy to
-the host) neither fails nor invalidates it.  Replays run concurrently
+the host, a stream's or an event's synchronisation, `empty_cache`)
+neither fails nor invalidates it.  Two calls do invalidate it, and the
+failure then shows at a later op of the capture: a device-wide
+`torch.cuda.synchronize()` from any thread, and the destruction of
+another CUDA graph in the capturing thread, which Python's cyclic
+garbage collector can run at any allocation.  So the collector is off
+for the length of a capture, and code that may run beside a capture
+waits for the card with `synchronize()` here, which takes the lock (the
+Scheduler's timed windows do).  Replays run concurrently
 with each other and with a capture, on the caller's current stream; each
 adds its counter delta to the shared counters and to `STATS` under the
 lock.  (A kernel launched eagerly outside the jit path in another
@@ -86,6 +94,7 @@ delta: no path of the port does that.)
 from __future__ import annotations
 
 import collections
+import gc
 import threading
 import time
 
@@ -112,6 +121,14 @@ def reset_stats():
     STATS.update(captures=0, capture_s=0.0, pool_bytes=0, replays=0,
                  warmups=0, eager_segments=0)
     THREADS.clear()
+
+
+def synchronize(device=None):
+    """`torch.cuda.synchronize(device)` once no capture of this process is
+    running: a device-wide synchronisation from another thread would
+    invalidate it (module docstring, Threads)."""
+    with _LOCK:
+        torch.cuda.synchronize(device)
 
 
 def _side_stream(device):
@@ -301,6 +318,10 @@ class CapturedSegment:
         # release it
         pool = (_live_pool(self.pool) if self.pool is not None
                 else torch.cuda.graph_pool_handle())
+        # a graph the collector destroyed in this thread would invalidate
+        # the capture (module docstring, Threads)
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(g.graph, pool=pool,
                                   capture_error_mode="thread_local"):
@@ -312,6 +333,9 @@ class CapturedSegment:
                 f"CUDA graph capture of segment {self.label} failed"
                 + (f" at op {op[0]} ({op[1]})" if op else "")
                 + f": {e}") from e
+        finally:
+            if collecting:
+                gc.enable()
         after = _counters()
         g.delta = tuple((k, after[k] - before.get(k, 0)) for k in after
                         if after[k] != before.get(k, 0))

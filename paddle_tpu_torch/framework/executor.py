@@ -179,14 +179,17 @@ def _outputs(op, outs):
                 yield n, vals[j]
 
 
-def run_block(program, scope, device, rngs=None, keep=(), write=None):
+def run_block(program, scope, device, rngs=None, keep=(), write=None,
+              run_op=None):
     """Run block 0's ops over `scope`; `rngs` maps a drawing op's position
     to its generator.  Outputs that are persistable or in `keep` are
     stored with `write(name, value)` (default: scope.set_var); other
     outputs live in a local table until their last reader has run.  An
     op's outputs may alias its inputs (`rc_barrier`): a value is dropped
-    from the table, never freed, so an alias keeps it alive."""
+    from the table, never freed, so an alias keeps it alive.  `run_op`
+    (default `_run_op`) runs one op: the mesh mode passes its own."""
     write = write or scope.set_var
+    run_op = run_op or _run_op
     rngs = rngs or {}
     block = program.global_block()
     ops = block.ops
@@ -198,7 +201,7 @@ def run_block(program, scope, device, rngs=None, keep=(), write=None):
         return local[n] if n in local else scope.find_var(n)
 
     for i, op in enumerate(ops):
-        outs = _run_op(op, read, rngs.get(i), device)
+        outs = run_op(op, read, rngs.get(i), device)
         for n in op.input_arg_names:
             if last.get(n) == i:
                 local.pop(n, None)
@@ -366,19 +369,35 @@ def _feed_sig(v):
 
 class Executor:
     """User-facing executor (reference python/paddle/fluid/executor.py).
-    `mode` is "interpret" or "jit"; None reads the `executor_mode` flag."""
+    `mode` is "interpret" or "jit"; None reads the `executor_mode` flag.
 
-    def __init__(self, place=None, mode=None):
+    With `mesh` (a parallel.DeviceMesh, one process per rank) the
+    Executor runs in the mesh mode of parallel/spmd.py: persistables and
+    feeds are DTensors in the scope, each rank feeds its own rows, the
+    ops run on DTensors, and fetches come back whole.  A mesh run takes
+    the interpreter path whatever `mode` says (`mode_reason` says why):
+    gloo's collectives cannot be captured in a CUDA graph, and capturing
+    a mesh step under NCCL is not ported (ROADMAP.md A item 7)."""
+
+    def __init__(self, place=None, mode=None, mesh=None):
         from .. import flags
 
-        self.device = as_device(place)
+        self.mesh = mesh
+        self.device = as_device(place) if mesh is None else mesh.device
         self.mode = mode or flags.get("executor_mode")
         if self.mode not in ("interpret", "jit"):
             raise ValueError(f"executor mode {self.mode!r}: 'interpret' or "
                              "'jit'")
+        self.mode_reason = None
+        if mesh is not None:
+            self.mode = "interpret"
+            self.mode_reason = (
+                "mesh run: gloo collectives cannot be captured in a CUDA "
+                "graph, and capture under NCCL is not ported")
         self._cache = {}
         self._graph_pool = None
         self._streams = _Streams(self.device)
+        self._pins = {}
 
     def run(self, program: Program = None, feed: dict = None,
             fetch_list=None, scope: Scope = None, return_numpy: bool = True):
@@ -388,12 +407,18 @@ class Executor:
         staged = {name: stage_feed(value, self.device, program, name,
                                    captured)
                   for name, value in (feed or {}).items()}
+        if self.mesh is not None:
+            from ..parallel import spmd
+
+            staged = spmd.stage_feeds(self.mesh, program, staged)
         for name, value in staged.items():
             scope.set_var(name, value)
         base = _next_base(program, scope)
         fetch_names = [_as_fetch_name(f) for f in fetch_list or []]
         with torch.no_grad():
-            if self.mode == "interpret":
+            if self.mesh is not None:
+                self._run_mesh(program, scope, fetch_names, base)
+            elif self.mode == "interpret":
                 rngs = self._streams.seeded(
                     _draws(enumerate(program.global_block().ops)), base)
                 run_block(program, scope, self.device, rngs,
@@ -403,12 +428,39 @@ class Executor:
         outs = []
         for name in fetch_names:
             v = scope.find_var(name)
+            if self.mesh is not None:
+                from ..parallel import spmd
+
+                v = spmd.full_value(v)
             if return_numpy and isinstance(v, torch.Tensor):
                 if v.dtype == torch.bfloat16:
                     v = v.float()
                 v = v.cpu().numpy()
             outs.append(v)
         return outs
+
+    def _run_mesh(self, program, scope, fetch_names, base):
+        """Block 0 on the mesh (parallel/spmd.py): each op on DTensors,
+        each persistable stored in its declared placements."""
+        from ..parallel import spmd
+        from ..parallel.sharding import sharding_for_var
+
+        key = (id(program), program.version)
+        pins = self._pins.get(key)
+        if pins is None:
+            pins = self._pins[key] = {
+                n: sharding_for_var(v, self.mesh)
+                for n, v in program.global_block().vars.items()
+                if v.persistable}
+
+        def write(n, v):
+            scope.set_var(n, spmd.pin(v, self.mesh, pins.get(n)))
+
+        rngs = self._streams.seeded(
+            _draws(enumerate(program.global_block().ops)), base)
+        with self.mesh:
+            run_block(program, scope, self.device, rngs, keep=fetch_names,
+                      write=write, run_op=spmd.make_run_op(self.mesh))
 
     def _plan(self, program, feed, fetch_names):
         """The cached plan for this (program, version, block, feed

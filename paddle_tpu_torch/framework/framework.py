@@ -90,6 +90,11 @@ class Variable:
         self.stop_gradient = stop_gradient
         self.is_data = is_data
         self.lod_level = kwargs.get("lod_level", 0)
+        # layout on a device mesh: one mesh-axis name (or a tuple of them,
+        # or None) per dim, read by parallel/ (framework.py:124 of the JAX
+        # package).  A clone copies it; to_dict leaves it out, as the JAX
+        # package's does
+        self.dist_attr = kwargs.get("dist_attr", None)
 
     def to_dict(self):
         return {

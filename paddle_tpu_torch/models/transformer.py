@@ -272,6 +272,21 @@ def build(cfg: TransformerConfig = None, seq_len=None, checkpoints=None,
     return loss, logits
 
 
+def tp_rules():
+    """Megatron-style tensor-parallel rules for this model's parameter
+    names (parallel.apply_tensor_parallel / BuildStrategy), the JAX
+    package's (transformer.py:776-788)."""
+    return {
+        # attention + ffn in-projections: column parallel
+        r".*(_q|_k|_v|_fc1)\.w_\d+": (None, "tp"),
+        # out projections: row parallel
+        r".*(_out|_fc2)\.w_\d+": ("tp", None),
+        # tied softmax/embedding: vocab-sharded
+        r".*word_emb.*": ("tp", None),
+        r"logits_proj\.w_\d+": (None, "tp"),
+    }
+
+
 def feed_shapes(batch_size, seq_len=256):
     return {
         "src_ids": ((batch_size, seq_len), "int64"),

@@ -36,8 +36,17 @@ kernels #4 and #5 backward, `flash_attention`), which takes every window
 the gate sends there (a causal prefill past 1024 keys at transformer-base
 widths, BERT-base at 2048 tokens, or a window off the 128 grid).  The
 gradient of the flash_decode tier pulls dOut back through the composite
-with the kv_len mask, as the JAX rule does.  The sequence-parallel ring
-has no branch, since the port has no device mesh yet (ROADMAP.md A6).
+with the kv_len mask, as the JAX rule does.
+
+Under a device mesh (the Executor's mesh mode, parallel/spmd.py) the op's
+inputs are DTensors.  With a live `sp` axis and Sq == Sk dividing over it
+(`_sp_mesh`, attention_ops.py:62-77) the gate's first tier is "ring"
+(:272): the forward and the grad take parallel/ring_attention.py, whose
+rotations run kernel #3 (and #4/#5 in the grad) when the local block
+passes #3's gate.  Any other DTensor call runs the tier the gate picks on
+this rank's blocks (`spmd.local_attention`): q, k and v in one layout,
+batch over the data axes and heads over `tp`, with the LOCAL head count
+given to the kernels.
 """
 
 from __future__ import annotations
@@ -172,6 +181,32 @@ def _decode_choice(q, k, num_heads):
     return name, "cuda"
 
 
+def _is_dtensor(x):
+    if type(x) is torch.Tensor:
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _sp_mesh(q, k):
+    """Sequence-parallel ring path (attention_ops.py:62): DTensor inputs
+    under a mesh whose `sp` axis is live, Sq == Sk, divisible over it.
+    Rectangular attention (decoder cross-attention with Sq != Sk) stays
+    off the ring."""
+    from ..parallel.mesh import get_current_mesh
+
+    mesh = get_current_mesh()
+    if mesh is None or not _is_dtensor(q):
+        return None
+    sp = mesh.axis_size("sp", 1)
+    if sp <= 1:
+        return None
+    if q.shape[1] != k.shape[1] or q.shape[1] % sp:
+        return None
+    return mesh
+
+
 def _backend_choice(q, k, num_heads, causal, has_bias, has_seq_len=False):
     """(name, mode): the ONE selection cascade — _apply_attention executes
     what this returns.  A SeqLen mask rides every kernel tier; an additive
@@ -180,6 +215,8 @@ def _backend_choice(q, k, num_heads, causal, has_bias, has_seq_len=False):
         choice = _decode_choice(q, k, num_heads)
         if choice is not None:
             return choice
+    if not has_bias and _sp_mesh(q, k) is not None:
+        return "ring", None
     if not has_bias:
         choice = _kernel_choice(q, k, num_heads, causal)
         if choice is not None:
@@ -206,7 +243,13 @@ def _composite(q, k, v, bias, *, num_heads, causal, scale, seq_len):
 def _apply_attention(q, k, v, bias, *, num_heads, causal, scale,
                      seq_len=None, seq_len_ramp=False):
     """Gate-selected attention forward.  On meta tensors (shape inference)
-    it is always the composite, never a kernel wrapper."""
+    it is always the composite, never a kernel wrapper.  On DTensors: the
+    ring, or the gate's tier on this rank's blocks (module docstring)."""
+    if _is_dtensor(q):
+        return _apply_attention_mesh(q, k, v, bias, num_heads=num_heads,
+                                     causal=causal, scale=scale,
+                                     seq_len=seq_len,
+                                     seq_len_ramp=seq_len_ramp)
     bias, seq_len = _fold_ramp(q, k, bias, seq_len, seq_len_ramp)
     name = "composite"
     if q.device.type != "meta":
@@ -229,6 +272,29 @@ def _apply_attention(q, k, v, bias, *, num_heads, causal, scale,
                                    kv_len=seq_len)
     return _composite(q, k, v, bias, num_heads=num_heads, causal=causal,
                       scale=scale, seq_len=seq_len)
+
+
+def _apply_attention_mesh(q, k, v, bias, *, num_heads, causal, scale,
+                          seq_len, seq_len_ramp):
+    from ..parallel import spmd
+
+    mesh = _sp_mesh(q, k)
+    if mesh is not None and bias is None and not (seq_len_ramp
+                                                  and seq_len is not None):
+        from ..parallel.ring_attention import ring_attention
+
+        TIER_CALLS["ring"] += 1
+        return ring_attention(q, k, v, mesh, num_heads=num_heads,
+                              causal=causal, scale=scale, seq_len=seq_len)
+    from ..parallel.mesh import get_current_mesh
+
+    def local(ql, kl, vl, bl, sl, heads):
+        return _apply_attention(ql, kl, vl, bl, num_heads=heads,
+                                causal=causal, scale=scale, seq_len=sl,
+                                seq_len_ramp=seq_len_ramp)
+
+    return spmd.local_attention(local, q, k, v, bias, seq_len, num_heads,
+                                get_current_mesh())
 
 
 def _paged_decode_choice(q, k_blocks, num_heads):
@@ -375,16 +441,59 @@ def fused_attention_grad(ctx):
     tier, whose JAX rule is that composite with the kv_len bias
     (flash_attention.py:_decode_bwd_rule).  A ramp window folds into a
     constant bias and takes the composite, as its forward does (the JAX
-    grad replays `_apply_attention`, attention_ops.py:459)."""
+    grad replays `_apply_attention`, attention_ops.py:459).  On DTensors
+    the ring's backward (parallel/ring_attention.py), or the same tiers on
+    this rank's blocks (module docstring)."""
     q, k, v = ctx.input("Q"), ctx.input("K"), ctx.input("V")
     bias = ctx.input("Bias") if ctx.has_input("Bias") else None
     seq_len = ctx.input("SeqLen") if ctx.has_input("SeqLen") else None
-    dout = ctx.input("Out@GRAD").to(q.dtype)
+    dout = ctx.input("Out@GRAD")
     num_heads = int(ctx.attr("num_heads"))
     causal = bool(ctx.attr("causal", False))
     scale = float(ctx.attr("scale", 0.0))
-    ramp, seq_len = _fold_ramp(q, k, None, seq_len,
-                               bool(ctx.attr("seq_len_ramp", False)))
+    ramp = bool(ctx.attr("seq_len_ramp", False))
+    if _is_dtensor(q):
+        grads = _attention_grad_mesh(q, k, v, bias, seq_len, dout,
+                                     num_heads, causal, scale, ramp)
+    else:
+        grads = _attention_grad(q, k, v, bias, seq_len, dout, num_heads,
+                                causal, scale, ramp)
+    ctx.set_output("Q@GRAD", grads[0])
+    ctx.set_output("K@GRAD", grads[1])
+    ctx.set_output("V@GRAD", grads[2])
+    if bias is not None and ctx.num_outputs("Bias@GRAD"):
+        ctx.set_output("Bias@GRAD", grads[3])
+
+
+def _attention_grad_mesh(q, k, v, bias, seq_len, dout, num_heads, causal,
+                         scale, ramp):
+    from ..parallel import spmd
+    from ..parallel.mesh import get_current_mesh
+
+    mesh = _sp_mesh(q, k)
+    if mesh is not None and bias is None and not (ramp
+                                                  and seq_len is not None):
+        from ..parallel.ring_attention import ring_attention_grad
+
+        TIER_CALLS["ring"] += 1
+        return ring_attention_grad(q, k, v, dout, mesh, num_heads=num_heads,
+                                   causal=causal, scale=scale,
+                                   seq_len=seq_len) + [None]
+
+    def local(ql, kl, vl, bl, sl, dl, heads):
+        return _attention_grad(ql, kl, vl, bl, sl, dl, heads, causal, scale,
+                               ramp)
+
+    return spmd.local_attention_grad(local, q, k, v, bias, seq_len, dout,
+                                     num_heads, get_current_mesh())
+
+
+def _attention_grad(q, k, v, bias, seq_len, dout, num_heads, causal, scale,
+                    seq_len_ramp):
+    """(dq, dk, dv, dbias or None) of `_apply_attention` on plain tensors
+    (fused_attention_grad's tiers)."""
+    dout = dout.to(q.dtype)
+    ramp, seq_len = _fold_ramp(q, k, None, seq_len, seq_len_ramp)
     name, _ = _backend_choice(q, k, num_heads, causal,
                               bias is not None or ramp is not None,
                               seq_len is not None)
@@ -393,20 +502,14 @@ def fused_attention_grad(ctx):
         dq, dk, dv = _mha.mha_block_bwd(
             q, k, v, dout.contiguous(), num_heads,
             causal and name == "mha_block", scale, key_len=seq_len)
-        ctx.set_output("Q@GRAD", dq)
-        ctx.set_output("K@GRAD", dk)
-        ctx.set_output("V@GRAD", dv)
-        return
+        return dq, dk, dv, None
     if name == "flash":
         out, lse = _fa.flash_attention_lse(q, k, v, num_heads, causal, scale,
                                            kv_len=seq_len)
         dq, dk, dv = _fa.flash_attention_bwd(
             q, k, v, out, lse, dout.contiguous(), num_heads, causal, scale,
             kv_len=seq_len)
-        ctx.set_output("Q@GRAD", dq)
-        ctx.set_output("K@GRAD", dk)
-        ctx.set_output("V@GRAD", dv)
-        return
+        return dq, dk, dv, None
     # the flash_decode tier's grad is the composite's with the kv_len
     # bias, as the JAX rule computes it (flash_attention.py:_decode_bwd_rule)
     leaves = [x.detach().requires_grad_(True)
@@ -420,8 +523,5 @@ def fused_attention_grad(ctx):
         grads = torch.autograd.grad(out, leaves, dout, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g
              for x, g in zip(leaves, grads)]
-    ctx.set_output("Q@GRAD", grads[0])
-    ctx.set_output("K@GRAD", grads[1])
-    ctx.set_output("V@GRAD", grads[2])
-    if bias is not None and ctx.num_outputs("Bias@GRAD"):
-        ctx.set_output("Bias@GRAD", grads[3])
+    return grads[0], grads[1], grads[2], (grads[3] if bias is not None
+                                          else None)

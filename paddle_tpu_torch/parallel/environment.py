@@ -1,19 +1,77 @@
-"""Host CPU placement for worker processes (counterpart of the CPU half of
-paddle_tpu/parallel/environment.py: `available_cpus`, `partition_cpus`,
-`apply_affinity` and `affinity_report`, as the JAX file has them).
+"""Multi-process runtime initialization and host CPU placement
+(counterpart of paddle_tpu/parallel/environment.py).
 
-A serving fleet on one host pins each replica process to a disjoint
-cpuset, because replicas that share every core measure contention, not
-scaling.  The module's multi-process bootstrap (`init_distributed`) and
-the device counts belong to the multi-device slice (ROADMAP.md A item 7).
+The port runs one process per rank.  `init_distributed` brings up the
+torch.distributed process group from the JAX package's env protocol
+(PADDLE_TPU_COORD, PADDLE_TPU_NUM_PROCS, PADDLE_TPU_PROC_ID) or its
+arguments, with the backend `comm.backend_for` picks (NCCL when every
+rank has a card of its own, gloo otherwise); the four counts read the
+process group.  Nothing on a machine tells a program of a cluster: the
+coordinator address, the world size and the rank are given.
+
+The CPU half (`available_cpus`, `partition_cpus`, `apply_affinity`,
+`affinity_report`) pins worker processes to disjoint cpusets: a serving
+fleet on one host, where replicas that share every core measure
+contention, not scaling.
 """
 
 from __future__ import annotations
 
 import os
 
-__all__ = ["available_cpus", "partition_cpus", "apply_affinity",
-           "affinity_report"]
+__all__ = ["init_distributed", "available_cpus", "partition_cpus",
+           "apply_affinity", "affinity_report", "global_device_count",
+           "local_device_count", "process_count", "process_index"]
+
+
+def init_distributed(
+    coordinator_address: str | None = None,
+    num_processes: int | None = None,
+    process_id: int | None = None,
+    device_type: str | None = None,
+    timeout=None,
+):
+    """Initialize the multi-process runtime.  No-op on single-process, and
+    when the process group is already up.
+
+    `coordinator_address` is an init method torch.distributed takes
+    ("tcp://host:port" or "file:///path"; a bare "host:port" means tcp).
+    `device_type` ("cuda" or "cpu", default: "cuda" when this process
+    sees a card) and the world size pick the backend
+    (`comm.backend_for`); `timeout` (a datetime.timedelta) bounds each
+    collective."""
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return
+    coordinator_address = coordinator_address or os.environ.get(
+        "PADDLE_TPU_COORD")
+    if num_processes is None and "PADDLE_TPU_NUM_PROCS" in os.environ:
+        num_processes = int(os.environ["PADDLE_TPU_NUM_PROCS"])
+    if process_id is None and "PADDLE_TPU_PROC_ID" in os.environ:
+        process_id = int(os.environ["PADDLE_TPU_PROC_ID"])
+    if coordinator_address is None and num_processes in (None, 1):
+        return  # single-process: nothing to do
+    if coordinator_address is None or num_processes is None \
+            or process_id is None:
+        raise ValueError(
+            "init_distributed needs the coordinator address, the number of "
+            "processes and this process's id (arguments or PADDLE_TPU_COORD, "
+            "PADDLE_TPU_NUM_PROCS, PADDLE_TPU_PROC_ID)")
+    if "://" not in coordinator_address:
+        coordinator_address = "tcp://" + coordinator_address
+    if device_type is None:
+        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    from .comm import backend_for
+
+    backend = backend_for(num_processes, device_type)
+    if device_type == "cuda":
+        torch.cuda.set_device(process_id % torch.cuda.device_count())
+    kw = {} if timeout is None else {"timeout": timeout}
+    dist.init_process_group(backend, init_method=coordinator_address,
+                            world_size=int(num_processes),
+                            rank=int(process_id), **kw)
 
 
 def available_cpus(pid=0):
@@ -71,3 +129,33 @@ def affinity_report(pid=0):
     except (OSError, AttributeError):
         load = None
     return {"cpus": available_cpus(pid), "loadavg": load}
+
+
+def _initialized():
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def global_device_count():
+    """Devices over all processes: one a rank."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if _initialized() else 1
+
+
+def local_device_count():
+    """Devices this process drives: one (the port runs a process a rank)."""
+    return 1
+
+
+def process_count():
+    import torch.distributed as dist
+
+    return dist.get_world_size() if _initialized() else 1
+
+
+def process_index():
+    import torch.distributed as dist
+
+    return dist.get_rank() if _initialized() else 0

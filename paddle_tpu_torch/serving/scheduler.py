@@ -91,6 +91,7 @@ import time
 import numpy as np
 import torch
 
+from ..framework import cuda_graph
 from ..ops.kv_cache import BlockPool, DeviceBlockPool, PoolExhausted
 from ..telemetry import registry as _telem
 from ..telemetry import tracing as _tracing
@@ -1780,7 +1781,7 @@ class Scheduler:
         """Wait for the card (a no-op on the CPU): ends a timed window
         that has no read-back of its own."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            cuda_graph.synchronize(self.device)
 
     def _note_occupancy(self):
         self.counters["peak_occupancy"] = max(
